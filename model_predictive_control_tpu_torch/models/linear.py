@@ -1,0 +1,41 @@
+"""Discrete linear time-invariant systems (port of ``models/linear.py``).
+
+A system is a frozen dataclass of ``(nx, nx)`` / ``(nx, nu)`` tensors. Calling
+it steps a whole batch of states at once: ``x`` is ``(..., nx)`` and ``u`` is
+``(..., nu)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearSystem:
+    """``x⁺ = A x + B u`` on a batch of row vectors."""
+
+    A: torch.Tensor  # (nx, nx)
+    B: torch.Tensor  # (nx, nu)
+
+    @property
+    def nx(self) -> int:
+        return self.A.shape[-1]
+
+    @property
+    def nu(self) -> int:
+        return self.B.shape[-1]
+
+    def __call__(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        return x @ self.A.T + u @ self.B.T
+
+
+def session2_dynamics(
+    ts: float, dtype: torch.dtype = torch.float32, device="cpu"
+) -> LinearSystem:
+    """Exact ZOH double integrator of sessions 2/3:
+    ``A = [[1, Ts], [0, 1]]``, ``B = [[0], [Ts]]``."""
+    A = torch.tensor([[1.0, ts], [0.0, 1.0]], dtype=dtype, device=device)
+    B = torch.tensor([[0.0], [ts]], dtype=dtype, device=device)
+    return LinearSystem(A=A, B=B)

@@ -1,0 +1,423 @@
+"""Fused batched ADMM for the condensed box-QP: the hand-written CUDA kernel
+(``csrc/admm_kernel.cu``), its plain-PyTorch twin and the wrapper.
+
+Replaces ``model_predictive_control_tpu/ops/pallas/admm_kernel.py``
+(``_admm_tile_kernel``, wrapper ``admm_solve_pallas``). One launch runs the
+whole solve for every scenario tile: the chunk schedule, the exit probe, the
+per-tile ρ-ladder moves and the CG active-set polish all happen inside it.
+
+What bounds it on an H100: each ADMM iteration is a ``(T, n+m) @ (n+m, n+m)``
+product, ``2·T·(n+m)²`` FP32 FLOPs read from shared memory (12.8 kFLOP per
+scenario at the headline n=20, m=60), followed by elementwise work. The chunk
+ends need tile-wide maxima and block barriers. The design keeps device-memory
+traffic out of the loop and the barriers off the iteration:
+
+- one CTA per tile of ``T`` scenarios; the active ρ level's ``W`` and ``Wq``
+  live in shared memory and are reloaded only when ρ moves;
+- one warp owns one scenario row at a time, with that row's iterate in
+  registers, so an iteration needs warp barriers only; block barriers come
+  once per chunk, for the tile-wide exit test and ρ move;
+- plain FP32 FMA loops: no bf16 split, no TF32 (the reference measured
+  low-precision iteration products collapsing closed-loop success).
+
+Tile semantics (kept from the reference): exits and ρ are per tile, so ``T``
+changes results at the tolerance edge; padded zero rows take part in the last
+tile's exit test. :func:`admm_solve_tiles_reference` is the plain twin of the
+same tile algorithm; :func:`admm_solve_cuda` takes it only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import inspect
+import os
+import pathlib
+import subprocess
+import threading
+
+import torch
+
+from ...solvers.qp import QPOperator, QPSolution, _converged, _unscaled_residuals
+from ...utils.precision import set_solver_precision
+
+# Kernel launches made by admm_solve_cuda (one per solve). Tests and
+# chip_smoke.py read it to show that a run went through the kernel.
+LAUNCHES = 0
+
+MAX_CHUNKS = 64  # size of the kernel's chunk-length table (Params.chunk_lens)
+MAX_LANES = 4  # columns per lane: the kernel takes n + m <= 32 * MAX_LANES
+SMEM_LIMIT = 232448  # opt-in shared memory per block on sm_90 (bytes)
+# GPU default scenario tile, chosen by a sweep on the H100 at the headline
+# configuration (PERF.md, Findings)
+DEFAULT_TILE = 8
+
+_PKG = pathlib.Path(__file__).resolve().parents[2]
+_SOURCES = [_PKG / "csrc" / "admm_kernel.cu"]
+_BUILD_DIR = _PKG / "build"
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def chunk_lengths(
+    iters: int, chunks: int, probe_iters: int, schedule: str
+) -> list[int]:
+    """The solve's chunk schedule (``admm_kernel.py:185-206`` of the JAX
+    package): an optional probe chunk, then uniform or geometric chunks.
+
+    With ``iters <= probe_iters`` the probe is the whole budget."""
+    if schedule not in ("uniform", "geometric"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    probe = max(0, min(probe_iters, iters))
+    rem = iters - probe
+    lens = [probe] if probe else []
+    if schedule == "geometric":
+        nxt = 8.0
+        while rem > 0:
+            step = min(rem, max(1, int(nxt)))
+            lens.append(step)
+            rem -= step
+            nxt *= 1.6
+    elif rem > 0:
+        lens += [max(1, rem // chunks)] * chunks
+    return lens
+
+
+def _fused_operator(op: QPOperator):
+    """Fused per-level iteration matrices: with ``G = [x | ρz − y]`` one
+    ADMM iteration is ``[x̃ | z̃] = G·W + q·Wq``
+    (``admm_kernel.py:504-516`` of the JAX package)."""
+    Minv = op.Minv_stack
+    MA = Minv @ op.A_s.T  # (R, n, m)
+    AM = op.A_s @ Minv  # (R, m, n)
+    AMA = AM @ op.A_s.T  # (R, m, m)
+    sig = op.sigma
+    W = torch.cat(
+        [torch.cat([sig * Minv, sig * MA], dim=2), torch.cat([AM, AMA], dim=2)],
+        dim=1,
+    )  # (R, n+m, n+m)
+    Wq = torch.cat([-Minv, -MA], dim=2)  # (R, n, n+m)
+    return W, Wq
+
+
+def admm_solve_tiles_reference(
+    W, Wq, A, P, Pinv, S, rho_levels, Einv, Dcinv, q, l, u, x0, y0, *,
+    tile, chunk_lens, probe, max_rho_moves, init_idx, polish, cg_iters,
+    eps_abs, alpha,
+):
+    """Plain-PyTorch twin of the kernel, in scaled space, on a padded batch.
+
+    ``q, x0`` are ``(Bp, n)`` and ``l, u, y0`` are ``(Bp, m)`` with ``Bp`` a
+    multiple of ``tile``. Works on ``(Bp/T, T, ·)`` views with per-tile masks
+    for the exit, the ρ level and the CG stop. Returns scaled ``(x, z, y)``
+    and the executed ADMM iterations per row.
+    """
+    Bp, n = q.shape
+    m = l.shape[1]
+    T = tile
+    nt = Bp // T
+    view = lambda a: a.reshape(nt, T, -1)
+    q, l, u, x, y = map(view, (q, l, u, x0, y0))
+    tmax = lambda a: a.abs().amax(dim=(1, 2))  # tile-wide max |·| -> (nt,)
+    rmax = lambda a: a.amax(dim=2, keepdim=True)  # row max -> (nt, T, 1)
+    rsum = lambda a: a.sum(dim=2, keepdim=True)
+    col = lambda v: v[:, None, None]  # (nt,) -> (nt, 1, 1) broadcast mask
+
+    scale_u = 1.0 + rmax(q.abs() * Dcinv)
+    z = torch.clamp(x @ A.T, l, u)
+    q_max = tmax(q)
+    log_levels = torch.log(rho_levels)
+
+    idx = torch.full((nt,), init_idx, dtype=torch.long, device=q.device)
+    moves = torch.zeros(nt, dtype=torch.long, device=q.device)
+    done = torch.zeros(nt, dtype=torch.bool, device=q.device)
+    executed = torch.zeros(nt, dtype=q.dtype, device=q.device)
+    Ax = torch.zeros_like(l)
+    Px = torch.zeros_like(q)
+    Aty = torch.zeros_like(q)
+    for ci, L in enumerate(chunk_lens):
+        active = ~done
+        if not bool(active.any()):
+            break
+        Wt, Wqt = W[idx], Wq[idx]
+        rho = rho_levels[idx]
+        r3 = col(rho)
+        inv_rho = 1.0 / r3
+        XZq = q @ Wqt
+        a3 = col(active)
+        for _ in range(L):
+            G = torch.cat([x, r3 * z - y], dim=2)
+            XZ = G @ Wt + XZq
+            Tx = alpha * XZ[..., :n] + (1.0 - alpha) * x
+            Tz = alpha * XZ[..., n:] + (1.0 - alpha) * z
+            zn = torch.clamp(Tz + inv_rho * y, l, u)
+            yn = y + r3 * (Tz - zn)
+            x = torch.where(a3, Tx, x)
+            z = torch.where(a3, zn, z)
+            y = torch.where(a3, yn, y)
+        executed = executed + active.to(q.dtype) * L
+
+        Ax_c, Px_c, Aty_c = x @ A.T, x @ P, y @ A
+        rp = tmax(Ax_c - z)
+        rd = tmax(Px_c + q + Aty_c)
+        rp_rel = rp / torch.clamp(torch.maximum(tmax(Ax_c), tmax(z)), min=1e-10)
+        rd_rel = rd / torch.maximum(
+            torch.maximum(tmax(Px_c), tmax(Aty_c)), torch.clamp(q_max, min=1e-10)
+        )
+        target = rho * torch.sqrt(rp_rel / torch.clamp(rd_rel, min=1e-16))
+        cand = torch.argmin(
+            (log_levels - torch.log(torch.clamp(target, min=1e-12))[:, None]).abs(),
+            dim=1,
+        )
+        rp_u = rmax((Ax_c - z).abs() * Einv)
+        rd_u = rmax((Px_c + q + Aty_c).abs() * Dcinv)
+        conv = ((rp_u < eps_abs * scale_u) & (rd_u < eps_abs * scale_u)).all(
+            dim=2
+        ).all(dim=1)
+        move = (target > 5.0 * rho) | (5.0 * target < rho)
+        move = move & (moves < max_rho_moves) & ~conv & active
+        if ci == 0 and probe:
+            move = torch.zeros_like(move)
+        idx = torch.where(move, cand, idx)
+        moves = moves + move.long()
+        Ax = torch.where(a3, Ax_c, Ax)
+        Px = torch.where(a3, Px_c, Px)
+        Aty = torch.where(a3, Aty_c, Aty)
+        done = done | (conv & active)
+
+    if polish:
+        # matrix-free active-set polish: CG on M ν = −d∘(b + A P⁻¹ q) with
+        # M v = d∘(S (d∘v)) + (1−d)∘v, stopped tile-wide
+        big = 1e19
+        ytol = 1e-6 * torch.clamp(rmax(y.abs()), min=1e-6)
+        low = (y < -ytol) & (l > -big)
+        up = (y > ytol) & (u < big)
+        d = (low | up).to(q.dtype)
+        b = torch.where(low, l, torch.where(up, u, torch.zeros_like(u)))
+        rhs = -d * (b + (q @ Pinv) @ A.T)
+        rs0 = rsum(rhs * rhs)
+        nu = torch.zeros_like(rhs)
+        r, p, rs = rhs, rhs, rs0
+        for _ in range(cg_iters):
+            act = (rs / torch.clamp(rs0, min=1e-30)).amax(dim=(1, 2)) > 1e-12
+            if not bool(act.any()):
+                break
+            a3 = col(act)
+            Mp = d * ((d * p) @ S) + (1.0 - d) * p
+            a_cg = rs / torch.clamp(rsum(p * Mp), min=1e-30)
+            nu_n = nu + a_cg * p
+            r_n = r - a_cg * Mp
+            rs_n = rsum(r_n * r_n)
+            p_n = r_n + rs_n / torch.clamp(rs, min=1e-30) * p
+            nu = torch.where(a3, nu_n, nu)
+            r = torch.where(a3, r_n, r)
+            p = torch.where(a3, p_n, p)
+            rs = torch.where(a3, rs_n, rs)
+
+        y_p = d * nu
+        Aty_p = y_p @ A
+        x_p = -((q + Aty_p) @ Pinv)
+        Az_p = x_p @ A.T
+        z_p = torch.clamp(Az_p, l, u)
+        res0 = torch.maximum(rmax((Ax - z).abs()), rmax((Px + q + Aty).abs()))
+        res1 = torch.maximum(
+            rmax((Az_p - z_p).abs()), rmax((x_p @ P + q + Aty_p).abs())
+        )
+        stol = 1e-7
+        sign_bad = ((low & (y_p > stol)) | (up & (y_p < -stol))).any(
+            dim=2, keepdim=True
+        )
+        finite = torch.isfinite(Az_p).all(dim=2, keepdim=True)
+        accept = (res1 < res0) & ~sign_bad & finite
+        x = torch.where(accept, x_p, x)
+        z = torch.where(accept, z_p, z)
+        y = torch.where(accept, y_p, y)
+
+    ni = executed[:, None].expand(nt, T).reshape(Bp)
+    return x.reshape(Bp, n), z.reshape(Bp, m), y.reshape(Bp, m), ni
+
+
+def _build_library() -> ctypes.CDLL:
+    """Compile ``csrc/`` with nvcc into a shared library keyed by a hash of
+    the sources, and load it; later calls reuse the loaded library."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        digest = hashlib.sha256()
+        for src in _SOURCES:
+            digest.update(src.read_bytes())
+        out = _BUILD_DIR / f"libadmm_kernel_{digest.hexdigest()[:16]}.so"
+        if not out.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            nvcc = os.path.join(
+                os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"
+            )
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [
+                nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                "-o", str(tmp), *map(str, _SOURCES),
+            ]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+                )
+            (_BUILD_DIR / "admm_kernel.ptxas.txt").write_text(proc.stderr)
+            tmp.replace(out)
+        lib = ctypes.CDLL(str(out))
+        fn = lib.admm_tiles_launch
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 11 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        lib.admm_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.admm_smem_bytes.restype = ctypes.c_long
+        lib.admm_error_string.argtypes = [ctypes.c_int]
+        lib.admm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def _launch(W, Wq, A, P, Pinv, S, rho_levels, Einv, Dcinv, q, l, u, x0, y0, *,
+            tile, chunk_lens, probe, max_rho_moves, init_idx, polish, cg_iters,
+            eps_abs, alpha):
+    global LAUNCHES
+    Bp, n = q.shape
+    m = l.shape[1]
+    R = rho_levels.shape[0]
+    if n + m > 32 * MAX_LANES:
+        raise ValueError(f"n + m = {n + m} exceeds the kernel's {32 * MAX_LANES}")
+    if len(chunk_lens) > MAX_CHUNKS:
+        raise ValueError(f"{len(chunk_lens)} chunks exceed {MAX_CHUNKS}")
+    lib = _build_library()
+    smem = lib.admm_smem_bytes(n, m, tile, int(polish))
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"tile {tile} needs {smem} bytes of shared memory (limit {SMEM_LIMIT})"
+        )
+    args = [W, Wq, A, P, Pinv, S, rho_levels, Einv, Dcinv, q, l, u, x0, y0]
+    for a in args:
+        if a.device != q.device or a.dtype != torch.float32 or not a.is_contiguous():
+            raise ValueError("kernel operands must be contiguous float32 on one device")
+    x = torch.empty(Bp, n, dtype=torch.float32, device=q.device)
+    z = torch.empty(Bp, m, dtype=torch.float32, device=q.device)
+    y = torch.empty(Bp, m, dtype=torch.float32, device=q.device)
+    ni = torch.empty(Bp, dtype=torch.float32, device=q.device)
+    lens = (ctypes.c_int * MAX_CHUNKS)(*chunk_lens)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.admm_tiles_launch(
+            *(a.data_ptr() for a in args),
+            x.data_ptr(), z.data_ptr(), y.data_ptr(), ni.data_ptr(),
+            ctypes.addressof(lens),
+            len(chunk_lens), int(probe), int(max_rho_moves), int(init_idx),
+            int(polish), int(cg_iters), n, m, R, tile, Bp // tile,
+            float(eps_abs), float(alpha), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"admm kernel launch failed: {lib.admm_error_string(err).decode()}"
+        )
+    LAUNCHES += 1
+    return x, z, y, ni
+
+
+def prepare_tiles(
+    op, q, l, u, warm_x, warm_y, *, iters, chunks, probe_iters, max_rho_moves,
+    schedule, tile, cg_iters, alpha, eps_abs, polish,
+):
+    """The kernel's operands, in scaled space and padded to a tile multiple,
+    as ``(args, kwargs)`` for :func:`admm_solve_tiles_reference` or the
+    launch (``admm_kernel.py:465-516`` of the JAX package)."""
+    B, n = q.shape
+    m = op.A_c.shape[0]
+    f32 = torch.float32
+    if iters < 1 or tile < 1:
+        raise ValueError("iters and tile must be positive")
+    c32 = lambda a: a.to(f32).contiguous()
+    zeros = lambda k: torch.zeros(B, k, dtype=f32, device=q.device)
+    x0 = zeros(n) if warm_x is None else warm_x / op.D
+    y0 = zeros(m) if warm_y is None else op.c * warm_y / op.E
+    rows = [op.c * op.D * q, op.E * l, op.E * u, x0, y0]
+    pad = -B % tile
+    if pad:
+        rows = [torch.nn.functional.pad(a, (0, 0, 0, pad)) for a in rows]
+    W, Wq = _fused_operator(op)
+    args = [
+        W, Wq, op.A_s, op.P_s, op.Pinv_s, op.S, op.rho_levels, 1.0 / op.E,
+        1.0 / (op.c * op.D), *rows,
+    ]
+    kwargs = dict(
+        tile=tile,
+        chunk_lens=chunk_lengths(iters, chunks, probe_iters, schedule),
+        probe=min(max(probe_iters, 0), iters) > 0,
+        max_rho_moves=chunks if max_rho_moves is None else max_rho_moves,
+        init_idx=op.rho_levels.shape[0] // 2,
+        polish=polish, cg_iters=cg_iters,
+        eps_abs=1e-4 if eps_abs is None else float(eps_abs), alpha=float(alpha),
+    )
+    return [c32(a) for a in args], kwargs
+
+
+def _solve_tiled(solver, op, q, l, u, warm_x, warm_y, *, return_iters, **kw):
+    """Prepare, run ``solver`` on the padded tiles, unscale and finish."""
+    set_solver_precision()
+    B = q.shape[0]
+    args, kwargs = prepare_tiles(op, q, l, u, warm_x, warm_y, **kw)
+    x_s, z_s, y_s, ni = solver(*args, **kwargs)
+    dtype = op.P.dtype
+    x = (op.D * x_s[:B]).to(dtype)
+    y = (y_s[:B] * op.E / op.c).to(dtype)
+    z = (z_s[:B] / op.E).to(dtype)
+    rp, rd = _unscaled_residuals(op, x, y, z, q)
+    sol = QPSolution(
+        x=x, z=z, y=y, prim_res=rp, dual_res=rd,
+        converged=_converged(rp, rd, q, kwargs["eps_abs"]),
+    )
+    return (sol, ni[:B]) if return_iters else sol
+
+
+def admm_solve_cuda(
+    op: QPOperator,
+    q: torch.Tensor,  # (B, n)
+    l: torch.Tensor,  # (B, m)
+    u: torch.Tensor,  # (B, m)
+    warm_x: torch.Tensor | None = None,  # (B, n) unscaled
+    warm_y: torch.Tensor | None = None,  # (B, m) unscaled
+    iters: int = 100,
+    chunks: int = 2,
+    probe_iters: int = 32,
+    max_rho_moves: int | None = None,
+    schedule: str = "uniform",
+    tile: int = DEFAULT_TILE,
+    cg_iters: int = 40,
+    alpha: float = 1.6,
+    eps_abs: float | None = None,
+    polish: bool = True,
+    return_iters: bool = False,
+):
+    """Batched ADMM through the fused kernel; the signature and return of the
+    JAX package's ``admm_solve_pallas``.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors run the plain twin
+    :func:`admm_solve_tiles_reference`. ``return_iters=True`` also returns the
+    executed ADMM iterations per scenario (the tile's count).
+    """
+    solver = _launch if q.is_cuda else admm_solve_tiles_reference
+    return _solve_tiled(
+        solver, op, q, l, u, warm_x, warm_y, iters=iters, chunks=chunks,
+        probe_iters=probe_iters, max_rho_moves=max_rho_moves,
+        schedule=schedule, tile=tile, cg_iters=cg_iters, alpha=alpha,
+        eps_abs=eps_abs, polish=polish, return_iters=return_iters,
+    )
+
+
+def admm_solve_twin(*args, **kwargs):
+    """:func:`admm_solve_cuda` with the same arguments, always on the plain
+    twin and on any device: the reference the kernel is held against on the
+    card."""
+    bound = inspect.signature(admm_solve_cuda).bind(*args, **kwargs)
+    bound.apply_defaults()
+    return _solve_tiled(admm_solve_tiles_reference, **bound.arguments)

@@ -1,0 +1,258 @@
+"""Batched box-constrained QP: operator setup and the per-scenario ADMM path
+(port of ``solvers/qp.py``).
+
+Problem form (OSQP convention): ``min ½ xᵀPx + qᵀx  s.t.  l ≤ A_c x ≤ u``.
+The operator (Ruiz scaling, ρ-ladder KKT inverses, polish operators) is built
+once per QP family; ``(q, l, u)`` vary per scenario. Every solver here takes a
+leading batch axis: ``q`` is ``(B, n)``, ``l`` and ``u`` are ``(B, m)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..utils.precision import set_solver_precision
+
+
+@dataclasses.dataclass(frozen=True)
+class QPOperator:
+    """Scenario-independent precomputation for a QP family ``(P, A_c)``."""
+
+    P: torch.Tensor  # (n, n) original
+    A_c: torch.Tensor  # (m, n) original
+    P_s: torch.Tensor  # scaled: c * D P D
+    A_s: torch.Tensor  # scaled: E A D
+    D: torch.Tensor  # (n,) variable scaling
+    E: torch.Tensor  # (m,) constraint scaling
+    c: torch.Tensor  # () cost scaling
+    rho_levels: torch.Tensor  # (R,) ρ ladder (scaled space)
+    rho_init_idx: int  # starting level
+    sigma: torch.Tensor  # () ADMM regularization
+    Minv_stack: torch.Tensor  # (R, n, n) inv(P_s + σI + ρ_r A_sᵀA_s)
+    Pinv_s: torch.Tensor  # (n, n) inv(P_s)
+    S: torch.Tensor  # (m, m) A_s inv(P_s) A_sᵀ
+
+
+@dataclasses.dataclass(frozen=True)
+class QPSolution:
+    x: torch.Tensor  # (B, n) primal
+    z: torch.Tensor  # (B, m) constraint values (projected)
+    y: torch.Tensor  # (B, m) duals
+    prim_res: torch.Tensor  # (B,) ‖A_c x − z‖∞ (unscaled)
+    dual_res: torch.Tensor  # (B,) ‖Px + q + A_cᵀy‖∞ (unscaled)
+    converged: torch.Tensor  # (B,) bool
+
+
+def ruiz_equilibrate(
+    P: torch.Tensor, A_c: torch.Tensor, iters: int = 10
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Modified Ruiz equilibration of the stacked KKT matrix; returns (D, E, c)."""
+    D = torch.ones(P.shape[0], dtype=P.dtype, device=P.device)
+    E = torch.ones(A_c.shape[0], dtype=P.dtype, device=P.device)
+    P_s, A_s = P, A_c
+    for _ in range(iters):
+        col_x = torch.maximum(P_s.abs().amax(dim=0), A_s.abs().amax(dim=0))
+        col_z = A_s.abs().amax(dim=1)
+        # identically-zero rows/columns keep scale 1
+        dx = torch.where(col_x > 1e-10, 1.0 / torch.sqrt(col_x), 1.0)
+        dz = torch.where(col_z > 1e-10, 1.0 / torch.sqrt(col_z), 1.0)
+        P_s = dx[:, None] * P_s * dx[None, :]
+        A_s = dz[:, None] * A_s * dx[None, :]
+        D, E = D * dx, E * dz
+    mean_col = P_s.abs().amax(dim=0).mean()
+    c = 1.0 / torch.clamp(mean_col, min=1e-8)
+    return D, E, c
+
+
+def qp_setup(
+    P: torch.Tensor,
+    A_c: torch.Tensor,
+    rho: float = 0.1,
+    sigma: float = 1e-6,
+    n_rho_levels: int = 7,
+    rho_ladder_step: float = 10.0,
+) -> QPOperator:
+    """Scalings, the geometric ρ ladder and one reduced-KKT inverse per level,
+    computed in ``P``'s dtype on ``P``'s device."""
+    set_solver_precision()
+    dtype, device = P.dtype, P.device
+    D, E, c = ruiz_equilibrate(P, A_c)
+    P_s = c * (D[:, None] * P * D[None, :])
+    A_s = E[:, None] * A_c * D[None, :]
+
+    half = (n_rho_levels - 1) // 2
+    exps = torch.arange(-half, n_rho_levels - half, dtype=dtype, device=device)
+    rho_levels = rho * rho_ladder_step**exps
+    sigma_ = torch.tensor(sigma, dtype=dtype, device=device)
+    I = torch.eye(P.shape[0], dtype=dtype, device=device)
+    AtA = A_s.T @ A_s
+    Minv_stack = torch.linalg.inv(
+        P_s + sigma_ * I + rho_levels[:, None, None] * AtA
+    )
+    Pinv_s = torch.linalg.inv(P_s + 1e-9 * I)
+    return QPOperator(
+        P=P,
+        A_c=A_c,
+        P_s=P_s,
+        A_s=A_s,
+        D=D,
+        E=E,
+        c=c,
+        rho_levels=rho_levels,
+        rho_init_idx=half,
+        sigma=sigma_,
+        Minv_stack=Minv_stack,
+        Pinv_s=Pinv_s,
+        S=A_s @ Pinv_s @ A_s.T,
+    )
+
+
+def _unscaled_residuals(op: QPOperator, x, y, z, q):
+    """Per-scenario ∞-norm primal and dual residuals of ``(B, ·)`` iterates."""
+    rp = (x @ op.A_c.T - z).abs().amax(dim=-1)
+    rd = (x @ op.P.T + q + y @ op.A_c).abs().amax(dim=-1)
+    return rp, rd
+
+
+def _converged(rp, rd, q, eps_abs):
+    scale = 1.0 + q.abs().amax(dim=-1)
+    return (rp < eps_abs * scale) & (rd < eps_abs * scale)
+
+
+def admm_solve(
+    op: QPOperator,
+    q: torch.Tensor,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    iters: int = 100,
+    alpha: float = 1.6,
+    eps_abs: float | None = None,
+    polish: bool = True,
+    polish_reg: float = 1e-9,
+    warm: tuple[torch.Tensor, torch.Tensor] | None = None,
+    adapt_chunks: int = 5,
+) -> QPSolution:
+    """OSQP-style ADMM on a batch, with per-scenario ρ-ladder adaptation
+    between ``adapt_chunks`` chunks and an optional active-set polish.
+
+    ``warm`` is an unscaled ``(x (B, n), y (B, m))`` pair.
+    """
+    set_solver_precision()
+    dtype = op.P.dtype
+    B, n = q.shape
+    m = op.A_c.shape[0]
+    if eps_abs is None:
+        eps_abs = 1e-6 if dtype == torch.float64 else 1e-4
+
+    q_s = op.c * op.D * q
+    l_s = op.E * l
+    u_s = op.E * u
+    if warm is None:
+        x = torch.zeros(B, n, dtype=dtype, device=q.device)
+        y = torch.zeros(B, m, dtype=dtype, device=q.device)
+    else:
+        x = warm[0] / op.D
+        y = op.c * warm[1] / op.E
+    z = torch.clamp(x @ op.A_s.T, l_s, u_s)
+
+    idx = torch.full((B,), op.rho_init_idx, dtype=torch.long, device=q.device)
+    chunk = max(1, iters // max(1, adapt_chunks))
+    log_levels = torch.log(op.rho_levels)
+    for _ in range(max(1, adapt_chunks)):
+        Minv = op.Minv_stack[idx]  # (B, n, n)
+        rho = op.rho_levels[idx][:, None]  # (B, 1)
+        for _ in range(chunk):
+            w = op.sigma * x - q_s + (rho * z - y) @ op.A_s
+            x_t = torch.einsum("bij,bj->bi", Minv, w)
+            z_t = x_t @ op.A_s.T
+            x_n = alpha * x_t + (1.0 - alpha) * x
+            z_rel = alpha * z_t + (1.0 - alpha) * z
+            z_n = torch.clamp(z_rel + y / rho, l_s, u_s)
+            y = y + rho * (z_rel - z_n)
+            x, z = x_n, z_n
+
+        # OSQP §5.2 adaptive ρ per scenario, snapped to the ladder, with 5x
+        # hysteresis and no move once converged
+        Ax = x @ op.A_s.T
+        Px = x @ op.P_s.T
+        Aty = y @ op.A_s
+        amax = lambda a: a.abs().amax(dim=-1)
+        rp = amax(Ax - z)
+        rd = amax(Px + q_s + Aty)
+        rp_rel = rp / torch.clamp(torch.maximum(amax(Ax), amax(z)), min=1e-10)
+        rd_rel = rd / torch.maximum(
+            torch.maximum(amax(Px), amax(Aty)), torch.clamp(amax(q_s), min=1e-10)
+        )
+        rho_now = rho[:, 0]
+        target = rho_now * torch.sqrt(rp_rel / torch.clamp(rd_rel, min=1e-16))
+        cand = torch.argmin(
+            (log_levels - torch.log(torch.clamp(target, min=1e-12))[:, None]).abs(),
+            dim=1,
+        )
+        scale_s = 1.0 + amax(q_s)
+        conv = (rp < eps_abs * scale_s) & (rd < eps_abs * scale_s)
+        move = (target > 5.0 * rho_now) | (5.0 * target < rho_now)
+        idx = torch.where(move & ~conv, cand, idx)
+
+    x = op.D * x
+    y = y * op.E / op.c
+    z = z / op.E
+    if polish:
+        x, y, z = _polish(op, q, l, u, x, y, z, reg=polish_reg)
+
+    rp, rd = _unscaled_residuals(op, x, y, z, q)
+    return QPSolution(
+        x=x, z=z, y=y, prim_res=rp, dual_res=rd,
+        converged=_converged(rp, rd, q, eps_abs),
+    )
+
+
+def _polish(op: QPOperator, q, l, u, x, y, z, reg: float = 1e-9):
+    """Active-set polish (OSQP §5.2) on a batch: read the active set off the
+    duals, solve the equality-constrained KKT system, keep the result per
+    scenario only where it is finite, keeps valid dual signs and improves the
+    residuals."""
+    dtype = op.P.dtype
+    B, n = x.shape
+    m = op.A_c.shape[0]
+    lower = y < -1e-12
+    upper = y > 1e-12
+    d = (lower | upper).to(dtype)
+    b = torch.where(lower, l, u)
+    b = torch.where(torch.isfinite(b), b, torch.zeros_like(b))
+
+    # K = [[P, A_cᵀ·diag(d)], [diag(d)·A_c, −(I − diag(d)) − reg·diag(d)]]
+    K = torch.zeros(B, n + m, n + m, dtype=dtype, device=x.device)
+    K[:, :n, :n] = op.P
+    K[:, :n, n:] = op.A_c.T * d[:, None, :]
+    K[:, n:, :n] = d[:, :, None] * op.A_c
+    K[:, n:, n:] = torch.diag_embed(-(1.0 - d) - reg * d)
+    rhs = torch.cat([-q, d * b], dim=1)
+    # solve_ex: a singular active-set system yields non-finite values that
+    # the finite test below rejects, instead of raising for the whole batch
+    sol = torch.linalg.solve_ex(K, rhs).result
+    # one step of iterative refinement on the same system
+    r = rhs - torch.einsum("bij,bj->bi", K, sol)
+    sol = sol + torch.linalg.solve_ex(K, r).result
+    x_p = sol[:, :n]
+    y_p = sol[:, n:] * d
+    z_p = torch.clamp(x_p @ op.A_c.T, l, u)
+
+    sign_tol = 1e-10
+    sign_ok = (
+        torch.where(lower, y_p <= sign_tol, True)
+        & torch.where(upper, y_p >= -sign_tol, True)
+    ).all(dim=1)
+    rp0, rd0 = _unscaled_residuals(op, x, y, z, q)
+    rp1, rd1 = _unscaled_residuals(op, x_p, y_p, z_p, q)
+    finite = torch.isfinite(sol).all(dim=1)
+    better = (finite & sign_ok & (torch.maximum(rp1, rd1) < torch.maximum(rp0, rd0)))[
+        :, None
+    ]
+    return (
+        torch.where(better, x_p, x),
+        torch.where(better, y_p, y),
+        torch.where(better, z_p, z),
+    )
