@@ -1,10 +1,16 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the fused ADMM kernel from ``model_predictive_control_tpu_torch/csrc``
-with nvcc, checks it against its plain-PyTorch twin on the card at the main
-path's shapes, drives the headline closed loop (session-2 linear MPC, N=20,
-65,536 scenarios × 50 steps) through the port's public entry points, checks
-that every solve of that run launched the kernel, and times it.
+Builds the two hand-written kernels from
+``model_predictive_control_tpu_torch/csrc`` with nvcc (in parallel), then for
+each of the port's two paths checks the path's kernel against its
+plain-PyTorch twin on the card at the path's shapes, drives the path through
+the port's public entry points, checks that every solve of that run
+launched the kernel, and times it:
+
+- the headline closed loop (session-2 linear MPC, N=20, 65,536 scenarios ×
+  50 steps) on the fused ADMM kernel;
+- the nonlinear obstacle-parking sweep (N=30, 2,048 scenarios × 50 steps)
+  on the fused AL-iLQR kernel.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and exits non-zero without one, or when any phase
@@ -14,10 +20,12 @@ fails. The last line of its output is one JSON object
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 BATCH = 65536
@@ -45,6 +53,29 @@ TOL_CONV_AGREE = {"cold": 0.999, "polished": 0.95, "warm": 0.999}
 TOL_CONV_RATE = 0.01  # |success(kernel) - success(twin)|, polished config
 TOL_NI_AGREE = 0.99  # share of scenarios whose tile ran the same iterations
 TOL_STATES = 5e-2  # closed-loop final states, kernel vs twin episode
+
+# parking sweep (BENCH_CONTRACT.json "sweep": config, floors and ceiling)
+PARK_BATCH = 2048
+PARK_STEPS = 50
+PARK_N = 30
+PARK_TS = 0.08
+PARK_OBSTACLE = (0.25, 0.0, 0.0, 0.0)
+PARK_SUCCESS_FLOOR = 0.90
+PARK_PARKED_FLOOR = 0.95
+PARK_MEDIAN_CEILING = 0.05
+PARK_TWIN_SCENARIOS = 64
+PARK_TWIN_STEPS = 3
+PARK_WIDE_BATCH = 16384  # informational point: how the card fills
+# AL-iLQR kernel vs twin on the card. Both are float32 with the same
+# operations in the same order (the kernel is built without FMA
+# contraction), so they should agree bit for bit; the gates leave room for
+# a transcendental function rounding one ulp apart, which the chaotic
+# 90-iteration solve at N=30 amplifies on a few lanes. 5e-3 on controls is
+# the JAX package's own gate between two float32 implementations of this
+# OCP (tests/test_pallas_ilqr.py:86).
+TOL_PARK_AGREE = 0.99  # converged masks, executed inner iterations
+TOL_PARK_U_Q999 = 5e-3  # q999 of max|Δu| over lanes converged on both sides
+TOL_PARK_STATES = 5e-2  # tests/test_pallas_ilqr.py:117
 
 
 def phase(name: str) -> None:
@@ -124,6 +155,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import model_predictive_control_tpu_torch as port
     from model_predictive_control_tpu_torch.ops.cuda import admm_kernel as K
+    from model_predictive_control_tpu_torch.ops.cuda import ilqr_kernel as KI
 
     device = torch.device("cuda")
     card = smi()
@@ -142,15 +174,56 @@ def main() -> int:
     print(card, flush=True)
 
     phase("build")
-    t0 = time.perf_counter()
-    K._build_library()
-    print(f"built admm_kernel.cu in {time.perf_counter() - t0:.1f} s", flush=True)
-    ptxas = K._BUILD_DIR / "admm_kernel.ptxas.txt"
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("ptxas:", line.strip())
+    build_all([K, KI])
 
+    admm = admm_phases(torch, port, K, card, device)
+    ilqr = ilqr_phases(torch, port, KI, card, device)
+
+    print(json.dumps({"kernels": [admm, ilqr]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def build_all(modules) -> None:
+    """Build every kernel's library at once (one nvcc per source), then
+    print each build's seconds and ptxas's register and spill lines."""
+    from model_predictive_control_tpu_torch.ops.cuda._build import ptxas_report
+
+    seconds, errors = {}, {}
+
+    def build(mod):
+        t0 = time.perf_counter()
+        try:
+            mod._build_library()
+        except Exception as exc:  # reported below, for every library
+            errors[mod.LIBRARY] = exc
+        seconds[mod.LIBRARY] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=build, args=(m,)) for m in modules]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for mod in modules:
+        name = mod.LIBRARY
+        print(f"built {name}.cu in {seconds[name]:.1f} s", flush=True)
+        report = ptxas_report(name)
+        if name not in errors and report.exists():
+            for line in report.read_text().splitlines():
+                if "Compiling" in line or "registers" in line or "spill" in line:
+                    print(f"ptxas {name}:", line.strip())
+    if errors:
+        raise SystemExit(f"kernel build failed: {errors}")
+
+
+def admm_phases(torch, port, K, card, device) -> dict:
+    """The linear path: ADMM kernel vs twin, the headline closed loop, its
+    timing. Returns the kernel's entry of the ``kernels`` line."""
     problem = port.session2_problem(N=HORIZON)
     ctrl = port.make_linear_mpc(
         problem, iters=ADMM_ITERS, rho=RHO, dtype=torch.float32, device=device
@@ -159,7 +232,7 @@ def main() -> int:
     x0s = initial_states(torch, device)
     x0s = x0s[torch.argsort(port.boundary_compaction_key(problem.p_max, x0s), stable=True)]
 
-    phase(f"kernel vs twin on the card (B={BATCH}, n={ctrl.qp.n}, m={ctrl.qp.m}, tile={K.DEFAULT_TILE})")
+    phase(f"ADMM kernel vs twin on the card (B={BATCH}, n={ctrl.qp.n}, m={ctrl.qp.m}, tile={K.DEFAULT_TILE})")
     q, l, u = ctrl.qp.qp_vectors(x0s)
     cold_kw = dict(iters=ADMM_ITERS * PRESOLVE_MULT, chunks=2 * PRESOLVE_MULT,
                    probe_iters=0, polish=False, tile=K.DEFAULT_TILE, return_iters=True)
@@ -196,7 +269,7 @@ def main() -> int:
     print(f"warm kernel alone {kernel_ms:.3f} ms per launch, twin alone {twin_ms:.3f} ms "
           f"[{card}]", flush=True)
 
-    phase(f"main path: {BATCH} scenarios x {STEPS} steps, tile {K.DEFAULT_TILE}")
+    phase(f"linear main path: {BATCH} scenarios x {STEPS} steps, tile {K.DEFAULT_TILE}")
     x0_all = initial_states(torch, device)
 
     def episode(x0, backend="cuda"):
@@ -237,7 +310,7 @@ def main() -> int:
     if not (d_final <= TOL_STATES and d_sorted <= TOL_STATES):
         raise SystemExit("closed loop disagrees with the twin episode")
 
-    phase("timing")
+    phase("linear main path timing")
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -251,7 +324,7 @@ def main() -> int:
           f"{BATCH * STEPS / dt:.1f} solves/s; step {1e3 * dt / STEPS:.3f} ms [{card}]",
           flush=True)
 
-    print(json.dumps({"kernels": [{
+    return {
         "name": "admm_tile_kernel",
         "route": "cuda",
         "source": "model_predictive_control_tpu_torch/csrc/admm_kernel.cu",
@@ -260,14 +333,172 @@ def main() -> int:
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": twin_ms,
-    }]}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
-    return 0
+    }
+
+
+def parking_scenarios(torch, port, batch, device):
+    """The sweep's scenarios: plant parameters, then initial states, from
+    one generator seeded 0 (what ``parking_sweep`` draws by default)."""
+    from model_predictive_control_tpu_torch.parallel import batch as PB
+
+    g = torch.Generator().manual_seed(0)
+    plant = PB.perturb_parameters(g, port.VehicleParameters(), batch, device=device)
+    x0 = PB.random_initial_states(g, batch, x_obs=PARK_OBSTACLE, device=device)
+    return plant, x0
+
+
+def compare_ilqr(torch, name, got, ref, twin_s, card) -> float:
+    """Print and gate the AL-iLQR kernel against its twin; returns the max
+    of max|Δu| over lanes converged on both sides."""
+    conv_agree = (got.converged == ref.converged).float().mean().item()
+    ni_agree = (got.inner_iters_executed == ref.inner_iters_executed).float().mean().item()
+    du = (got.us - ref.us).abs().amax(dim=(1, 2))
+    both = got.converged & ref.converged
+    err = du[both]
+    err_max = err.max().item() if err.numel() else 0.0
+    err_q999 = torch.quantile(err, 0.999).item() if err.numel() else 0.0
+    print(
+        f"{name}: max|u_kernel - u_twin| over lanes converged on both sides: q999 "
+        f"{err_q999:.3e} (tol {TOL_PARK_U_Q999:.0e}), max {err_max:.3e}; over all lanes "
+        f"max {du.max().item():.3e}, bitwise-equal lanes {(du == 0).float().mean().item():.5f}; "
+        f"converged agree {conv_agree:.5f}, executed inner iterations agree {ni_agree:.5f} "
+        f"(tol {TOL_PARK_AGREE}); converged {got.converged.float().mean().item():.5f} vs twin "
+        f"{ref.converged.float().mean().item():.5f}; mean inner iterations "
+        f"{got.inner_iters_executed.mean().item():.2f}; twin {1e3 * twin_s:.1f} ms per solve "
+        f"(timed once) [{card}]",
+        flush=True,
+    )
+    ok = conv_agree >= TOL_PARK_AGREE and ni_agree >= TOL_PARK_AGREE
+    if not (ok and err_q999 <= TOL_PARK_U_Q999):
+        raise SystemExit(f"AL-iLQR kernel disagrees with its twin on the {name} config")
+    return err_max
+
+
+def ilqr_phases(torch, port, K, card, device) -> dict:
+    """The parking path: AL-iLQR kernel vs twin (cold and warm), the sweep
+    through ``parking_sweep``, its timing. Returns the kernel's entry of the
+    ``kernels`` line."""
+    from model_predictive_control_tpu_torch.parallel import batch as PB
+    from model_predictive_control_tpu_torch.solvers.parking import Q_MAIN, QN_SCALE_MAIN, R_MAIN
+
+    B, N, tile = PARK_BATCH, PARK_N, K.DEFAULT_TILE
+    base = port.VehicleParameters()
+    plant_params, x0 = parking_scenarios(torch, port, B, device)
+    geom, limits = K.parking_geometry(base, PARK_OBSTACLE)
+    kw = dict(
+        N=N, ts=PARK_TS, geom=geom, limits=limits,
+        weights=(tuple(Q_MAIN), tuple(R_MAIN), float(QN_SCALE_MAIN)), n_circles=3,
+        outer_iters=6, inner_iters=15, mu_init=10.0, viol_tol=1e-4, tile=tile,
+    )
+    acc = torch.full((B,), float(base.acceleration), device=device)
+    fric = torch.full((B,), float(base.friction), device=device)
+    nc = K.n_constraints(3)
+
+    phase(f"AL-iLQR kernel vs twin on the card (B={B}, N={N}, nc={nc}, tile={tile})")
+
+    def both(name, *args, **extra):
+        got = K.al_ilqr_solve_cuda(*args, **extra, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = K.al_ilqr_solve_twin(*args, **extra, **kw)
+        torch.cuda.synchronize()
+        return got, compare_ilqr(torch, name, got, ref, time.perf_counter() - t0, card)
+
+    cold, err = both("cold", x0, torch.zeros(B, N, 2, device=device), acc, fric)
+    # the warm config as the policy makes it: one plant step with u0, the
+    # shifted controls and the shifted, decayed multipliers
+    x1 = port.batched_plant(plant_params, PARK_TS)(x0, cold.us[:, 0])
+    u1 = torch.cat([cold.us[:, 1:], cold.us[:, -1:]], dim=1)
+    lam1 = 0.7 * torch.where(
+        cold.converged[:, None, None], torch.cat([cold.lam[:, 1:], cold.lam[:, -1:]], dim=1), 0.0
+    )
+    _, err_w = both("warm", x1, u1, acc, fric, lam_init=lam1)
+    err = max(err, err_w)
+
+    wrapper_ms = time_cuda(torch, lambda: K.al_ilqr_solve_cuda(x1, u1, acc, fric, lam_init=lam1, **kw), 5)
+    args = K.prepare_tiles(x1, u1, acc, fric, lam1, N=N, tile=tile, n_circles=3)
+    raw = dict(N=N, n_circ=3, tile=tile, ts=PARK_TS, geom=geom, limits=limits,
+               weights=kw["weights"], outer_iters=6, inner_iters=15, mu_init=10.0,
+               mu_scale=10.0, mu_max=1e8, viol_tol=1e-4, tol=1e-6)
+    kernel_ms = time_cuda(torch, lambda: K._launch(*args, **raw), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    K.al_ilqr_tiles_reference(*args, **raw)
+    torch.cuda.synchronize()
+    twin_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"warm: wrapper {wrapper_ms:.3f} ms per solve of {B}, kernel alone {kernel_ms:.3f} ms "
+          f"per launch, twin alone {twin_ms:.1f} ms (timed once) [{card}]", flush=True)
+
+    phase(f"parking main path: parking_sweep({B}, {PARK_STEPS}), N={N}, tile {tile}")
+    K.LAUNCHES = 0
+    res, summary = port.parking_sweep(B, PARK_STEPS, device=device)
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES
+    print(f"AL-iLQR kernel launches in the sweep: {launches} (expected {PARK_STEPS})")
+    if launches != PARK_STEPS:
+        raise SystemExit("the parking sweep did not go through the kernel once per step")
+    if res.states.shape != (PARK_STEPS + 1, B, 4) or res.inputs.shape != (PARK_STEPS, B, 2):
+        raise SystemExit(f"unexpected shapes {res.states.shape} {res.inputs.shape}")
+    if not bool(torch.isfinite(res.states).all()):
+        raise SystemExit("non-finite states in the parking sweep")
+    print("summary:", json.dumps(summary))
+    print(f"success {summary['success_rate']:.5f} (floor {PARK_SUCCESS_FLOOR}), parked within "
+          f"5 cm {summary['parked_frac_5cm']:.5f} (floor {PARK_PARKED_FLOOR}), median final "
+          f"distance {summary['median_final_dist']:.5f} m (ceiling {PARK_MEDIAN_CEILING}), mean "
+          f"inner iterations {summary['mean_inner_iters']:.2f}", flush=True)
+    if not (summary["success_rate"] >= PARK_SUCCESS_FLOOR
+            and summary["parked_frac_5cm"] >= PARK_PARKED_FLOOR
+            and summary["median_final_dist"] <= PARK_MEDIAN_CEILING):
+        raise SystemExit("the parking sweep misses the contract's quality floors")
+
+    # the first scenarios over a few steps, kernel policy against twin policy
+    S = PARK_TWIN_SCENARIOS
+    sub = dataclasses.replace(plant_params, acceleration=plant_params.acceleration[:S],
+                              friction=plant_params.friction[:S])
+    finals = {}
+    for backend in ("cuda", "twin"):
+        pol = PB.batched_parking_policy(base, N, PARK_TS, x_obs=PARK_OBSTACLE, backend=backend)
+        out = port.simulate_batch(x0[:S], port.batched_plant(sub, PARK_TS), PARK_TWIN_STEPS,
+                                  pol, pol.initial_carry(S, device))
+        finals[backend] = out.states[-1]
+    d_final = (finals["cuda"] - finals["twin"]).abs().max().item()
+    print(f"first {S} scenarios over {PARK_TWIN_STEPS} steps, final states kernel vs twin "
+          f"policy: {d_final:.3e} (tol {TOL_PARK_STATES})", flush=True)
+    if not d_final <= TOL_PARK_STATES:
+        raise SystemExit("the parking closed loop disagrees with the twin policy")
+
+    phase("parking main path timing")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        port.parking_sweep(B, PARK_STEPS, device=device)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    dt = min(times)
+    print(f"sweep wall {dt:.4f} s (best of 3: {', '.join(f'{t:.4f}' for t in times)}); "
+          f"{B * PARK_STEPS / dt:.1f} solves/s; step {1e3 * dt / PARK_STEPS:.3f} ms; mean inner "
+          f"iterations {summary['mean_inner_iters']:.2f} [{card}]", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, wide = port.parking_sweep(PARK_WIDE_BATCH, PARK_STEPS, device=device)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"informational, not gated: parking_sweep({PARK_WIDE_BATCH}, {PARK_STEPS}) wall "
+          f"{dt:.4f} s, {PARK_WIDE_BATCH * PARK_STEPS / dt:.1f} solves/s, success "
+          f"{wide['success_rate']:.5f}, mean inner iterations {wide['mean_inner_iters']:.2f} "
+          f"[{card}]", flush=True)
+
+    return {
+        "name": "alilqr_tile_kernel",
+        "route": "cuda",
+        "source": "model_predictive_control_tpu_torch/csrc/ilqr_kernel.cu",
+        "replaces": "model_predictive_control_tpu/ops/pallas/ilqr_kernel.py:70",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": twin_ms,
+    }
 
 
 if __name__ == "__main__":

@@ -1,19 +1,35 @@
 """model_predictive_control_tpu_torch — the PyTorch and CUDA port of
 ``model_predictive_control_tpu``.
 
-The closed-loop linear-MPC main path: session-2 problem data, condensed
-box-QP, the fused ADMM kernel written in CUDA for Hopper (``csrc/``) with its
-plain-PyTorch twin, and the batched closed loop. Imports ``torch`` only.
+Two paths so far, each on a kernel written in CUDA for Hopper (``csrc/``)
+with its plain-PyTorch twin:
+
+- the closed-loop linear MPC (session-2 problem data, condensed box-QP, the
+  fused ADMM kernel, the batched closed loop);
+- the nonlinear obstacle-parking sweep (kinematic bicycle, fine-RK4 plant,
+  the fused AL-iLQR kernel).
+
+Imports ``torch`` only.
 """
 
 from .control.batch_loop import BatchSimResult, simulate_batch
-from .parallel.batch import boundary_compaction_key
+from .models.parameters import VehicleParameters
+from .parallel.batch import (
+    batched_parking_policy,
+    batched_plant,
+    boundary_compaction_key,
+    parking_sweep,
+)
 from .solvers.linear_mpc import make_linear_mpc, session2_problem
 
 __all__ = [
     "BatchSimResult",
+    "VehicleParameters",
+    "batched_parking_policy",
+    "batched_plant",
     "boundary_compaction_key",
     "make_linear_mpc",
+    "parking_sweep",
     "session2_problem",
     "simulate_batch",
 ]

@@ -29,8 +29,10 @@ def simulate_batch(
 ) -> BatchSimResult:
     """Roll a batch of plants forward ``steps`` times.
 
-    ``dynamics`` maps ``(B, nx) × (B, nu) → (B, nx)`` (a :class:`LinearSystem`
-    does).
+    ``dynamics`` maps ``(B, nx) × (B, nu) → (B, nx)``, as a
+    :class:`LinearSystem` or :func:`..parallel.batch.batched_plant` does: the
+    JAX package's ``batched_dynamics=True`` is implied, since nothing here
+    vmaps.
     """
     if steps < 1:
         raise ValueError("steps must be positive")

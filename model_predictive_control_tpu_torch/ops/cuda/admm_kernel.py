@@ -29,17 +29,13 @@ same tile algorithm; :func:`admm_solve_cuda` takes it only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import inspect
-import os
-import pathlib
-import subprocess
-import threading
 
 import torch
 
 from ...solvers.qp import QPOperator, QPSolution, _converged, _unscaled_residuals
 from ...utils.precision import set_solver_precision
+from ._build import PKG, load_library
 
 # Kernel launches made by admm_solve_cuda (one per solve). Tests and
 # chip_smoke.py read it to show that a run went through the kernel.
@@ -52,11 +48,8 @@ SMEM_LIMIT = 232448  # opt-in shared memory per block on sm_90 (bytes)
 # configuration (PERF.md, Findings)
 DEFAULT_TILE = 8
 
-_PKG = pathlib.Path(__file__).resolve().parents[2]
-_SOURCES = [_PKG / "csrc" / "admm_kernel.cu"]
-_BUILD_DIR = _PKG / "build"
-_lib = None
-_lib_lock = threading.Lock()
+LIBRARY = "admm_kernel"
+_SOURCES = [PKG / "csrc" / "admm_kernel.cu"]
 
 
 def chunk_lengths(
@@ -237,47 +230,21 @@ def admm_solve_tiles_reference(
     return x.reshape(Bp, n), z.reshape(Bp, m), y.reshape(Bp, m), ni
 
 
+def _configure(lib: ctypes.CDLL) -> None:
+    fn = lib.admm_tiles_launch
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 11 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    lib.admm_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.admm_smem_bytes.restype = ctypes.c_long
+    lib.admm_error_string.argtypes = [ctypes.c_int]
+    lib.admm_error_string.restype = ctypes.c_char_p
+
+
 def _build_library() -> ctypes.CDLL:
-    """Compile ``csrc/`` with nvcc into a shared library keyed by a hash of
-    the sources, and load it; later calls reuse the loaded library."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256()
-        for src in _SOURCES:
-            digest.update(src.read_bytes())
-        out = _BUILD_DIR / f"libadmm_kernel_{digest.hexdigest()[:16]}.so"
-        if not out.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            nvcc = os.path.join(
-                os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"
-            )
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [
-                nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                "-o", str(tmp), *map(str, _SOURCES),
-            ]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-                )
-            (_BUILD_DIR / "admm_kernel.ptxas.txt").write_text(proc.stderr)
-            tmp.replace(out)
-        lib = ctypes.CDLL(str(out))
-        fn = lib.admm_tiles_launch
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 11 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        lib.admm_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.admm_smem_bytes.restype = ctypes.c_long
-        lib.admm_error_string.argtypes = [ctypes.c_int]
-        lib.admm_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+    """Build (at first use) and load ``csrc/admm_kernel.cu``."""
+    return load_library(LIBRARY, _SOURCES, _configure)
 
 
 def _launch(W, Wq, A, P, Pinv, S, rho_levels, Einv, Dcinv, q, l, u, x0, y0, *,

@@ -1,9 +1,39 @@
-"""Scenario-batch helpers (port of ``parallel/batch.py``; only the compaction
-key so far)."""
+"""Scenario batching (port of ``parallel/batch.py``): the session-2
+compaction key, and the nonlinear obstacle-parking sweep over randomized
+initial states × perturbed plant parameters on the fused AL-iLQR kernel.
+
+The parking sweep is a Python loop over closed-loop steps
+(:func:`..control.batch_loop.simulate_batch`); each step is one kernel
+launch for the whole batch, then one fine-RK4 plant step in plain torch.
+Random draws come from an explicit ``torch.Generator`` made on the CPU, so a
+seed gives the same scenarios on every device.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
+
+from ..control.batch_loop import BatchSimResult, simulate_batch
+from ..models.bicycle import NU, NX, kinematic_bicycle_ode
+from ..models.parameters import VehicleParameters
+from ..ops.cuda.ilqr_kernel import (
+    DEFAULT_TILE,
+    al_ilqr_solve_cuda,
+    al_ilqr_solve_twin,
+    n_constraints,
+    parking_geometry,
+)
+from ..ops.integrators import rk4_fine
+from ..solvers.parking import Q_MAIN, QN_SCALE_MAIN, R_MAIN
+
+# fields whose perturbation is physically meaningful for the kinematic model
+DEFAULT_PERTURB_FIELDS = ("friction", "acceleration")
+# per-scenario model fields the kernel takes as operands; any other batched
+# field needs the per-scenario solver path (ROADMAP S3.2)
+KERNEL_FIELDS = {"acceleration", "friction"}
 
 
 def boundary_compaction_key(p_max: float, x0s: torch.Tensor) -> torch.Tensor:
@@ -12,3 +42,256 @@ def boundary_compaction_key(p_max: float, x0s: torch.Tensor) -> torch.Tensor:
     iterating) scenarios, so a stable ``torch.argsort`` of it packs them into
     few kernel tiles and lets the per-tile early exit fire for the rest."""
     return (float(p_max) - x0s[:, 0]) - 3.0 * torch.clamp(x0s[:, 1], min=0.0)
+
+
+def perturb_parameters(
+    generator: torch.Generator,
+    base: VehicleParameters,
+    batch: int,
+    rel_scale: float = 0.1,
+    fields=DEFAULT_PERTURB_FIELDS,
+    dtype=torch.float32,
+    device="cpu",
+) -> VehicleParameters:
+    """Batched parameters: each named field drawn uniformly in
+    ``base ± rel_scale·|base|`` per scenario, in field order from
+    ``generator`` (a CPU generator); other fields stay floats."""
+    updates = {}
+    for name in fields:
+        v = float(getattr(base, name))
+        lo, hi = v - rel_scale * abs(v), v + rel_scale * abs(v)
+        draw = torch.rand(batch, generator=generator, dtype=dtype)
+        updates[name] = (lo + (hi - lo) * draw).to(device)
+    return dataclasses.replace(base, **updates)
+
+
+def random_initial_states(
+    generator: torch.Generator,
+    batch: int,
+    center=(0.3, -0.1, 0.0, 0.0),
+    spread=(0.2, 0.15, 0.3, 0.05),
+    x_obs=None,
+    clearance: float = 0.22,
+    dtype=torch.float32,
+    device="cpu",
+) -> torch.Tensor:
+    """``(batch, 4)`` initial poses drawn uniformly in ``center ± spread``
+    around the session-4 start. With an obstacle pose ``x_obs``, positions
+    inside ``clearance`` of it are projected radially onto the clearance
+    circle, so that every scenario starts collision-free whatever its
+    heading (the JAX package's ``random_initial_states`` says why 0.22)."""
+    u = 2.0 * torch.rand(batch, 4, generator=generator, dtype=dtype) - 1.0
+    x0 = torch.tensor(center, dtype=dtype) + u * torch.tensor(spread, dtype=dtype)
+    if x_obs is not None:
+        x0 = project_clear(x0, x_obs, clearance)
+    return x0.to(device)
+
+
+def project_clear(x0: torch.Tensor, x_obs, clearance: float) -> torch.Tensor:
+    """``x0`` with every position closer than ``clearance`` to the obstacle
+    position moved radially onto that circle (along +x where it coincides
+    with the obstacle); other rows unchanged."""
+    p_obs = torch.tensor([float(v) for v in x_obs][:2], dtype=x0.dtype, device=x0.device)
+    d = x0[:, :2] - p_obs
+    r = torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    plus_x = torch.tensor([1.0, 0.0], dtype=x0.dtype, device=x0.device)
+    dir_ = torch.where(r > 1e-6, d / torch.clamp(r, min=1e-6), plus_x)
+    p_fixed = torch.where(r < clearance, p_obs + dir_ * clearance, x0[:, :2])
+    return torch.cat([p_fixed, x0[:, 2:]], dim=1)
+
+
+def initial_warm_carry(batch: int, N: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    return torch.zeros(batch, N * NU, dtype=dtype, device=device)
+
+
+def batched_plant(plant_params: VehicleParameters, ts: float, substeps: int = 16):
+    """``(B, 4) × (B, 2) → (B, 4)`` plant: fine RK4 (the reference's
+    ``odeint`` stand-in) with per-scenario parameter fields broadcast over
+    the batch."""
+    f = lambda x, u: kinematic_bicycle_ode(plant_params, x, u)
+    return rk4_fine(f, ts, substeps=substeps)
+
+
+def _per_scenario(value, batch: int, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(value, dtype=dtype, device=device).expand(batch).contiguous()
+
+
+def batched_parking_policy(
+    model_params: VehicleParameters,
+    N: int,
+    ts: float,
+    x_obs=None,
+    Q=Q_MAIN,
+    R=R_MAIN,
+    qn_scale: float = QN_SCALE_MAIN,
+    sqp_iters: int = 15,
+    qp_iters: int = 40,
+    solver: str = "ilqr",
+    outer_iters: int = 6,
+    inner_iters: int = 15,
+    mu_init: float = 10.0,
+    backend: str = "cuda",
+    tile: int = DEFAULT_TILE,
+    mesh=None,
+    dtype=torch.float32,
+):
+    """Batch-level receding-horizon nonlinear-MPC policy for
+    :func:`simulate_batch`: every step is one fused AL-iLQR solve of the
+    whole batch.
+
+    ``model_params`` fields are floats (the nominal model) or ``(B,)``
+    tensors for ``acceleration`` and ``friction`` (a per-scenario model).
+    The carry is ``(u_warm (B, N·2), lam (B, N, nc))``: the solved controls
+    shifted one stage, and the converged multipliers shifted and decayed
+    (``0.7``, zero where the solve did not converge), as in the JAX package.
+
+    ``backend="cuda"`` launches the kernel for CUDA tensors (its plain twin
+    for CPU tensors); ``"twin"`` runs the twin on any device. The SQP
+    solver, the per-scenario XLA path (``backend="xla"``, other dtypes and
+    other perturbed fields), the factory kernel and device meshes are not
+    ported yet and raise ``NotImplementedError``.
+    """
+    del sqp_iters, qp_iters  # SQP only, which is not ported yet
+    if solver == "sqp":
+        raise NotImplementedError("solver='sqp' is not ported yet: ROADMAP S3.2")
+    if solver != "ilqr":
+        raise ValueError(f"unknown solver {solver!r}")
+    if backend == "xla":
+        raise NotImplementedError("backend='xla' is not ported yet: ROADMAP S3.2")
+    if backend == "factory":
+        raise NotImplementedError("backend='factory' is not ported yet: ROADMAP S4.3")
+    if backend not in ("cuda", "twin"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if mesh is not None:
+        raise NotImplementedError("device meshes are not ported yet: ROADMAP S7.1")
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            "the kernel is float32; other dtypes take the per-scenario path, "
+            "not ported yet: ROADMAP S3.2"
+        )
+    exotic = model_params.batched_fields() - KERNEL_FIELDS
+    if exotic:
+        raise NotImplementedError(
+            f"per-scenario {sorted(exotic)} need the per-scenario solver path, "
+            "not ported yet: ROADMAP S3.2"
+        )
+    solve_fn = al_ilqr_solve_cuda if backend == "cuda" else al_ilqr_solve_twin
+    n_circ = 0 if x_obs is None else 3
+    nc = n_constraints(n_circ)
+    geom, limits = parking_geometry(model_params, x_obs, n_circles=3)
+    weights = (
+        tuple(float(v) for v in Q),
+        tuple(float(v) for v in R),
+        float(qn_scale),
+    )
+
+    def policy(x_batch, t, carry):
+        B = x_batch.shape[0]
+        u_warm, lam_warm = carry
+        accv = _per_scenario(model_params.acceleration, B, dtype, x_batch.device)
+        fricv = _per_scenario(model_params.friction, B, dtype, x_batch.device)
+        tile_eff = min(tile, math.ceil(B / 128) * 128)
+        sol = solve_fn(
+            x_batch, u_warm.reshape(B, N, NU), accv, fricv, lam_init=lam_warm,
+            N=N, ts=float(ts), geom=geom, limits=limits, weights=weights,
+            n_circles=n_circ, outer_iters=outer_iters, inner_iters=inner_iters,
+            mu_init=mu_init, viol_tol=1e-4, tile=tile_eff,
+        )
+        u_next = torch.cat([sol.us[:, 1:], sol.us[:, -1:]], dim=1)
+        # shifted, decayed multipliers, kept only where the solve converged
+        # (undecayed or unmasked carry-over was measured worse than cold)
+        lam_next = 0.7 * torch.where(
+            sol.converged[:, None, None],
+            torch.cat([sol.lam[:, 1:], sol.lam[:, -1:]], dim=1),
+            0.0,
+        )
+        aux = {
+            "solver_success": sol.converged,
+            "kkt_res": sol.viol,
+            "viol": sol.viol,
+            "kernel_inner_iters": sol.inner_iters_executed,
+        }
+        return sol.us[:, 0], (u_next.reshape(B, N * NU), lam_next), aux
+
+    policy.initial_carry = lambda batch, device="cpu": (
+        initial_warm_carry(batch, N, dtype, device),
+        torch.zeros(batch, N, nc, dtype=dtype, device=device),
+    )
+    return policy
+
+
+def parking_sweep(
+    batch: int,
+    steps: int,
+    generator: torch.Generator | None = None,
+    N: int = 30,
+    ts: float = 0.08,
+    x_obs=(0.25, 0.0, 0.0, 0.0),
+    rel_scale: float = 0.1,
+    perturb_fields=DEFAULT_PERTURB_FIELDS,
+    controller_knows: bool = False,
+    sqp_iters: int = 15,
+    qp_iters: int = 40,
+    solver: str = "ilqr",
+    outer_iters: int = 6,
+    inner_iters: int = 15,
+    mu_init: float = 10.0,
+    backend: str = "cuda",
+    tile: int = DEFAULT_TILE,
+    plant_substeps: int = 16,
+    mesh=None,
+    dtype=torch.float32,
+    checkpoint_path: str | None = None,
+    checkpoint_every: int = 0,
+    u_seed=None,
+    device="cpu",
+) -> tuple[BatchSimResult, dict]:
+    """The robustness sweep: ``batch`` scenarios (randomized x0 × perturbed
+    plant), closed-loop obstacle parking for ``steps`` steps on ``device``.
+
+    ``generator`` (a CPU ``torch.Generator``, seed 0 when ``None``) draws
+    the plant parameters, then the initial states. The controller predicts
+    with the nominal model unless ``controller_knows``, when it gets each
+    scenario's acceleration and friction. ``checkpoint_every``/
+    ``checkpoint_path`` and ``u_seed`` are not ported yet and raise
+    ``NotImplementedError``.
+
+    Returns ``(BatchSimResult, summary)`` with the JAX package's summary
+    keys.
+    """
+    if checkpoint_every > 0 or checkpoint_path is not None:
+        raise NotImplementedError("sweep checkpoints are not ported yet: ROADMAP S7.2")
+    if u_seed is not None:
+        raise NotImplementedError("u_seed warm seeds are not ported yet: ROADMAP S3.4")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    base = VehicleParameters()
+    plant_params = perturb_parameters(
+        generator, base, batch, rel_scale=rel_scale, fields=perturb_fields,
+        dtype=dtype, device=device,
+    )
+    model_params = plant_params if controller_knows else base
+    x0s = random_initial_states(generator, batch, x_obs=x_obs, dtype=dtype, device=device)
+    policy = batched_parking_policy(
+        model_params, N=N, ts=ts, x_obs=x_obs, sqp_iters=sqp_iters,
+        qp_iters=qp_iters, solver=solver, outer_iters=outer_iters,
+        inner_iters=inner_iters, mu_init=mu_init, backend=backend, tile=tile,
+        mesh=mesh, dtype=dtype,
+    )
+    plant = batched_plant(plant_params, ts, substeps=plant_substeps)
+    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device))
+
+    success = res.logs["solver_success"]
+    dist = torch.linalg.vector_norm(res.states[-1][:, :2], dim=-1)
+    summary = {
+        "batch": int(batch),
+        "steps": int(steps),
+        "success_rate": success.float().mean().item(),
+        # torch.median returns the lower middle value; jnp.median averages
+        "median_final_dist": torch.quantile(dist, 0.5).item(),
+        "parked_frac_5cm": (dist < 0.05).float().mean().item(),
+        "controller_knows": bool(controller_knows),
+        "rel_scale": float(rel_scale),
+        "mean_inner_iters": res.logs["kernel_inner_iters"].mean().item(),
+    }
+    return res, summary

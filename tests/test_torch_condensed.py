@@ -115,7 +115,9 @@ def test_compaction_order_matches_jnp_argsort():
 def test_port_imports_no_jax():
     code = (
         "import sys, model_predictive_control_tpu_torch, "
-        "model_predictive_control_tpu_torch.convert; "
+        "model_predictive_control_tpu_torch.convert, "
+        "model_predictive_control_tpu_torch.ops.cuda.ilqr_kernel, "
+        "model_predictive_control_tpu_torch.parallel.batch; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('model_predictive_control_tpu.') "
         "or m == 'model_predictive_control_tpu']; print(bad); sys.exit(1 if bad else 0)"

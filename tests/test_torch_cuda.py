@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernel against its plain twin on the card.
+"""The hand-written CUDA kernels against their plain twins on the card.
 
 These tests need a CUDA device and skip without one. They import neither JAX
 nor the JAX package, so they also run where only torch is installed:
@@ -11,6 +11,7 @@ import torch
 
 import model_predictive_control_tpu_torch as port
 from model_predictive_control_tpu_torch.ops.cuda import admm_kernel as K
+from model_predictive_control_tpu_torch.parallel.batch import random_initial_states
 
 pytestmark = pytest.mark.cuda
 
@@ -75,3 +76,45 @@ def test_closed_loop_kernel_matches_twin(ctrl):
     torch.testing.assert_close(
         out["cuda"].states, out["twin"].states, rtol=0, atol=5e-2
     )
+
+
+@pytest.fixture
+def parking():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from model_predictive_control_tpu_torch.ops.cuda import ilqr_kernel as KI
+    from model_predictive_control_tpu_torch.solvers.parking import Q_MAIN, QN_SCALE_MAIN, R_MAIN
+
+    geom, limits = KI.parking_geometry(port.VehicleParameters(), (0.25, 0.0, 0.0, 0.0))
+    kw = dict(N=8, ts=0.08, geom=geom, limits=limits, n_circles=3,
+              weights=(tuple(Q_MAIN), tuple(R_MAIN), float(QN_SCALE_MAIN)))
+    return KI, kw
+
+
+@pytest.mark.parametrize("tile", [4, 32])
+def test_alilqr_kernel_matches_twin(parking, tile):
+    """Same inputs on the card: the kernel does the twin's operations in the
+    twin's order without FMA contraction, so the two agree bit for bit."""
+    KI, kw = parking
+    g = torch.Generator().manual_seed(2)
+    x0 = random_initial_states(
+        g, 37, x_obs=(0.25, 0.0, 0.0, 0.0), device="cuda"
+    )
+    u = 0.1 * torch.randn(37, 8, 2, generator=g).cuda()
+    acc, fric = torch.full((37,), 2.0).cuda(), torch.full((37,), 1.0).cuda()
+    before = KI.LAUNCHES
+    got = KI.al_ilqr_solve_cuda(x0, u, acc, fric, tile=tile, **kw)
+    torch.cuda.synchronize()
+    assert KI.LAUNCHES == before + 1
+    ref = KI.al_ilqr_solve_twin(x0, u, acc, fric, tile=tile, **kw)
+    for name in ("us", "xs", "viol", "converged", "lam", "inner_iters_executed"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+def test_parking_sweep_launches_the_kernel(parking):
+    KI, _ = parking
+    before = KI.LAUNCHES
+    res, summary = port.parking_sweep(64, 3, N=8, device="cuda")
+    assert KI.LAUNCHES == before + 3
+    assert res.states.is_cuda and bool(torch.isfinite(res.states).all())
+    assert 0.0 <= summary["success_rate"] <= 1.0
