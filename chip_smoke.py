@@ -1,16 +1,18 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the two hand-written kernels from
+Builds the three hand-written kernel libraries from
 ``model_predictive_control_tpu_torch/csrc`` with nvcc (in parallel), then for
-each of the port's two paths checks the path's kernel against its
-plain-PyTorch twin on the card at the path's shapes, drives the path through
-the port's public entry points, checks that every solve of that run
-launched the kernel, and times it:
+each of the port's paths checks the path's kernel against its plain-PyTorch
+twin on the card at the path's shapes, drives the path through the port's
+public entry points, checks that every solve of that run launched the
+kernel, and times it:
 
 - the headline closed loop (session-2 linear MPC, N=20, 65,536 scenarios ×
   50 steps) on the fused ADMM kernel;
 - the nonlinear obstacle-parking sweep (N=30, 2,048 scenarios × 50 steps)
-  on the fused AL-iLQR kernel.
+  on the fused AL-iLQR kernel;
+- the kinematic and the Pacejka lap-tracking sweeps (N=15, 2,048 scenarios
+  × 50 steps each) on the two instantiations of the fused tracker kernel.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and exits non-zero without one, or when any phase
@@ -77,9 +79,39 @@ TOL_PARK_AGREE = 0.99  # converged masks, executed inner iterations
 TOL_PARK_U_Q999 = 5e-3  # q999 of max|Δu| over lanes converged on both sides
 TOL_PARK_STATES = 5e-2  # tests/test_pallas_ilqr.py:117
 
+# racing sweeps (BENCH_CONTRACT.json "racing_sweep" / "racing_sweep_dynamic":
+# batch, steps and the quality floors; the solves/s there were taken on a TPU)
+RACE_BATCH = 2048
+RACE_STEPS = 50
+RACE_N = 15
+RACE_SUCCESS_FLOOR = 0.99
+RACE_TWIN_SCENARIOS = 64
+RACE_TWIN_STEPS = 3
+# tracker kernel vs twin on the card: the same float program (no FMA
+# contraction), so bit for bit is expected; the gates are K2's.
+TOL_RACE_AGREE = 0.99  # converged masks, executed inner iterations
+TOL_RACE_U_Q999 = 5e-3  # q999 of max|Δu| over lanes converged on both sides
+RACE_TIERS = {
+    # tier: (entry point, policy, mean tracking error ceiling, closed-loop
+    # tolerance kernel vs twin policy: the JAX package's own bars,
+    # tests/test_racing_sweep.py:116 and tests/test_pallas_ilqr_dyn.py:216)
+    "kinematic": ("racing_sweep", "batched_racing_policy", 0.05, 5e-3),
+    "pacejka": ("racing_sweep_dynamic", "batched_racing_dynamic_policy", 0.03, 2e-2),
+}
 
-def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+
+_PHASE = {"name": None, "t0": 0.0}
+
+
+def phase(name: str | None) -> None:
+    """Start phase ``name`` (``None``: end the last one), printing the
+    seconds the previous phase took."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"-- {_PHASE['name']}: {now - _PHASE['t0']:.1f} s", flush=True)
+    _PHASE.update(name=name, t0=now)
+    if name is not None:
+        print(f"== {name}", flush=True)
 
 
 def smi() -> str:
@@ -155,6 +187,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import model_predictive_control_tpu_torch as port
     from model_predictive_control_tpu_torch.ops.cuda import admm_kernel as K
+    from model_predictive_control_tpu_torch.ops.cuda import ilqr_factory as KF
     from model_predictive_control_tpu_torch.ops.cuda import ilqr_kernel as KI
 
     device = torch.device("cuda")
@@ -174,12 +207,14 @@ def main() -> int:
     print(card, flush=True)
 
     phase("build")
-    build_all([K, KI])
+    build_all([K, KI, KF])
 
     admm = admm_phases(torch, port, K, card, device)
     ilqr = ilqr_phases(torch, port, KI, card, device)
+    racing = [racing_phases(torch, port, KF, tier, card, device) for tier in RACE_TIERS]
+    phase(None)
 
-    print(json.dumps({"kernels": [admm, ilqr]}))
+    print(json.dumps({"kernels": [admm, ilqr, *racing]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -494,6 +529,144 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
         "route": "cuda",
         "source": "model_predictive_control_tpu_torch/csrc/ilqr_kernel.cu",
         "replaces": "model_predictive_control_tpu/ops/pallas/ilqr_kernel.py:70",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": twin_ms,
+    }
+
+
+def compare_tracker(torch, name, got, ref, twin_s, card) -> float:
+    """Print and gate the tracker kernel's policy step against the twin's on
+    the same inputs; returns the max of max|Δu| over lanes converged on
+    both sides. ``got``/``ref`` are a policy's (u0, warm carry, logs)."""
+    def controls(step):  # the solved (B, N, 2) controls: u0, then the shifted rest
+        u0, warm, _ = step
+        return torch.cat([u0[:, None], warm.reshape(u0.shape[0], -1, 2)[:, :-1]], dim=1)
+
+    conv_k, conv_t = got[2]["solver_success"], ref[2]["solver_success"]
+    ni_k, ni_t = got[2]["kernel_inner_iters"], ref[2]["kernel_inner_iters"]
+    du = (controls(got) - controls(ref)).abs().amax(dim=(1, 2))
+    conv_agree = (conv_k == conv_t).float().mean().item()
+    ni_agree = (ni_k == ni_t).float().mean().item()
+    err = du[conv_k & conv_t]
+    err_max = err.max().item() if err.numel() else 0.0
+    err_q999 = torch.quantile(err, 0.999).item() if err.numel() else 0.0
+    print(
+        f"{name}: max|u_kernel - u_twin| over lanes converged on both sides: q999 "
+        f"{err_q999:.3e} (tol {TOL_RACE_U_Q999:.0e}), max {err_max:.3e}; over all lanes "
+        f"max {du.max().item():.3e}, bitwise-equal lanes {(du == 0).float().mean().item():.5f}; "
+        f"converged agree {conv_agree:.5f}, executed inner iterations agree {ni_agree:.5f} "
+        f"(tol {TOL_RACE_AGREE}); converged {conv_k.float().mean().item():.5f} vs twin "
+        f"{conv_t.float().mean().item():.5f}; mean inner iterations {ni_k.mean().item():.2f}; "
+        f"twin {1e3 * twin_s:.1f} ms per solve (timed once) [{card}]",
+        flush=True,
+    )
+    if not (conv_agree >= TOL_RACE_AGREE and ni_agree >= TOL_RACE_AGREE
+            and err_q999 <= TOL_RACE_U_Q999):
+        raise SystemExit(f"tracker kernel disagrees with its twin on the {name} config")
+    return err_max
+
+
+def racing_phases(torch, port, K, tier, card, device) -> dict:
+    """One racing tier: the tracker kernel against its twin at the sweep's
+    shapes (cold and warm policy steps), the sweep through its entry point
+    with the contract's floors, a small kernel-vs-twin closed loop, and the
+    timing. Returns the instantiation's entry of the ``kernels`` line."""
+    from model_predictive_control_tpu_torch.experiments.racing import ellipse_reference
+    from model_predictive_control_tpu_torch.parallel import batch as PB
+
+    sweep_name, policy_name, err_ceiling, tol_states = RACE_TIERS[tier]
+    sweep, make_policy = getattr(port, sweep_name), getattr(PB, policy_name)
+    B, N, tile = RACE_BATCH, RACE_N, K.DEFAULT_TILE
+    dynamic = tier == "pacejka"
+    ref = ellipse_reference(RACE_STEPS + N + 1, speed=1.2 if dynamic else 0.35,
+                            dynamic=dynamic, device=device)
+    # the sweep's own start states (one solve, before the counted run)
+    x0 = sweep(B, 1, device=device)[0].states[0]
+    pol = {b: make_policy(ref, N=N, backend=b, tile=tile) for b in ("cuda", "twin")}
+    plant = (PB.batched_dynamic_plant if dynamic else PB.batched_plant)(port.VehicleParameters(), 0.05)
+
+    phase(f"tracker kernel vs twin on the card ({tier}: B={B}, N={N}, tile={tile})")
+    launched = {}
+    launch = K._launch
+
+    def spy(*args, **kw):  # keep the last launch's operands for the timing
+        launched.update(args=args, kw=kw)
+        return launch(*args, **kw)
+
+    def both(name, x, t, carry):
+        K._launch = spy
+        try:
+            got = pol["cuda"](x, t, carry)
+        finally:
+            K._launch = launch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pol["twin"](x, t, carry)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        return got, compare_tracker(torch, name, got, want, twin_s, card), twin_s
+
+    cold, err, _ = both("cold", x0, 0, pol["cuda"].initial_carry(B, device))
+    # warm: one plant step with u0, then the shifted controls
+    _, err_w, twin_s = both("warm", plant(x0, cold[0]), 1, cold[1])
+    err = max(err, err_w)
+    # the twin's time is its warm policy step above (the plain version of the
+    # same launch, plus the wrapper's padding, which is negligible next to it)
+    kernel_ms = time_cuda(torch, lambda: launch(*launched["args"], **launched["kw"]), 5)
+    twin_ms = 1e3 * twin_s
+    print(f"warm: kernel alone {kernel_ms:.3f} ms per launch, twin {twin_ms:.1f} ms per policy "
+          f"step (timed once) [{card}]", flush=True)
+
+    phase(f"racing main path ({tier}): {sweep_name}({B}, {RACE_STEPS}), N={N}, tile {tile}")
+    K.LAUNCHES = 0
+    res, summary = sweep(B, RACE_STEPS, device=device)
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES
+    print(f"tracker kernel launches in the sweep: {launches} (expected {RACE_STEPS})")
+    if launches != RACE_STEPS:
+        raise SystemExit(f"{sweep_name} did not go through the kernel once per step")
+    nx = 6 if dynamic else 4
+    if res.states.shape != (RACE_STEPS + 1, B, nx) or res.inputs.shape != (RACE_STEPS, B, 2):
+        raise SystemExit(f"unexpected shapes {res.states.shape} {res.inputs.shape}")
+    if not bool(torch.isfinite(res.states).all()):
+        raise SystemExit(f"non-finite states in {sweep_name}")
+    print("summary:", json.dumps(summary))
+    print(f"success {summary['success_rate']:.5f} (floor {RACE_SUCCESS_FLOOR}), mean tracking "
+          f"error {summary['mean_tracking_error']:.5f} m (ceiling {err_ceiling}), p95 "
+          f"{summary['p95_tracking_error']:.5f} m, mean inner iterations "
+          f"{summary['mean_inner_iters']:.2f}", flush=True)
+    if not (summary["success_rate"] >= RACE_SUCCESS_FLOOR
+            and summary["mean_tracking_error"] <= err_ceiling):
+        raise SystemExit(f"{sweep_name} misses the contract's quality floors")
+
+    S, steps = RACE_TWIN_SCENARIOS, RACE_TWIN_STEPS
+    finals = {b: sweep(S, steps, backend=b, device=device)[0].states[-1] for b in ("cuda", "twin")}
+    d_final = (finals["cuda"] - finals["twin"]).abs().max().item()
+    print(f"{sweep_name}({S}, {steps}), final states kernel vs twin policy: {d_final:.3e} "
+          f"(tol {tol_states})", flush=True)
+    if not d_final <= tol_states:
+        raise SystemExit(f"the {tier} closed loop disagrees with the twin policy")
+
+    phase(f"racing main path timing ({tier})")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep(B, RACE_STEPS, device=device)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    dt = min(times)
+    print(f"sweep wall {dt:.4f} s (best of 3: {', '.join(f'{t:.4f}' for t in times)}); "
+          f"{B * RACE_STEPS / dt:.1f} solves/s; step {1e3 * dt / RACE_STEPS:.3f} ms; mean inner "
+          f"iterations {summary['mean_inner_iters']:.2f} [{card}]", flush=True)
+
+    return {
+        "name": f"tracker_tile_kernel<{'PacejkaRows' if dynamic else 'KinematicRows'}>",
+        "route": "cuda",
+        "source": "model_predictive_control_tpu_torch/csrc/ilqr_factory.cu",
+        "replaces": "model_predictive_control_tpu/ops/pallas/ilqr_factory.py:204",
         "launches": launches,
         "max_abs_err": err,
         "ms": kernel_ms,

@@ -1,13 +1,16 @@
 """model_predictive_control_tpu_torch — the PyTorch and CUDA port of
 ``model_predictive_control_tpu``.
 
-Two paths so far, each on a kernel written in CUDA for Hopper (``csrc/``)
+Four paths so far, each on a kernel written in CUDA for Hopper (``csrc/``)
 with its plain-PyTorch twin:
 
 - the closed-loop linear MPC (session-2 problem data, condensed box-QP, the
   fused ADMM kernel, the batched closed loop);
 - the nonlinear obstacle-parking sweep (kinematic bicycle, fine-RK4 plant,
-  the fused AL-iLQR kernel).
+  the fused AL-iLQR kernel);
+- the kinematic lap-tracking sweep (``racing_sweep``) and the 6-state
+  Pacejka lap-tracking sweep (``racing_sweep_dynamic``), both on the
+  model-parametric fused tracker kernel.
 
 Imports ``torch`` only.
 """
@@ -19,6 +22,8 @@ from .parallel.batch import (
     batched_plant,
     boundary_compaction_key,
     parking_sweep,
+    racing_sweep,
+    racing_sweep_dynamic,
 )
 from .solvers.linear_mpc import make_linear_mpc, session2_problem
 
@@ -30,6 +35,8 @@ __all__ = [
     "boundary_compaction_key",
     "make_linear_mpc",
     "parking_sweep",
+    "racing_sweep",
+    "racing_sweep_dynamic",
     "session2_problem",
     "simulate_batch",
 ]

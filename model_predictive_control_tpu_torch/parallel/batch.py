@@ -1,8 +1,10 @@
 """Scenario batching (port of ``parallel/batch.py``): the session-2
-compaction key, and the nonlinear obstacle-parking sweep over randomized
-initial states × perturbed plant parameters on the fused AL-iLQR kernel.
+compaction key, the nonlinear obstacle-parking sweep on the fused AL-iLQR
+kernel, and the two lap-tracking sweeps (kinematic and Pacejka racing) on
+the fused tracker kernel; each sweep runs randomized initial states ×
+perturbed plant parameters.
 
-The parking sweep is a Python loop over closed-loop steps
+A sweep is a Python loop over closed-loop steps
 (:func:`..control.batch_loop.simulate_batch`); each step is one kernel
 launch for the whole batch, then one fine-RK4 plant step in plain torch.
 Random draws come from an explicit ``torch.Generator`` made on the CPU, so a
@@ -17,8 +19,15 @@ import math
 import torch
 
 from ..control.batch_loop import BatchSimResult, simulate_batch
-from ..models.bicycle import NU, NX, kinematic_bicycle_ode
+from ..models.bicycle import NU, NX, NX_DYNAMIC, dynamic_bicycle_ode, kinematic_bicycle_ode
 from ..models.parameters import VehicleParameters
+from ..ops.cuda import ilqr_factory
+from ..ops.cuda.ilqr_dyn_kernel import (
+    al_ilqr_dyn_solve_cuda,
+    al_ilqr_dyn_solve_twin,
+    model_tuple,
+)
+from ..ops.cuda.ilqr_factory import fused_tracker_solve_cuda, fused_tracker_solve_twin
 from ..ops.cuda.ilqr_kernel import (
     DEFAULT_TILE,
     al_ilqr_solve_cuda,
@@ -26,6 +35,7 @@ from ..ops.cuda.ilqr_kernel import (
     n_constraints,
     parking_geometry,
 )
+from ..ops.cuda.parking_factory import make_parking_ode_rows
 from ..ops.integrators import rk4_fine
 from ..solvers.parking import Q_MAIN, QN_SCALE_MAIN, R_MAIN
 
@@ -292,6 +302,325 @@ def parking_sweep(
         "parked_frac_5cm": (dist < 0.05).float().mean().item(),
         "controller_knows": bool(controller_knows),
         "rel_scale": float(rel_scale),
+        "mean_inner_iters": res.logs["kernel_inner_iters"].mean().item(),
+    }
+    return res, summary
+
+
+# ---------------------------------------------------------------------------
+# Racing: lap-tracking sweeps on the fused tracker kernel
+# ---------------------------------------------------------------------------
+
+# racing-sweep weights: the kinematic racing tier's (experiments/racing.py)
+RACING_Q = (40.0, 40.0, 4.0, 1.0)
+RACING_R = (0.5, 0.5)
+RACING_QN_SCALE = 5.0
+
+
+def _check_racing(backend: str, mesh, dtype, model_params, kinematic: bool) -> None:
+    """Raise for the racing backends and options not ported yet (the
+    kinematic tier also knows the hand kernel's backend and takes a
+    per-scenario acceleration and friction)."""
+    if kinematic and backend == "pallas-hand":
+        raise NotImplementedError(
+            "backend='pallas-hand' needs the parking kernel's refs operand, not "
+            "ported yet: ROADMAP S4.2"
+        )
+    if backend == "xla":
+        raise NotImplementedError("backend='xla' is not ported yet: ROADMAP S3.2")
+    if backend not in ("cuda", "twin"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if mesh is not None:
+        raise NotImplementedError("device meshes are not ported yet: ROADMAP S7.1")
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            "the kernel is float32; other dtypes take the per-scenario path, "
+            "not ported yet: ROADMAP S3.2"
+        )
+    exotic = model_params.batched_fields() - (KERNEL_FIELDS if kinematic else set())
+    if exotic:
+        raise NotImplementedError(
+            f"a per-scenario controller model ({sorted(exotic)}) needs the "
+            "per-scenario solver path, not ported yet: ROADMAP S3.2"
+        )
+
+
+def _tracking_step(sol, x_batch, window, N):
+    """The policy's output from a tracker solution: u0, the shifted warm
+    start, and the logs (tracking error of the measured state against the
+    window's first reference point)."""
+    B = x_batch.shape[0]
+    u_next = torch.cat([sol.us[:, 1:], sol.us[:, -1:]], dim=1)
+    aux = {
+        "solver_success": sol.converged,
+        "viol": sol.viol,
+        "tracking_error": torch.linalg.vector_norm(x_batch[:, :2] - window[0, :2], dim=-1),
+        "kernel_inner_iters": sol.inner_iters_executed,
+    }
+    return sol.us[:, 0], u_next.reshape(B, N * NU), aux
+
+
+def batched_racing_policy(
+    ref: torch.Tensor,
+    model_params: VehicleParameters | None = None,
+    N: int = 15,
+    ts: float = 0.05,
+    Q=RACING_Q,
+    R=RACING_R,
+    qn_scale: float = RACING_QN_SCALE,
+    outer_iters: int = 6,
+    inner_iters: int = 15,
+    backend: str = "cuda",
+    tile: int = ilqr_factory.DEFAULT_TILE,
+    mesh=None,
+    dtype=torch.float32,
+):
+    """Batch-level kinematic lap-tracking policy for :func:`simulate_batch`
+    (the JAX ``racing_sweep``'s ``make_policy``): every step is one fused
+    tracker solve of the whole batch on the window ``ref[t : t + N + 1]``.
+
+    The controller predicts with ``model_params`` (the nominal
+    ``VehicleParameters()`` by default) through the row-form kinematic
+    bicycle, one Euler substep per interval, with the per-scenario ``(acc,
+    fric)`` parameter operand, an input box and a state box (the arena and
+    the velocity limits; the unwrapped lap heading is boxed at ±100 so that
+    it never binds). The carry is the solved controls shifted one stage.
+
+    ``backend="cuda"`` launches the kernel for CUDA tensors (its plain twin
+    for CPU tensors); ``"twin"`` runs the twin on any device. The hand
+    kernel's tracking mode (``"pallas-hand"``), the per-scenario path
+    (``"xla"``, other dtypes, a per-scenario model other than acceleration
+    and friction) and device meshes raise ``NotImplementedError``.
+    """
+    base = model_params if model_params is not None else VehicleParameters()
+    _check_racing(backend, mesh, dtype, base, kinematic=True)
+    solve_fn = fused_tracker_solve_cuda if backend == "cuda" else fused_tracker_solve_twin
+    geom, _ = parking_geometry(base, None)
+    model = make_parking_ode_rows(float(geom[0]), float(geom[1]))
+    u_lims = (
+        (float(base.min_drive), -float(base.max_steer)),
+        (float(base.max_drive), float(base.max_steer)),
+    )
+    x_lims = (
+        (float(base.min_pos_x), float(base.min_pos_y), -100.0, float(base.min_vel)),
+        (float(base.max_pos_x), float(base.max_pos_y), 100.0, float(base.max_vel)),
+    )
+    weights = (tuple(float(v) for v in Q), tuple(float(v) for v in R), float(qn_scale))
+
+    def policy(x_batch, t, carry):
+        B = x_batch.shape[0]
+        window = ref[t : t + N + 1]
+        params = torch.stack(
+            [_per_scenario(base.acceleration, B, dtype, x_batch.device),
+             _per_scenario(base.friction, B, dtype, x_batch.device)],
+            dim=-1,
+        )
+        sol = solve_fn(
+            x_batch, carry.reshape(B, N, NU), window[None].expand(B, N + 1, NX),
+            ode_rows=model, nx=NX, nu=NU, N=N, ts=float(ts), substeps=1,
+            integrator="euler", limits=u_lims, state_limits=x_lims, weights=weights,
+            params=params, n_params=2, outer_iters=outer_iters,
+            inner_iters=inner_iters, viol_tol=1e-4,
+            tile=min(tile, math.ceil(B / 128) * 128),
+        )
+        return _tracking_step(sol, x_batch, window, N)
+
+    policy.initial_carry = lambda batch, device="cpu": initial_warm_carry(batch, N, dtype, device)
+    return policy
+
+
+def racing_sweep(
+    batch: int,
+    steps: int,
+    generator: torch.Generator | None = None,
+    N: int = 15,
+    ts: float = 0.05,
+    speed: float = 0.35,
+    rel_scale: float = 0.1,
+    perturb_fields=DEFAULT_PERTURB_FIELDS,
+    Q=RACING_Q,
+    R=RACING_R,
+    qn_scale: float = RACING_QN_SCALE,
+    outer_iters: int = 6,
+    inner_iters: int = 15,
+    backend: str = "cuda",
+    tile: int = ilqr_factory.DEFAULT_TILE,
+    plant_substeps: int = 8,
+    mesh=None,
+    dtype=torch.float32,
+    device="cpu",
+) -> tuple[BatchSimResult, dict]:
+    """Kinematic lap-tracking sweep: ``batch`` scenarios (perturbed plant
+    parameters × start poses scattered around the lap start) tracking the
+    ellipse lap at ``speed`` for ``steps`` steps on ``device``, each step one
+    fused tracker solve (:func:`batched_racing_policy`).
+
+    The controller predicts with the nominal Euler model; the plant
+    integrates the perturbed parameters with ``plant_substeps``-RK4, the
+    reference's mismatch methodology. ``generator`` (a CPU
+    ``torch.Generator``, seed 0 when ``None``) draws the plant parameters,
+    then the start-pose noise, in the JAX package's order.
+
+    Returns ``(BatchSimResult, summary)`` with the JAX package's summary
+    keys and ``mean_inner_iters`` (executed inner iterations per solve).
+    """
+    from ..experiments.racing import ellipse_reference
+
+    base = VehicleParameters()
+    _check_racing(backend, mesh, dtype, base, kinematic=True)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    plant_params = perturb_parameters(
+        generator, base, batch, rel_scale=rel_scale, fields=perturb_fields,
+        dtype=dtype, device=device,
+    )
+    ref = ellipse_reference(steps + N + 1, speed=speed, ts=ts, dynamic=False, dtype=dtype)
+    # start poses scattered around the lap start
+    noise = (2.0 * torch.rand(batch, NX, generator=generator, dtype=dtype) - 1.0) * torch.tensor(
+        [0.08, 0.08, 0.15, 0.05], dtype=dtype
+    )
+    x0s = ref[0] + noise
+    x0s[:, 3] = torch.clamp(x0s[:, 3], 0.0, float(base.max_vel))
+    ref, x0s = ref.to(device), x0s.to(device)
+    policy = batched_racing_policy(
+        ref, base, N=N, ts=ts, Q=Q, R=R, qn_scale=qn_scale, outer_iters=outer_iters,
+        inner_iters=inner_iters, backend=backend, tile=tile, mesh=mesh, dtype=dtype,
+    )
+    plant = batched_plant(plant_params, ts, substeps=plant_substeps)
+    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device))
+
+    tail = res.logs["tracking_error"][steps // 4 :]  # steady state after the catch-up
+    summary = {
+        "batch": int(batch),
+        "steps": int(steps),
+        "speed": float(speed),
+        "success_rate": res.logs["solver_success"].float().mean().item(),
+        "mean_tracking_error": tail.mean().item(),
+        "p95_tracking_error": torch.quantile(tail.flatten(), 0.95).item(),
+        "max_tracking_error": tail.max().item(),
+        "rel_scale": float(rel_scale),
+        "backend": backend,
+        "mean_inner_iters": res.logs["kernel_inner_iters"].mean().item(),
+    }
+    return res, summary
+
+
+def batched_dynamic_plant(plant_params: VehicleParameters, ts: float, substeps: int = 16):
+    """``(B, 6) × (B, 2) → (B, 6)`` Pacejka plant: fine RK4 with
+    per-scenario parameter fields broadcast over the batch."""
+    f = lambda x, u: dynamic_bicycle_ode(plant_params, x, u)
+    return rk4_fine(f, ts, substeps=substeps)
+
+
+def batched_racing_dynamic_policy(
+    ref: torch.Tensor,
+    model_params: VehicleParameters | None = None,
+    N: int = 15,
+    ts: float = 0.05,
+    pred_substeps: int = 4,
+    outer_iters: int = 3,
+    inner_iters: int = 8,
+    backend: str = "cuda",
+    tile: int = ilqr_factory.DEFAULT_TILE,
+    mesh=None,
+    dtype=torch.float32,
+):
+    """Batch-level Pacejka lap-tracking policy for :func:`simulate_batch`
+    (the JAX ``racing_sweep_dynamic``'s policy): every step is one fused
+    tracker solve of the whole batch, RK4 with ``pred_substeps`` substeps on
+    the nominal ``model_params`` (floats only), the dynamic tier's weights
+    and an input box. Backends as :func:`batched_racing_policy`."""
+    from ..experiments.racing import Q_DYNAMIC, QN_SCALE, R_DYNAMIC
+
+    base = model_params if model_params is not None else VehicleParameters()
+    _check_racing(backend, mesh, dtype, base, kinematic=False)
+    solve_fn = al_ilqr_dyn_solve_cuda if backend == "cuda" else al_ilqr_dyn_solve_twin
+    model = model_tuple(base)
+    u_lims = (
+        (float(base.min_drive), -float(base.max_steer)),
+        (float(base.max_drive), float(base.max_steer)),
+    )
+    weights = (tuple(Q_DYNAMIC), tuple(R_DYNAMIC), float(QN_SCALE))
+
+    def policy(x_batch, t, carry):
+        B = x_batch.shape[0]
+        window = ref[t : t + N + 1]
+        sol = solve_fn(
+            x_batch, carry.reshape(B, N, NU), window[None].expand(B, N + 1, NX_DYNAMIC),
+            N=N, ts=float(ts), substeps=pred_substeps, model=model, limits=u_lims,
+            weights=weights, outer_iters=outer_iters, inner_iters=inner_iters,
+            viol_tol=1e-4, tile=min(tile, math.ceil(B / 128) * 128),
+        )
+        return _tracking_step(sol, x_batch, window, N)
+
+    policy.initial_carry = lambda batch, device="cpu": initial_warm_carry(batch, N, dtype, device)
+    return policy
+
+
+def racing_sweep_dynamic(
+    batch: int,
+    steps: int,
+    generator: torch.Generator | None = None,
+    N: int = 15,
+    ts: float = 0.05,
+    speed: float = 1.2,
+    rel_scale: float = 0.05,
+    perturb_fields=("df", "dr", "friction"),
+    outer_iters: int = 3,
+    inner_iters: int = 8,
+    plant_substeps: int = 16,
+    pred_substeps: int = 4,
+    backend: str = "cuda",
+    tile: int = ilqr_factory.DEFAULT_TILE,
+    mesh=None,
+    dtype=torch.float32,
+    device="cpu",
+) -> tuple[BatchSimResult, dict]:
+    """Dynamic-tier (6-state Pacejka) lap-tracking sweep at ``speed``
+    beyond the kinematic cap: tire peak factors and friction perturbed per
+    scenario while the controller keeps the nominal model (grip mismatch).
+    ``friction`` never enters the Pacejka model, so perturbing it changes
+    nothing; the JAX package draws it all the same, and so does this port.
+
+    Prediction is RK4 with ``pred_substeps`` substeps, the plant RK4 with
+    ``plant_substeps``. Draws as :func:`racing_sweep`. Returns
+    ``(BatchSimResult, summary)`` with the JAX package's summary keys and
+    ``mean_inner_iters``.
+    """
+    from ..experiments.racing import ellipse_reference
+
+    base = VehicleParameters()
+    _check_racing(backend, mesh, dtype, base, kinematic=False)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    plant_params = perturb_parameters(
+        generator, base, batch, rel_scale=rel_scale, fields=perturb_fields,
+        dtype=dtype, device=device,
+    )
+    ref = ellipse_reference(steps + N + 1, speed=speed, ts=ts, dynamic=True, dtype=dtype)
+    noise = (2.0 * torch.rand(batch, NX_DYNAMIC, generator=generator, dtype=dtype) - 1.0) * (
+        torch.tensor([0.05, 0.05, 0.1, 0.05, 0.01, 0.05], dtype=dtype)
+    )
+    x0s = (ref[0] + noise).to(device)
+    ref = ref.to(device)
+    policy = batched_racing_dynamic_policy(
+        ref, base, N=N, ts=ts, pred_substeps=pred_substeps, outer_iters=outer_iters,
+        inner_iters=inner_iters, backend=backend, tile=tile, mesh=mesh, dtype=dtype,
+    )
+    plant = batched_dynamic_plant(plant_params, ts, substeps=plant_substeps)
+    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device))
+
+    tail = res.logs["tracking_error"][steps // 4 :]
+    summary = {
+        "batch": int(batch),
+        "steps": int(steps),
+        "speed": float(speed),
+        "model": "dynamic-pacejka",
+        "success_rate": res.logs["solver_success"].float().mean().item(),
+        "mean_tracking_error": tail.mean().item(),
+        "p95_tracking_error": torch.quantile(tail.flatten(), 0.95).item(),
+        "rel_scale": float(rel_scale),
+        "backend": backend,
         "mean_inner_iters": res.logs["kernel_inner_iters"].mean().item(),
     }
     return res, summary

@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain twins on the card.
+"""The hand-written CUDA kernels against their plain twins on the card, and
+the sweeps that launch them.
 
 These tests need a CUDA device and skip without one. They import neither JAX
 nor the JAX package, so they also run where only torch is installed:
@@ -118,3 +119,84 @@ def test_parking_sweep_launches_the_kernel(parking):
     assert KI.LAUNCHES == before + 3
     assert res.states.is_cuda and bool(torch.isfinite(res.states).all())
     assert 0.0 <= summary["success_rate"] <= 1.0
+
+
+@pytest.fixture
+def tracker():
+    """Both tracker instantiations at the racing shapes (N=15), small batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from model_predictive_control_tpu_torch.experiments import racing
+    from model_predictive_control_tpu_torch.ops.cuda import ilqr_dyn_kernel as D
+    from model_predictive_control_tpu_torch.ops.cuda import ilqr_factory as F
+    from model_predictive_control_tpu_torch.ops.cuda.parking_factory import make_parking_ode_rows
+
+    g = torch.Generator().manual_seed(4)
+    b, n = 45, 15
+    off = torch.randint(0, 40, (b,), generator=g).tolist()
+    kin_ref = racing.ellipse_reference(60, speed=0.35, dynamic=False)
+    dyn_ref = racing.ellipse_reference(60, speed=1.2, dynamic=True)
+    kin = dict(
+        args=(kin_ref[off, :] + 0.05 * torch.randn(b, 4, generator=g), torch.zeros(b, n, 2),
+              torch.stack([kin_ref[o:o + n + 1] for o in off])),
+        kw=dict(ode_rows=make_parking_ode_rows(0.05 / 0.097, 0.05), nx=4, nu=2, N=n, ts=0.05,
+                substeps=1, integrator="euler", limits=((-1.0, -0.384), (1.0, 0.384)),
+                state_limits=((-3.0, -2.0, -100.0, -0.5), (3.0, 2.0, 100.0, 0.5)),
+                weights=(racing.Q_KINEMATIC, racing.R_KINEMATIC, racing.QN_SCALE),
+                params=torch.stack([torch.full((b,), 2.0), torch.full((b,), 1.0)], -1).cuda(),
+                n_params=2),
+    )
+    dyn = dict(
+        args=(dyn_ref[off, :] + 0.03 * torch.randn(b, 6, generator=g), torch.zeros(b, n, 2),
+              torch.stack([dyn_ref[o:o + n + 1] for o in off])),
+        kw=dict(ode_rows=D.make_pacejka_ode_rows(D.model_tuple(port.VehicleParameters())), nx=6,
+                nu=2, N=n, ts=0.05, substeps=4, limits=((-1.0, -0.384), (1.0, 0.384)),
+                weights=(racing.Q_DYNAMIC, racing.R_DYNAMIC, racing.QN_SCALE), outer_iters=3,
+                inner_iters=8),
+    )
+    for case in (kin, dyn):
+        case["args"] = tuple(a.cuda() for a in case["args"])
+    return F, {"kinematic": kin, "pacejka": dyn}
+
+
+@pytest.mark.parametrize("model", ["kinematic", "pacejka"])
+@pytest.mark.parametrize("tile", [8, 32])
+def test_tracker_kernel_matches_twin(tracker, model, tile):
+    """Same inputs on the card: the kernel does the twin's operations in the
+    twin's order without FMA contraction, so the two agree bit for bit."""
+    F, cases = tracker
+    case = cases[model]
+    before = F.LAUNCHES
+    got = F.fused_tracker_solve_cuda(*case["args"], tile=tile, **case["kw"])
+    torch.cuda.synchronize()
+    assert F.LAUNCHES == before + 1
+    ref = F.fused_tracker_solve_twin(*case["args"], tile=tile, **case["kw"])
+    for name in ("us", "xs", "viol", "converged", "lam", "inner_iters_executed"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+def test_bare_row_function_raises_on_the_card(tracker):
+    F, cases = tracker
+    case = cases["kinematic"]
+    kw = {**case["kw"], "ode_rows": lambda xr, ur, pr: case["kw"]["ode_rows"].rows(xr, ur, pr)}
+    with pytest.raises(NotImplementedError, match="ROADMAP S4.6"):
+        F.fused_tracker_solve_cuda(*case["args"], **kw)
+
+
+@pytest.mark.parametrize("sweep", ["racing_sweep", "racing_sweep_dynamic"])
+def test_racing_sweeps_launch_the_kernel(tracker, sweep):
+    F, _ = tracker
+    before = F.LAUNCHES
+    res, summary = getattr(port, sweep)(64, 3, N=8, device="cuda")
+    assert F.LAUNCHES == before + 3
+    assert res.states.is_cuda and bool(torch.isfinite(res.states).all())
+    assert 0.0 <= summary["success_rate"] <= 1.0
+
+
+def test_oversize_tracker_tile_raises(tracker):
+    """512 lanes of the 254-register Pacejka instantiation exceed the
+    register file: the launch is refused and raises, nothing runs."""
+    F, cases = tracker
+    case = cases["pacejka"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        F.fused_tracker_solve_cuda(*case["args"], tile=512, **case["kw"])

@@ -1,0 +1,130 @@
+"""The fused tracker kernel's plain twin (the port, on the CPU) against the
+JAX package's ``fused_tracker_solve`` in interpret mode, at the same tile:
+the kinematic racing configuration (row-form bicycle with per-scenario
+``(acc, fric)``, Euler prediction, input and state boxes, tracking). The
+Pacejka configuration is in ``test_torch_ilqr_factory_dyn.py``.
+
+Inputs are made with numpy from a fixed seed and given to both. Gates:
+converged masks and executed inner iterations equal; ``us`` and ``xs``
+within 1e-5 after one inner iteration; at the sweep's 6 × 15 budget within
+5e-3, the JAX package's own gate between two float32 implementations of
+this OCP (``tests/test_racing_sweep.py:81``). The budget is chaotic at the
+1e-4 level: on these inputs, moving x0 by one ulp moves the twin's own
+controls by up to 2.1e-4 (``sweep_budget``) and 5.6e-4 (``ragged``), more
+than the twin differs from the JAX kernel (1.7e-4 and 1.6e-4), while after
+one iteration the two agree within 6e-7.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from model_predictive_control_tpu.experiments.racing import ellipse_reference as jax_ellipse
+from model_predictive_control_tpu.ops.pallas.ilqr_factory import fused_tracker_solve
+from model_predictive_control_tpu.ops.pallas.parking_factory import (
+    make_parking_ode_rows as jax_kinematic_rows,
+)
+
+from model_predictive_control_tpu_torch.ops.cuda import ilqr_factory as F
+from model_predictive_control_tpu_torch.ops.cuda.parking_factory import make_parking_ode_rows
+
+KB, LR = 0.05 / (0.047 + 0.05), 0.05
+U_LIMS = ((-1.0, -0.384), (1.0, 0.384))
+X_LIMS = ((-3.0, -2.0, -100.0, -0.5), (3.0, 2.0, 100.0, 0.5))
+WEIGHTS = ((40.0, 40.0, 4.0, 1.0), (0.5, 0.5), 5.0)
+
+CASES = {
+    # name: (B, N, tile, outer, inner, tol)
+    "one_iteration": (8, 10, 8, 1, 1, 1e-5),
+    "sweep_budget": (8, 10, 8, 6, 15, 5e-3),
+    "ragged_B5_tile4": (5, 6, 4, 6, 15, 5e-3),
+}
+
+
+def _inputs(B, N, seed=0):
+    """Tracking windows at random points of the lap, starts scattered around
+    them as the sweep scatters them, perturbed (acc, fric)."""
+    rng = np.random.default_rng(seed)
+    ref = np.asarray(jax_ellipse(80, speed=0.35, ts=0.05, dynamic=False, dtype=jnp.float32))
+    refs = np.stack([ref[o : o + N + 1] for o in rng.integers(0, 60, B)])
+    x0 = refs[:, 0] + rng.uniform(-1, 1, (B, 4)) * np.array([0.08, 0.08, 0.15, 0.05])
+    x0[:, 3] = np.clip(x0[:, 3], 0.0, 0.5)
+    par = np.stack([2.0 * (1 + 0.1 * rng.uniform(-1, 1, B)), 1 + 0.1 * rng.uniform(-1, 1, B)], -1)
+    return [np.asarray(a, np.float32) for a in (x0, np.zeros((B, N, 2)), refs, par)]
+
+
+def _config(N, tile, outer, inner):
+    return dict(
+        nx=4, nu=2, N=N, ts=0.05, substeps=1, integrator="euler", limits=U_LIMS,
+        state_limits=X_LIMS, weights=WEIGHTS, n_params=2, outer_iters=outer,
+        inner_iters=inner, viol_tol=1e-4, tile=tile,
+    )
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_twin_matches_pallas_tracker(case):
+    B, N, tile, outer, inner, tol = CASES[case]
+    x0, u0, refs, par = _inputs(B, N)
+    kw = _config(N, tile, outer, inner)
+    ref = fused_tracker_solve(
+        jnp.asarray(x0), jnp.asarray(u0), jnp.asarray(refs),
+        ode_rows=jax_kinematic_rows(KB, LR), params=jnp.asarray(par), **kw,
+    )
+    t = torch.as_tensor
+    got = F.fused_tracker_solve_cuda(
+        t(x0), t(u0), t(refs), ode_rows=make_parking_ode_rows(KB, LR), params=t(par), **kw
+    )
+    assert got.us.shape == (B, N, 2) and got.xs.shape == (B, N + 1, 4)
+    assert got.lam.shape == (B, N, 12) and got.viol.shape == (B,)
+    assert got.converged.dtype == torch.bool
+    np.testing.assert_array_equal(got.converged.numpy(), np.asarray(ref.converged))
+    np.testing.assert_array_equal(
+        got.inner_iters_executed.numpy(), np.asarray(ref.inner_iters_executed)
+    )
+    du = np.abs(got.us.numpy() - np.asarray(ref.us)).max()
+    dx = np.abs(got.xs.numpy() - np.asarray(ref.xs)).max()
+    print(f"{case}: max|us - us_jax| {du:.3e}, max|xs - xs_jax| {dx:.3e} (tol {tol})")
+    assert du <= tol and dx <= tol
+
+
+def test_bare_row_function_runs_on_the_twin():
+    """A row function without a C++ instantiation runs on the twin (CPU
+    tensors) through make_fused_tracker, and gives the tracker model's
+    numbers."""
+    x0, u0, refs, par = (torch.as_tensor(a) for a in _inputs(4, 5, seed=1))
+    model = make_parking_ode_rows(KB, LR)
+    kw = _config(5, 4, 2, 3)
+    bare = F.make_fused_tracker(lambda xr, ur, pr: model.rows(xr, ur, pr), **kw)
+    got = bare(x0, u0, refs, params=par)
+    ref = F.fused_tracker_solve_twin(x0, u0, refs, ode_rows=model, params=par, **kw)
+    for name in ("us", "xs", "viol", "converged", "lam", "inner_iters_executed"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+@pytest.mark.parametrize(
+    "extra, item",
+    [
+        ({"refs": None}, "S4.3"),
+        ({"extra_constraints": lambda xr, ur, pr: (xr[0],), "n_extra": 1}, "S4.3"),
+        ({"lam_init": torch.zeros(2, 4, 12)}, "S4.3"),
+        ({"limits": None}, "S4.3"),
+        ({"weights_rt": torch.ones(2, 7)}, "S5"),
+        ({"input_mode": "additive"}, "S4.4"),
+        ({"terminal_state_limits": X_LIMS}, "S4.4"),
+    ],
+)
+def test_unported_options_raise(extra, item):
+    x0, u0, refs, par = (torch.as_tensor(a) for a in _inputs(2, 4))
+    kw = {**_config(4, 4, 1, 1), "refs": refs, **extra}
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        F.fused_tracker_solve_cuda(
+            x0, u0, ode_rows=make_parking_ode_rows(KB, LR), params=par, **kw
+        )
+
+
+def test_other_input_widths_raise():
+    x0, u0, refs, par = (torch.as_tensor(a) for a in _inputs(2, 4))
+    kw = {**_config(4, 4, 1, 1), "nu": 3}
+    with pytest.raises(NotImplementedError, match="ROADMAP S4.3"):
+        F.fused_tracker_solve_cuda(x0, u0, refs, ode_rows=lambda *a: a[0], params=par, **kw)

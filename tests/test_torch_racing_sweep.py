@@ -1,0 +1,144 @@
+"""The racing slice as a whole: the port's lap-tracking closed loops (tracker
+policy with its shifted warm start, fine-RK4 plant, batched loop) against
+the JAX package's, on the JAX sweeps' own draws: the start states are the
+JAX run's ``states[0]`` and the plant parameters come from the JAX
+``perturb_parameters`` on the same key.
+
+- Kinematic tier against JAX ``racing_sweep`` on the factory kernel in
+  interpret mode, same tile: states and inputs within 5e-3, the JAX
+  package's own gate between its two backends (``tests/test_racing_sweep.py:
+  111-116``).
+- Pacejka tier against JAX ``racing_sweep_dynamic(backend="xla")``, the
+  per-scenario AL-iLQR in float64: inputs within 2e-2, states within 2e-2
+  on (p_x, p_y, ψ, v_x) and 1e-1 on (v_y, ω), the JAX package's bars
+  between its kernel and that path (``tests/test_pallas_ilqr_dyn.py:
+  200-217``).
+
+Then the entry points with their summary keys, and the backends and
+options not ported yet.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import model_predictive_control_tpu as mpc
+from model_predictive_control_tpu.parallel.batch import (
+    DEFAULT_PERTURB_FIELDS,
+    perturb_parameters as jax_perturb,
+    racing_sweep as jax_racing_sweep,
+    racing_sweep_dynamic as jax_racing_sweep_dynamic,
+)
+
+import model_predictive_control_tpu_torch as port
+from model_predictive_control_tpu_torch.convert import vehicle_parameters_from_jax
+from model_predictive_control_tpu_torch.experiments.racing import ellipse_reference
+from model_predictive_control_tpu_torch.parallel import batch as PB
+
+KINEMATIC_KEYS = {
+    "batch", "steps", "speed", "success_rate", "mean_tracking_error",
+    "p95_tracking_error", "max_tracking_error", "rel_scale", "backend",
+    "mean_inner_iters",
+}
+DYNAMIC_KEYS = KINEMATIC_KEYS - {"max_tracking_error"} | {"model"}
+
+
+def _jax_plant(key, batch, rel_scale, fields):
+    k_par, _ = jax.random.split(key)
+    plant = jax_perturb(k_par, mpc.VehicleParameters(), batch, rel_scale=rel_scale,
+                        fields=fields, dtype=jnp.float32)
+    return vehicle_parameters_from_jax(plant)
+
+
+def test_kinematic_closed_loop_matches_jax():
+    B, STEPS, N, TILE = 8, 4, 15, 8
+    key = jax.random.PRNGKey(3)
+    ref, _ = jax_racing_sweep(batch=B, steps=STEPS, tile=TILE, key=key)
+    plant = _jax_plant(key, B, 0.1, DEFAULT_PERTURB_FIELDS)
+    policy = PB.batched_racing_policy(
+        ellipse_reference(STEPS + N + 1, speed=0.35, dynamic=False), N=N, tile=TILE
+    )
+    got = port.simulate_batch(
+        torch.as_tensor(np.array(ref.states[0])), PB.batched_plant(plant, 0.05, substeps=8),
+        STEPS, policy, policy.initial_carry(B),
+    )
+    assert got.states.shape == (STEPS + 1, B, 4) and got.inputs.shape == (STEPS, B, 2)
+    assert bool(torch.isfinite(got.states).all())
+    np.testing.assert_allclose(got.inputs.numpy(), np.asarray(ref.inputs), atol=5e-3)
+    np.testing.assert_allclose(got.states.numpy(), np.asarray(ref.states), atol=5e-3)
+    np.testing.assert_array_equal(
+        got.logs["solver_success"].numpy(), np.asarray(ref.logs["solver_success"])
+    )
+    np.testing.assert_allclose(
+        got.logs["tracking_error"].numpy(), np.asarray(ref.logs["tracking_error"]), atol=5e-3
+    )
+
+
+def test_dynamic_closed_loop_matches_jax():
+    B, STEPS, N, SUB = 2, 3, 6, 1
+    key = jax.random.PRNGKey(7)
+    ref, _ = jax_racing_sweep_dynamic(
+        batch=B, steps=STEPS, key=key, N=N, pred_substeps=SUB, backend="xla"
+    )
+    plant = _jax_plant(key, B, 0.05, ("df", "dr", "friction"))
+    policy = PB.batched_racing_dynamic_policy(
+        ellipse_reference(STEPS + N + 1, speed=1.2, dynamic=True), N=N, pred_substeps=SUB, tile=8
+    )
+    got = port.simulate_batch(
+        torch.as_tensor(np.array(ref.states[0]), dtype=torch.float32),
+        PB.batched_dynamic_plant(plant, 0.05, substeps=16), STEPS, policy, policy.initial_carry(B),
+    )
+    assert got.states.shape == (STEPS + 1, B, 6)
+    np.testing.assert_allclose(got.inputs.numpy(), np.asarray(ref.inputs), atol=2e-2)
+    tol = np.array([2e-2, 2e-2, 2e-2, 2e-2, 1e-1, 1e-1])
+    d = np.abs(got.states.numpy() - np.asarray(ref.states))
+    assert (d <= tol).all(), (d.max(axis=(0, 1)), tol)
+    assert got.logs["solver_success"].all()
+
+
+def test_sweep_entry_points():
+    kw = dict(N=6, outer_iters=2, inner_iters=3, plant_substeps=2)
+    res, s = port.racing_sweep(4, 2, **kw)
+    assert set(s) == KINEMATIC_KEYS and s["backend"] == "cuda"
+    assert res.states.shape == (3, 4, 4) and bool(torch.isfinite(res.states).all())
+    assert 0.0 <= s["success_rate"] <= 1.0 and s["mean_inner_iters"] > 0
+    _, again = port.racing_sweep(4, 2, generator=torch.Generator().manual_seed(0), **kw)
+    assert again == s  # a generator seeded 0 is the default
+    res, s = port.racing_sweep_dynamic(4, 2, pred_substeps=1, **kw)
+    assert set(s) == DYNAMIC_KEYS and s["model"] == "dynamic-pacejka"
+    assert res.states.shape == (3, 4, 6) and bool(torch.isfinite(res.states).all())
+
+
+def test_twin_backend_is_the_cpu_route():
+    """On CPU tensors the kernel route runs the twin: both backends agree."""
+    kw = dict(N=5, outer_iters=2, inner_iters=3, plant_substeps=2)
+    a, _ = port.racing_sweep(3, 2, **kw)
+    b, _ = port.racing_sweep(3, 2, backend="twin", **kw)
+    assert torch.equal(a.states, b.states)
+
+
+@pytest.mark.parametrize(
+    "sweep, kw, item",
+    [
+        ("racing_sweep", {"backend": "pallas-hand"}, "S4.2"),
+        ("racing_sweep", {"backend": "xla"}, "S3.2"),
+        ("racing_sweep", {"mesh": object()}, "S7.1"),
+        ("racing_sweep", {"dtype": torch.float64}, "S3.2"),
+        ("racing_sweep_dynamic", {"backend": "xla"}, "S3.2"),
+        ("racing_sweep_dynamic", {"mesh": object()}, "S7.1"),
+    ],
+)
+def test_unported_options_raise(sweep, kw, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        getattr(port, sweep)(2, 1, N=4, **kw)
+
+
+def test_per_scenario_controller_model_raises():
+    ref = ellipse_reference(10, speed=0.35, dynamic=False)
+    per_lane = port.VehicleParameters(axis_rear=torch.full((2,), 0.05))
+    with pytest.raises(NotImplementedError, match="ROADMAP S3.2"):
+        PB.batched_racing_policy(ref, per_lane, N=4)
+    with pytest.raises(ValueError, match="unknown backend"):
+        port.racing_sweep_dynamic(2, 1, N=4, backend="pallas-hand")
