@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the three hand-written kernel libraries from
+Builds the hand-written kernel libraries from
 ``model_predictive_control_tpu_torch/csrc`` with nvcc (in parallel), then for
 each of the port's paths checks the path's kernel against its plain-PyTorch
 twin on the card at the path's shapes, drives the path through the port's
@@ -12,7 +12,22 @@ kernel, and times it:
 - the nonlinear obstacle-parking sweep (N=30, 2,048 scenarios × 50 steps)
   on the fused AL-iLQR kernel;
 - the kinematic and the Pacejka lap-tracking sweeps (N=15, 2,048 scenarios
-  × 50 steps each) on the two instantiations of the fused tracker kernel.
+  × 50 steps each) on the two instantiations of the fused tracker kernel;
+- the long-horizon closed loop (session-2 linear MPC on the stagewise
+  interior-point solver, N=100, 20 iterations, 4,096 scenarios × 50 steps)
+  on the fused stagewise-IP kernel, beside the batched plain-torch solver
+  (with a tile sweep of the loop and a profile of the plain-torch solver,
+  both informational).
+
+Each kernel's line of the ``kernels`` object carries its time beside its
+bound: the least time the card could take for the same work, the larger of
+the operations over the FP32 peak outside the tensor cores and the bytes
+(each operand read once, each result written once) over the memory rate. The
+operations are the algorithm's, counted by hand per stage and executed
+iteration and multiplied by the iterations this run's inputs executed: what
+the function needs when every intermediate is computed once, not what a
+kernel's source spends (a kernel that recomputes a value it chose not to
+store is charged for it once).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and exits non-zero without one, or when any phase
@@ -66,7 +81,7 @@ PARK_SUCCESS_FLOOR = 0.90
 PARK_PARKED_FLOOR = 0.95
 PARK_MEDIAN_CEILING = 0.05
 PARK_TWIN_SCENARIOS = 64
-PARK_TWIN_STEPS = 3
+PARK_TWIN_STEPS = 2
 PARK_WIDE_BATCH = 16384  # informational point: how the card fills
 # AL-iLQR kernel vs twin on the card. Both are float32 with the same
 # operations in the same order (the kernel is built without FMA
@@ -86,11 +101,109 @@ RACE_STEPS = 50
 RACE_N = 15
 RACE_SUCCESS_FLOOR = 0.99
 RACE_TWIN_SCENARIOS = 64
-RACE_TWIN_STEPS = 3
+RACE_TWIN_STEPS = 2
 # tracker kernel vs twin on the card: the same float program (no FMA
 # contraction), so bit for bit is expected; the gates are K2's.
 TOL_RACE_AGREE = 0.99  # converged masks, executed inner iterations
 TOL_RACE_U_Q999 = 5e-3  # q999 of max|Δu| over lanes converged on both sides
+# long-horizon stagewise-IP loop (the JAX package's README "Long-horizon
+# box-QP" workload: N=100, batch 4096, 20 iterations; nothing cut)
+LH_BATCH = 4096
+LH_STEPS = 50
+LH_N = 100
+LH_ITERS = 20
+LH_SUCCESS_FLOOR = 0.99
+LH_BACKEND_AGREE = 0.01  # |success(kernel loop) - success(torch-backend loop)|
+# the batched plain-torch solver is host-bound at ~3 s per step of 4,096
+# scenarios: its loop runs the first steps only, against the kernel loop's same steps
+LH_TORCH_STEPS = 5
+# The two backends are two float32 programs of one algorithm, so a lane's
+# states agree within the JAX package's bar between its two backends
+# (tests/test_pallas_riccati_ip.py:193) as long as both took the same number
+# of iterations, which shows in final duality measures equal within
+# TOL_LH_MU. A lane whose μ after some iteration lands on the freeze
+# threshold (50 eps) freezes there in one program and takes one more
+# iteration in the other: both answers pass the success test, but they
+# differ by the last iteration's progress (measured on an H100: 1 lane of
+# 4,096, μ 5.960e-06 against 4.392e-08 at step 3, |Δu0| 8.7e-03, |Δstate|
+# 2.6e-03). Such lanes are listed and counted, and their share is gated.
+TOL_LH_BACKEND_STATES = 2e-3
+TOL_LH_MU = 0.1  # relative; lanes beyond it took different iteration counts
+TOL_LH_EDGE_SHARE = 1e-3  # share of lanes allowed on the freeze threshold's edge
+LH_SWEEP_TILES = (8, 16, 32, 64, 128, 256)  # informational tile sweep of the loop
+LH_SWEEP_ROUNDS = 3
+LH_TWIN_SCENARIOS = 64
+LH_TWIN_STEPS = 3
+LH_WIDE_BATCH = 65536  # informational point: how the card fills
+LH_SMALL_N = 12  # the nx=3 / nu=2 case (dense R, infinite bounds)
+# stagewise-IP kernel vs twin on the card: the same float program (IEEE add,
+# multiply, divide in one order, no FMA contraction), so bit for bit is
+# expected; the gate is the JAX package's bar between two float32
+# implementations (tests/test_pallas_riccati_ip.py:69-96), over the lanes
+# solved on both sides, with equal success masks and executed iterations.
+TOL_LH_UX = 5e-4
+TOL_LH_STATES = 2e-3  # closed loop, tests/test_pallas_riccati_ip.py:193
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
+# tensor cores, and the HBM rate. A card below 700 W runs under them.
+PEAK_FP32 = 67e12  # FLOP/s
+PEAK_HBM = 3.35e12  # B/s
+# FP32 operations (a transcendental counted as one) that the algorithm needs
+# per stage and executed iteration, counted by hand. The kernels' re-roll of
+# the accepted line-search candidate (49, 53 and 1,214 operations) is their
+# own way of not storing seven trajectories and is not charged:
+# - parking AL-iLQR: backward ~1,100 (Jacobian 45, box rows 54, 9 clearance
+#   pairs 495, Riccati algebra ~500), the 7 line-search rollouts 7 x 273
+#   (control 22, stage cost 224, Euler step 27);
+# - kinematic tracker / Euler: Jacobian in 6 dual directions ~355, nx=4
+#   algebra and 12 box rows ~840, rollouts 7 x 134;
+# - Pacejka tracker / RK4x4: one step is 16 model evaluations of 59 plus the
+#   combination, 1,184; the Jacobian in 8 dual directions ~23,700, nx=6
+#   algebra ~1,900, rollouts 7 x 1,261.
+FLOPS_STAGE_ITER = {"parking": 3010, "kinematic": 2130, "pacejka": 34400}
+
+
+def bound(torch, flops: float, tensors) -> dict:
+    """The ``bound_ms`` / ``bound_by`` / ``library_ms`` keys of a kernel's
+    entry: ``flops`` over the FP32 peak against the bytes of ``tensors``
+    (operands and results, each moved once) over the memory rate. ``flops``
+    is the algorithm's minimum for this run's executed iterations (every
+    intermediate computed once), whatever the kernel's source spends. No single
+    PyTorch call computes any of these fused solves: ``library_ms`` is null."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
+    t_ops, t_bytes = 1e3 * flops / PEAK_FP32, 1e3 * nbytes / PEAK_HBM
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"bound: {flops:.4g} FP32 operations ({t_ops:.5f} ms at {PEAK_FP32:.3g}/s), "
+          f"{nbytes:.4g} bytes ({t_bytes:.5f} ms at {PEAK_HBM:.3g} B/s): {by}", flush=True)
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": by, "library_ms": None}
+
+
+def stagewise_flops(nx: int, nu: int, nb: int, N: int, iters_sum: float, lanes: int) -> float:
+    """FP32 operations the stagewise interior-point algorithm needs, with
+    every Newton bound step computed once per predictor and once per
+    corrector (``nb`` finite bounds per stage). Per stage and executed
+    iteration: the factor sweep; the predictor and corrector affine sweeps
+    with their linear terms (8 operations a bound for the barrier gradient,
+    13 with the Mehrotra correction); per direction the bound step (9
+    operations a bound, 15 corrected), the ratio test (5 a bound) and the
+    finiteness of the primal direction; the predictor's gap products (5 a
+    bound); the update, one multiply-add per stored variable with its
+    finiteness test (6 a bound, 3 a primal entry); the new gap (2 a bound).
+    Per lane: the init rollout and the polish (one factor sweep, two affine
+    sweeps, the acceptance)."""
+    factor = (nx * nu * (2 * nx - 1) + nu * (nu + 1) // 2 * (1 + 2 * nx) + nu * nu
+              + nx * nx * (2 * nx - 1) + nu * nx * (2 * nx - 1) + 2 * nu * nx
+              + nx * (nx + 1) // 2 * (1 + 2 * nx + 2 * nu) + 2 * nb)
+    affine = (nx * (2 * nx - 1) + nu * (2 * nu - 1) + 2 * nu * nx + 2 * nu * nu
+              + nx * (2 * nx + 2 * nu) + 2 * nu * nx + nx * (2 * nx + 2 * nu - 1))
+    per_iter = (factor + 2 * affine + nb * (8 + 13)  # sweeps, linear terms
+                + nb * (9 + 5) + (nx + nu) + nb * 5  # predictor step, ratio test, gap
+                + nb * (15 + 5) + (nx + nu)  # corrector step, ratio test
+                + nb * 6 + 3 * (nx + nu) + 2 * nb)  # update, new gap
+    per_lane = factor + 2 * (affine + 6 * nb) + 12 * nb + 2 * nx * (nx + nu) + 8 * nb
+    return float(N) * (per_iter * iters_sum + per_lane * lanes)
+
+
 RACE_TIERS = {
     # tier: (entry point, policy, mean tracking error ceiling, closed-loop
     # tolerance kernel vs twin policy: the JAX package's own bars,
@@ -122,12 +235,12 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def initial_states(torch, device):
+def initial_states(torch, device, batch=BATCH):
     import numpy as np
 
     rng = np.random.default_rng(0)
-    p = rng.uniform(-140.0, -20.0, BATCH)
-    v = rng.uniform(-15.0, 24.0, BATCH)
+    p = rng.uniform(-140.0, -20.0, batch)
+    v = rng.uniform(-15.0, 24.0, batch)
     return torch.as_tensor(np.stack([p, v], axis=1), dtype=torch.float32, device=device)
 
 
@@ -189,6 +302,7 @@ def main() -> int:
     from model_predictive_control_tpu_torch.ops.cuda import admm_kernel as K
     from model_predictive_control_tpu_torch.ops.cuda import ilqr_factory as KF
     from model_predictive_control_tpu_torch.ops.cuda import ilqr_kernel as KI
+    from model_predictive_control_tpu_torch.ops.cuda import riccati_ip_kernel as KR
 
     device = torch.device("cuda")
     card = smi()
@@ -207,14 +321,20 @@ def main() -> int:
     print(card, flush=True)
 
     phase("build")
-    build_all([K, KI, KF])
+    # the stagewise-IP kernel is one library per (nx, nu): the path's and the
+    # nx=3 / nu=2 case's
+    build_all([
+        *((m.LIBRARY, m._build_library) for m in (K, KI, KF, KR)),
+        (KR.library_name(3, 2), lambda: KR._build_library(3, 2)),
+    ])
 
     admm = admm_phases(torch, port, K, card, device)
     ilqr = ilqr_phases(torch, port, KI, card, device)
     racing = [racing_phases(torch, port, KF, tier, card, device) for tier in RACE_TIERS]
+    stagewise = stagewise_phases(torch, port, KR, card, device)
     phase(None)
 
-    print(json.dumps({"kernels": [admm, ilqr, *racing]}))
+    print(json.dumps({"kernels": [admm, ilqr, *racing, stagewise]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -224,28 +344,28 @@ def main() -> int:
     return 0
 
 
-def build_all(modules) -> None:
-    """Build every kernel's library at once (one nvcc per source), then
-    print each build's seconds and ptxas's register and spill lines."""
+def build_all(libraries) -> None:
+    """Build every ``(library name, build function)`` at once (one nvcc per
+    library), then print each build's seconds and ptxas's register and spill
+    lines."""
     from model_predictive_control_tpu_torch.ops.cuda._build import ptxas_report
 
     seconds, errors = {}, {}
 
-    def build(mod):
+    def build(name, fn):
         t0 = time.perf_counter()
         try:
-            mod._build_library()
+            fn()
         except Exception as exc:  # reported below, for every library
-            errors[mod.LIBRARY] = exc
-        seconds[mod.LIBRARY] = time.perf_counter() - t0
+            errors[name] = exc
+        seconds[name] = time.perf_counter() - t0
 
-    threads = [threading.Thread(target=build, args=(m,)) for m in modules]
+    threads = [threading.Thread(target=build, args=lib) for lib in libraries]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    for mod in modules:
-        name = mod.LIBRARY
+    for name, _ in libraries:
         print(f"built {name}.cu in {seconds[name]:.1f} s", flush=True)
         report = ptxas_report(name)
         if name not in errors and report.exists():
@@ -303,6 +423,11 @@ def admm_phases(torch, port, K, card, device) -> dict:
     twin_ms = time_cuda(torch, lambda: K.admm_solve_tiles_reference(*args, **raw_kw), 2)
     print(f"warm kernel alone {kernel_ms:.3f} ms per launch, twin alone {twin_ms:.3f} ms "
           f"[{card}]", flush=True)
+    # per scenario and executed iteration: the product [x | rho z - y] W,
+    # 2 (n + m)^2, and ~12 operations on each of the n + m columns
+    k = ctrl.qp.n + ctrl.qp.m
+    outs = K._launch(*args, **raw_kw)
+    roof = bound(torch, float(outs[3].sum()) * (2 * k * k + 12 * k), [*args, *outs])
 
     phase(f"linear main path: {BATCH} scenarios x {STEPS} steps, tile {K.DEFAULT_TILE}")
     x0_all = initial_states(torch, device)
@@ -368,6 +493,7 @@ def admm_phases(torch, port, K, card, device) -> dict:
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": twin_ms,
+        **roof,
     }
 
 
@@ -437,9 +563,10 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
         t0 = time.perf_counter()
         ref = K.al_ilqr_solve_twin(*args, **extra, **kw)
         torch.cuda.synchronize()
-        return got, compare_ilqr(torch, name, got, ref, time.perf_counter() - t0, card)
+        twin_s = time.perf_counter() - t0
+        return got, compare_ilqr(torch, name, got, ref, twin_s, card), twin_s
 
-    cold, err = both("cold", x0, torch.zeros(B, N, 2, device=device), acc, fric)
+    cold, err, _ = both("cold", x0, torch.zeros(B, N, 2, device=device), acc, fric)
     # the warm config as the policy makes it: one plant step with u0, the
     # shifted controls and the shifted, decayed multipliers
     x1 = port.batched_plant(plant_params, PARK_TS)(x0, cold.us[:, 0])
@@ -447,7 +574,7 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
     lam1 = 0.7 * torch.where(
         cold.converged[:, None, None], torch.cat([cold.lam[:, 1:], cold.lam[:, -1:]], dim=1), 0.0
     )
-    _, err_w = both("warm", x1, u1, acc, fric, lam_init=lam1)
+    _, err_w, twin_s = both("warm", x1, u1, acc, fric, lam_init=lam1)
     err = max(err, err_w)
 
     wrapper_ms = time_cuda(torch, lambda: K.al_ilqr_solve_cuda(x1, u1, acc, fric, lam_init=lam1, **kw), 5)
@@ -456,13 +583,13 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
                weights=kw["weights"], outer_iters=6, inner_iters=15, mu_init=10.0,
                mu_scale=10.0, mu_max=1e8, viol_tol=1e-4, tol=1e-6)
     kernel_ms = time_cuda(torch, lambda: K._launch(*args, **raw), 5)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    K.al_ilqr_tiles_reference(*args, **raw)
-    torch.cuda.synchronize()
-    twin_ms = 1e3 * (time.perf_counter() - t0)
+    # the twin's time is its warm solve above (the plain version of the same
+    # launch, plus the wrapper's padding, which is negligible next to it)
+    twin_ms = 1e3 * twin_s
     print(f"warm: wrapper {wrapper_ms:.3f} ms per solve of {B}, kernel alone {kernel_ms:.3f} ms "
-          f"per launch, twin alone {twin_ms:.1f} ms (timed once) [{card}]", flush=True)
+          f"per launch, twin {twin_ms:.1f} ms per solve (timed once) [{card}]", flush=True)
+    outs = K._launch(*args, **raw)
+    roof = bound(torch, FLOPS_STAGE_ITER["parking"] * N * float(outs[5].sum()), [*args, *outs])
 
     phase(f"parking main path: parking_sweep({B}, {PARK_STEPS}), N={N}, tile {tile}")
     K.LAUNCHES = 0
@@ -533,6 +660,7 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": twin_ms,
+        **roof,
     }
 
 
@@ -618,6 +746,9 @@ def racing_phases(torch, port, K, tier, card, device) -> dict:
     twin_ms = 1e3 * twin_s
     print(f"warm: kernel alone {kernel_ms:.3f} ms per launch, twin {twin_ms:.1f} ms per policy "
           f"step (timed once) [{card}]", flush=True)
+    outs = launch(*launched["args"], **launched["kw"])
+    roof = bound(torch, FLOPS_STAGE_ITER[tier] * N * float(outs[5].sum()),
+                   [*launched["args"], *outs])
 
     phase(f"racing main path ({tier}): {sweep_name}({B}, {RACE_STEPS}), N={N}, tile {tile}")
     K.LAUNCHES = 0
@@ -671,6 +802,269 @@ def racing_phases(torch, port, K, tier, card, device) -> dict:
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": twin_ms,
+        **roof,
+    }
+
+
+def compare_stagewise(torch, name, got, ref, twin_s, card) -> float:
+    """Print and gate the stagewise-IP kernel against its twin; returns
+    max|Δu| over the lanes solved on both sides."""
+    fields = ("us", "xs", "mu", "prim_res", "success", "iters_executed")
+    equal = [f for f in fields if torch.equal(getattr(got, f), getattr(ref, f))]
+    both = got.success & ref.success
+    du = (got.us - ref.us).abs().amax(dim=(1, 2))[both]
+    dx = (got.xs - ref.xs).abs().amax(dim=(1, 2))[both]
+    err_u = du.max().item() if du.numel() else 0.0
+    err_x = dx.max().item() if dx.numel() else 0.0
+    d_mu = (got.mu - ref.mu).abs()[both].max().item() if du.numel() else 0.0
+    d_prim = (got.prim_res - ref.prim_res).abs()[both].max().item() if du.numel() else 0.0
+    same_ok = bool(torch.equal(got.success, ref.success))
+    same_it = bool(torch.equal(got.iters_executed, ref.iters_executed))
+    print(
+        f"{name}: bitwise equal fields {equal} of {len(fields)}; over lanes solved on both "
+        f"sides max|u_kernel - u_twin| {err_u:.3e}, max|x_kernel - x_twin| {err_x:.3e} (tol "
+        f"{TOL_LH_UX:.0e}), max|Δμ| {d_mu:.3e}, max|Δprim_res| {d_prim:.3e}; success masks "
+        f"equal {same_ok}, executed iterations equal {same_it}; success "
+        f"{got.success.float().mean().item():.5f} vs twin {ref.success.float().mean().item():.5f}; "
+        f"mean executed iterations {got.iters_executed.mean().item():.2f}; twin "
+        f"{1e3 * twin_s:.1f} ms per solve (timed once) [{card}]",
+        flush=True,
+    )
+    if not (same_ok and same_it and err_u <= TOL_LH_UX and err_x <= TOL_LH_UX):
+        raise SystemExit(f"stagewise-IP kernel disagrees with its twin on the {name} config")
+    return err_u
+
+
+def profile_torch_solve(torch, port, problem, x0, card) -> None:
+    """Host against device time of the batched plain-torch solver: one solve
+    of 3 iterations (and the polish) at the path's shapes under
+    ``torch.profiler``. Informational."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ctrl = port.make_stagewise_mpc(problem, N=LH_N, iters=3, device=x0.device)
+    warm = ctrl.initial_batch_carry(x0.shape[0], device=x0.device)
+    ctrl.solve(x0[:64], warm[:64])  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ctrl.solve(x0, warm)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    host_us = sum(e.self_cpu_time_total for e in events)
+    device_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
+    print(f"torch solver, {x0.shape[0]} x N={LH_N}, 3 iterations, profiled: host self time "
+          f"{host_us / 1e3:.1f} ms, device time {device_us / 1e3:.1f} ms "
+          f"({100 * device_us / max(host_us, 1):.1f}% of the host's), {launches} kernel launches "
+          f"[{card}]", flush=True)
+
+
+def stagewise_phases(torch, port, K, card, device) -> dict:
+    """The long-horizon path: the stagewise-IP kernel against its twin (cold,
+    warm, and the nx=3 / nu=2 case), the closed loop through
+    ``make_stagewise_mpc`` / ``batched_policy`` / ``simulate_batch`` beside
+    the batched plain-torch solver (success shares and states compared), a
+    small kernel-vs-twin closed loop, the timing, the loop per kernel tile
+    and a profile of the plain-torch solver. Returns the kernel's entry of
+    the ``kernels`` line."""
+    import numpy as np
+
+    B, N, tile = LH_BATCH, LH_N, K.DEFAULT_TILE
+    problem = port.session2_problem()
+    ctrl = port.make_stagewise_mpc(problem, N=N, iters=LH_ITERS, device=device)
+    system = problem.system(torch.float32, device)
+    x0 = initial_states(torch, device, B)
+    names = ("A", "B", "Q", "R", "Pf", "x_lb", "x_ub", "u_lb", "u_ub")
+    static = tuple(getattr(ctrl, k).cpu().numpy() for k in names)
+    kw = dict(N=N, iters=LH_ITERS, tile=tile)
+
+    phase(f"stagewise-IP kernel vs twin on the card (B={B}, N={N}, {LH_ITERS} iterations, "
+          f"nx=2, nu=1, tile={tile})")
+
+    def both(name, data, x, u, **kw):
+        got = K.stagewise_ip_solve_cuda(*data, x, u, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = K.stagewise_ip_solve_twin(*data, x, u, **kw)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        return got, compare_stagewise(torch, name, got, ref, twin_s, card), twin_s
+
+    cold, err, _ = both("cold", static, x0, None, **kw)
+    # the warm config as the policy makes it: one plant step with u0, the
+    # controls shifted one stage
+    x1 = system(x0, cold.us[:, 0])
+    u1 = torch.cat([cold.us[:, 1:], cold.us[:, -1:]], dim=1)
+    warm, err_w, twin_s = both("warm", static, x1, u1, **kw)
+    rng = np.random.default_rng(1)
+    q3 = np.diag([5.0, 1.0, 0.5])
+    synthetic = (  # nx=3 / nu=2, a dense R, infinite bounds, Pf != Q
+        [[1.0, 0.1, 0.0], [0.0, 1.0, 0.1], [0.0, 0.0, 0.95]],
+        [[0.0, 0.005], [0.1, 0.0], [0.0, 0.1]], q3, [[0.1, 0.01], [0.01, 0.2]], 2.0 * q3,
+        [-4.0, -2.0, -np.inf], [4.0, 2.0, 1.5], [-1.0, -0.8], [1.0, 0.8],
+    )
+    x3 = torch.as_tensor(rng.uniform(-1, 1, (B, 3)) * np.array([3.5, 1.9, 1.4]),
+                         dtype=torch.float32, device=device)
+    _, err_3, _ = both(f"nx=3, nu=2, N={LH_SMALL_N}", synthetic, x3, None,
+                       N=LH_SMALL_N, iters=18, tile=tile)
+    err = max(err, err_w, err_3)
+
+    scaled, x1_t, u1_t, _, _ = K.prepare_tiles(*static, x1, u1, N=N, tile=tile)
+    raw = dict(N=N, problem=scaled, iters=LH_ITERS, tau=0.995, tile=tile)
+    kernel_ms = time_cuda(torch, lambda: K._launch(x1_t, u1_t, **raw), 5)
+    twin_ms = 1e3 * twin_s
+    print(f"warm: kernel alone {kernel_ms:.3f} ms per launch of {B}, twin {twin_ms:.1f} ms "
+          f"per solve (timed once) [{card}]", flush=True)
+    outs = K._launch(x1_t, u1_t, **raw)
+    nb = sum(np.isfinite(v).sum() for v in static[5:])
+    roof = bound(torch, stagewise_flops(2, 1, int(nb), N, float(outs[5].sum()), x1_t.shape[-1]),
+                   [x1_t, u1_t, *outs])
+
+    phase(f"long-horizon main path: {B} scenarios x {LH_STEPS} steps, N={N}, "
+          f"{LH_ITERS} iterations, tile {tile}")
+    def loop(x, backend, steps=LH_STEPS, tile=tile):
+        policy = ctrl.batched_policy(backend=backend, tile=tile)
+        return port.simulate_batch(
+            x, system, steps, policy, ctrl.initial_batch_carry(x.shape[0], device=device)
+        )
+
+    K.LAUNCHES = 0
+    res = loop(x0, "cuda")
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES
+    print(f"stagewise-IP kernel launches in the loop: {launches} (expected {LH_STEPS})")
+    if launches != LH_STEPS:
+        raise SystemExit("the long-horizon loop did not go through the kernel once per step")
+    if res.states.shape != (LH_STEPS + 1, B, 2) or res.inputs.shape != (LH_STEPS, B, 1):
+        raise SystemExit(f"unexpected shapes {res.states.shape} {res.inputs.shape}")
+    if not bool(torch.isfinite(res.states).all()):
+        raise SystemExit("non-finite states in the long-horizon loop")
+    # the executed iterations are no key of the policy's logs: the same loop
+    # once more through the wrapper, outside the counted run
+    executed = []
+    x, u = x0, ctrl.initial_batch_carry(B, device=device)
+    for _ in range(LH_STEPS):
+        sol = K.stagewise_ip_solve_cuda(*static, x, u, **kw)
+        executed.append(sol.iters_executed)
+        x, u = system(x, sol.us[:, 0]), torch.cat([sol.us[:, 1:], sol.us[:, -1:]], dim=1)
+    if not torch.equal(x, res.states[-1]):
+        raise SystemExit("the loop through the wrapper differs from the loop through the policy")
+    ok = res.logs["solver_success"]
+    success = ok.float().mean().item()
+    print(f"success {success:.5f} (floor {LH_SUCCESS_FLOOR}), mean μ of the solved "
+          f"{res.logs['mu'][ok].mean().item():.3e}, mean executed iterations "
+          f"{torch.stack(executed).mean().item():.2f} of {LH_ITERS}, final |p| max "
+          f"{res.states[-1, :, 0].abs().max().item():.3e}", flush=True)
+    if success < LH_SUCCESS_FLOOR:
+        raise SystemExit("the long-horizon loop's success share is below the floor")
+
+    T = LH_TORCH_STEPS
+    loop(x0[:64], "torch", 1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = loop(x0, "torch", T)
+    torch.cuda.synchronize()
+    torch_s = time.perf_counter() - t0
+    torch_rate = B * T / torch_s
+    success_t = ref.logs["solver_success"].float().mean().item()
+    success_k = ok[:T].float().mean().item()
+    print(f"backend='torch' on the same loop's first {T} steps (timed once): wall {torch_s:.3f} s, "
+          f"{torch_rate:.1f} solves/s, step {1e3 * torch_s / T:.1f} ms; success {success_t:.5f} "
+          f"vs the kernel loop's {success_k:.5f} over the same steps (tol {LH_BACKEND_AGREE}) "
+          f"[{card}]", flush=True)
+    if abs(success_k - success_t) > LH_BACKEND_AGREE:
+        raise SystemExit("the kernel loop's success share differs from the torch backend's")
+    # states, over the scenarios both backends solved at every step: held to
+    # the bar where both took the same iterations, the others listed
+    ok_t, mu_k, mu_t = ref.logs["solver_success"], res.logs["mu"][:T], ref.logs["mu"]
+    solved = (ok[:T] & ok_t).all(dim=0)
+    same_iters = ((mu_k - mu_t).abs() <= TOL_LH_MU * torch.maximum(mu_k, mu_t)).all(dim=0)
+    d_lane = (res.states[: T + 1] - ref.states).abs().amax(dim=(0, 2))
+    held, edge = solved & same_iters, solved & ~same_iters
+    d_held = d_lane[held]
+    edge_share = edge.float().mean().item()
+    print(f"|Δstates| kernel vs torch loop over the {int(held.sum())} scenarios both solved at "
+          f"every step with μ equal within {TOL_LH_MU:.0%}: q999 "
+          f"{torch.quantile(d_held, 0.999).item():.3e}, max {d_held.max().item():.3e} (tol "
+          f"{TOL_LH_BACKEND_STATES}); not solved at some step on either side: "
+          f"{torch.nonzero(~solved).flatten().tolist()}; on the freeze threshold's edge: "
+          f"{int(edge.sum())} (share {edge_share:.5f}, tol {TOL_LH_EDGE_SHARE})", flush=True)
+    for lane in torch.nonzero(edge).flatten().tolist():
+        step = int(torch.nonzero(
+            (mu_k[:, lane] - mu_t[:, lane]).abs() > TOL_LH_MU * torch.maximum(mu_k[:, lane], mu_t[:, lane])
+        )[0])
+        print(f"  lane {lane} (x0 {x0[lane].tolist()}) parts at step {step}: μ kernel "
+              f"{mu_k[step, lane].item():.3e} torch {mu_t[step, lane].item():.3e} (freeze below "
+              f"{K.EPS50:.3e}), |Δstate| entering the step "
+              f"{(res.states[step, lane] - ref.states[step, lane]).abs().max().item():.3e}, u0 kernel "
+              f"{res.inputs[step, lane, 0].item():.6f} torch {ref.inputs[step, lane, 0].item():.6f}, "
+              f"max |Δstates| {d_lane[lane].item():.3e}; solved on both sides at every step",
+              flush=True)
+    if not (d_held.max().item() <= TOL_LH_BACKEND_STATES and edge_share <= TOL_LH_EDGE_SHARE):
+        raise SystemExit("the kernel loop's states differ from the torch backend's")
+
+    S = LH_TWIN_SCENARIOS
+    finals = {b: loop(x0[:S], b, LH_TWIN_STEPS).states[-1] for b in ("cuda", "twin")}
+    d_final = (finals["cuda"] - finals["twin"]).abs().max().item()
+    print(f"first {S} scenarios over {LH_TWIN_STEPS} steps, final states kernel vs twin policy: "
+          f"{d_final:.3e} (tol {TOL_LH_STATES})", flush=True)
+    if not d_final <= TOL_LH_STATES:
+        raise SystemExit("the long-horizon closed loop disagrees with the twin policy")
+
+    phase("long-horizon main path timing")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop(x0, "cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    dt = min(times)
+    print(f"loop wall {dt:.4f} s (best of 3: {', '.join(f'{t:.4f}' for t in times)}); "
+          f"{B * LH_STEPS / dt:.1f} solves/s; step {1e3 * dt / LH_STEPS:.3f} ms; "
+          f"{B * LH_STEPS / dt / torch_rate:.1f}x the torch backend [{card}]",
+          flush=True)
+    xw = initial_states(torch, device, LH_WIDE_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wide = loop(xw, "cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"informational, not gated: {LH_WIDE_BATCH} scenarios x {LH_STEPS} steps wall {dt:.4f} s, "
+          f"{LH_WIDE_BATCH * LH_STEPS / dt:.1f} solves/s, success "
+          f"{wide.logs['solver_success'].float().mean().item():.5f}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB [{card}]", flush=True)
+    del wide
+
+    phase("long-horizon loop per kernel tile, and the torch solver profiled (informational)")
+    walls = {t: [] for t in LH_SWEEP_TILES}
+    shares = {}
+    for r in range(LH_SWEEP_ROUNDS):  # interleaved, in alternating order
+        for t in LH_SWEEP_TILES[:: 1 if r % 2 == 0 else -1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = loop(x0, "cuda", tile=t)
+            torch.cuda.synchronize()
+            walls[t].append(time.perf_counter() - t0)
+            shares[t] = out.logs["solver_success"].float().mean().item()
+    del out
+    for t, w in walls.items():
+        w = sorted(w)
+        print(f"tile {t}: {B * LH_STEPS / w[0]:.1f} solves/s best, {B * LH_STEPS / w[len(w) // 2]:.1f} "
+              f"median of {len(w)} (walls {', '.join(f'{v:.4f}' for v in w)} s), success "
+              f"{shares[t]:.5f} [{card}]", flush=True)
+    profile_torch_solve(torch, port, problem, x0, card)
+
+    return {
+        "name": "stagewise_ip_tile_kernel",
+        "route": "cuda",
+        "source": "model_predictive_control_tpu_torch/csrc/riccati_ip_kernel.cu",
+        "replaces": "model_predictive_control_tpu/experimental/riccati_ip_kernel.py:132",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": twin_ms,
+        **roof,
     }
 
 

@@ -12,17 +12,20 @@ import dataclasses
 import numpy as np
 import torch
 
+from .utils.device import resolve_device
 
-def from_jax_arrays(obj, cls, *, device="cpu", dtype=torch.float32):
+
+def from_jax_arrays(obj, cls, *, device=None, dtype=torch.float32):
     """A ``cls`` instance (e.g. :class:`~.ops.condensed.CondensedQP` or
     :class:`~.solvers.qp.QPOperator`) whose fields are copied from ``obj``'s
     attributes of the same names. Integer fields stay Python ints; array
-    fields become tensors of ``dtype`` on ``device``."""
+    fields become tensors of ``dtype`` on ``device`` (the card when ``None``)."""
+    device = resolve_device(device)
     kwargs = {}
     for f in dataclasses.fields(cls):
         value = getattr(obj, f.name)
-        if f.type == "int":
-            kwargs[f.name] = int(np.asarray(value))
+        if f.type in ("int", "bool"):
+            kwargs[f.name] = {"int": int, "bool": bool}[f.type](np.asarray(value))
         else:
             kwargs[f.name] = torch.as_tensor(
                 np.array(value, dtype=np.float64), dtype=dtype, device=device
@@ -30,12 +33,13 @@ def from_jax_arrays(obj, cls, *, device="cpu", dtype=torch.float32):
     return cls(**kwargs)
 
 
-def vehicle_parameters_from_jax(params, *, device="cpu", dtype=torch.float32):
+def vehicle_parameters_from_jax(params, *, device=None, dtype=torch.float32):
     """A port :class:`~.models.parameters.VehicleParameters` from the JAX
     package's: a 0-d field becomes a Python float, a ``(B,)`` field a
-    tensor of ``dtype`` on ``device``."""
+    tensor of ``dtype`` on ``device`` (the card when ``None``)."""
     from .models.parameters import VehicleParameters
 
+    device = resolve_device(device)
     kwargs = {}
     for f in dataclasses.fields(VehicleParameters):
         value = np.asarray(getattr(params, f.name))
@@ -45,3 +49,13 @@ def vehicle_parameters_from_jax(params, *, device="cpu", dtype=torch.float32):
             else torch.as_tensor(value.astype(np.float64), dtype=dtype, device=device)
         )
     return VehicleParameters(**kwargs)
+
+
+def stagewise_mpc_from_jax(ctrl, *, device=None, dtype=torch.float32):
+    """A port :class:`~.solvers.riccati_ip.StagewiseMPC` from the JAX
+    package's: its nine arrays as tensors of ``dtype`` on ``device``, with
+    its ``N``, ``iters`` and ``parallel``, so that both compute the same
+    thing."""
+    from .solvers.riccati_ip import StagewiseMPC
+
+    return from_jax_arrays(ctrl, StagewiseMPC, device=device, dtype=dtype)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 # track + scenario constants (miniature scale: the car is 0.17 m long and the
 # state box is ±3 m × ±2 m; the ellipse fits inside it)
 ELLIPSE_A = 1.5
@@ -35,10 +37,10 @@ def ellipse_reference(
     ts: float = TS,
     dynamic: bool = True,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> torch.Tensor:
     """Constant-speed state reference along an ellipse, ``(n, nx)`` rows on
-    ``device``.
+    ``device`` (the card when ``None``).
 
     Built on the host in float64 numpy, as in the JAX package: a dense
     arclength table, resampled at ``s = speed · t`` so that the reference
@@ -46,6 +48,7 @@ def ellipse_reference(
     tangent; the dynamic tier adds the body velocities ``(v_x = speed,
     v_y = 0)`` and the yaw rate ``ω = ψ̇``.
     """
+    device = resolve_device(device)
     theta_dense = np.linspace(0.0, 2.0 * np.pi, 20_000)
     dx = -a * np.sin(theta_dense)
     dy = b * np.cos(theta_dense)

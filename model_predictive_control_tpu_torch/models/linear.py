@@ -11,6 +11,8 @@ import dataclasses
 
 import torch
 
+from ..utils.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class LinearSystem:
@@ -32,10 +34,12 @@ class LinearSystem:
 
 
 def session2_dynamics(
-    ts: float, dtype: torch.dtype = torch.float32, device="cpu"
+    ts: float, dtype: torch.dtype = torch.float32, device=None
 ) -> LinearSystem:
     """Exact ZOH double integrator of sessions 2/3:
-    ``A = [[1, Ts], [0, 1]]``, ``B = [[0], [Ts]]``."""
+    ``A = [[1, Ts], [0, 1]]``, ``B = [[0], [Ts]]``, on ``device`` (the card
+    when ``None``)."""
+    device = resolve_device(device)
     A = torch.tensor([[1.0, ts], [0.0, 1.0]], dtype=dtype, device=device)
     B = torch.tensor([[0.0], [ts]], dtype=dtype, device=device)
     return LinearSystem(A=A, B=B)

@@ -71,7 +71,7 @@ def parking_geometry(params, x_obs, n_circles: int = 3):
     :class:`~..models.parameters.VehicleParameters` and the obstacle pose:
     ``geom = (KB, LR, offsets, r², obstacle circle centres)`` and
     ``limits = (lb_x, ub_x, lb_u, ub_u)``, the JAX package's values."""
-    offsets, r = cover_circle_offsets(params.length, params.width, n_circles)
+    offsets, r = cover_circle_offsets(params.length, params.width, n_circles, device="cpu")
     ox = tuple(float(v) for v in offsets[:, 0].tolist())
     kb = float(params.axis_rear) / float(params.axis_front + params.axis_rear)
     if x_obs is not None:

@@ -38,6 +38,7 @@ from ..ops.cuda.ilqr_kernel import (
 from ..ops.cuda.parking_factory import make_parking_ode_rows
 from ..ops.integrators import rk4_fine
 from ..solvers.parking import Q_MAIN, QN_SCALE_MAIN, R_MAIN
+from ..utils.device import resolve_device
 
 # fields whose perturbation is physically meaningful for the kinematic model
 DEFAULT_PERTURB_FIELDS = ("friction", "acceleration")
@@ -61,11 +62,13 @@ def perturb_parameters(
     rel_scale: float = 0.1,
     fields=DEFAULT_PERTURB_FIELDS,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> VehicleParameters:
     """Batched parameters: each named field drawn uniformly in
     ``base ± rel_scale·|base|`` per scenario, in field order from
-    ``generator`` (a CPU generator); other fields stay floats."""
+    ``generator`` (a CPU generator) and moved to ``device`` (the card when
+    ``None``); other fields stay floats."""
+    device = resolve_device(device)
     updates = {}
     for name in fields:
         v = float(getattr(base, name))
@@ -83,13 +86,15 @@ def random_initial_states(
     x_obs=None,
     clearance: float = 0.22,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> torch.Tensor:
     """``(batch, 4)`` initial poses drawn uniformly in ``center ± spread``
     around the session-4 start. With an obstacle pose ``x_obs``, positions
     inside ``clearance`` of it are projected radially onto the clearance
     circle, so that every scenario starts collision-free whatever its
-    heading (the JAX package's ``random_initial_states`` says why 0.22)."""
+    heading (the JAX package's ``random_initial_states`` says why 0.22).
+    Drawn on the CPU, returned on ``device`` (the card when ``None``)."""
+    device = resolve_device(device)
     u = 2.0 * torch.rand(batch, 4, generator=generator, dtype=dtype) - 1.0
     x0 = torch.tensor(center, dtype=dtype) + u * torch.tensor(spread, dtype=dtype)
     if x_obs is not None:
@@ -110,8 +115,8 @@ def project_clear(x0: torch.Tensor, x_obs, clearance: float) -> torch.Tensor:
     return torch.cat([p_fixed, x0[:, 2:]], dim=1)
 
 
-def initial_warm_carry(batch: int, N: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
-    return torch.zeros(batch, N * NU, dtype=dtype, device=device)
+def initial_warm_carry(batch: int, N: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros(batch, N * NU, dtype=dtype, device=resolve_device(device))
 
 
 def batched_plant(plant_params: VehicleParameters, ts: float, substeps: int = 16):
@@ -223,9 +228,9 @@ def batched_parking_policy(
         }
         return sol.us[:, 0], (u_next.reshape(B, N * NU), lam_next), aux
 
-    policy.initial_carry = lambda batch, device="cpu": (
+    policy.initial_carry = lambda batch, device=None: (
         initial_warm_carry(batch, N, dtype, device),
-        torch.zeros(batch, N, nc, dtype=dtype, device=device),
+        torch.zeros(batch, N, nc, dtype=dtype, device=resolve_device(device)),
     )
     return policy
 
@@ -254,10 +259,11 @@ def parking_sweep(
     checkpoint_path: str | None = None,
     checkpoint_every: int = 0,
     u_seed=None,
-    device="cpu",
+    device=None,
 ) -> tuple[BatchSimResult, dict]:
     """The robustness sweep: ``batch`` scenarios (randomized x0 × perturbed
-    plant), closed-loop obstacle parking for ``steps`` steps on ``device``.
+    plant), closed-loop obstacle parking for ``steps`` steps on ``device``
+    (the card when ``None``).
 
     ``generator`` (a CPU ``torch.Generator``, seed 0 when ``None``) draws
     the plant parameters, then the initial states. The controller predicts
@@ -273,6 +279,7 @@ def parking_sweep(
         raise NotImplementedError("sweep checkpoints are not ported yet: ROADMAP S7.2")
     if u_seed is not None:
         raise NotImplementedError("u_seed warm seeds are not ported yet: ROADMAP S3.4")
+    device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     base = VehicleParameters()
@@ -425,7 +432,7 @@ def batched_racing_policy(
         )
         return _tracking_step(sol, x_batch, window, N)
 
-    policy.initial_carry = lambda batch, device="cpu": initial_warm_carry(batch, N, dtype, device)
+    policy.initial_carry = lambda batch, device=None: initial_warm_carry(batch, N, dtype, device)
     return policy
 
 
@@ -448,11 +455,12 @@ def racing_sweep(
     plant_substeps: int = 8,
     mesh=None,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> tuple[BatchSimResult, dict]:
     """Kinematic lap-tracking sweep: ``batch`` scenarios (perturbed plant
     parameters × start poses scattered around the lap start) tracking the
-    ellipse lap at ``speed`` for ``steps`` steps on ``device``, each step one
+    ellipse lap at ``speed`` for ``steps`` steps on ``device`` (the card when
+    ``None``), each step one
     fused tracker solve (:func:`batched_racing_policy`).
 
     The controller predicts with the nominal Euler model; the plant
@@ -468,13 +476,16 @@ def racing_sweep(
 
     base = VehicleParameters()
     _check_racing(backend, mesh, dtype, base, kinematic=True)
+    device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     plant_params = perturb_parameters(
         generator, base, batch, rel_scale=rel_scale, fields=perturb_fields,
         dtype=dtype, device=device,
     )
-    ref = ellipse_reference(steps + N + 1, speed=speed, ts=ts, dynamic=False, dtype=dtype)
+    ref = ellipse_reference(
+        steps + N + 1, speed=speed, ts=ts, dynamic=False, dtype=dtype, device="cpu"
+    )
     # start poses scattered around the lap start
     noise = (2.0 * torch.rand(batch, NX, generator=generator, dtype=dtype) - 1.0) * torch.tensor(
         [0.08, 0.08, 0.15, 0.05], dtype=dtype
@@ -553,7 +564,7 @@ def batched_racing_dynamic_policy(
         )
         return _tracking_step(sol, x_batch, window, N)
 
-    policy.initial_carry = lambda batch, device="cpu": initial_warm_carry(batch, N, dtype, device)
+    policy.initial_carry = lambda batch, device=None: initial_warm_carry(batch, N, dtype, device)
     return policy
 
 
@@ -574,7 +585,7 @@ def racing_sweep_dynamic(
     tile: int = ilqr_factory.DEFAULT_TILE,
     mesh=None,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> tuple[BatchSimResult, dict]:
     """Dynamic-tier (6-state Pacejka) lap-tracking sweep at ``speed``
     beyond the kinematic cap: tire peak factors and friction perturbed per
@@ -591,13 +602,16 @@ def racing_sweep_dynamic(
 
     base = VehicleParameters()
     _check_racing(backend, mesh, dtype, base, kinematic=False)
+    device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     plant_params = perturb_parameters(
         generator, base, batch, rel_scale=rel_scale, fields=perturb_fields,
         dtype=dtype, device=device,
     )
-    ref = ellipse_reference(steps + N + 1, speed=speed, ts=ts, dynamic=True, dtype=dtype)
+    ref = ellipse_reference(
+        steps + N + 1, speed=speed, ts=ts, dynamic=True, dtype=dtype, device="cpu"
+    )
     noise = (2.0 * torch.rand(batch, NX_DYNAMIC, generator=generator, dtype=dtype) - 1.0) * (
         torch.tensor([0.05, 0.05, 0.1, 0.05, 0.01, 0.05], dtype=dtype)
     )

@@ -17,6 +17,7 @@ import torch
 from ..models.linear import LinearSystem, session2_dynamics
 from ..ops.condensed import CondensedQP, build_condensed_qp
 from ..ops.cuda.admm_kernel import DEFAULT_TILE, admm_solve_cuda, admm_solve_twin
+from ..utils.device import resolve_device
 from ..utils.precision import set_solver_precision
 from .qp import QPOperator, admm_solve, qp_setup
 
@@ -41,8 +42,9 @@ class Problem:
     u_max: float = 10.0
     N: int = 5
 
-    def system(self, dtype=torch.float32, device="cpu") -> LinearSystem:
-        """A = [[1, Ts], [0, 1]], B = [[0], [Ts]]."""
+    def system(self, dtype=torch.float32, device=None) -> LinearSystem:
+        """A = [[1, Ts], [0, 1]], B = [[0], [Ts]], on ``device`` (the card
+        when ``None``)."""
         return session2_dynamics(self.Ts, dtype, device)
 
     @property
@@ -97,7 +99,8 @@ class BoxProblem:
         ):
             object.__setattr__(self, name, value)
 
-    def system(self, dtype=torch.float32, device="cpu") -> LinearSystem:
+    def system(self, dtype=torch.float32, device=None) -> LinearSystem:
+        device = resolve_device(device)
         t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
         return LinearSystem(A=t(self.A), B=t(self.B))
 
@@ -198,7 +201,8 @@ class LinearMPC:
 
         return policy_fn
 
-    def initial_batch_carry(self, batch: int, dtype=torch.float32, device="cpu"):
+    def initial_batch_carry(self, batch: int, dtype=torch.float32, device=None):
+        device = resolve_device(device)
         return (
             torch.zeros(batch, self.qp.n, dtype=dtype, device=device),
             torch.zeros(batch, self.qp.m, dtype=dtype, device=device),
@@ -230,7 +234,7 @@ def make_box_mpc(
     solver: str = "admm",
     iters: int = 200,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
     terminal: str = "Q",
     x_ref=None,
     rho: float = 0.1,
@@ -238,7 +242,7 @@ def make_box_mpc(
     terminal_set: bool = False,
 ) -> LinearMPC:
     """Build a :class:`LinearMPC` from :class:`BoxProblem` data on ``device``
-    in ``dtype``. Only ``solver="admm"``, ``terminal="Q"``, no reference,
+    (the card when ``None``) in ``dtype``. Only ``solver="admm"``, ``terminal="Q"``, no reference,
     no soft boxes and no terminal set are ported so far."""
     if solver != "admm":
         raise NotImplementedError(f"solver={solver!r} is {_S2}")
@@ -251,6 +255,7 @@ def make_box_mpc(
     if x_ref is not None:
         raise NotImplementedError(f"x_ref tracking is {_S2}")
     set_solver_precision()
+    device = resolve_device(device)
     box = as_box_problem(box)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     Q = t(box.Q)

@@ -11,14 +11,18 @@ from __future__ import annotations
 
 import torch
 
+from .device import resolve_device
+
 
 def cover_circle_offsets(
-    length: float, width: float, n_circles: int = 3, device="cpu"
+    length: float, width: float, n_circles: int = 3, device=None
 ) -> tuple[torch.Tensor, float]:
     """Body-frame circle centres ``(n_c, 2)`` and their common radius.
 
     The centres are float32, as in the JAX package, so that the kernel's
-    geometry constants round the same way in both packages."""
+    geometry constants round the same way in both packages. They lie on
+    ``device`` (the card when ``None``)."""
+    device = resolve_device(device)
     d = length / (2 * n_circles)
     r = (d**2 + (width**2) / 4.0) ** 0.5
     k = torch.arange(n_circles, dtype=torch.float32, device=device)

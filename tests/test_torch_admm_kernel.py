@@ -35,7 +35,7 @@ def _problem(seed=0, B=16, n=10, m=16):
     qs = rng.normal(size=(B, n)).astype(np.float32)
     ls = np.tile(l, (B, 1)).astype(np.float32)
     us = np.tile(u, (B, 1)).astype(np.float32)
-    return op_j, from_jax_arrays(op_j, QPOperator), qs, ls, us
+    return op_j, from_jax_arrays(op_j, QPOperator, device="cpu"), qs, ls, us
 
 
 def _both(op_j, op_t, q, l, u, warm=(None, None), **kw):

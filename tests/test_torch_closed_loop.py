@@ -40,8 +40,8 @@ def setup():
     problem = mpc.session2_problem(N=N)
     ctrl_j = mpc.make_linear_mpc(problem, iters=ITERS, dtype=jnp.float32)
     ctrl_t = LinearMPC(
-        qp=from_jax_arrays(ctrl_j.qp, CondensedQP),
-        op=from_jax_arrays(ctrl_j.op, QPOperator),
+        qp=from_jax_arrays(ctrl_j.qp, CondensedQP, device="cpu"),
+        op=from_jax_arrays(ctrl_j.op, QPOperator, device="cpu"),
         iters=ITERS,
     )
     rng = np.random.default_rng(0)
@@ -68,7 +68,7 @@ def test_closed_loop_matches_jax(setup, policy):
     xt = xt[torch.argsort(port.boundary_compaction_key(problem.p_max, xt), stable=True)]
     np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
     carry_t = ctrl_t.presolve_batch_carry(xt, iters_mult=3, tile=TILE)
-    system = port.session2_problem(N=N).system()
+    system = port.session2_problem(N=N).system(device="cpu")
     got = port.simulate_batch(
         xt, system, STEPS, ctrl_t.batched_policy(tile=TILE, **kw), carry_t
     )
@@ -94,8 +94,8 @@ def test_xla_backend_matches_jax(setup):
         ctrl_j.batched_policy(backend="xla"), ctrl_j.initial_batch_carry(2),
     )
     got = port.simulate_batch(
-        torch.as_tensor(x0), port.session2_problem(N=N).system(), 8,
-        ctrl_t.batched_policy(backend="xla"), ctrl_t.initial_batch_carry(2),
+        torch.as_tensor(x0), port.session2_problem(N=N).system(device="cpu"), 8,
+        ctrl_t.batched_policy(backend="xla"), ctrl_t.initial_batch_carry(2, device="cpu"),
     )
     np.testing.assert_allclose(got.states.numpy(), np.asarray(ref.states), atol=5e-2)
     np.testing.assert_allclose(got.inputs.numpy(), np.asarray(ref.inputs), atol=3e-2)
@@ -106,7 +106,7 @@ def test_unported_options_raise():
     problem = port.session2_problem(N=4)
     for kw in ({"terminal": "dare"}, {"soft_state": True}, {"terminal_set": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP S2"):
-            port.make_linear_mpc(problem, **kw)
+            port.make_linear_mpc(problem, device="cpu", **kw)
 
 
 def test_port_builds_the_same_controller():
@@ -115,7 +115,7 @@ def test_port_builds_the_same_controller():
     problem = mpc.session2_problem(N=N)
     ref = mpc.make_linear_mpc(problem, iters=80, rho=0.035, dtype=jnp.float64)
     got = port.make_linear_mpc(
-        port.session2_problem(N=N), iters=80, rho=0.035, dtype=torch.float64
+        port.session2_problem(N=N), iters=80, rho=0.035, dtype=torch.float64, device="cpu"
     )
     np.testing.assert_allclose(got.qp.P.numpy(), np.asarray(ref.qp.P), atol=1e-10)
     for name in ("D", "E", "Minv_stack", "S"):

@@ -93,7 +93,7 @@ def test_qp_vectors_batched_match_jax():
 
 def test_session2_dynamics_steps_a_batch():
     sys_j = mpc.session2_dynamics(0.3, dtype=jnp.float64)
-    sys_t = session2_dynamics(0.3, dtype=f64)
+    sys_t = session2_dynamics(0.3, dtype=f64, device="cpu")
     rng = np.random.default_rng(1)
     x, u = rng.normal(size=(5, 2)), rng.normal(size=(5, 1))
     ref = np.stack([np.asarray(sys_j(jnp.asarray(a), jnp.asarray(b))) for a, b in zip(x, u)])

@@ -134,8 +134,8 @@ def tracker():
     g = torch.Generator().manual_seed(4)
     b, n = 45, 15
     off = torch.randint(0, 40, (b,), generator=g).tolist()
-    kin_ref = racing.ellipse_reference(60, speed=0.35, dynamic=False)
-    dyn_ref = racing.ellipse_reference(60, speed=1.2, dynamic=True)
+    kin_ref = racing.ellipse_reference(60, speed=0.35, dynamic=False, device="cpu")
+    dyn_ref = racing.ellipse_reference(60, speed=1.2, dynamic=True, device="cpu")
     kin = dict(
         args=(kin_ref[off, :] + 0.05 * torch.randn(b, 4, generator=g), torch.zeros(b, n, 2),
               torch.stack([kin_ref[o:o + n + 1] for o in off])),
@@ -200,3 +200,81 @@ def test_oversize_tracker_tile_raises(tracker):
     case = cases["pacejka"]
     with pytest.raises(RuntimeError, match="launch failed"):
         F.fused_tracker_solve_cuda(*case["args"], tile=512, **case["kw"])
+
+
+@pytest.fixture
+def stagewise():
+    """The session-2 family (the long-horizon path's size, nx=2, nu=1) and
+    the synthetic nx=3 / nu=2 system with a dense R and infinite bounds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import numpy as np
+
+    from model_predictive_control_tpu_torch.ops.cuda import riccati_ip_kernel as KR
+
+    session2 = (
+        [[1.0, 0.3], [0.0, 1.0]], [[0.0], [0.3]], np.diag([10.0, 1.0]), [[0.01]],
+        np.diag([10.0, 1.0]), [-150.0, -20.0], [1.0, 25.0], [-20.0], [10.0],
+    )
+    synthetic = (
+        [[1.0, 0.1, 0.0], [0.0, 1.0, 0.1], [0.0, 0.0, 0.95]],
+        [[0.0, 0.005], [0.1, 0.0], [0.0, 0.1]], np.diag([5.0, 1.0, 0.5]),
+        [[0.1, 0.01], [0.01, 0.2]], 2.0 * np.diag([5.0, 1.0, 0.5]),
+        [-4.0, -2.0, -np.inf], [4.0, 2.0, 1.5], [-1.0, -0.8], [1.0, 0.8],
+    )
+    g = torch.Generator().manual_seed(5)
+    x2 = _states(seed=3, batch=77)
+    x2[-1] = torch.tensor([50.0, 30.0])  # infeasible: the lane dies and reports failure
+    x3 = ((2.0 * torch.rand(77, 3, generator=g) - 1.0) * torch.tensor([3.5, 1.9, 1.4])).cuda()
+    return KR, {"session2": (session2, x2, 40), "synthetic": (synthetic, x3, 12)}
+
+
+@pytest.mark.parametrize("system", ["session2", "synthetic"])
+@pytest.mark.parametrize("tile", [32, 64])
+def test_stagewise_ip_kernel_matches_twin(stagewise, system, tile):
+    """Same inputs on the card, cold then warm: the kernel does the twin's
+    operations in the twin's order without FMA contraction, so the two agree
+    bit for bit, executed iterations included."""
+    KR, cases = stagewise
+    data, x0, N = cases[system]
+    u_init = None
+    for _ in range(2):
+        before = KR.LAUNCHES
+        got = KR.stagewise_ip_solve_cuda(*data, x0, u_init, N=N, iters=20, tile=tile)
+        torch.cuda.synchronize()
+        assert KR.LAUNCHES == before + 1
+        ref = KR.stagewise_ip_solve_twin(*data, x0, u_init, N=N, iters=20, tile=tile)
+        for name in ("us", "xs", "mu", "prim_res", "success", "iters_executed"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+        assert got.success.float().mean() > 0.9
+        u_init = 0.9 * got.us + 0.01
+    if system == "session2":
+        assert not bool(got.success[-1])
+
+
+def test_long_horizon_loop_launches_the_kernel(stagewise):
+    KR, _ = stagewise
+    problem = port.session2_problem()
+    ctrl = port.make_stagewise_mpc(problem, N=30, iters=15)  # the card by default
+    assert ctrl.A.is_cuda
+    x0 = _states(seed=4)
+    before = KR.LAUNCHES
+    res = port.simulate_batch(
+        x0, problem.system(), 4, ctrl.batched_policy(backend="cuda"), ctrl.initial_batch_carry(B)
+    )
+    assert KR.LAUNCHES == before + 4
+    assert res.states.is_cuda and bool(torch.isfinite(res.states).all())
+    assert res.logs["solver_success"].float().mean() >= 0.99
+    ref = port.simulate_batch(
+        x0, problem.system(), 4, ctrl.batched_policy(backend="torch"), ctrl.initial_batch_carry(B)
+    )
+    torch.testing.assert_close(res.states, ref.states, rtol=0, atol=2e-3)
+
+
+def test_oversize_stagewise_tile_raises(stagewise):
+    """1,024 lanes of the 134-register kernel exceed the register file: the
+    launch is refused and raises, nothing runs."""
+    KR, cases = stagewise
+    data, x0, N = cases["session2"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        KR.stagewise_ip_solve_cuda(*data, x0, N=N, tile=1024)

@@ -61,7 +61,7 @@ def test_twin_matches_pallas_pacejka_tracker():
     want = al_ilqr_dyn_solve_pallas(
         jnp.asarray(x0), jnp.asarray(u0), jnp.asarray(refs), model=jax_model_tuple(params), **kw
     )
-    model = D.model_tuple(vehicle_parameters_from_jax(params))
+    model = D.model_tuple(vehicle_parameters_from_jax(params, device="cpu"))
     assert model == jax_model_tuple(params)
     got = D.al_ilqr_dyn_solve_cuda(
         torch.as_tensor(x0), torch.as_tensor(u0), torch.as_tensor(refs), model=model, **kw

@@ -105,7 +105,7 @@ def _case(model, seed=0):
     rng = np.random.default_rng(seed)
     N = 10 if model == "kinematic" else 6
     dynamic = model == "pacejka"
-    ref = ellipse_reference(80, speed=1.2 if dynamic else 0.35, dynamic=dynamic).numpy()
+    ref = ellipse_reference(80, speed=1.2 if dynamic else 0.35, dynamic=dynamic, device="cpu").numpy()
     refs = np.stack([ref[o : o + N + 1] for o in rng.integers(0, 60, B)]).astype(np.float32)
     nx = refs.shape[-1]
     scale = [0.05, 0.05, 0.1, 0.05, 0.01, 0.05] if dynamic else [0.08, 0.08, 0.15, 0.05]

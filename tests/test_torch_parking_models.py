@@ -54,7 +54,7 @@ def _params(seed=1):
         acceleration=jnp.asarray(2.0 + 0.2 * rng.uniform(-1, 1, B)),
         friction=jnp.asarray(1.0 + 0.1 * rng.uniform(-1, 1, B)),
     )
-    return pj, vehicle_parameters_from_jax(pj, dtype=torch.float64)
+    return pj, vehicle_parameters_from_jax(pj, dtype=torch.float64, device="cpu")
 
 
 def _jax_batched(f, pj):
@@ -96,7 +96,7 @@ def test_geometry_matches_jax():
     p = mpc.VehicleParameters()
     for n in (1, 3):
         cj, rj = jax_geo.cover_circle_offsets(p.length, p.width, n)
-        ct, rt = geometry.cover_circle_offsets(p.length, p.width, n)
+        ct, rt = geometry.cover_circle_offsets(p.length, p.width, n, device="cpu")
         np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
         assert rt == rj
     x, _ = _xu(5)
@@ -121,7 +121,7 @@ def test_parking_geometry_matches_jax(x_obs):
 
 def test_vehicle_parameters_cross_over():
     pj = jax_perturb(jax.random.PRNGKey(0), mpc.VehicleParameters(), 5)
-    pt = vehicle_parameters_from_jax(pj)
+    pt = vehicle_parameters_from_jax(pj, device="cpu")
     assert pt.batched_fields() == {"acceleration", "friction"}
     assert isinstance(pt.length, float) and pt.length == float(pj.length)
     np.testing.assert_array_equal(pt.friction.numpy(), np.asarray(pj.friction, np.float32))
@@ -137,8 +137,8 @@ def test_scenario_draws():
     the clearance circle; a seed gives the same draws twice."""
     base = port.VehicleParameters()
     draw = lambda: (
-        PB.perturb_parameters(torch.Generator().manual_seed(7), base, 4096),
-        PB.random_initial_states(torch.Generator().manual_seed(7), 4096, x_obs=(0.25, 0.0, 0.0, 0.0)),
+        PB.perturb_parameters(torch.Generator().manual_seed(7), base, 4096, device="cpu"),
+        PB.random_initial_states(torch.Generator().manual_seed(7), 4096, x_obs=(0.25, 0.0, 0.0, 0.0), device="cpu"),
     )
     (p, x0), (p2, x02) = draw(), draw()
     assert torch.equal(p.friction, p2.friction) and torch.equal(x0, x02)

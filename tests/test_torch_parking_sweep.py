@@ -58,11 +58,11 @@ def test_closed_loop_matches_jax():
         pol_j.initial_carry(B), batched_dynamics=True,
     )
 
-    plant_t = vehicle_parameters_from_jax(plant_j)
+    plant_t = vehicle_parameters_from_jax(plant_j, device="cpu")
     pol_t = port.batched_parking_policy(port.VehicleParameters(), N, TS, x_obs=X_OBS, tile=TILE)
     got = port.simulate_batch(
         torch.as_tensor(x0), port.batched_plant(plant_t, TS, substeps=SUBSTEPS), STEPS,
-        pol_t, pol_t.initial_carry(B),
+        pol_t, pol_t.initial_carry(B, device="cpu"),
     )
 
     assert got.states.shape == (STEPS + 1, B, 4) and got.inputs.shape == (STEPS, B, 2)
@@ -81,7 +81,7 @@ def test_closed_loop_matches_jax():
 def test_sweep_entry_point(controller_knows):
     res, summary = port.parking_sweep(
         4, 2, N=6, outer_iters=3, inner_iters=5, plant_substeps=4,
-        controller_knows=controller_knows,
+        controller_knows=controller_knows, device="cpu",
     )
     assert set(summary) == SUMMARY_KEYS
     assert res.states.shape == (3, 4, 4) and bool(torch.isfinite(res.states).all())
@@ -90,7 +90,7 @@ def test_sweep_entry_point(controller_knows):
     # a generator seeded 0 is the default
     _, again = port.parking_sweep(
         4, 2, generator=torch.Generator().manual_seed(0), N=6, outer_iters=3,
-        inner_iters=5, plant_substeps=4, controller_knows=controller_knows,
+        inner_iters=5, plant_substeps=4, controller_knows=controller_knows, device="cpu",
     )
     assert again == summary
 
@@ -98,7 +98,9 @@ def test_sweep_entry_point(controller_knows):
 def test_median_averages_the_middle_pair():
     """median_final_dist is jnp.median's: the mean of the two middle values
     of an even batch (torch.median would return the lower one)."""
-    res, summary = port.parking_sweep(4, 1, N=4, outer_iters=1, inner_iters=1, plant_substeps=2)
+    res, summary = port.parking_sweep(
+        4, 1, N=4, outer_iters=1, inner_iters=1, plant_substeps=2, device="cpu"
+    )
     d = np.linalg.norm(res.states[-1][:, :2].numpy(), axis=-1)
     assert summary["median_final_dist"] == pytest.approx(float(np.median(d)), rel=1e-6)
 
@@ -118,4 +120,4 @@ def test_median_averages_the_middle_pair():
 )
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        port.parking_sweep(2, 1, N=4, **kw)
+        port.parking_sweep(2, 1, N=4, device="cpu", **kw)

@@ -74,7 +74,7 @@ def test_batched_admm_matches_jax_and_oracle(seed):
     port matches vmap(admm_solve) and the oracle within 2e-4."""
     P, A, qs, ls, us = _batched(seed)
     op_j = jqp.qp_setup(jnp.asarray(P), jnp.asarray(A))
-    op_t = from_jax_arrays(op_j, QPOperator, dtype=f64)
+    op_t = from_jax_arrays(op_j, QPOperator, dtype=f64, device="cpu")
     ref = jax.vmap(lambda q, l, u: jqp.admm_solve(op_j, q, l, u, iters=400))(
         *map(jnp.asarray, (qs, ls, us))
     )
@@ -91,7 +91,7 @@ def test_batched_admm_warm_start_float32():
     """Float32 with a warm start and no polish, as the closed loop runs it."""
     P, A, qs, ls, us = _batched(5, one_sided=False)
     op_j = jqp.qp_setup(jnp.asarray(P, jnp.float32), jnp.asarray(A, jnp.float32))
-    op_t = from_jax_arrays(op_j, QPOperator)
+    op_t = from_jax_arrays(op_j, QPOperator, device="cpu")
     j32 = lambda a: jnp.asarray(a, jnp.float32)
     t32 = lambda a: torch.as_tensor(np.array(a), dtype=torch.float32)
     cold = jax.vmap(lambda q, l, u: jqp.admm_solve(op_j, q, l, u, iters=300))(

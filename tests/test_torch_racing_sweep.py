@@ -49,7 +49,7 @@ def _jax_plant(key, batch, rel_scale, fields):
     k_par, _ = jax.random.split(key)
     plant = jax_perturb(k_par, mpc.VehicleParameters(), batch, rel_scale=rel_scale,
                         fields=fields, dtype=jnp.float32)
-    return vehicle_parameters_from_jax(plant)
+    return vehicle_parameters_from_jax(plant, device="cpu")
 
 
 def test_kinematic_closed_loop_matches_jax():
@@ -58,11 +58,11 @@ def test_kinematic_closed_loop_matches_jax():
     ref, _ = jax_racing_sweep(batch=B, steps=STEPS, tile=TILE, key=key)
     plant = _jax_plant(key, B, 0.1, DEFAULT_PERTURB_FIELDS)
     policy = PB.batched_racing_policy(
-        ellipse_reference(STEPS + N + 1, speed=0.35, dynamic=False), N=N, tile=TILE
+        ellipse_reference(STEPS + N + 1, speed=0.35, dynamic=False, device="cpu"), N=N, tile=TILE
     )
     got = port.simulate_batch(
         torch.as_tensor(np.array(ref.states[0])), PB.batched_plant(plant, 0.05, substeps=8),
-        STEPS, policy, policy.initial_carry(B),
+        STEPS, policy, policy.initial_carry(B, device="cpu"),
     )
     assert got.states.shape == (STEPS + 1, B, 4) and got.inputs.shape == (STEPS, B, 2)
     assert bool(torch.isfinite(got.states).all())
@@ -84,11 +84,11 @@ def test_dynamic_closed_loop_matches_jax():
     )
     plant = _jax_plant(key, B, 0.05, ("df", "dr", "friction"))
     policy = PB.batched_racing_dynamic_policy(
-        ellipse_reference(STEPS + N + 1, speed=1.2, dynamic=True), N=N, pred_substeps=SUB, tile=8
+        ellipse_reference(STEPS + N + 1, speed=1.2, dynamic=True, device="cpu"), N=N, pred_substeps=SUB, tile=8
     )
     got = port.simulate_batch(
         torch.as_tensor(np.array(ref.states[0]), dtype=torch.float32),
-        PB.batched_dynamic_plant(plant, 0.05, substeps=16), STEPS, policy, policy.initial_carry(B),
+        PB.batched_dynamic_plant(plant, 0.05, substeps=16), STEPS, policy, policy.initial_carry(B, device="cpu"),
     )
     assert got.states.shape == (STEPS + 1, B, 6)
     np.testing.assert_allclose(got.inputs.numpy(), np.asarray(ref.inputs), atol=2e-2)
@@ -99,7 +99,7 @@ def test_dynamic_closed_loop_matches_jax():
 
 
 def test_sweep_entry_points():
-    kw = dict(N=6, outer_iters=2, inner_iters=3, plant_substeps=2)
+    kw = dict(N=6, outer_iters=2, inner_iters=3, plant_substeps=2, device="cpu")
     res, s = port.racing_sweep(4, 2, **kw)
     assert set(s) == KINEMATIC_KEYS and s["backend"] == "cuda"
     assert res.states.shape == (3, 4, 4) and bool(torch.isfinite(res.states).all())
@@ -113,7 +113,7 @@ def test_sweep_entry_points():
 
 def test_twin_backend_is_the_cpu_route():
     """On CPU tensors the kernel route runs the twin: both backends agree."""
-    kw = dict(N=5, outer_iters=2, inner_iters=3, plant_substeps=2)
+    kw = dict(N=5, outer_iters=2, inner_iters=3, plant_substeps=2, device="cpu")
     a, _ = port.racing_sweep(3, 2, **kw)
     b, _ = port.racing_sweep(3, 2, backend="twin", **kw)
     assert torch.equal(a.states, b.states)
@@ -132,13 +132,13 @@ def test_twin_backend_is_the_cpu_route():
 )
 def test_unported_options_raise(sweep, kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(port, sweep)(2, 1, N=4, **kw)
+        getattr(port, sweep)(2, 1, N=4, device="cpu", **kw)
 
 
 def test_per_scenario_controller_model_raises():
-    ref = ellipse_reference(10, speed=0.35, dynamic=False)
+    ref = ellipse_reference(10, speed=0.35, dynamic=False, device="cpu")
     per_lane = port.VehicleParameters(axis_rear=torch.full((2,), 0.05))
     with pytest.raises(NotImplementedError, match="ROADMAP S3.2"):
         PB.batched_racing_policy(ref, per_lane, N=4)
     with pytest.raises(ValueError, match="unknown backend"):
-        port.racing_sweep_dynamic(2, 1, N=4, backend="pallas-hand")
+        port.racing_sweep_dynamic(2, 1, N=4, backend="pallas-hand", device="cpu")

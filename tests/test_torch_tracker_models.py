@@ -113,7 +113,7 @@ def test_dynamic_bicycle_ode_matches_jax(batched):
         )
     axes = jax.tree.map(lambda l: 0 if jnp.ndim(l) > 0 else None, pj)
     ref = jax.vmap(jax_dyn_ode, in_axes=(axes, 0, 0))(pj, jnp.asarray(x), jnp.asarray(u))
-    pt = vehicle_parameters_from_jax(pj, dtype=torch.float64)
+    pt = vehicle_parameters_from_jax(pj, dtype=torch.float64, device="cpu")
     got = dynamic_bicycle_ode(pt, torch.as_tensor(x), torch.as_tensor(u))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-10)
 
@@ -122,7 +122,7 @@ def test_dynamic_bicycle_ode_matches_jax(batched):
 def test_ellipse_reference_matches_jax(dynamic, speed):
     n = 200
     ref = jax_racing.ellipse_reference(n, speed=speed, ts=0.05, dynamic=dynamic, dtype=jnp.float32)
-    got = racing.ellipse_reference(n, speed=speed, ts=0.05, dynamic=dynamic)
+    got = racing.ellipse_reference(n, speed=speed, ts=0.05, dynamic=dynamic, device="cpu")
     assert got.dtype == torch.float32 and got.shape == ref.shape
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
@@ -195,12 +195,12 @@ def test_dual_rules_at_kinks_follow_jax():
 
 def test_model_tuple_matches_jax():
     pj = mpc.VehicleParameters()
-    assert model_tuple(vehicle_parameters_from_jax(pj)) == jax_model_tuple(pj)
+    assert model_tuple(vehicle_parameters_from_jax(pj, device="cpu")) == jax_model_tuple(pj)
 
 
 def test_rowform_to_vector():
     x, u = _dynamic_inputs(6)
-    rows = make_pacejka_ode_rows(model_tuple(vehicle_parameters_from_jax(mpc.VehicleParameters())))
+    rows = make_pacejka_ode_rows(model_tuple(vehicle_parameters_from_jax(mpc.VehicleParameters(), device="cpu")))
     ode = F.rowform_to_vector(rows, 6, 2)
     got = ode(torch.as_tensor(x), torch.as_tensor(u))
     assert got.shape == (B, 6)
