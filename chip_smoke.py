@@ -12,7 +12,11 @@ kernel, and times it:
 - the nonlinear obstacle-parking sweep (N=30, 2,048 scenarios × 50 steps)
   on the fused AL-iLQR kernel;
 - the kinematic and the Pacejka lap-tracking sweeps (N=15, 2,048 scenarios
-  × 50 steps each) on the two instantiations of the fused tracker kernel;
+  × 50 steps each) on the two instantiations of the fused tracker kernel
+  (held to its twin bit for bit at one thread per lane and at two thread
+  groups, on the launch's operands and through the policy; with CUDA
+  events around every launch of one sweep, a profiled window and the sweeps
+  per tile × group, all informational);
 - the long-horizon closed loop (session-2 linear MPC on the stagewise
   interior-point solver, N=100, 20 iterations, 4,096 scenarios × 50 steps)
   on the fused stagewise-IP kernel, beside the batched plain-torch solver
@@ -26,8 +30,8 @@ the operations over the FP32 peak outside the tensor cores and the bytes
 operations are the algorithm's, counted by hand per stage and executed
 iteration and multiplied by the iterations this run's inputs executed: what
 the function needs when every intermediate is computed once, not what a
-kernel's source spends (a kernel that recomputes a value it chose not to
-store is charged for it once).
+kernel's source spends (a value is charged once, however often a kernel
+recomputes it).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and exits non-zero without one, or when any phase
@@ -81,7 +85,7 @@ PARK_SUCCESS_FLOOR = 0.90
 PARK_PARKED_FLOOR = 0.95
 PARK_MEDIAN_CEILING = 0.05
 PARK_TWIN_SCENARIOS = 64
-PARK_TWIN_STEPS = 2
+PARK_TWIN_STEPS = 1
 PARK_WIDE_BATCH = 16384  # informational point: how the card fills
 # AL-iLQR kernel vs twin on the card. Both are float32 with the same
 # operations in the same order (the kernel is built without FMA
@@ -103,9 +107,16 @@ RACE_SUCCESS_FLOOR = 0.99
 RACE_TWIN_SCENARIOS = 64
 RACE_TWIN_STEPS = 2
 # tracker kernel vs twin on the card: the same float program (no FMA
-# contraction), so bit for bit is expected; the gates are K2's.
-TOL_RACE_AGREE = 0.99  # converged masks, executed inner iterations
-TOL_RACE_U_Q999 = 5e-3  # q999 of max|Δu| over lanes converged on both sides
+# contraction) at every thread group, so all six outputs are gated bit for bit.
+# The groups built and held here: one thread per lane, and both defaults.
+RACE_GROUPS = (1, 8, 32)
+# Informational sweep of whole sweeps over (tile, group), rounds in
+# alternating order: the default tile and the widest a group of 8 takes.
+# PERF.md's full tables are this script's with RACE_GROUPS = (1, 8, 16, 32),
+# RACE_SWEEP_TILES = (8, 16, 32, 64) and 4 rounds.
+RACE_SWEEP_TILES = (16, 64)
+RACE_SWEEP_ROUNDS = 2
+RACE_PROFILE_STEPS = 10  # the window of each sweep run under torch.profiler
 # long-horizon stagewise-IP loop (the JAX package's README "Long-horizon
 # box-QP" workload: N=100, batch 4096, 20 iterations; nothing cut)
 LH_BATCH = 4096
@@ -131,10 +142,11 @@ TOL_LH_BACKEND_STATES = 2e-3
 TOL_LH_MU = 0.1  # relative; lanes beyond it took different iteration counts
 TOL_LH_EDGE_SHARE = 1e-3  # share of lanes allowed on the freeze threshold's edge
 LH_SWEEP_TILES = (8, 16, 32, 64, 128, 256)  # informational tile sweep of the loop
-LH_SWEEP_ROUNDS = 3
+LH_SWEEP_ROUNDS = 2
 LH_TWIN_SCENARIOS = 64
 LH_TWIN_STEPS = 3
 LH_WIDE_BATCH = 65536  # informational point: how the card fills
+LH_PROFILE_ITERS = 1  # iterations of the profiled plain-torch solve
 LH_SMALL_N = 12  # the nx=3 / nu=2 case (dense R, infinite bounds)
 # stagewise-IP kernel vs twin on the card: the same float program (IEEE add,
 # multiply, divide in one order, no FMA contraction), so bit for bit is
@@ -149,18 +161,21 @@ TOL_LH_STATES = 2e-3  # closed loop, tests/test_pallas_riccati_ip.py:193
 PEAK_FP32 = 67e12  # FLOP/s
 PEAK_HBM = 3.35e12  # B/s
 # FP32 operations (a transcendental counted as one) that the algorithm needs
-# per stage and executed iteration, counted by hand. The kernels' re-roll of
-# the accepted line-search candidate (49, 53 and 1,214 operations) is their
-# own way of not storing seven trajectories and is not charged:
+# per stage and executed iteration, counted by hand. The parking kernel's
+# re-roll of the accepted line-search candidate (49 operations) is its own way
+# of not storing seven trajectories and is not charged. A step Jacobian by
+# dual numbers is charged its tangents only, two operations per operation of
+# the step and direction: the step's value at the accepted point is one of
+# the rollouts', already charged there, however often a kernel recomputes it:
 # - parking AL-iLQR: backward ~1,100 (Jacobian 45, box rows 54, 9 clearance
 #   pairs 495, Riccati algebra ~500), the 7 line-search rollouts 7 x 273
 #   (control 22, stage cost 224, Euler step 27);
-# - kinematic tracker / Euler: Jacobian in 6 dual directions ~355, nx=4
-#   algebra and 12 box rows ~840, rollouts 7 x 134;
+# - kinematic tracker / Euler: one step is 27; the tangents of 6 directions
+#   6 x 2 x 27 = 324, nx=4 algebra and 12 box rows ~840, rollouts 7 x 134;
 # - Pacejka tracker / RK4x4: one step is 16 model evaluations of 59 plus the
-#   combination, 1,184; the Jacobian in 8 dual directions ~23,700, nx=6
-#   algebra ~1,900, rollouts 7 x 1,261.
-FLOPS_STAGE_ITER = {"parking": 3010, "kinematic": 2130, "pacejka": 34400}
+#   combination, 1,184; the tangents of 8 directions 8 x 2 x 1,184 = ~18,900,
+#   nx=6 algebra ~1,900, rollouts 7 x 1,261.
+FLOPS_STAGE_ITER = {"parking": 3010, "kinematic": 2100, "pacejka": 29600}
 
 
 def bound(torch, flops: float, tensors) -> dict:
@@ -323,18 +338,20 @@ def main() -> int:
     phase("build")
     # the stagewise-IP kernel is one library per (nx, nu): the path's and the
     # nx=3 / nu=2 case's
+    # the tracker kernel is one library per thread group
     build_all([
-        *((m.LIBRARY, m._build_library) for m in (K, KI, KF, KR)),
+        *((m.LIBRARY, m._build_library) for m in (K, KI, KR)),
+        *((KF.library_name(g), lambda g=g: KF._build_library(g)) for g in RACE_GROUPS),
         (KR.library_name(3, 2), lambda: KR._build_library(3, 2)),
     ])
-
     admm = admm_phases(torch, port, K, card, device)
     ilqr = ilqr_phases(torch, port, KI, card, device)
     racing = [racing_phases(torch, port, KF, tier, card, device) for tier in RACE_TIERS]
     stagewise = stagewise_phases(torch, port, KR, card, device)
+    kernels = [admm, ilqr, *racing, stagewise]
     phase(None)
 
-    print(json.dumps({"kernels": [admm, ilqr, *racing, stagewise]}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -664,93 +681,155 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
     }
 
 
-def compare_tracker(torch, name, got, ref, twin_s, card) -> float:
-    """Print and gate the tracker kernel's policy step against the twin's on
-    the same inputs; returns the max of max|Δu| over lanes converged on
-    both sides. ``got``/``ref`` are a policy's (u0, warm carry, logs)."""
-    def controls(step):  # the solved (B, N, 2) controls: u0, then the shifted rest
-        u0, warm, _ = step
-        return torch.cat([u0[:, None], warm.reshape(u0.shape[0], -1, 2)[:, :-1]], dim=1)
+TRACKER_FIELDS = ("us", "xs", "viol", "converged", "lam", "inner_iters_executed")
 
-    conv_k, conv_t = got[2]["solver_success"], ref[2]["solver_success"]
-    ni_k, ni_t = got[2]["kernel_inner_iters"], ref[2]["kernel_inner_iters"]
-    du = (controls(got) - controls(ref)).abs().amax(dim=(1, 2))
-    conv_agree = (conv_k == conv_t).float().mean().item()
-    ni_agree = (ni_k == ni_t).float().mean().item()
-    err = du[conv_k & conv_t]
-    err_max = err.max().item() if err.numel() else 0.0
-    err_q999 = torch.quantile(err, 0.999).item() if err.numel() else 0.0
-    print(
-        f"{name}: max|u_kernel - u_twin| over lanes converged on both sides: q999 "
-        f"{err_q999:.3e} (tol {TOL_RACE_U_Q999:.0e}), max {err_max:.3e}; over all lanes "
-        f"max {du.max().item():.3e}, bitwise-equal lanes {(du == 0).float().mean().item():.5f}; "
-        f"converged agree {conv_agree:.5f}, executed inner iterations agree {ni_agree:.5f} "
-        f"(tol {TOL_RACE_AGREE}); converged {conv_k.float().mean().item():.5f} vs twin "
-        f"{conv_t.float().mean().item():.5f}; mean inner iterations {ni_k.mean().item():.2f}; "
-        f"twin {1e3 * twin_s:.1f} ms per solve (timed once) [{card}]",
-        flush=True,
-    )
-    if not (conv_agree >= TOL_RACE_AGREE and ni_agree >= TOL_RACE_AGREE
-            and err_q999 <= TOL_RACE_U_Q999):
-        raise SystemExit(f"tracker kernel disagrees with its twin on the {name} config")
-    return err_max
+
+def compare_tracker(torch, name, outs, ref, twin_s, card) -> float:
+    """Gate the tracker kernel's six outputs at every group in ``outs``
+    (``group -> _launch``'s tuple) bit for bit against the twin's ``ref`` on
+    the same operands; returns max|Δu| over all lanes and groups."""
+    err = 0.0
+    for group, got in outs.items():
+        equal = [f for f, a, b in zip(TRACKER_FIELDS, got, ref) if torch.equal(a, b)]
+        du = (got[0] - ref[0]).abs().amax(dim=(0, 1))
+        err = max(err, du.max().item())
+        print(
+            f"{name}, group {group}: bitwise equal fields {equal} of {len(TRACKER_FIELDS)}; "
+            f"max|u_kernel - u_twin| over all lanes {du.max().item():.3e}, bitwise-equal lanes "
+            f"{(du == 0).float().mean().item():.5f}; converged {got[3].float().mean().item():.5f} "
+            f"vs twin {ref[3].float().mean().item():.5f}; mean inner iterations "
+            f"{got[5].mean().item():.2f}; twin {1e3 * twin_s:.1f} ms per solve (timed once) "
+            f"[{card}]",
+            flush=True,
+        )
+        if len(equal) != len(TRACKER_FIELDS):
+            raise SystemExit(f"tracker kernel (group {group}) is not its twin bit for bit on "
+                             f"the {name} config")
+    return err
+
+
+def tracker_points(K):
+    """The (tile, group) pairs of the informational sweep that the launch
+    bounds take."""
+    return [(t, g) for g in RACE_GROUPS for t in RACE_SWEEP_TILES if t * g <= K.MAX_THREADS[g]]
+
+
+def timed_launches(torch, K, events):
+    """A stand-in for ``K._launch`` that appends a CUDA event pair around
+    each launch to ``events``."""
+    launch = K._launch
+
+    def timed(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    return timed
 
 
 def racing_phases(torch, port, K, tier, card, device) -> dict:
     """One racing tier: the tracker kernel against its twin at the sweep's
-    shapes (cold and warm policy steps), the sweep through its entry point
-    with the contract's floors, a small kernel-vs-twin closed loop, and the
-    timing. Returns the instantiation's entry of the ``kernels`` line."""
+    shapes (the policy's cold and warm steps: the kernel policy's outputs
+    against the twin policy's, and the launch's operands through the kernel
+    at every group of ``RACE_GROUPS``), the sweep through its entry point
+    with the contract's floors, a small kernel-vs-twin closed loop, the
+    timing, CUDA events around every launch of one sweep, a profiled window,
+    and the sweep per (tile, group). Returns the instantiation's entry of
+    the ``kernels`` line."""
     from model_predictive_control_tpu_torch.experiments.racing import ellipse_reference
     from model_predictive_control_tpu_torch.parallel import batch as PB
 
     sweep_name, policy_name, err_ceiling, tol_states = RACE_TIERS[tier]
     sweep, make_policy = getattr(port, sweep_name), getattr(PB, policy_name)
-    B, N, tile = RACE_BATCH, RACE_N, K.DEFAULT_TILE
+    B, N, tile, group = RACE_BATCH, RACE_N, K.DEFAULT_TILE, K.DEFAULT_GROUP[tier]
+    groups = [g for g in RACE_GROUPS if tile * g <= K.MAX_THREADS[g]]
     dynamic = tier == "pacejka"
     ref = ellipse_reference(RACE_STEPS + N + 1, speed=1.2 if dynamic else 0.35,
                             dynamic=dynamic, device=device)
     # the sweep's own start states (one solve, before the counted run)
     x0 = sweep(B, 1, device=device)[0].states[0]
-    pol = {b: make_policy(ref, N=N, backend=b, tile=tile) for b in ("cuda", "twin")}
+    pol = make_policy(ref, N=N, backend="cuda", tile=tile)
+    pol_twin = make_policy(ref, N=N, backend="twin", tile=tile)
     plant = (PB.batched_dynamic_plant if dynamic else PB.batched_plant)(port.VehicleParameters(), 0.05)
 
-    phase(f"tracker kernel vs twin on the card ({tier}: B={B}, N={N}, tile={tile})")
-    launched = {}
-    launch = K._launch
+    phase(f"tracker kernel vs twin on the card ({tier}: B={B}, N={N}, tile={tile}, default "
+          f"group {group}, held at groups {groups})")
+    seen = {}
+    launch, reference = K._launch, K.tracker_tiles_reference
 
-    def spy(*args, **kw):  # keep the last launch's operands for the timing
-        launched.update(args=args, kw=kw)
+    def spy_launch(*args, **kw):  # keep the last launch's operands
+        seen.update(args=args, kw=kw)
         return launch(*args, **kw)
 
-    def both(name, x, t, carry):
-        K._launch = spy
-        try:
-            got = pol["cuda"](x, t, carry)
-        finally:
-            K._launch = launch
+    def spy_reference(*args, **kw):  # keep the twin's operands, result and time
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = pol["twin"](x, t, carry)
+        want = reference(*args, **kw)
         torch.cuda.synchronize()
-        twin_s = time.perf_counter() - t0
-        return got, compare_tracker(torch, name, got, want, twin_s, card), twin_s
+        seen.update(twin_args=args, twin_kw=kw, want=want, twin_s=time.perf_counter() - t0)
+        return want
 
-    cold, err, _ = both("cold", x0, 0, pol["cuda"].initial_carry(B, device))
+    def both(name, x, t, carry):
+        """The policy's step on the kernel and on the twin, held output by
+        output; then the launch's operands through the kernel at every
+        group, held against the twin policy's solve."""
+        K._launch, K.tracker_tiles_reference = spy_launch, spy_reference
+        try:
+            step, step_twin = pol(x, t, carry), pol_twin(x, t, carry)
+        finally:
+            K._launch, K.tracker_tiles_reference = launch, reference
+        args, kw = seen["args"], dict(seen["kw"])
+        if kw.pop("group") != group:
+            raise SystemExit("the policy did not launch at the default group")
+        # both wrappers prepared the same operands and configuration
+        same = all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(args, seen["twin_args"], strict=True))
+        plain = lambda d: {k: v for k, v in d.items() if k != "ode_rows"}
+        if not (same and plain(kw) == plain(seen["twin_kw"])):
+            raise SystemExit("kernel policy and twin policy prepared different solves")
+        # u0, the warm carry and every log, through both wrappers' unpadding
+        names = ("u0", "carry", *step[2])
+        flat = lambda s: (s[0], s[1], *(s[2][k] for k in names[2:]))
+        differ = [n for n, a, b in zip(names, flat(step), flat(step_twin), strict=True)
+                  if not torch.equal(a, b)]
+        print(f"{name}: kernel policy against twin policy at {B} lanes, outputs {list(names)}: "
+              f"{'all bitwise equal' if not differ else f'{differ} differ'}", flush=True)
+        if differ:
+            raise SystemExit(f"the {tier} policy on the kernel is not the policy on the twin "
+                             f"({name} step)")
+        want, twin_s = seen["want"], seen["twin_s"]
+        outs = {g: launch(*args, group=g, **kw) for g in groups}
+        ms = {g: time_cuda(torch, lambda: launch(*args, group=g, **kw), 5) for g in groups}
+        print(f"{name}: kernel alone, ms per launch by group: "
+              f"{', '.join(f'{g}: {v:.3f}' for g, v in ms.items())}; twin {1e3 * twin_s:.1f} ms "
+              f"(timed once); tile {tile} [{card}]", flush=True)
+        return step, compare_tracker(torch, name, outs, want, twin_s, card), twin_s, ms
+
+    cold, err, _, _ = both("cold", x0, 0, pol.initial_carry(B, device))
     # warm: one plant step with u0, then the shifted controls
-    _, err_w, twin_s = both("warm", plant(x0, cold[0]), 1, cold[1])
+    _, err_w, twin_s, ms = both("warm", plant(x0, cold[0]), 1, cold[1])
     err = max(err, err_w)
-    # the twin's time is its warm policy step above (the plain version of the
-    # same launch, plus the wrapper's padding, which is negligible next to it)
-    kernel_ms = time_cuda(torch, lambda: launch(*launched["args"], **launched["kw"]), 5)
-    twin_ms = 1e3 * twin_s
-    print(f"warm: kernel alone {kernel_ms:.3f} ms per launch, twin {twin_ms:.1f} ms per policy "
-          f"step (timed once) [{card}]", flush=True)
-    outs = launch(*launched["args"], **launched["kw"])
-    roof = bound(torch, FLOPS_STAGE_ITER[tier] * N * float(outs[5].sum()),
-                   [*launched["args"], *outs])
+    # the entry's times: the warm policy step's launch at the default group,
+    # and the twin on the same operands
+    kernel_ms, twin_ms = ms[group], 1e3 * twin_s
+    args, kw = seen["args"], seen["kw"]
+    outs = launch(*args, **kw)
+    roof = bound(torch, FLOPS_STAGE_ITER[tier] * N * float(outs[5].sum()), [*args, *outs])
+    # the same operands per (tile, group): B is a multiple of every tile, so
+    # the padded layout is the same; the tile moves the iterations
+    points = tracker_points(K)
+    for t, g in points:
+        at = {**kw, "tile": t, "group": g}
+        ni = launch(*args, **at)[5].mean().item()
+        print(f"informational: warm policy step's launch at tile {t} group {g}: "
+              f"{time_cuda(torch, lambda: launch(*args, **at), 3):.3f} ms, {ni:.2f} inner "
+              f"iterations [{card}]", flush=True)
 
-    phase(f"racing main path ({tier}): {sweep_name}({B}, {RACE_STEPS}), N={N}, tile {tile}")
+    phase(f"racing main path ({tier}): {sweep_name}({B}, {RACE_STEPS}), N={N}, tile {tile}, "
+          f"group {group}")
     K.LAUNCHES = 0
     res, summary = sweep(B, RACE_STEPS, device=device)
     torch.cuda.synchronize()
@@ -791,7 +870,54 @@ def racing_phases(torch, port, K, tier, card, device) -> dict:
     dt = min(times)
     print(f"sweep wall {dt:.4f} s (best of 3: {', '.join(f'{t:.4f}' for t in times)}); "
           f"{B * RACE_STEPS / dt:.1f} solves/s; step {1e3 * dt / RACE_STEPS:.3f} ms; mean inner "
-          f"iterations {summary['mean_inner_iters']:.2f} [{card}]", flush=True)
+          f"iterations {summary['mean_inner_iters']:.2f}; tile {tile}, group {group} [{card}]",
+          flush=True)
+
+    # CUDA events around every launch of one more sweep: the kernel's share
+    def timed_sweep(**kw):
+        events = []
+        K._launch = timed_launches(torch, K, events)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, sm = sweep(B, RACE_STEPS, device=device, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            K._launch = launch
+        return wall, events, sm
+
+    wall, events, _ = timed_sweep()
+    per = sorted(a.elapsed_time(b) for a, b in events[1:])
+    cold_ms = events[0][0].elapsed_time(events[0][1])
+    total = cold_ms + sum(per)
+    print(f"informational: one sweep with events around its {len(events)} launches: wall "
+          f"{wall:.4f} s, in the kernel {total:.1f} ms ({100 * total / (1e3 * wall):.1f}% of the "
+          f"wall); cold first launch {cold_ms:.3f} ms, steady launches median "
+          f"{per[len(per) // 2]:.3f} ms, min {per[0]:.3f}, max {per[-1]:.3f} [{card}]", flush=True)
+
+    profile_sweep(torch, sweep, B, card, device)
+
+    phase(f"racing sweep per tile x group ({tier}; informational)")
+    walls, in_kernel, quality = {pt: [] for pt in points}, {pt: [] for pt in points}, {}
+    for r in range(RACE_SWEEP_ROUNDS):
+        for pt in points[:: 1 if r % 2 == 0 else -1]:
+            wall, events, quality[pt] = timed_sweep(tile=pt[0], group=pt[1])
+            walls[pt].append(wall)
+            in_kernel[pt].append(sum(a.elapsed_time(b) for a, b in events))
+    for (t, g), w in walls.items():
+        w, sm = sorted(w), quality[(t, g)]
+        print(f"tile {t} group {g}: {B * RACE_STEPS / w[0]:.1f} solves/s best, "
+              f"{B * RACE_STEPS / w[len(w) // 2]:.1f} median of {len(w)} (walls "
+              f"{', '.join(f'{v:.4f}' for v in w)} s; in the kernel "
+              f"{min(in_kernel[(t, g)]):.1f} ms per sweep at best); success "
+              f"{sm['success_rate']:.5f}, mean "
+              f"tracking error {sm['mean_tracking_error']:.5f} m, mean inner iterations "
+              f"{sm['mean_inner_iters']:.2f} [{card}]", flush=True)
+    same_tile = {pt: quality[pt] for pt in points if pt[0] == tile}
+    keys = ("success_rate", "mean_tracking_error", "mean_inner_iters")
+    if any(sm[k] != summary[k] for sm in same_tile.values() for k in keys):
+        raise SystemExit(f"{sweep_name}'s summary depends on the group at tile {tile}")
 
     return {
         "name": f"tracker_tile_kernel<{'PacejkaRows' if dynamic else 'KinematicRows'}>",
@@ -804,6 +930,30 @@ def racing_phases(torch, port, K, tier, card, device) -> dict:
         "plain_ms": twin_ms,
         **roof,
     }
+
+
+def profile_sweep(torch, sweep, B, card, device) -> None:
+    """Device busy share and the kernels' device time of a
+    ``RACE_PROFILE_STEPS``-step window of ``sweep`` under ``torch.profiler``.
+    Informational."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sweep(B, 2, device=device)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sweep(B, RACE_PROFILE_STEPS, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in events)
+    tracker_us = sum(e.self_device_time_total for e in events if "tracker_tile_kernel" in e.key)
+    launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
+    print(f"profiled {RACE_PROFILE_STEPS}-step window (under the profiler): wall {wall:.4f} s, "
+          f"device busy {device_us / 1e3:.1f} ms ({100 * device_us / (1e6 * wall):.1f}% of the "
+          f"wall, idle {100 - 100 * device_us / (1e6 * wall):.1f}%), tracker kernel "
+          f"{tracker_us / 1e3:.1f} ms ({100 * tracker_us / max(device_us, 1):.1f}% of device "
+          f"time), {launches} kernel launches [{card}]", flush=True)
 
 
 def compare_stagewise(torch, name, got, ref, twin_s, card) -> float:
@@ -837,11 +987,11 @@ def compare_stagewise(torch, name, got, ref, twin_s, card) -> float:
 
 def profile_torch_solve(torch, port, problem, x0, card) -> None:
     """Host against device time of the batched plain-torch solver: one solve
-    of 3 iterations (and the polish) at the path's shapes under
-    ``torch.profiler``. Informational."""
+    of ``LH_PROFILE_ITERS`` iterations (and the polish) at the path's shapes
+    under ``torch.profiler``. Informational."""
     from torch.profiler import ProfilerActivity, profile
 
-    ctrl = port.make_stagewise_mpc(problem, N=LH_N, iters=3, device=x0.device)
+    ctrl = port.make_stagewise_mpc(problem, N=LH_N, iters=LH_PROFILE_ITERS, device=x0.device)
     warm = ctrl.initial_batch_carry(x0.shape[0], device=x0.device)
     ctrl.solve(x0[:64], warm[:64])  # warm-up
     torch.cuda.synchronize()
@@ -852,7 +1002,8 @@ def profile_torch_solve(torch, port, problem, x0, card) -> None:
     host_us = sum(e.self_cpu_time_total for e in events)
     device_us = sum(e.self_device_time_total for e in events)
     launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
-    print(f"torch solver, {x0.shape[0]} x N={LH_N}, 3 iterations, profiled: host self time "
+    print(f"torch solver, {x0.shape[0]} x N={LH_N}, {LH_PROFILE_ITERS} iteration(s), profiled: "
+          f"host self time "
           f"{host_us / 1e3:.1f} ms, device time {device_us / 1e3:.1f} ms "
           f"({100 * device_us / max(host_us, 1):.1f}% of the host's), {launches} kernel launches "
           f"[{card}]", flush=True)

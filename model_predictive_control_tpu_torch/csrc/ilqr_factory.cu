@@ -1,6 +1,7 @@
-// Model-parametric fused batched AL-iLQR tracker: one thread per scenario
-// lane, one CTA per tile of T lanes, the whole augmented-Lagrangian tracking
-// solve in one launch, for any row-form ODE compiled in as a functor.
+// Model-parametric fused batched AL-iLQR tracker: a group of G threads per
+// scenario lane, one CTA per tile of T lanes (T x G threads), the whole
+// augmented-Lagrangian tracking solve in one launch, for any row-form ODE
+// compiled in as a functor.
 //
 // Replaces the Pallas TPU kernel _tracker_tile_kernel in
 // model_predictive_control_tpu/ops/pallas/ilqr_factory.py (wrapper
@@ -15,7 +16,8 @@
 // 7-step line search. Step Jacobians are exact: forward-mode dual numbers run
 // through the same integrator code as the values (the reference's packed jvp
 // on an (nx + nu, T) basis). Quu (2 x 2) is solved in closed form. Both loop
-// exits are tile-wide (__syncthreads_and), as in the reference.
+// exits are tile-wide (__syncthreads_and) over the same T lanes whatever G is,
+// so a solve at tile T gives the same numbers for every G.
 //
 // A model is a functor with
 //   template <class S> static void rows(const S* x, const S* u, const float* p,
@@ -26,25 +28,53 @@
 // Two models are compiled in, each behind its own entry point:
 // KinematicRows (nx 4, per-lane (acc, fric)) and PacejkaRows (nx 6).
 //
-// What bounds it: latency, not bytes or FLOPs. At the racing sweeps' size
-// (2048 lanes) the card holds about 15 threads per SM, each running a long
-// dependent chain of FP32 and SFU operations (tan, sin, cos, atan, sqrt,
-// division) through N-stage sweeps inside data-dependent loops. As in the
-// parking kernel (csrc/ilqr_kernel.cu) the design therefore:
-//   - keeps the trajectory, the multipliers and the gains in global memory
-//     laid out [stage][row][lane] (coalesced; ~0.5 k floats per lane at N=15,
-//     ~4 MB at 2048 lanes, L2-resident); xs, us and lam live directly in the
-//     output buffers;
-//   - keeps the Riccati carry, the step Jacobian and the stage algebra in
-//     registers;
-//   - computes a step Jacobian W directions at a time (M::JW), so that the
-//     dual numbers of a 6-state RK4 step fit the register file;
-//   - runs the 7 line-search rollouts interleaved in one pass over the
-//     stages and re-rolls the accepted step with the same device function,
-//     instead of storing 7 candidate trajectories; without FMA contraction
-//     (--fmad=false) the re-roll gives the same numbers bit for bit.
-// Making it fast (several lanes per thread, directions spread over threads,
-// a persistent grid) is left for later work.
+// What bounds it: latency and the warp schedulers, not bytes or FLOPs. The
+// operands are ~0.5 k floats per lane and the algorithm needs ~2 k (Euler,
+// nx 4) to ~30 k (RK4 x 4, nx 6) FP32 and SFU operations per stage and inner
+// iteration (tan, sin, cos, atan, sqrt, division), inside data-dependent
+// loops. With one thread per lane, the racing sweeps' 2,048 lanes put ~15
+// threads on each SM, each running ~0.5 M dependent operations per inner
+// iteration. Of those only the Riccati recursion and each rollout's own
+// stages are true chains, so the design spreads the rest over the G members
+// of a lane's group (TRACKER_GROUP, one library per G; thread threadIdx.x
+// serves lane threadIdx.x / G as member threadIdx.x % G):
+//   - a pre-pass computes the step Jacobians of all N stages before the
+//     Riccati sweep: the N (nx + 2) (stage, direction) items are dealt to the
+//     members, each item one Dual<1> pass through the integrator, written to
+//     a per-lane A/B store. A tangent is the same float program whatever the
+//     pass width, so A and B keep their bits, and a Dual<1> pass needs far
+//     fewer registers than a wide one;
+//   - members 0..6 each roll one line-search candidate and keep its
+//     trajectory; the pick reads the 7 costs with the reference's tie rule,
+//     and the accepted candidate is copied into xs / us by all members (no
+//     re-roll);
+//   - the Riccati recursion, the total cost and the multiplier sweep's
+//     reductions are computed by every member alike (a warp's operation
+//     takes one scheduler slot whether one or all of its threads run it, and
+//     replication saves a broadcast); only member 0 stores the gains, and the
+//     multiplier update is dealt by (stage, row). Dealing the stage algebra's
+//     dot products to the members through a scratch region (three barriers a
+//     stage) was measured on an H100 and not kept: the kinematic launch took
+//     1.7 times as long and the Pacejka launch the same (PERF.md);
+//   - every split is `for (item = member; item < n; item += G)`, so G = 1
+//     runs the same code in one thread. Phases are separated by __syncwarp
+//     (G <= 32 divides the warp), the two loop votes by __syncthreads_and,
+//     reached by every thread of the CTA;
+//   - a lane's working set (A/B store, gains, xs, us, lam, refs, the 7
+//     candidates: ~8.4 KB at N = 15, nx 6) lives in shared memory as far as
+//     the tile allows, lane-major with an odd lane stride (members reading
+//     neighbouring rows, or the same row of neighbouring lanes, hit different
+//     banks; the candidate index is fastest where 7 members write together);
+//     the wrapper picks the regions that fit (Args::smask) and the rest stays
+//     in global memory laid out [row][lane], the outputs in their own buffers;
+//   - __launch_bounds__ caps the registers so that T x G threads fit the
+//     register file: 256 threads at G = 1, 512 at G > 1 (128 registers, which
+//     costs the Pacejka instantiation 0.5-1 KB of spills a thread).
+// On an NVIDIA H100 80GB HBM3 (700 W), 2,048 lanes, N = 15, at tile 16: a
+// steady launch of the kinematic sweep takes 0.88-0.89 ms at G = 8 (2.07-2.09
+// ms with one thread per lane at tile 64) and one of the Pacejka sweep 4.4-4.5
+// ms at G = 32 (40.7 ms); the bound of the operations on the warm policy
+// step's launch (3.8 and 12.1 ms) is 0.07 and 0.15 ms (PERF.md).
 //
 // Built with nvcc -O3 for sm_90a, without --use_fast_math: the
 // transcendental functions and the divisions are the precise ones.
@@ -57,6 +87,16 @@
 #define NALPHA 7
 #define MAXX 8   // largest state dimension (ops/cuda/ilqr_factory.py MAX_NX)
 #define MAXC 16  // model constants (MAX_CONSTS)
+
+// Threads per lane; one library is built per value (-DTRACKER_GROUP=G).
+#ifndef TRACKER_GROUP
+#define TRACKER_GROUP 1
+#endif
+constexpr int GROUP = TRACKER_GROUP;
+static_assert(GROUP == 1 || GROUP == 8 || GROUP == 16 || GROUP == 32,
+              "a group must divide the warp");
+// Threads per CTA (tile x GROUP) the launch bounds allow; the wrapper reads it.
+constexpr int MAX_THREADS = GROUP == 1 ? 256 : 512;
 
 // Float constants, in the order ops/cuda/ilqr_factory.py::_consts writes them.
 struct Consts {
@@ -73,9 +113,36 @@ struct Consts {
 struct Args {
   const float *x0, *u0, *refs, *par;  // (nx, Bp), (N, 2, Bp), (N+1, nx, Bp), (np, Bp)
   float *us, *xs, *viol, *conv, *lam, *ni;  // outputs; us, xs, lam are the state
-  float* work;  // (N (2 + 2 nx), Bp): k (N, 2) then K (N, 2 nx)
+  float* work;  // (rows, Bp): the workspace regions that are not in shared memory
   int N, substeps, sbox, outer, inner, Bp;
+  int smask;  // bit r set: region r of a lane's working set lives in shared memory
 };
+
+// A lane's working set, by region, in the order the wrapper fills shared
+// memory (ops/cuda/ilqr_factory.py REGIONS). xs, us and lam have their home
+// in the output buffers and refs in the operand; the A/B store, the gains
+// and the candidates have theirs in `work`, in this order.
+enum { R_AB, R_GAIN, R_XS, R_US, R_LAM, R_REF, R_CAND, N_REGIONS };
+
+__host__ __device__ inline int region_floats(int r, int nx, int N, int nc) {
+  switch (r) {
+    case R_AB: return N * nx * (nx + NU);
+    case R_GAIN: return N * NU * (1 + nx);
+    case R_XS: case R_REF: return (N + 1) * nx;
+    case R_US: return N * NU;
+    case R_LAM: return N * nc;
+    default: return NALPHA * ((N + 1) * nx + N * NU + 1);
+  }
+}
+
+// Floats of one lane's block in shared memory: its regions in `smask`, padded
+// to an odd count (neighbouring lanes then start on different banks).
+__host__ __device__ inline int lane_floats(int smask, int nx, int N, int nc) {
+  int n = 0;
+  for (int r = 0; r < N_REGIONS; ++r)
+    if (smask >> r & 1) n += region_floats(r, nx, N, nc);
+  return n | 1;
+}
 
 // ---------------------------------------------------------------------------
 // forward-mode dual numbers; the twin's Dual (ops/cuda/ilqr_factory.py)
@@ -263,7 +330,7 @@ __device__ __forceinline__ Dual<W> dwhere(bool m, const Dual<W>& a, const Dual<W
 
 // Kinematic bicycle, p = (acc, fric), mc = (kb, kb^2, 1 / lr).
 struct KinematicRows {
-  static constexpr int NX = 4, NP = 2, JW = 6;
+  static constexpr int NX = 4, NP = 2;
   template <class S>
   __device__ __forceinline__ static void rows(const S* x, const S* u, const float* p,
                                               const float* mc, S* f) {
@@ -282,7 +349,7 @@ struct KinematicRows {
 // Dynamic single-track (Pacejka) bicycle, mc = (lf, lr, 1/m, 1/Iz, bf, cf, df,
 // br, cr, dr, cm1, cm2, cr1, cr2, 1/0.01).
 struct PacejkaRows {
-  static constexpr int NX = 6, NP = 0, JW = 2;
+  static constexpr int NX = 6, NP = 0;
   template <class S>
   __device__ __forceinline__ static void rows(const S* x, const S* u, const float* p,
                                               const float* mc, S* f) {
@@ -360,56 +427,72 @@ __device__ __forceinline__ void step(const Consts& c, int substeps, S* x, const 
   }
 }
 
-// A[k][i] = dx+_k / dx_i and B[k][j] = dx+_k / du_j of one interval, JW
-// directions per dual pass.
-template <class M, bool RK4>
-__device__ __forceinline__ void jacobian(const Consts& c, int substeps, const float* X,
-                                         const float* U, const float* p,
-                                         float (&A)[M::NX][M::NX], float (&B)[M::NX][NU]) {
-  constexpr int NX = M::NX, NZ = NX + NU, W = M::JW;
-#pragma unroll
-  for (int c0 = 0; c0 < NZ; c0 += W) {
-    Dual<W> xd[NX], ud[NU];
+// One region of a lane's working set: element i at p[i * stride] (stride 1 in
+// the lane's shared-memory block, Bp in a [row][lane] global buffer).
+struct Region {
+  float* p;
+  int stride;
+  __device__ __forceinline__ float& operator[](int i) const { return p[(size_t)i * stride]; }
+};
+
+// A lane's views of its working set.
+template <int NX>
+struct LaneView {
+  static constexpr int NZ = NX + NU;
+  Region ab, gain, xs, us, lam, ref, cand;
+  int nc, N;
+  __device__ float& x(int t, int i) const { return xs[t * NX + i]; }
+  __device__ float& u(int t, int j) const { return us[t * NU + j]; }
+  __device__ float& l(int t, int r) const { return lam[t * nc + r]; }
+  __device__ float r(int t, int i) const { return ref[t * NX + i]; }
+  __device__ float& kg(int t, int j) const { return gain[t * NU + j]; }
+  __device__ float& Kg(int t, int r) const { return gain[N * NU + t * NU * NX + r]; }
+  // column col of the step Jacobian [A | B] of stage t, row k
+  __device__ float& J(int t, int k, int col) const { return ab[(t * NX + k) * NZ + col]; }
+  // candidate s of the line search: states, controls, cost (s fastest: the
+  // members that write together write neighbouring words)
+  __device__ float& cx(int s, int t, int i) const { return cand[(t * NX + i) * NALPHA + s]; }
+  __device__ float& cu(int s, int t, int j) const {
+    return cand[((N + 1) * NX + t * NU + j) * NALPHA + s];
+  }
+  __device__ float& cc(int s) const { return cand[((N + 1) * NX + N * NU) * NALPHA + s]; }
+};
+
+// Phase boundary inside a lane's group: what a member wrote before it, every
+// member reads after it. A group divides the warp, so the warp barrier does.
+template <int G>
+__device__ __forceinline__ void group_sync(unsigned mask) {
+  if (G > 1) __syncwarp(mask);
+}
+
+// The step Jacobians of all N stages at the stored (x_t, u_t): J(t, k, i) =
+// dx+_k / dx_i for i < nx, dx+_k / du_j at column nx + j. The N (nx + 2)
+// (stage, direction) items are dealt to the group's members, each item one
+// Dual<1> pass through the integrator.
+template <class M, bool RK4, int G>
+__device__ __forceinline__ void jacobians(const Consts& c, const LaneView<M::NX>& w,
+                                          const float* p, int substeps, int member) {
+  constexpr int NX = M::NX, NZ = NX + NU;
+  const int items = w.N * NZ;
+#pragma unroll 1
+  for (int item = member; item < items; item += G) {
+    const int t = item / NZ, col = item - t * NZ;
+    Dual<1> xd[NX], ud[NU];
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
-      xd[i].v = X[i];
-#pragma unroll
-      for (int q = 0; q < W; ++q) xd[i].d[q] = c0 + q == i ? 1.0f : 0.0f;
+      xd[i].v = w.x(t, i);
+      xd[i].d[0] = col == i ? 1.0f : 0.0f;
     }
 #pragma unroll
     for (int j = 0; j < NU; ++j) {
-      ud[j].v = U[j];
-#pragma unroll
-      for (int q = 0; q < W; ++q) ud[j].d[q] = c0 + q == NX + j ? 1.0f : 0.0f;
+      ud[j].v = w.u(t, j);
+      ud[j].d[0] = col == NX + j ? 1.0f : 0.0f;
     }
     step<M, RK4>(c, substeps, xd, ud, p);
 #pragma unroll
-    for (int k = 0; k < NX; ++k) {
-#pragma unroll
-      for (int q = 0; q < W; ++q) {
-        const int col = c0 + q;
-        if (col < NX)
-          A[k][col] = xd[k].d[q];
-        else if (col < NZ)
-          B[k][col - NX] = xd[k].d[q];
-      }
-    }
+    for (int k = 0; k < NX; ++k) w.J(t, k, col) = xd[k].d[0];
   }
 }
-
-// Lane-offset views of the [stage][row][lane] buffers.
-template <int NX>
-struct LaneView {
-  float *xs, *us, *lam, *k, *K;
-  const float* refs;
-  int Bp, nc, N;
-  __device__ float& x(int t, int i) const { return xs[(t * NX + i) * Bp]; }
-  __device__ float& u(int t, int j) const { return us[(t * NU + j) * Bp]; }
-  __device__ float& l(int t, int r) const { return lam[(t * nc + r) * Bp]; }
-  __device__ float& kg(int t, int j) const { return k[(t * NU + j) * Bp]; }
-  __device__ float& Kg(int t, int r) const { return K[(t * NU * NX + r) * Bp]; }
-  __device__ float r(int t, int i) const { return refs[(t * NX + i) * Bp]; }
-};
 
 // Constraint rows in the reference's order: u - ub (2), lb - u (2), then with
 // the state box x - ub (nx), lb - x (nx). Returns the row count.
@@ -490,13 +573,14 @@ __device__ __forceinline__ float total_cost(const Consts& c, const LaneView<NX>&
   return cost + c.qn * quad_err<NX>(c, x, r);
 }
 
-// Riccati sweep over the stored trajectory; writes the gains and returns
-// whether every stage's regularised Quu was positive definite, and max|Qu|.
-template <class M, bool RK4>
-__device__ __forceinline__ void backward(const Consts& c, const LaneView<M::NX>& w,
-                                         const float* p, int substeps, bool sbox, float mu,
-                                         float reg, bool& ok_out, float& grad_out) {
-  constexpr int NX = M::NX;
+// Riccati sweep over the stored trajectory and its stored step Jacobians;
+// returns whether every stage's regularised Quu was positive definite, and
+// max|Qu|. Every member of the group computes it alike; `store` (one member)
+// writes the gains.
+template <int NX>
+__device__ __forceinline__ void backward(const Consts& c, const LaneView<NX>& w, bool sbox,
+                                         float mu, float reg, bool store, bool& ok_out,
+                                         float& grad_out) {
   const int N = w.N;
   float Vx[NX], V[NX][NX];
 #pragma unroll
@@ -514,7 +598,13 @@ __device__ __forceinline__ void backward(const Consts& c, const LaneView<M::NX>&
     load_lam(w, t, sbox, L);
     const float U[NU] = {w.u(t, 0), w.u(t, 1)};
     float A[NX][NX], Bm[NX][NU];
-    jacobian<M, RK4>(c, substeps, X, U, p, A, Bm);
+#pragma unroll
+    for (int k = 0; k < NX; ++k) {
+#pragma unroll
+      for (int i = 0; i < NX; ++i) A[k][i] = w.J(t, k, i);
+#pragma unroll
+      for (int j = 0; j < NU; ++j) Bm[k][j] = w.J(t, k, NX + j);
+    }
 
     // stage derivatives: the tracking cost and the box rows (diagonal)
     float lx[NX], hxx[NX], lu[NU], huu[NU];
@@ -660,11 +750,13 @@ __device__ __forceinline__ void backward(const Consts& c, const LaneView<M::NX>&
                   (Qux[0][i] * Kg[0][j] + Qux[1][i] * Kg[1][j]);
       }
     }
+    if (store) {
 #pragma unroll
-    for (int a = 0; a < NU; ++a) {
-      w.kg(t, a) = kg[a];
+      for (int a = 0; a < NU; ++a) {
+        w.kg(t, a) = kg[a];
 #pragma unroll
-      for (int j = 0; j < NX; ++j) w.Kg(t, a * NX + j) = Kg[a][j];
+        for (int j = 0; j < NX; ++j) w.Kg(t, a * NX + j) = Kg[a][j];
+      }
     }
     grad = nmax(grad, nmax(fabsf(Qu[0]), fabsf(Qu[1])));
   }
@@ -702,81 +794,94 @@ __device__ __forceinline__ void load_stage(const LaneView<NX>& w, int t, float* 
   for (int q = 0; q < NU * NX; ++q) Kg[q] = w.Kg(t, q);
 }
 
-// Costs of the closed-loop rollouts under every line-search step, in one
-// pass over the stages.
-template <class M, bool RK4>
-__device__ __forceinline__ void forward_costs(const Consts& c, const LaneView<M::NX>& w,
-                                              const float* x0, const float* p, int substeps,
-                                              bool sbox, float mu, float* cost) {
+// The closed-loop rollouts of the line search, one candidate per member
+// (members 0..6 at G >= 8): candidate s keeps its trajectory in cx / cu and
+// its cost, summed in stage order, in cc.
+template <class M, bool RK4, int G>
+__device__ __forceinline__ void rollouts(const Consts& c, const LaneView<M::NX>& w,
+                                         const float* x0, const float* p, int substeps,
+                                         bool sbox, float mu, int member) {
   constexpr int NX = M::NX;
-  float x[NALPHA][NX];
+#pragma unroll 1
+  for (int s = member; s < NALPHA; s += G) {
+    const float alpha = c.alpha[s];
+    float x[NX];
 #pragma unroll
-  for (int s = 0; s < NALPHA; ++s) {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x[s][i] = x0[i];
-    cost[s] = 0.0f;
-  }
-  float xh[NX], uh[NU], kg[NU], Kg[NU * NX], r[NX], l[2 * NU + 2 * NX];
-  for (int t = 0; t < w.N; ++t) {
-    load_stage(w, t, xh, uh, kg, Kg);
-    load_r(w, t, r);
-    load_lam(w, t, sbox, l);
-#pragma unroll
-    for (int s = 0; s < NALPHA; ++s) {
+    for (int i = 0; i < NX; ++i) x[i] = x0[i];
+    float cost = 0.0f;
+    float xh[NX], uh[NU], kg[NU], Kg[NU * NX], r[NX], l[2 * NU + 2 * NX];
+#pragma unroll 1
+    for (int t = 0; t < w.N; ++t) {
+      load_stage(w, t, xh, uh, kg, Kg);
+      load_r(w, t, r);
+      load_lam(w, t, sbox, l);
       float u[NU];
-      ls_control<NX>(c.alpha[s], xh, uh, kg, Kg, x[s], u);
-      const float sc = stage_cost<NX>(c, sbox, x[s], u, r, l, mu);
-      cost[s] = t == 0 ? sc : cost[s] + sc;
-      step<M, RK4>(c, substeps, x[s], u, p);
+      ls_control<NX>(alpha, xh, uh, kg, Kg, x, u);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) w.cx(s, t, i) = x[i];
+#pragma unroll
+      for (int j = 0; j < NU; ++j) w.cu(s, t, j) = u[j];
+      const float sc = stage_cost<NX>(c, sbox, x, u, r, l, mu);
+      cost = t == 0 ? sc : cost + sc;
+      step<M, RK4>(c, substeps, x, u, p);
     }
-  }
-  load_r(w, w.N, r);
 #pragma unroll
-  for (int s = 0; s < NALPHA; ++s) cost[s] = cost[s] + c.qn * quad_err<NX>(c, x[s], r);
+    for (int i = 0; i < NX; ++i) w.cx(s, w.N, i) = x[i];
+    load_r(w, w.N, r);
+    w.cc(s) = cost + c.qn * quad_err<NX>(c, x, r);
+  }
 }
 
-// Re-roll the accepted step, writing the new trajectory over the stored one
-// (each stage is read before it is overwritten).
-template <class M, bool RK4>
-__device__ __forceinline__ void accept_step(const Consts& c, const LaneView<M::NX>& w,
-                                            const float* x0, const float* p, int substeps,
-                                            float alpha) {
-  constexpr int NX = M::NX;
-  float x[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = x0[i];
-  float xh[NX], uh[NU], kg[NU], Kg[NU * NX];
-  for (int t = 0; t < w.N; ++t) {
-    load_stage(w, t, xh, uh, kg, Kg);
-    float u[NU];
-    ls_control<NX>(alpha, xh, uh, kg, Kg, x, u);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) w.x(t, i) = x[i];
-#pragma unroll
-    for (int j = 0; j < NU; ++j) w.u(t, j) = u[j];
-    step<M, RK4>(c, substeps, x, u, p);
-  }
-#pragma unroll
-  for (int i = 0; i < NX; ++i) w.x(w.N, i) = x[i];
+// Row q of the constraints at stage t (constraint_rows' order and operations).
+template <int NX>
+__device__ __forceinline__ float constraint_row(const Consts& c, const LaneView<NX>& w, int t,
+                                                int q) {
+  if (q < NU) return w.u(t, q) - c.ubu[q];
+  if (q < 2 * NU) return c.lbu[q - NU] - w.u(t, q - NU);
+  if (q < 2 * NU + NX) return w.x(t, q - 2 * NU) - c.ubx[q - 2 * NU];
+  return c.lbx[q - 2 * NU - NX] - w.x(t, q - 2 * NU - NX);
 }
 
-template <class M, bool RK4>
-__global__ void tracker_tile_kernel(const Args g, const Consts c) {
+extern __shared__ float lane_blocks[];  // T blocks of lane_floats() floats
+
+template <class M, bool RK4, int G>
+__global__ void __launch_bounds__(MAX_THREADS) tracker_tile_kernel(const Args g, const Consts c) {
   constexpr int NX = M::NX, NP = M::NP > 0 ? M::NP : 1;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int member = threadIdx.x % G, slot = threadIdx.x / G;
+  const int lane = blockIdx.x * (blockDim.x / G) + slot;
+  // the threads of this warp: all of them are here, none has diverged yet
+  const unsigned warp = G > 1 ? __activemask() : 0u;
   const int Bp = g.Bp, N = g.N;
   const bool sbox = g.sbox != 0;
   const int nc = 2 * NU + (sbox ? 2 * NX : 0);
+
+  // place the regions: in the lane's shared block, in its home, or in `work`
   LaneView<NX> w;
-  w.xs = g.xs + lane;
-  w.us = g.us + lane;
-  w.lam = g.lam + lane;
-  w.k = g.work + lane;
-  w.K = g.work + (size_t)NU * N * Bp + lane;
-  w.refs = g.refs + lane;
-  w.Bp = Bp;
   w.nc = nc;
   w.N = N;
+  float* const block = lane_blocks + (size_t)slot * lane_floats(g.smask, NX, N, nc);
+  int in_block = 0, in_work = 0;
+  auto place = [&](int r, float* home) {  // called once per region, in region order
+    const int n = region_floats(r, NX, N, nc);
+    Region v;
+    if (g.smask >> r & 1) {
+      v = Region{block + in_block, 1};
+      in_block += n;
+    } else if (home != nullptr) {
+      v = Region{home + lane, Bp};
+    } else {
+      v = Region{g.work + (size_t)in_work * Bp + lane, Bp};
+      in_work += n;
+    }
+    return v;
+  };
+  w.ab = place(R_AB, nullptr);
+  w.gain = place(R_GAIN, nullptr);
+  w.xs = place(R_XS, g.xs);
+  w.us = place(R_US, g.us);
+  w.lam = place(R_LAM, g.lam);
+  w.ref = place(R_REF, const_cast<float*>(g.refs));
+  w.cand = place(R_CAND, nullptr);
   float p[NP];
 #pragma unroll
   for (int q = 0; q < NP; ++q) p[q] = M::NP > 0 ? g.par[q * Bp + lane] : 0.0f;
@@ -784,13 +889,14 @@ __global__ void tracker_tile_kernel(const Args g, const Consts c) {
 #pragma unroll
   for (int i = 0; i < NX; ++i) x0[i] = g.x0[i * Bp + lane];
 
-  // init: controls from the warm start, multipliers zero, then a rollout
-  for (int t = 0; t < N; ++t) {
-#pragma unroll
-    for (int j = 0; j < NU; ++j) w.u(t, j) = g.u0[(t * NU + j) * Bp + lane];
-    for (int q = 0; q < nc; ++q) w.l(t, q) = 0.0f;
-  }
-  {
+  // init: controls from the warm start, multipliers zero, the reference
+  // window into its region, then a rollout (a chain: one member)
+  for (int i = member; i < N * NU; i += G) w.us[i] = g.u0[(size_t)i * Bp + lane];
+  for (int i = member; i < N * nc; i += G) w.lam[i] = 0.0f;
+  if (g.smask >> R_REF & 1)
+    for (int i = member; i < (N + 1) * NX; i += G) w.ref[i] = g.refs[(size_t)i * Bp + lane];
+  group_sync<G>(warp);
+  if (member == 0) {
     float x[NX];
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = x0[i];
@@ -803,7 +909,10 @@ __global__ void tracker_tile_kernel(const Args g, const Consts c) {
 #pragma unroll
     for (int i = 0; i < NX; ++i) w.x(N, i) = x[i];
   }
+  group_sync<G>(warp);
 
+  // mu, viol, lam_step, cost, reg, grad and the counters are computed by
+  // every member alike, so both votes see a lane's value G times
   float mu = c.mu_init, viol = INFINITY, lam_step = INFINITY;
   int ni_total = 0;
   for (int oi = 0; oi < g.outer; ++oi) {
@@ -814,13 +923,18 @@ __global__ void tracker_tile_kernel(const Args g, const Consts c) {
     int it = 0;
     for (; it < g.inner; ++it) {
       if (__syncthreads_and(grad < c.grad_tol)) break;
+      jacobians<M, RK4, G>(c, w, p, g.substeps, member);
+      group_sync<G>(warp);
       bool ok;
-      backward<M, RK4>(c, w, p, g.substeps, sbox, mu, reg, ok, grad);
+      backward<NX>(c, w, sbox, mu, reg, member == 0, ok, grad);
+      group_sync<G>(warp);
+      rollouts<M, RK4, G>(c, w, x0, p, g.substeps, sbox, mu, member);
+      group_sync<G>(warp);
       float costs[NALPHA];
-      forward_costs<M, RK4>(c, w, x0, p, g.substeps, sbox, mu, costs);
       float best = INFINITY;
 #pragma unroll
       for (int s = 0; s < NALPHA; ++s) {
+        costs[s] = w.cc(s);
         if (!isfinite(costs[s])) costs[s] = INFINITY;
         best = fminf(best, costs[s]);
       }
@@ -830,50 +944,77 @@ __global__ void tracker_tile_kernel(const Args g, const Consts c) {
         if (costs[s] <= best) pick = s;
       const bool improved = (best < cost - 1e-12f) && ok;
       if (improved) {
-        accept_step<M, RK4>(c, w, x0, p, g.substeps, c.alpha[pick]);
+        // the accepted candidate becomes the trajectory
+        for (int i = member; i < (N + 1) * NX; i += G) w.xs[i] = w.cand[i * NALPHA + pick];
+        for (int i = member; i < N * NU; i += G)
+          w.us[i] = w.cand[((N + 1) * NX + i) * NALPHA + pick];
         cost = best;
         reg = fmaxf(reg * 0.5f, c.reg_min);
       } else {
         reg = fminf(reg * 10.0f, c.reg_max);
       }
+      group_sync<G>(warp);
     }
     ni_total += it;
-    // multiplier sweep: violation, lam update, lam step
+    // multiplier sweep: violation, lam step (every member), then the lam
+    // update dealt by (stage, row)
     float v_n = 0.0f, step_n = 0.0f, lmax = 0.0f;
-    float x[NX], cr[2 * NU + 2 * NX];
     for (int t = 0; t < N; ++t) {
-      load_x(w, t, x);
-      const float u[NU] = {w.u(t, 0), w.u(t, 1)};
-      constraint_rows<NX>(c, sbox, x, u, cr);
-#pragma unroll
-      for (int q = 0; q < 2 * NU + 2 * NX; ++q) {
-        if (q < nc) {
-          const float lam = w.l(t, q);
-          const float lam_n = relu(lam + mu * cr[q]);
-          w.l(t, q) = lam_n;
-          v_n = nmax(v_n, relu(cr[q]));
-          step_n = nmax(step_n, fabsf(lam_n - lam));
-          lmax = nmax(lmax, fabsf(lam_n));
-        }
+      for (int q = 0; q < nc; ++q) {
+        const float cr = constraint_row<NX>(c, w, t, q);
+        const float lam = w.l(t, q);
+        const float lam_n = relu(lam + mu * cr);
+        v_n = nmax(v_n, relu(cr));
+        step_n = nmax(step_n, fabsf(lam_n - lam));
+        lmax = nmax(lmax, fabsf(lam_n));
       }
     }
+    group_sync<G>(warp);
+    for (int item = member; item < N * nc; item += G) {
+      const int t = item / nc, q = item - t * nc;
+      w.l(t, q) = relu(w.l(t, q) + mu * constraint_row<NX>(c, w, t, q));
+    }
+    group_sync<G>(warp);
     viol = v_n;
     lam_step = step_n / (1.0f + lmax);
     if (viol > c.viol_tol) mu = fminf(mu * c.mu_scale, c.mu_max);
   }
-  g.viol[lane] = viol;
-  g.conv[lane] = viol < c.viol_tol ? 1.0f : 0.0f;
-  g.ni[lane] = (float)ni_total;
+  // regions kept in shared memory go to their outputs
+  if (g.smask >> R_XS & 1)
+    for (int i = member; i < (N + 1) * NX; i += G) g.xs[(size_t)i * Bp + lane] = w.xs[i];
+  if (g.smask >> R_US & 1)
+    for (int i = member; i < N * NU; i += G) g.us[(size_t)i * Bp + lane] = w.us[i];
+  if (g.smask >> R_LAM & 1)
+    for (int i = member; i < N * nc; i += G) g.lam[(size_t)i * Bp + lane] = w.lam[i];
+  if (member == 0) {
+    g.viol[lane] = viol;
+    g.conv[lane] = viol < c.viol_tol ? 1.0f : 0.0f;
+    g.ni[lane] = (float)ni_total;
+  }
+}
+
+template <class M, bool RK4>
+static int launch_kernel(const Args& g, const Consts& c, int n_tiles, int tile, size_t bytes,
+                         cudaStream_t s) {
+  auto kernel = tracker_tile_kernel<M, RK4, GROUP>;
+  if (bytes > 48 * 1024) {  // beyond the default, dynamic shared memory is opt-in
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<n_tiles, tile * GROUP, bytes, s>>>(g, c);
+  return (int)cudaGetLastError();
 }
 
 template <class M>
 static int launch(const float* x0, const float* u0, const float* refs, const float* par,
                   float* us, float* xs, float* viol, float* conv, float* lam, float* ni,
                   float* work, const float* consts, int n_consts, int N, int substeps,
-                  int rk4, int sbox, int outer, int inner, int tile, int n_tiles,
-                  void* stream) {
+                  int rk4, int sbox, int outer, int inner, int tile, int n_tiles, int group,
+                  int smask, void* stream) {
   if (n_consts * sizeof(float) != sizeof(Consts) || N < 1 || substeps < 1 || tile < 1 ||
-      n_tiles < 1 || (M::NP > 0 && par == nullptr))
+      n_tiles < 1 || (M::NP > 0 && par == nullptr) || group != GROUP ||
+      tile * GROUP > MAX_THREADS || smask < 0 || smask >= 1 << N_REGIONS)
     return (int)cudaErrorInvalidValue;
   Consts c;
   memcpy(&c, consts, sizeof(Consts));
@@ -883,12 +1024,13 @@ static int launch(const float* x0, const float* u0, const float* refs, const flo
   g.work = work;
   g.N = N; g.substeps = substeps; g.sbox = sbox; g.outer = outer; g.inner = inner;
   g.Bp = tile * n_tiles;
+  g.smask = smask;
+  const int nc = 2 * NU + (sbox ? 2 * M::NX : 0);
+  const size_t bytes =
+      smask ? (size_t)tile * lane_floats(smask, M::NX, N, nc) * sizeof(float) : 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (rk4)
-    tracker_tile_kernel<M, true><<<n_tiles, tile, 0, s>>>(g, c);
-  else
-    tracker_tile_kernel<M, false><<<n_tiles, tile, 0, s>>>(g, c);
-  return (int)cudaGetLastError();
+  return rk4 ? launch_kernel<M, true>(g, c, n_tiles, tile, bytes, s)
+             : launch_kernel<M, false>(g, c, n_tiles, tile, bytes, s);
 }
 
 #define TRACKER_ENTRY(NAME, MODEL)                                                         \
@@ -896,14 +1038,18 @@ static int launch(const float* x0, const float* u0, const float* refs, const flo
                       float* us, float* xs, float* viol, float* conv, float* lam, float* ni, \
                       float* work, const float* consts, int n_consts, int N, int substeps,   \
                       int rk4, int sbox, int outer, int inner, int tile, int n_tiles,        \
-                      void* stream) {                                                        \
+                      int group, int smask, void* stream) {                                  \
     return launch<MODEL>(x0, u0, refs, par, us, xs, viol, conv, lam, ni, work, consts,      \
                          n_consts, N, substeps, rk4, sbox, outer, inner, tile, n_tiles,     \
-                         stream);                                                           \
+                         group, smask, stream);                                             \
   }
 
 TRACKER_ENTRY(tracker_kinematic_launch, KinematicRows)
 TRACKER_ENTRY(tracker_pacejka_launch, PacejkaRows)
+
+// The group this library was built for, and the threads per CTA it allows.
+extern "C" int tracker_group() { return GROUP; }
+extern "C" int tracker_max_threads() { return MAX_THREADS; }
 
 extern "C" const char* tracker_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

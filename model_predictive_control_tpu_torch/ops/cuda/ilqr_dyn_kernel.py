@@ -78,12 +78,12 @@ def make_pacejka_ode_rows(model: tuple) -> TrackerModel:
 
 
 def _dyn_kwargs(N, ts, substeps, model, limits, weights, outer_iters, inner_iters, mu_init,
-                mu_scale, mu_max, viol_tol, tol, tile):
+                mu_scale, mu_max, viol_tol, tol, tile, group):
     return dict(
         ode_rows=make_pacejka_ode_rows(model), nx=NXD, nu=NU, N=N, ts=float(ts),
         substeps=substeps, limits=limits, weights=weights, outer_iters=outer_iters,
         inner_iters=inner_iters, mu_init=mu_init, mu_scale=mu_scale, mu_max=mu_max,
-        viol_tol=viol_tol, tol=tol, tile=tile,
+        viol_tol=viol_tol, tol=tol, tile=tile, group=group,
     )
 
 
@@ -106,25 +106,27 @@ def al_ilqr_dyn_solve_cuda(
     viol_tol: float = 1e-4,
     tol: float = 1e-6,
     tile: int = DEFAULT_TILE,
+    group: int | None = None,
 ) -> BatchedTrackerSolution:
     """Batched 6-state Pacejka tracking AL-iLQR with RK4×``substeps``
     prediction and an input box: the kernel for CUDA tensors, its twin for
-    CPU tensors (the JAX package's ``al_ilqr_dyn_solve_pallas``)."""
+    CPU tensors (the JAX package's ``al_ilqr_dyn_solve_pallas``). ``group``:
+    threads per lane on the card (``fused_tracker_solve_cuda``)."""
     return fused_tracker_solve_cuda(
         x0s, u_init, refs, **_dyn_kwargs(N, ts, substeps, model, limits, weights, outer_iters,
                                          inner_iters, mu_init, mu_scale, mu_max, viol_tol,
-                                         tol, tile)
+                                         tol, tile, group)
     )
 
 
 def al_ilqr_dyn_solve_twin(
     x0s, u_init, refs, *, N, ts, substeps, model, limits, weights, outer_iters=6,
     inner_iters=15, mu_init=10.0, mu_scale=10.0, mu_max=1e8, viol_tol=1e-4, tol=1e-6,
-    tile=DEFAULT_TILE,
+    tile=DEFAULT_TILE, group=None,
 ) -> BatchedTrackerSolution:
     """:func:`al_ilqr_dyn_solve_cuda` on the plain twin, on any device."""
     return fused_tracker_solve_twin(
         x0s, u_init, refs, **_dyn_kwargs(N, ts, substeps, model, limits, weights, outer_iters,
                                          inner_iters, mu_init, mu_scale, mu_max, viol_tol,
-                                         tol, tile)
+                                         tol, tile, group)
     )

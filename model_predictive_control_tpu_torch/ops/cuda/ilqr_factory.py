@@ -29,6 +29,15 @@ reference and parameters) vote in both. ``inner_iters_executed`` is the
 tile's summed inner count. :func:`tracker_tiles_reference` is the plain twin
 of the same tile algorithm on stage-major ``(stage, row, lane)`` operands;
 :func:`fused_tracker_solve_cuda` takes it only for CPU tensors.
+
+Lane groups: on the card ``group`` threads serve one lane (the Jacobian
+directions of all stages and the line-search candidates are dealt to them;
+``csrc/ilqr_factory.cu``), so a CTA has ``tile × group`` threads. ``tile``
+keeps its meaning, lanes per CTA, and the numbers of a solve depend on the
+tile only: every group computes the same float program. One library is built
+per group. :func:`launch_plan` reckons, for ``(nx, N, nc, tile, group)``, the
+threads, the regions of a lane's working set that fit into shared memory and
+the workspace for the rest, and raises on what the kernel cannot take.
 """
 
 from __future__ import annotations
@@ -48,16 +57,26 @@ from .ilqr_kernel import ALPHAS, REG_INIT, REG_MAX, REG_MIN, _relu
 NU_KERNEL = 2  # the closed-form Quu solve
 MAX_NX = 8  # csrc/ilqr_factory.cu MAXX
 MAX_CONSTS = 16  # csrc/ilqr_factory.cu MAXC
-MAX_TILE = 1024  # threads per CTA: one lane per thread
-# GPU default scenario tile, chosen by a sweep on the H100 at both racing
-# sweeps' contract configurations (PERF.md, Findings)
-DEFAULT_TILE = 64
+# GPU default scenario tile and (below) thread group, chosen by a tile × group
+# sweep on the H100 at both racing sweeps' contract configurations, by the
+# time the sweeps spend in the kernel (PERF.md, Findings): 128 CTAs for 2,048
+# lanes, about one per SM, and the tile-wide exits fire earlier than at 64
+DEFAULT_TILE = 16
+# threads per lane a library can be built for, and the threads per CTA
+# (tile × group) its launch bounds allow (csrc/ilqr_factory.cu MAX_THREADS)
+GROUPS = (1, 8, 16, 32)
+MAX_THREADS = {1: 256, 8: 512, 16: 512, 32: 512}
+# default group per C++ instantiation, from the same sweep
+DEFAULT_GROUP = {"kinematic": 8, "pacejka": 32}
+# dynamic shared memory one CTA may ask for on sm_90 (227 KB)
+SMEM_LIMIT = 232448
+N_ALPHA = len(ALPHAS)
 
 # Kernel launches made by fused_tracker_solve_cuda (one per solve). Tests and
 # chip_smoke.py read it to show that a run went through the kernel.
 LAUNCHES = 0
 
-LIBRARY = "ilqr_factory"
+LIBRARY = "ilqr_factory"  # library_name(group) is the file's stem
 _SOURCES = [PKG / "csrc" / "ilqr_factory.cu"]
 # the twin rounds after every operation; so does the kernel without
 # contraction into fused multiply-adds (as K2, PERF.md)
@@ -586,32 +605,90 @@ def _consts(model: TrackerModel, *, ts, substeps, limits, state_limits, weights,
     ]
 
 
+# A lane's working set by region, in the order shared memory is filled
+# (csrc/ilqr_factory.cu's enum): name, floats per lane, and whether the region
+# has a home outside the workspace (an output buffer or the refs operand).
+def regions(nx: int, N: int, nc: int) -> tuple:
+    return (
+        ("ab", N * nx * (nx + NU_KERNEL), False),  # step Jacobians [A | B]
+        ("gain", N * NU_KERNEL * (1 + nx), False),  # k and K
+        ("xs", (N + 1) * nx, True),
+        ("us", N * NU_KERNEL, True),
+        ("lam", N * nc, True),
+        ("ref", (N + 1) * nx, True),
+        ("cand", N_ALPHA * ((N + 1) * nx + N * NU_KERNEL + 1), False),  # 7 candidates, costs
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    threads: int  # per CTA: tile × group
+    smask: int  # bit r: region r lives in shared memory
+    smem_bytes: int  # dynamic shared memory per CTA
+    work_rows: int  # rows of the (rows, Bp) global workspace
+
+
+def launch_plan(nx: int, N: int, nc: int, tile: int, group: int) -> LaunchPlan:
+    """How the kernel is launched for one tile shape. Regions go to shared
+    memory in their order as long as the CTA's ``tile`` lane blocks (each
+    padded to an odd float count) fit :data:`SMEM_LIMIT`; a region that does
+    not fit is skipped and stays in global memory. Raises ``ValueError`` for
+    a group no library is built for and for more threads than the kernel's
+    launch bounds allow: a request is never shrunk."""
+    if group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, not {group}")
+    if tile < 1:
+        raise ValueError("tile must be positive")
+    threads = tile * group
+    if threads > MAX_THREADS[group]:
+        raise ValueError(
+            f"tile {tile} × group {group} = {threads} threads per CTA exceeds the "
+            f"{MAX_THREADS[group]} the kernel's launch bounds allow at this group"
+        )
+    smask = floats = work_rows = 0
+    for r, (_, n, has_home) in enumerate(regions(nx, N, nc)):
+        if 4 * tile * ((floats + n) | 1) <= SMEM_LIMIT:
+            smask |= 1 << r
+            floats += n
+        elif not has_home:
+            work_rows += n
+    return LaunchPlan(threads, smask, 4 * tile * (floats | 1) if smask else 0, work_rows)
+
+
+def library_name(group: int) -> str:
+    return LIBRARY if group == 1 else f"{LIBRARY}_g{group}"
+
+
 def _configure(lib: ctypes.CDLL) -> None:
     for name in ("tracker_kinematic_launch", "tracker_pacejka_launch"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.tracker_error_string.argtypes = [ctypes.c_int]
     lib.tracker_error_string.restype = ctypes.c_char_p
 
 
-def _build_library() -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/ilqr_factory.cu``."""
-    return load_library(LIBRARY, _SOURCES, _configure, extra_flags=NVCC_EXTRA)
+def _build_library(group: int = 1) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/ilqr_factory.cu`` for ``group``
+    threads per lane."""
+    lib = load_library(library_name(group), _SOURCES, _configure,
+                       extra_flags=(*NVCC_EXTRA, f"-DTRACKER_GROUP={group}"))
+    if (lib.tracker_group(), lib.tracker_max_threads()) != (group, MAX_THREADS[group]):
+        raise RuntimeError(f"{library_name(group)} was not built for group {group}")
+    return lib
 
 
 def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integrator,
-            limits, state_limits, weights, outer_iters, inner_iters, **solver):
+            limits, state_limits, weights, outer_iters, inner_iters, group=1, **solver):
     global LAUNCHES
-    if tile > MAX_TILE:
-        raise ValueError(f"tile {tile} exceeds {MAX_TILE} threads per block")
+    nc = 2 * nu + (2 * nx if state_limits is not None else 0)
+    plan = launch_plan(nx, N, nc, tile, group)
     operands = [a for a in (x0, u0, refs, par) if a is not None]
     for a in operands:
         if a.device != x0.device or a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError("kernel operands must be contiguous float32 on one device")
-    lib = _build_library()
+    lib = _build_library(group)
     Bp = x0.shape[-1]
-    nc = 2 * nu + (2 * nx if state_limits is not None else 0)
     dev = x0.device
     f32 = torch.float32
     us = torch.empty(N, nu, Bp, dtype=f32, device=dev)
@@ -620,7 +697,7 @@ def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integ
     conv = torch.empty(Bp, dtype=f32, device=dev)
     lam = torch.empty(N, nc, Bp, dtype=f32, device=dev)
     ni = torch.empty(Bp, dtype=f32, device=dev)
-    work = torch.empty(N * (nu + nu * nx), Bp, dtype=f32, device=dev)
+    work = torch.empty(max(plan.work_rows, 1), Bp, dtype=f32, device=dev)
     values = _consts(ode_rows, ts=ts, substeps=substeps, limits=limits,
                      state_limits=state_limits, weights=weights, **solver)
     cvals = (ctypes.c_float * len(values))(*values)
@@ -631,7 +708,8 @@ def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integ
         err = fn(
             *(ptr(a) for a in (x0, u0, refs, par, us, xs, viol, conv, lam, ni, work)),
             ctypes.addressof(cvals), len(values), N, substeps, int(integrator == "rk4"),
-            int(state_limits is not None), outer_iters, inner_iters, tile, Bp // tile, stream,
+            int(state_limits is not None), outer_iters, inner_iters, tile, Bp // tile,
+            group, plan.smask, stream,
         )
     if err != 0:
         raise RuntimeError(f"tracker kernel launch failed: {lib.tracker_error_string(err).decode()}")
@@ -765,28 +843,38 @@ def fused_tracker_solve_cuda(
     viol_tol: float = 1e-4,
     tol: float = 1e-6,
     tile: int = DEFAULT_TILE,
+    group: int | None = None,  # threads per lane on the card; None: DEFAULT_GROUP
 ) -> BatchedTrackerSolution:
     """Batched AL-iLQR tracking solve of a row-form ODE; the signature and
     return of the JAX package's ``fused_tracker_solve`` (without
-    ``interpret``).
+    ``interpret``), and ``group``.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     twin :func:`tracker_tiles_reference`. On CUDA ``ode_rows`` must be a
     :class:`TrackerModel`: a bare row function raises
-    ``NotImplementedError`` (ROADMAP S4.6). One thread runs one lane and one
-    CTA one tile; a tile wider than the register file allows (256 lanes for
-    the Pacejka instantiation's 254 registers per thread) is refused at
-    launch and raises. ``extra_deps`` and ``extra_order`` belong to
-    ``extra_constraints``, which is not ported.
+    ``NotImplementedError`` (ROADMAP S4.6). One CTA runs one tile with
+    ``group`` threads per lane (one of :data:`GROUPS`; the instantiation's
+    :data:`DEFAULT_GROUP` when ``None``); the solution does not depend on it.
+    ``tile`` and ``group`` are chosen together: a CTA has ``tile × group``
+    threads, and more than :data:`MAX_THREADS` raises ``ValueError``
+    (:func:`launch_plan`), so a ``tile`` above 16 needs a ``group`` below the
+    Pacejka default of 32. The twin ignores a valid ``group``.
+    ``extra_deps`` and ``extra_order`` belong to ``extra_constraints``, which
+    is not ported.
     """
     del extra_deps, extra_order
+    if group is None:
+        group = DEFAULT_GROUP.get(getattr(ode_rows, "kernel", None), 1)
+    if group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, not {group}")
     if x0s.is_cuda:
         if not isinstance(ode_rows, TrackerModel):
             raise NotImplementedError(
                 "a row function without a C++ instantiation runs only on the twin; "
                 "code generation for user ODEs is not ported yet: ROADMAP S4.6"
             )
-        solver = _launch
+        # _launch is looked up at call time, so that a run can observe it
+        solver = lambda *a, **k: _launch(*a, group=group, **k)
     else:
         solver = tracker_tiles_reference
     return _solve_tiled(
@@ -813,6 +901,8 @@ def fused_tracker_solve_twin(*args, **kwargs) -> BatchedTrackerSolution:
     bound.apply_defaults()
     kw = dict(bound.arguments)
     del kw["extra_deps"], kw["extra_order"]
+    if kw.pop("group") not in (None, *GROUPS):
+        raise ValueError(f"group must be one of {GROUPS}")
     return _solve_tiled(tracker_tiles_reference, **kw)
 
 
@@ -823,5 +913,6 @@ def make_fused_tracker(ode_rows, nx: int, nu: int, **config):
                                   substeps=4, limits=..., weights=...)
         sol = step(x0s, u_init, refs)
 
-    Per-call tensors (``params``) stay call-site keywords."""
+    Per-call tensors (``params``) stay call-site keywords; ``tile`` and
+    ``group`` are part of the configuration."""
     return functools.partial(fused_tracker_solve_cuda, ode_rows=ode_rows, nx=nx, nu=nu, **config)

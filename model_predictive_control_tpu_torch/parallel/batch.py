@@ -379,6 +379,7 @@ def batched_racing_policy(
     inner_iters: int = 15,
     backend: str = "cuda",
     tile: int = ilqr_factory.DEFAULT_TILE,
+    group: int | None = None,
     mesh=None,
     dtype=torch.float32,
 ):
@@ -394,7 +395,9 @@ def batched_racing_policy(
     it never binds). The carry is the solved controls shifted one stage.
 
     ``backend="cuda"`` launches the kernel for CUDA tensors (its plain twin
-    for CPU tensors); ``"twin"`` runs the twin on any device. The hand
+    for CPU tensors); ``"twin"`` runs the twin on any device. ``group`` is
+    the kernel's threads per lane (``ilqr_factory.GROUPS``; the
+    instantiation's default when ``None``): it moves time, never numbers. The hand
     kernel's tracking mode (``"pallas-hand"``), the per-scenario path
     (``"xla"``, other dtypes, a per-scenario model other than acceleration
     and friction) and device meshes raise ``NotImplementedError``.
@@ -428,7 +431,7 @@ def batched_racing_policy(
             integrator="euler", limits=u_lims, state_limits=x_lims, weights=weights,
             params=params, n_params=2, outer_iters=outer_iters,
             inner_iters=inner_iters, viol_tol=1e-4,
-            tile=min(tile, math.ceil(B / 128) * 128),
+            tile=min(tile, math.ceil(B / 128) * 128), group=group,
         )
         return _tracking_step(sol, x_batch, window, N)
 
@@ -452,6 +455,7 @@ def racing_sweep(
     inner_iters: int = 15,
     backend: str = "cuda",
     tile: int = ilqr_factory.DEFAULT_TILE,
+    group: int | None = None,
     plant_substeps: int = 8,
     mesh=None,
     dtype=torch.float32,
@@ -495,7 +499,8 @@ def racing_sweep(
     ref, x0s = ref.to(device), x0s.to(device)
     policy = batched_racing_policy(
         ref, base, N=N, ts=ts, Q=Q, R=R, qn_scale=qn_scale, outer_iters=outer_iters,
-        inner_iters=inner_iters, backend=backend, tile=tile, mesh=mesh, dtype=dtype,
+        inner_iters=inner_iters, backend=backend, tile=tile, group=group, mesh=mesh,
+        dtype=dtype,
     )
     plant = batched_plant(plant_params, ts, substeps=plant_substeps)
     res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device))
@@ -533,6 +538,7 @@ def batched_racing_dynamic_policy(
     inner_iters: int = 8,
     backend: str = "cuda",
     tile: int = ilqr_factory.DEFAULT_TILE,
+    group: int | None = None,
     mesh=None,
     dtype=torch.float32,
 ):
@@ -560,7 +566,7 @@ def batched_racing_dynamic_policy(
             x_batch, carry.reshape(B, N, NU), window[None].expand(B, N + 1, NX_DYNAMIC),
             N=N, ts=float(ts), substeps=pred_substeps, model=model, limits=u_lims,
             weights=weights, outer_iters=outer_iters, inner_iters=inner_iters,
-            viol_tol=1e-4, tile=min(tile, math.ceil(B / 128) * 128),
+            viol_tol=1e-4, tile=min(tile, math.ceil(B / 128) * 128), group=group,
         )
         return _tracking_step(sol, x_batch, window, N)
 
@@ -583,6 +589,7 @@ def racing_sweep_dynamic(
     pred_substeps: int = 4,
     backend: str = "cuda",
     tile: int = ilqr_factory.DEFAULT_TILE,
+    group: int | None = None,
     mesh=None,
     dtype=torch.float32,
     device=None,
@@ -619,7 +626,8 @@ def racing_sweep_dynamic(
     ref = ref.to(device)
     policy = batched_racing_dynamic_policy(
         ref, base, N=N, ts=ts, pred_substeps=pred_substeps, outer_iters=outer_iters,
-        inner_iters=inner_iters, backend=backend, tile=tile, mesh=mesh, dtype=dtype,
+        inner_iters=inner_iters, backend=backend, tile=tile, group=group, mesh=mesh,
+        dtype=dtype,
     )
     plant = batched_dynamic_plant(plant_params, ts, substeps=plant_substeps)
     res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device))

@@ -161,13 +161,18 @@ def tracker():
 
 @pytest.mark.parametrize("model", ["kinematic", "pacejka"])
 @pytest.mark.parametrize("tile", [8, 32])
-def test_tracker_kernel_matches_twin(tracker, model, tile):
+@pytest.mark.parametrize("group", [1, 8, 32])
+def test_tracker_kernel_matches_twin(tracker, model, tile, group):
     """Same inputs on the card: the kernel does the twin's operations in the
-    twin's order without FMA contraction, so the two agree bit for bit."""
+    twin's order without FMA contraction, so the two agree bit for bit, with
+    one thread per lane or a group of them (a group only deals the work).
+    Tile 32 at group 32 is 1,024 threads, beyond the launch bounds: there the
+    widest tile the group takes (16) stands in."""
     F, cases = tracker
     case = cases[model]
+    tile = min(tile, F.MAX_THREADS[group] // group)
     before = F.LAUNCHES
-    got = F.fused_tracker_solve_cuda(*case["args"], tile=tile, **case["kw"])
+    got = F.fused_tracker_solve_cuda(*case["args"], tile=tile, group=group, **case["kw"])
     torch.cuda.synchronize()
     assert F.LAUNCHES == before + 1
     ref = F.fused_tracker_solve_twin(*case["args"], tile=tile, **case["kw"])
@@ -191,15 +196,40 @@ def test_racing_sweeps_launch_the_kernel(tracker, sweep):
     assert F.LAUNCHES == before + 3
     assert res.states.is_cuda and bool(torch.isfinite(res.states).all())
     assert 0.0 <= summary["success_rate"] <= 1.0
+    # the group moves time, never numbers
+    other, _ = getattr(port, sweep)(64, 3, N=8, group=1, device="cuda")
+    assert F.LAUNCHES == before + 6
+    assert torch.equal(res.states, other.states)
 
 
 def test_oversize_tracker_tile_raises(tracker):
-    """512 lanes of the 254-register Pacejka instantiation exceed the
-    register file: the launch is refused and raises, nothing runs."""
+    """More threads per CTA (tile × group) than the kernel's launch bounds
+    allow: the wrapper raises before anything is built or launched."""
     F, cases = tracker
     case = cases["pacejka"]
-    with pytest.raises(RuntimeError, match="launch failed"):
-        F.fused_tracker_solve_cuda(*case["args"], tile=512, **case["kw"])
+    before = F.LAUNCHES
+    for tile, group in ((512, 1), (128, 8), (32, 32)):
+        with pytest.raises(ValueError, match="threads per CTA"):
+            F.fused_tracker_solve_cuda(*case["args"], tile=tile, group=group, **case["kw"])
+    with pytest.raises(ValueError, match="group must be one of"):
+        F.fused_tracker_solve_cuda(*case["args"], group=4, **case["kw"])
+    assert F.LAUNCHES == before
+
+
+@pytest.mark.parametrize("model", ["kinematic", "pacejka"])
+def test_tracker_widest_ctas_launch(tracker, model):
+    """The widest CTA each group's launch bounds allow is really launched
+    (registers × threads fit the register file) and gives the group-1
+    kernel's bits at the same tile."""
+    F, cases = tracker
+    case = cases[model]
+    for group in (8, 16, 32):
+        tile = F.MAX_THREADS[group] // group
+        got = F.fused_tracker_solve_cuda(*case["args"], tile=tile, group=group, **case["kw"])
+        one = F.fused_tracker_solve_cuda(*case["args"], tile=tile, group=1, **case["kw"])
+        torch.cuda.synchronize()
+        for name in ("us", "xs", "viol", "converged", "lam", "inner_iters_executed"):
+            assert torch.equal(getattr(got, name), getattr(one, name)), (group, name)
 
 
 @pytest.fixture

@@ -128,3 +128,110 @@ def test_other_input_widths_raise():
     kw = {**_config(4, 4, 1, 1), "nu": 3}
     with pytest.raises(NotImplementedError, match="ROADMAP S4.3"):
         F.fused_tracker_solve_cuda(x0, u0, refs, ode_rows=lambda *a: a[0], params=par, **kw)
+
+
+# ---------------------------------------------------------------------------
+# thread groups: the wrapper's reckoning (no card needed)
+# ---------------------------------------------------------------------------
+
+RACING_SHAPES = {"kinematic": (4, 15, 12), "pacejka": (6, 15, 4)}  # nx, N, nc
+
+
+@pytest.mark.parametrize("model", list(RACING_SHAPES))
+def test_launch_plan_reckons_shared_memory_and_workspace(model):
+    """A lane's working set by region, what fits the 227 KB of a CTA at each
+    tile, and the global workspace for the rest."""
+    nx, N, nc = RACING_SHAPES[model]
+    sizes = dict((name, n) for name, n, _ in F.regions(nx, N, nc))
+    assert sizes == {
+        "ab": N * nx * (nx + 2), "gain": N * 2 * (1 + nx), "xs": (N + 1) * nx, "us": N * 2,
+        "lam": N * nc, "ref": (N + 1) * nx, "cand": 7 * ((N + 1) * nx + N * 2 + 1),
+    }
+    total = sum(sizes.values())
+    assert total == {"kinematic": 1513, "pacejka": 2101}[model]
+    # a narrow tile keeps the whole working set in shared memory: no workspace
+    plan = F.launch_plan(nx, N, nc, 8, 32)
+    assert plan == F.LaunchPlan(threads=256, smask=0b1111111, smem_bytes=4 * 8 * (total | 1),
+                                work_rows=0)
+    # at tile 64 it does not fit: regions are taken in order while they fit, a
+    # lane's block is padded to an odd float count, the rest of the workspace
+    # regions (never xs, us, lam, refs: they have their own buffers) is global
+    plan = F.launch_plan(nx, N, nc, 64, 8)
+    names = [name for name, _, _ in F.regions(nx, N, nc)]
+    shared = [names[r] for r in range(7) if plan.smask >> r & 1]
+    assert shared == {"kinematic": ["ab", "gain", "xs", "us", "lam", "ref"],
+                      "pacejka": ["ab", "xs", "us", "lam"]}[model]
+    floats = sum(sizes[n] for n in shared)
+    assert plan.smem_bytes == 4 * 64 * (floats | 1) <= F.SMEM_LIMIT
+    assert plan.threads == 512
+    assert plan.work_rows == sum(sizes[n] for n in ("ab", "gain", "cand") if n not in shared)
+    # the next region would not have fitted
+    skipped = next(n for n in names if n not in shared)
+    assert 4 * 64 * ((floats + sizes[skipped]) | 1) > F.SMEM_LIMIT
+
+
+@pytest.mark.parametrize(
+    "tile, group, message",
+    [
+        (64, 4, "group must be one of"),
+        (64, 0, "group must be one of"),
+        (512, 1, "threads per CTA"),
+        (128, 8, "threads per CTA"),
+        (64, 16, "threads per CTA"),
+        (32, 32, "threads per CTA"),
+        (0, 8, "tile must be positive"),
+    ],
+)
+def test_launch_plan_refuses(tile, group, message):
+    with pytest.raises(ValueError, match=message):
+        F.launch_plan(6, 15, 4, tile, group)
+
+
+@pytest.mark.parametrize("group", F.GROUPS)
+def test_widest_tile_of_each_group_is_taken(group):
+    tile = F.MAX_THREADS[group] // group
+    assert F.launch_plan(6, 15, 4, tile, group).threads == F.MAX_THREADS[group]
+    with pytest.raises(ValueError, match="threads per CTA"):
+        F.launch_plan(6, 15, 4, tile + 1, group)
+
+
+def test_launch_validates_before_it_builds(monkeypatch):
+    """An unknown group or too many threads raise from ``_launch`` before any
+    library is built, and count no launch."""
+    monkeypatch.setattr(F, "_build_library", lambda group=1: pytest.fail("built a library"))
+    x0, u0, refs, par = (torch.as_tensor(a) for a in _inputs(4, 5))
+    args = F.prepare_tiles(x0, u0, refs, par, tile=4)
+    kw = {k: v for k, v in _config(5, 4, 1, 1).items() if k not in ("n_params", "viol_tol")}
+    kw.update(ode_rows=make_parking_ode_rows(KB, LR), mu_init=10.0, mu_scale=10.0, mu_max=1e8,
+              viol_tol=1e-4, tol=1e-6)
+    before = F.LAUNCHES
+    with pytest.raises(ValueError, match="group must be one of"):
+        F._launch(*args, group=3, **kw)
+    with pytest.raises(ValueError, match="threads per CTA"):
+        F._launch(*args, group=32, **{**kw, "tile": 64})
+    assert F.LAUNCHES == before
+
+
+def test_group_is_validated_and_ignored_on_the_twin():
+    """On CPU tensors a valid group changes nothing (the twin has no
+    threads); an unknown one raises all the same."""
+    x0, u0, refs, par = (torch.as_tensor(a) for a in _inputs(4, 5, seed=2))
+    model = make_parking_ode_rows(KB, LR)
+    kw = _config(5, 4, 2, 3)
+    ref = F.fused_tracker_solve_twin(x0, u0, refs, ode_rows=model, params=par, **kw)
+    step = F.make_fused_tracker(model, group=32, **kw)
+    assert step.keywords["group"] == 32 and step.keywords["tile"] == 4
+    for got in (step(x0, u0, refs, params=par),
+                F.fused_tracker_solve_twin(x0, u0, refs, ode_rows=model, params=par, group=8, **kw)):
+        for name in ("us", "xs", "viol", "converged", "lam", "inner_iters_executed"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    for solve in (F.fused_tracker_solve_cuda, F.fused_tracker_solve_twin):
+        with pytest.raises(ValueError, match="group must be one of"):
+            solve(x0, u0, refs, ode_rows=model, params=par, group=5, **kw)
+
+
+def test_default_groups_fit_the_default_tile():
+    assert set(F.DEFAULT_GROUP) == {"kinematic", "pacejka"}
+    for group in F.DEFAULT_GROUP.values():
+        assert group in F.GROUPS and F.DEFAULT_TILE * group <= F.MAX_THREADS[group]
+    assert F.library_name(1) == F.LIBRARY and F.library_name(16) == F.LIBRARY + "_g16"

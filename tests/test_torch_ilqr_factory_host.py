@@ -1,10 +1,16 @@
 """The tracker kernel's CUDA source, compiled for the host, against its twin.
 
-``csrc/ilqr_factory.cu`` is plain C++ apart from its CUDA qualifiers,
-``__syncthreads_and`` and the launch. Built by g++ with those stubbed and one
-lane per tile (so a tile-wide vote is the lane's own), it runs the kernel's
-arithmetic on the CPU through the real wrapper (``prepare_tiles``,
-``_launch``, the constants struct). Held against the twin at tile 1 after one
+``csrc/ilqr_factory.cu`` is plain C++ apart from its CUDA qualifiers, its
+barriers, the shared-memory buffer and the launch. Built by g++ with those
+stubbed, it runs the kernel's arithmetic on the CPU through the real wrapper
+(``prepare_tiles``, ``launch_plan``, ``_launch``, the constants struct): a
+CTA's threads are host threads, ``__syncthreads_and`` and ``__syncwarp`` one
+CTA-wide barrier between them, the dynamic shared memory a static buffer. At
+group 1 and one lane per tile that is one thread (a tile-wide vote is the
+lane's own); at group 8 and two lanes per tile sixteen threads deal the
+Jacobian directions and the line-search candidates as on the card, so a
+missing barrier or a divergent vote shows here as a wrong number or a hang.
+Held against the twin at the same tile after one
 inner iteration, both models and both integrators, it must agree bit for bit
 where the host's libm agrees with torch (the kinematic tier, whose
 transcendentals are sin, cos, tan and sqrt) and within 1e-3 for the Pacejka
@@ -19,6 +25,7 @@ kernel is held to the twin bit for bit (``tests/test_torch_cuda.py``,
 
 import contextlib
 import ctypes
+import functools
 import re
 import shutil
 import subprocess
@@ -44,24 +51,61 @@ from model_predictive_control_tpu_torch.ops.cuda.parking_factory import make_par
 STUB = """
 #include <math.h>
 #include <string.h>
+#include <condition_variable>
+#include <mutex>
+#include <thread>
+#include <vector>
 #define __device__
+#define __host__
 #define __global__
+#define __shared__
 #define __forceinline__ inline
+#define __launch_bounds__(n)
 struct Dim { unsigned x; };
-static Dim blockIdx, threadIdx, blockDim;
+static Dim blockIdx, blockDim;
+static thread_local Dim threadIdx;
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class K>
+inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
-inline int __syncthreads_and(int vote) { return vote; }
+// all threads of the CTA meet here; returns the AND of their votes
+struct Barrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int n = 1, waiting = 0, phase = 0, acc = 1, result = 1;
+  int arrive(int vote) {
+    std::unique_lock<std::mutex> lock(m);
+    acc &= vote != 0;
+    if (++waiting == n) {
+      result = acc; acc = 1; waiting = 0; ++phase;
+      cv.notify_all();
+      return result;
+    }
+    const int mine = phase;
+    cv.wait(lock, [&] { return phase != mine; });
+    return result;
+  }
+};
+static Barrier cta;
+inline int __syncthreads_and(int vote) { return cta.arrive(vote); }
+inline void __syncwarp(unsigned) { cta.arrive(1); }
+inline unsigned __activemask() { return 0xffffffffu; }
 """
 
 GRID = """
-template <class M, bool RK4>
-static void host_grid(int n_tiles, const Args& g, const Consts& c) {
+float lane_blocks[1 << 16];  // the 227 KB a CTA may ask for, and some
+
+template <class K>
+static void host_grid(K kernel, int n_tiles, int threads, const Args& g, const Consts& c) {
   for (int b = 0; b < n_tiles; ++b) {
-    blockIdx.x = b; blockDim.x = 1; threadIdx.x = 0;
-    tracker_tile_kernel<M, RK4>(g, c);
+    blockIdx.x = b; blockDim.x = threads; cta.n = threads;
+    std::vector<std::thread> pool;
+    for (int t = 0; t < threads; ++t)
+      pool.emplace_back([=] { threadIdx.x = t; kernel(g, c); });
+    for (auto& th : pool) th.join();
   }
 }
 """
@@ -71,37 +115,46 @@ B = 6
 
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
+    """``group -> library``: the source built for the host, once per group."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source for the host")
     src = F._SOURCES[0].read_text().replace("#include <cuda_runtime.h>", STUB)
     src, n = re.subn(
-        r"tracker_tile_kernel<M, (true|false)><<<n_tiles, tile, 0, s>>>\(g, c\)",
-        r"host_grid<M, \1>(n_tiles, g, c)", src,
+        r"kernel<<<n_tiles, tile \* GROUP, bytes, s>>>\(g, c\)",
+        "host_grid(kernel, n_tiles, tile * GROUP, g, c)", src,
     )
-    assert n == 2, "the launch lines of csrc/ilqr_factory.cu changed"
-    src = src.replace("template <class M>\nstatic int launch", GRID + "\ntemplate <class M>\nstatic int launch")
+    assert n == 1, "the launch line of csrc/ilqr_factory.cu changed"
+    marker = "template <class M, bool RK4>\nstatic int launch_kernel"
+    assert src.count(marker) == 1
+    src = src.replace(marker, GRID + "\n" + marker)
     d = tmp_path_factory.mktemp("host_kernel")
     (d / "k.cpp").write_text(src)
-    lib = d / "libk.so"
-    subprocess.run(
-        ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-w",
-         str(d / "k.cpp"), "-o", str(lib)],
-        check=True, capture_output=True,
-    )
-    return ctypes.CDLL(str(lib))
+
+    @functools.lru_cache(maxsize=None)
+    def build(group):
+        lib = d / f"libk{group}.so"
+        subprocess.run(
+            ["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-pthread", "-w",
+             f"-DTRACKER_GROUP={group}", str(d / "k.cpp"), "-o", str(lib)],
+            check=True, capture_output=True,
+        )
+        lib = ctypes.CDLL(str(lib))
+        F._configure(lib)
+        return lib
+
+    return build
 
 
 @pytest.fixture
 def host_launch(host_kernel, monkeypatch):
     """``ilqr_factory._launch`` running the host build on CPU tensors."""
-    F._configure(host_kernel)
-    monkeypatch.setattr(F, "_build_library", lambda: host_kernel)
+    monkeypatch.setattr(F, "_build_library", lambda group=1: host_kernel(group))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type("S", (), {"cuda_stream": 0}))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     return F._launch
 
 
-def _case(model, seed=0):
+def _case(model, seed=0, tile=1):
     rng = np.random.default_rng(seed)
     N = 10 if model == "kinematic" else 6
     dynamic = model == "pacejka"
@@ -111,7 +164,7 @@ def _case(model, seed=0):
     scale = [0.05, 0.05, 0.1, 0.05, 0.01, 0.05] if dynamic else [0.08, 0.08, 0.15, 0.05]
     x0 = (refs[:, 0] + rng.uniform(-1, 1, (B, nx)) * np.array(scale)).astype(np.float32)
     kw = dict(N=N, ts=0.05, limits=((-1.0, -0.384), (1.0, 0.384)), mu_init=10.0, mu_scale=10.0,
-              mu_max=1e8, viol_tol=1e-4, tol=1e-6, tile=1, nu=2, nx=nx)
+              mu_max=1e8, viol_tol=1e-4, tol=1e-6, tile=tile, nu=2, nx=nx)
     if dynamic:
         x0[0, 3] -= 0.6
         kw.update(ode_rows=make_pacejka_ode_rows(model_tuple(VehicleParameters())), state_limits=None,
@@ -123,7 +176,7 @@ def _case(model, seed=0):
         kw.update(ode_rows=make_parking_ode_rows(0.05 / 0.097, 0.05),
                   state_limits=((-3.0, -2.0, -100.0, -0.5), (3.0, 2.0, 100.0, 0.5)),
                   weights=((40.0, 40.0, 4.0, 1.0), (0.5, 0.5), 5.0))
-    args = F.prepare_tiles(torch.as_tensor(x0), torch.zeros(B, N, 2), torch.as_tensor(refs), par, tile=1)
+    args = F.prepare_tiles(torch.as_tensor(x0), torch.zeros(B, N, 2), torch.as_tensor(refs), par, tile=tile)
     return args, kw
 
 
@@ -145,3 +198,42 @@ def test_host_build_matches_twin(host_launch, model, integrator, substeps):
         if outer == 1:
             assert torch.equal(got[5], want[5])  # executed inner iterations
     assert F.LAUNCHES == before + 2
+
+
+@pytest.mark.parametrize(
+    "model, integrator, substeps",
+    [("kinematic", "euler", 1), ("pacejka", "rk4", 4)],
+)
+@pytest.mark.parametrize("group, tile", [(8, 2), (32, 1)])
+def test_host_build_groups_match_group_one(host_launch, model, integrator, substeps, group, tile):
+    """A lane's group only deals the work: at the same tile every output of
+    the host build is bit for bit the one-thread build's, whatever the
+    group, and the twin's gates hold as above."""
+    args, kw = _case(model, tile=tile)
+    kw.update(integrator=integrator, substeps=substeps, outer_iters=3, inner_iters=8)
+    got = host_launch(*args, group=group, **kw)
+    one = host_launch(*args, group=1, **kw)
+    for a, b, name in zip(got, one, ("us", "xs", "viol", "converged", "lam", "inner iterations")):
+        assert torch.equal(a, b), name
+    want = F.tracker_tiles_reference(*args, **kw)
+    assert torch.equal(got[3], want[3])
+    assert (got[0] - want[0]).abs().max().item() <= 2e-2
+
+
+def test_host_build_without_shared_memory_matches(host_launch, monkeypatch):
+    """With no region in shared memory (as at a tile too wide for it) the
+    working set lives in the global workspace and the outputs: same bits."""
+    args, kw = _case("kinematic", tile=2)
+    kw.update(integrator="euler", substeps=1, outer_iters=2, inner_iters=4)
+    some = host_launch(*args, group=8, **kw)
+    monkeypatch.setattr(F, "SMEM_LIMIT", 8 * 200)  # 200 floats a lane: no room for [A | B]
+    nc = 12
+    plan = F.launch_plan(4, kw["N"], nc, 2, 8)
+    names = [r[0] for r in F.regions(4, kw["N"], nc)]
+    assert [names[r] for r in range(7) if plan.smask >> r & 1] == ["gain", "xs", "us"]
+    part = host_launch(*args, group=8, **kw)
+    monkeypatch.setattr(F, "SMEM_LIMIT", 0)
+    assert F.launch_plan(4, kw["N"], nc, 2, 8).smask == 0
+    none = host_launch(*args, group=8, **kw)
+    for a, b, c in zip(some, part, none):
+        assert torch.equal(a, b) and torch.equal(a, c)

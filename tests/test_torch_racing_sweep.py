@@ -142,3 +142,30 @@ def test_per_scenario_controller_model_raises():
         PB.batched_racing_policy(ref, per_lane, N=4)
     with pytest.raises(ValueError, match="unknown backend"):
         port.racing_sweep_dynamic(2, 1, N=4, backend="pallas-hand", device="cpu")
+
+
+@pytest.mark.parametrize(
+    "sweep, solver",
+    [("racing_sweep", "fused_tracker_solve_cuda"), ("racing_sweep_dynamic", "al_ilqr_dyn_solve_cuda")],
+)
+def test_group_reaches_the_solver(monkeypatch, sweep, solver):
+    """``group`` (the kernel's threads per lane) travels from the sweep
+    through the policy to every solve; ``None`` (the instantiation's
+    default) when it is not given; an unknown one raises."""
+    seen = []
+    solve = getattr(PB, solver)
+
+    def spy(*args, **kw):
+        seen.append(kw["group"])
+        return solve(*args, **kw)
+
+    monkeypatch.setattr(PB, solver, spy)
+    kw = dict(N=4, outer_iters=1, inner_iters=2, plant_substeps=2, device="cpu")
+    if sweep == "racing_sweep_dynamic":
+        kw["pred_substeps"] = 1
+    a, _ = getattr(port, sweep)(3, 2, group=16, **kw)
+    b, _ = getattr(port, sweep)(3, 2, **kw)
+    assert seen == [16, 16, None, None]
+    assert torch.equal(a.states, b.states)  # the twin has no threads to group
+    with pytest.raises(ValueError, match="group must be one of"):
+        getattr(port, sweep)(3, 1, group=3, **kw)
