@@ -10,7 +10,10 @@ kernel, and times it:
 - the headline closed loop (session-2 linear MPC, N=20, 65,536 scenarios ×
   50 steps) on the fused ADMM kernel;
 - the nonlinear obstacle-parking sweep (N=30, 2,048 scenarios × 50 steps)
-  on the fused AL-iLQR kernel;
+  on the fused AL-iLQR kernel (held to its twin bit for bit at one thread
+  per lane and at two thread groups, on the launch's operands and through
+  the wrapper; with CUDA events around every launch of one sweep and the
+  sweeps per tile × group, informational);
 - the kinematic and the Pacejka lap-tracking sweeps (N=15, 2,048 scenarios
   × 50 steps each) on the two instantiations of the fused tracker kernel
   (held to its twin bit for bit at one thread per lane and at two thread
@@ -41,6 +44,7 @@ fails. The last line of its output is one JSON object
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -87,16 +91,21 @@ PARK_MEDIAN_CEILING = 0.05
 PARK_TWIN_SCENARIOS = 64
 PARK_TWIN_STEPS = 1
 PARK_WIDE_BATCH = 16384  # informational point: how the card fills
-# AL-iLQR kernel vs twin on the card. Both are float32 with the same
-# operations in the same order (the kernel is built without FMA
-# contraction), so they should agree bit for bit; the gates leave room for
-# a transcendental function rounding one ulp apart, which the chaotic
-# 90-iteration solve at N=30 amplifies on a few lanes. 5e-3 on controls is
-# the JAX package's own gate between two float32 implementations of this
-# OCP (tests/test_pallas_ilqr.py:86).
-TOL_PARK_AGREE = 0.99  # converged masks, executed inner iterations
-TOL_PARK_U_Q999 = 5e-3  # q999 of max|Δu| over lanes converged on both sides
-TOL_PARK_STATES = 5e-2  # tests/test_pallas_ilqr.py:117
+# AL-iLQR kernel vs twin on the card: the same float program (no FMA
+# contraction) at every thread group, so all six outputs are gated bit for
+# bit, at every group built here (one thread per lane and two groups).
+PARK_GROUPS = (1, 8, 32)
+TOL_PARK_STATES = 5e-2  # closed loop, tests/test_pallas_ilqr.py:117
+# Informational sweep of whole sweeps over (tile, group), rounds in
+# alternating order: the default tile and the widest that keeps all but the
+# candidates in shared memory. PERF.md's full table is this script's with
+# PARK_SWEEP_TILES = (8, 16, 32). At tile 32 the summary is the
+# one-thread-per-lane kernel's of the first port (success, parked within 5
+# cm, mean inner iterations), whatever the group: gated.
+PARK_SWEEP_TILES = (16, 32)
+PARK_SWEEP_ROUNDS = 2
+PARK_TILE32_SUMMARY = {"success_rate": (0.93378, 5), "parked_frac_5cm": (0.97656, 5),
+                       "mean_inner_iters": (74.86, 2)}
 
 # racing sweeps (BENCH_CONTRACT.json "racing_sweep" / "racing_sweep_dynamic":
 # batch, steps and the quality floors; the solves/s there were taken on a TPU)
@@ -111,12 +120,13 @@ RACE_TWIN_STEPS = 2
 # The groups built and held here: one thread per lane, and both defaults.
 RACE_GROUPS = (1, 8, 32)
 # Informational sweep of whole sweeps over (tile, group), rounds in
-# alternating order: the default tile and the widest a group of 8 takes.
-# PERF.md's full tables are this script's with RACE_GROUPS = (1, 8, 16, 32),
+# alternating order: the default tile and the widest a group of 8 takes; one
+# round, to keep the script's time as the parking phases grew. PERF.md's full
+# tables are this script's with RACE_GROUPS = (1, 8, 16, 32),
 # RACE_SWEEP_TILES = (8, 16, 32, 64) and 4 rounds.
 RACE_SWEEP_TILES = (16, 64)
-RACE_SWEEP_ROUNDS = 2
-RACE_PROFILE_STEPS = 10  # the window of each sweep run under torch.profiler
+RACE_SWEEP_ROUNDS = 1
+RACE_PROFILE_STEPS = 10  # the window of each sweep run under torch.profiler (parking too)
 # long-horizon stagewise-IP loop (the JAX package's README "Long-horizon
 # box-QP" workload: N=100, batch 4096, 20 iterations; nothing cut)
 LH_BATCH = 4096
@@ -142,7 +152,7 @@ TOL_LH_BACKEND_STATES = 2e-3
 TOL_LH_MU = 0.1  # relative; lanes beyond it took different iteration counts
 TOL_LH_EDGE_SHARE = 1e-3  # share of lanes allowed on the freeze threshold's edge
 LH_SWEEP_TILES = (8, 16, 32, 64, 128, 256)  # informational tile sweep of the loop
-LH_SWEEP_ROUNDS = 2
+LH_SWEEP_ROUNDS = 1
 LH_TWIN_SCENARIOS = 64
 LH_TWIN_STEPS = 3
 LH_WIDE_BATCH = 65536  # informational point: how the card fills
@@ -161,9 +171,7 @@ TOL_LH_STATES = 2e-3  # closed loop, tests/test_pallas_riccati_ip.py:193
 PEAK_FP32 = 67e12  # FLOP/s
 PEAK_HBM = 3.35e12  # B/s
 # FP32 operations (a transcendental counted as one) that the algorithm needs
-# per stage and executed iteration, counted by hand. The parking kernel's
-# re-roll of the accepted line-search candidate (49 operations) is its own way
-# of not storing seven trajectories and is not charged. A step Jacobian by
+# per stage and executed iteration, counted by hand. A step Jacobian by
 # dual numbers is charged its tangents only, two operations per operation of
 # the step and direction: the step's value at the accepted point is one of
 # the rollouts', already charged there, however often a kernel recomputes it:
@@ -336,11 +344,12 @@ def main() -> int:
     print(card, flush=True)
 
     phase("build")
-    # the stagewise-IP kernel is one library per (nx, nu): the path's and the
-    # nx=3 / nu=2 case's
-    # the tracker kernel is one library per thread group
+    # the parking and tracker kernels are one library per thread group, the
+    # stagewise-IP kernel one per (nx, nu): the path's and the nx=3 / nu=2
+    # case's
     build_all([
-        *((m.LIBRARY, m._build_library) for m in (K, KI, KR)),
+        *((m.LIBRARY, m._build_library) for m in (K, KR)),
+        *((KI.library_name(g), lambda g=g: KI._build_library(g)) for g in PARK_GROUPS),
         *((KF.library_name(g), lambda g=g: KF._build_library(g)) for g in RACE_GROUPS),
         (KR.library_name(3, 2), lambda: KR._build_library(3, 2)),
     ])
@@ -525,41 +534,183 @@ def parking_scenarios(torch, port, batch, device):
     return plant, x0
 
 
-def compare_ilqr(torch, name, got, ref, twin_s, card) -> float:
-    """Print and gate the AL-iLQR kernel against its twin; returns the max
-    of max|Δu| over lanes converged on both sides."""
-    conv_agree = (got.converged == ref.converged).float().mean().item()
-    ni_agree = (got.inner_iters_executed == ref.inner_iters_executed).float().mean().item()
-    du = (got.us - ref.us).abs().amax(dim=(1, 2))
-    both = got.converged & ref.converged
-    err = du[both]
-    err_max = err.max().item() if err.numel() else 0.0
-    err_q999 = torch.quantile(err, 0.999).item() if err.numel() else 0.0
-    print(
-        f"{name}: max|u_kernel - u_twin| over lanes converged on both sides: q999 "
-        f"{err_q999:.3e} (tol {TOL_PARK_U_Q999:.0e}), max {err_max:.3e}; over all lanes "
-        f"max {du.max().item():.3e}, bitwise-equal lanes {(du == 0).float().mean().item():.5f}; "
-        f"converged agree {conv_agree:.5f}, executed inner iterations agree {ni_agree:.5f} "
-        f"(tol {TOL_PARK_AGREE}); converged {got.converged.float().mean().item():.5f} vs twin "
-        f"{ref.converged.float().mean().item():.5f}; mean inner iterations "
-        f"{got.inner_iters_executed.mean().item():.2f}; twin {1e3 * twin_s:.1f} ms per solve "
-        f"(timed once) [{card}]",
-        flush=True,
-    )
-    ok = conv_agree >= TOL_PARK_AGREE and ni_agree >= TOL_PARK_AGREE
-    if not (ok and err_q999 <= TOL_PARK_U_Q999):
-        raise SystemExit(f"AL-iLQR kernel disagrees with its twin on the {name} config")
-    return err_max
+KERNEL_FIELDS = ("us", "xs", "viol", "converged", "lam", "inner_iters_executed")
+
+
+def compare_launches(torch, kernel, name, outs, ref, twin_s, card) -> float:
+    """Gate a kernel's six outputs at every group in ``outs`` (``group ->
+    _launch``'s tuple) bit for bit against the twin's ``ref`` on the same
+    operands; returns max|Δu| over all lanes and groups."""
+    err = 0.0
+    for group, got in outs.items():
+        equal = [f for f, a, b in zip(KERNEL_FIELDS, got, ref) if torch.equal(a, b)]
+        du = (got[0] - ref[0]).abs().amax(dim=(0, 1))
+        err = max(err, du.max().item())
+        print(
+            f"{name}, group {group}: bitwise equal fields {equal} of {len(KERNEL_FIELDS)}; "
+            f"max|u_kernel - u_twin| over all lanes {du.max().item():.3e}, bitwise-equal lanes "
+            f"{(du == 0).float().mean().item():.5f}; converged {got[3].float().mean().item():.5f} "
+            f"vs twin {ref[3].float().mean().item():.5f}; mean inner iterations "
+            f"{got[5].mean().item():.2f}; twin {1e3 * twin_s:.1f} ms per solve (timed once) "
+            f"[{card}]",
+            flush=True,
+        )
+        if len(equal) != len(KERNEL_FIELDS):
+            raise SystemExit(f"{kernel} (group {group}) is not its twin bit for bit on the "
+                             f"{name} config")
+    return err
+
+
+def timed_launches(torch, K, events):
+    """A stand-in for ``K._launch`` that appends a CUDA event pair around
+    each launch to ``events``."""
+    launch = K._launch
+
+    def timed(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    return timed
+
+
+def timed_sweep(torch, K, sweep, B, device, **kw):
+    """One ``sweep(B, steps)`` with CUDA events around every launch of
+    ``K``'s kernel: its wall, the event pairs and its summary."""
+    events = []
+    launch = K._launch
+    K._launch = timed_launches(torch, K, events)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, summary = sweep(B, device=device, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        K._launch = launch
+    return wall, events, summary
+
+
+def print_events(wall, events, card) -> None:
+    """The kernel's share of one sweep's wall from its launches' events."""
+    per = sorted(a.elapsed_time(b) for a, b in events[1:])
+    cold_ms = events[0][0].elapsed_time(events[0][1])
+    total = cold_ms + sum(per)
+    print(f"informational: one sweep with events around its {len(events)} launches: wall "
+          f"{wall:.4f} s, in the kernel {total:.1f} ms ({100 * total / (1e3 * wall):.1f}% of the "
+          f"wall); cold first launch {cold_ms:.3f} ms, steady launches median "
+          f"{per[len(per) // 2]:.3f} ms, min {per[0]:.3f}, max {per[-1]:.3f} [{card}]", flush=True)
+
+
+def sweep_points(torch, K, sweep, B, steps, points, rounds, device, card) -> dict:
+    """Whole sweeps per (tile, group) in ``points``, ``rounds`` rounds in
+    alternating order, each with events around its launches; prints walls,
+    time in the kernel and quality; returns each point's summary."""
+    walls, in_kernel, quality = {pt: [] for pt in points}, {pt: [] for pt in points}, {}
+    for r in range(rounds):
+        for pt in points[:: 1 if r % 2 == 0 else -1]:
+            wall, events, quality[pt] = timed_sweep(torch, K, sweep, B, device, steps=steps,
+                                                    tile=pt[0], group=pt[1])
+            walls[pt].append(wall)
+            in_kernel[pt].append(sum(a.elapsed_time(b) for a, b in events))
+    for (t, g), w in walls.items():
+        w, sm = sorted(w), quality[(t, g)]
+        extra = (f"parked {sm['parked_frac_5cm']:.5f}, median {sm['median_final_dist']:.5f} m"
+                 if "parked_frac_5cm" in sm else
+                 f"mean tracking error {sm['mean_tracking_error']:.5f} m")
+        print(f"tile {t} group {g}: {B * steps / w[0]:.1f} solves/s best, "
+              f"{B * steps / w[len(w) // 2]:.1f} median of {len(w)} (walls "
+              f"{', '.join(f'{v:.4f}' for v in w)} s; in the kernel "
+              f"{min(in_kernel[(t, g)]):.1f} ms per sweep at best); success "
+              f"{sm['success_rate']:.5f}, {extra}, mean inner iterations "
+              f"{sm['mean_inner_iters']:.2f} [{card}]", flush=True)
+    return quality
+
+
+def sweep_grid(K, groups, tiles) -> list:
+    """The (tile, group) pairs the kernel's launch bounds take."""
+    return [(t, g) for g in groups for t in tiles if t * g <= K.MAX_THREADS[g]]
+
+
+@contextlib.contextmanager
+def spied(torch, K, twin_name, seen):
+    """Within the block, ``K._launch`` keeps the last launch's operands in
+    ``seen`` and ``K.<twin_name>`` the twin's operands, result and time."""
+    launch, reference = K._launch, getattr(K, twin_name)
+
+    def spy_launch(*args, **kw):
+        seen.update(args=args, kw=kw)
+        return launch(*args, **kw)
+
+    def spy_reference(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = reference(*args, **kw)
+        torch.cuda.synchronize()
+        seen.update(twin_args=args, twin_kw=kw, want=want, twin_s=time.perf_counter() - t0)
+        return want
+
+    K._launch = spy_launch
+    setattr(K, twin_name, spy_reference)
+    try:
+        yield
+    finally:
+        K._launch = launch
+        setattr(K, twin_name, reference)
+
+
+def held_at_groups(torch, K, kernel, name, seen, groups, group, tile, card):
+    """The last spied launch's operands through the kernel at every group of
+    ``groups``: checks that the kernel's and the twin's wrappers prepared
+    the same solve at the default ``group``, times each group, and gates the
+    six outputs bit for bit against the twin's solve. Returns max|Δu|, the
+    ms per group and the launch's operands and keywords (without group)."""
+    args, kw = seen["args"], dict(seen["kw"])
+    if kw.pop("group") != group:
+        raise SystemExit(f"the {kernel} was not launched at the default group")
+    same = all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(args, seen["twin_args"], strict=True))
+    plain = lambda d: {k: v for k, v in d.items() if k != "ode_rows"}
+    if not (same and plain(kw) == plain(seen["twin_kw"])):
+        raise SystemExit(f"the {kernel}'s wrapper and the twin's prepared different solves")
+    want, twin_s = seen["want"], seen["twin_s"]
+    outs = {g: K._launch(*args, group=g, **kw) for g in groups}
+    ms = {g: time_cuda(torch, lambda: K._launch(*args, group=g, **kw), 5) for g in groups}
+    print(f"{name}: kernel alone, ms per launch by group: "
+          f"{', '.join(f'{g}: {v:.3f}' for g, v in ms.items())}; twin {1e3 * twin_s:.1f} ms "
+          f"(timed once); tile {tile} [{card}]", flush=True)
+    return compare_launches(torch, kernel, name, outs, want, twin_s, card), ms, args, kw
+
+
+def launch_points(torch, K, args, kw, points, card) -> None:
+    """Informational: the same operands launched per (tile, group) of
+    ``points`` (the batch is a multiple of every tile, so the padded layout
+    is the same; the tile moves the iterations)."""
+    for t, g in points:
+        at = {**kw, "tile": t, "group": g}
+        ni = K._launch(*args, **at)[5].mean().item()
+        print(f"informational: warm launch at tile {t} group {g}: "
+              f"{time_cuda(torch, lambda: K._launch(*args, **at), 3):.3f} ms, {ni:.2f} inner "
+              f"iterations [{card}]", flush=True)
 
 
 def ilqr_phases(torch, port, K, card, device) -> dict:
-    """The parking path: AL-iLQR kernel vs twin (cold and warm), the sweep
-    through ``parking_sweep``, its timing. Returns the kernel's entry of the
-    ``kernels`` line."""
+    """The parking path: the AL-iLQR kernel against its twin at the sweep's
+    shapes (cold and warm: the wrapper's solution against the twin
+    wrapper's, and the launch's operands through the kernel at every group
+    of ``PARK_GROUPS`` against that twin solve, all bit for bit), the sweep
+    through ``parking_sweep`` with the contract's floors, a small
+    kernel-vs-twin closed loop, the timing, CUDA events around every launch
+    of one sweep, and the sweep per (tile, group). Returns the kernel's
+    entry of the ``kernels`` line."""
     from model_predictive_control_tpu_torch.parallel import batch as PB
     from model_predictive_control_tpu_torch.solvers.parking import Q_MAIN, QN_SCALE_MAIN, R_MAIN
 
-    B, N, tile = PARK_BATCH, PARK_N, K.DEFAULT_TILE
+    B, N, tile, group = PARK_BATCH, PARK_N, K.DEFAULT_TILE, K.DEFAULT_GROUP
+    groups = [g for g in PARK_GROUPS if tile * g <= K.MAX_THREADS[g]]
     base = port.VehicleParameters()
     plant_params, x0 = parking_scenarios(torch, port, B, device)
     geom, limits = K.parking_geometry(base, PARK_OBSTACLE)
@@ -572,18 +723,27 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
     fric = torch.full((B,), float(base.friction), device=device)
     nc = K.n_constraints(3)
 
-    phase(f"AL-iLQR kernel vs twin on the card (B={B}, N={N}, nc={nc}, tile={tile})")
+    phase(f"AL-iLQR kernel vs twin on the card (B={B}, N={N}, nc={nc}, tile={tile}, default "
+          f"group {group}, held at groups {groups})")
+    seen = {}
 
     def both(name, *args, **extra):
-        got = K.al_ilqr_solve_cuda(*args, **extra, **kw)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = K.al_ilqr_solve_twin(*args, **extra, **kw)
-        torch.cuda.synchronize()
-        twin_s = time.perf_counter() - t0
-        return got, compare_ilqr(torch, name, got, ref, twin_s, card), twin_s
+        """The wrapper's solve on the kernel and on the twin, held field by
+        field; then the launch's operands through the kernel at every group,
+        held against the twin's solve."""
+        with spied(torch, K, "al_ilqr_tiles_reference", seen):
+            got = K.al_ilqr_solve_cuda(*args, **extra, **kw)
+            ref = K.al_ilqr_solve_twin(*args, **extra, **kw)
+        differ = [f for f in KERNEL_FIELDS if not torch.equal(getattr(got, f), getattr(ref, f))]
+        print(f"{name}: al_ilqr_solve_cuda against al_ilqr_solve_twin at {B} lanes: "
+              f"{'all fields bitwise equal' if not differ else f'{differ} differ'}; converged "
+              f"{got.converged.float().mean().item():.5f}", flush=True)
+        if differ:
+            raise SystemExit(f"the AL-iLQR wrapper on the kernel is not the twin ({name})")
+        return got, *held_at_groups(torch, K, "AL-iLQR kernel", name, seen, groups, group,
+                                    tile, card)
 
-    cold, err, _ = both("cold", x0, torch.zeros(B, N, 2, device=device), acc, fric)
+    cold, err, _, _, _ = both("cold", x0, torch.zeros(B, N, 2, device=device), acc, fric)
     # the warm config as the policy makes it: one plant step with u0, the
     # shifted controls and the shifted, decayed multipliers
     x1 = port.batched_plant(plant_params, PARK_TS)(x0, cold.us[:, 0])
@@ -591,24 +751,22 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
     lam1 = 0.7 * torch.where(
         cold.converged[:, None, None], torch.cat([cold.lam[:, 1:], cold.lam[:, -1:]], dim=1), 0.0
     )
-    _, err_w, twin_s = both("warm", x1, u1, acc, fric, lam_init=lam1)
+    _, err_w, ms, args, raw = both("warm", x1, u1, acc, fric, lam_init=lam1)
     err = max(err, err_w)
-
+    # the entry's times: the warm launch at the default group, and the twin
+    # on the same operands (its solve above)
+    kernel_ms, twin_ms = ms[group], 1e3 * seen["twin_s"]
     wrapper_ms = time_cuda(torch, lambda: K.al_ilqr_solve_cuda(x1, u1, acc, fric, lam_init=lam1, **kw), 5)
-    args = K.prepare_tiles(x1, u1, acc, fric, lam1, N=N, tile=tile, n_circles=3)
-    raw = dict(N=N, n_circ=3, tile=tile, ts=PARK_TS, geom=geom, limits=limits,
-               weights=kw["weights"], outer_iters=6, inner_iters=15, mu_init=10.0,
-               mu_scale=10.0, mu_max=1e8, viol_tol=1e-4, tol=1e-6)
-    kernel_ms = time_cuda(torch, lambda: K._launch(*args, **raw), 5)
-    # the twin's time is its warm solve above (the plain version of the same
-    # launch, plus the wrapper's padding, which is negligible next to it)
-    twin_ms = 1e3 * twin_s
     print(f"warm: wrapper {wrapper_ms:.3f} ms per solve of {B}, kernel alone {kernel_ms:.3f} ms "
-          f"per launch, twin {twin_ms:.1f} ms per solve (timed once) [{card}]", flush=True)
-    outs = K._launch(*args, **raw)
+          f"per launch (group {group}), twin {twin_ms:.1f} ms per solve (timed once) [{card}]",
+          flush=True)
+    outs = K._launch(*args, group=group, **raw)
     roof = bound(torch, FLOPS_STAGE_ITER["parking"] * N * float(outs[5].sum()), [*args, *outs])
+    points = sweep_grid(K, PARK_GROUPS, PARK_SWEEP_TILES)
+    launch_points(torch, K, args, raw, points, card)
 
-    phase(f"parking main path: parking_sweep({B}, {PARK_STEPS}), N={N}, tile {tile}")
+    phase(f"parking main path: parking_sweep({B}, {PARK_STEPS}), N={N}, tile {tile}, group "
+          f"{group}")
     K.LAUNCHES = 0
     res, summary = port.parking_sweep(B, PARK_STEPS, device=device)
     torch.cuda.synchronize()
@@ -647,26 +805,41 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
         raise SystemExit("the parking closed loop disagrees with the twin policy")
 
     phase("parking main path timing")
+    sweep = port.parking_sweep
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        port.parking_sweep(B, PARK_STEPS, device=device)
+        sweep(B, PARK_STEPS, device=device)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     dt = min(times)
     print(f"sweep wall {dt:.4f} s (best of 3: {', '.join(f'{t:.4f}' for t in times)}); "
           f"{B * PARK_STEPS / dt:.1f} solves/s; step {1e3 * dt / PARK_STEPS:.3f} ms; mean inner "
-          f"iterations {summary['mean_inner_iters']:.2f} [{card}]", flush=True)
+          f"iterations {summary['mean_inner_iters']:.2f}; tile {tile}, group {group} [{card}]",
+          flush=True)
+    # CUDA events around every launch of one more sweep: the kernel's share
+    print_events(*timed_sweep(torch, K, sweep, B, device, steps=PARK_STEPS)[:2], card)
+    profile_sweep(torch, sweep, B, card, device, kernel="alilqr_tile_kernel")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, wide = port.parking_sweep(PARK_WIDE_BATCH, PARK_STEPS, device=device)
+    _, wide = sweep(PARK_WIDE_BATCH, PARK_STEPS, device=device)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     print(f"informational, not gated: parking_sweep({PARK_WIDE_BATCH}, {PARK_STEPS}) wall "
           f"{dt:.4f} s, {PARK_WIDE_BATCH * PARK_STEPS / dt:.1f} solves/s, success "
           f"{wide['success_rate']:.5f}, mean inner iterations {wide['mean_inner_iters']:.2f} "
           f"[{card}]", flush=True)
+
+    phase("parking sweep per tile x group (informational)")
+    quality = sweep_points(torch, K, sweep, B, PARK_STEPS, points, PARK_SWEEP_ROUNDS, device, card)
+    keys = ("success_rate", "parked_frac_5cm", "median_final_dist", "mean_inner_iters")
+    for t in PARK_SWEEP_TILES:
+        at_tile = [quality[pt] for pt in points if pt[0] == t] + ([summary] if t == tile else [])
+        if any(sm[k] != at_tile[0][k] for sm in at_tile for k in keys):
+            raise SystemExit(f"parking_sweep's summary depends on the group at tile {t}")
+        if t == 32 and any(round(at_tile[0][k], d) != v for k, (v, d) in PARK_TILE32_SUMMARY.items()):
+            raise SystemExit("parking_sweep at tile 32 is not the first port's summary")
 
     return {
         "name": "alilqr_tile_kernel",
@@ -679,55 +852,6 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
         "plain_ms": twin_ms,
         **roof,
     }
-
-
-TRACKER_FIELDS = ("us", "xs", "viol", "converged", "lam", "inner_iters_executed")
-
-
-def compare_tracker(torch, name, outs, ref, twin_s, card) -> float:
-    """Gate the tracker kernel's six outputs at every group in ``outs``
-    (``group -> _launch``'s tuple) bit for bit against the twin's ``ref`` on
-    the same operands; returns max|Δu| over all lanes and groups."""
-    err = 0.0
-    for group, got in outs.items():
-        equal = [f for f, a, b in zip(TRACKER_FIELDS, got, ref) if torch.equal(a, b)]
-        du = (got[0] - ref[0]).abs().amax(dim=(0, 1))
-        err = max(err, du.max().item())
-        print(
-            f"{name}, group {group}: bitwise equal fields {equal} of {len(TRACKER_FIELDS)}; "
-            f"max|u_kernel - u_twin| over all lanes {du.max().item():.3e}, bitwise-equal lanes "
-            f"{(du == 0).float().mean().item():.5f}; converged {got[3].float().mean().item():.5f} "
-            f"vs twin {ref[3].float().mean().item():.5f}; mean inner iterations "
-            f"{got[5].mean().item():.2f}; twin {1e3 * twin_s:.1f} ms per solve (timed once) "
-            f"[{card}]",
-            flush=True,
-        )
-        if len(equal) != len(TRACKER_FIELDS):
-            raise SystemExit(f"tracker kernel (group {group}) is not its twin bit for bit on "
-                             f"the {name} config")
-    return err
-
-
-def tracker_points(K):
-    """The (tile, group) pairs of the informational sweep that the launch
-    bounds take."""
-    return [(t, g) for g in RACE_GROUPS for t in RACE_SWEEP_TILES if t * g <= K.MAX_THREADS[g]]
-
-
-def timed_launches(torch, K, events):
-    """A stand-in for ``K._launch`` that appends a CUDA event pair around
-    each launch to ``events``."""
-    launch = K._launch
-
-    def timed(*args, **kw):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = launch(*args, **kw)
-        end.record()
-        events.append((start, end))
-        return out
-
-    return timed
 
 
 def racing_phases(torch, port, K, tier, card, device) -> dict:
@@ -758,38 +882,13 @@ def racing_phases(torch, port, K, tier, card, device) -> dict:
     phase(f"tracker kernel vs twin on the card ({tier}: B={B}, N={N}, tile={tile}, default "
           f"group {group}, held at groups {groups})")
     seen = {}
-    launch, reference = K._launch, K.tracker_tiles_reference
-
-    def spy_launch(*args, **kw):  # keep the last launch's operands
-        seen.update(args=args, kw=kw)
-        return launch(*args, **kw)
-
-    def spy_reference(*args, **kw):  # keep the twin's operands, result and time
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = reference(*args, **kw)
-        torch.cuda.synchronize()
-        seen.update(twin_args=args, twin_kw=kw, want=want, twin_s=time.perf_counter() - t0)
-        return want
 
     def both(name, x, t, carry):
         """The policy's step on the kernel and on the twin, held output by
         output; then the launch's operands through the kernel at every
         group, held against the twin policy's solve."""
-        K._launch, K.tracker_tiles_reference = spy_launch, spy_reference
-        try:
+        with spied(torch, K, "tracker_tiles_reference", seen):
             step, step_twin = pol(x, t, carry), pol_twin(x, t, carry)
-        finally:
-            K._launch, K.tracker_tiles_reference = launch, reference
-        args, kw = seen["args"], dict(seen["kw"])
-        if kw.pop("group") != group:
-            raise SystemExit("the policy did not launch at the default group")
-        # both wrappers prepared the same operands and configuration
-        same = all((a is None and b is None) or torch.equal(a, b)
-                   for a, b in zip(args, seen["twin_args"], strict=True))
-        plain = lambda d: {k: v for k, v in d.items() if k != "ode_rows"}
-        if not (same and plain(kw) == plain(seen["twin_kw"])):
-            raise SystemExit("kernel policy and twin policy prepared different solves")
         # u0, the warm carry and every log, through both wrappers' unpadding
         names = ("u0", "carry", *step[2])
         flat = lambda s: (s[0], s[1], *(s[2][k] for k in names[2:]))
@@ -800,33 +899,20 @@ def racing_phases(torch, port, K, tier, card, device) -> dict:
         if differ:
             raise SystemExit(f"the {tier} policy on the kernel is not the policy on the twin "
                              f"({name} step)")
-        want, twin_s = seen["want"], seen["twin_s"]
-        outs = {g: launch(*args, group=g, **kw) for g in groups}
-        ms = {g: time_cuda(torch, lambda: launch(*args, group=g, **kw), 5) for g in groups}
-        print(f"{name}: kernel alone, ms per launch by group: "
-              f"{', '.join(f'{g}: {v:.3f}' for g, v in ms.items())}; twin {1e3 * twin_s:.1f} ms "
-              f"(timed once); tile {tile} [{card}]", flush=True)
-        return step, compare_tracker(torch, name, outs, want, twin_s, card), twin_s, ms
+        return step, *held_at_groups(torch, K, "tracker kernel", name, seen, groups, group,
+                                     tile, card)
 
-    cold, err, _, _ = both("cold", x0, 0, pol.initial_carry(B, device))
+    cold, err, _, _, _ = both("cold", x0, 0, pol.initial_carry(B, device))
     # warm: one plant step with u0, then the shifted controls
-    _, err_w, twin_s, ms = both("warm", plant(x0, cold[0]), 1, cold[1])
+    _, err_w, ms, args, kw = both("warm", plant(x0, cold[0]), 1, cold[1])
     err = max(err, err_w)
     # the entry's times: the warm policy step's launch at the default group,
     # and the twin on the same operands
-    kernel_ms, twin_ms = ms[group], 1e3 * twin_s
-    args, kw = seen["args"], seen["kw"]
-    outs = launch(*args, **kw)
+    kernel_ms, twin_ms = ms[group], 1e3 * seen["twin_s"]
+    outs = K._launch(*args, group=group, **kw)
     roof = bound(torch, FLOPS_STAGE_ITER[tier] * N * float(outs[5].sum()), [*args, *outs])
-    # the same operands per (tile, group): B is a multiple of every tile, so
-    # the padded layout is the same; the tile moves the iterations
-    points = tracker_points(K)
-    for t, g in points:
-        at = {**kw, "tile": t, "group": g}
-        ni = launch(*args, **at)[5].mean().item()
-        print(f"informational: warm policy step's launch at tile {t} group {g}: "
-              f"{time_cuda(torch, lambda: launch(*args, **at), 3):.3f} ms, {ni:.2f} inner "
-              f"iterations [{card}]", flush=True)
+    points = sweep_grid(K, RACE_GROUPS, RACE_SWEEP_TILES)
+    launch_points(torch, K, args, kw, points, card)
 
     phase(f"racing main path ({tier}): {sweep_name}({B}, {RACE_STEPS}), N={N}, tile {tile}, "
           f"group {group}")
@@ -874,46 +960,12 @@ def racing_phases(torch, port, K, tier, card, device) -> dict:
           flush=True)
 
     # CUDA events around every launch of one more sweep: the kernel's share
-    def timed_sweep(**kw):
-        events = []
-        K._launch = timed_launches(torch, K, events)
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, sm = sweep(B, RACE_STEPS, device=device, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            K._launch = launch
-        return wall, events, sm
-
-    wall, events, _ = timed_sweep()
-    per = sorted(a.elapsed_time(b) for a, b in events[1:])
-    cold_ms = events[0][0].elapsed_time(events[0][1])
-    total = cold_ms + sum(per)
-    print(f"informational: one sweep with events around its {len(events)} launches: wall "
-          f"{wall:.4f} s, in the kernel {total:.1f} ms ({100 * total / (1e3 * wall):.1f}% of the "
-          f"wall); cold first launch {cold_ms:.3f} ms, steady launches median "
-          f"{per[len(per) // 2]:.3f} ms, min {per[0]:.3f}, max {per[-1]:.3f} [{card}]", flush=True)
+    print_events(*timed_sweep(torch, K, sweep, B, device, steps=RACE_STEPS)[:2], card)
 
     profile_sweep(torch, sweep, B, card, device)
 
     phase(f"racing sweep per tile x group ({tier}; informational)")
-    walls, in_kernel, quality = {pt: [] for pt in points}, {pt: [] for pt in points}, {}
-    for r in range(RACE_SWEEP_ROUNDS):
-        for pt in points[:: 1 if r % 2 == 0 else -1]:
-            wall, events, quality[pt] = timed_sweep(tile=pt[0], group=pt[1])
-            walls[pt].append(wall)
-            in_kernel[pt].append(sum(a.elapsed_time(b) for a, b in events))
-    for (t, g), w in walls.items():
-        w, sm = sorted(w), quality[(t, g)]
-        print(f"tile {t} group {g}: {B * RACE_STEPS / w[0]:.1f} solves/s best, "
-              f"{B * RACE_STEPS / w[len(w) // 2]:.1f} median of {len(w)} (walls "
-              f"{', '.join(f'{v:.4f}' for v in w)} s; in the kernel "
-              f"{min(in_kernel[(t, g)]):.1f} ms per sweep at best); success "
-              f"{sm['success_rate']:.5f}, mean "
-              f"tracking error {sm['mean_tracking_error']:.5f} m, mean inner iterations "
-              f"{sm['mean_inner_iters']:.2f} [{card}]", flush=True)
+    quality = sweep_points(torch, K, sweep, B, RACE_STEPS, points, RACE_SWEEP_ROUNDS, device, card)
     same_tile = {pt: quality[pt] for pt in points if pt[0] == tile}
     keys = ("success_rate", "mean_tracking_error", "mean_inner_iters")
     if any(sm[k] != summary[k] for sm in same_tile.values() for k in keys):
@@ -932,8 +984,8 @@ def racing_phases(torch, port, K, tier, card, device) -> dict:
     }
 
 
-def profile_sweep(torch, sweep, B, card, device) -> None:
-    """Device busy share and the kernels' device time of a
+def profile_sweep(torch, sweep, B, card, device, kernel="tracker_tile_kernel") -> None:
+    """Device busy share and ``kernel``'s device time of a
     ``RACE_PROFILE_STEPS``-step window of ``sweep`` under ``torch.profiler``.
     Informational."""
     from torch.profiler import ProfilerActivity, profile
@@ -947,12 +999,12 @@ def profile_sweep(torch, sweep, B, card, device) -> None:
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     device_us = sum(e.self_device_time_total for e in events)
-    tracker_us = sum(e.self_device_time_total for e in events if "tracker_tile_kernel" in e.key)
+    kernel_us = sum(e.self_device_time_total for e in events if kernel in e.key)
     launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
     print(f"profiled {RACE_PROFILE_STEPS}-step window (under the profiler): wall {wall:.4f} s, "
           f"device busy {device_us / 1e3:.1f} ms ({100 * device_us / (1e6 * wall):.1f}% of the "
-          f"wall, idle {100 - 100 * device_us / (1e6 * wall):.1f}%), tracker kernel "
-          f"{tracker_us / 1e3:.1f} ms ({100 * tracker_us / max(device_us, 1):.1f}% of device "
+          f"wall, idle {100 - 100 * device_us / (1e6 * wall):.1f}%), {kernel} "
+          f"{kernel_us / 1e3:.1f} ms ({100 * kernel_us / max(device_us, 1):.1f}% of device "
           f"time), {launches} kernel launches [{card}]", flush=True)
 
 

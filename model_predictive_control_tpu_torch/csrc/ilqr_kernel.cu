@@ -1,6 +1,6 @@
-// Fused batched AL-iLQR for the kinematic-bicycle parking OCP: one thread per
-// scenario lane, one CTA per tile of T lanes, the whole augmented-Lagrangian
-// solve in one launch.
+// Fused batched AL-iLQR for the kinematic-bicycle parking OCP: a group of G
+// threads per scenario lane, one CTA per tile of T lanes (T x G threads), the
+// whole augmented-Lagrangian solve in one launch.
 //
 // Replaces the Pallas TPU kernel _alilqr_tile_kernel in
 // model_predictive_control_tpu/ops/pallas/ilqr_kernel.py (wrapper
@@ -13,31 +13,55 @@
 // inner Levenberg-iLQR (hand-expanded 4x4 / 2x4 / 2x2 Riccati sweep with the
 // analytic bicycle Jacobians and the exact clearance curvature, a closed-form
 // regularized 2x2 solve) and a 7-step line search. Both loop exits are
-// tile-wide (__syncthreads_and), as in the reference.
+// tile-wide (__syncthreads_and) over the same T lanes whatever G is, so a
+// solve at tile T gives the same numbers for every G.
 //
-// What bounds it: latency, not bytes or FLOPs. At the contract size (2048
-// lanes) the card holds about 15 threads per SM, each running a long
-// dependent chain of FP32 and SFU (tan, sin, cos, sqrt) operations through
-// N-stage sweeps inside data-dependent loops; a lane's state (about 1,100
-// floats at N=30 with 21 constraint rows) does not fit in registers or in
-// shared memory at a useful T. The design therefore:
-//   - keeps the trajectory (xs, us), the multipliers and the gains (k, K) in
-//     global memory laid out [stage][row][lane], so that a warp's accesses
-//     coalesce; at 2048 lanes this is about 9 MB and stays in the 50 MB L2;
-//     xs, us and lam live directly in the output buffers;
-//   - keeps the Riccati carry (Vx, Vxx) and the per-stage algebra in
-//     registers;
-//   - runs the 7 line-search rollouts interleaved in one pass over the
-//     stages (the stage's gains and multipliers are read once for all 7),
-//     and re-rolls the accepted step to write xs and us, with the same
-//     device function, instead of storing 7 candidate trajectories: that
-//     saves 7x(N+1)x6 floats of traffic per lane and iteration, and the
-//     re-roll gives the same numbers bit for bit because the file is built
-//     without FMA contraction (--fmad=false);
-//   - takes T as a runtime parameter: smaller tiles couple fewer stragglers
-//     into a tile's loops and put more CTAs on the SMs.
-// Making it fast (several lanes' stages in flight per thread, shared-memory
-// staging of the gains, a persistent grid) is left for later work.
+// What bounds it: latency, not bytes or FLOPs. The operands are ~0.7 k floats
+// per lane and the algorithm needs ~3 k FP32 and SFU operations (tan, sin,
+// cos, sqrt, division) per stage and inner iteration inside data-dependent
+// loops. With one thread per lane, the sweep's 2,048 lanes put ~15 threads on
+// each SM, each running ~92 k dependent operations per inner iteration with
+// every operand a load through L2. Of those only the Riccati recursion and
+// each rollout's own stages are true chains, so the design spreads the rest
+// over the G members of a lane's group (ALILQR_GROUP, one library per G;
+// thread threadIdx.x serves lane threadIdx.x / G as member threadIdx.x % G),
+// as csrc/ilqr_factory.cu does for the tracker:
+//   - a pre-pass computes, before the Riccati sweep, everything of a stage
+//     that does not depend on the Riccati carry (the Jacobian entries, the
+//     box rows' gradient and Gauss-Newton diagonal, the 9 clearance pairs'
+//     gradient and curvature, summed in pair order inside one member): the N
+//     stages are dealt to the members and written to a per-lane store of ND
+//     floats a stage;
+//   - the Riccati recursion runs on the store, computed by every member alike
+//     (a warp's operation takes one scheduler slot whether one or all of its
+//     threads run it, and replication saves a broadcast); only member 0
+//     stores the gains. Dealing its dot products was measured slower for the
+//     tracker (PERF.md) and is not done;
+//   - members 0..6 each roll one line-search candidate and keep its
+//     trajectory and its cost, summed in stage order; the pick reads the 7
+//     costs with the reference's tie rule, and the accepted candidate is
+//     copied into xs / us by all members (no re-roll: without FMA contraction
+//     the kept candidate has the re-roll's bits);
+//   - the total cost and the multiplier sweep's max-reductions run in every
+//     member, the multiplier update is dealt by (stage, row);
+//   - every split is `for (item = member; item < n; item += G)`, so G = 1
+//     runs the same code in one thread. Phases are separated by __syncwarp
+//     (G <= 32 divides the warp), the two loop votes by __syncthreads_and,
+//     reached by every thread of the CTA, padded lanes included;
+//   - a lane's working set (derivative store, gains, xs, us, lam, the 7
+//     candidates: ~12.4 KB at N = 30 with the obstacle) lives in shared
+//     memory as far as the tile allows, lane-major with an odd lane stride
+//     (members reading neighbouring rows, or the same row of neighbouring
+//     lanes, hit different banks; the candidate index is fastest where 7
+//     members write together); the wrapper picks the regions that fit
+//     (Args::smask) and the rest stays in global memory laid out [row][lane],
+//     the outputs in their own buffers;
+//   - __launch_bounds__ caps the registers so that T x G threads fit the
+//     register file: 256 threads at G = 1, 512 at G > 1.
+// On an NVIDIA H100 80GB HBM3 (700 W), 2,048 lanes, N = 30, at tile 16: a
+// warm launch takes 5.4 ms at G = 8 (27.4 ms at G = 1, 10.2 ms at G = 32;
+// 32.0 ms with one thread per lane and the working set in L2); the bound of
+// its operations is 0.25 ms (PERF.md).
 //
 // Built with nvcc -O3 for sm_90a, without --use_fast_math: tanf, sinf, cosf,
 // sqrtf and the divisions are the precise ones.
@@ -50,6 +74,15 @@
 #define NU 2
 #define NALPHA 7
 #define MAX_CIRCLES 3
+
+// Threads per lane; one library is built per value (-DALILQR_GROUP=G).
+#ifndef ALILQR_GROUP
+#define ALILQR_GROUP 1
+#endif
+constexpr int GROUP = ALILQR_GROUP;
+static_assert(GROUP == 1 || GROUP == 8 || GROUP == 32, "a group must divide the warp");
+// Threads per CTA (tile x GROUP) the launch bounds allow; the wrapper reads it.
+constexpr int MAX_THREADS = GROUP == 1 ? 256 : 512;
 
 // Float constants, in the order ops/cuda/ilqr_kernel.py::_consts writes them.
 struct Consts {
@@ -66,9 +99,45 @@ struct Consts {
 struct Args {
   const float *x0, *u0, *pp, *lam0;  // (4, Bp), (N, 2, Bp), (2, Bp), (N, nc, Bp)
   float *us, *xs, *viol, *conv, *lam, *ni;  // outputs; us, xs, lam are the state
-  float* work;  // (10 N, Bp): k (N, 2) then K (N, 8)
+  float* work;  // (rows, Bp): the workspace regions that are not in shared memory
   int N, outer, inner, Bp;
+  int smask;  // bit r set: region r of a lane's working set lives in shared memory
 };
+
+// One stage of the derivative store: the Jacobian entries of the Euler step
+// (A = I + sparse, B sparse; a33 and b30 are the lane's constants), then the
+// stage cost's gradient and Hessian with the box and clearance rows.
+enum {
+  D_A02, D_A03, D_A12, D_A13, D_A23, D_B01, D_B11, D_B21,
+  D_LX, D_HD = D_LX + NX, D_LU = D_HD + NX, D_HUU = D_LU + NU,
+  D_H01 = D_HUU + NU, D_H02, D_H12, ND
+};
+
+// A lane's working set, by region, in the order the wrapper fills shared
+// memory (ops/cuda/ilqr_kernel.py regions). xs, us and lam have their home in
+// the output buffers; the derivative store, the gains and the candidates have
+// theirs in `work`, in this order.
+enum { R_DER, R_GAIN, R_XS, R_US, R_LAM, R_CAND, N_REGIONS };
+
+__host__ __device__ inline int region_floats(int r, int N, int nc) {
+  switch (r) {
+    case R_DER: return N * ND;
+    case R_GAIN: return N * NU * (1 + NX);
+    case R_XS: return (N + 1) * NX;
+    case R_US: return N * NU;
+    case R_LAM: return N * nc;
+    default: return NALPHA * ((N + 1) * NX + N * NU + 1);
+  }
+}
+
+// Floats of one lane's block in shared memory: its regions in `smask`, padded
+// to an odd count (neighbouring lanes then start on different banks).
+__host__ __device__ inline int lane_floats(int smask, int N, int nc) {
+  int n = 0;
+  for (int r = 0; r < N_REGIONS; ++r)
+    if (smask >> r & 1) n += region_floats(r, N, nc);
+  return n | 1;
+}
 
 // max that propagates NaN from either side (as jnp.maximum / torch.maximum)
 __device__ __forceinline__ float nmax(float a, float b) {
@@ -154,16 +223,39 @@ __device__ __forceinline__ float stage_cost(const Consts& c, float px, float py,
   return quad + phi / (2.0f * mu);
 }
 
-// Lane-offset views of the [stage][row][lane] buffers.
-struct LaneView {
-  float *xs, *us, *lam, *k, *K;
-  int Bp, nc, N;
-  __device__ float& x(int t, int i) const { return xs[(t * NX + i) * Bp]; }
-  __device__ float& u(int t, int j) const { return us[(t * NU + j) * Bp]; }
-  __device__ float& l(int t, int r) const { return lam[(t * nc + r) * Bp]; }
-  __device__ float& kg(int t, int j) const { return k[(t * NU + j) * Bp]; }
-  __device__ float& Kg(int t, int r) const { return K[(t * NU * NX + r) * Bp]; }
+// One region of a lane's working set: element i at p[i * stride] (stride 1 in
+// the lane's shared-memory block, Bp in a [row][lane] global buffer).
+struct Region {
+  float* p;
+  int stride;
+  __device__ __forceinline__ float& operator[](int i) const { return p[(size_t)i * stride]; }
 };
+
+// A lane's views of its working set.
+struct LaneView {
+  Region der, gain, xs, us, lam, cand;
+  int nc, N;
+  __device__ float& x(int t, int i) const { return xs[t * NX + i]; }
+  __device__ float& u(int t, int j) const { return us[t * NU + j]; }
+  __device__ float& l(int t, int r) const { return lam[t * nc + r]; }
+  __device__ float& d(int t, int k) const { return der[t * ND + k]; }
+  __device__ float& kg(int t, int j) const { return gain[t * NU + j]; }
+  __device__ float& Kg(int t, int r) const { return gain[N * NU + t * NU * NX + r]; }
+  // candidate s of the line search: states, controls, cost (s fastest: the
+  // members that write together write neighbouring words)
+  __device__ float& cx(int s, int t, int i) const { return cand[(t * NX + i) * NALPHA + s]; }
+  __device__ float& cu(int s, int t, int j) const {
+    return cand[((N + 1) * NX + t * NU + j) * NALPHA + s];
+  }
+  __device__ float& cc(int s) const { return cand[((N + 1) * NX + N * NU) * NALPHA + s]; }
+};
+
+// Phase boundary inside a lane's group: what a member wrote before it, every
+// member reads after it. A group divides the warp, so the warp barrier does.
+template <int G>
+__device__ __forceinline__ void group_sync(unsigned mask) {
+  if (G > 1) __syncwarp(mask);
+}
 
 template <int NC>
 __device__ __forceinline__ float total_cost(const Consts& c, const LaneView& w, float mu) {
@@ -179,30 +271,21 @@ __device__ __forceinline__ float total_cost(const Consts& c, const LaneView& w, 
   return cost + c.qn * quad_x(c, w.x(w.N, 0), w.x(w.N, 1), w.x(w.N, 2), w.x(w.N, 3));
 }
 
-// Riccati sweep over the stored trajectory; writes the gains and returns
-// whether every stage's regularized Quu was positive definite, and max|Qu|.
-template <int NC>
-__device__ __forceinline__ void backward(const Consts& c, const LaneView& w, float acc, float fric,
-                         float mu, float reg, bool& ok_out, float& grad_out) {
+// The derivative store of every stage at the stored (x_t, u_t, lam_t): the
+// stages are dealt to the group's members.
+template <int NC, int G>
+__device__ __forceinline__ void derivatives(const Consts& c, const LaneView& w, float mu,
+                                            int member) {
   constexpr int P = NC * NC;
   constexpr int NCD = NC > 0 ? NC : 1;  // divisor for the pair index
   constexpr int B0 = 2 * NX;          // first input-box row
   constexpr int BC = 2 * NX + 2 * NU;  // first clearance row
-  const int N = w.N;
-  float Vx[NX], V[NX][NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    Vx[i] = c.qnqd2[i] * w.x(N, i);
-#pragma unroll
-    for (int j = 0; j < NX; ++j) V[i][j] = i == j ? c.qnqd2[i] : 0.0f;
-  }
-  bool ok = true;
-  float grad = 0.0f;
-  for (int t = N - 1; t >= 0; --t) {
+#pragma unroll 1
+  for (int t = member; t < w.N; t += G) {
     const float X[NX] = {w.x(t, 0), w.x(t, 1), w.x(t, 2), w.x(t, 3)};
     const float U[NU] = {w.u(t, 0), w.u(t, 1)};
     const float psi = X[2], v = X[3], dl = U[1];
-    // Jacobian entries of the Euler step (A = I + sparse, B sparse)
+    // Jacobian entries of the Euler step
     const float tn = tanf(dl);
     const float den2 = 1.0f + c.kb2 * tn * tn;
     const float den = sqrtf(den2);
@@ -212,16 +295,14 @@ __device__ __forceinline__ void backward(const Consts& c, const LaneView& w, flo
     const float s_pb = sp * cosb + cp * sinb;
     const float c_pb = cp * cosb - sp * sinb;
     const float bp = c.kb * (1.0f + tn * tn) / den2;
-    const float a02 = -c.ts * v * s_pb;
-    const float a03 = c.ts * c_pb;
-    const float a12 = c.ts * v * c_pb;
-    const float a13 = c.ts * s_pb;
-    const float a23 = c.ts * sinb * c.inv_lr;
-    const float a33 = 1.0f - c.ts * fric;
-    const float b01 = -c.ts * v * s_pb * bp;
-    const float b11 = c.ts * v * c_pb * bp;
-    const float b21 = c.ts * v * cosb * bp * c.inv_lr;
-    const float b30 = c.ts * acc;
+    w.d(t, D_A02) = -c.ts * v * s_pb;
+    w.d(t, D_A03) = c.ts * c_pb;
+    w.d(t, D_A12) = c.ts * v * c_pb;
+    w.d(t, D_A13) = c.ts * s_pb;
+    w.d(t, D_A23) = c.ts * sinb * c.inv_lr;
+    w.d(t, D_B01) = -c.ts * v * s_pb * bp;
+    w.d(t, D_B11) = c.ts * v * c_pb * bp;
+    w.d(t, D_B21) = c.ts * v * cosb * bp * c.inv_lr;
 
     // stage derivatives: quadratic cost plus Gauss-Newton box rows
     float lx[NX], hd[NX], lu[NU], huu[NU];
@@ -284,6 +365,53 @@ __device__ __forceinline__ void backward(const Consts& c, const LaneView& w, flo
       h12 = h12 + s[7];
       hd[2] = hd[2] + s[8];
     }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      w.d(t, D_LX + i) = lx[i];
+      w.d(t, D_HD + i) = hd[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      w.d(t, D_LU + j) = lu[j];
+      w.d(t, D_HUU + j) = huu[j];
+    }
+    w.d(t, D_H01) = h01;
+    w.d(t, D_H02) = h02;
+    w.d(t, D_H12) = h12;
+  }
+}
+
+// Riccati sweep over the derivative store; returns whether every stage's
+// regularized Quu was positive definite, and max|Qu|. Every member of the
+// group computes it alike; `store` (one member) writes the gains.
+__device__ __forceinline__ void backward(const Consts& c, const LaneView& w, float acc,
+                                         float fric, float reg, bool store, bool& ok_out,
+                                         float& grad_out) {
+  const int N = w.N;
+  const float a33 = 1.0f - c.ts * fric;
+  const float b30 = c.ts * acc;
+  float Vx[NX], V[NX][NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    Vx[i] = c.qnqd2[i] * w.x(N, i);
+#pragma unroll
+    for (int j = 0; j < NX; ++j) V[i][j] = i == j ? c.qnqd2[i] : 0.0f;
+  }
+  bool ok = true;
+  float grad = 0.0f;
+  for (int t = N - 1; t >= 0; --t) {
+    const float a02 = w.d(t, D_A02), a03 = w.d(t, D_A03), a12 = w.d(t, D_A12);
+    const float a13 = w.d(t, D_A13), a23 = w.d(t, D_A23);
+    const float b01 = w.d(t, D_B01), b11 = w.d(t, D_B11), b21 = w.d(t, D_B21);
+    float lx[NX], hd[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      lx[i] = w.d(t, D_LX + i);
+      hd[i] = w.d(t, D_HD + i);
+    }
+    const float lu[NU] = {w.d(t, D_LU), w.d(t, D_LU + 1)};
+    const float huu[NU] = {w.d(t, D_HUU), w.d(t, D_HUU + 1)};
+    const float h01 = w.d(t, D_H01), h02 = w.d(t, D_H02), h12 = w.d(t, D_H12);
 
     // Qx = lx + A^T Vx, Qu = lu + B^T Vx
     const float Qx[NX] = {
@@ -382,12 +510,14 @@ __device__ __forceinline__ void backward(const Consts& c, const LaneView& w, flo
                   K1[i] * Qux1[j] + Qux0[i] * K0[j] + Qux1[i] * K1[j];
       }
     }
-    w.kg(t, 0) = k0;
-    w.kg(t, 1) = k1;
+    if (store) {
+      w.kg(t, 0) = k0;
+      w.kg(t, 1) = k1;
 #pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      w.Kg(t, j) = K0[j];
-      w.Kg(t, NX + j) = K1[j];
+      for (int j = 0; j < NX; ++j) {
+        w.Kg(t, j) = K0[j];
+        w.Kg(t, NX + j) = K1[j];
+      }
     }
     grad = nmax(grad, nmax(fabsf(Qu0), fabsf(Qu1)));
   }
@@ -407,101 +537,117 @@ __device__ __forceinline__ void ls_control(float alpha, const float* xh, const f
   dl = uh[1] + du1;
 }
 
-__device__ __forceinline__ void load_stage(const LaneView& w, int t, float* xh, float* uh,
-                                           float* kg, float* Kg) {
-#pragma unroll
-  for (int i = 0; i < NX; ++i) xh[i] = w.x(t, i);
-#pragma unroll
-  for (int j = 0; j < NU; ++j) {
-    uh[j] = w.u(t, j);
-    kg[j] = w.kg(t, j);
-  }
-#pragma unroll
-  for (int r = 0; r < NU * NX; ++r) Kg[r] = w.Kg(t, r);
-}
-
-// Costs of the closed-loop rollouts under every line-search step, in one
-// pass over the stages.
-template <int NC>
-__device__ __forceinline__ void forward_costs(const Consts& c, const LaneView& w, const float* x0,
-                              float acc, float fric, float mu, float* cost) {
+// The closed-loop rollouts of the line search, one candidate per member
+// (members 0..6 at G >= 8): candidate s keeps its trajectory in cx / cu and
+// its cost, summed in stage order, in cc.
+template <int NC, int G>
+__device__ __forceinline__ void rollouts(const Consts& c, const LaneView& w, const float* x0,
+                                         float acc, float fric, float mu, int member) {
   constexpr int NCON = 2 * NX + 2 * NU + NC * NC;
-  float px[NALPHA], py[NALPHA], psi[NALPHA], v[NALPHA];
+#pragma unroll 1
+  for (int s = member; s < NALPHA; s += G) {
+    const float alpha = c.alpha[s];
+    float px = x0[0], py = x0[1], psi = x0[2], v = x0[3];
+    float cost = 0.0f;
+    float xh[NX], uh[NU], kg[NU], Kg[NU * NX], lam[NCON];
+#pragma unroll 1
+    for (int t = 0; t < w.N; ++t) {
 #pragma unroll
-  for (int s = 0; s < NALPHA; ++s) {
-    px[s] = x0[0];
-    py[s] = x0[1];
-    psi[s] = x0[2];
-    v[s] = x0[3];
-    cost[s] = 0.0f;
-  }
-  float xh[NX], uh[NU], kg[NU], Kg[NU * NX], lam[NCON];
-  for (int t = 0; t < w.N; ++t) {
-    load_stage(w, t, xh, uh, kg, Kg);
+      for (int i = 0; i < NX; ++i) xh[i] = w.x(t, i);
 #pragma unroll
-    for (int r = 0; r < NCON; ++r) lam[r] = w.l(t, r);
+      for (int j = 0; j < NU; ++j) {
+        uh[j] = w.u(t, j);
+        kg[j] = w.kg(t, j);
+      }
 #pragma unroll
-    for (int s = 0; s < NALPHA; ++s) {
+      for (int r = 0; r < NU * NX; ++r) Kg[r] = w.Kg(t, r);
+#pragma unroll
+      for (int r = 0; r < NCON; ++r) lam[r] = w.l(t, r);
       float a, dl;
-      ls_control(c.alpha[s], xh, uh, kg, Kg, px[s], py[s], psi[s], v[s], a, dl);
-      cost[s] = cost[s] + stage_cost<NC>(c, px[s], py[s], psi[s], v[s], a, dl, lam, mu);
-      euler_step(c, acc, fric, px[s], py[s], psi[s], v[s], a, dl);
+      ls_control(alpha, xh, uh, kg, Kg, px, py, psi, v, a, dl);
+      w.cx(s, t, 0) = px;
+      w.cx(s, t, 1) = py;
+      w.cx(s, t, 2) = psi;
+      w.cx(s, t, 3) = v;
+      w.cu(s, t, 0) = a;
+      w.cu(s, t, 1) = dl;
+      cost = cost + stage_cost<NC>(c, px, py, psi, v, a, dl, lam, mu);
+      euler_step(c, acc, fric, px, py, psi, v, a, dl);
     }
+    w.cx(s, w.N, 0) = px;
+    w.cx(s, w.N, 1) = py;
+    w.cx(s, w.N, 2) = psi;
+    w.cx(s, w.N, 3) = v;
+    w.cc(s) = cost + c.qn * quad_x(c, px, py, psi, v);
   }
-#pragma unroll
-  for (int s = 0; s < NALPHA; ++s) cost[s] = cost[s] + c.qn * quad_x(c, px[s], py[s], psi[s], v[s]);
 }
 
-// Re-roll the accepted step, writing the new trajectory over the stored one
-// (each stage is read before it is overwritten).
-__device__ __forceinline__ void accept_step(const Consts& c, const LaneView& w, const float* x0,
-                            float acc, float fric, float alpha) {
-  float px = x0[0], py = x0[1], psi = x0[2], v = x0[3];
-  float xh[NX], uh[NU], kg[NU], Kg[NU * NX];
-  for (int t = 0; t < w.N; ++t) {
-    load_stage(w, t, xh, uh, kg, Kg);
-    float a, dl;
-    ls_control(alpha, xh, uh, kg, Kg, px, py, psi, v, a, dl);
-    w.x(t, 0) = px;
-    w.x(t, 1) = py;
-    w.x(t, 2) = psi;
-    w.x(t, 3) = v;
-    w.u(t, 0) = a;
-    w.u(t, 1) = dl;
-    euler_step(c, acc, fric, px, py, psi, v, a, dl);
-  }
-  w.x(w.N, 0) = px;
-  w.x(w.N, 1) = py;
-  w.x(w.N, 2) = psi;
-  w.x(w.N, 3) = v;
-}
-
+// Row q of the constraints at stage t (constraint_rows' order and operations).
 template <int NC>
-__global__ void alilqr_tile_kernel(const Args g, const Consts c) {
+__device__ __forceinline__ float constraint_row(const Consts& c, const LaneView& w, int t,
+                                                int q) {
+  constexpr int NCD = NC > 0 ? NC : 1;
+  constexpr int BC = 2 * NX + 2 * NU;
+  if (q < NX) return w.x(t, q) - c.ubx[q];
+  if (q < 2 * NX) return c.lbx[q - NX] - w.x(t, q - NX);
+  if (q < 2 * NX + NU) return w.u(t, q - 2 * NX) - c.ubu[q - 2 * NX];
+  if (q < BC) return c.lbu[q - 2 * NX - NU] - w.u(t, q - 2 * NX - NU);
+  const int i = (q - BC) / NCD, j = (q - BC) % NCD;
+  const float psi = w.x(t, 2);
+  const float sp = sinf(psi), cp = cosf(psi);
+  const float wx = w.x(t, 0) + c.ox[i] * cp - c.qx[j];
+  const float wy = w.x(t, 1) + c.ox[i] * sp - c.qy[j];
+  return c.r2 - (wx * wx + wy * wy);
+}
+
+extern __shared__ float lane_blocks[];  // T blocks of lane_floats() floats
+
+template <int NC, int G>
+__global__ void __launch_bounds__(MAX_THREADS) alilqr_tile_kernel(const Args g, const Consts c) {
   constexpr int NCON = 2 * NX + 2 * NU + NC * NC;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int member = threadIdx.x % G, slot = threadIdx.x / G;
+  const int lane = blockIdx.x * (blockDim.x / G) + slot;
+  // the threads of this warp: all of them are here, none has diverged yet
+  const unsigned warp = G > 1 ? __activemask() : 0u;
   const int Bp = g.Bp, N = g.N;
+
+  // place the regions: in the lane's shared block, in its home, or in `work`
   LaneView w;
-  w.xs = g.xs + lane;
-  w.us = g.us + lane;
-  w.lam = g.lam + lane;
-  w.k = g.work + lane;
-  w.K = g.work + (size_t)NU * N * Bp + lane;
-  w.Bp = Bp;
   w.nc = NCON;
   w.N = N;
+  float* const block = lane_blocks + (size_t)slot * lane_floats(g.smask, N, NCON);
+  int in_block = 0, in_work = 0;
+  auto place = [&](int r, float* home) {  // called once per region, in region order
+    const int n = region_floats(r, N, NCON);
+    Region v;
+    if (g.smask >> r & 1) {
+      v = Region{block + in_block, 1};
+      in_block += n;
+    } else if (home != nullptr) {
+      v = Region{home + lane, Bp};
+    } else {
+      v = Region{g.work + (size_t)in_work * Bp + lane, Bp};
+      in_work += n;
+    }
+    return v;
+  };
+  w.der = place(R_DER, nullptr);
+  w.gain = place(R_GAIN, nullptr);
+  w.xs = place(R_XS, g.xs);
+  w.us = place(R_US, g.us);
+  w.lam = place(R_LAM, g.lam);
+  w.cand = place(R_CAND, nullptr);
   const float acc = g.pp[lane], fric = g.pp[Bp + lane];
   float x0[NX];
 #pragma unroll
   for (int i = 0; i < NX; ++i) x0[i] = g.x0[i * Bp + lane];
 
-  // init: controls and multipliers from the warm start, then a rollout
-  for (int t = 0; t < N; ++t) {
-#pragma unroll
-    for (int j = 0; j < NU; ++j) w.u(t, j) = g.u0[(t * NU + j) * Bp + lane];
-    for (int r = 0; r < NCON; ++r) w.l(t, r) = g.lam0[(t * NCON + r) * Bp + lane];
-  }
-  {
+  // init: controls and multipliers from the warm start, then a rollout (a
+  // chain: one member)
+  for (int i = member; i < N * NU; i += G) w.us[i] = g.u0[(size_t)i * Bp + lane];
+  for (int i = member; i < N * NCON; i += G) w.lam[i] = g.lam0[(size_t)i * Bp + lane];
+  group_sync<G>(warp);
+  if (member == 0) {
     float px = x0[0], py = x0[1], psi = x0[2], v = x0[3];
     for (int t = 0; t < N; ++t) {
       w.x(t, 0) = px;
@@ -515,7 +661,10 @@ __global__ void alilqr_tile_kernel(const Args g, const Consts c) {
     w.x(N, 2) = psi;
     w.x(N, 3) = v;
   }
+  group_sync<G>(warp);
 
+  // mu, viol, lam_step, cost, reg, grad and the counters are computed by
+  // every member alike, so both votes see a lane's value G times
   float mu = c.mu_init, viol = INFINITY, lam_step = INFINITY;
   int ni_total = 0;
   for (int oi = 0; oi < g.outer; ++oi) {
@@ -526,13 +675,18 @@ __global__ void alilqr_tile_kernel(const Args g, const Consts c) {
     int it = 0;
     for (; it < g.inner; ++it) {
       if (__syncthreads_and(grad < c.grad_tol)) break;
+      derivatives<NC, G>(c, w, mu, member);
+      group_sync<G>(warp);
       bool ok;
-      backward<NC>(c, w, acc, fric, mu, reg, ok, grad);
+      backward(c, w, acc, fric, reg, member == 0, ok, grad);
+      group_sync<G>(warp);
+      rollouts<NC, G>(c, w, x0, acc, fric, mu, member);
+      group_sync<G>(warp);
       float costs[NALPHA];
-      forward_costs<NC>(c, w, x0, acc, fric, mu, costs);
       float best = INFINITY;
 #pragma unroll
       for (int s = 0; s < NALPHA; ++s) {
+        costs[s] = w.cc(s);
         if (!isfinite(costs[s])) costs[s] = INFINITY;
         best = fminf(best, costs[s]);
       }
@@ -542,15 +696,20 @@ __global__ void alilqr_tile_kernel(const Args g, const Consts c) {
         if (costs[s] <= best) pick = s;
       const bool improved = (best < cost - 1e-12f) && ok;
       if (improved) {
-        accept_step(c, w, x0, acc, fric, c.alpha[pick]);
+        // the accepted candidate becomes the trajectory
+        for (int i = member; i < (N + 1) * NX; i += G) w.xs[i] = w.cand[i * NALPHA + pick];
+        for (int i = member; i < N * NU; i += G)
+          w.us[i] = w.cand[((N + 1) * NX + i) * NALPHA + pick];
         cost = best;
         reg = fmaxf(reg * 0.5f, c.reg_min);
       } else {
         reg = fminf(reg * 10.0f, c.reg_max);
       }
+      group_sync<G>(warp);
     }
     ni_total += it;
-    // multiplier sweep: violation, lam update, lam step
+    // multiplier sweep: violation, lam step (every member), then the lam
+    // update dealt by (stage, row)
     float v_n = 0.0f, step = 0.0f, lmax = 0.0f;
     float cr[NCON];
     for (int t = 0; t < N; ++t) {
@@ -560,30 +719,56 @@ __global__ void alilqr_tile_kernel(const Args g, const Consts c) {
       for (int r = 0; r < NCON; ++r) {
         const float lam = w.l(t, r);
         const float lam_n = relu(lam + mu * cr[r]);
-        w.l(t, r) = lam_n;
         v_n = nmax(v_n, relu(cr[r]));
         step = nmax(step, fabsf(lam_n - lam));
         lmax = nmax(lmax, fabsf(lam_n));
       }
     }
+    group_sync<G>(warp);
+    for (int item = member; item < N * NCON; item += G) {
+      const int t = item / NCON, r = item - t * NCON;
+      w.l(t, r) = relu(w.l(t, r) + mu * constraint_row<NC>(c, w, t, r));
+    }
+    group_sync<G>(warp);
     viol = v_n;
     lam_step = step / (1.0f + lmax);
     if (viol > c.viol_tol) mu = fminf(mu * c.mu_scale, c.mu_max);
   }
-  g.viol[lane] = viol;
-  g.conv[lane] = viol < c.viol_tol ? 1.0f : 0.0f;
-  g.ni[lane] = (float)ni_total;
+  // regions kept in shared memory go to their outputs
+  if (g.smask >> R_XS & 1)
+    for (int i = member; i < (N + 1) * NX; i += G) g.xs[(size_t)i * Bp + lane] = w.xs[i];
+  if (g.smask >> R_US & 1)
+    for (int i = member; i < N * NU; i += G) g.us[(size_t)i * Bp + lane] = w.us[i];
+  if (g.smask >> R_LAM & 1)
+    for (int i = member; i < N * NCON; i += G) g.lam[(size_t)i * Bp + lane] = w.lam[i];
+  if (member == 0) {
+    g.viol[lane] = viol;
+    g.conv[lane] = viol < c.viol_tol ? 1.0f : 0.0f;
+    g.ni[lane] = (float)ni_total;
+  }
 }
 
-extern "C" long alilqr_workspace_rows(int N) { return (long)(NU + NU * NX) * N; }
+template <int NC>
+static int launch_kernel(const Args& g, const Consts& c, int n_tiles, int tile, size_t bytes,
+                         cudaStream_t s) {
+  auto kernel = alilqr_tile_kernel<NC, GROUP>;
+  if (bytes > 48 * 1024) {  // beyond the default, dynamic shared memory is opt-in
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<n_tiles, tile * GROUP, bytes, s>>>(g, c);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int alilqr_tiles_launch(const float* x0, const float* u0, const float* pp,
                                    const float* lam0, float* us, float* xs, float* viol,
                                    float* conv, float* lam, float* ni, float* work,
                                    const float* consts, int n_consts, int N, int n_circ,
-                                   int outer, int inner, int tile, int n_tiles,
-                                   void* stream) {
-  if (n_consts * sizeof(float) != sizeof(Consts) || N < 1 || tile < 1 || n_tiles < 1)
+                                   int outer, int inner, int tile, int n_tiles, int group,
+                                   int smask, void* stream) {
+  if (n_consts * sizeof(float) != sizeof(Consts) || N < 1 || tile < 1 || n_tiles < 1 ||
+      group != GROUP || tile * GROUP > MAX_THREADS || smask < 0 || smask >= 1 << N_REGIONS)
     return (int)cudaErrorInvalidValue;
   Consts c;
   memcpy(&c, consts, sizeof(Consts));
@@ -592,14 +777,20 @@ extern "C" int alilqr_tiles_launch(const float* x0, const float* u0, const float
   g.us = us; g.xs = xs; g.viol = viol; g.conv = conv; g.lam = lam; g.ni = ni;
   g.work = work;
   g.N = N; g.outer = outer; g.inner = inner; g.Bp = tile * n_tiles;
+  g.smask = smask;
+  const int nc = 2 * NX + 2 * NU + n_circ * n_circ;
+  const size_t bytes = smask ? (size_t)tile * lane_floats(smask, N, nc) * sizeof(float) : 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (n_circ) {
-    case 0: alilqr_tile_kernel<0><<<n_tiles, tile, 0, s>>>(g, c); break;
-    case 3: alilqr_tile_kernel<3><<<n_tiles, tile, 0, s>>>(g, c); break;
+    case 0: return launch_kernel<0>(g, c, n_tiles, tile, bytes, s);
+    case 3: return launch_kernel<3>(g, c, n_tiles, tile, bytes, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
+
+// The group this library was built for, and the threads per CTA it allows.
+extern "C" int alilqr_group() { return GROUP; }
+extern "C" int alilqr_max_threads() { return MAX_THREADS; }
 
 extern "C" const char* alilqr_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

@@ -52,7 +52,17 @@ from typing import Callable
 import torch
 
 from ._build import PKG, load_library
-from .ilqr_kernel import ALPHAS, REG_INIT, REG_MAX, REG_MIN, _relu
+from .ilqr_kernel import (
+    ALPHAS,
+    REG_INIT,
+    REG_MAX,
+    REG_MIN,
+    SMEM_LIMIT,
+    LaunchPlan,
+    _relu,
+    plan_launch,
+    resolve_group,
+)
 
 NU_KERNEL = 2  # the closed-form Quu solve
 MAX_NX = 8  # csrc/ilqr_factory.cu MAXX
@@ -68,8 +78,6 @@ GROUPS = (1, 8, 16, 32)
 MAX_THREADS = {1: 256, 8: 512, 16: 512, 32: 512}
 # default group per C++ instantiation, from the same sweep
 DEFAULT_GROUP = {"kinematic": 8, "pacejka": 32}
-# dynamic shared memory one CTA may ask for on sm_90 (227 KB)
-SMEM_LIMIT = 232448
 N_ALPHA = len(ALPHAS)
 
 # Kernel launches made by fused_tracker_solve_cuda (one per solve). Tests and
@@ -620,39 +628,15 @@ def regions(nx: int, N: int, nc: int) -> tuple:
     )
 
 
-@dataclasses.dataclass(frozen=True)
-class LaunchPlan:
-    threads: int  # per CTA: tile × group
-    smask: int  # bit r: region r lives in shared memory
-    smem_bytes: int  # dynamic shared memory per CTA
-    work_rows: int  # rows of the (rows, Bp) global workspace
-
-
 def launch_plan(nx: int, N: int, nc: int, tile: int, group: int) -> LaunchPlan:
-    """How the kernel is launched for one tile shape. Regions go to shared
-    memory in their order as long as the CTA's ``tile`` lane blocks (each
-    padded to an odd float count) fit :data:`SMEM_LIMIT`; a region that does
-    not fit is skipped and stays in global memory. Raises ``ValueError`` for
-    a group no library is built for and for more threads than the kernel's
-    launch bounds allow: a request is never shrunk."""
-    if group not in GROUPS:
-        raise ValueError(f"group must be one of {GROUPS}, not {group}")
-    if tile < 1:
-        raise ValueError("tile must be positive")
-    threads = tile * group
-    if threads > MAX_THREADS[group]:
-        raise ValueError(
-            f"tile {tile} × group {group} = {threads} threads per CTA exceeds the "
-            f"{MAX_THREADS[group]} the kernel's launch bounds allow at this group"
-        )
-    smask = floats = work_rows = 0
-    for r, (_, n, has_home) in enumerate(regions(nx, N, nc)):
-        if 4 * tile * ((floats + n) | 1) <= SMEM_LIMIT:
-            smask |= 1 << r
-            floats += n
-        elif not has_home:
-            work_rows += n
-    return LaunchPlan(threads, smask, 4 * tile * (floats | 1) if smask else 0, work_rows)
+    """How the kernel is launched for one tile shape
+    (:func:`.ilqr_kernel.plan_launch` with :data:`GROUPS`,
+    :data:`MAX_THREADS`, :data:`SMEM_LIMIT`): the regions that fit shared
+    memory in their order, the workspace for the rest; raises ``ValueError``
+    for a group no library is built for and for more threads than the
+    kernel's launch bounds allow."""
+    return plan_launch(regions(nx, N, nc), tile, group, groups=GROUPS, max_threads=MAX_THREADS,
+                       smem_limit=SMEM_LIMIT)
 
 
 def library_name(group: int) -> str:
@@ -853,18 +837,18 @@ def fused_tracker_solve_cuda(
     twin :func:`tracker_tiles_reference`. On CUDA ``ode_rows`` must be a
     :class:`TrackerModel`: a bare row function raises
     ``NotImplementedError`` (ROADMAP S4.6). One CTA runs one tile with
-    ``group`` threads per lane (one of :data:`GROUPS`; the instantiation's
-    :data:`DEFAULT_GROUP` when ``None``); the solution does not depend on it.
-    ``tile`` and ``group`` are chosen together: a CTA has ``tile × group``
-    threads, and more than :data:`MAX_THREADS` raises ``ValueError``
-    (:func:`launch_plan`), so a ``tile`` above 16 needs a ``group`` below the
-    Pacejka default of 32. The twin ignores a valid ``group``.
+    ``group`` threads per lane (one of :data:`GROUPS`; for ``None`` the
+    instantiation's :data:`DEFAULT_GROUP`, or the largest group that fits
+    ``tile`` where that does not); the solution does not depend on it. A CTA
+    has ``tile × group`` threads, and an explicit ``group`` that makes more
+    than :data:`MAX_THREADS` raises ``ValueError`` (:func:`launch_plan`). The
+    twin ignores a valid ``group``.
     ``extra_deps`` and ``extra_order`` belong to ``extra_constraints``, which
     is not ported.
     """
     del extra_deps, extra_order
-    if group is None:
-        group = DEFAULT_GROUP.get(getattr(ode_rows, "kernel", None), 1)
+    default = DEFAULT_GROUP.get(getattr(ode_rows, "kernel", None), 1)
+    group = resolve_group(group, tile, default, GROUPS, MAX_THREADS)
     if group not in GROUPS:
         raise ValueError(f"group must be one of {GROUPS}, not {group}")
     if x0s.is_cuda:

@@ -20,6 +20,15 @@ tensors.
 
 Both work on stage-major operands, ``(stage, row, lane)`` with the padded
 batch last: a warp's lanes then read neighbouring addresses in the kernel.
+
+Lane groups: on the card ``group`` threads serve one lane (the stages of the
+derivative pre-pass and the line-search candidates are dealt to them;
+``csrc/ilqr_kernel.cu``), so a CTA has ``tile × group`` threads. ``tile``
+keeps its meaning, lanes per CTA, and the numbers of a solve depend on the
+tile only: every group computes the same float program. One library is built
+per group. :func:`launch_plan` reckons, for ``(N, nc, tile, group)``, the
+threads, the regions of a lane's working set that fit into shared memory and
+the workspace for the rest, and raises on what the kernel cannot take.
 """
 
 from __future__ import annotations
@@ -40,16 +49,24 @@ ALPHAS = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125, 0.01)
 REG_INIT, REG_MIN, REG_MAX = 1.0, 1e-8, 1e8
 MAX_CIRCLES = 3
 KERNEL_CIRCLES = (0, 3)  # the kernel's instantiations (csrc/ilqr_kernel.cu)
-MAX_TILE = 1024  # threads per CTA: one lane per thread
-# GPU default scenario tile, chosen by a sweep on the H100 at the contract
-# configuration (PERF.md, Findings)
-DEFAULT_TILE = 32
+# GPU default scenario tile and thread group, chosen by a tile × group sweep
+# on the H100 at the parking sweep's contract configuration, by the time the
+# sweep spends in the kernel (PERF.md, Findings)
+DEFAULT_TILE = 16
+DEFAULT_GROUP = 8
+# threads per lane a library is built for, and the threads per CTA (tile ×
+# group) its launch bounds allow (csrc/ilqr_kernel.cu MAX_THREADS)
+GROUPS = (1, 8, 32)
+MAX_THREADS = {1: 256, 8: 512, 32: 512}
+# dynamic shared memory one CTA may ask for on sm_90 (227 KB)
+SMEM_LIMIT = 232448
+N_DERIV = 23  # floats of one stage of the derivative store (csrc/ilqr_kernel.cu ND)
 
 # Kernel launches made by al_ilqr_solve_cuda (one per solve). Tests and
 # chip_smoke.py read it to show that a run went through the kernel.
 LAUNCHES = 0
 
-LIBRARY = "ilqr_kernel"
+LIBRARY = "ilqr_kernel"  # library_name(group) is the file's stem
 _SOURCES = [PKG / "csrc" / "ilqr_kernel.cu"]
 # the twin's arithmetic rounds after every operation; so does the kernel's
 # without contraction into fused multiply-adds (PERF.md, Findings)
@@ -502,34 +519,109 @@ def _consts(*, ts, geom, limits, weights, mu_init, mu_scale, mu_max, viol_tol,
     ]
 
 
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    threads: int  # per CTA: tile × group
+    smask: int  # bit r: region r lives in shared memory
+    smem_bytes: int  # dynamic shared memory per CTA
+    work_rows: int  # rows of the (rows, Bp) global workspace
+
+
+def plan_launch(regions, tile: int, group: int, *, groups, max_threads, smem_limit) -> LaunchPlan:
+    """How a lane-group kernel is launched for one tile shape. ``regions``
+    are a lane's working set, ``(name, floats, has a home outside the
+    workspace)`` in the order the kernel fills shared memory. Regions go to
+    shared memory in their order as long as the CTA's ``tile`` lane blocks
+    (each padded to an odd float count) fit ``smem_limit``; a region that
+    does not fit is skipped and stays in global memory. Raises
+    ``ValueError`` for a group not in ``groups`` and for more threads than
+    the kernel's launch bounds allow (``max_threads[group]``): a request is
+    never shrunk."""
+    if group not in groups:
+        raise ValueError(f"group must be one of {groups}, not {group}")
+    if tile < 1:
+        raise ValueError("tile must be positive")
+    threads = tile * group
+    if threads > max_threads[group]:
+        raise ValueError(
+            f"tile {tile} × group {group} = {threads} threads per CTA exceeds the "
+            f"{max_threads[group]} the kernel's launch bounds allow at this group"
+        )
+    smask = floats = work_rows = 0
+    for r, (_, n, has_home) in enumerate(regions):
+        if 4 * tile * ((floats + n) | 1) <= smem_limit:
+            smask |= 1 << r
+            floats += n
+        elif not has_home:
+            work_rows += n
+    return LaunchPlan(threads, smask, 4 * tile * (floats | 1) if smask else 0, work_rows)
+
+
+def resolve_group(group, tile: int, default: int, groups, max_threads) -> int:
+    """``group``, or for ``None`` the ``default`` when ``tile × default``
+    threads fit the launch bounds, else the largest of ``groups`` that fits
+    (``default`` again when none does: the launch then refuses the tile)."""
+    if group is not None:
+        return group
+    fits = [g for g in groups if tile * g <= max_threads[g]]
+    return default if default in fits or not fits else max(fits)
+
+
+# A lane's working set by region, in the order shared memory is filled
+# (csrc/ilqr_kernel.cu's enum): name, floats per lane, and whether the region
+# has a home outside the workspace (an output buffer).
+def regions(N: int, nc: int) -> tuple:
+    return (
+        ("der", N * N_DERIV, False),  # the derivative store
+        ("gain", N * NU * (1 + NX), False),  # k and K
+        ("xs", (N + 1) * NX, True),
+        ("us", N * NU, True),
+        ("lam", N * nc, True),
+        ("cand", len(ALPHAS) * ((N + 1) * NX + N * NU + 1), False),  # 7 candidates, costs
+    )
+
+
+def launch_plan(N: int, nc: int, tile: int, group: int) -> LaunchPlan:
+    """:func:`plan_launch` for the parking kernel: :data:`GROUPS`,
+    :data:`MAX_THREADS`, :data:`SMEM_LIMIT`."""
+    return plan_launch(regions(N, nc), tile, group, groups=GROUPS, max_threads=MAX_THREADS,
+                       smem_limit=SMEM_LIMIT)
+
+
+def library_name(group: int) -> str:
+    return LIBRARY if group == 1 else f"{LIBRARY}_g{group}"
+
+
 def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.alilqr_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.alilqr_workspace_rows.argtypes = [ctypes.c_int]
-    lib.alilqr_workspace_rows.restype = ctypes.c_long
     lib.alilqr_error_string.argtypes = [ctypes.c_int]
     lib.alilqr_error_string.restype = ctypes.c_char_p
 
 
-def _build_library() -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/ilqr_kernel.cu``."""
-    return load_library(LIBRARY, _SOURCES, _configure, extra_flags=NVCC_EXTRA)
+def _build_library(group: int = 1) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/ilqr_kernel.cu`` for ``group``
+    threads per lane."""
+    lib = load_library(library_name(group), _SOURCES, _configure,
+                       extra_flags=(*NVCC_EXTRA, f"-DALILQR_GROUP={group}"))
+    if (lib.alilqr_group(), lib.alilqr_max_threads()) != (group, MAX_THREADS[group]):
+        raise RuntimeError(f"{library_name(group)} was not built for group {group}")
+    return lib
 
 
-def _launch(x0, u0, pp, lam0, *, N, n_circ, tile, outer_iters, inner_iters,
+def _launch(x0, u0, pp, lam0, *, N, n_circ, tile, outer_iters, inner_iters, group=1,
             **consts):
     global LAUNCHES
-    if tile > MAX_TILE:
-        raise ValueError(f"tile {tile} exceeds {MAX_TILE} threads per block")
     if n_circ not in KERNEL_CIRCLES:
         raise ValueError(f"the kernel takes n_circles in {KERNEL_CIRCLES}, not {n_circ}")
+    nc = n_constraints(n_circ)
+    plan = launch_plan(N, nc, tile, group)
     for a in (x0, u0, pp, lam0):
         if a.device != x0.device or a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError("kernel operands must be contiguous float32 on one device")
-    lib = _build_library()
+    lib = _build_library(group)
     Bp = x0.shape[-1]
-    nc = n_constraints(n_circ)
     dev = x0.device
     us = torch.empty(N, NU, Bp, dtype=torch.float32, device=dev)
     xs = torch.empty(N + 1, NX, Bp, dtype=torch.float32, device=dev)
@@ -537,7 +629,7 @@ def _launch(x0, u0, pp, lam0, *, N, n_circ, tile, outer_iters, inner_iters,
     conv = torch.empty(Bp, dtype=torch.float32, device=dev)
     lam = torch.empty(N, nc, Bp, dtype=torch.float32, device=dev)
     ni = torch.empty(Bp, dtype=torch.float32, device=dev)
-    work = torch.empty(lib.alilqr_workspace_rows(N), Bp, dtype=torch.float32, device=dev)
+    work = torch.empty(max(plan.work_rows, 1), Bp, dtype=torch.float32, device=dev)
     values = _consts(n_circ=n_circ, **consts)
     cvals = (ctypes.c_float * len(values))(*values)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -545,7 +637,7 @@ def _launch(x0, u0, pp, lam0, *, N, n_circ, tile, outer_iters, inner_iters,
         err = lib.alilqr_tiles_launch(
             *(a.data_ptr() for a in (x0, u0, pp, lam0, us, xs, viol, conv, lam, ni, work)),
             ctypes.addressof(cvals), len(values), N, n_circ, outer_iters,
-            inner_iters, tile, Bp // tile, stream,
+            inner_iters, tile, Bp // tile, group, plan.smask, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -632,19 +724,30 @@ def al_ilqr_solve_cuda(
     viol_tol: float = 1e-4,
     tol: float = 1e-6,
     tile: int = DEFAULT_TILE,
+    group: int | None = None,  # threads per lane on the card; None: DEFAULT_GROUP
 ) -> BatchedALILQRSolution:
     """Batched AL-iLQR on the parking OCP; the signature and return of the
-    JAX package's ``al_ilqr_solve_pallas``.
+    JAX package's ``al_ilqr_solve_pallas``, and ``group``.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
-    twin :func:`al_ilqr_tiles_reference`. One thread runs one lane and one
-    CTA one tile; a tile wider than the register file allows (about 384
-    lanes with the obstacle) is refused at launch and raises. ``refs``, ``dist`` and ``urefs``
-    (tracking, additive offset, input reference) raise
+    twin :func:`al_ilqr_tiles_reference`. One CTA runs one tile with
+    ``group`` threads per lane (one of :data:`GROUPS`; :data:`DEFAULT_GROUP`
+    when ``None``, or the largest group that fits ``tile`` where that does
+    not); the solution does not depend on it. A CTA has ``tile × group``
+    threads, and more than :data:`MAX_THREADS` raises ``ValueError``
+    (:func:`launch_plan`). The twin ignores a valid ``group``. ``refs``,
+    ``dist`` and ``urefs`` (tracking, additive offset, input reference) raise
     ``NotImplementedError``: only the racing, wind and offset-free sweeps use
     them, and those are not ported yet.
     """
-    solver = _launch if x0s.is_cuda else al_ilqr_tiles_reference
+    group = resolve_group(group, tile, DEFAULT_GROUP, GROUPS, MAX_THREADS)
+    if group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, not {group}")
+    if x0s.is_cuda:
+        # _launch is looked up at call time, so that a run can observe it
+        solver = lambda *a, **k: _launch(*a, group=group, **k)
+    else:
+        solver = al_ilqr_tiles_reference
     return _solve_tiled(
         solver, x0s, u_init, acc, fric, refs, dist, urefs, lam_init, N=N,
         ts=ts, geom=geom, limits=limits, weights=weights, n_circles=n_circles,
@@ -662,4 +765,7 @@ def al_ilqr_solve_twin(*args, **kwargs) -> BatchedALILQRSolution:
     on the card."""
     bound = _SIGNATURE.bind(*args, **kwargs)
     bound.apply_defaults()
-    return _solve_tiled(al_ilqr_tiles_reference, **bound.arguments)
+    kw = dict(bound.arguments)
+    if kw.pop("group") not in (None, *GROUPS):
+        raise ValueError(f"group must be one of {GROUPS}")
+    return _solve_tiled(al_ilqr_tiles_reference, **kw)

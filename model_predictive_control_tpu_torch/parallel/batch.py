@@ -147,6 +147,7 @@ def batched_parking_policy(
     mu_init: float = 10.0,
     backend: str = "cuda",
     tile: int = DEFAULT_TILE,
+    group: int | None = None,
     mesh=None,
     dtype=torch.float32,
 ):
@@ -161,7 +162,9 @@ def batched_parking_policy(
     (``0.7``, zero where the solve did not converge), as in the JAX package.
 
     ``backend="cuda"`` launches the kernel for CUDA tensors (its plain twin
-    for CPU tensors); ``"twin"`` runs the twin on any device. The SQP
+    for CPU tensors); ``"twin"`` runs the twin on any device. ``group`` is
+    the kernel's threads per lane (``ilqr_kernel.GROUPS``; the default when
+    ``None``): it moves time, never numbers. The SQP
     solver, the per-scenario XLA path (``backend="xla"``, other dtypes and
     other perturbed fields), the factory kernel and device meshes are not
     ported yet and raise ``NotImplementedError``.
@@ -210,7 +213,7 @@ def batched_parking_policy(
             x_batch, u_warm.reshape(B, N, NU), accv, fricv, lam_init=lam_warm,
             N=N, ts=float(ts), geom=geom, limits=limits, weights=weights,
             n_circles=n_circ, outer_iters=outer_iters, inner_iters=inner_iters,
-            mu_init=mu_init, viol_tol=1e-4, tile=tile_eff,
+            mu_init=mu_init, viol_tol=1e-4, tile=tile_eff, group=group,
         )
         u_next = torch.cat([sol.us[:, 1:], sol.us[:, -1:]], dim=1)
         # shifted, decayed multipliers, kept only where the solve converged
@@ -253,6 +256,7 @@ def parking_sweep(
     mu_init: float = 10.0,
     backend: str = "cuda",
     tile: int = DEFAULT_TILE,
+    group: int | None = None,
     plant_substeps: int = 16,
     mesh=None,
     dtype=torch.float32,
@@ -268,7 +272,8 @@ def parking_sweep(
     ``generator`` (a CPU ``torch.Generator``, seed 0 when ``None``) draws
     the plant parameters, then the initial states. The controller predicts
     with the nominal model unless ``controller_knows``, when it gets each
-    scenario's acceleration and friction. ``checkpoint_every``/
+    scenario's acceleration and friction. ``tile`` and ``group`` are the
+    kernel's (:func:`batched_parking_policy`). ``checkpoint_every``/
     ``checkpoint_path`` and ``u_seed`` are not ported yet and raise
     ``NotImplementedError``.
 
@@ -293,7 +298,7 @@ def parking_sweep(
         model_params, N=N, ts=ts, x_obs=x_obs, sqp_iters=sqp_iters,
         qp_iters=qp_iters, solver=solver, outer_iters=outer_iters,
         inner_iters=inner_iters, mu_init=mu_init, backend=backend, tile=tile,
-        mesh=mesh, dtype=dtype,
+        group=group, mesh=mesh, dtype=dtype,
     )
     plant = batched_plant(plant_params, ts, substeps=plant_substeps)
     res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device))

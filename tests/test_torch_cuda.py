@@ -93,10 +93,15 @@ def parking():
 
 
 @pytest.mark.parametrize("tile", [4, 32])
-def test_alilqr_kernel_matches_twin(parking, tile):
+@pytest.mark.parametrize("group", [1, 8, 32])
+def test_alilqr_kernel_matches_twin(parking, tile, group):
     """Same inputs on the card: the kernel does the twin's operations in the
-    twin's order without FMA contraction, so the two agree bit for bit."""
+    twin's order without FMA contraction, so the two agree bit for bit, with
+    one thread per lane or a group of them (a group only deals the work).
+    Tile 32 at group 32 is 1,024 threads, beyond the launch bounds: there the
+    widest tile the group takes (16) stands in."""
     KI, kw = parking
+    tile = min(tile, KI.MAX_THREADS[group] // group)
     g = torch.Generator().manual_seed(2)
     x0 = random_initial_states(
         g, 37, x_obs=(0.25, 0.0, 0.0, 0.0), device="cuda"
@@ -104,12 +109,27 @@ def test_alilqr_kernel_matches_twin(parking, tile):
     u = 0.1 * torch.randn(37, 8, 2, generator=g).cuda()
     acc, fric = torch.full((37,), 2.0).cuda(), torch.full((37,), 1.0).cuda()
     before = KI.LAUNCHES
-    got = KI.al_ilqr_solve_cuda(x0, u, acc, fric, tile=tile, **kw)
+    got = KI.al_ilqr_solve_cuda(x0, u, acc, fric, tile=tile, group=group, **kw)
     torch.cuda.synchronize()
     assert KI.LAUNCHES == before + 1
     ref = KI.al_ilqr_solve_twin(x0, u, acc, fric, tile=tile, **kw)
     for name in ("us", "xs", "viol", "converged", "lam", "inner_iters_executed"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+def test_oversize_alilqr_tile_raises(parking):
+    """More threads per CTA (tile × group) than the kernel's launch bounds
+    allow: the wrapper raises before anything is built or launched."""
+    KI, kw = parking
+    x0 = random_initial_states(torch.Generator().manual_seed(3), 5, device="cuda")
+    u, acc, fric = torch.zeros(5, 8, 2).cuda(), torch.full((5,), 2.0).cuda(), torch.ones(5).cuda()
+    before = KI.LAUNCHES
+    for tile, group in ((512, 1), (128, 8), (32, 32)):
+        with pytest.raises(ValueError, match="threads per CTA"):
+            KI.al_ilqr_solve_cuda(x0, u, acc, fric, tile=tile, group=group, **kw)
+    with pytest.raises(ValueError, match="group must be one of"):
+        KI.al_ilqr_solve_cuda(x0, u, acc, fric, group=16, **kw)
+    assert KI.LAUNCHES == before
 
 
 def test_parking_sweep_launches_the_kernel(parking):
@@ -119,6 +139,12 @@ def test_parking_sweep_launches_the_kernel(parking):
     assert KI.LAUNCHES == before + 3
     assert res.states.is_cuda and bool(torch.isfinite(res.states).all())
     assert 0.0 <= summary["success_rate"] <= 1.0
+    # the group moves time, never numbers
+    for group in (1, 32):
+        other, other_summary = port.parking_sweep(64, 3, N=8, group=group, device="cuda")
+        assert torch.equal(res.states, other.states)
+        assert other_summary == summary
+    assert KI.LAUNCHES == before + 9
 
 
 @pytest.fixture
@@ -200,6 +226,19 @@ def test_racing_sweeps_launch_the_kernel(tracker, sweep):
     other, _ = getattr(port, sweep)(64, 3, N=8, group=1, device="cuda")
     assert F.LAUNCHES == before + 6
     assert torch.equal(res.states, other.states)
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+def test_racing_sweep_dynamic_takes_a_wide_tile(tracker, tile):
+    """With only ``tile`` given, the group resolves to the largest one that
+    fits the launch bounds (the Pacejka default, 32, does not), and the
+    sweep runs with the numbers of any other group at that tile."""
+    F, _ = tracker
+    before = F.LAUNCHES
+    res, summary = port.racing_sweep_dynamic(64, 2, N=8, tile=tile, device="cuda")
+    one, _ = port.racing_sweep_dynamic(64, 2, N=8, tile=tile, group=1, device="cuda")
+    assert F.LAUNCHES == before + 4
+    assert bool(torch.isfinite(res.states).all()) and torch.equal(res.states, one.states)
 
 
 def test_oversize_tracker_tile_raises(tracker):

@@ -235,3 +235,23 @@ def test_default_groups_fit_the_default_tile():
     for group in F.DEFAULT_GROUP.values():
         assert group in F.GROUPS and F.DEFAULT_TILE * group <= F.MAX_THREADS[group]
     assert F.library_name(1) == F.LIBRARY and F.library_name(16) == F.LIBRARY + "_g16"
+
+
+@pytest.mark.parametrize("tile, group", [(32, 16), (64, 8)])
+def test_racing_sweep_dynamic_resolves_a_group_that_fits(monkeypatch, tile, group):
+    """With only ``tile`` given, the Pacejka default (32 threads per lane)
+    does not fit tiles 32 and 64 (512 threads per CTA at most): ``group=None``
+    then resolves to the largest group that fits, which ``launch_plan``
+    accepts; an explicit oversize group is still refused."""
+    import model_predictive_control_tpu_torch as port
+
+    seen = []
+    resolve = F.resolve_group
+    monkeypatch.setattr(F, "resolve_group", lambda *a: seen.append(resolve(*a)) or seen[-1])
+    _, summary = port.racing_sweep_dynamic(3, 1, N=4, tile=tile, device="cpu")
+    assert seen == [group] and summary["steps"] == 1
+    assert F.launch_plan(6, 4, 4, tile, group).threads == F.MAX_THREADS[group]
+    assert F.resolve_group(None, F.DEFAULT_TILE, 32, F.GROUPS, F.MAX_THREADS) == 32
+    assert F.resolve_group(32, tile, 32, F.GROUPS, F.MAX_THREADS) == 32
+    with pytest.raises(ValueError, match="threads per CTA"):
+        F.launch_plan(6, 4, 4, tile, 32)
