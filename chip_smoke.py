@@ -22,9 +22,12 @@ kernel, and times it:
   per tile × group, all informational);
 - the long-horizon closed loop (session-2 linear MPC on the stagewise
   interior-point solver, N=100, 20 iterations, 4,096 scenarios × 50 steps)
-  on the fused stagewise-IP kernel, beside the batched plain-torch solver
-  (with a tile sweep of the loop and a profile of the plain-torch solver,
-  both informational).
+  on the fused stagewise-IP kernel (held to its twin bit for bit at one
+  thread per lane and at two thread groups, on the launch's operands and
+  through the wrapper), beside the batched plain-torch solver (with CUDA
+  events around every launch of one loop, a profiled window, the loop per
+  tile × group, the placements of the working set and a profile of the
+  plain-torch solver, all informational).
 
 Each kernel's line of the ``kernels`` object carries its time beside its
 bound: the least time the card could take for the same work, the larger of
@@ -39,7 +42,12 @@ recomputes it).
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and exits non-zero without one, or when any phase
 fails. The last line of its output is one JSON object
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py
+--long-horizon-loop DIR`` times the long-horizon loop alone (wall, time in
+the kernel, idle share) for the port found under ``DIR``: run it on two
+checkouts in one call to compare two versions on one card. ``python3
+chip_smoke.py --long-horizon-phases`` prints where a stagewise-IP launch
+spends its cycles, phase by phase, from a clocked build of the kernel.
 """
 
 from __future__ import annotations
@@ -90,20 +98,20 @@ PARK_PARKED_FLOOR = 0.95
 PARK_MEDIAN_CEILING = 0.05
 PARK_TWIN_SCENARIOS = 64
 PARK_TWIN_STEPS = 1
-PARK_WIDE_BATCH = 16384  # informational point: how the card fills
 # AL-iLQR kernel vs twin on the card: the same float program (no FMA
 # contraction) at every thread group, so all six outputs are gated bit for
 # bit, at every group built here (one thread per lane and two groups).
 PARK_GROUPS = (1, 8, 32)
 TOL_PARK_STATES = 5e-2  # closed loop, tests/test_pallas_ilqr.py:117
-# Informational sweep of whole sweeps over (tile, group), rounds in
-# alternating order: the default tile and the widest that keeps all but the
+# Informational sweep of whole sweeps over (tile, group), one round to keep
+# the script's time: the default tile and the widest that keeps all but the
 # candidates in shared memory. PERF.md's full table is this script's with
-# PARK_SWEEP_TILES = (8, 16, 32). At tile 32 the summary is the
-# one-thread-per-lane kernel's of the first port (success, parked within 5
-# cm, mean inner iterations), whatever the group: gated.
+# PARK_SWEEP_TILES = (8, 16, 32) and 2 rounds. At tile 32
+# the summary is the one-thread-per-lane kernel's of the first port
+# (success, parked within 5 cm, mean inner iterations), whatever the group:
+# gated.
 PARK_SWEEP_TILES = (16, 32)
-PARK_SWEEP_ROUNDS = 2
+PARK_SWEEP_ROUNDS = 1
 PARK_TILE32_SUMMARY = {"success_rate": (0.93378, 5), "parked_frac_5cm": (0.97656, 5),
                        "mean_inner_iters": (74.86, 2)}
 
@@ -119,12 +127,12 @@ RACE_TWIN_STEPS = 2
 # contraction) at every thread group, so all six outputs are gated bit for bit.
 # The groups built and held here: one thread per lane, and both defaults.
 RACE_GROUPS = (1, 8, 32)
-# Informational sweep of whole sweeps over (tile, group), rounds in
-# alternating order: the default tile and the widest a group of 8 takes; one
-# round, to keep the script's time as the parking phases grew. PERF.md's full
-# tables are this script's with RACE_GROUPS = (1, 8, 16, 32),
-# RACE_SWEEP_TILES = (8, 16, 32, 64) and 4 rounds.
-RACE_SWEEP_TILES = (16, 64)
+# Informational sweep of whole sweeps over (tile, group), one round at the
+# default tile only, to keep the script's time. PERF.md's full tables are
+# this script's with
+# RACE_GROUPS = (1, 8, 16, 32), RACE_SWEEP_TILES = (8, 16, 32, 64) and 4
+# rounds.
+RACE_SWEEP_TILES = (16,)
 RACE_SWEEP_ROUNDS = 1
 RACE_PROFILE_STEPS = 10  # the window of each sweep run under torch.profiler (parking too)
 # long-horizon stagewise-IP loop (the JAX package's README "Long-horizon
@@ -151,19 +159,21 @@ LH_TORCH_STEPS = 5
 TOL_LH_BACKEND_STATES = 2e-3
 TOL_LH_MU = 0.1  # relative; lanes beyond it took different iteration counts
 TOL_LH_EDGE_SHARE = 1e-3  # share of lanes allowed on the freeze threshold's edge
-LH_SWEEP_TILES = (8, 16, 32, 64, 128, 256)  # informational tile sweep of the loop
-LH_SWEEP_ROUNDS = 1
+# stagewise-IP kernel vs twin on the card: the same float program (IEEE add,
+# multiply, divide in one order, no FMA contraction) at every thread group, so
+# all six outputs are gated bit for bit, at every group built here.
+LH_GROUPS = (1, 8, 32)
+# Informational: one round of the loop per (tile, group) the launch bounds
+# take, CUDA events around every launch (the source of PERF.md's table). At
+# tile 32 the loop's summary is the one-thread-per-lane kernel's of the first
+# port (success share, mean executed iterations), whatever the group: gated.
+LH_SWEEP_TILES = (8, 16, 32, 64)
+LH_TILE32_SUMMARY = {"success": (0.99991, 5), "iterations": (7.65, 2)}
 LH_TWIN_SCENARIOS = 64
 LH_TWIN_STEPS = 3
 LH_WIDE_BATCH = 65536  # informational point: how the card fills
 LH_PROFILE_ITERS = 1  # iterations of the profiled plain-torch solve
 LH_SMALL_N = 12  # the nx=3 / nu=2 case (dense R, infinite bounds)
-# stagewise-IP kernel vs twin on the card: the same float program (IEEE add,
-# multiply, divide in one order, no FMA contraction), so bit for bit is
-# expected; the gate is the JAX package's bar between two float32
-# implementations (tests/test_pallas_riccati_ip.py:69-96), over the lanes
-# solved on both sides, with equal success masks and executed iterations.
-TOL_LH_UX = 5e-4
 TOL_LH_STATES = 2e-3  # closed loop, tests/test_pallas_riccati_ip.py:193
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
@@ -320,6 +330,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--long-horizon-loop"]:
+        # the loop's timing alone, for the port found under the given
+        # directory (another version of it, to compare two on one card)
+        sys.path.insert(0, os.path.abspath(sys.argv[2] if len(sys.argv) > 2 else "."))
+        import model_predictive_control_tpu_torch as port
+        from model_predictive_control_tpu_torch.ops.cuda import riccati_ip_kernel as KR
+
+        card = smi()
+        print(f"the port at {os.path.dirname(port.__file__)} [{card}]", flush=True)
+        loop_report(torch, port, KR, card, torch.device("cuda"))
+        return 0
+    if sys.argv[1:2] == ["--long-horizon-phases"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import model_predictive_control_tpu_torch as port
+        from model_predictive_control_tpu_torch.ops.cuda import riccati_ip_kernel as KR
+
+        phase_report(torch, port, KR, smi(), torch.device("cuda"))
+        return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import model_predictive_control_tpu_torch as port
     from model_predictive_control_tpu_torch.ops.cuda import admm_kernel as K
@@ -345,13 +373,14 @@ def main() -> int:
 
     phase("build")
     # the parking and tracker kernels are one library per thread group, the
-    # stagewise-IP kernel one per (nx, nu): the path's and the nx=3 / nu=2
-    # case's
+    # stagewise-IP kernel one per (nx, nu) and group: the path's and the
+    # nx=3 / nu=2 case's
     build_all([
-        *((m.LIBRARY, m._build_library) for m in (K, KR)),
+        (K.LIBRARY, K._build_library),
         *((KI.library_name(g), lambda g=g: KI._build_library(g)) for g in PARK_GROUPS),
         *((KF.library_name(g), lambda g=g: KF._build_library(g)) for g in RACE_GROUPS),
-        (KR.library_name(3, 2), lambda: KR._build_library(3, 2)),
+        *((KR.library_name(nx, nu, g), lambda nx=nx, nu=nu, g=g: KR._build_library(nx, nu, g))
+          for nx, nu in ((2, 1), (3, 2)) for g in LH_GROUPS),
     ])
     admm = admm_phases(torch, port, K, card, device)
     ilqr = ilqr_phases(torch, port, KI, card, device)
@@ -595,11 +624,11 @@ def timed_sweep(torch, K, sweep, B, device, **kw):
 
 
 def print_events(wall, events, card) -> None:
-    """The kernel's share of one sweep's wall from its launches' events."""
+    """The kernel's share of one run's wall from its launches' events."""
     per = sorted(a.elapsed_time(b) for a, b in events[1:])
     cold_ms = events[0][0].elapsed_time(events[0][1])
     total = cold_ms + sum(per)
-    print(f"informational: one sweep with events around its {len(events)} launches: wall "
+    print(f"informational: one run with events around its {len(events)} launches: wall "
           f"{wall:.4f} s, in the kernel {total:.1f} ms ({100 * total / (1e3 * wall):.1f}% of the "
           f"wall); cold first launch {cold_ms:.3f} ms, steady launches median "
           f"{per[len(per) // 2]:.3f} ms, min {per[0]:.3f}, max {per[-1]:.3f} [{card}]", flush=True)
@@ -662,12 +691,14 @@ def spied(torch, K, twin_name, seen):
         setattr(K, twin_name, reference)
 
 
-def held_at_groups(torch, K, kernel, name, seen, groups, group, tile, card):
+def held_at_groups(torch, K, kernel, name, seen, groups, group, tile, card,
+                   compare=compare_launches):
     """The last spied launch's operands through the kernel at every group of
     ``groups``: checks that the kernel's and the twin's wrappers prepared
     the same solve at the default ``group``, times each group, and gates the
-    six outputs bit for bit against the twin's solve. Returns max|Δu|, the
-    ms per group and the launch's operands and keywords (without group)."""
+    six outputs bit for bit against the twin's solve (``compare``). Returns
+    max|Δu|, the ms per group and the launch's operands and keywords
+    (without group)."""
     args, kw = seen["args"], dict(seen["kw"])
     if kw.pop("group") != group:
         raise SystemExit(f"the {kernel} was not launched at the default group")
@@ -682,7 +713,7 @@ def held_at_groups(torch, K, kernel, name, seen, groups, group, tile, card):
     print(f"{name}: kernel alone, ms per launch by group: "
           f"{', '.join(f'{g}: {v:.3f}' for g, v in ms.items())}; twin {1e3 * twin_s:.1f} ms "
           f"(timed once); tile {tile} [{card}]", flush=True)
-    return compare_launches(torch, kernel, name, outs, want, twin_s, card), ms, args, kw
+    return compare(torch, kernel, name, outs, want, twin_s, card), ms, args, kw
 
 
 def launch_points(torch, K, args, kw, points, card) -> None:
@@ -693,8 +724,8 @@ def launch_points(torch, K, args, kw, points, card) -> None:
         at = {**kw, "tile": t, "group": g}
         ni = K._launch(*args, **at)[5].mean().item()
         print(f"informational: warm launch at tile {t} group {g}: "
-              f"{time_cuda(torch, lambda: K._launch(*args, **at), 3):.3f} ms, {ni:.2f} inner "
-              f"iterations [{card}]", flush=True)
+              f"{time_cuda(torch, lambda: K._launch(*args, **at), 3):.3f} ms, {ni:.2f} executed "
+              f"(inner) iterations [{card}]", flush=True)
 
 
 def ilqr_phases(torch, port, K, card, device) -> dict:
@@ -821,15 +852,6 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
     # CUDA events around every launch of one more sweep: the kernel's share
     print_events(*timed_sweep(torch, K, sweep, B, device, steps=PARK_STEPS)[:2], card)
     profile_sweep(torch, sweep, B, card, device, kernel="alilqr_tile_kernel")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, wide = sweep(PARK_WIDE_BATCH, PARK_STEPS, device=device)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    print(f"informational, not gated: parking_sweep({PARK_WIDE_BATCH}, {PARK_STEPS}) wall "
-          f"{dt:.4f} s, {PARK_WIDE_BATCH * PARK_STEPS / dt:.1f} solves/s, success "
-          f"{wide['success_rate']:.5f}, mean inner iterations {wide['mean_inner_iters']:.2f} "
-          f"[{card}]", flush=True)
 
     phase("parking sweep per tile x group (informational)")
     quality = sweep_points(torch, K, sweep, B, PARK_STEPS, points, PARK_SWEEP_ROUNDS, device, card)
@@ -1008,33 +1030,47 @@ def profile_sweep(torch, sweep, B, card, device, kernel="tracker_tile_kernel") -
           f"time), {launches} kernel launches [{card}]", flush=True)
 
 
+STAGEWISE_FIELDS = ("us", "xs", "mu", "prim_res", "success", "iters_executed")
+
+
 def compare_stagewise(torch, name, got, ref, twin_s, card) -> float:
-    """Print and gate the stagewise-IP kernel against its twin; returns
-    max|Δu| over the lanes solved on both sides."""
-    fields = ("us", "xs", "mu", "prim_res", "success", "iters_executed")
-    equal = [f for f in fields if torch.equal(getattr(got, f), getattr(ref, f))]
-    both = got.success & ref.success
-    du = (got.us - ref.us).abs().amax(dim=(1, 2))[both]
-    dx = (got.xs - ref.xs).abs().amax(dim=(1, 2))[both]
-    err_u = du.max().item() if du.numel() else 0.0
-    err_x = dx.max().item() if dx.numel() else 0.0
-    d_mu = (got.mu - ref.mu).abs()[both].max().item() if du.numel() else 0.0
-    d_prim = (got.prim_res - ref.prim_res).abs()[both].max().item() if du.numel() else 0.0
-    same_ok = bool(torch.equal(got.success, ref.success))
-    same_it = bool(torch.equal(got.iters_executed, ref.iters_executed))
+    """Print and gate the stagewise-IP wrapper's solution against the twin
+    wrapper's, all six fields bit for bit; returns max|Δu|."""
+    equal = [f for f in STAGEWISE_FIELDS if torch.equal(getattr(got, f), getattr(ref, f))]
+    err = (got.us - ref.us).abs().max().item()
     print(
-        f"{name}: bitwise equal fields {equal} of {len(fields)}; over lanes solved on both "
-        f"sides max|u_kernel - u_twin| {err_u:.3e}, max|x_kernel - x_twin| {err_x:.3e} (tol "
-        f"{TOL_LH_UX:.0e}), max|Δμ| {d_mu:.3e}, max|Δprim_res| {d_prim:.3e}; success masks "
-        f"equal {same_ok}, executed iterations equal {same_it}; success "
+        f"{name}: the wrapper's solution against the twin wrapper's: bitwise equal fields "
+        f"{equal} of {len(STAGEWISE_FIELDS)}; max|u_kernel - u_twin| {err:.3e}; success "
         f"{got.success.float().mean().item():.5f} vs twin {ref.success.float().mean().item():.5f}; "
         f"mean executed iterations {got.iters_executed.mean().item():.2f}; twin "
         f"{1e3 * twin_s:.1f} ms per solve (timed once) [{card}]",
         flush=True,
     )
-    if not (same_ok and same_it and err_u <= TOL_LH_UX and err_x <= TOL_LH_UX):
+    if len(equal) != len(STAGEWISE_FIELDS):
         raise SystemExit(f"stagewise-IP kernel disagrees with its twin on the {name} config")
-    return err_u
+    return err
+
+
+def compare_stagewise_launches(torch, kernel, name, outs, ref, twin_s, card) -> float:
+    """Gate the stagewise-IP kernel's six outputs at every group in ``outs``
+    (``group -> _launch``'s tuple) bit for bit against the twin's ``ref`` on
+    the same operands; returns max|Δu| over all lanes and groups."""
+    err = 0.0
+    for group, got in outs.items():
+        equal = [f for f, a, b in zip(STAGEWISE_FIELDS, got, ref) if torch.equal(a, b)]
+        du = (got[0] - ref[0]).abs().amax(dim=(0, 1))
+        err = max(err, du.max().item())
+        print(
+            f"{name}, group {group}: bitwise equal fields {equal} of {len(STAGEWISE_FIELDS)}; "
+            f"max|u_kernel - u_twin| over all lanes {du.max().item():.3e}; success "
+            f"{got[4].float().mean().item():.5f} vs twin {ref[4].float().mean().item():.5f}; mean "
+            f"executed iterations {got[5].mean().item():.2f} [{card}]",
+            flush=True,
+        )
+        if len(equal) != len(STAGEWISE_FIELDS):
+            raise SystemExit(f"{kernel} (group {group}) is not its twin bit for bit on the "
+                             f"{name} config")
+    return err
 
 
 def profile_torch_solve(torch, port, problem, x0, card) -> None:
@@ -1061,17 +1097,153 @@ def profile_torch_solve(torch, port, problem, x0, card) -> None:
           f"[{card}]", flush=True)
 
 
+def long_horizon_loop(torch, port, K, device, batch=None, **policy_kw):
+    """``run(steps)``: the long-horizon main path from the same states and
+    zero warm controls (``batch`` of them, ``LH_BATCH`` when ``None``),
+    through the public entry points only (the same in every version of the
+    port, so that two versions time alike)."""
+    batch = batch or LH_BATCH
+    problem = port.session2_problem()
+    ctrl = port.make_stagewise_mpc(problem, N=LH_N, iters=LH_ITERS, device=device)
+    system = problem.system(torch.float32, device)
+    x0 = initial_states(torch, device, batch)
+
+    def run(steps=LH_STEPS, **kw):
+        policy = ctrl.batched_policy(backend="cuda", **{**policy_kw, **kw})
+        return port.simulate_batch(x0, system, steps, policy,
+                                   ctrl.initial_batch_carry(batch, device=device))
+
+    return run
+
+
+def loop_report(torch, port, K, card, device) -> float:
+    """Times the long-horizon loop at the kernel's defaults: the wall (best
+    of 3, after a warm-up), CUDA events around every launch of one more run
+    (time in the kernel, its share of the wall) and a 10-step window under
+    ``torch.profiler`` (the device's idle share). Returns the best wall."""
+    run = long_horizon_loop(torch, port, K, device)
+    run()  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    dt = min(times)
+    print(f"long-horizon loop {LH_BATCH} x {LH_STEPS} steps, N={LH_N}: wall {dt:.4f} s (best of "
+          f"3: {', '.join(f'{t:.4f}' for t in times)}), {LH_BATCH * LH_STEPS / dt:.1f} solves/s, "
+          f"step {1e3 * dt / LH_STEPS:.3f} ms, success "
+          f"{res.logs['solver_success'].float().mean().item():.5f} [{card}]", flush=True)
+    events = []
+    launch = K._launch
+    K._launch = timed_launches(torch, K, events)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        K._launch = launch
+    print_events(wall, events, card)
+    profile_sweep(torch, lambda b, steps, device: run(steps), LH_BATCH, card, device,
+                  kernel="stagewise_ip_tile_kernel")
+    return dt
+
+
+PHASE_NAMES = ("init", "factorization and gap sum", "predictor forward",
+               "predictor ratio test", "predictor gap products", "predictor gap sum",
+               "corrector linear terms", "corrector backward", "corrector forward",
+               "corrector ratio test", "candidate check", "update", "polish",
+               "polish acceptance")
+
+
+def phase_report(torch, port, K, card, device, points=((32, 8), (8, 32), (32, 1))) -> None:
+    """Informational: the cycles of each phase of the stagewise-IP solve at
+    the long-horizon path's warm launch, per (tile, group) of ``points``,
+    from a measurement build of the kernel (``-DIP_PHASE_CLOCKS``: thread 0
+    of every CTA adds each phase's ``clock64`` cycles), averaged over CTA
+    iterations; the outputs are held to the plain build's bit for bit."""
+    import ctypes
+
+    from model_predictive_control_tpu_torch.ops.cuda._build import load_library
+
+    def clocked(nx=2, nu=1, group=1):
+        def configure(lib):
+            K._configure(lib)
+            lib.stagewise_ip_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+
+        return load_library(
+            K.library_name(nx, nu, group) + "_clocks", K._SOURCES, configure,
+            extra_flags=(*K.NVCC_EXTRA, f"-DNX={nx}", f"-DNU={nu}", f"-DIP_GROUP={group}",
+                         "-DIP_PHASE_CLOCKS"),
+        )
+
+    ctrl = port.make_stagewise_mpc(port.session2_problem(), N=LH_N, iters=LH_ITERS, device=device)
+    system = port.session2_problem().system(torch.float32, device)
+    names = ("A", "B", "Q", "R", "Pf", "x_lb", "x_ub", "u_lb", "u_ub")
+    kp = K.prepare_problem(*(getattr(ctrl, k).cpu().numpy() for k in names), device=device)
+    x0 = initial_states(torch, device, LH_BATCH)
+    cold = K.stagewise_ip_solve_prepared(kp, x0, None, N=LH_N, iters=LH_ITERS)
+    x1 = system(x0, cold.us[:, 0])
+    u1 = torch.cat([cold.us[:, 1:], cold.us[:, -1:]], dim=1)
+    buf = (ctypes.c_ulonglong * (len(PHASE_NAMES) + 1))()
+    for tile, group in points:
+        args = K.prepare_tiles(kp, x1, u1, N=LH_N, tile=tile)
+        kw = dict(N=LH_N, problem=kp.problem, iters=LH_ITERS, tau=0.995, tile=tile, group=group)
+        plain = K._launch(*args, **kw)
+        build = K._build_library
+        K._build_library = clocked
+        try:
+            lib = clocked(2, 1, group)
+            out = K._launch(*args, **kw)
+            lib.stagewise_ip_phase_cycles(ctypes.addressof(buf), 1)
+            ms = time_cuda(torch, lambda: K._launch(*args, **kw), 1)
+            lib.stagewise_ip_phase_cycles(ctypes.addressof(buf), 1)
+        finally:
+            K._build_library = build
+        same = all(torch.equal(a, b) for a, b in zip(out, plain))
+        cycles, its = list(buf[: len(PHASE_NAMES)]), buf[len(PHASE_NAMES)]
+        total = sum(cycles)
+        print(f"phase clocks, tile {tile} group {group}: {ms:.3f} ms per clocked launch, outputs "
+              f"bit for bit the plain build's: {same}; {its / 2:.0f} CTA iterations a launch, "
+              f"{total / its:.0f} cycles per CTA iteration [{card}]", flush=True)
+        for name, cyc in zip(PHASE_NAMES, cycles):
+            print(f"  {name:28s} {100 * cyc / total:5.1f}%  {cyc / its:9.0f} cycles per CTA "
+                  f"iteration", flush=True)
+        if not same:
+            raise SystemExit("the clocked build of the stagewise-IP kernel changed its outputs")
+
+
+def executed_iterations(torch, K, static, x0, system, device, **kw):
+    """The long-horizon loop once more through the wrapper (the executed
+    iterations are no key of the policy's logs): the mean executed
+    iterations and the final states."""
+    executed = []
+    x = x0
+    u = torch.zeros(x0.shape[0], kw["N"], 1, dtype=torch.float32, device=device)
+    for _ in range(LH_STEPS):
+        sol = K.stagewise_ip_solve_cuda(*static, x, u, **kw)
+        executed.append(sol.iters_executed)
+        x, u = system(x, sol.us[:, 0]), torch.cat([sol.us[:, 1:], sol.us[:, -1:]], dim=1)
+    return torch.stack(executed).mean().item(), x
+
+
 def stagewise_phases(torch, port, K, card, device) -> dict:
     """The long-horizon path: the stagewise-IP kernel against its twin (cold,
-    warm, and the nx=3 / nu=2 case), the closed loop through
+    warm, and the nx=3 / nu=2 case; the wrapper's solution against the twin
+    wrapper's, and the launch's operands at every group of ``LH_GROUPS``
+    against that twin solve, all bit for bit), the closed loop through
     ``make_stagewise_mpc`` / ``batched_policy`` / ``simulate_batch`` beside
     the batched plain-torch solver (success shares and states compared), a
-    small kernel-vs-twin closed loop, the timing, the loop per kernel tile
-    and a profile of the plain-torch solver. Returns the kernel's entry of
-    the ``kernels`` line."""
+    small kernel-vs-twin closed loop, the timing (events around every launch,
+    a profiled window), and, informational, the loop per (tile, group), the
+    placements of the working set and a profile of the plain-torch solver. Returns the kernel's entry of the ``kernels`` line."""
     import numpy as np
 
-    B, N, tile = LH_BATCH, LH_N, K.DEFAULT_TILE
+    B, N, tile, group = LH_BATCH, LH_N, K.DEFAULT_TILE, K.DEFAULT_GROUP
+    groups = [g for g in LH_GROUPS if tile * g <= K.MAX_THREADS[g]]
     problem = port.session2_problem()
     ctrl = port.make_stagewise_mpc(problem, N=N, iters=LH_ITERS, device=device)
     system = problem.system(torch.float32, device)
@@ -1081,23 +1253,29 @@ def stagewise_phases(torch, port, K, card, device) -> dict:
     kw = dict(N=N, iters=LH_ITERS, tile=tile)
 
     phase(f"stagewise-IP kernel vs twin on the card (B={B}, N={N}, {LH_ITERS} iterations, "
-          f"nx=2, nu=1, tile={tile})")
+          f"nx=2, nu=1, tile={tile}, groups {groups})")
 
     def both(name, data, x, u, **kw):
-        got = K.stagewise_ip_solve_cuda(*data, x, u, **kw)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = K.stagewise_ip_solve_twin(*data, x, u, **kw)
-        torch.cuda.synchronize()
-        twin_s = time.perf_counter() - t0
-        return got, compare_stagewise(torch, name, got, ref, twin_s, card), twin_s
+        """The wrapper's solution against the twin wrapper's, then the
+        launch's operands at every group against that twin solve."""
+        seen = {}
+        with spied(torch, K, "stagewise_ip_tiles_reference", seen):
+            got = K.stagewise_ip_solve_cuda(*data, x, u, **kw)
+            torch.cuda.synchronize()
+            ref = K.stagewise_ip_solve_twin(*data, x, u, **kw)
+        err = compare_stagewise(torch, name, got, ref, seen["twin_s"], card)
+        err_g, ms, args, launch_kw = held_at_groups(
+            torch, K, "stagewise-IP kernel", name, seen, groups, group, tile, card,
+            compare=compare_stagewise_launches,
+        )
+        return got, max(err, err_g), ms, args, launch_kw, seen["twin_s"]
 
-    cold, err, _ = both("cold", static, x0, None, **kw)
+    cold, err, _, _, _, _ = both("cold", static, x0, None, **kw)
     # the warm config as the policy makes it: one plant step with u0, the
     # controls shifted one stage
     x1 = system(x0, cold.us[:, 0])
     u1 = torch.cat([cold.us[:, 1:], cold.us[:, -1:]], dim=1)
-    warm, err_w, twin_s = both("warm", static, x1, u1, **kw)
+    _, err_w, ms, args, launch_kw, twin_s = both("warm", static, x1, u1, **kw)
     rng = np.random.default_rng(1)
     q3 = np.diag([5.0, 1.0, 0.5])
     synthetic = (  # nx=3 / nu=2, a dense R, infinite bounds, Pf != Q
@@ -1107,31 +1285,29 @@ def stagewise_phases(torch, port, K, card, device) -> dict:
     )
     x3 = torch.as_tensor(rng.uniform(-1, 1, (B, 3)) * np.array([3.5, 1.9, 1.4]),
                          dtype=torch.float32, device=device)
-    _, err_3, _ = both(f"nx=3, nu=2, N={LH_SMALL_N}", synthetic, x3, None,
-                       N=LH_SMALL_N, iters=18, tile=tile)
+    err_3 = both(f"nx=3, nu=2, N={LH_SMALL_N}", synthetic, x3, None,
+                 N=LH_SMALL_N, iters=18, tile=tile)[1]
     err = max(err, err_w, err_3)
-
-    scaled, x1_t, u1_t, _, _ = K.prepare_tiles(*static, x1, u1, N=N, tile=tile)
-    raw = dict(N=N, problem=scaled, iters=LH_ITERS, tau=0.995, tile=tile)
-    kernel_ms = time_cuda(torch, lambda: K._launch(x1_t, u1_t, **raw), 5)
-    twin_ms = 1e3 * twin_s
-    print(f"warm: kernel alone {kernel_ms:.3f} ms per launch of {B}, twin {twin_ms:.1f} ms "
-          f"per solve (timed once) [{card}]", flush=True)
-    outs = K._launch(x1_t, u1_t, **raw)
+    kernel_ms, twin_ms = ms[group], 1e3 * twin_s
+    print(f"warm: kernel alone {kernel_ms:.3f} ms per launch of {B} (group {group}), twin "
+          f"{twin_ms:.1f} ms per solve (timed once) [{card}]", flush=True)
+    outs = K._launch(*args, group=group, **launch_kw)
     nb = sum(np.isfinite(v).sum() for v in static[5:])
-    roof = bound(torch, stagewise_flops(2, 1, int(nb), N, float(outs[5].sum()), x1_t.shape[-1]),
-                   [x1_t, u1_t, *outs])
+    roof = bound(torch, stagewise_flops(2, 1, int(nb), N, float(outs[5].sum()), args[0].shape[-1]),
+                 [*args, *outs])
 
     phase(f"long-horizon main path: {B} scenarios x {LH_STEPS} steps, N={N}, "
-          f"{LH_ITERS} iterations, tile {tile}")
-    def loop(x, backend, steps=LH_STEPS, tile=tile):
-        policy = ctrl.batched_policy(backend=backend, tile=tile)
+          f"{LH_ITERS} iterations, tile {tile}, group {group}")
+    run = long_horizon_loop(torch, port, K, device)
+
+    def loop(x, backend, steps=LH_STEPS):
+        policy = ctrl.batched_policy(backend=backend)
         return port.simulate_batch(
             x, system, steps, policy, ctrl.initial_batch_carry(x.shape[0], device=device)
         )
 
     K.LAUNCHES = 0
-    res = loop(x0, "cuda")
+    res = run()
     torch.cuda.synchronize()
     launches = K.LAUNCHES
     print(f"stagewise-IP kernel launches in the loop: {launches} (expected {LH_STEPS})")
@@ -1141,21 +1317,15 @@ def stagewise_phases(torch, port, K, card, device) -> dict:
         raise SystemExit(f"unexpected shapes {res.states.shape} {res.inputs.shape}")
     if not bool(torch.isfinite(res.states).all()):
         raise SystemExit("non-finite states in the long-horizon loop")
-    # the executed iterations are no key of the policy's logs: the same loop
-    # once more through the wrapper, outside the counted run
-    executed = []
-    x, u = x0, ctrl.initial_batch_carry(B, device=device)
-    for _ in range(LH_STEPS):
-        sol = K.stagewise_ip_solve_cuda(*static, x, u, **kw)
-        executed.append(sol.iters_executed)
-        x, u = system(x, sol.us[:, 0]), torch.cat([sol.us[:, 1:], sol.us[:, -1:]], dim=1)
+    # the same loop once more through the wrapper, outside the counted run
+    executed, x = executed_iterations(torch, K, static, x0, system, device, **kw)
     if not torch.equal(x, res.states[-1]):
         raise SystemExit("the loop through the wrapper differs from the loop through the policy")
     ok = res.logs["solver_success"]
     success = ok.float().mean().item()
     print(f"success {success:.5f} (floor {LH_SUCCESS_FLOOR}), mean μ of the solved "
           f"{res.logs['mu'][ok].mean().item():.3e}, mean executed iterations "
-          f"{torch.stack(executed).mean().item():.2f} of {LH_ITERS}, final |p| max "
+          f"{executed:.2f} of {LH_ITERS}, final |p| max "
           f"{res.states[-1, :, 0].abs().max().item():.3e}", flush=True)
     if success < LH_SUCCESS_FLOOR:
         raise SystemExit("the long-horizon loop's success share is below the floor")
@@ -1214,23 +1384,12 @@ def stagewise_phases(torch, port, K, card, device) -> dict:
         raise SystemExit("the long-horizon closed loop disagrees with the twin policy")
 
     phase("long-horizon main path timing")
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loop(x0, "cuda")
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    dt = min(times)
-    print(f"loop wall {dt:.4f} s (best of 3: {', '.join(f'{t:.4f}' for t in times)}); "
-          f"{B * LH_STEPS / dt:.1f} solves/s; step {1e3 * dt / LH_STEPS:.3f} ms; "
-          f"{B * LH_STEPS / dt / torch_rate:.1f}x the torch backend [{card}]",
-          flush=True)
-    xw = initial_states(torch, device, LH_WIDE_BATCH)
+    dt = loop_report(torch, port, K, card, device)
+    print(f"{B * LH_STEPS / dt / torch_rate:.1f}x the torch backend [{card}]", flush=True)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    wide = loop(xw, "cuda")
+    wide = long_horizon_loop(torch, port, K, device, LH_WIDE_BATCH)()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     print(f"informational, not gated: {LH_WIDE_BATCH} scenarios x {LH_STEPS} steps wall {dt:.4f} s, "
@@ -1239,23 +1398,50 @@ def stagewise_phases(torch, port, K, card, device) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB [{card}]", flush=True)
     del wide
 
-    phase("long-horizon loop per kernel tile, and the torch solver profiled (informational)")
-    walls = {t: [] for t in LH_SWEEP_TILES}
-    shares = {}
-    for r in range(LH_SWEEP_ROUNDS):  # interleaved, in alternating order
-        for t in LH_SWEEP_TILES[:: 1 if r % 2 == 0 else -1]:
+    phase("long-horizon loop per (tile, group), placements and the torch solver profiled "
+          "(informational)")
+    for t, g in sweep_grid(K, LH_GROUPS, LH_SWEEP_TILES):
+        events = []
+        launch = K._launch
+        K._launch = timed_launches(torch, K, events)
+        try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = loop(x0, "cuda", tile=t)
+            out = run(tile=t, group=g)
             torch.cuda.synchronize()
-            walls[t].append(time.perf_counter() - t0)
-            shares[t] = out.logs["solver_success"].float().mean().item()
+            wall = time.perf_counter() - t0
+        finally:
+            K._launch = launch
+        plan = K.launch_plan(N, 2, 1, t, g)
+        share = out.logs["solver_success"].float().mean().item()
+        print(f"tile {t} group {g}: loop wall {wall:.4f} s, {B * LH_STEPS / wall:.1f} solves/s, "
+              f"in the kernel {sum(a.elapsed_time(b) for a, b in events):.1f} ms over "
+              f"{len(events)} launches; success {share:.5f}; shared regions "
+              f"{plan.smask:#08b}, {plan.smem_bytes} bytes a CTA [{card}]", flush=True)
+        if t == 32:
+            iterations = executed_iterations(torch, K, static, x0, system, device,
+                                             **{**kw, "tile": t, "group": g})[0]
+            got = {"success": share, "iterations": iterations}
+            print(f"tile 32 group {g}: mean executed iterations {iterations:.2f} (the first "
+                  f"port's summary: {LH_TILE32_SUMMARY})", flush=True)
+            if any(round(got[k], d) != v for k, (v, d) in LH_TILE32_SUMMARY.items()):
+                raise SystemExit("the long-horizon loop at tile 32 is not the first port's summary")
     del out
-    for t, w in walls.items():
-        w = sorted(w)
-        print(f"tile {t}: {B * LH_STEPS / w[0]:.1f} solves/s best, {B * LH_STEPS / w[len(w) // 2]:.1f} "
-              f"median of {len(w)} (walls {', '.join(f'{v:.4f}' for v in w)} s), success "
-              f"{shares[t]:.5f} [{card}]", flush=True)
+    launch_points(torch, K, args, launch_kw, sweep_grid(K, LH_GROUPS, LH_SWEEP_TILES), card)
+    at = {**launch_kw, "group": group}
+    sizes = {name: n for name, n, _ in K.regions(N, 2, 1, group)}
+    transients = sizes["exchange"] + sizes["gain"] + sizes["scratch"] + sizes["dir"]
+    for label, limit in (("the exchange area, gains, scratch and directions",
+                          4 * tile * (transients + 1)), ("nothing", 0)):
+        limit_was = K.SMEM_LIMIT
+        K.SMEM_LIMIT = limit
+        try:
+            plan = K.launch_plan(N, 2, 1, tile, group)
+            placed_ms = time_cuda(torch, lambda: K._launch(*args, **at), 3)
+        finally:
+            K.SMEM_LIMIT = limit_was
+        print(f"informational: warm launch at tile {tile} group {group} with {label} in shared "
+              f"memory (regions {plan.smask:#08b}): {placed_ms:.3f} ms [{card}]", flush=True)
     profile_torch_solve(torch, port, problem, x0, card)
 
     return {
@@ -1263,6 +1449,7 @@ def stagewise_phases(torch, port, K, card, device) -> dict:
         "route": "cuda",
         "source": "model_predictive_control_tpu_torch/csrc/riccati_ip_kernel.cu",
         "replaces": "model_predictive_control_tpu/experimental/riccati_ip_kernel.py:132",
+        "group": group,
         "launches": launches,
         "max_abs_err": err,
         "ms": kernel_ms,

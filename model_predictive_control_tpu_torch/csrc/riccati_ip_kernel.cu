@@ -1,7 +1,7 @@
 // Fused batched stagewise Riccati interior-point solve of an LTI
-// box-constrained LQ optimal-control problem: one thread per scenario lane,
-// one CTA per tile of T lanes, the whole Mehrotra predictor-corrector solve
-// and its active-set polish in one launch.
+// box-constrained LQ optimal-control problem: a group of G threads per
+// scenario lane, one CTA per tile of T lanes (T x G threads), the whole
+// Mehrotra predictor-corrector solve and its active-set polish in one launch.
 //
 // Replaces the Pallas TPU kernel _stagewise_ip_tile_kernel in
 // model_predictive_control_tpu/experimental/riccati_ip_kernel.py (wrapper
@@ -24,32 +24,61 @@
 // augmented-Lagrangian penalty (rho = 1e4) on the active bounds, and the
 // polished trajectory is accepted if finite, feasible and sign-consistent.
 //
-// What bounds it: latency, not bytes or FLOPs. A lane's working set is
-// 30 N floats at nx = 2, nu = 1 (12 KB at N = 100): it fits neither registers
-// nor shared memory at a useful T, and each of the ~10 sweeps of an iteration
-// is a dependent chain over the N stages (a division per stage in the
-// factorization). At 4,096 lanes the card holds ~31 threads per SM. The
-// design therefore:
-//   - keeps every per-stage quantity in global memory laid out
-//     [stage][row][lane], so that a warp's accesses coalesce (49 MB at 4,096
-//     lanes and N = 100, about the size of the L2); xs and us live directly in
-//     the output buffers;
-//   - keeps the Riccati matrix P, the affine carries and the per-stage algebra
-//     in registers, with NX and NU compile-time (-DNX, -DNU: one library per
-//     size), the problem matrices and bounds in a kernel-argument struct and
-//     the finite-bound masks as uniform flags (a bound that is not finite is
-//     never read and contributes exactly nothing);
-//   - recomputes the Newton slack/dual steps from the stored primal direction
-//     in every sweep that needs them (step length, gap, guards, update)
-//     instead of storing them: 4 fewer rows per bound and stage;
-//   - takes T as a runtime parameter: smaller tiles let the tile-wide exit
-//     fire earlier and put more CTAs on the SMs.
-// Making it fast (several stages in flight per lane, fusing the elementwise
-// sweeps, shared-memory staging) is left for later work.
+// What bounds it: latency, not bytes or FLOPs. Per iteration a lane runs
+// three true recursions over its N stages (the Riccati factorization, with a
+// division a stage, and the affine backward and forward sweeps, twice), and
+// everything else is elementwise over the stages: the barrier diagonals and
+// linear terms that feed the recursions, the Newton slack/dual steps with
+// their ratio test, the gap products, the candidate check and the update.
+// With one thread per lane (the first port) all of it ran in one thread, ~10
+// dependent passes over the stages with every operand in global memory:
+// 23.5 ms per warm launch at 4,096 lanes, N = 100, against a bound of 0.034 ms.
+// The design (the lane groups of csrc/ilqr_kernel.cu and csrc/ilqr_factory.cu,
+// laid out member-major):
+//   - a group of G threads serves a lane (IP_GROUP, one library per G):
+//     thread threadIdx.x is member threadIdx.x / T of lane threadIdx.x % T,
+//     so that a warp holds one member of up to 32 lanes (its loads and stores
+//     touch neighbouring lanes) and the members of a lane sit in different
+//     warps; every elementwise pass is dealt by stage,
+//     `for (t = member; t < N; t += G)`, a stage's loads issued together
+//     before the pass stores into it, so G = 1 runs the same code in one
+//     thread;
+//   - the stage-parallel inputs of the recursions (the barrier diagonals and
+//     the linear terms) are written into a per-stage scratch store before the
+//     chain runs, so that a chain does only its dependent algebra; the
+//     predictor's affine backward sweep runs inside the factorization's loop
+//     (both walk t = N-1..0 and the affine pass needs only that stage's Qi
+//     and Qux); the next iteration's scratch is written by the update pass,
+//     and the gap sum of the updated state runs in the next factorization's
+//     loop, interleaved with it. The Newton dual steps (a division each) and
+//     the Mehrotra terms are computed once per iteration and kept in free
+//     slots for the passes that read them again;
+//   - the recursions and the ordered gap sums run in member 0 alone (its warp
+//     issues them; the other members' warps wait at the barrier), a
+//     recursion's operands loaded one stage ahead; the gap sums add the
+//     products in the twin's order (stage, group, entry, lower then upper);
+//   - the order-free reductions (the ratio test's min, the violation's max,
+//     the finiteness flags) and member 0's sums reach every member through a
+//     per-lane exchange area of G floats, between two CTA barriers; every
+//     member reads the same values in the same order;
+//   - a lane's working set (33 N floats at nx = 2, nu = 1, and the exchange
+//     area) lives in shared memory as far as the tile allows, lane-major with
+//     an odd lane stride, each region [stage][row]; the wrapper picks the
+//     regions that fit (Args::smask) and the rest stays in global memory laid
+//     out [stage][row][lane], xs and us in their output buffers. The solve is
+//     instantiated three times (solve_lane): with the exchange area, gains,
+//     scratch and directions, or the whole working set, as offsets from the
+//     shared array (so that the compiler addresses them as shared memory,
+//     32-bit and without the generic window's test), or all generic;
+//   - __launch_bounds__ caps the registers so that T x G threads fit the
+//     register file: 256 threads at G = 1, 512 at G > 1.
+// Problem matrices and bounds are in a kernel-argument struct with NX and NU
+// compile-time (-DNX, -DNU: one library per size); a bound that is not finite
+// has a zero flag, is never read and contributes exactly nothing.
 //
 // Built with nvcc -O3 for sm_90a with --fmad=false and without
 // --use_fast_math: divisions are IEEE, denormals are kept, and the kernel is
-// the same float program as its twin.
+// the same float program as its twin at every G.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,6 +90,18 @@
 #ifndef NU
 #define NU 1
 #endif
+
+// Threads per lane; one library is built per value (-DIP_GROUP=G).
+#ifndef IP_GROUP
+#define IP_GROUP 1
+#endif
+constexpr int GROUP = IP_GROUP;
+static_assert(GROUP == 1 || GROUP == 8 || GROUP == 32, "a group must divide the warp");
+// Threads per CTA (tile x GROUP) the launch bounds allow; the wrapper reads it.
+constexpr int MAX_THREADS = GROUP == 1 ? 256 : 512;
+
+constexpr int NE = NX + NU;                    // entries of a stage: x_{t+1}, then u_t
+constexpr int GR = 2 * NU * NX + NU * NU + NU;  // gain rows of a stage: K, Qi, Qux, kff
 
 // Literals go through double, as the twin's Python floats do.
 #define F(x) ((float)(x))
@@ -80,10 +121,53 @@ struct Flags {
 
 struct Args {
   const float *x0, *u0;  // (NX, Bp), (N, NU, Bp)
-  float *us, *xs, *mu, *prim, *succ, *it;  // outputs; us and xs are the state
-  float* work;  // (workspace_rows, Bp)
+  float *us, *xs, *mu, *prim, *succ, *it;  // outputs; us and xs are homes of the state
+  float* work;  // (rows, Bp): the workspace regions that are not in shared memory
   int N, iters, Bp;
+  int smask;  // bit r set: region r of a lane's working set lives in shared memory
+  Flags f;
 };
+
+// A lane's working set, by region, in the order the wrapper fills shared
+// memory (ops/cuda/riccati_ip_kernel.py::regions); each but the first holds
+// `region_rows` floats a stage. The exchange area of the group's reductions
+// (one float per member); the gains (K, Qi, Qux, kff); the scratch store
+// (per entry e a low and a high slot: the barrier diagonal and the linear
+// term of the next chain, the Newton dual steps or the Mehrotra terms of the
+// ratio test, or the lower and the upper gap product); the directions (per
+// entry the corrector's d and the predictor's da, which gives way to the
+// corrector's upper Mehrotra term and dual step once read; after an update
+// the new gap products, in the polish the solution and the multiplier
+// estimate); x_1 .. x_N and u_0 .. u_{N-1}, at home in the output buffers;
+// the slacks and duals (s_l, s_u, lam_l, lam_u). All but the state have
+// their home in `work`, in this order.
+enum { R_RED, R_GAIN, R_SCR, R_DIR, R_ZX, R_ZU, R_SD, N_REGIONS };
+
+__host__ __device__ inline int region_rows(int r) {
+  switch (r) {
+    case R_GAIN: return GR;
+    case R_SCR: return 2 * NE;
+    case R_DIR: return 2 * NE;
+    case R_ZX: return NX;
+    case R_ZU: return NU;
+    default: return 4 * NE;
+  }
+}
+
+// Floats of region r for one lane: its rows at every stage, or for the
+// exchange area R_RED one float per member.
+__host__ __device__ inline int region_floats(int r, int N) {
+  return r == R_RED ? GROUP : N * region_rows(r);
+}
+
+// Floats of one lane's block in shared memory: its regions in `smask`, padded
+// to an odd count (neighbouring lanes then start on different banks).
+__host__ __device__ inline int lane_floats(int smask, int N) {
+  int n = 0;
+  for (int r = 0; r < N_REGIONS; ++r)
+    if (smask >> r & 1) n += region_floats(r, N);
+  return n | 1;
+}
 
 // min / max that propagate NaN from either side (as torch.minimum/maximum)
 __device__ __forceinline__ float nmin(float a, float b) { return (a < b || a != a) ? a : b; }
@@ -93,94 +177,247 @@ __device__ __forceinline__ float clipf(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// One bound group (states x_1..x_N with n = NX, inputs u_0..u_{N-1} with
-// n = NU): lane-offset views of its z rows and its slack and dual buffers,
-// all (N, n, Bp), with its bounds and finite-bound flags.
-template <int n>
-struct Group {
-  float *z, *sl, *su, *ll, *lu;
-  const float *lb, *ub;
-  const int *ml, *mu;
-  int Bp;
-  __device__ size_t at(int m, int i) const { return ((size_t)m * n + i) * Bp; }
+// ---- the lane group ---------------------------------------------------------
+
+// Phase boundary inside a lane's group: what a member wrote before it, every
+// member reads after it. A lane's members sit in different warps (thread
+// threadIdx.x is member threadIdx.x / T of lane threadIdx.x % T), so the CTA
+// barrier does; every thread of the CTA reaches every one.
+__device__ __forceinline__ void group_sync() {
+  if (GROUP > 1) __syncthreads();
+}
+
+// One element of a lane's working set: k at p[k * stride] (stride 1 in the
+// lane's shared-memory block, Bp in a [row][lane] global buffer; 32-bit
+// indices, which the wrapper checks).
+struct Region {
+  float* p;
+  int stride;
+  __device__ __forceinline__ float& operator[](int k) const { return p[k * stride]; }
 };
+
+// A region known to lie in the lane's shared-memory block: element k at p[k],
+// p an offset from the shared array, so that the compiler addresses it as
+// shared memory.
+struct SharedRegion {
+  float* p;
+  __device__ __forceinline__ float& operator[](int k) const { return p[k]; }
+};
+
+// Reductions over a lane's group through its exchange area `red`: every
+// member posts its value, then reads all of them in member order, so that
+// every member ends with the same bits.
+template <class R>
+__device__ __forceinline__ float group_min(float v, const R& red, int member) {
+  if (GROUP == 1) return v;
+  red[member] = v;
+  __syncthreads();
+  v = red[0];
+  for (int m = 1; m < GROUP; ++m) v = nmin(v, red[m]);
+  __syncthreads();
+  return v;
+}
+template <class R>
+__device__ __forceinline__ float group_max(float v, const R& red, int member) {
+  if (GROUP == 1) return v;
+  red[member] = v;
+  __syncthreads();
+  v = red[0];
+  for (int m = 1; m < GROUP; ++m) v = nmax(v, red[m]);
+  __syncthreads();
+  return v;
+}
+template <class R>
+__device__ __forceinline__ bool group_all(bool b, const R& red, int member) {
+  return group_min(b ? 1.0f : 0.0f, red, member) > 0.5f;
+}
+// member 0's value, to every member
+template <class R>
+__device__ __forceinline__ float group_bcast(float v, const R& red, int member) {
+  if (GROUP == 1) return v;
+  if (member == 0) red[0] = v;
+  __syncthreads();
+  v = red[0];
+  __syncthreads();
+  return v;
+}
+
+// ---- a lane's views ---------------------------------------------------------
+
+// A lane's views: the exchange area, gains, scratch and directions of type R,
+// the state and the slacks of type S; SharedRegion where the launch keeps
+// them in shared memory.
+template <class R, class S = Region>
+struct Lane {
+  R red, gain, scr, dir;
+  S zx, zu, sd;
+  __device__ __forceinline__ float& z(int t, int e) const {
+    return e < NX ? zx[t * NX + e] : zu[t * NU + e - NX];
+  }
+  __device__ __forceinline__ float& sl(int t, int e) const { return sd[t * 4 * NE + e]; }
+  __device__ __forceinline__ float& su(int t, int e) const { return sd[t * 4 * NE + NE + e]; }
+  __device__ __forceinline__ float& ll(int t, int e) const { return sd[t * 4 * NE + 2 * NE + e]; }
+  __device__ __forceinline__ float& lu(int t, int e) const { return sd[t * 4 * NE + 3 * NE + e]; }
+  __device__ __forceinline__ float& d(int t, int e) const { return dir[t * 2 * NE + e]; }
+  __device__ __forceinline__ float& da(int t, int e) const { return dir[t * 2 * NE + NE + e]; }
+  __device__ __forceinline__ float& lo(int t, int e) const { return scr[t * 2 * NE + e]; }
+  __device__ __forceinline__ float& hi(int t, int e) const { return scr[t * 2 * NE + NE + e]; }
+  __device__ __forceinline__ float& K(int t, int a, int j) const { return gain[t * GR + a * NX + j]; }
+  __device__ __forceinline__ float& Qi(int t, int a, int b) const {
+    return gain[t * GR + NU * NX + a * NU + b];
+  }
+  __device__ __forceinline__ float& Qux(int t, int a, int j) const {
+    return gain[t * GR + NU * NX + NU * NU + a * NX + j];
+  }
+  __device__ __forceinline__ float& kff(int t, int a) const {
+    return gain[t * GR + 2 * NU * NX + NU * NU + a];
+  }
+};
+
+// Entry e's bounds: finite flags and values (e < NX: a state, else an input).
+struct Bound {
+  bool ml, mu;
+  float lb, ub;
+};
+
+__device__ __forceinline__ Bound bound(const Consts& c, const Flags& f, int e) {
+  if (e < NX) return Bound{f.xl[e] != 0, f.xu[e] != 0, c.xlb[e], c.xub[e]};
+  return Bound{f.ul[e - NX] != 0, f.uu[e - NX] != 0, c.ulb[e - NX], c.uub[e - NX]};
+}
 
 struct Entry {
   float z, sl, su, ll, lu;
 };
 
-template <int n>
-__device__ __forceinline__ Entry load(const Group<n>& g, int m, int i) {
-  const size_t k = g.at(m, i);
-  Entry e = {g.z[k], 1.0f, 1.0f, 0.0f, 0.0f};
-  if (g.ml[i]) {
-    e.sl = g.sl[k];
-    e.ll = g.ll[k];
-  }
-  if (g.mu[i]) {
-    e.su = g.su[k];
-    e.lu = g.lu[k];
-  }
-  return e;
+// Every slot is read (one without a bound holds whatever was there) and the
+// flags select after the loads, so that the loads of a stage are issued
+// together instead of each after its flag.
+template <class L>
+__device__ __forceinline__ Entry load(const L& w, const Bound& b, int t, int e) {
+  const float z = w.z(t, e), sl = w.sl(t, e), su = w.su(t, e), ll = w.ll(t, e), lu = w.lu(t, e);
+  return Entry{z, b.ml ? sl : 1.0f, b.mu ? su : 1.0f, b.ml ? ll : 0.0f, b.mu ? lu : 0.0f};
 }
+
+// A stage's state and its slots, loaded before a pass stores anything of the
+// stage (what a pass does not read, the compiler drops).
+struct Stage {
+  Entry x[NE];
+  float d[NE], da[NE], lo[NE], hi[NE];
+};
+
+template <class L>
+__device__ __forceinline__ Stage load_stage(const Consts& c, const Flags& f, const L& w, int t) {
+  Stage st;
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    st.x[e] = load(w, bound(c, f, e), t, e);
+    st.d[e] = w.d(t, e);
+    st.da[e] = w.da(t, e);
+    st.lo[e] = w.lo(t, e);
+    st.hi[e] = w.hi(t, e);
+  }
+  return st;
+}
+
+// ---- elementwise pieces -----------------------------------------------------
 
 struct Step {
   float ds_l, ds_u, dl_l, dl_u;
 };
 
-// Newton slack and dual updates of one entry given its primal direction dz;
-// CORR adds Mehrotra's second-order term from the predictor direction dza.
-template <bool CORR>
-__device__ __forceinline__ Step newton_step(const Entry& e, bool ml, bool mu, float lb,
-                                            float ub, float dz, float dza, float sig_mu) {
+// Mehrotra's second-order terms of one entry (lower, upper).
+struct Corr {
+  float c_l, c_u;
+};
+
+// The Newton slack steps of one entry given its primal direction dz.
+__device__ __forceinline__ Step slack_step(const Entry& e, const Bound& b, float dz) {
   Step s = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (ml) {
-    const float r_pl = e.z - e.sl - lb;
-    float c_l = 0.0f;
-    if (CORR) {
-      const float ds_a = dza + r_pl;
-      c_l = (-e.ll - (e.ll / e.sl) * ds_a) * ds_a;
-    }
+  if (b.ml) {
+    const float r_pl = e.z - e.sl - b.lb;
     s.ds_l = dz + r_pl;
-    s.dl_l = (sig_mu - c_l - e.ll * e.sl - e.ll * s.ds_l) / e.sl;
   }
-  if (mu) {
-    const float r_pu = e.z + e.su - ub;
-    float c_u = 0.0f;
-    if (CORR) {
-      const float ds_a = -dza - r_pu;
-      c_u = (-e.lu - (e.lu / e.su) * ds_a) * ds_a;
-    }
+  if (b.mu) {
+    const float r_pu = e.z + e.su - b.ub;
     s.ds_u = -dz - r_pu;
-    s.dl_u = (sig_mu - c_u - e.lu * e.su - e.lu * s.ds_u) / e.su;
   }
   return s;
 }
 
-// The bound group's share of the Newton-system gradient at one entry.
-template <bool CORR>
-__device__ __forceinline__ float barrier_grad(const Entry& e, bool ml, bool mu, float lb,
-                                              float ub, float dza, float sig_mu) {
-  float acc = 0.0f;
-  if (ml) {
-    const float r_pl = e.z - e.sl - lb;
-    float c_l = 0.0f;
-    if (CORR) {
-      const float ds_a = dza + r_pl;
-      c_l = (-e.ll - (e.ll / e.sl) * ds_a) * ds_a;
-    }
-    acc = acc - (sig_mu - c_l) / e.sl + (e.ll / e.sl) * r_pl;
+// Mehrotra's terms of one entry from the predictor direction dza.
+__device__ __forceinline__ Corr mehrotra(const Entry& e, const Bound& b, float dza) {
+  Corr k = {0.0f, 0.0f};
+  if (b.ml) {
+    const float r_pl = e.z - e.sl - b.lb;
+    const float ds_a = dza + r_pl;
+    k.c_l = (-e.ll - (e.ll / e.sl) * ds_a) * ds_a;
   }
-  if (mu) {
-    const float r_pu = e.z + e.su - ub;
-    float c_u = 0.0f;
-    if (CORR) {
-      const float ds_a = -dza - r_pu;
-      c_u = (-e.lu - (e.lu / e.su) * ds_a) * ds_a;
-    }
-    acc = acc + (sig_mu - c_u) / e.su + (e.lu / e.su) * r_pu;
+  if (b.mu) {
+    const float r_pu = e.z + e.su - b.ub;
+    const float ds_a = -dza - r_pu;
+    k.c_u = (-e.lu - (e.lu / e.su) * ds_a) * ds_a;
+  }
+  return k;
+}
+
+// The Newton dual steps of one entry after its slack steps s, with the
+// terms k (zero for the predictor) and the centering sig_mu.
+__device__ __forceinline__ void dual_step(const Entry& e, const Bound& b, const Corr& k,
+                                          float sig_mu, Step& s) {
+  if (b.ml) s.dl_l = (sig_mu - k.c_l - e.ll * e.sl - e.ll * s.ds_l) / e.sl;
+  if (b.mu) s.dl_u = (sig_mu - k.c_u - e.lu * e.su - e.lu * s.ds_u) / e.su;
+}
+
+// The bound's share of the Newton-system gradient at one entry.
+__device__ __forceinline__ float barrier_grad(const Entry& e, const Bound& b, const Corr& k,
+                                              float sig_mu) {
+  float acc = 0.0f;
+  if (b.ml) {
+    const float r_pl = e.z - e.sl - b.lb;
+    acc = acc - (sig_mu - k.c_l) / e.sl + (e.ll / e.sl) * r_pl;
+  }
+  if (b.mu) {
+    const float r_pu = e.z + e.su - b.ub;
+    acc = acc + (sig_mu - k.c_u) / e.su + (e.lu / e.su) * r_pu;
   }
   return acc;
+}
+
+// The barrier Hessian lam / s of one entry.
+__device__ __forceinline__ float barrier_diag(const Entry& e, const Bound& b) {
+  float acc = 0.0f;
+  if (b.ml) acc = acc + e.ll / e.sl;
+  if (b.mu) acc = acc + e.lu / e.su;
+  return acc;
+}
+
+// Linear terms of stage t (entries x_{t+1}, u_t): the cost gradient (W z, W
+// the terminal weight Pf at the last stage, else Q; R for the inputs) plus the
+// barrier gradient with the terms k.
+__device__ __forceinline__ void linear_terms(const Consts& c, const Flags& f, int t, int N,
+                                             const Entry* x, const Corr* k, float sig_mu,
+                                             float* out) {
+  const bool last = t == N - 1;
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    float quad = (last ? c.Pf[j][0] : c.Q[j][0]) * x[0].z;
+#pragma unroll
+    for (int i = 1; i < NX; ++i) quad = quad + (last ? c.Pf[j][i] : c.Q[j][i]) * x[i].z;
+    out[j] = quad + barrier_grad(x[j], bound(c, f, j), k[j], sig_mu);
+  }
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    float quad = c.R[a][0] * x[NX].z;
+#pragma unroll
+    for (int b = 1; b < NU; ++b) quad = quad + c.R[a][b] * x[NX + b].z;
+    out[NX + a] = quad + barrier_grad(x[NX + a], bound(c, f, NX + a), k[NX + a], sig_mu);
+  }
+}
+
+__device__ __forceinline__ void ratio_test(float v, float dv, float& acc, bool& okf) {
+  const float r = dv < 0.0f ? -v / (dv < F(-1e-30) ? dv : F(-1e-30)) : F(1e20);
+  acc = nmin(acc, r);
+  okf = okf && isfinite(dv);
 }
 
 // Active-set read of one entry: active (0/1), active at the upper bound,
@@ -191,193 +428,116 @@ struct Active {
   float tgt, lh;
 };
 
-__device__ __forceinline__ Active active_set(const Entry& e, bool ml, bool mu, float lb,
-                                             float ub) {
-  const bool a_l = ml && (e.ll > e.sl);
+__device__ __forceinline__ Active active_set(const Entry& e, const Bound& b) {
+  const bool a_l = b.ml && (e.ll > e.sl);
   Active a;
-  a.a_u = mu && (e.lu > e.su);
+  a.a_u = b.mu && (e.lu > e.su);
   a.act = (a_l || a.a_u) ? 1.0f : 0.0f;
-  a.tgt = a.a_u ? ub : (ml ? lb : 0.0f);
+  a.tgt = a.a_u ? b.ub : (b.ml ? b.lb : 0.0f);
   a.lh = (a.a_u ? e.lu : -e.ll) * a.act;
   return a;
 }
 
-// ---- sweeps without a carry between stages, one group at a time ------------
-
-template <int n>
-__device__ __forceinline__ void gap_add(const Group<n>& g, int m, float& tot) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) {
-    const Entry e = load(g, m, i);
-    if (g.ml[i]) tot = tot + e.sl * e.ll;
-    if (g.mu[i]) tot = tot + e.su * e.lu;
-  }
-}
-
-template <int n, bool CORR>
-__device__ __forceinline__ void gap_after_add(const Group<n>& g, int m, const float* d,
-                                              const float* da, float alpha, float sig_mu,
-                                              float& tot) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) {
-    const Entry e = load(g, m, i);
-    const size_t k = g.at(m, i);
-    const Step s = newton_step<CORR>(e, g.ml[i], g.mu[i], g.lb[i], g.ub[i], d[k],
-                                     CORR ? da[k] : 0.0f, sig_mu);
-    if (g.ml[i]) tot = tot + (e.sl + alpha * s.ds_l) * (e.ll + alpha * s.dl_l);
-    if (g.mu[i]) tot = tot + (e.su + alpha * s.ds_u) * (e.lu + alpha * s.dl_u);
-  }
-}
-
-__device__ __forceinline__ void ratio_test(float v, float dv, float& acc, bool& okf) {
-  const float r = dv < 0.0f ? -v / (dv < F(-1e-30) ? dv : F(-1e-30)) : F(1e20);
-  acc = nmin(acc, r);
-  okf = okf && isfinite(dv);
-}
-
-template <int n, bool CORR>
-__device__ __forceinline__ void alpha_add(const Group<n>& g, int m, const float* d,
-                                          const float* da, float sig_mu, float& acc,
-                                          bool& okf) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) {
-    const Entry e = load(g, m, i);
-    const size_t k = g.at(m, i);
-    const float dz = d[k];
-    const Step s = newton_step<CORR>(e, g.ml[i], g.mu[i], g.lb[i], g.ub[i], dz,
-                                     CORR ? da[k] : 0.0f, sig_mu);
-    if (g.ml[i]) ratio_test(e.sl, s.ds_l, acc, okf);
-    if (g.mu[i]) ratio_test(e.su, s.ds_u, acc, okf);
-    if (g.ml[i]) ratio_test(e.ll, s.dl_l, acc, okf);
-    if (g.mu[i]) ratio_test(e.lu, s.dl_u, acc, okf);
-    okf = okf && isfinite(dz);
-  }
-}
-
-// Candidate-finiteness check (APPLY = false) or the update by select
-// (APPLY = true) of one group's stage.
-template <int n, bool APPLY>
-__device__ __forceinline__ void candidate(const Group<n>& g, int m, const float* d,
-                                          const float* da, float alpha, float sig_mu,
-                                          bool sel, bool& fin) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) {
-    const Entry e = load(g, m, i);
-    const size_t k = g.at(m, i);
-    const float dz = d[k];
-    const Step s =
-        newton_step<true>(e, g.ml[i], g.mu[i], g.lb[i], g.ub[i], dz, da[k], sig_mu);
-    const float z_n = e.z + alpha * dz;
-    const float sl_n = e.sl + alpha * s.ds_l, ll_n = e.ll + alpha * s.dl_l;
-    const float su_n = e.su + alpha * s.ds_u, lu_n = e.lu + alpha * s.dl_u;
-    if (APPLY) {
-      if (sel) {
-        g.z[k] = z_n;
-        if (g.ml[i]) {
-          g.sl[k] = sl_n;
-          g.ll[k] = ll_n;
-        }
-        if (g.mu[i]) {
-          g.su[k] = su_n;
-          g.lu[k] = lu_n;
-        }
-      }
-    } else {
-      fin = fin && isfinite(z_n);
-      if (g.ml[i]) fin = fin && isfinite(sl_n) && isfinite(ll_n);
-      if (g.mu[i]) fin = fin && isfinite(su_n) && isfinite(lu_n);
-    }
-  }
-}
-
-template <int n>
-__device__ __forceinline__ float violation(const Group<n>& g, const float* z, int m) {
+__device__ __forceinline__ float violation(const Bound& b, float z) {
   float v = 0.0f;
-#pragma unroll
-  for (int i = 0; i < n; ++i) {
-    const float zi = z[g.at(m, i)];
-    if (g.ml[i]) v = nmax(v, g.lb[i] - zi);
-    if (g.mu[i]) v = nmax(v, zi - g.ub[i]);
-  }
+  if (b.ml) v = nmax(v, b.lb - z);
+  if (b.mu) v = nmax(v, z - b.ub);
   return v;
 }
 
-// ---- the linear terms of the affine sweeps ----------------------------------
-
-enum Mode { PRED, CORR_, POLISH };
-
-// Diagonal additions to the stage cost: the barrier Hessian lam/s, or the
-// polish's penalty rho on the active entries.
-template <int n, bool POL>
-__device__ __forceinline__ void sigma_rows(const Group<n>& g, int m, float rho, float* out) {
+// What the update pass leaves for the next iteration at stage t, from the
+// stage's state x: the gap products (lower in d, upper in da) and the
+// predictor's scratch (barrier diagonal in lo, linear term in hi).
+template <class L>
+__device__ __forceinline__ void next_stage_inputs(const Consts& c, const Flags& f, const L& w,
+                                                  int t, int N, const Entry* x) {
+  Corr zero[NE];
+  float lin[NE];
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
-    const Entry e = load(g, m, i);
-    if (POL) {
-      out[i] = active_set(e, g.ml[i], g.mu[i], g.lb[i], g.ub[i]).act * rho;
-    } else {
-      float acc = 0.0f;
-      if (g.ml[i]) acc = acc + e.ll / e.sl;
-      if (g.mu[i]) acc = acc + e.lu / e.su;
-      out[i] = acc;
-    }
+  for (int e = 0; e < NE; ++e) zero[e] = Corr{0.0f, 0.0f};
+  linear_terms(c, f, t, N, x, zero, 0.0f, lin);
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    const Bound b = bound(c, f, e);
+    if (b.ml) w.d(t, e) = x[e].sl * x[e].ll;
+    if (b.mu) w.da(t, e) = x[e].su * x[e].lu;
+    w.lo(t, e) = barrier_diag(x[e], b);
+    w.hi(t, e) = lin[e];
   }
 }
 
-// Linear term of group g at stage-index m: cost gradient (W z, with W the
-// stage's weight) plus barrier gradient, or the polish's act (lh - rho tgt).
-template <int n, Mode MODE>
-__device__ __forceinline__ void linear_term(const Group<n>& g, int m, const float (*W)[n],
-                                            const float* da, const float* lh, float sig_mu,
-                                            float rho, float* out) {
-  if (MODE == POLISH) {
+// Stage t's share of a gap sum over the products in (lo slot, hi slot), in
+// the twin's order: entries, lower then upper (all slots loaded first).
+template <class R>
+__device__ __forceinline__ float gap_add(const Flags& f, const R& r, int t, float tot) {
+  float v[2 * NE];
 #pragma unroll
-    for (int i = 0; i < n; ++i) {
-      const Active a = active_set(load(g, m, i), g.ml[i], g.mu[i], g.lb[i], g.ub[i]);
-      out[i] = a.act * (lh[g.at(m, i)] - rho * a.tgt);
-    }
-  } else {
-    Entry e[n];
+  for (int k = 0; k < 2 * NE; ++k) v[k] = r[t * 2 * NE + k];
 #pragma unroll
-    for (int i = 0; i < n; ++i) e[i] = load(g, m, i);
-#pragma unroll
-    for (int j = 0; j < n; ++j) {
-      float quad = W[j][0] * e[0].z;
-#pragma unroll
-      for (int i = 1; i < n; ++i) quad = quad + W[j][i] * e[i].z;
-      const float bar =
-          barrier_grad<MODE == CORR_>(e[j], g.ml[j], g.mu[j], g.lb[j], g.ub[j],
-                                      MODE == CORR_ ? da[g.at(m, j)] : 0.0f, sig_mu);
-      out[j] = quad + bar;
-    }
+  for (int e = 0; e < NE; ++e) {
+    const bool ml = e < NX ? f.xl[e] != 0 : f.ul[e - NX] != 0;
+    const bool mu = e < NX ? f.xu[e] != 0 : f.uu[e - NX] != 0;
+    if (ml) tot = tot + v[e];
+    if (mu) tot = tot + v[NE + e];
   }
+  return tot;
 }
 
-// Everything a sweep needs, with the lane offset applied to every pointer.
-struct Lane {
-  Group<NX> gx;
-  Group<NU> gu;
-  float *K, *Qi, *Qux, *kff;  // (N, NU NX), (N, NU NU), (N, NU NX), (N, NU)
-  float *dx, *du, *dxa, *dua;  // directions at x_{m+1} / u_m: (N, NX), (N, NU)
-  float *lhx, *lhu;            // polish multipliers
-  int N, Bp;
-};
+// A whole gap sum (the mean complementarity) over the products in r.
+template <class R>
+__device__ __forceinline__ float gap_sum(const Consts& c, const Flags& f, const R& r, int N) {
+  float tot = 0.0f;
+#pragma unroll 4
+  for (int t = 0; t < N; ++t) tot = gap_add(f, r, t, tot);
+  return tot * c.inv_count;
+}
 
-// Backward Riccati over the modified costs; fills K, Qi, Qux. P's upper
-// triangle is computed and mirrored.
-template <bool POL>
-__device__ __forceinline__ void factor_sweep(const Consts& c, const Lane& w) {
-  const int N = w.N, Bp = w.Bp;
-  float P[NX][NX], sx[NX], su[NU];
-  sigma_rows<NX, POL>(w.gx, N - 1, c.rho, sx);
+// ---- the recursions ---------------------------------------------------------
+
+// Backward Riccati over the stored barrier diagonals (lo) fused with the
+// affine backward sweep over the stored linear terms (hi): the gains K, Qi,
+// Qux and the feedforward kff of every stage. P's upper triangle is computed
+// and mirrored. With GAP, the gap sum of the products in the d / da slots
+// runs in the same loop (stage N-1-t while the recursion is at t) and is
+// returned.
+template <bool GAP, class L>
+__device__ __forceinline__ float factor_backward(const Consts& c, const Flags& f, const L& w, int N) {
+  float P[NX][NX], p[NX], sxu[NE], qr[NE];
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    sxu[e] = w.lo(N - 1, e);
+    qr[e] = w.hi(N - 1, e);
+  }
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
 #pragma unroll
     for (int j = 0; j < NX; ++j) P[i][j] = c.Pf[i][j];
-    P[i][i] = P[i][i] + sx[i];
+    P[i][i] = P[i][i] + sxu[i];
+    p[i] = qr[i];
   }
+  float tot = 0.0f;
+#pragma unroll 1
   for (int t = N - 1; t >= 0; --t) {
-    sigma_rows<NU, POL>(w.gu, t, c.rho, su);
+    if (GAP) tot = gap_add(f, w.dir, N - 1 - t, tot);
+    // this stage's input rows; the state rows of stage t-1, for the step below
+    float su[NU], r[NU], sx[NX], q[NX];
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      su[a] = sxu[NX + a];
+      r[a] = qr[NX + a];
+    }
+    if (t > 0) {
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        sxu[e] = w.lo(t - 1, e);
+        qr[e] = w.hi(t - 1, e);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      sx[i] = sxu[i];
+      q[i] = qr[i];
+    }
     float PB[NX][NU], Quu[NU][NU], Qi[NU][NU], PA[NX][NX], Qux[NU][NX], K[NU][NX];
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
@@ -440,55 +600,10 @@ __device__ __forceinline__ void factor_sweep(const Consts& c, const Lane& w) {
 #pragma unroll
         for (int b = 1; b < NU; ++b) acc = acc + Qi[a][b] * Qux[b][j];
         K[a][j] = -acc;
-        w.K[((size_t)t * NU * NX + a * NX + j) * Bp] = K[a][j];
-        w.Qux[((size_t)t * NU * NX + a * NX + j) * Bp] = Qux[a][j];
-      }
-#pragma unroll
-      for (int b = 0; b < NU; ++b) w.Qi[((size_t)t * NU * NU + a * NU + b) * Bp] = Qi[a][b];
-    }
-    if (t == 0) break;  // dx_0 is fixed: no cost-to-go at stage 0
-    sigma_rows<NX, POL>(w.gx, t - 1, c.rho, sx);
-    float Pn[NX][NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = i; j < NX; ++j) {
-        float acc = c.Q[i][j];
-        if (i == j) acc = acc + sx[i];
-#pragma unroll
-        for (int m = 0; m < NX; ++m) acc = acc + c.A[m][i] * PA[m][j];
-#pragma unroll
-        for (int a = 0; a < NU; ++a) acc = acc + Qux[a][i] * K[a][j];
-        Pn[i][j] = acc;
-        Pn[j][i] = acc;
       }
     }
-#pragma unroll
-    for (int i = 0; i < NX; ++i)
-#pragma unroll
-      for (int j = 0; j < NX; ++j) P[i][j] = Pn[i][j];
-  }
-}
-
-template <Mode MODE>
-__device__ __forceinline__ void linear_terms(const Consts& c, const Lane& w, int m,
-                                             float sig_mu, float* q, float* r) {
-  linear_term<NX, MODE>(w.gx, m, m == w.N - 1 ? c.Pf : c.Q, w.dxa, w.lhx, sig_mu, c.rho, q);
-  linear_term<NU, MODE>(w.gu, m, c.R, w.dua, w.lhu, sig_mu, c.rho, r);
-}
-
-// The affine backward and forward sweeps over the current factorization;
-// the direction at x_{m+1} goes to dxs[m], the one at u_m to dus[m]. x_init
-// is the forward sweep's start (nullptr: zero).
-template <Mode MODE>
-__device__ __forceinline__ void affine_solve(const Consts& c, const Lane& w, float sig_mu,
-                                             float* dxs, float* dus, const float* x_init) {
-  const int N = w.N, Bp = w.Bp;
-  float p[NX], q[NX], r[NU], kff[NU];
-  linear_terms<MODE>(c, w, N - 1, sig_mu, p, r);
-  for (int t = N - 1; t >= 0; --t) {
-    if (t < N - 1) linear_term<NU, MODE>(w.gu, t, c.R, w.dua, w.lhu, sig_mu, c.rho, r);
-    float qu[NU];
+    // the affine backward sweep at this stage
+    float qu[NU], kff[NU];
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
       float acc = c.B[0][a] * p[0];
@@ -498,39 +613,172 @@ __device__ __forceinline__ void affine_solve(const Consts& c, const Lane& w, flo
     }
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
-      float acc = w.Qi[((size_t)t * NU * NU + a * NU) * Bp] * qu[0];
+      float acc = Qi[a][0] * qu[0];
 #pragma unroll
-      for (int b = 1; b < NU; ++b) acc = acc + w.Qi[((size_t)t * NU * NU + a * NU + b) * Bp] * qu[b];
+      for (int b = 1; b < NU; ++b) acc = acc + Qi[a][b] * qu[b];
       kff[a] = -acc;
-      w.kff[((size_t)t * NU + a) * Bp] = kff[a];
     }
-    if (t == 0) break;
-    linear_term<NX, MODE>(w.gx, t - 1, c.Q, w.dxa, w.lhx, sig_mu, c.rho, q);
-    float pn[NX];
+    {
 #pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      float acc = q[j];
+      for (int a = 0; a < NU; ++a) {
 #pragma unroll
-      for (int i = 0; i < NX; ++i) acc = acc + c.A[i][j] * p[i];
+        for (int j = 0; j < NX; ++j) {
+          w.K(t, a, j) = K[a][j];
+          w.Qux(t, a, j) = Qux[a][j];
+        }
 #pragma unroll
-      for (int a = 0; a < NU; ++a) acc = acc + w.Qux[((size_t)t * NU * NX + a * NX + j) * Bp] * kff[a];
-      pn[j] = acc;
+        for (int b = 0; b < NU; ++b) w.Qi(t, a, b) = Qi[a][b];
+        w.kff(t, a) = kff[a];
+      }
     }
+    if (t > 0) {  // dx_0 is fixed: no cost-to-go at stage 0
+      float Pn[NX][NX], pn[NX];
 #pragma unroll
-    for (int j = 0; j < NX; ++j) p[j] = pn[j];
+      for (int i = 0; i < NX; ++i) {
+#pragma unroll
+        for (int j = i; j < NX; ++j) {
+          float acc = c.Q[i][j];
+          if (i == j) acc = acc + sx[i];
+#pragma unroll
+          for (int m = 0; m < NX; ++m) acc = acc + c.A[m][i] * PA[m][j];
+#pragma unroll
+          for (int a = 0; a < NU; ++a) acc = acc + Qux[a][i] * K[a][j];
+          Pn[i][j] = acc;
+          Pn[j][i] = acc;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        float acc = q[j];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) acc = acc + c.A[i][j] * p[i];
+#pragma unroll
+        for (int a = 0; a < NU; ++a) acc = acc + Qux[a][j] * kff[a];
+        pn[j] = acc;
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        p[i] = pn[i];
+#pragma unroll
+        for (int j = 0; j < NX; ++j) P[i][j] = Pn[i][j];
+      }
+    }
   }
-  float dx[NX];
+  return tot * c.inv_count;
+}
+
+// The affine backward sweep over the stored factorization and the linear
+// terms in hi: kff of every stage. A stage's operands are loaded one stage
+// ahead, so that the loads do not wait on the recursion.
+template <class L>
+__device__ __forceinline__ void affine_backward(const Consts& c, const L& w, int N) {
+  float p[NX], qr[NE], Qi[NU][NU], Qux[NU][NX];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) dx[i] = x_init ? x_init[i] : 0.0f;
-  for (int t = 0; t < N; ++t) {
-    float du[NU], dn[NX];
+  for (int e = 0; e < NE; ++e) qr[e] = w.hi(N - 1, e);
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+#pragma unroll
+    for (int b = 0; b < NU; ++b) Qi[a][b] = w.Qi(N - 1, a, b);
+#pragma unroll
+    for (int j = 0; j < NX; ++j) Qux[a][j] = w.Qux(N - 1, a, j);
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) p[i] = qr[i];
+#pragma unroll 2
+  for (int t = N - 1; t >= 0; --t) {
+    float r[NU], q[NX], Qi_t[NU][NU], Qux_t[NU][NX];
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
-      float acc = w.K[((size_t)t * NU * NX + a * NX) * Bp] * dx[0];
+      r[a] = qr[NX + a];
 #pragma unroll
-      for (int j = 1; j < NX; ++j) acc = acc + w.K[((size_t)t * NU * NX + a * NX + j) * Bp] * dx[j];
-      du[a] = w.kff[((size_t)t * NU + a) * Bp] + acc;
-      dus[((size_t)t * NU + a) * Bp] = du[a];
+      for (int b = 0; b < NU; ++b) Qi_t[a][b] = Qi[a][b];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) Qux_t[a][j] = Qux[a][j];
+    }
+    if (t > 0) {
+#pragma unroll
+      for (int e = 0; e < NE; ++e) qr[e] = w.hi(t - 1, e);
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+#pragma unroll
+        for (int b = 0; b < NU; ++b) Qi[a][b] = w.Qi(t - 1, a, b);
+#pragma unroll
+        for (int j = 0; j < NX; ++j) Qux[a][j] = w.Qux(t - 1, a, j);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) q[i] = qr[i];
+    float qu[NU], kff[NU];
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      float acc = c.B[0][a] * p[0];
+#pragma unroll
+      for (int i = 1; i < NX; ++i) acc = acc + c.B[i][a] * p[i];
+      qu[a] = r[a] + acc;
+    }
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      float acc = Qi_t[a][0] * qu[0];
+#pragma unroll
+      for (int b = 1; b < NU; ++b) acc = acc + Qi_t[a][b] * qu[b];
+      kff[a] = -acc;
+      w.kff(t, a) = kff[a];
+    }
+    if (t > 0) {
+      float pn[NX];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        float acc = q[j];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) acc = acc + c.A[i][j] * p[i];
+#pragma unroll
+        for (int a = 0; a < NU; ++a) acc = acc + Qux_t[a][j] * kff[a];
+        pn[j] = acc;
+      }
+#pragma unroll
+      for (int j = 0; j < NX; ++j) p[j] = pn[j];
+    }
+  }
+}
+
+// The affine forward sweep from dx_0 = x_init (nullptr: zero): the direction
+// at x_{t+1} and u_t goes to the da slots (PRED) or the d slots of stage t.
+// A stage's gains are loaded one stage ahead.
+template <bool PRED, class L>
+__device__ __forceinline__ void affine_forward(const Consts& c, const L& w, int N,
+                                               const float* x_init) {
+  float dx[NX], K[NU][NX], kff[NU];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) dx[i] = x_init ? x_init[i] : 0.0f;
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    kff[a] = w.kff(0, a);
+#pragma unroll
+    for (int j = 0; j < NX; ++j) K[a][j] = w.K(0, a, j);
+  }
+#pragma unroll 2
+  for (int t = 0; t < N; ++t) {
+    float Kt[NU][NX], kt[NU], du[NU], dn[NX];
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      kt[a] = kff[a];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) Kt[a][j] = K[a][j];
+    }
+    if (t + 1 < N) {
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+        kff[a] = w.kff(t + 1, a);
+#pragma unroll
+        for (int j = 0; j < NX; ++j) K[a][j] = w.K(t + 1, a, j);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      float acc = Kt[a][0] * dx[0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j) acc = acc + Kt[a][j] * dx[j];
+      du[a] = kt[a] + acc;
     }
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
@@ -540,95 +788,79 @@ __device__ __forceinline__ void affine_solve(const Consts& c, const Lane& w, flo
 #pragma unroll
       for (int a = 0; a < NU; ++a) acc = acc + c.B[i][a] * du[a];
       dn[i] = acc;
-      dxs[((size_t)t * NX + i) * Bp] = acc;
+    }
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const float v = e < NX ? dn[e] : du[e - NX];
+      if (PRED) w.da(t, e) = v;
+      else w.d(t, e) = v;
     }
 #pragma unroll
     for (int i = 0; i < NX; ++i) dx[i] = dn[i];
   }
 }
 
-__device__ __forceinline__ float gap_sweep(const Consts& c, const Lane& w) {
-  float tot = 0.0f;
-  for (int m = 0; m < w.N; ++m) {
-    gap_add(w.gx, m, tot);
-    gap_add(w.gu, m, tot);
-  }
-  return tot * c.inv_count;
-}
+extern __shared__ float lane_blocks[];  // T blocks of lane_floats() floats
 
-template <bool CORR>
-__device__ __forceinline__ float gap_after_sweep(const Consts& c, const Lane& w,
-                                                 const float* dxs, const float* dus,
-                                                 float alpha, float sig_mu) {
-  float tot = 0.0f;
-  for (int m = 0; m < w.N; ++m) {
-    gap_after_add<NX, CORR>(w.gx, m, dxs, w.dxa, alpha, sig_mu, tot);
-    gap_after_add<NU, CORR>(w.gu, m, dus, w.dua, alpha, sig_mu, tot);
+// Phase clocks, in a measurement build only (-DIP_PHASE_CLOCKS): thread 0 of
+// every CTA adds the cycles of each phase of its solve, and its executed
+// iterations, to ip_phase_cycles (chip_smoke.py --long-horizon-phases).
+#ifdef IP_PHASE_CLOCKS
+constexpr int N_PHASES = 14;
+__device__ unsigned long long ip_phase_cycles[N_PHASES + 1];
+#define PHASE_START long long phase_t0 = clock64()
+#define PHASE(k)                                                                    \
+  {                                                                                 \
+    const long long now = clock64();                                                \
+    if (threadIdx.x == 0) atomicAdd(&ip_phase_cycles[k], (unsigned long long)(now - phase_t0)); \
+    phase_t0 = now;                                                                 \
   }
-  return tot * c.inv_count;
-}
-
-template <bool CORR>
-__device__ __forceinline__ float alpha_sweep(const Lane& w, const float* dxs, const float* dus,
-                                             float sig_mu, bool& okf) {
-  float acc = F(1e20);
-  okf = true;
-  for (int m = 0; m < w.N; ++m) {
-    alpha_add<NX, CORR>(w.gx, m, dxs, w.dxa, sig_mu, acc, okf);
-    alpha_add<NU, CORR>(w.gu, m, dus, w.dua, sig_mu, acc, okf);
+#define PHASE_ITERATIONS(n) \
+  if (threadIdx.x == 0) atomicAdd(&ip_phase_cycles[N_PHASES], (unsigned long long)(n))
+extern "C" int stagewise_ip_phase_cycles(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, ip_phase_cycles, sizeof(ip_phase_cycles));
+  if (e == cudaSuccess && reset) {
+    static const unsigned long long zero[N_PHASES + 1] = {};
+    e = cudaMemcpyToSymbol(ip_phase_cycles, zero, sizeof(zero));
   }
-  return acc > 1.0f ? 1.0f : acc;
+  return (int)e;
 }
+#else
+#define PHASE_START
+#define PHASE(k)
+#define PHASE_ITERATIONS(n)
+#endif
 
-__global__ void stagewise_ip_tile_kernel(const Args g, const Consts c, const Flags f) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+// The whole solve of one lane by one member of its group, over the views w.
+template <class L>
+__device__ __forceinline__ void solve_lane(const Args& g, const Consts& c, const L& w, int member,
+                                           int lane) {
+  const Flags& f = g.f;
   const int Bp = g.Bp, N = g.N;
-  const size_t S = (size_t)N * Bp;  // one row block of the workspace
+  const bool chain = member == 0;  // the member that runs the recursions
+  PHASE_START;
 
-  Lane w;
-  w.N = N;
-  w.Bp = Bp;
-  float* p = g.work + lane;
-  w.gx.z = g.xs + (size_t)NX * Bp + lane;  // x_1 ..
-  w.gx.sl = p; p += NX * S;
-  w.gx.su = p; p += NX * S;
-  w.gx.ll = p; p += NX * S;
-  w.gx.lu = p; p += NX * S;
-  w.gx.lb = c.xlb; w.gx.ub = c.xub; w.gx.ml = f.xl; w.gx.mu = f.xu; w.gx.Bp = Bp;
-  w.gu.z = g.us + lane;
-  w.gu.sl = p; p += NU * S;
-  w.gu.su = p; p += NU * S;
-  w.gu.ll = p; p += NU * S;
-  w.gu.lu = p; p += NU * S;
-  w.gu.lb = c.ulb; w.gu.ub = c.uub; w.gu.ml = f.ul; w.gu.mu = f.uu; w.gu.Bp = Bp;
-  w.K = p; p += NU * NX * S;
-  w.Qi = p; p += NU * NU * S;
-  w.Qux = p; p += NU * NX * S;
-  w.kff = p; p += NU * S;
-  w.dx = p; p += NX * S;
-  w.du = p; p += NU * S;
-  w.dxa = p; p += NX * S;
-  w.dua = p; p += NU * S;
-  w.lhx = p; p += NX * S;
-  w.lhu = p;
-
-  // ---- init: rollout of the warm controls, balanced slacks -----------------
+  // ---- init: rollout of the warm controls (a chain), balanced slacks -------
   float x0[NX];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    x0[i] = g.x0[(size_t)i * Bp + lane];
-    g.xs[(size_t)i * Bp + lane] = x0[i];
+  for (int i = 0; i < NX; ++i) x0[i] = g.x0[(size_t)i * Bp + lane];
+  for (int t = member; t < N; t += GROUP) {
+#pragma unroll
+    for (int a = 0; a < NU; ++a) w.z(t, NX + a) = g.u0[((size_t)t * NU + a) * Bp + lane];
   }
-  {
-    float x[NX], u[NU], xn[NX];
+  group_sync();
+  if (chain) {
+    float x[NX], xn[NX];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = x0[i];
+    for (int i = 0; i < NX; ++i) {
+      x[i] = x0[i];
+      g.xs[(size_t)i * Bp + lane] = x0[i];
+    }
+#pragma unroll 1
     for (int t = 0; t < N; ++t) {
+      float u[NU];
 #pragma unroll
-      for (int a = 0; a < NU; ++a) {
-        u[a] = g.u0[((size_t)t * NU + a) * Bp + lane];
-        w.gu.z[w.gu.at(t, a)] = u[a];
-      }
+      for (int a = 0; a < NU; ++a) u[a] = w.z(t, NX + a);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         float acc = c.A[i][0] * x[0];
@@ -641,180 +873,387 @@ __global__ void stagewise_ip_tile_kernel(const Args g, const Consts c, const Fla
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         x[i] = xn[i];
-        const size_t k = w.gx.at(t, i);
-        w.gx.z[k] = x[i];
-        if (f.xl[i]) {
-          const float s = clipf(x[i] - c.xlb[i], 1.0f, F(1e20));
-          w.gx.sl[k] = s;
-          w.gx.ll[k] = 1.0f / s;
-        }
-        if (f.xu[i]) {
-          const float s = clipf(c.xub[i] - x[i], 1.0f, F(1e20));
-          w.gx.su[k] = s;
-          w.gx.lu[k] = 1.0f / s;
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < NU; ++a) {
-        const size_t k = w.gu.at(t, a);
-        if (f.ul[a]) {
-          const float s = clipf(u[a] - c.ulb[a], 1.0f, F(1e20));
-          w.gu.sl[k] = s;
-          w.gu.ll[k] = 1.0f / s;
-        }
-        if (f.uu[a]) {
-          const float s = clipf(c.uub[a] - u[a], 1.0f, F(1e20));
-          w.gu.su[k] = s;
-          w.gu.lu[k] = 1.0f / s;
-        }
+        w.z(t, i) = x[i];
       }
     }
   }
+  group_sync();
+  for (int t = member; t < N; t += GROUP) {
+    Entry x[NE];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) x[e] = Entry{w.z(t, e), 1.0f, 1.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const Bound b = bound(c, f, e);
+      if (b.ml) {
+        x[e].sl = clipf(x[e].z - b.lb, 1.0f, F(1e20));
+        x[e].ll = 1.0f / x[e].sl;
+        w.sl(t, e) = x[e].sl;
+        w.ll(t, e) = x[e].ll;
+      }
+      if (b.mu) {
+        x[e].su = clipf(b.ub - x[e].z, 1.0f, F(1e20));
+        x[e].lu = 1.0f / x[e].su;
+        w.su(t, e) = x[e].su;
+        w.lu(t, e) = x[e].lu;
+      }
+    }
+    next_stage_inputs(c, f, w, t, N, x);
+  }
+  group_sync();
 
+  PHASE(0);
   // ---- Mehrotra predictor-corrector loop, tile-wide exit -------------------
-  bool done = false, dead = false;
-  float mu = gap_sweep(c, w);
+  // At the top of iteration `it` member 0 sums the gap of the current state
+  // (the products in the d / da slots), inside the next factorization when
+  // there is one; a lane is done once that gap is below 50 eps or it died,
+  // and the tile leaves when all its lanes are (not before the first
+  // iteration). A pass's slots are named where it writes them.
+  bool dead = false;
+  float mu = 0.0f;
   int it = 0;
-  for (; it < g.iters; ++it) {
-    if (__syncthreads_and(done)) break;
+  for (;; ++it) {
+    const bool more = it < g.iters;
+    if (chain) {
+      mu = more ? factor_backward<true>(c, f, w, N) : gap_sum(c, f, w.dir, N);
+    }
+    mu = group_bcast(mu, w.red, member);
+    PHASE(1);
+    if (!more || (it > 0 && __syncthreads_and((mu < c.eps50) || dead))) break;
     const bool frozen = mu < c.eps50;
-    factor_sweep<false>(c, w);
-    // predictor: pure Newton (sigma = 0)
-    affine_solve<PRED>(c, w, 0.0f, w.dxa, w.dua, nullptr);
-    bool okf;
-    const float alpha_aff = alpha_sweep<false>(w, w.dxa, w.dua, 0.0f, okf);
-    const float mu_aff = gap_after_sweep<false>(c, w, w.dxa, w.dua, alpha_aff, 0.0f);
+
+    // predictor: pure Newton (sigma = 0); the affine backward sweep ran above
+    if (chain) affine_forward<true>(c, w, N, nullptr);
+    group_sync();
+    PHASE(2);
+    const Corr none = {0.0f, 0.0f};
+    float acc = F(1e20);
+    bool okf = true;
+    for (int t = member; t < N; t += GROUP) {  // dual steps -> lo, hi
+      const Stage st = load_stage(c, f, w, t);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const Bound b = bound(c, f, e);
+        const Entry& x = st.x[e];
+        Step s = slack_step(x, b, st.da[e]);
+        dual_step(x, b, none, 0.0f, s);
+        if (b.ml) ratio_test(x.sl, s.ds_l, acc, okf);
+        if (b.mu) ratio_test(x.su, s.ds_u, acc, okf);
+        if (b.ml) ratio_test(x.ll, s.dl_l, acc, okf);
+        if (b.mu) ratio_test(x.lu, s.dl_u, acc, okf);
+        if (b.ml) w.lo(t, e) = s.dl_l;
+        if (b.mu) w.hi(t, e) = s.dl_u;
+      }
+    }
+    acc = group_min(acc, w.red, member);
+    PHASE(3);
+    const float alpha_aff = acc > 1.0f ? 1.0f : acc;
+    for (int t = member; t < N; t += GROUP) {  // gap products -> lo, hi
+      const Stage st = load_stage(c, f, w, t);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const Bound b = bound(c, f, e);
+        const Entry& x = st.x[e];
+        const Step s = slack_step(x, b, st.da[e]);
+        if (b.ml) w.lo(t, e) = (x.sl + alpha_aff * s.ds_l) * (x.ll + alpha_aff * st.lo[e]);
+        if (b.mu) w.hi(t, e) = (x.su + alpha_aff * s.ds_u) * (x.lu + alpha_aff * st.hi[e]);
+      }
+    }
+    group_sync();
+    PHASE(4);
+    const float mu_aff = group_bcast(chain ? gap_sum(c, f, w.scr, N) : 0.0f, w.red, member);
+    PHASE(5);
     const float ratio = mu_aff / (mu < F(1e-30) ? F(1e-30) : mu);
     const float sigma = clipf(ratio * ratio * ratio, F(1e-8), 1.0f);
     const float sig_mu = sigma * mu;
+
     // corrector: recenter + second-order terms, same factorization
-    affine_solve<CORR_>(c, w, sig_mu, w.dx, w.du, nullptr);
-    const float alpha_raw = alpha_sweep<true>(w, w.dx, w.du, sig_mu, okf);
+    for (int t = member; t < N; t += GROUP) {  // linear terms -> hi, terms -> lo, da
+      const Stage st = load_stage(c, f, w, t);
+      Corr k[NE];
+      float lin[NE];
+#pragma unroll
+      for (int e = 0; e < NE; ++e) k[e] = mehrotra(st.x[e], bound(c, f, e), st.da[e]);
+      linear_terms(c, f, t, N, st.x, k, sig_mu, lin);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const Bound b = bound(c, f, e);
+        w.hi(t, e) = lin[e];
+        if (b.ml) w.lo(t, e) = k[e].c_l;
+        if (b.mu) w.da(t, e) = k[e].c_u;
+      }
+    }
+    group_sync();
+    PHASE(6);
+    if (chain) affine_backward(c, w, N);
+    group_sync();
+    PHASE(7);
+    if (chain) affine_forward<false>(c, w, N, nullptr);
+    group_sync();
+    PHASE(8);
+    acc = F(1e20);
+    okf = true;
+    for (int t = member; t < N; t += GROUP) {  // dual steps -> lo, da
+      const Stage st = load_stage(c, f, w, t);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const Bound b = bound(c, f, e);
+        const Entry& x = st.x[e];
+        const float dz = st.d[e];
+        Step s = slack_step(x, b, dz);
+        dual_step(x, b, Corr{b.ml ? st.lo[e] : 0.0f, b.mu ? st.da[e] : 0.0f}, sig_mu, s);
+        if (b.ml) ratio_test(x.sl, s.ds_l, acc, okf);
+        if (b.mu) ratio_test(x.su, s.ds_u, acc, okf);
+        if (b.ml) ratio_test(x.ll, s.dl_l, acc, okf);
+        if (b.mu) ratio_test(x.lu, s.dl_u, acc, okf);
+        okf = okf && isfinite(dz);
+        if (b.ml) w.lo(t, e) = s.dl_l;
+        if (b.mu) w.da(t, e) = s.dl_u;
+      }
+    }
+    acc = group_min(acc, w.red, member);
+    okf = group_all(okf, w.red, member);
+    PHASE(9);
+    const float alpha_raw = acc > 1.0f ? 1.0f : acc;
     const float alpha = c.tau * alpha_raw;
     okf = okf && isfinite(alpha);
     bool fin = true;
-    for (int m = 0; m < N; ++m) {
-      candidate<NX, false>(w.gx, m, w.dx, w.dxa, alpha, sig_mu, false, fin);
-      candidate<NU, false>(w.gu, m, w.du, w.dua, alpha, sig_mu, false, fin);
+    for (int t = member; t < N; t += GROUP) {
+      const Stage st = load_stage(c, f, w, t);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const Bound b = bound(c, f, e);
+        const Entry& x = st.x[e];
+        const float dz = st.d[e];
+        const Step s = slack_step(x, b, dz);
+        fin = fin && isfinite(x.z + alpha * dz);
+        if (b.ml) fin = fin && isfinite(x.sl + alpha * s.ds_l) && isfinite(x.ll + alpha * st.lo[e]);
+        if (b.mu) fin = fin && isfinite(x.su + alpha * s.ds_u) && isfinite(x.lu + alpha * st.da[e]);
+      }
     }
+    fin = group_all(fin, w.red, member);  // every member reduces: no short circuit
     okf = okf && fin;
+    PHASE(10);
     // a rejected lane recomputes the same direction forever: latch it dead
     dead = dead || !okf;
     const bool sel = !frozen && okf;
-    for (int m = 0; m < N; ++m) {
-      candidate<NX, true>(w.gx, m, w.dx, w.dxa, alpha, sig_mu, sel, fin);
-      candidate<NU, true>(w.gu, m, w.du, w.dua, alpha, sig_mu, sel, fin);
+    // the update by select, and what the next iteration reads of the state
+    for (int t = member; t < N; t += GROUP) {
+      const Stage st = load_stage(c, f, w, t);
+      Entry x[NE];
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const Bound b = bound(c, f, e);
+        x[e] = st.x[e];
+        const float dz = st.d[e], dl_l = st.lo[e], dl_u = st.da[e];
+        const Step s = slack_step(x[e], b, dz);
+        if (sel) {
+          x[e].z = x[e].z + alpha * dz;
+          w.z(t, e) = x[e].z;
+          if (b.ml) {
+            x[e].sl = x[e].sl + alpha * s.ds_l;
+            x[e].ll = x[e].ll + alpha * dl_l;
+            w.sl(t, e) = x[e].sl;
+            w.ll(t, e) = x[e].ll;
+          }
+          if (b.mu) {
+            x[e].su = x[e].su + alpha * s.ds_u;
+            x[e].lu = x[e].lu + alpha * dl_u;
+            w.su(t, e) = x[e].su;
+            w.lu(t, e) = x[e].lu;
+          }
+        }
+      }
+      next_stage_inputs(c, f, w, t, N, x);
     }
-    mu = gap_sweep(c, w);
-    done = (mu < c.eps50) || dead;
+    group_sync();
+    PHASE(11);
   }
   const float mu_final = mu;
 
   // ---- active-set polish (augmented Lagrangian, two passes) ----------------
-  for (int m = 0; m < N; ++m) {
+  // The multiplier estimates live in the da slots, the penalty diagonal and
+  // the linear term in the scratch store, the solution in the d slots.
+  for (int t = member; t < N; t += GROUP) {
+    const Stage st = load_stage(c, f, w, t);
 #pragma unroll
-    for (int i = 0; i < NX; ++i)
-      w.lhx[w.gx.at(m, i)] = active_set(load(w.gx, m, i), f.xl[i], f.xu[i], c.xlb[i], c.xub[i]).lh;
-#pragma unroll
-    for (int a = 0; a < NU; ++a)
-      w.lhu[w.gu.at(m, a)] = active_set(load(w.gu, m, a), f.ul[a], f.uu[a], c.ulb[a], c.uub[a]).lh;
-  }
-  factor_sweep<true>(c, w);
-  for (int pass = 0; pass < 2; ++pass) {
-    affine_solve<POLISH>(c, w, 0.0f, w.dx, w.du, x0);
-    for (int m = 0; m < N; ++m) {
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        const size_t k = w.gx.at(m, i);
-        const Active a = active_set(load(w.gx, m, i), f.xl[i], f.xu[i], c.xlb[i], c.xub[i]);
-        w.lhx[k] = w.lhx[k] + c.rho * a.act * (w.dx[k] - a.tgt);
-      }
-#pragma unroll
-      for (int b = 0; b < NU; ++b) {
-        const size_t k = w.gu.at(m, b);
-        const Active a = active_set(load(w.gu, m, b), f.ul[b], f.uu[b], c.ulb[b], c.uub[b]);
-        w.lhu[k] = w.lhu[k] + c.rho * a.act * (w.du[k] - a.tgt);
-      }
+    for (int e = 0; e < NE; ++e) {
+      const Active a = active_set(st.x[e], bound(c, f, e));
+      w.da(t, e) = a.lh;
+      w.lo(t, e) = a.act * c.rho;
+      w.hi(t, e) = a.act * (a.lh - c.rho * a.tgt);
     }
   }
+  group_sync();
+  if (chain) factor_backward<false>(c, f, w, N);
+  group_sync();
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {
+      if (chain) affine_backward(c, w, N);
+      group_sync();
+    }
+    if (chain) affine_forward<false>(c, w, N, x0);
+    group_sync();
+    for (int t = member; t < N; t += GROUP) {
+      const Stage st = load_stage(c, f, w, t);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const Active a = active_set(st.x[e], bound(c, f, e));
+        const float lh = st.da[e] + c.rho * a.act * (st.d[e] - a.tgt);
+        w.da(t, e) = lh;
+        if (pass == 0) w.hi(t, e) = a.act * (lh - c.rho * a.tgt);
+      }
+    }
+    group_sync();
+  }
 
+  PHASE(12);
   // ---- polish acceptance and final status -----------------------------------
   float scale_m = 0.0f, pviol = 0.0f;
   bool pfin = true, dual_ok = true;
 #pragma unroll
   for (int i = 0; i < NX; ++i) scale_m = nmax(scale_m, fabsf(x0[i]));
-  for (int m = 0; m < N; ++m) {
+  for (int t = member; t < N; t += GROUP) {
+    const Stage st = load_stage(c, f, w, t);
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      const size_t k = w.gx.at(m, i);
-      const Entry e = load(w.gx, m, i);
-      scale_m = nmax(scale_m, fabsf(e.z));
-      pfin = pfin && isfinite(w.dx[k]);
-      const Active a = active_set(e, f.xl[i], f.xu[i], c.xlb[i], c.xub[i]);
-      const float lh = w.lhx[k];
+    for (int e = 0; e < NE; ++e) {
+      const Bound b = bound(c, f, e);
+      const Entry& x = st.x[e];
+      const float dz = st.d[e];
+      scale_m = nmax(scale_m, fabsf(x.z));
+      pfin = pfin && isfinite(dz);
+      const Active a = active_set(x, b);
+      const float lh = st.da[e];
       // the polished multiplier sits on its bound's side of zero
       if (a.act > 0.5f) dual_ok = dual_ok && (a.a_u ? lh >= 0.0f : lh <= 0.0f);
+      pviol = nmax(pviol, violation(b, dz));
     }
-#pragma unroll
-    for (int b = 0; b < NU; ++b) {
-      const size_t k = w.gu.at(m, b);
-      const Entry e = load(w.gu, m, b);
-      scale_m = nmax(scale_m, fabsf(e.z));
-      pfin = pfin && isfinite(w.du[k]);
-      const Active a = active_set(e, f.ul[b], f.uu[b], c.ulb[b], c.uub[b]);
-      const float lh = w.lhu[k];
-      if (a.act > 0.5f) dual_ok = dual_ok && (a.a_u ? lh >= 0.0f : lh <= 0.0f);
-    }
-    pviol = nmax(pviol, violation(w.gx, w.dx, m));
-    pviol = nmax(pviol, violation(w.gu, w.du, m));
   }
+  scale_m = group_max(scale_m, w.red, member);
+  pviol = group_max(pviol, w.red, member);
+  pfin = group_all(pfin, w.red, member);
+  dual_ok = group_all(dual_ok, w.red, member);
   const float scale = 1.0f + scale_m;
   const float feas_tol = F(1e-4) * scale;
   const bool polish_ok = pfin && (pviol < feas_tol) && (mu_final < F(1e-2) * scale) && dual_ok;
   float prim = 0.0f;
-  for (int m = 0; m < N; ++m) {
-    if (polish_ok) {
+  for (int t = member; t < N; t += GROUP) {
+    const Stage st = load_stage(c, f, w, t);
 #pragma unroll
-      for (int i = 0; i < NX; ++i) w.gx.z[w.gx.at(m, i)] = w.dx[w.gx.at(m, i)];
-#pragma unroll
-      for (int b = 0; b < NU; ++b) w.gu.z[w.gu.at(m, b)] = w.du[w.gu.at(m, b)];
+    for (int e = 0; e < NE; ++e) {
+      const float z = polish_ok ? st.d[e] : st.x[e].z;
+      if (polish_ok) w.z(t, e) = z;
+      prim = nmax(prim, violation(bound(c, f, e), z));
+      // a state kept in shared memory goes to its output
+      if (e < NX && (g.smask >> R_ZX & 1)) g.xs[((size_t)(t + 1) * NX + e) * Bp + lane] = z;
+      if (e >= NX && (g.smask >> R_ZU & 1)) g.us[((size_t)t * NU + e - NX) * Bp + lane] = z;
     }
-    prim = nmax(prim, violation(w.gx, w.gx.z, m));
-    prim = nmax(prim, violation(w.gu, w.gu.z, m));
   }
+  prim = group_max(prim, w.red, member);
   const bool success = polish_ok ? (prim < feas_tol) && (mu_final < F(1e-4) * scale)
                                  : (mu_final < feas_tol) && (prim < feas_tol);
-  g.mu[lane] = mu_final;
-  g.prim[lane] = prim;
-  g.succ[lane] = success ? 1.0f : 0.0f;
-  g.it[lane] = (float)it;
+  PHASE(13);
+  if (chain) {
+    g.mu[lane] = mu_final;
+    g.prim[lane] = prim;
+    g.succ[lane] = success ? 1.0f : 0.0f;
+    g.it[lane] = (float)it;
+    PHASE_ITERATIONS(it);
+  }
 }
 
-extern "C" long stagewise_ip_workspace_rows(int N) {
-  return (long)N * (4 * (NX + NU) + 2 * NU * NX + NU * NU + NU + 2 * (NX + NU) + NX + NU);
+__global__ void __launch_bounds__(MAX_THREADS) stagewise_ip_tile_kernel(const Args g, const Consts c) {
+  const int T = blockDim.x / GROUP;
+  const int member = threadIdx.x / T, slot = threadIdx.x % T;
+  const int lane = blockIdx.x * T + slot;
+  const int Bp = g.Bp, N = g.N;
+
+  // place the regions: in the lane's shared block, in its home, or in `work`
+  float* const block = lane_blocks + (size_t)slot * lane_floats(g.smask, N);
+  int in_block = 0, in_work = 0, offset[N_REGIONS];
+  auto place = [&](int r, float* home) {  // called once per region, in region order
+    const int n = region_floats(r, N);
+    Region v;
+    offset[r] = in_block;
+    if (g.smask >> r & 1) {
+      v = Region{block + in_block, 1};
+      in_block += n;
+    } else if (home != nullptr) {
+      v = Region{home + lane, Bp};
+    } else {
+      v = Region{g.work + (size_t)in_work * Bp + lane, Bp};
+      in_work += n;
+    }
+    return v;
+  };
+  Lane<Region> w;
+  w.red = place(R_RED, nullptr);
+  w.gain = place(R_GAIN, nullptr);
+  w.scr = place(R_SCR, nullptr);
+  w.dir = place(R_DIR, nullptr);
+  w.zx = place(R_ZX, g.xs + (size_t)NX * Bp);  // x_1 ..
+  w.zu = place(R_ZU, g.us);
+  w.sd = place(R_SD, nullptr);
+  // the regions kept in shared memory are addressed as such: by the smask,
+  // uniform over the CTA, one of three instantiations of the solve
+  constexpr int ALL = (1 << N_REGIONS) - 1;
+  constexpr int TRANSIENTS = 1 << R_RED | 1 << R_GAIN | 1 << R_SCR | 1 << R_DIR;
+  const auto shared = [&](int r) { return SharedRegion{block + offset[r]}; };
+  if ((g.smask & TRANSIENTS) != TRANSIENTS) {
+    solve_lane(g, c, w, member, lane);
+  } else if (g.smask != ALL) {
+    const Lane<SharedRegion> ws = {shared(R_RED), shared(R_GAIN), shared(R_SCR), shared(R_DIR),
+                                   w.zx, w.zu, w.sd};
+    solve_lane(g, c, ws, member, lane);
+  } else {
+    const Lane<SharedRegion, SharedRegion> wa = {shared(R_RED), shared(R_GAIN), shared(R_SCR),
+                                                 shared(R_DIR), shared(R_ZX), shared(R_ZU),
+                                                 shared(R_SD)};
+    solve_lane(g, c, wa, member, lane);
+  }
+}
+
+static int launch_kernel(const Args& g, const Consts& c, int n_tiles, int tile, size_t bytes,
+                         cudaStream_t s) {
+  auto kernel = stagewise_ip_tile_kernel;
+  if (bytes > 48 * 1024) {  // beyond the default, dynamic shared memory is opt-in
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<n_tiles, tile * GROUP, bytes, s>>>(g, c);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int stagewise_ip_tiles_launch(const float* x0, const float* u0, float* us, float* xs,
                                          float* mu, float* prim, float* succ, float* it,
                                          float* work, const float* consts, const int* flags,
                                          int n_consts, int n_flags, int nx, int nu, int N,
-                                         int iters, int tile, int n_tiles, void* stream) {
+                                         int iters, int tile, int n_tiles, int group, int smask,
+                                         void* stream) {
   if (nx != NX || nu != NU || n_consts * sizeof(float) != sizeof(Consts) ||
-      n_flags * sizeof(int) != sizeof(Flags) || N < 1 || tile < 1 || n_tiles < 1)
+      n_flags * sizeof(int) != sizeof(Flags) || N < 1 || tile < 1 || n_tiles < 1 ||
+      group != GROUP || tile * GROUP > MAX_THREADS || smask < 0 || smask >= 1 << N_REGIONS)
     return (int)cudaErrorInvalidValue;
   Consts c;
   memcpy(&c, consts, sizeof(Consts));
-  Flags f;
-  memcpy(&f, flags, sizeof(Flags));
   Args g;
+  memcpy(&g.f, flags, sizeof(Flags));
   g.x0 = x0; g.u0 = u0;
   g.us = us; g.xs = xs; g.mu = mu; g.prim = prim; g.succ = succ; g.it = it;
   g.work = work;
   g.N = N; g.iters = iters; g.Bp = tile * n_tiles;
-  cudaStream_t s = (cudaStream_t)stream;
-  stagewise_ip_tile_kernel<<<n_tiles, tile, 0, s>>>(g, c, f);
-  return (int)cudaGetLastError();
+  g.smask = smask;
+  const size_t bytes = smask ? (size_t)tile * lane_floats(smask, N) * sizeof(float) : 0;
+  return launch_kernel(g, c, n_tiles, tile, bytes, (cudaStream_t)stream);
 }
+
+// The group this library was built for, the threads per CTA it allows, and
+// a lane's shared-memory floats for a region mask (the wrapper checks its
+// own reckoning against them).
+extern "C" int stagewise_ip_group() { return GROUP; }
+extern "C" int stagewise_ip_max_threads() { return MAX_THREADS; }
+extern "C" int stagewise_ip_lane_floats(int smask, int N) { return lane_floats(smask, N); }
 
 extern "C" const char* stagewise_ip_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

@@ -16,15 +16,17 @@ Tile semantics (kept from the reference): a lane whose duality measure falls
 below 50·eps freezes, a lane whose direction or candidate is non-finite is
 latched dead, both keep their state by select, and the loop ends when every
 lane of the tile is done. So the executed iterations, and at the tolerance
-edge nothing else, depend on the tile. :func:`stagewise_ip_tiles_reference`
+edge nothing else, depend on the tile, and nothing depends on the group of
+threads that serves a lane on the card. :func:`stagewise_ip_tiles_reference`
 is the plain twin of the same tile algorithm, each element's operations in
 the kernel's order; :func:`stagewise_ip_solve_cuda` takes it only for CPU
 tensors.
 
 The equilibration depends on the problem data alone: it is evaluated once in
-float64 numpy and cast to float32, the kernel solves in the scaled space, and
-the wrapper maps the solution back. Supported sizes: any nx, nu ∈ {1, 2}
-(closed-form Quu inverse); one library is built per ``(nx, nu)``.
+float64 numpy and cast to float32 (:func:`prepare_problem`, once per problem
+in a closed loop), the kernel solves in the scaled space, and the wrapper
+maps the solution back. Supported sizes: any nx, nu ∈ {1, 2} (closed-form
+Quu inverse); one library is built per ``(nx, nu)`` and thread group.
 
 Both the kernel and the twin work on stage-major operands, ``(stage, row,
 lane)`` with the padded batch last.
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import inspect
 import math
 
@@ -42,15 +45,22 @@ import torch
 
 from ...solvers.riccati_ip import bound_scale, cost_normalizer, lq_affine_solve, lq_factor
 from ._build import PKG, load_library
+from .ilqr_kernel import LaunchPlan, plan_launch, resolve_group
 
 _BIG = 1e20
 _TAU = 0.995
 _RHO = 1e4  # the polish's penalty
 EPS50 = 50.0 * float(np.finfo(np.float32).eps)  # the freeze threshold on μ
-MAX_TILE = 1024  # threads per CTA: one lane per thread
-# GPU default scenario tile, chosen by a sweep on the H100 at the long-horizon
-# configuration (PERF.md, Findings)
-DEFAULT_TILE = 32
+# Threads per lane the kernel is built for, and the threads per CTA (tile ×
+# group) its launch bounds allow (csrc/riccati_ip_kernel.cu MAX_THREADS)
+GROUPS = (1, 8, 32)
+MAX_THREADS = {1: 256, 8: 512, 32: 512}
+# shared memory a CTA may ask for on an H100 (227 KB)
+SMEM_LIMIT = 232448
+# GPU defaults: scenario lanes per CTA and threads per lane, chosen by time
+# in the kernel over the long-horizon loop on the H100 (PERF.md, Findings)
+DEFAULT_TILE = 16
+DEFAULT_GROUP = 32
 
 # Kernel launches made by stagewise_ip_solve_cuda (one per solve). Tests and
 # chip_smoke.py read it to show that a run went through the kernel.
@@ -62,11 +72,9 @@ _SOURCES = [PKG / "csrc" / "riccati_ip_kernel.cu"]
 NVCC_EXTRA = ("--fmad=false",)
 
 
-def library_name(nx: int = 2, nu: int = 1) -> str:
-    return f"riccati_ip_kernel_nx{nx}_nu{nu}"
-
-
-LIBRARY = library_name()  # the long-horizon path's instantiation
+def library_name(nx: int = 2, nu: int = 1, group: int = 1) -> str:
+    base = f"riccati_ip_kernel_nx{nx}_nu{nu}"
+    return base if group == 1 else f"{base}_g{group}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -548,61 +556,86 @@ def _consts(problem: ScaledProblem, N: int, tau: float):
     return floats, flags
 
 
-def workspace_rows(N: int, nx: int, nu: int) -> int:
-    """Rows of the kernel's ``(rows, Bp)`` workspace: per stage the slacks
-    and duals (4 nx + 4 nu), the gains K, Quu⁻¹, Qux and kff, the two
-    directions (2 nx + 2 nu) and the polish multipliers (nx + nu)."""
-    return N * (4 * (nx + nu) + 2 * nu * nx + nu * nu + nu + 2 * (nx + nu) + nx + nu)
+@functools.lru_cache(maxsize=64)
+def _const_arrays(problem: ScaledProblem, N: int, tau: float):
+    """:func:`_consts` as the ctypes arrays the launch passes, made once per
+    problem, horizon and step fraction."""
+    floats, flags = _consts(problem, N, tau)
+    return (ctypes.c_float * len(floats))(*floats), (ctypes.c_int * len(flags))(*flags)
+
+
+# A lane's working set by region, in the order shared memory is filled
+# (csrc/riccati_ip_kernel.cu's enum): name, floats per lane, and whether the
+# region has a home outside the workspace (an output buffer).
+def regions(N: int, nx: int, nu: int, group: int) -> tuple:
+    ne = nx + nu
+    return (
+        ("exchange", group, False),  # one float per member: the group's reductions
+        ("gain", N * (2 * nu * nx + nu * nu + nu), False),  # K, Quu⁻¹, Qux, kff
+        ("scratch", N * 2 * ne, False),  # the chains' inputs, or the gap products
+        ("dir", N * 2 * ne, False),  # the two directions (the polish's solution and multipliers)
+        ("xs", N * nx, True),
+        ("us", N * nu, True),
+        ("slack", N * 4 * ne, False),  # s_l, s_u, λ_l, λ_u
+    )
+
+
+def launch_plan(N: int, nx: int, nu: int, tile: int, group: int) -> LaunchPlan:
+    """:func:`~.ilqr_kernel.plan_launch` for the stagewise-IP kernel:
+    :data:`GROUPS`, :data:`MAX_THREADS`, :data:`SMEM_LIMIT`."""
+    return plan_launch(regions(N, nx, nu, group), tile, group, groups=GROUPS,
+                       max_threads=MAX_THREADS, smem_limit=SMEM_LIMIT)
 
 
 def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.stagewise_ip_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.stagewise_ip_workspace_rows.argtypes = [ctypes.c_int]
-    lib.stagewise_ip_workspace_rows.restype = ctypes.c_long
+    lib.stagewise_ip_lane_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.stagewise_ip_lane_floats.restype = ctypes.c_int
     lib.stagewise_ip_error_string.argtypes = [ctypes.c_int]
     lib.stagewise_ip_error_string.restype = ctypes.c_char_p
 
 
-def _build_library(nx: int = 2, nu: int = 1) -> ctypes.CDLL:
+def _build_library(nx: int = 2, nu: int = 1, group: int = 1) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/riccati_ip_kernel.cu`` for one
-    ``(nx, nu)``."""
-    return load_library(
-        library_name(nx, nu), _SOURCES, _configure,
-        extra_flags=(*NVCC_EXTRA, f"-DNX={nx}", f"-DNU={nu}"),
+    ``(nx, nu)`` and ``group`` threads per lane."""
+    lib = load_library(
+        library_name(nx, nu, group), _SOURCES, _configure,
+        extra_flags=(*NVCC_EXTRA, f"-DNX={nx}", f"-DNU={nu}", f"-DIP_GROUP={group}"),
     )
+    if (lib.stagewise_ip_group(), lib.stagewise_ip_max_threads()) != (group, MAX_THREADS[group]):
+        raise RuntimeError(f"{library_name(nx, nu, group)} was not built for group {group}")
+    return lib
 
 
-def _launch(x0, u0, *, N, problem: ScaledProblem, iters, tau, tile):
+def _launch(x0, u0, *, N, problem: ScaledProblem, iters, tau, tile, group=1):
     global LAUNCHES
     nx, nu = problem.nx, problem.nu
-    if tile > MAX_TILE:
-        raise ValueError(f"tile {tile} exceeds {MAX_TILE} threads per block")
+    plan = launch_plan(N, nx, nu, tile, group)
     for a in (x0, u0):
         if a.device != x0.device or a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError("kernel operands must be contiguous float32 on one device")
     Bp = x0.shape[-1]
     if x0.shape != (nx, Bp) or u0.shape != (N, nu, Bp) or Bp % tile:
         raise ValueError(f"unexpected operand shapes {tuple(x0.shape)} {tuple(u0.shape)}")
-    lib = _build_library(nx, nu)
+    if N * 4 * (nx + nu) * Bp >= 2**31:  # a region's element index is a 32-bit int
+        raise ValueError(f"{Bp} scenarios × {N} stages exceed the kernel's 32-bit indices")
+    lib = _build_library(nx, nu, group)
+    if plan.smask and 4 * tile * lib.stagewise_ip_lane_floats(plan.smask, N) != plan.smem_bytes:
+        raise RuntimeError("the kernel's shared-memory layout differs from the wrapper's")
     dev, f32 = x0.device, torch.float32
     us = torch.empty(N, nu, Bp, dtype=f32, device=dev)
     xs = torch.empty(N + 1, nx, Bp, dtype=f32, device=dev)
     mu, prim, succ, it = (torch.empty(Bp, dtype=f32, device=dev) for _ in range(4))
-    rows = workspace_rows(N, nx, nu)
-    if lib.stagewise_ip_workspace_rows(N) != rows:
-        raise RuntimeError("the kernel's workspace layout differs from the wrapper's")
-    work = torch.empty(rows, Bp, dtype=f32, device=dev)
-    floats, flags = _consts(problem, N, tau)
-    cfloats = (ctypes.c_float * len(floats))(*floats)
-    cflags = (ctypes.c_int * len(flags))(*flags)
+    work = torch.empty(max(plan.work_rows, 1), Bp, dtype=f32, device=dev)
+    cfloats, cflags = _const_arrays(problem, N, tau)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.stagewise_ip_tiles_launch(
             *(a.data_ptr() for a in (x0, u0, us, xs, mu, prim, succ, it, work)),
-            ctypes.addressof(cfloats), ctypes.addressof(cflags), len(floats), len(flags),
-            nx, nu, N, iters, tile, Bp // tile, stream,
+            ctypes.addressof(cfloats), ctypes.addressof(cflags), len(cfloats), len(cflags),
+            nx, nu, N, iters, tile, Bp // tile, group, plan.smask, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -612,22 +645,30 @@ def _launch(x0, u0, *, N, problem: ScaledProblem, iters, tau, tile):
     return us, xs, mu, prim, succ > 0.5, it
 
 
-def prepare_tiles(A, B, Q, R, Pf, x_lb, x_ub, u_lb, u_ub, x0s, u_init, *, N, tile):
-    """The kernel's operands from the public ones: the equilibrated problem,
-    the scaled stage-major ``x0 (nx, Bp)`` and ``u0 (N, nu, Bp)`` padded to a
-    tile multiple, and the scalings ``w_x``, ``w_u`` that map the solution
-    back. ``u_init=None`` gives the unconstrained LQ optimum clipped strictly
-    into the input box (one shared factorization, plain torch); padded lanes
-    get a mid-box state and zero controls."""
-    if tile < 1:
-        raise ValueError("tile must be positive")
-    nx, nu = (int(v) for v in np.shape(B)[-2:])
+@dataclasses.dataclass(frozen=True)
+class KernelProblem:
+    """One problem as the kernel takes it, made once by
+    :func:`prepare_problem` and reused by every solve of a closed loop: the
+    equilibrated constants, the scalings ``w_x``, ``w_u`` that map a
+    solution back, the scaled state of a padded lane, and the scaled data of
+    the cold start, all on the solves' device."""
+
+    problem: ScaledProblem
+    w_x: torch.Tensor  # (nx,)
+    w_u: torch.Tensor  # (nu,)
+    x_pad: torch.Tensor  # (nx,) mid-box
+    cold: tuple  # A, B, Q, R, Pf, u_lb, u_ub, scaled, float32
+
+
+def prepare_problem(A, B, Q, R, Pf, x_lb, x_ub, u_lb, u_ub, *, device) -> KernelProblem:
+    """The kernel's view of an LTI problem on ``device``: the float64
+    equilibration of ``stagewise_ip_solve``, cast to float32 once."""
     if any(np.ndim(v) > 1 for v in (x_lb, x_ub, u_lb, u_ub)):
         raise NotImplementedError(
             "the fused stagewise-IP kernel takes time-invariant bounds; per-stage "
             "(N, n) bounds need solvers.riccati_ip.stagewise_ip_solve"
         )
-    if nu > 2:
+    if np.shape(B)[-1] > 2:
         raise NotImplementedError(
             "the fused stagewise-IP kernel supports nu <= 2 (closed-form Quu "
             "inverse); use solvers.riccati_ip.stagewise_ip_solve for larger nu"
@@ -640,51 +681,81 @@ def prepare_tiles(A, B, Q, R, Pf, x_lb, x_ub, u_lb, u_ub, x0s, u_init, *, N, til
         Pf=_f32_rows(Pf_s), xlb=_f32_vec(xlb_s), xub=_f32_vec(xub_s),
         ulb=_f32_vec(ulb_s), uub=_f32_vec(uub_s),
     )
+    t = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=device)
+    mid = 0.5 * (np.where(np.isfinite(xlb_s), xlb_s, 0.0) + np.where(np.isfinite(xub_s), xub_s, 0.0))
+    return KernelProblem(
+        problem=problem, w_x=t(w_x), w_u=t(w_u), x_pad=t(mid),
+        cold=tuple(t(v) for v in (A_s, B_s, Q_s, R_s, Pf_s, ulb_s, uub_s)),
+    )
+
+
+def prepare_tiles(kp: KernelProblem, x0s, u_init, *, N, tile):
+    """The kernel's operands from the public ones: the scaled stage-major
+    ``x0 (nx, Bp)`` and ``u0 (N, nu, Bp)``, padded to a tile multiple.
+    ``u_init=None`` gives the unconstrained LQ optimum clipped strictly into
+    the input box (one shared factorization, plain torch); padded lanes get
+    a mid-box state and zero controls."""
+    if tile < 1:
+        raise ValueError("tile must be positive")
+    nx, nu = kp.problem.nx, kp.problem.nu
     f32, dev = torch.float32, x0s.device
-    t = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=dev)
-    w_x_t, w_u_t = t(w_x), t(w_u)
-    x0_sc = x0s.to(f32) / w_x_t
+    x0_sc = x0s.to(f32) / kp.w_x
     if u_init is not None:
-        u_sc = u_init.to(f32) / w_u_t
+        u_sc = u_init.to(f32) / kp.w_u
     else:
-        As, Bs = t(A_s).expand(N, nx, nx), t(B_s).expand(N, nx, nu)
+        A_s, B_s, Q_s, R_s, Pf_s, ulb_t, uub_t = kp.cold
+        As, Bs = A_s.expand(N, nx, nx), B_s.expand(N, nx, nu)
         Q_full = torch.cat(
-            [torch.zeros(1, nx, nx, dtype=f32, device=dev), t(Q_s).expand(N - 1, nx, nx),
-             t(Pf_s)[None]]
+            [torch.zeros(1, nx, nx, dtype=f32, device=dev), Q_s.expand(N - 1, nx, nx), Pf_s[None]]
         )
-        factors = lq_factor(As, Bs, Q_full, t(R_s).expand(N, nu, nu))
+        factors = lq_factor(As, Bs, Q_full, R_s.expand(N, nu, nu))
         qz = torch.zeros(N + 1, nx, dtype=f32, device=dev)
         rz = torch.zeros(N, nu, dtype=f32, device=dev)
         _, us_free = lq_affine_solve(factors, As, Bs, qz, rz, x_init=x0_sc)
-        ulb_t, uub_t = t(ulb_s), t(uub_s)
         margin = 1e-3 * torch.minimum(ulb_t.abs() + 1.0, uub_t.abs() + 1.0)
         lo = torch.where(torch.isfinite(ulb_t), ulb_t + margin, torch.full_like(ulb_t, -_BIG))
         hi = torch.where(torch.isfinite(uub_t), uub_t - margin, torch.full_like(uub_t, _BIG))
         u_sc = torch.clamp(us_free, lo, hi)
     pad = -x0s.shape[0] % tile
     if pad:
-        mid = 0.5 * (
-            np.where(np.isfinite(xlb_s), xlb_s, 0.0) + np.where(np.isfinite(xub_s), xub_s, 0.0)
-        )
-        x0_sc = torch.cat([x0_sc, t(mid).expand(pad, nx)])
+        x0_sc = torch.cat([x0_sc, kp.x_pad.expand(pad, nx)])
         u_sc = torch.cat([u_sc, torch.zeros(pad, N, nu, dtype=f32, device=dev)])
-    return problem, x0_sc.T.contiguous(), u_sc.permute(1, 2, 0).contiguous(), w_x_t, w_u_t
+    return x0_sc.T.contiguous(), u_sc.permute(1, 2, 0).contiguous()
 
 
-def _solve_tiled(
-    solver, A, B, Q, R, Pf, x_lb, x_ub, u_lb, u_ub, x0s, u_init, *, N, iters, tau, tile,
-):
-    """Prepare, run ``solver`` on the padded tiles, return the public layout."""
+def stagewise_ip_solve_prepared(
+    kp: KernelProblem,
+    x0s: torch.Tensor,  # (B, nx)
+    u_init: torch.Tensor | None = None,  # (B, N, nu)
+    *,
+    N: int,
+    iters: int = 20,
+    tau: float = _TAU,
+    tile: int = DEFAULT_TILE,
+    group: int | None = None,
+    twin: bool = False,
+) -> BatchedStagewiseIPSolution:
+    """:func:`stagewise_ip_solve_cuda` on a problem prepared once
+    (:func:`prepare_problem`): what a closed loop calls every step. CUDA
+    tensors launch the kernel (or raise); CPU tensors, or ``twin=True`` on
+    any device, run the plain twin :func:`stagewise_ip_tiles_reference`,
+    which validates ``group`` and ignores it."""
+    group = resolve_group(group, tile, DEFAULT_GROUP, GROUPS, MAX_THREADS)
+    if group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, not {group}")
+    if x0s.is_cuda and not twin:
+        # _launch is looked up at call time, so that a run can observe it
+        solver = lambda *a, **k: _launch(*a, group=group, **k)
+    else:
+        solver = stagewise_ip_tiles_reference
     Bn = x0s.shape[0]
-    problem, x0, u0, w_x, w_u = prepare_tiles(
-        A, B, Q, R, Pf, x_lb, x_ub, u_lb, u_ub, x0s, u_init, N=N, tile=tile
-    )
+    x0, u0 = prepare_tiles(kp, x0s, u_init, N=N, tile=tile)
     us, xs, mu, prim, succ, it = solver(
-        x0, u0, N=N, problem=problem, iters=int(iters), tau=float(tau), tile=tile
+        x0, u0, N=N, problem=kp.problem, iters=int(iters), tau=float(tau), tile=tile
     )
     return BatchedStagewiseIPSolution(
-        us=us.permute(2, 0, 1)[:Bn] * w_u,
-        xs=xs.permute(2, 0, 1)[:Bn] * w_x,
+        us=us.permute(2, 0, 1)[:Bn] * kp.w_u,
+        xs=xs.permute(2, 0, 1)[:Bn] * kp.w_x,
         mu=mu[:Bn],
         prim_res=prim[:Bn],
         success=succ[:Bn],
@@ -701,22 +772,26 @@ def stagewise_ip_solve_cuda(
     iters: int = 20,
     tau: float = _TAU,
     tile: int = DEFAULT_TILE,
+    group: int | None = None,  # threads per lane on the card; None: DEFAULT_GROUP
 ) -> BatchedStagewiseIPSolution:
     """Batched stagewise interior-point solve in one kernel launch; the
     signature and return of the JAX package's ``stagewise_ip_solve_pallas``
-    (plus the executed iterations).
+    (plus the executed iterations), and ``group``.
 
     Mirrors :func:`...solvers.riccati_ip.stagewise_ip_solve` on ``(B, nx)``
     states for LTI dynamics, time-invariant bounds and zero linear cost terms
     (the receding-horizon workload); the problem data are arrays on the host.
     ``u_init=None`` reproduces that solver's warm point. CUDA tensors launch
     the kernel (or raise); CPU tensors run the plain twin
-    :func:`stagewise_ip_tiles_reference`. One thread runs one lane and one
-    block one ``tile`` of lanes (a multiple of 32 fills its warps)."""
-    solver = _launch if x0s.is_cuda else stagewise_ip_tiles_reference
-    return _solve_tiled(
-        solver, A, B, Q, R, Pf, x_lb, x_ub, u_lb, u_ub, x0s, u_init,
-        N=N, iters=iters, tau=tau, tile=tile,
+    :func:`stagewise_ip_tiles_reference`. One CTA runs one ``tile`` of lanes
+    with ``group`` threads per lane (one of :data:`GROUPS`;
+    :data:`DEFAULT_GROUP` when ``None``, or the largest group that fits
+    ``tile`` where that does not); the solution does not depend on it. A CTA
+    has ``tile × group`` threads, and more than :data:`MAX_THREADS` raises
+    ``ValueError`` (:func:`launch_plan`)."""
+    kp = prepare_problem(A, B, Q, R, Pf, x_lb, x_ub, u_lb, u_ub, device=x0s.device)
+    return stagewise_ip_solve_prepared(
+        kp, x0s, u_init, N=N, iters=iters, tau=tau, tile=tile, group=group
     )
 
 
@@ -729,4 +804,9 @@ def stagewise_ip_solve_twin(*args, **kwargs) -> BatchedStagewiseIPSolution:
     on the card."""
     bound = _SIGNATURE.bind(*args, **kwargs)
     bound.apply_defaults()
-    return _solve_tiled(stagewise_ip_tiles_reference, **bound.arguments)
+    kw = dict(bound.arguments)
+    x0s, u_init = kw.pop("x0s"), kw.pop("u_init")
+    solve = dict(N=kw.pop("N"), iters=kw.pop("iters"), tau=kw.pop("tau"), tile=kw.pop("tile"),
+                 group=kw.pop("group"))
+    kp = prepare_problem(*kw.values(), device=x0s.device)
+    return stagewise_ip_solve_prepared(kp, x0s, u_init, twin=True, **solve)

@@ -588,7 +588,9 @@ class StagewiseMPC:
     def initial_carry(self, dtype=torch.float32, device=None):
         return torch.zeros(self.N, self.B.shape[-1], dtype=dtype, device=resolve_device(device))
 
-    def batched_policy(self, backend: str = "cuda", tile: int | None = None):
+    def batched_policy(
+        self, backend: str = "cuda", tile: int | None = None, group: int | None = None
+    ):
         """Batch-level receding-horizon policy for
         :func:`~..control.batch_loop.simulate_batch`; the carry is the warm
         input trajectories ``(B, N, nu)``, shifted one stage per step.
@@ -597,7 +599,10 @@ class StagewiseMPC:
         (``ops/cuda/riccati_ip_kernel.py``; its plain twin for CPU tensors),
         ``"twin"`` the twin on any device, ``"torch"`` the batched
         :func:`stagewise_ip_solve`. The kernel takes LTI data with
-        time-invariant bounds; ``tile`` is its scenarios per block."""
+        time-invariant bounds, prepared once here for every step; ``tile`` is
+        its scenarios per block and ``group`` its threads per scenario (the
+        kernel's defaults when ``None``; the solution does not depend on
+        ``group``)."""
         if backend in _KERNEL_BACKENDS:
             from ..ops.cuda import riccati_ip_kernel as K
 
@@ -606,14 +611,16 @@ class StagewiseMPC:
                     "the fused stagewise-IP kernel takes time-invariant bounds; "
                     "per-stage (N, n) bounds need backend='torch'"
                 )
-            solve_fn = K.stagewise_ip_solve_cuda if backend == "cuda" else K.stagewise_ip_solve_twin
-            static = tuple(
-                v.detach().cpu().numpy()
-                for v in (self.A, self.B, self.Q, self.R, self.Pf,
-                          self.x_lb, self.x_ub, self.u_lb, self.u_ub)
+            kp = K.prepare_problem(
+                *(v.detach().cpu().numpy()
+                  for v in (self.A, self.B, self.Q, self.R, self.Pf,
+                            self.x_lb, self.x_ub, self.u_lb, self.u_ub)),
+                device=self.A.device,
             )
             kw = {} if tile is None else {"tile": tile}
-            solve = lambda x, u: solve_fn(*static, x, u_init=u, N=self.N, iters=self.iters, **kw)
+            solve = lambda x, u: K.stagewise_ip_solve_prepared(
+                kp, x, u, N=self.N, iters=self.iters, group=group, twin=backend == "twin", **kw
+            )
         elif backend == "torch":
             solve = self.solve
         else:

@@ -300,16 +300,21 @@ def stagewise():
 
 @pytest.mark.parametrize("system", ["session2", "synthetic"])
 @pytest.mark.parametrize("tile", [32, 64])
-def test_stagewise_ip_kernel_matches_twin(stagewise, system, tile):
+@pytest.mark.parametrize("group", [1, 8, 32])
+def test_stagewise_ip_kernel_matches_twin(stagewise, system, tile, group):
     """Same inputs on the card, cold then warm: the kernel does the twin's
     operations in the twin's order without FMA contraction, so the two agree
-    bit for bit, executed iterations included."""
+    bit for bit, executed iterations included, with one thread per lane or a
+    group of them (a group only deals the work). Where tile × group exceeds
+    the launch bounds, the widest tile the group takes stands in (16 at
+    group 32)."""
     KR, cases = stagewise
+    tile = min(tile, KR.MAX_THREADS[group] // group)
     data, x0, N = cases[system]
     u_init = None
     for _ in range(2):
         before = KR.LAUNCHES
-        got = KR.stagewise_ip_solve_cuda(*data, x0, u_init, N=N, iters=20, tile=tile)
+        got = KR.stagewise_ip_solve_cuda(*data, x0, u_init, N=N, iters=20, tile=tile, group=group)
         torch.cuda.synchronize()
         assert KR.LAUNCHES == before + 1
         ref = KR.stagewise_ip_solve_twin(*data, x0, u_init, N=N, iters=20, tile=tile)
@@ -340,10 +345,34 @@ def test_long_horizon_loop_launches_the_kernel(stagewise):
     torch.testing.assert_close(res.states, ref.states, rtol=0, atol=2e-3)
 
 
+def test_long_horizon_loop_at_the_defaults(stagewise):
+    """The long-horizon path's own solver (N = 100, 20 iterations) at the
+    kernel's default tile and group: one launch per step, states within
+    2e-3 of the batched torch solver's (tests/test_pallas_riccati_ip.py:193's
+    bar between two float32 implementations)."""
+    KR, _ = stagewise
+    problem = port.session2_problem()
+    ctrl = port.make_stagewise_mpc(problem, N=100, iters=20)
+    x0 = _states(seed=6, batch=2 * KR.DEFAULT_TILE + 3)
+    carry = ctrl.initial_batch_carry(x0.shape[0])
+    before = KR.LAUNCHES
+    res = port.simulate_batch(x0, problem.system(), 3, ctrl.batched_policy(backend="cuda"), carry)
+    assert KR.LAUNCHES == before + 3
+    assert res.logs["solver_success"].float().mean() >= 0.99
+    ref = port.simulate_batch(x0, problem.system(), 3, ctrl.batched_policy(backend="torch"), carry)
+    torch.testing.assert_close(res.states, ref.states, rtol=0, atol=2e-3)
+
+
 def test_oversize_stagewise_tile_raises(stagewise):
-    """1,024 lanes of the 134-register kernel exceed the register file: the
-    launch is refused and raises, nothing runs."""
+    """More threads per CTA (tile × group) than the kernel's launch bounds
+    allow: the wrapper's launch plan raises before anything is built or
+    launched."""
     KR, cases = stagewise
     data, x0, N = cases["session2"]
-    with pytest.raises(RuntimeError, match="launch failed"):
-        KR.stagewise_ip_solve_cuda(*data, x0, N=N, tile=1024)
+    before = KR.LAUNCHES
+    for tile, group in ((1024, None), (512, 1), (128, 8), (32, 32)):
+        with pytest.raises(ValueError, match="threads per CTA"):
+            KR.stagewise_ip_solve_cuda(*data, x0, N=N, tile=tile, group=group)
+    with pytest.raises(ValueError, match="group must be one of"):
+        KR.stagewise_ip_solve_cuda(*data, x0, N=N, group=16)
+    assert KR.LAUNCHES == before

@@ -190,14 +190,13 @@ def test_what_the_kernel_does_not_take_raises():
 
 def test_constants_match_the_kernel_source():
     """The wrapper's constant block is the struct of the CUDA source, field
-    for field, and its workspace the kernel's."""
+    for field, and its working-set reckoning the kernel's."""
     data = session2()
-    problem, x0, u0, w_x, w_u = K.prepare_tiles(
-        *(data[k] for k in NAMES), torch.zeros(5, 2), None, N=6, tile=4
-    )
+    kp = K.prepare_problem(*(data[k] for k in NAMES), device="cpu")
+    x0, u0 = K.prepare_tiles(kp, torch.zeros(5, 2), None, N=6, tile=4)
     assert x0.shape == (2, 8) and u0.shape == (6, 1, 8) and x0.is_contiguous()
-    np.testing.assert_allclose(w_x.numpy(), [75.5, 22.5])
-    floats, flags = K._consts(problem, 6, 0.995)
+    np.testing.assert_allclose(kp.w_x.numpy(), [75.5, 22.5])
+    floats, flags = K._consts(kp.problem, 6, 0.995)
     nx, nu = 2, 1
     assert len(floats) == 3 * nx * nx + nx * nu + nu * nu + 2 * (nx + nu) + 4
     assert flags == [1] * (2 * (nx + nu))
@@ -205,6 +204,9 @@ def test_constants_match_the_kernel_source():
     src = K._SOURCES[0].read_text()
     for field in ("float A[NX][NX], B[NX][NU], Q[NX][NX], R[NU][NU], Pf[NX][NX];",
                   "float xlb[NX], xub[NX], ulb[NU], uub[NU];",
-                  "float inv_count, tau, eps50, rho;", "int xl[NX], xu[NX], ul[NU], uu[NU];"):
+                  "float inv_count, tau, eps50, rho;", "int xl[NX], xu[NX], ul[NU], uu[NU];",
+                  "enum { R_RED, R_GAIN, R_SCR, R_DIR, R_ZX, R_ZU, R_SD, N_REGIONS };"):
         assert field in src
-    assert K.workspace_rows(100, 2, 1) + 100 * (2 + 1) == 30 * 100  # 30 floats per stage
+    # 33 floats per stage (the gains, the scratch store, the two directions,
+    # the state, the slacks and duals) and one per member of a lane's group
+    assert sum(n for _, n, _ in K.regions(100, 2, 1, 8)) == 33 * 100 + 8
