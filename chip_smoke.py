@@ -8,7 +8,9 @@ public entry points, checks that every solve of that run launched the
 kernel, and times it:
 
 - the headline closed loop (session-2 linear MPC, N=20, 65,536 scenarios ×
-  50 steps) on the fused ADMM kernel;
+  50 steps) on the fused ADMM kernel (held to its twin's gates; with CUDA
+  events around every launch of one episode, a profiled window and one
+  round of the episode per tile, informational);
 - the nonlinear obstacle-parking sweep (N=30, 2,048 scenarios × 50 steps)
   on the fused AL-iLQR kernel (held to its twin bit for bit at one thread
   per lane and at two thread groups, on the launch's operands and through
@@ -42,7 +44,12 @@ recomputes it).
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device and exits non-zero without one, or when any phase
 fails. The last line of its output is one JSON object
-``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py
+``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --headline-loop
+DIR [--outputs PATH]`` times the headline episode alone (wall, the presolve
+and steady launches, idle share, the warm launch) for the port found under
+``DIR``; with ``--outputs`` it also saves the launch's outputs on the cold
+unpolished presolve and the first warm step to ``PATH``, or compares them bit
+for bit with another version's already there. ``python3 chip_smoke.py
 --long-horizon-loop DIR`` times the long-horizon loop alone (wall, time in
 the kernel, idle share) for the port found under ``DIR``: run it on two
 checkouts in one call to compare two versions on one card. ``python3
@@ -68,9 +75,10 @@ ADMM_ITERS = 80
 PROBE_ITERS = 8
 PRESOLVE_MULT = 2
 RHO = 0.035
-SUCCESS_FLOOR = 0.99  # this script's gate
-CONTRACT_SUCCESS = 0.999  # BENCH_CONTRACT.json headline floor_success_rate
+CONTRACT_SUCCESS = 0.999  # BENCH_CONTRACT.json headline floor_success_rate: gated
 TWIN_SCENARIOS = 512
+ADMM_SWEEP_TILES = (4, 8, 16, 32)  # one round each, informational
+ADMM_COLS = -(-(HORIZON + 3 * HORIZON) // 16)  # the K1 library of n + m = 4 N
 
 # kernel vs twin on the card (both FP32, sums in another order). x lies in
 # [-20, 10]. Rows converged on both sides after the same iterations are held
@@ -330,6 +338,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--headline-loop"]:
+        # the headline's timing alone, for the port found under the given
+        # directory; with --outputs PATH also the launch's outputs saved to
+        # PATH or compared with those already there
+        sys.path.insert(0, os.path.abspath(sys.argv[2] if len(sys.argv) > 2 else "."))
+        import model_predictive_control_tpu_torch as port
+        from model_predictive_control_tpu_torch.ops.cuda import admm_kernel as K
+
+        card = smi()
+        print(f"the port at {os.path.dirname(port.__file__)} [{card}]", flush=True)
+        if "--outputs" in sys.argv:
+            outputs_report(torch, port, K, card, torch.device("cuda"),
+                           sys.argv[sys.argv.index("--outputs") + 1])
+        headline_report(torch, port, K, card, torch.device("cuda"))
+        return 0
     if sys.argv[1:2] == ["--long-horizon-loop"]:
         # the loop's timing alone, for the port found under the given
         # directory (another version of it, to compare two on one card)
@@ -376,7 +399,7 @@ def main() -> int:
     # stagewise-IP kernel one per (nx, nu) and group: the path's and the
     # nx=3 / nu=2 case's
     build_all([
-        (K.LIBRARY, K._build_library),
+        (K.library_name(ADMM_COLS), lambda: K._build_library(ADMM_COLS)),
         *((KI.library_name(g), lambda g=g: KI._build_library(g)) for g in PARK_GROUPS),
         *((KF.library_name(g), lambda g=g: KF._build_library(g)) for g in RACE_GROUPS),
         *((KR.library_name(nx, nu, g), lambda nx=nx, nu=nu, g=g: KR._build_library(nx, nu, g))
@@ -431,14 +454,131 @@ def build_all(libraries) -> None:
         raise SystemExit(f"kernel build failed: {errors}")
 
 
-def admm_phases(torch, port, K, card, device) -> dict:
-    """The linear path: ADMM kernel vs twin, the headline closed loop, its
-    timing. Returns the kernel's entry of the ``kernels`` line."""
+def headline(torch, port, K, device):
+    """``(problem, ctrl, system, episode)``: the headline problem, its
+    controller and plant, and
+    ``episode(x0, backend="cuda", steps=STEPS, tile=None)``, the closed loop
+    through the public entry points only (the same in every version of the
+    port, so that two versions time alike): the compaction sort, the 2×
+    presolve, ``steps`` warm steps."""
     problem = port.session2_problem(N=HORIZON)
     ctrl = port.make_linear_mpc(
         problem, iters=ADMM_ITERS, rho=RHO, dtype=torch.float32, device=device
     )
     system = problem.system(torch.float32, device)
+
+    def episode(x0, backend="cuda", steps=STEPS, tile=None):
+        tile = tile or K.DEFAULT_TILE
+        x0 = x0[torch.argsort(port.boundary_compaction_key(problem.p_max, x0), stable=True)]
+        carry = ctrl.presolve_batch_carry(x0, iters_mult=PRESOLVE_MULT, backend=backend, tile=tile)
+        policy = ctrl.batched_policy(
+            backend=backend, tile=tile, max_rho_moves=0, polish=False, probe_iters=PROBE_ITERS,
+        )
+        return port.simulate_batch(x0, system, steps, policy, carry)
+
+    return problem, ctrl, system, episode
+
+
+def headline_events(torch, K, episode, x0, **kw):
+    """One episode with CUDA events around every launch: its wall, the
+    event pairs (the presolve's first) and its result."""
+    events = []
+    launch = K._launch
+    K._launch = timed_launches(torch, K, events)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = episode(x0, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        K._launch = launch
+    return wall, events, res
+
+
+def headline_report(torch, port, K, card, device) -> float:
+    """Times the headline episode at the kernel's default tile: the wall
+    (best of 3, after a warm-up), CUDA events around every launch of one
+    more episode (the presolve launch, the steady ones, the kernel's share
+    of the wall), a 10-step window under ``torch.profiler`` (the device's
+    idle share) and the warm launch alone. Returns the best wall."""
+    problem, ctrl, system, episode = headline(torch, port, K, device)
+    x0 = initial_states(torch, device)
+    episode(x0)  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = episode(x0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    dt = min(times)
+    print(f"headline episode {BATCH} x {STEPS} steps, tile {K.DEFAULT_TILE}: wall {dt:.4f} s (best "
+          f"of 3: {', '.join(f'{t:.4f}' for t in times)}); {BATCH * STEPS / dt:.1f} solves/s; step "
+          f"{1e3 * dt / STEPS:.3f} ms; success "
+          f"{res.logs['solver_success'].float().mean().item():.5f} [{card}]", flush=True)
+    wall, events, _ = headline_events(torch, K, episode, x0)
+    print_events(wall, events, card)
+    profile_sweep(torch, lambda b, steps, device: episode(x0, steps=steps), BATCH, card, device,
+                  kernel="admm_tile_kernel")
+    x0s = x0[torch.argsort(port.boundary_compaction_key(problem.p_max, x0), stable=True)]
+    args, kw = warm_operands(torch, K, ctrl, system, x0s)
+    print(f"warm launch alone at tile {K.DEFAULT_TILE}: "
+          f"{time_cuda(torch, lambda: K._launch(*args, **kw), 10):.4f} ms [{card}]", flush=True)
+    return dt
+
+
+def warm_operands(torch, K, ctrl, system, x0s, tile=None, cold=None):
+    """The prepared operands of the headline's first warm step at ``tile``
+    (the default when ``None``), from the twin's polished presolve (the same
+    float program in every version of the port), as ``(args, kw)`` for
+    ``K._launch``; ``cold``: those of the unpolished presolve instead."""
+    tile = tile or K.DEFAULT_TILE
+    q, l, u = ctrl.qp.qp_vectors(x0s)
+    base = dict(schedule="uniform", cg_iters=40, alpha=1.6, eps_abs=None, tile=tile)
+    if cold:
+        return K.prepare_tiles(ctrl.op, q, l, u, None, None, iters=ADMM_ITERS * PRESOLVE_MULT,
+                               chunks=2 * PRESOLVE_MULT, probe_iters=0, max_rho_moves=None,
+                               polish=False, **base)
+    sol = K.admm_solve_twin(ctrl.op, q, l, u, iters=ADMM_ITERS * PRESOLVE_MULT,
+                            chunks=2 * PRESOLVE_MULT, probe_iters=0, tile=tile)
+    x1 = system(x0s, sol.x[:, : ctrl.qp.nu])
+    wx, wy = ctrl._shift_warm(sol.x, sol.y, axis=1)
+    q1, l1, u1 = ctrl.qp.qp_vectors(x1)
+    return K.prepare_tiles(ctrl.op, q1, l1, u1, wx, wy, iters=ADMM_ITERS, chunks=2,
+                           probe_iters=PROBE_ITERS, max_rho_moves=0, polish=False, **base)
+
+
+def outputs_report(torch, port, K, card, device, path) -> None:
+    """The launch's outputs on the headline's cold unpolished presolve and
+    its first warm step at the default tile: saved to ``path``, or, where
+    ``path`` holds another version's, compared with them bit for bit (the
+    first differing output named with its largest difference)."""
+    problem, ctrl, system, _ = headline(torch, port, K, device)
+    x0s = initial_states(torch, device)
+    x0s = x0s[torch.argsort(port.boundary_compaction_key(problem.p_max, x0s), stable=True)]
+    outs = {}
+    for name, cold in (("cold", True), ("warm", False)):
+        args, kw = warm_operands(torch, K, ctrl, system, x0s, cold=cold)
+        outs[name] = [t.cpu() for t in K._launch(*args, **kw)]
+    if not os.path.exists(path):
+        torch.save(outs, path)
+        print(f"saved the launch's outputs to {path}", flush=True)
+        return
+    ref = torch.load(path)
+    for name in outs:
+        for field, a, b in zip(("x", "z", "y", "executed iterations"), outs[name], ref[name]):
+            diff = (a - b).abs()
+            print(f"{name} {field}: {'bit for bit' if torch.equal(a, b) else 'DIFFERS'} against "
+                  f"{path} (max |difference| {diff.max().item():.3e}, "
+                  f"{int((diff > 0).sum())} of {diff.numel()} elements) [{card}]", flush=True)
+
+
+def admm_phases(torch, port, K, card, device) -> dict:
+    """The linear path: ADMM kernel vs twin, the headline closed loop, its
+    timing, the tile sweep. Returns the kernel's entry of the ``kernels``
+    line."""
+    problem, ctrl, system, episode = headline(torch, port, K, device)
     x0s = initial_states(torch, device)
     x0s = x0s[torch.argsort(port.boundary_compaction_key(problem.p_max, x0s), stable=True)]
 
@@ -476,8 +616,17 @@ def admm_phases(torch, port, K, card, device) -> dict:
                                    alpha=1.6, eps_abs=None, schedule="uniform", **raw)
     kernel_ms = time_cuda(torch, lambda: K._launch(*args, **raw_kw), 10)
     twin_ms = time_cuda(torch, lambda: K.admm_solve_tiles_reference(*args, **raw_kw), 2)
-    print(f"warm kernel alone {kernel_ms:.3f} ms per launch, twin alone {twin_ms:.3f} ms "
-          f"[{card}]", flush=True)
+    plan = K.launch_plan(ctrl.qp.n, ctrl.qp.m, K.DEFAULT_TILE, False)
+    print(f"warm kernel alone {kernel_ms:.3f} ms per launch, twin alone {twin_ms:.3f} ms; "
+          f"{plan.threads_per_tile} threads a tile, {plan.tiles_per_cta} tiles a CTA of "
+          f"{plan.threads} threads, {plan.smem_bytes} bytes of shared memory [{card}]", flush=True)
+    pre_args, pre_kw = K.prepare_tiles(ctrl.op, q, l, u, None, None, iters=ADMM_ITERS * PRESOLVE_MULT,
+                                       chunks=2 * PRESOLVE_MULT, probe_iters=0, max_rho_moves=None,
+                                       schedule="uniform", tile=K.DEFAULT_TILE, cg_iters=40,
+                                       alpha=1.6, eps_abs=None, polish=True)
+    print(f"presolve launch alone (160 iterations, rho moves, CG polish): "
+          f"{time_cuda(torch, lambda: K._launch(*pre_args, **pre_kw), 3):.3f} ms [{card}]",
+          flush=True)
     # per scenario and executed iteration: the product [x | rho z - y] W,
     # 2 (n + m)^2, and ~12 operations on each of the n + m columns
     k = ctrl.qp.n + ctrl.qp.m
@@ -486,18 +635,6 @@ def admm_phases(torch, port, K, card, device) -> dict:
 
     phase(f"linear main path: {BATCH} scenarios x {STEPS} steps, tile {K.DEFAULT_TILE}")
     x0_all = initial_states(torch, device)
-
-    def episode(x0, backend="cuda"):
-        x0 = x0[torch.argsort(port.boundary_compaction_key(problem.p_max, x0), stable=True)]
-        carry = ctrl.presolve_batch_carry(
-            x0, iters_mult=PRESOLVE_MULT, backend=backend, tile=K.DEFAULT_TILE
-        )
-        policy = ctrl.batched_policy(
-            backend=backend, tile=K.DEFAULT_TILE, max_rho_moves=0, polish=False,
-            probe_iters=PROBE_ITERS,
-        )
-        return port.simulate_batch(x0, system, STEPS, policy, carry)
-
     K.LAUNCHES = 0
     res = episode(x0_all)
     torch.cuda.synchronize()
@@ -510,10 +647,9 @@ def admm_phases(torch, port, K, card, device) -> dict:
     if res.states.shape != (STEPS + 1, BATCH, 2) or res.inputs.shape != (STEPS, BATCH, 1):
         raise SystemExit(f"unexpected shapes {res.states.shape} {res.inputs.shape}")
     success = res.logs["solver_success"].float().mean().item()
-    print(f"success rate {success:.5f} (gate {SUCCESS_FLOOR}; contract floor "
-          f"{CONTRACT_SUCCESS}: {'met' if success >= CONTRACT_SUCCESS else 'NOT met'})")
-    if success < SUCCESS_FLOOR:
-        raise SystemExit("success rate below the gate")
+    print(f"success rate {success:.5f} (gate: the contract floor {CONTRACT_SUCCESS})")
+    if success < CONTRACT_SUCCESS:
+        raise SystemExit("success rate below the contract floor")
     sub = x0_all[torch.argsort(port.boundary_compaction_key(problem.p_max, x0_all), stable=True)]
     sub = sub[:TWIN_SCENARIOS]
     ref = episode(sub, backend="twin")
@@ -526,18 +662,21 @@ def admm_phases(torch, port, K, card, device) -> dict:
         raise SystemExit("closed loop disagrees with the twin episode")
 
     phase("linear main path timing")
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = episode(x0_all)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    dt = min(times)
+    headline_report(torch, port, K, card, device)
+
+    phase("headline per tile, one round (informational)")
+    for tile in ADMM_SWEEP_TILES:
+        wall, events, out = headline_events(torch, K, episode, x0_all, tile=tile)
+        per = sorted(a.elapsed_time(b) for a, b in events[1:])
+        share = out.logs["solver_success"].float().mean().item()
+        t_args, t_kw = warm_operands(torch, K, ctrl, system, x0s, tile=tile)
+        print(f"tile {tile}: episode wall {wall:.4f} s, {BATCH * STEPS / wall:.1f} solves/s, in the "
+              f"kernel {sum(a.elapsed_time(b) for a, b in events):.1f} ms over {len(events)} "
+              f"launches (presolve {events[0][0].elapsed_time(events[0][1]):.3f} ms, steady median "
+              f"{per[len(per) // 2]:.3f} ms); success {share:.5f}; warm launch alone "
+              f"{time_cuda(torch, lambda: K._launch(*t_args, **t_kw), 5):.4f} ms [{card}]",
+              flush=True)
     del out
-    print(f"episode wall {dt:.4f} s (best of 3: {', '.join(f'{t:.4f}' for t in times)}); "
-          f"{BATCH * STEPS / dt:.1f} solves/s; step {1e3 * dt / STEPS:.3f} ms [{card}]",
-          flush=True)
 
     return {
         "name": "admm_tile_kernel",

@@ -1,46 +1,89 @@
-// Fused batched ADMM for the condensed box-QP, one CTA per tile of T
-// scenarios, the whole solve in one launch.
+// Fused batched ADMM for the condensed box-QP: persistent CTAs whose groups
+// of lanes pull scenario tiles from a queue, the whole solve in one launch.
 //
 // Replaces the Pallas TPU kernel _admm_tile_kernel in
 // model_predictive_control_tpu/ops/pallas/admm_kernel.py (wrapper
 // admm_solve_pallas). Plain twin: admm_solve_tiles_reference in
-// model_predictive_control_tpu_torch/ops/cuda/admm_kernel.py.
+// model_predictive_control_tpu_torch/ops/cuda/admm_kernel.py; the launch is
+// planned by launch_plan there.
 //
 // Work per iteration and scenario: G·W with G = [x | rho z - y] (1 x K) and
-// W (K x K), K = n + m: 2 K^2 FP32 FLOPs, all operands in shared memory.
-// Then relaxation, clip and dual update on K lanes. What bounds it is the
-// shared-memory read of W (one 128-byte row segment per FMA column triple)
-// and FMA latency, not device memory: a solve reads q, l, u and the warm
-// start once and writes x, z, y once.
+// W (K x K), K = n + m: 2 K^2 FP32 operations, then relaxation, clip and
+// dual update on the K columns. A solve reads q, l, u and the warm start
+// once and writes x, z, y once, so device memory does not bound it. What
+// bounds it is the issue of shared-memory loads and FMAs in the product.
+// The first version (one warp per scenario row) loaded a 128-byte segment
+// of W for every three FMAs and re-read all of W for every row: ~320
+// shared-memory wavefronts per scenario-iteration for 200 warp-FMAs.
 //
 // Design:
-//   - W and Wq of the active rho level sit in shared memory and are reloaded
-//     only when rho moves; S and inv(P) replace them for the polish.
-//   - A warp owns one scenario row at a time. The row's iterate lives in
-//     registers (lane j holds columns j, j+32, ...), G in a per-warp buffer,
-//     so an iteration needs only warp barriers.
-//   - Block barriers come once per chunk: tile-wide maxima for the rho move,
-//     and the all-rows exit test. The CG polish has one per CG iteration for
-//     its tile-wide stop.
-//   - FP32 with FMA everywhere; no reduced precision.
+//   - Register-blocked product. A half-warp serves 4 rows; lane c of it
+//     keeps the 4 x C outputs of columns c, c + 16, ..., c + 16 (C - 1)
+//     (C = ceil(K / 16), a library per C; W is staged with its columns
+//     zero-padded to 16 C, so the loop has no masks). Per k a lane loads C
+//     values of W and the 4 rows' G[k] in one float4 (G is kept k-major)
+//     and issues 4 C FMAs:
+//     every W element loaded from shared memory feeds 4 rows, and both
+//     halves of a warp load the same W addresses. Each output keeps the
+//     first version's chain: 0, then fmaf over k ascending, then the same
+//     epilogue expressions, so the iterates are that kernel's bit for bit.
+//   - A tile (the scenarios that share the exit test, the rho level, the
+//     probe and the CG stop) is served by a group: half a warp for up to 4
+//     rows, one warp for up to 8, ceil(T / 8) warps beyond. Rows past T in
+//     the group's last quad are zero rows that never move, never bind a
+//     vote and are not written. Within a quad the iteration syncs only its
+//     own lanes (__syncwarp); the chunk end reduces over lanes by shuffles
+//     and, for groups of several warps, through a small exchange area
+//     between named barriers (bar.sync id, count). There is no
+//     __syncthreads after the staging.
+//   - One copy of W per CTA serves many tiles. The CTAs are persistent (as
+//     many as the occupancy calculator lets the card hold), and each group
+//     pulls its next tile from a device counter with atomicAdd, in the
+//     order of the wrapper's rows (the compaction sort's). Tiles that exit
+//     early free their group for the next one instead of idling a CTA.
+//   - The CTA stages W and Wq of the initial rho level, A, A^T and P (and S,
+//     P^-1 with the polish) once. A tile whose rho level moves (only the
+//     presolve allows moves) reads its level's W and Wq from device memory
+//     through the read-only cache (all 7 levels are 224 KB and stay in L2):
+//     a second staged level was not built, because the groups of a CTA sit
+//     at different levels and phases, and a level per group would cost
+//     25.6 KB of shared memory each. Measured on an H100 (chip_smoke.py):
+//     the presolve launch (160 iterations, rho moves, CG polish) at 65,536
+//     scenarios takes ~9.2 ms, against ~19.4 ms for the first version.
+//   - The chunk end deals the residuals A x - z and P x + q + A^T y over
+//     the lanes by (row, column), each element's chain as before; maxima
+//     use the NaN-propagating nmax, so the exit and rho decisions are the
+//     first version's. Every lane computes the rho choice itself.
+//   - FP32 with FMA contraction as nvcc's default; no reduced precision.
 //
-// The chunk schedule is computed on the host and passed in Params.
+// What bounds it now (H100, K = 80, tile 8): the warm launch at 65,536
+// scenarios takes ~0.90 ms (first version 2.46) against a 0.255 ms FP32
+// bound. The launch bounds are 256 threads so that a lane's block, the
+// loads of the next k in flight and the polish's vectors fit 229
+// registers without spills (at 128 registers, 512-thread bounds, ptxas
+// spilled and the launch was much slower). A CTA of 8 warps
+// takes 120 KB of shared memory (the operator 43 KB, 16 quads of row
+// buffers 77 KB), so an SM holds one: 2 warps a scheduler leave the
+// loads' latency partly exposed. Both limits come from the register and
+// shared-memory footprint, not from the product's issue rate.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define MAX_CHUNKS 64
-#define MAX_LANES 4  // K <= 32 * MAX_LANES
-#define WARPS 8
+#define MAX_COLS 8  // columns per lane: K <= 16 * MAX_COLS
+#define RB 4        // rows per lane (and per half-warp)
+#define MAX_THREADS 256
 #define BIG 1e19f
 
 struct Params {
   const float *W, *Wq, *A, *P, *Pinv, *S, *rho, *Einv, *Dcinv;
   const float *q, *l, *u, *x0, *y0;
   float *x_out, *z_out, *y_out, *ni_out;
+  int* next_tile;
   int chunk_lens[MAX_CHUNKS];
   int n_chunks, probe, max_rho_moves, init_idx, polish, cg_iters;
-  int n, m, R, T;
+  int n, m, R, T, n_tiles, quads_per_tile, tiles_per_cta;
   float eps_abs, alpha;
 };
 
@@ -49,453 +92,754 @@ __device__ __forceinline__ float nmax(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" : : "r"(id), "r"(count) : "memory");
+}
+
+// Shared memory of one CTA, in floats: the staged operator, then per quad
+// of rows G, q, a scratch vector (k-major, 4 rows a float4) and l, u; then
+// per tile group an exchange area for two barrier phases and the pulled
+// tile index.
+__host__ __device__ static size_t operator_floats(int n, int m, int polish) {
+  const size_t K = n + m, Kp = 16 * ((K + 15) / 16);
+  size_t f = K * Kp + n * Kp + 2 * (size_t)m * n + (size_t)n * n;
+  if (polish) f += (size_t)m * m + (size_t)n * n;
+  return (f + 3) & ~(size_t)3;  // the quads' float4 start aligned
+}
+
+__host__ __device__ static size_t quad_floats(int n, int m) { return 4 * (2 * (size_t)(n + m) + n + 2 * (size_t)m); }
+
+__host__ __device__ static int quads_per_tile(int T) { return T <= 4 ? 1 : 2 * ((T + 7) / 8); }
+
+__host__ __device__ static int warps_per_group(int qpg) { return qpg > 2 ? qpg / 2 : 1; }
+
+static size_t smem_floats(int n, int m, int T, int polish, int tiles_per_cta) {
+  const int qpg = quads_per_tile(T);
+  return operator_floats(n, m, polish) + (size_t)tiles_per_cta * qpg * quad_floats(n, m) +
+         (size_t)tiles_per_cta * (2 * warps_per_group(qpg) * 8 + 2);
+}
+
+// The lanes of one tile group, as one lane sees them.
+struct Group {
+  unsigned mask;  // lanes of this warp that sync and shuffle together
+  int qpg, gid, warps, nthr, first;  // quads, index in the CTA, warps, threads, first lane's tid
+  float* xch;     // exchange area: 2 phases x warps x 8
+  int* slot;      // 2 pulled-tile slots
+  int phase;
+};
+
+__device__ __forceinline__ void quad_sync(const Group& g) { __syncwarp(g.mask); }
+
+// max / sum over the 16 lanes of a half-warp
+__device__ __forceinline__ float half_max(const Group& g, float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = nmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 8; o > 0; o >>= 1) v = nmax(v, __shfl_xor_sync(g.mask, v, o));
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ float half_sum(const Group& g, float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(g.mask, v, o);
   return v;
 }
 
-static size_t smem_floats(int n, int m, int T, int polish) {
-  const size_t K = n + m;
-  size_t f = K * K + n * K                 // W (S), Wq (Pinv)
-             + 2 * (size_t)m * n + n * n   // A, At, P
-             + (size_t)T * K + (size_t)T * m  // [x | z], y
-             + WARPS * 3 * K               // per-warp row buffers
-             + 5 * (size_t)T               // scale_u, res0, rs, rs0, ytol
-             + WARPS * 8;                  // warp partials
-  if (polish) f += 3 * (size_t)T * m;      // CG nu, r, p
-  return f;
+// Tile-wide reduction of V lane values: nmax for the first NM, fminf for
+// the rest; every lane of the group gets the result.
+template <int V, int NM>
+__device__ __forceinline__ void group_reduce(Group& g, float* v) {
+#pragma unroll
+  for (int s = 0; s < V; ++s) {
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {
+      const float w = __shfl_xor_sync(g.mask, v[s], o);
+      v[s] = s < NM ? nmax(v[s], w) : fminf(v[s], w);
+    }
+    if (g.qpg >= 2) {
+      const float w = __shfl_xor_sync(0xffffffffu, v[s], 16);
+      v[s] = s < NM ? nmax(v[s], w) : fminf(v[s], w);
+    }
+  }
+  if (g.warps > 1) {
+    const int lane = threadIdx.x & 31, wig = ((int)threadIdx.x - g.first) >> 5;
+    float* x = g.xch + (g.phase & 1) * g.warps * 8;
+    if (lane == 0)
+      for (int s = 0; s < V; ++s) x[wig * 8 + s] = v[s];
+    named_sync(1 + g.gid, g.nthr);
+    for (int s = 0; s < V; ++s) {
+      float r = x[s];
+      for (int w = 1; w < g.warps; ++w) r = s < NM ? nmax(r, x[w * 8 + s]) : fminf(r, x[w * 8 + s]);
+      v[s] = r;
+    }
+    g.phase += 1;
+  }
 }
 
-__global__ void __launch_bounds__(32 * WARPS) admm_tile_kernel(const Params p) {
+// The group's next tile from the queue.
+__device__ __forceinline__ int pull_tile(Group& g, int* next_tile) {
+  const int lane = threadIdx.x & 31;
+  if (g.warps > 1) {
+    int* s = g.slot + (g.phase & 1);
+    if ((int)threadIdx.x == g.first) *s = atomicAdd(next_tile, 1);
+    named_sync(1 + g.gid, g.nthr);
+    g.phase += 1;
+    return *s;
+  }
+  const int src = g.qpg == 1 ? (lane & 16) : 0;
+  int t = 0;
+  if (lane == src) t = atomicAdd(next_tile, 1);
+  return __shfl_sync(g.mask, t, src);
+}
+
+// One chunk's L iterations on a lane's 4 x C block. GLOBAL: W of a moved
+// rho level from device memory (row stride K) instead of the staged copy
+// (row stride 16 C).
+template <int C, bool GLOBAL>
+__device__ __forceinline__ void iterate(const Group& g, int L, int K, int n, const float* Wsrc,
+                                        const float4* LO, const float4* HI, const float4* XZQ,
+                                        float4* G4, int col0, float rho, float inv_rho,
+                                        float alpha, float beta, float (&c)[RB][C],
+                                        float (&yv)[RB][C]) {
+  const int Kp = 16 * C;
+  for (int it = 0; it < L; ++it) {
+    float acc[RB][C];
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) acc[r][jj] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float4 gk = G4[k];
+      float w[C];
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) {
+        const int j = col0 + 16 * jj;
+        if (GLOBAL)
+          w[jj] = j < K ? __ldg(Wsrc + (size_t)k * K + j) : 0.f;
+        else
+          w[jj] = Wsrc[k * Kp + j];
+      }
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) {
+        acc[0][jj] = fmaf(gk.x, w[jj], acc[0][jj]);
+        acc[1][jj] = fmaf(gk.y, w[jj], acc[1][jj]);
+        acc[2][jj] = fmaf(gk.z, w[jj], acc[2][jj]);
+        acc[3][jj] = fmaf(gk.w, w[jj], acc[3][jj]);
+      }
+    }
+    quad_sync(g);
+#pragma unroll
+    for (int jj = 0; jj < C; ++jj) {
+      const int j = col0 + 16 * jj;
+      if (j >= K) continue;
+      float gn[RB];
+      const float4 xq4 = XZQ[j];
+      const float xzq[RB] = {xq4.x, xq4.y, xq4.z, xq4.w};
+      if (j < n) {
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float Tj = alpha * (acc[r][jj] + xzq[r]) + beta * c[r][jj];
+          c[r][jj] = Tj;
+          gn[r] = Tj;
+        }
+      } else {
+        const float4 lo4 = LO[j - n], hi4 = HI[j - n];
+        const float lo[RB] = {lo4.x, lo4.y, lo4.z, lo4.w}, hi[RB] = {hi4.x, hi4.y, hi4.z, hi4.w};
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float Tj = alpha * (acc[r][jj] + xzq[r]) + beta * c[r][jj];
+          const float cn = fminf(fmaxf(Tj + inv_rho * yv[r][jj], lo[r]), hi[r]);
+          yv[r][jj] = yv[r][jj] + rho * (Tj - cn);
+          c[r][jj] = cn;
+          gn[r] = rho * cn - yv[r][jj];
+        }
+      }
+      G4[j] = make_float4(gn[0], gn[1], gn[2], gn[3]);
+    }
+    quad_sync(g);
+  }
+}
+
+
+template <int C>
+__global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) {
   extern __shared__ float sm[];
-  const int n = p.n, m = p.m, K = n + m, T = p.T;
-  float* Wb = sm;
-  float* Wqb = Wb + K * K;
-  float* As = Wqb + n * K;   // A, row-major (m, n)
-  float* Ats = As + m * n;   // A transposed, (n, m)
-  float* Ps = Ats + n * m;   // P, (n, n)
-  float* Cb = Ps + n * n;    // per row [x | z], (T, K)
-  float* Yb = Cb + T * K;    // per row y, (T, m)
-  float* rowbuf = Yb + T * m;
-  float* scale_u = rowbuf + WARPS * 3 * K;
-  float* res0 = scale_u + T;
-  float* rs_s = res0 + T;
-  float* rs0_s = rs_s + T;
-  float* ytol_s = rs0_s + T;
-  float* part = ytol_s + T;
-  float* nu_s = part + WARPS * 8;
-  float* r_s = nu_s + T * m;
-  float* p_s = r_s + T * m;
+  const int n = p.n, m = p.m, K = n + m, Kp = 16 * C, T = p.T;
+  float* Wb = sm;             // (K, Kp) W of the initial level, zero-padded columns
+  float* Wqb = Wb + K * Kp;   // (n, Kp)
+  float* As = Wqb + n * Kp;   // A, row-major (m, n)
+  float* Ats = As + m * n;    // A transposed, (n, m)
+  float* Ps = Ats + n * m;    // P, (n, n)
+  float* Sb = Ps + n * n;     // S (m, m), with the polish
+  float* Pinvb = Sb + m * m;  // P^-1 (n, n), with the polish
+  const int qpg = p.quads_per_tile, wpg = warps_per_group(qpg);
+  float* quad_base = sm + operator_floats(n, m, p.polish);
+  float* xch_base = quad_base + (size_t)p.tiles_per_cta * qpg * quad_floats(n, m);
+  int* slot_base = (int*)(xch_base + (size_t)p.tiles_per_cta * 2 * wpg * 8);
 
-  __shared__ int s_idx, s_ci, s_moves, s_conv, s_go;
-  __shared__ float s_exec, s_qmax;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthr = blockDim.x, nwarps = nthr >> 5;  // min(WARPS, T) warps
-  const size_t row0 = (size_t)blockIdx.x * T;
-  const float* q = p.q + row0 * n;
-  const float* l = p.l + row0 * m;
-  const float* u = p.u + row0 * m;
-  float* G = rowbuf + warp * 3 * K;
-  float* H = G + K;
-  float* X = H + K;
-
-  for (int e = tid; e < m * n; e += nthr) {
-    const float a = p.A[e];
-    As[e] = a;
-    Ats[(e % n) * m + e / n] = a;
-  }
-  for (int e = tid; e < n * n; e += nthr) Ps[e] = p.P[e];
-
-  // rows: x = x0, y = y0, per-row exit scale 1 + max|q * Dcinv|
-  float qm = 0.f;
-  for (int t = warp; t < T; t += nwarps) {
-    const float* qt = q + t * n;
-    float sc = 0.f;
-    for (int k = lane; k < n; k += 32) {
-      Cb[t * K + k] = p.x0[(row0 + t) * n + k];
-      sc = nmax(sc, fabsf(qt[k]) * p.Dcinv[k]);
-      qm = nmax(qm, fabsf(qt[k]));
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  {
+    const float* Wsrc = p.W + (size_t)p.init_idx * K * K;
+    const float* Wqsrc = p.Wq + (size_t)p.init_idx * n * K;
+    for (int e = tid; e < K * Kp; e += nthr) {
+      const int k = e / Kp, j = e - k * Kp;
+      Wb[e] = j < K ? Wsrc[k * K + j] : 0.f;
     }
-    for (int i = lane; i < m; i += 32) Yb[t * m + i] = p.y0[(row0 + t) * m + i];
-    sc = warp_max(sc);
-    if (lane == 0) scale_u[t] = 1.f + sc;
-  }
-  qm = warp_max(qm);
-  if (lane == 0) part[warp * 8] = qm;
-  __syncthreads();
-  // z = clip(A x, l, u)
-  for (int t = warp; t < T; t += nwarps) {
-    for (int i = lane; i < m; i += 32) {
-      float a = 0.f;
-      for (int k = 0; k < n; ++k) a = fmaf(Cb[t * K + k], Ats[k * m + i], a);
-      Cb[t * K + n + i] = fminf(fmaxf(a, l[t * m + i]), u[t * m + i]);
+    for (int e = tid; e < n * Kp; e += nthr) {
+      const int k = e / Kp, j = e - k * Kp;
+      Wqb[e] = j < K ? Wqsrc[k * K + j] : 0.f;
     }
-  }
-  if (tid == 0) {
-    float v = part[0];
-    for (int w = 1; w < nwarps; ++w) v = nmax(v, part[w * 8]);
-    s_qmax = v;
-    s_idx = p.init_idx;
-    s_ci = 0;
-    s_moves = 0;
-    s_conv = 0;
-    s_exec = 0.f;
+    for (int e = tid; e < m * n; e += nthr) {
+      const float a = p.A[e];
+      As[e] = a;
+      Ats[(e % n) * m + e / n] = a;
+    }
+    for (int e = tid; e < n * n; e += nthr) Ps[e] = p.P[e];
+    if (p.polish) {
+      for (int e = tid; e < m * m; e += nthr) Sb[e] = p.S[e];
+      for (int e = tid; e < n * n; e += nthr) Pinvb[e] = p.Pinv[e];
+    }
   }
   __syncthreads();
 
+  const int lane = tid & 31, half = lane >> 4, col0 = lane & 15;
+  const int quad = 2 * (tid >> 5) + half;  // this lane's quad of rows in the CTA
+  Group g;
+  g.qpg = qpg;
+  g.gid = quad / qpg;
+  g.warps = wpg;
+  g.nthr = 32 * wpg;
+  g.first = qpg == 1 ? (tid & ~15) : g.gid * g.nthr;
+  g.mask = qpg == 1 ? 0xffffu << (16 * half) : 0xffffffffu;
+  g.xch = xch_base + g.gid * 2 * wpg * 8;
+  g.slot = slot_base + 2 * g.gid;
+  g.phase = 0;
+  const int row0 = 4 * (quad % qpg);  // the quad's first row in the tile
+  float4* G4 = (float4*)(quad_base + (size_t)quad * quad_floats(n, m));  // (K) [x | rho z - y]
+  float4* Q4 = G4 + K;    // (n) q
+  float4* S4 = Q4 + n;    // (K) scratch: q Wq in a chunk, y at its end; the polish's vectors
+  float4* LO = S4 + K;    // (m) l
+  float4* HI = LO + m;    // (m) u
   const float alpha = p.alpha, beta = 1.f - alpha;
-  int loaded = -1;
-  while (true) {
-    const int ci = s_ci, idx = s_idx;
-    if (s_conv || ci >= p.n_chunks) break;
-    if (idx != loaded) {
-      const float* Wsrc = p.W + (size_t)idx * K * K;
-      const float* Wqsrc = p.Wq + (size_t)idx * n * K;
-      for (int e = tid; e < K * K; e += nthr) Wb[e] = Wsrc[e];
-      for (int e = tid; e < n * K; e += nthr) Wqb[e] = Wqsrc[e];
-      loaded = idx;
-      __syncthreads();
-    }
-    const float rho = p.rho[idx], inv_rho = 1.f / rho;
-    const int L = p.chunk_lens[ci];
 
-    float w_rp = 0.f, w_ax = 0.f, w_z = 0.f, w_rd = 0.f, w_px = 0.f, w_aty = 0.f;
-    int w_conv = 1;
-    for (int t = warp; t < T; t += nwarps) {
-      float* Ct = Cb + t * K;
-      float* Yt = Yb + t * m;
-      const float* qt = q + t * n;
-      const float* lt = l + t * m;
-      const float* ut = u + t * m;
-      float c[MAX_LANES], yv[MAX_LANES], lo[MAX_LANES], hi[MAX_LANES], xzq[MAX_LANES];
+  for (;;) {
+    const int tile = pull_tile(g, p.next_tile);
+    if (tile >= p.n_tiles) break;
+    const size_t rbase = (size_t)tile * T + row0;  // global index of the quad's row 0
+    bool valid[RB];
 #pragma unroll
-      for (int jj = 0; jj < MAX_LANES; ++jj) {
-        const int j = lane + 32 * jj;
-        c[jj] = yv[jj] = lo[jj] = hi[jj] = xzq[jj] = 0.f;
-        if (j < K) {
-          c[jj] = Ct[j];
-          if (j >= n) {
-            yv[jj] = Yt[j - n];
-            lo[jj] = lt[j - n];
-            hi[jj] = ut[j - n];
-          }
-          float a = 0.f;
-          for (int k = 0; k < n; ++k) a = fmaf(qt[k], Wqb[k * K + j], a);
-          xzq[jj] = a;
-          G[j] = j < n ? c[jj] : rho * c[jj] - yv[jj];
-        }
-      }
-      __syncwarp();
-      for (int it = 0; it < L; ++it) {
-        float acc[MAX_LANES];
-#pragma unroll
-        for (int jj = 0; jj < MAX_LANES; ++jj) acc[jj] = 0.f;
-        for (int k = 0; k < K; ++k) {
-          const float g = G[k];
-          const float* Wk = Wb + k * K + lane;
-#pragma unroll
-          for (int jj = 0; jj < MAX_LANES; ++jj)
-            if (lane + 32 * jj < K) acc[jj] = fmaf(g, Wk[32 * jj], acc[jj]);
-        }
-        __syncwarp();
-#pragma unroll
-        for (int jj = 0; jj < MAX_LANES; ++jj) {
-          const int j = lane + 32 * jj;
-          if (j < K) {
-            const float Tj = alpha * (acc[jj] + xzq[jj]) + beta * c[jj];
-            if (j < n) {
-              c[jj] = Tj;
-              G[j] = Tj;
-            } else {
-              const float cn = fminf(fmaxf(Tj + inv_rho * yv[jj], lo[jj]), hi[jj]);
-              yv[jj] = yv[jj] + rho * (Tj - cn);
-              c[jj] = cn;
-              G[j] = rho * cn - yv[jj];
-            }
-          }
-        }
-        __syncwarp();
-      }
-#pragma unroll
-      for (int jj = 0; jj < MAX_LANES; ++jj) {
-        const int j = lane + 32 * jj;
-        if (j < K) {
-          Ct[j] = c[jj];
-          if (j >= n) Yt[j - n] = yv[jj];
-        }
-      }
-      __syncwarp();
+    for (int r = 0; r < RB; ++r) valid[r] = row0 + r < T;
+    quad_sync(g);  // the last tile's reads of the quad's buffers are done
 
-      // residuals of this row: A x - z, P x + q + A^T y
-      float rp = 0.f, ax = 0.f, zz = 0.f, rpu = 0.f;
-      for (int i = lane; i < m; i += 32) {
-        float a = 0.f;
-        for (int k = 0; k < n; ++k) a = fmaf(Ct[k], Ats[k * m + i], a);
-        const float zi = Ct[n + i];
-        const float d = fabsf(a - zi);
-        rp = nmax(rp, d);
-        ax = nmax(ax, fabsf(a));
-        zz = nmax(zz, fabsf(zi));
-        rpu = nmax(rpu, d * p.Einv[i]);
+    // the rows' q, l, u and warm start (zero rows past T); per-row exit
+    // scale 1 + max|q * Dcinv|; tile max |q|
+    float sc[RB], qm = 0.f;
+#pragma unroll
+    for (int r = 0; r < RB; ++r) sc[r] = 0.f;
+    for (int k = col0; k < n; k += 16) {
+      float qv[RB], xv[RB];
+      const float dc = p.Dcinv[k];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        qv[r] = valid[r] ? p.q[(rbase + r) * n + k] : 0.f;
+        xv[r] = valid[r] ? p.x0[(rbase + r) * n + k] : 0.f;
+        sc[r] = nmax(sc[r], fabsf(qv[r]) * dc);
+        qm = nmax(qm, fabsf(qv[r]));
       }
-      float rd = 0.f, px = 0.f, aty = 0.f, rdu = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        float a = 0.f, b = 0.f;
-        for (int k = 0; k < n; ++k) a = fmaf(Ct[k], Ps[k * n + j], a);
-        for (int i = 0; i < m; ++i) b = fmaf(Yt[i], As[i * n + j], b);
-        const float d = fabsf(a + qt[j] + b);
-        rd = nmax(rd, d);
-        px = nmax(px, fabsf(a));
-        aty = nmax(aty, fabsf(b));
-        rdu = nmax(rdu, d * p.Dcinv[j]);
-      }
-      rp = warp_max(rp);
-      ax = warp_max(ax);
-      zz = warp_max(zz);
-      rpu = warp_max(rpu);
-      rd = warp_max(rd);
-      px = warp_max(px);
-      aty = warp_max(aty);
-      rdu = warp_max(rdu);
-      const float sc = scale_u[t];
-      w_conv &= (rpu < p.eps_abs * sc) && (rdu < p.eps_abs * sc);
-      if (lane == 0) res0[t] = nmax(rp, rd);
-      w_rp = nmax(w_rp, rp);
-      w_ax = nmax(w_ax, ax);
-      w_z = nmax(w_z, zz);
-      w_rd = nmax(w_rd, rd);
-      w_px = nmax(w_px, px);
-      w_aty = nmax(w_aty, aty);
+      Q4[k] = make_float4(qv[0], qv[1], qv[2], qv[3]);
+      G4[k] = make_float4(xv[0], xv[1], xv[2], xv[3]);
     }
-    if (lane == 0) {
-      float* pw = part + warp * 8;
-      pw[0] = w_rp; pw[1] = w_ax; pw[2] = w_z; pw[3] = w_rd;
-      pw[4] = w_px; pw[5] = w_aty; pw[6] = (float)w_conv;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float v[7];
-      for (int s = 0; s < 7; ++s) v[s] = part[s];
-      for (int w = 1; w < nwarps; ++w) {
-        for (int s = 0; s < 6; ++s) v[s] = nmax(v[s], part[w * 8 + s]);
-        v[6] = fminf(v[6], part[w * 8 + 6]);
+    for (int i = col0; i < m; i += 16) {
+      float lv[RB], uv[RB];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        lv[r] = valid[r] ? p.l[(rbase + r) * m + i] : 0.f;
+        uv[r] = valid[r] ? p.u[(rbase + r) * m + i] : 0.f;
       }
+      LO[i] = make_float4(lv[0], lv[1], lv[2], lv[3]);
+      HI[i] = make_float4(uv[0], uv[1], uv[2], uv[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) sc[r] = 1.f + half_max(g, sc[r]);
+    {
+      float v[1] = {qm};
+      group_reduce<1, 1>(g, v);
+      qm = v[0];
+    }
+    quad_sync(g);
+
+    // the lane's block: x = x0, z = clip(A x0, l, u), y = y0
+    float c[RB][C], yv[RB][C];
+#pragma unroll
+    for (int jj = 0; jj < C; ++jj) {
+      const int j = col0 + 16 * jj;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) c[r][jj] = yv[r][jj] = 0.f;
+      if (j >= K) continue;
+      if (j < n) {
+        const float4 x4 = G4[j];
+        c[0][jj] = x4.x; c[1][jj] = x4.y; c[2][jj] = x4.z; c[3][jj] = x4.w;
+      } else {
+        const int i = j - n;
+        float a[RB] = {0.f, 0.f, 0.f, 0.f};
+        for (int k = 0; k < n; ++k) {
+          const float4 x4 = G4[k];
+          const float w = Ats[k * m + i];
+          a[0] = fmaf(x4.x, w, a[0]); a[1] = fmaf(x4.y, w, a[1]);
+          a[2] = fmaf(x4.z, w, a[2]); a[3] = fmaf(x4.w, w, a[3]);
+        }
+        const float4 lo4 = LO[i], hi4 = HI[i];
+        const float lo[RB] = {lo4.x, lo4.y, lo4.z, lo4.w}, hi[RB] = {hi4.x, hi4.y, hi4.z, hi4.w};
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          c[r][jj] = fminf(fmaxf(a[r], lo[r]), hi[r]);
+          yv[r][jj] = valid[r] ? p.y0[(rbase + r) * m + i] : 0.f;
+        }
+      }
+    }
+
+    int idx = p.init_idx, moves = 0;
+    float executed = 0.f, res0[RB];
+    for (int ci = 0; ci < p.n_chunks; ++ci) {
+      const float rho = p.rho[idx], inv_rho = 1.f / rho;
+      const int L = p.chunk_lens[ci];
+      const bool staged = idx == p.init_idx;
+      const float* Wqg = p.Wq + (size_t)idx * n * K;
+      // q Wq of this level into the scratch vector, and G = [x | rho z - y]
+      quad_sync(g);  // every lane is past its reads of G and of the scratch vector
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) {
+        const int j = col0 + 16 * jj;
+        float xzq[RB] = {0.f, 0.f, 0.f, 0.f};
+        for (int k = 0; k < n; ++k) {
+          const float4 q4 = Q4[k];
+          const float w = staged ? Wqb[k * Kp + j] : (j < K ? __ldg(Wqg + (size_t)k * K + j) : 0.f);
+          xzq[0] = fmaf(q4.x, w, xzq[0]); xzq[1] = fmaf(q4.y, w, xzq[1]);
+          xzq[2] = fmaf(q4.z, w, xzq[2]); xzq[3] = fmaf(q4.w, w, xzq[3]);
+        }
+        if (j < K) S4[j] = make_float4(xzq[0], xzq[1], xzq[2], xzq[3]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) {
+        const int j = col0 + 16 * jj;
+        if (j >= K) continue;
+        float gv[RB];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) gv[r] = j < n ? c[r][jj] : rho * c[r][jj] - yv[r][jj];
+        G4[j] = make_float4(gv[0], gv[1], gv[2], gv[3]);
+      }
+      quad_sync(g);
+      if (staged)
+        iterate<C, false>(g, L, K, n, Wb, LO, HI, S4, G4, col0, rho, inv_rho, alpha, beta, c, yv);
+      else
+        iterate<C, true>(g, L, K, n, p.W + (size_t)idx * K * K, LO, HI, S4, G4, col0, rho,
+                         inv_rho, alpha, beta, c, yv);
+
+      // residuals A x - z (z columns) and P x + q + A^T y (x columns), dealt
+      // by (row, column); G holds x in its first n entries. y goes into the
+      // scratch vector (q Wq is spent): every lane is past its reads of it
+      // (the iteration ends with a sync)
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) {
+        const int j = col0 + 16 * jj;
+        if (j >= n && j < K) S4[j - n] = make_float4(yv[0][jj], yv[1][jj], yv[2][jj], yv[3][jj]);
+      }
+      quad_sync(g);
+      // tile maxima rp, |Ax|, |z|, rd, |Px|, |A^T y|, and the exit vote
+      float v[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 1.f};
+      float rowres[RB] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) {
+        const int j = col0 + 16 * jj;
+        if (j >= K) continue;
+        if (j < n) {
+          float a[RB] = {0.f, 0.f, 0.f, 0.f}, b[RB] = {0.f, 0.f, 0.f, 0.f};
+          for (int k = 0; k < n; ++k) {
+            const float4 x4 = G4[k];
+            const float w = Ps[k * n + j];
+            a[0] = fmaf(x4.x, w, a[0]); a[1] = fmaf(x4.y, w, a[1]);
+            a[2] = fmaf(x4.z, w, a[2]); a[3] = fmaf(x4.w, w, a[3]);
+          }
+          for (int i = 0; i < m; ++i) {
+            const float4 y4 = S4[i];
+            const float w = As[i * n + j];
+            b[0] = fmaf(y4.x, w, b[0]); b[1] = fmaf(y4.y, w, b[1]);
+            b[2] = fmaf(y4.z, w, b[2]); b[3] = fmaf(y4.w, w, b[3]);
+          }
+          const float4 q4 = Q4[j];
+          const float qv[RB] = {q4.x, q4.y, q4.z, q4.w};
+          const float dc = p.Dcinv[j];
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const float d = fabsf(a[r] + qv[r] + b[r]);
+            v[3] = nmax(v[3], d);
+            v[4] = nmax(v[4], fabsf(a[r]));
+            v[5] = nmax(v[5], fabsf(b[r]));
+            if (!(d * dc < p.eps_abs * sc[r])) v[6] = 0.f;
+            rowres[r] = nmax(rowres[r], d);
+          }
+        } else {
+          const int i = j - n;
+          float a[RB] = {0.f, 0.f, 0.f, 0.f};
+          for (int k = 0; k < n; ++k) {
+            const float4 x4 = G4[k];
+            const float w = Ats[k * m + i];
+            a[0] = fmaf(x4.x, w, a[0]); a[1] = fmaf(x4.y, w, a[1]);
+            a[2] = fmaf(x4.z, w, a[2]); a[3] = fmaf(x4.w, w, a[3]);
+          }
+          const float ei = p.Einv[i];
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const float zi = c[r][jj];
+            const float d = fabsf(a[r] - zi);
+            v[0] = nmax(v[0], d);
+            v[1] = nmax(v[1], fabsf(a[r]));
+            v[2] = nmax(v[2], fabsf(zi));
+            if (!(d * ei < p.eps_abs * sc[r])) v[6] = 0.f;
+            rowres[r] = nmax(rowres[r], d);
+          }
+        }
+      }
+      if (p.polish) {
+#pragma unroll
+        for (int r = 0; r < RB; ++r) res0[r] = half_max(g, rowres[r]);
+      }
+      group_reduce<7, 6>(g, v);
       const bool conv = v[6] > 0.5f;
       // OSQP-style target rho from tile-wide normalized residuals
       const float rp_rel = v[0] / nmax(nmax(v[1], v[2]), 1e-10f);
-      const float rd_rel = v[3] / nmax(nmax(v[4], v[5]), nmax(s_qmax, 1e-10f));
+      const float rd_rel = v[3] / nmax(nmax(v[4], v[5]), nmax(qm, 1e-10f));
       const float target = rho * sqrtf(rp_rel / nmax(rd_rel, 1e-16f));
-      const float lt = logf(nmax(target, 1e-12f));
-      int cand = 0;
-      float best = fabsf(logf(p.rho[0]) - lt);
-      for (int r = 1; r < p.R; ++r) {
-        const float d = fabsf(logf(p.rho[r]) - lt);
-        if (d < best) {
-          best = d;
-          cand = r;
-        }
-      }
       const bool is_probe = ci == 0 && p.probe;
       const bool move = (target > 5.f * rho || 5.f * target < rho) && !is_probe &&
-                        s_moves < p.max_rho_moves && !conv;
+                        moves < p.max_rho_moves && !conv;
       if (move) {
-        s_idx = cand;
-        s_moves += 1;
+        const float lt = logf(nmax(target, 1e-12f));
+        int cand = 0;
+        float best = fabsf(logf(p.rho[0]) - lt);
+        for (int r = 1; r < p.R; ++r) {
+          const float d = fabsf(logf(p.rho[r]) - lt);
+          if (d < best) {
+            best = d;
+            cand = r;
+          }
+        }
+        idx = cand;
+        moves += 1;
       }
-      s_exec += (float)L;
-      s_ci = ci + 1;
-      s_conv = conv;
+      executed += (float)L;
+      if (conv) break;
     }
-    __syncthreads();
-  }
 
-  const float executed = s_exec;
-  if (!p.polish) {
-    for (int t = warp; t < T; t += nwarps) {
-      const size_t r = row0 + t;
-      for (int k = lane; k < n; k += 32) p.x_out[r * n + k] = Cb[t * K + k];
-      for (int i = lane; i < m; i += 32) {
-        p.z_out[r * m + i] = Cb[t * K + n + i];
-        p.y_out[r * m + i] = Yb[t * m + i];
+    // the ADMM iterate out (the polish overwrites the rows it improves)
+#pragma unroll
+    for (int jj = 0; jj < C; ++jj) {
+      const int j = col0 + 16 * jj;
+      if (j >= K) continue;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        if (!valid[r]) continue;
+        if (j < n) {
+          p.x_out[(rbase + r) * n + j] = c[r][jj];
+        } else {
+          p.z_out[(rbase + r) * m + j - n] = c[r][jj];
+          p.y_out[(rbase + r) * m + j - n] = yv[r][jj];
+        }
       }
-      if (lane == 0) p.ni_out[r] = executed;
     }
-    return;
-  }
+    if (col0 < RB && valid[col0]) p.ni_out[rbase + col0] = executed;
+    if (!p.polish) continue;
 
-  // ---- CG active-set polish in scaled space ----
-  // M nu = -d∘(b + A P^-1 q),  M v = d∘(S (d∘v)) + (1-d)∘v, per row; the CG
-  // stops tile-wide on max(rs / rs0) <= 1e-12 or after cg_iters.
-  float* Sb = Wb;      // (m, m)
-  float* Pinvb = Wqb;  // (n, n)
-  for (int e = tid; e < m * m; e += nthr) Sb[e] = p.S[e];
-  for (int e = tid; e < n * n; e += nthr) Pinvb[e] = p.Pinv[e];
-  __syncthreads();
-
-  for (int t = warp; t < T; t += nwarps) {
-    const float* Yt = Yb + t * m;
-    const float* qt = q + t * n;
-    float ym = 0.f;
-    for (int i = lane; i < m; i += 32) ym = nmax(ym, fabsf(Yt[i]));
-    const float ytol = 1e-6f * nmax(warp_max(ym), 1e-6f);
-    for (int j = lane; j < n; j += 32) {
-      float a = 0.f;
-      for (int k = 0; k < n; ++k) a = fmaf(qt[k], Pinvb[k * n + j], a);
-      H[j] = a;  // (P^-1 q)_j
-    }
-    __syncwarp();
-    float rsum = 0.f;
-    for (int i = lane; i < m; i += 32) {
-      float apq = 0.f;
-      for (int j = 0; j < n; ++j) apq = fmaf(H[j], Ats[j * m + i], apq);
-      const float yi = Yt[i], li = l[t * m + i], ui = u[t * m + i];
-      const bool low = yi < -ytol && li > -BIG;
-      const bool up = yi > ytol && ui < BIG;
-      const float d = (low || up) ? 1.f : 0.f;
-      const float b = low ? li : (up ? ui : 0.f);
-      const float rhs = -d * (b + apq);
-      nu_s[t * m + i] = 0.f;
-      r_s[t * m + i] = rhs;
-      p_s[t * m + i] = rhs;
-      rsum = fmaf(rhs, rhs, rsum);
-    }
-    rsum = warp_sum(rsum);
-    if (lane == 0) {
-      rs_s[t] = rsum;
-      rs0_s[t] = rsum;
-      ytol_s[t] = ytol;
-    }
-    __syncwarp();
-  }
-
-  for (int it = 0; it < p.cg_iters; ++it) {
-    float mx = 0.f;
-    for (int t = warp; t < T; t += nwarps) mx = nmax(mx, rs_s[t] / fmaxf(rs0_s[t], 1e-30f));
-    if (lane == 0) part[warp * 8] = mx;
-    __syncthreads();
-    if (tid == 0) {
-      float v = part[0];
-      for (int w = 1; w < nwarps; ++w) v = nmax(v, part[w * 8]);
-      s_go = v > 1e-12f;
-    }
-    __syncthreads();
-    if (!s_go) break;
-    for (int t = warp; t < T; t += nwarps) {
-      const float* Yt = Yb + t * m;
-      const float ytol = ytol_s[t];
-      float* pt = p_s + t * m;
-      float* rt = r_s + t * m;
-      float* nut = nu_s + t * m;
-      for (int i = lane; i < m; i += 32) {
-        const float yi = Yt[i];
-        const bool act = (yi < -ytol && l[t * m + i] > -BIG) || (yi > ytol && u[t * m + i] < BIG);
-        G[i] = act ? pt[i] : 0.f;  // d∘p
+    // ---- CG active-set polish in scaled space ----
+    // M nu = -d∘(b + A P^-1 q),  M v = d∘(S (d∘v)) + (1-d)∘v, per row; the
+    // CG stops tile-wide on max(rs / rs0) <= 1e-12 or after cg_iters. The
+    // lane keeps nu, r and p of its z columns; d and the bound sides as
+    // bit masks.
+    float ytol[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      float ym = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) {
+        const int j = col0 + 16 * jj;
+        if (j >= n && j < K) ym = nmax(ym, fabsf(yv[r][jj]));
       }
-      __syncwarp();
-      float pmp = 0.f;
-      for (int i = lane; i < m; i += 32) {
-        float sv = 0.f;
-        for (int k = 0; k < m; ++k) sv = fmaf(G[k], Sb[k * m + i], sv);
-        const float yi = Yt[i];
-        const bool act = (yi < -ytol && l[t * m + i] > -BIG) || (yi > ytol && u[t * m + i] < BIG);
-        const float Mp = act ? sv : pt[i];
-        H[i] = Mp;
-        pmp = fmaf(pt[i], Mp, pmp);
-      }
-      pmp = warp_sum(pmp);
-      const float rs = rs_s[t];
-      const float a = rs / fmaxf(pmp, 1e-30f);
-      float rsn = 0.f;
-      for (int i = lane; i < m; i += 32) {
-        nut[i] = fmaf(a, pt[i], nut[i]);
-        const float ri = rt[i] - a * H[i];
-        rt[i] = ri;
-        rsn = fmaf(ri, ri, rsn);
-      }
-      rsn = warp_sum(rsn);
-      const float bet = rsn / fmaxf(rs, 1e-30f);
-      for (int i = lane; i < m; i += 32) pt[i] = rt[i] + bet * pt[i];
-      __syncwarp();
-      if (lane == 0) rs_s[t] = rsn;
-      __syncwarp();
+      ytol[r] = 1e-6f * nmax(half_max(g, ym), 1e-6f);
     }
-  }
+    unsigned low = 0, up = 0;  // bit r * C + jj
+#pragma unroll
+    for (int jj = 0; jj < C; ++jj) {
+      const int j = col0 + 16 * jj;
+      if (j < n || j >= K) continue;
+      const float4 lo4 = LO[j - n], hi4 = HI[j - n];
+      const float lo[RB] = {lo4.x, lo4.y, lo4.z, lo4.w}, hi[RB] = {hi4.x, hi4.y, hi4.z, hi4.w};
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        if (yv[r][jj] < -ytol[r] && lo[r] > -BIG) low |= 1u << (r * C + jj);
+        if (yv[r][jj] > ytol[r] && hi[r] < BIG) up |= 1u << (r * C + jj);
+      }
+    }
+    const unsigned act = low | up;
+    // (P^-1 q) into the scratch vector
+    quad_sync(g);  // every lane is past its reads of y there
+#pragma unroll
+    for (int jj = 0; jj < C; ++jj) {
+      const int j = col0 + 16 * jj;
+      if (j >= n) continue;
+      float a[RB] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < n; ++k) {
+        const float4 q4 = Q4[k];
+        const float w = Pinvb[k * n + j];
+        a[0] = fmaf(q4.x, w, a[0]); a[1] = fmaf(q4.y, w, a[1]);
+        a[2] = fmaf(q4.z, w, a[2]); a[3] = fmaf(q4.w, w, a[3]);
+      }
+      S4[j] = make_float4(a[0], a[1], a[2], a[3]);
+    }
+    quad_sync(g);
+    float nu[RB][C], rr[RB][C], pp[RB][C], rs[RB], rs0[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) rs[r] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < C; ++jj) {
+      const int j = col0 + 16 * jj;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) nu[r][jj] = rr[r][jj] = pp[r][jj] = 0.f;
+      if (j < n || j >= K) continue;
+      const int i = j - n;
+      float apq[RB] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < n; ++k) {
+        const float4 h4 = S4[k];
+        const float w = Ats[k * m + i];
+        apq[0] = fmaf(h4.x, w, apq[0]); apq[1] = fmaf(h4.y, w, apq[1]);
+        apq[2] = fmaf(h4.z, w, apq[2]); apq[3] = fmaf(h4.w, w, apq[3]);
+      }
+      const float4 lo4 = LO[i], hi4 = HI[i];
+      const float lo[RB] = {lo4.x, lo4.y, lo4.z, lo4.w}, hi[RB] = {hi4.x, hi4.y, hi4.z, hi4.w};
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const unsigned bit = 1u << (r * C + jj);
+        const float d = (act & bit) ? 1.f : 0.f;
+        const float b = (low & bit) ? lo[r] : ((up & bit) ? hi[r] : 0.f);
+        const float rhs = -d * (b + apq[r]);
+        rr[r][jj] = pp[r][jj] = rhs;
+        rs[r] = fmaf(rhs, rhs, rs[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) rs0[r] = rs[r] = half_sum(g, rs[r]);
 
-  // candidate (x_p, z_p, y_p); accept per row if finite, dual signs hold and
-  // max(primal, dual) residual beats the last chunk's res0
-  for (int t = warp; t < T; t += nwarps) {
-    const float* Yt = Yb + t * m;
-    const float* Ct = Cb + t * K;
-    const float* qt = q + t * n;
-    const float ytol = ytol_s[t];
-    float* ypt = nu_s + t * m;  // y_p = d∘nu, in place
-    float* zpt = r_s + t * m;   // z_p
-    int sign_bad = 0;
-    for (int i = lane; i < m; i += 32) {
-      const float yi = Yt[i];
-      const bool low = yi < -ytol && l[t * m + i] > -BIG;
-      const bool up = yi > ytol && u[t * m + i] < BIG;
-      const float yp = (low || up) ? ypt[i] : 0.f;
-      ypt[i] = yp;
-      sign_bad |= (low && yp > 1e-7f) || (up && yp < -1e-7f);
+    for (int it = 0; it < p.cg_iters; ++it) {
+      float v[1] = {0.f};
+#pragma unroll
+      for (int r = 0; r < RB; ++r) v[0] = nmax(v[0], rs[r] / fmaxf(rs0[r], 1e-30f));
+      group_reduce<1, 1>(g, v);
+      if (!(v[0] > 1e-12f)) break;
+      quad_sync(g);  // the last pass's reads of G are done
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) {
+        const int j = col0 + 16 * jj;
+        if (j < n || j >= K) continue;
+        float dp[RB];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) dp[r] = (act >> (r * C + jj) & 1u) ? pp[r][jj] : 0.f;
+        G4[j - n] = make_float4(dp[0], dp[1], dp[2], dp[3]);  // d∘p
+      }
+      quad_sync(g);
+      float Mp[RB][C], pmp[RB] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) {
+        const int j = col0 + 16 * jj;
+#pragma unroll
+        for (int r = 0; r < RB; ++r) Mp[r][jj] = 0.f;
+        if (j < n || j >= K) continue;
+        const int i = j - n;
+        float sv[RB] = {0.f, 0.f, 0.f, 0.f};
+        for (int k = 0; k < m; ++k) {
+          const float4 d4 = G4[k];
+          const float w = Sb[k * m + i];
+          sv[0] = fmaf(d4.x, w, sv[0]); sv[1] = fmaf(d4.y, w, sv[1]);
+          sv[2] = fmaf(d4.z, w, sv[2]); sv[3] = fmaf(d4.w, w, sv[3]);
+        }
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          Mp[r][jj] = (act >> (r * C + jj) & 1u) ? sv[r] : pp[r][jj];
+          pmp[r] = fmaf(pp[r][jj], Mp[r][jj], pmp[r]);
+        }
+      }
+      float a[RB], rsn[RB] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < RB; ++r) a[r] = rs[r] / fmaxf(half_sum(g, pmp[r]), 1e-30f);
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) {
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          nu[r][jj] = fmaf(a[r], pp[r][jj], nu[r][jj]);
+          rr[r][jj] = rr[r][jj] - a[r] * Mp[r][jj];
+          rsn[r] = fmaf(rr[r][jj], rr[r][jj], rsn[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        rsn[r] = half_sum(g, rsn[r]);
+        const float bet = rsn[r] / fmaxf(rs[r], 1e-30f);
+#pragma unroll
+        for (int jj = 0; jj < C; ++jj) pp[r][jj] = rr[r][jj] + bet * pp[r][jj];
+        rs[r] = rsn[r];
+      }
     }
-    __syncwarp();
-    for (int j = lane; j < n; j += 32) {
-      float b = 0.f;
-      for (int i = 0; i < m; ++i) b = fmaf(ypt[i], As[i * n + j], b);
-      H[j] = b;           // (A^T y_p)_j
-      G[j] = qt[j] + b;   // q + A^T y_p
+
+    // candidate (x_p, z_p, y_p); accept per row if finite, dual signs hold
+    // and max(primal, dual) residual beats the last chunk's res0
+    unsigned bad = 0;  // bit r: row r's signs or finiteness fail
+    quad_sync(g);      // the CG's reads of G and of the scratch are done
+#pragma unroll
+    for (int jj = 0; jj < C; ++jj) {
+      const int j = col0 + 16 * jj;
+      if (j < n || j >= K) continue;
+      float yp[RB];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const unsigned bit = 1u << (r * C + jj);
+        yp[r] = (act & bit) ? nu[r][jj] : 0.f;
+        nu[r][jj] = yp[r];
+        if (((low & bit) && yp[r] > 1e-7f) || ((up & bit) && yp[r] < -1e-7f)) bad |= 1u << r;
+      }
+      S4[j - n] = make_float4(yp[0], yp[1], yp[2], yp[3]);  // y_p
     }
-    __syncwarp();
-    for (int j = lane; j < n; j += 32) {
-      float a = 0.f;
-      for (int k = 0; k < n; ++k) a = fmaf(G[k], Pinvb[k * n + j], a);
-      X[j] = -a;  // x_p
+    quad_sync(g);
+    float hx[RB][C];  // (A^T y_p)_j, then x_p on the x columns
+#pragma unroll
+    for (int jj = 0; jj < C; ++jj) {
+      const int j = col0 + 16 * jj;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) hx[r][jj] = 0.f;
+      if (j >= n) continue;
+      float b[RB] = {0.f, 0.f, 0.f, 0.f};
+      for (int i = 0; i < m; ++i) {
+        const float4 y4 = S4[i];
+        const float w = As[i * n + j];
+        b[0] = fmaf(y4.x, w, b[0]); b[1] = fmaf(y4.y, w, b[1]);
+        b[2] = fmaf(y4.z, w, b[2]); b[3] = fmaf(y4.w, w, b[3]);
+      }
+      const float4 q4 = Q4[j];
+      G4[j] = make_float4(q4.x + b[0], q4.y + b[1], q4.z + b[2], q4.w + b[3]);  // q + A^T y_p
+#pragma unroll
+      for (int r = 0; r < RB; ++r) hx[r][jj] = b[r];
     }
-    __syncwarp();
-    float r1 = 0.f;
-    int nonfinite = 0;
-    for (int i = lane; i < m; i += 32) {
-      float a = 0.f;
-      for (int k = 0; k < n; ++k) a = fmaf(X[k], Ats[k * m + i], a);
-      nonfinite |= !isfinite(a);
-      const float zp = fminf(fmaxf(a, l[t * m + i]), u[t * m + i]);
-      zpt[i] = zp;
-      r1 = nmax(r1, fabsf(a - zp));
+    quad_sync(g);
+    float xp[RB][C];
+#pragma unroll
+    for (int jj = 0; jj < C; ++jj) {
+      const int j = col0 + 16 * jj;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) xp[r][jj] = 0.f;
+      if (j >= n) continue;
+      float a[RB] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < n; ++k) {
+        const float4 g4 = G4[k];
+        const float w = Pinvb[k * n + j];
+        a[0] = fmaf(g4.x, w, a[0]); a[1] = fmaf(g4.y, w, a[1]);
+        a[2] = fmaf(g4.z, w, a[2]); a[3] = fmaf(g4.w, w, a[3]);
+      }
+#pragma unroll
+      for (int r = 0; r < RB; ++r) xp[r][jj] = -a[r];
     }
-    for (int j = lane; j < n; j += 32) {
-      float a = 0.f;
-      for (int k = 0; k < n; ++k) a = fmaf(X[k], Ps[k * n + j], a);
-      r1 = nmax(r1, fabsf(a + qt[j] + H[j]));
+    quad_sync(g);  // y_p's reads of the scratch are done
+#pragma unroll
+    for (int jj = 0; jj < C; ++jj) {
+      const int j = col0 + 16 * jj;
+      if (j < n) S4[j] = make_float4(xp[0][jj], xp[1][jj], xp[2][jj], xp[3][jj]);  // x_p
     }
-    r1 = warp_max(r1);
-    sign_bad = __any_sync(0xffffffffu, sign_bad);
-    nonfinite = __any_sync(0xffffffffu, nonfinite);
-    const bool accept = r1 < res0[t] && !sign_bad && !nonfinite;
-    __syncwarp();
-    const size_t r = row0 + t;
-    for (int k = lane; k < n; k += 32) p.x_out[r * n + k] = accept ? X[k] : Ct[k];
-    for (int i = lane; i < m; i += 32) {
-      p.z_out[r * m + i] = accept ? zpt[i] : Ct[n + i];
-      p.y_out[r * m + i] = accept ? ypt[i] : Yt[i];
+    quad_sync(g);
+    float r1[RB] = {0.f, 0.f, 0.f, 0.f}, zp[RB][C];
+#pragma unroll
+    for (int jj = 0; jj < C; ++jj) {
+      const int j = col0 + 16 * jj;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) zp[r][jj] = 0.f;
+      if (j >= K) continue;
+      float a[RB] = {0.f, 0.f, 0.f, 0.f};
+      if (j < n) {
+        for (int k = 0; k < n; ++k) {
+          const float4 x4 = S4[k];
+          const float w = Ps[k * n + j];
+          a[0] = fmaf(x4.x, w, a[0]); a[1] = fmaf(x4.y, w, a[1]);
+          a[2] = fmaf(x4.z, w, a[2]); a[3] = fmaf(x4.w, w, a[3]);
+        }
+        const float4 q4 = Q4[j];
+        const float qv[RB] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+        for (int r = 0; r < RB; ++r) r1[r] = nmax(r1[r], fabsf(a[r] + qv[r] + hx[r][jj]));
+      } else {
+        const int i = j - n;
+        for (int k = 0; k < n; ++k) {
+          const float4 x4 = S4[k];
+          const float w = Ats[k * m + i];
+          a[0] = fmaf(x4.x, w, a[0]); a[1] = fmaf(x4.y, w, a[1]);
+          a[2] = fmaf(x4.z, w, a[2]); a[3] = fmaf(x4.w, w, a[3]);
+        }
+        const float4 lo4 = LO[i], hi4 = HI[i];
+        const float lo[RB] = {lo4.x, lo4.y, lo4.z, lo4.w}, hi[RB] = {hi4.x, hi4.y, hi4.z, hi4.w};
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          if (!isfinite(a[r])) bad |= 1u << r;
+          zp[r][jj] = fminf(fmaxf(a[r], lo[r]), hi[r]);
+          r1[r] = nmax(r1[r], fabsf(a[r] - zp[r][jj]));
+        }
+      }
     }
-    if (lane == 0) p.ni_out[r] = executed;
-    __syncwarp();
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) bad |= __shfl_xor_sync(g.mask, bad, o);
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const bool accept = half_max(g, r1[r]) < res0[r] && !(bad >> r & 1u);
+      if (!accept || !valid[r]) continue;
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) {
+        const int j = col0 + 16 * jj;
+        if (j >= K) continue;
+        if (j < n) {
+          p.x_out[(rbase + r) * n + j] = xp[r][jj];
+        } else {
+          p.z_out[(rbase + r) * m + j - n] = zp[r][jj];
+          p.y_out[(rbase + r) * m + j - n] = nu[r][jj];
+        }
+      }
+    }
   }
 }
 
-// Dynamic shared memory one CTA needs, in bytes (the wrapper checks it
-// against the card's opt-in limit before launching).
-extern "C" long admm_smem_bytes(int n, int m, int T, int polish) {
-  return (long)(4 * smem_floats(n, m, T, polish));
+typedef void (*kernel_fn)(const Params);
+
+// One library per column count: built with -DADMM_COLS=C, it serves
+// 16 (C - 1) < n + m <= 16 C.
+#ifndef ADMM_COLS
+#define ADMM_COLS 5
+#endif
+static_assert(ADMM_COLS >= 1 && ADMM_COLS <= MAX_COLS, "ADMM_COLS out of range");
+
+static kernel_fn kernel_for(int K) {
+  return (K + 15) / 16 == ADMM_COLS ? admm_tile_kernel<ADMM_COLS> : nullptr;
+}
+
+// Dynamic shared memory one CTA needs, in bytes (launch_plan reckons the
+// same; a test holds the two together).
+extern "C" long admm_smem_bytes(int n, int m, int T, int polish, int tiles_per_cta) {
+  return (long)(4 * smem_floats(n, m, T, polish, tiles_per_cta));
+}
+
+// CTAs of `threads` threads and `smem` bytes the card holds per SM, and its
+// SM count; returns a CUDA error code.
+extern "C" int admm_occupancy(int n, int m, int threads, long smem, int* ctas_per_sm, int* sms) {
+  kernel_fn kernel = kernel_for(n + m);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, threads, (size_t)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 extern "C" int admm_tiles_launch(
@@ -503,26 +847,31 @@ extern "C" int admm_tiles_launch(
     const float* Pinv, const float* S, const float* rho, const float* Einv,
     const float* Dcinv, const float* q, const float* l, const float* u,
     const float* x0, const float* y0, float* x_out, float* z_out, float* y_out,
-    float* ni_out, const int* chunk_lens, int n_chunks, int probe,
+    float* ni_out, int* next_tile, const int* chunk_lens, int n_chunks, int probe,
     int max_rho_moves, int init_idx, int polish, int cg_iters, int n, int m,
-    int R, int T, int n_tiles, float eps_abs, float alpha, void* stream) {
-  if (n_chunks < 1 || n_chunks > MAX_CHUNKS || n + m > 32 * MAX_LANES)
+    int R, int T, int n_tiles, int tiles_per_cta, int threads, int grid, float eps_abs,
+    float alpha, void* stream) {
+  kernel_fn kernel = kernel_for(n + m);
+  const int qpg = quads_per_tile(T);
+  if (n_chunks < 1 || n_chunks > MAX_CHUNKS || kernel == nullptr || threads > MAX_THREADS ||
+      threads != tiles_per_cta * 16 * qpg || threads % 32 != 0 ||
+      (qpg > 2 && tiles_per_cta > 15) || grid < 1)
     return (int)cudaErrorInvalidValue;
-  const int smem_bytes = (int)admm_smem_bytes(n, m, T, polish);
+  const int smem_bytes = (int)admm_smem_bytes(n, m, T, polish, tiles_per_cta);
   Params p;
   p.W = W; p.Wq = Wq; p.A = A; p.P = P; p.Pinv = Pinv; p.S = S; p.rho = rho;
   p.Einv = Einv; p.Dcinv = Dcinv; p.q = q; p.l = l; p.u = u; p.x0 = x0;
   p.y0 = y0; p.x_out = x_out; p.z_out = z_out; p.y_out = y_out;
-  p.ni_out = ni_out;
+  p.ni_out = ni_out; p.next_tile = next_tile;
   for (int c = 0; c < MAX_CHUNKS; ++c) p.chunk_lens[c] = c < n_chunks ? chunk_lens[c] : 0;
   p.n_chunks = n_chunks; p.probe = probe; p.max_rho_moves = max_rho_moves;
   p.init_idx = init_idx; p.polish = polish; p.cg_iters = cg_iters;
-  p.n = n; p.m = m; p.R = R; p.T = T; p.eps_abs = eps_abs; p.alpha = alpha;
-  cudaError_t e = cudaFuncSetAttribute(
-      admm_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  p.n = n; p.m = m; p.R = R; p.T = T; p.n_tiles = n_tiles;
+  p.quads_per_tile = qpg; p.tiles_per_cta = tiles_per_cta;
+  p.eps_abs = eps_abs; p.alpha = alpha;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  const int threads = 32 * (T < WARPS ? T : WARPS);
-  admm_tile_kernel<<<n_tiles, threads, smem_bytes, (cudaStream_t)stream>>>(p);
+  kernel<<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

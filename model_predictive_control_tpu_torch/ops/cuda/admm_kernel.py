@@ -8,15 +8,18 @@ per-tile ρ-ladder moves and the CG active-set polish all happen inside it.
 
 What bounds it on an H100: each ADMM iteration is a ``(T, n+m) @ (n+m, n+m)``
 product, ``2·T·(n+m)²`` FP32 FLOPs read from shared memory (12.8 kFLOP per
-scenario at the headline n=20, m=60), followed by elementwise work. The chunk
-ends need tile-wide maxima and block barriers. The design keeps device-memory
-traffic out of the loop and the barriers off the iteration:
+scenario at the headline n=20, m=60), followed by elementwise work; the
+issue of shared-memory loads and FMAs sets the pace. The design
+(:func:`launch_plan`):
 
-- one CTA per tile of ``T`` scenarios; the active ρ level's ``W`` and ``Wq``
-  live in shared memory and are reloaded only when ρ moves;
-- one warp owns one scenario row at a time, with that row's iterate in
-  registers, so an iteration needs warp barriers only; block barriers come
-  once per chunk, for the tile-wide exit test and ρ move;
+- a half-warp serves 4 scenario rows, a lane a 4 × ⌈(n+m)/16⌉ block of
+  outputs, so every element of ``W`` loaded from shared memory feeds 4 rows;
+- a tile is served by half a warp (up to 4 rows), one warp (up to 8) or
+  ``⌈T/8⌉`` warps; its exit test, ρ move and CG stop are votes among those
+  lanes only (shuffles, and named barriers between the warps of a wide tile);
+- persistent CTAs stage ``W`` and ``Wq`` of the initial ρ level once, and
+  their tile groups pull tiles from a device counter, so a tile that exits
+  early frees its lanes for the next one;
 - plain FP32 FMA loops: no bf16 split, no TF32 (the reference measured
   low-precision iteration products collapsing closed-loop success).
 
@@ -29,6 +32,7 @@ same tile algorithm; :func:`admm_solve_cuda` takes it only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import inspect
 
 import torch
@@ -42,7 +46,9 @@ from ._build import PKG, load_library
 LAUNCHES = 0
 
 MAX_CHUNKS = 64  # size of the kernel's chunk-length table (Params.chunk_lens)
-MAX_LANES = 4  # columns per lane: the kernel takes n + m <= 32 * MAX_LANES
+MAX_COLS = 8  # columns per lane: the kernel takes n + m <= 16 * MAX_COLS
+MAX_THREADS = 256  # the kernel's launch bounds (registers: up to 255 a thread)
+CTA_THREADS = 256  # threads a CTA aims at: as many tile groups as fit
 SMEM_LIMIT = 232448  # opt-in shared memory per block on sm_90 (bytes)
 # GPU default scenario tile, chosen by a sweep on the H100 at the headline
 # configuration (PERF.md, Findings)
@@ -79,7 +85,8 @@ def chunk_lengths(
 def _fused_operator(op: QPOperator):
     """Fused per-level iteration matrices: with ``G = [x | ρz − y]`` one
     ADMM iteration is ``[x̃ | z̃] = G·W + q·Wq``
-    (``admm_kernel.py:504-516`` of the JAX package)."""
+    (``admm_kernel.py:504-516`` of the JAX package). Built once per operator
+    by :func:`kernel_operator`."""
     Minv = op.Minv_stack
     MA = Minv @ op.A_s.T  # (R, n, m)
     AM = op.A_s @ Minv  # (R, m, n)
@@ -91,6 +98,23 @@ def _fused_operator(op: QPOperator):
     )  # (R, n+m, n+m)
     Wq = torch.cat([-Minv, -MA], dim=2)  # (R, n, n+m)
     return W, Wq
+
+
+def kernel_operator(op: QPOperator) -> tuple:
+    """The kernel's operator operands, float32 and contiguous: ``W, Wq, A,
+    P, P⁻¹, S, ρ levels, 1/E, 1/(c·D)``. Built at the first solve with
+    ``op`` and kept on it (the dataclass is frozen, so beside its fields):
+    a closed loop solves 51 times with one operator."""
+    cached = vars(op).get("_kernel_operator")
+    if cached is None:
+        W, Wq = _fused_operator(op)
+        cached = tuple(
+            a.to(torch.float32).contiguous()
+            for a in (W, Wq, op.A_s, op.P_s, op.Pinv_s, op.S, op.rho_levels,
+                      1.0 / op.E, 1.0 / (op.c * op.D))
+        )
+        object.__setattr__(op, "_kernel_operator", cached)
+    return cached
 
 
 def admm_solve_tiles_reference(
@@ -230,21 +254,110 @@ def admm_solve_tiles_reference(
     return x.reshape(Bp, n), z.reshape(Bp, m), y.reshape(Bp, m), ni
 
 
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    threads_per_tile: int  # 16 (half a warp) up to 4 rows, else 32 × ⌈tile / 8⌉
+    tiles_per_cta: int  # tile groups in one CTA, each pulling its own tiles
+    threads: int  # per CTA
+    smem_bytes: int  # dynamic shared memory per CTA
+    ctas_per_sm: int | None  # the card's occupancy (None: not asked)
+    grid: int | None  # persistent CTAs (None: not asked)
+
+
+def _quads_per_tile(tile: int) -> int:
+    """Quads of 4 rows (half-warps) that serve a tile: one up to 4 rows,
+    else an even number (whole warps)."""
+    return 1 if tile <= 4 else 2 * -(-tile // 8)
+
+
+def launch_plan(n: int, m: int, tile: int, polish: bool, *, n_tiles: int | None = None,
+                ctas_per_sm: int | None = None, sms: int | None = None) -> LaunchPlan:
+    """How the kernel is launched for ``tile``: the lanes of a tile, the tile
+    groups a CTA holds (as many as fit :data:`CTA_THREADS` and
+    :data:`SMEM_LIMIT`), its threads and
+    shared memory (``csrc/admm_kernel.cu::smem_floats``: the staged operator,
+    per quad of rows ``G``, ``q``, a scratch vector, ``l`` and ``u``, per group
+    an exchange area). Given the card's occupancy (``ctas_per_sm``, ``sms``)
+    and ``n_tiles``, also the persistent grid: as many CTAs as the card holds
+    at once, fewer when there are fewer tile groups' worth of tiles. Raises
+    ``ValueError`` for ``n + m`` beyond the kernel, for a tile whose CTA
+    needs more shared memory than :data:`SMEM_LIMIT` or more threads than
+    the launch bounds, and for a card that holds no such CTA: a request is
+    never shrunk."""
+    K = n + m
+    if tile < 1:
+        raise ValueError("tile must be positive")
+    if K > 16 * MAX_COLS:
+        raise ValueError(f"n + m = {K} exceeds the kernel's {16 * MAX_COLS}")
+    qpg = _quads_per_tile(tile)
+    per_tile = 16 * qpg
+    Kp = 16 * -(-K // 16)
+    op = K * Kp + n * Kp + 2 * m * n + n * n + (m * m + n * n if polish else 0)
+
+    def smem(groups):
+        return 4 * (-(-op // 4) * 4 + groups * qpg * 4 * (2 * K + n + 2 * m)
+                    + groups * (2 * max(1, qpg // 2) * 8 + 2))
+
+    # half-warp tiles come in pairs (whole warps); named barriers 1-15
+    step = 2 if qpg == 1 else 1
+    most = CTA_THREADS // per_tile if qpg <= 2 else min(CTA_THREADS // per_tile, 15)
+    tiles_per_cta = max(step, most - most % step)
+    while tiles_per_cta > step and smem(tiles_per_cta) > SMEM_LIMIT:
+        tiles_per_cta -= step
+    if smem(tiles_per_cta) > SMEM_LIMIT:
+        raise ValueError(
+            f"tile {tile} needs {smem(tiles_per_cta)} bytes of shared memory (limit {SMEM_LIMIT})"
+        )
+    threads = tiles_per_cta * per_tile
+    if threads > MAX_THREADS:
+        raise ValueError(
+            f"tile {tile} needs {threads} threads per CTA (the launch bounds allow {MAX_THREADS})"
+        )
+    grid = None
+    if ctas_per_sm is not None:
+        if ctas_per_sm < 1:
+            raise ValueError(f"the card holds no CTA of {threads} threads and "
+                             f"{smem(tiles_per_cta)} bytes")
+        grid = ctas_per_sm * sms
+        if n_tiles is not None:
+            grid = max(1, min(grid, -(-n_tiles // tiles_per_cta)))
+    return LaunchPlan(per_tile, tiles_per_cta, threads, smem(tiles_per_cta), ctas_per_sm, grid)
+
+
 def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.admm_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 11 + [
+    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 14 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    lib.admm_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.admm_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.admm_smem_bytes.restype = ctypes.c_long
+    lib.admm_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_long, ctypes.c_void_p,
+                                                        ctypes.c_void_p]
+    lib.admm_occupancy.restype = ctypes.c_int
     lib.admm_error_string.argtypes = [ctypes.c_int]
     lib.admm_error_string.restype = ctypes.c_char_p
 
 
-def _build_library() -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/admm_kernel.cu``."""
-    return load_library(LIBRARY, _SOURCES, _configure)
+def columns(n: int, m: int) -> int:
+    """Columns a lane keeps, ``⌈(n + m) / 16⌉``: the kernel is built once per
+    column count (``-DADMM_COLS``)."""
+    return -(-(n + m) // 16)
+
+
+def library_name(cols: int) -> str:
+    return f"{LIBRARY}_c{cols}"
+
+
+def _build_library(cols: int) -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/admm_kernel.cu`` for ``cols``
+    columns a lane."""
+    return load_library(library_name(cols), _SOURCES, _configure, (f"-DADMM_COLS={cols}",))
+
+
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"admm kernel {what} failed: {lib.admm_error_string(err).decode()}")
 
 
 def _launch(W, Wq, A, P, Pinv, S, rho_levels, Einv, Dcinv, q, l, u, x0, y0, *,
@@ -254,39 +367,37 @@ def _launch(W, Wq, A, P, Pinv, S, rho_levels, Einv, Dcinv, q, l, u, x0, y0, *,
     Bp, n = q.shape
     m = l.shape[1]
     R = rho_levels.shape[0]
-    if n + m > 32 * MAX_LANES:
-        raise ValueError(f"n + m = {n + m} exceeds the kernel's {32 * MAX_LANES}")
     if len(chunk_lens) > MAX_CHUNKS:
         raise ValueError(f"{len(chunk_lens)} chunks exceed {MAX_CHUNKS}")
-    lib = _build_library()
-    smem = lib.admm_smem_bytes(n, m, tile, int(polish))
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"tile {tile} needs {smem} bytes of shared memory (limit {SMEM_LIMIT})"
-        )
+    plan = launch_plan(n, m, tile, polish)  # refuses before any build
     args = [W, Wq, A, P, Pinv, S, rho_levels, Einv, Dcinv, q, l, u, x0, y0]
     for a in args:
         if a.device != q.device or a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError("kernel operands must be contiguous float32 on one device")
-    x = torch.empty(Bp, n, dtype=torch.float32, device=q.device)
-    z = torch.empty(Bp, m, dtype=torch.float32, device=q.device)
-    y = torch.empty(Bp, m, dtype=torch.float32, device=q.device)
-    ni = torch.empty(Bp, dtype=torch.float32, device=q.device)
-    lens = (ctypes.c_int * MAX_CHUNKS)(*chunk_lens)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _build_library(columns(n, m))
+    n_tiles = Bp // tile
     with torch.cuda.device(q.device):
+        occ, sms = ctypes.c_int(0), ctypes.c_int(0)
+        _check(lib, lib.admm_occupancy(n, m, plan.threads, plan.smem_bytes,
+                                       ctypes.byref(occ), ctypes.byref(sms)), "occupancy query")
+        plan = launch_plan(n, m, tile, polish, n_tiles=n_tiles, ctas_per_sm=occ.value,
+                           sms=sms.value)
+        x = torch.empty(Bp, n, dtype=torch.float32, device=q.device)
+        z = torch.empty(Bp, m, dtype=torch.float32, device=q.device)
+        y = torch.empty(Bp, m, dtype=torch.float32, device=q.device)
+        ni = torch.empty(Bp, dtype=torch.float32, device=q.device)
+        next_tile = torch.zeros(1, dtype=torch.int32, device=q.device)  # the tile queue
+        lens = (ctypes.c_int * MAX_CHUNKS)(*chunk_lens)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.admm_tiles_launch(
             *(a.data_ptr() for a in args),
-            x.data_ptr(), z.data_ptr(), y.data_ptr(), ni.data_ptr(),
+            x.data_ptr(), z.data_ptr(), y.data_ptr(), ni.data_ptr(), next_tile.data_ptr(),
             ctypes.addressof(lens),
             len(chunk_lens), int(probe), int(max_rho_moves), int(init_idx),
-            int(polish), int(cg_iters), n, m, R, tile, Bp // tile,
-            float(eps_abs), float(alpha), stream,
+            int(polish), int(cg_iters), n, m, R, tile, n_tiles, plan.tiles_per_cta,
+            plan.threads, plan.grid, float(eps_abs), float(alpha), stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"admm kernel launch failed: {lib.admm_error_string(err).decode()}"
-        )
+    _check(lib, err, "launch")
     LAUNCHES += 1
     return x, z, y, ni
 
@@ -311,11 +422,7 @@ def prepare_tiles(
     pad = -B % tile
     if pad:
         rows = [torch.nn.functional.pad(a, (0, 0, 0, pad)) for a in rows]
-    W, Wq = _fused_operator(op)
-    args = [
-        W, Wq, op.A_s, op.P_s, op.Pinv_s, op.S, op.rho_levels, 1.0 / op.E,
-        1.0 / (op.c * op.D), *rows,
-    ]
+    args = [*kernel_operator(op), *rows]
     kwargs = dict(
         tile=tile,
         chunk_lens=chunk_lengths(iters, chunks, probe_iters, schedule),

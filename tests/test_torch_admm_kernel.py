@@ -14,6 +14,8 @@ reference with ``_dot3`` replaced by an exact FP32 product exits at 8 too.
 Executed iterations are equal in every other case (ROADMAP queue 3).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -140,3 +142,31 @@ def test_cpu_tensors_take_the_twin():
     twin = K.admm_solve_twin(op_t, t(q), t(l), t(u), iters=50, tile=4)
     assert K.LAUNCHES == before
     torch.testing.assert_close(sol.x, twin.x, rtol=0, atol=0)
+
+
+def test_operator_built_once_per_operator(monkeypatch):
+    """The fused W and Wq, 1/E and 1/(c·D) are built at the first solve with
+    an operator and kept on it: a second solve builds nothing, and both give
+    what a solve on operands built anew gives, bit for bit."""
+    _, op_t, q, l, u = _problem(seed=4, B=8)
+    t = lambda a: torch.as_tensor(a)
+    kw = dict(iters=60, chunks=2, probe_iters=8, max_rho_moves=None, schedule="uniform",
+              tile=4, cg_iters=40, alpha=1.6, eps_abs=None, polish=True)
+    args, launch_kw = K.prepare_tiles(op_t, t(q), t(l), t(u), None, None, **kw)
+    W, Wq = K._fused_operator(op_t)
+    fresh = [W, Wq, op_t.A_s, op_t.P_s, op_t.Pinv_s, op_t.S, op_t.rho_levels, 1.0 / op_t.E,
+             1.0 / (op_t.c * op_t.D), *args[9:]]
+    want = K.admm_solve_tiles_reference(*[a.float().contiguous() for a in fresh], **launch_kw)
+
+    op2 = dataclasses.replace(op_t)  # an operator the kernel has not seen
+    builds = []
+    build = K._fused_operator
+    monkeypatch.setattr(K, "_fused_operator", lambda op: builds.append(op) or build(op))
+    for _ in range(2):
+        sol = K.admm_solve_cuda(op2, t(q), t(l), t(u), **kw)
+        got = K.admm_solve_tiles_reference(*K.prepare_tiles(op2, t(q), t(l), t(u), None, None,
+                                                            **kw)[0], **launch_kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert builds == [op2]
+    assert sol.x.shape == (8, 10)

@@ -37,13 +37,16 @@ def _states(seed=0, batch=B):
 
 
 @pytest.mark.parametrize("polish", [True, False])
-def test_kernel_matches_twin(ctrl, polish):
+@pytest.mark.parametrize("tile", [4, 8, 16, 32])
+def test_kernel_matches_twin(ctrl, polish, tile):
     """Same inputs on the card: executed iterations agree on at least 90% of
     the scenarios, and x agrees within 2e-2 where they do (x in [-20, 10];
-    FP32 sums in another order, amplified by the polish's CG)."""
+    FP32 sums in another order, amplified by the polish's CG). Tile 4 is
+    half a warp, 8 one warp, 16 and 32 two and four warps with named
+    barriers."""
     _, c = ctrl
     q, l, u = c.qp.qp_vectors(_states())
-    kw = dict(iters=300, chunks=4, probe_iters=8, tile=TILE, polish=polish,
+    kw = dict(iters=300, chunks=4, probe_iters=8, tile=tile, polish=polish,
               return_iters=True)
     before = K.LAUNCHES
     got, ni = K.admm_solve_cuda(c.op, q, l, u, **kw)
@@ -54,6 +57,46 @@ def test_kernel_matches_twin(ctrl, polish):
     assert same.float().mean() >= 0.9
     torch.testing.assert_close(got.x[same], ref.x[same], rtol=0, atol=2e-2)
     assert (got.converged == ref.converged).float().mean() >= 0.95
+
+
+@pytest.mark.parametrize("tile", [4, 8, 16])
+def test_kernel_with_rho_moves_matches_twin(ctrl, tile):
+    """The presolve's configuration from a cold start (4 chunks, ρ moves,
+    no probe, no polish) on a ragged batch: tiles leave the staged ρ level
+    and read W from device memory. The bars of the test above."""
+    _, c = ctrl
+    q, l, u = c.qp.qp_vectors(_states(seed=4, batch=B - 3))
+    kw = dict(iters=300, chunks=4, probe_iters=0, max_rho_moves=4, tile=tile, polish=False,
+              return_iters=True)
+    got, ni = K.admm_solve_cuda(c.op, q, l, u, **kw)
+    ref, ni_ref = K.admm_solve_twin(c.op, q, l, u, **kw)
+    assert got.x.shape == (B - 3, c.qp.n)
+    same = ni == ni_ref
+    assert same.float().mean() >= 0.9
+    torch.testing.assert_close(got.x[same], ref.x[same], rtol=0, atol=2e-2)
+    assert (got.converged == ref.converged).float().mean() >= 0.95
+
+
+def test_tile_queue_covers_every_tile_once(ctrl):
+    """Persistent CTAs pull tiles from the queue: every row of a batch far
+    wider than the grid holds at once gets its executed iterations written,
+    and a second launch on the same stream (the wrapper resets the queue)
+    gives the same outputs bit for bit."""
+    _, c = ctrl
+    x0 = _states(seed=5, batch=20000)
+    q, l, u = c.qp.qp_vectors(x0)
+    args, kw = K.prepare_tiles(c.op, q, l, u, None, None, iters=80, chunks=2, probe_iters=8,
+                               max_rho_moves=0, schedule="uniform", tile=8, cg_iters=40,
+                               alpha=1.6, eps_abs=None, polish=False)
+    first = K._launch(*args, **kw)
+    second = K._launch(*args, **kw)
+    torch.cuda.synchronize()
+    assert bool((first[3] >= 8).all()), "a row's tile was never served"
+    twin = K.admm_solve_tiles_reference(*args, **kw)
+    assert (first[3] == twin[3]).float().mean() >= 0.9
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
 
 
 def test_oversize_tile_raises(ctrl):
