@@ -11,6 +11,17 @@ kernel, and times it:
   50 steps) on the fused ADMM kernel (held to its twin's gates; with CUDA
   events around every launch of one episode, a profiled window and one
   round of the episode per tile, informational);
+- the rest of the linear ADMM family on the same kernel: its wide mode
+  (a warp per quad of rows, the operator read from device memory) held to
+  the twin on the MHE loop's slack-softened MPC at N=20 (n + m = 200, 4,096
+  scenarios, the polished cold presolve and the first warm step), then the
+  tube sweep (65,536 × 50), the stochastic sweep (65,536 × 50) and the
+  MHE-in-the-loop sweep (2,048 × 50, two launches a step: the MHE windows
+  and the soft MPC in the wide mode), each with its launches counted, the
+  contract's quality gates, a kernel-vs-twin closed loop on 256 scenarios ×
+  3 steps (held on the polished config's bars: every path starts from a
+  polished presolve) and one timed round (best of 3, CUDA events around
+  every launch);
 - the nonlinear obstacle-parking sweep (N=30, 2,048 scenarios × 50 steps)
   on the fused AL-iLQR kernel (held to its twin bit for bit at one thread
   per lane and at two thread groups, on the launch's operands and through
@@ -184,6 +195,33 @@ LH_PROFILE_ITERS = 1  # iterations of the profiled plain-torch solve
 LH_SMALL_N = 12  # the nx=3 / nu=2 case (dense R, infinite bounds)
 TOL_LH_STATES = 2e-3  # closed loop, tests/test_pallas_riccati_ip.py:193
 
+# the rest of the linear ADMM family on K1 (BENCH_CONTRACT.json "tube_sweep",
+# "stochastic_sweep", "mhe_loop": batch, steps and the quality gates; the
+# solves/s there were taken on a TPU). Each path's launches per run: a 4x
+# presolve, then one launch a step (the MHE loop: two, the MHE windows and
+# the soft MPC).
+FAMILY = {
+    "tube": ("tube_sweep", 65536, 50, 1,
+             {"tube_ok_rate": (">=", 0.999), "success_rate": (">=", 0.97),
+              "original_box_violation_frac": ("<=", 0.01)}),
+    "stochastic": ("stochastic_sweep", 65536, 50, 1,
+                   {"success_rate": (">=", 0.97), "near_limit_violation_rate": ("<=", 0.13)}),
+    "mhe_loop": ("mhe_loop_sweep", 2048, 50, 2,
+                 {"success_rate": (">=", 0.92), "mhe_converged_rate": (">=", 0.99),
+                  "est_rmse_pos": ("<=", 0.12), "est_rmse_vel": ("<=", 0.12)}),
+}
+FAMILY_TWIN_SCENARIOS = 256  # kernel-vs-twin closed loop of each path
+FAMILY_TWIN_STEPS = 3
+# K1's wide mode (n + m = 200: the MHE loop's soft-state MPC at N = 20),
+# held to the twin at WIDE_BATCH scenarios of the MHE loop's starts
+WIDE_BATCH = 4096
+WIDE_N = 20
+WIDE_ITERS = 200  # the MHE loop's MPC budget, 4x in its presolve
+WIDE_RHO = 0.02
+WIDE_SLACK_WEIGHT = 1e4
+WIDE_COLS = -(-(3 * WIDE_N + 7 * WIDE_N) // 32)  # the wide library's columns a lane
+MHE_COLS = -(-(2 + 2 * 10 + 2 + 2 * 10) // 16)  # the MHE windows' library (M = 10)
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
 # tensor cores, and the HBM rate. A card below 700 W runs under them.
 PEAK_FP32 = 67e12  # FLOP/s
@@ -298,9 +336,12 @@ def time_cuda(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(torch, name, got, ref):
+def compare(torch, name, got, ref, kind=None):
     """Print and gate kernel against twin; returns max|Δx| over the rows
-    whose percentile is gated."""
+    whose percentile is gated. ``kind`` (``name`` when ``None``) picks the
+    tolerances: "cold", "polished" (held on iterations and success only) or
+    "warm"."""
+    kind = kind or name
     (sol_k, ni_k), (sol_t, ni_t) = got, ref
     same = ni_k == ni_t
     ni_agree = same.float().mean().item()
@@ -314,18 +355,18 @@ def compare(torch, name, got, ref):
     err = row_err[both]
     err_max = err.max().item()
     err_q999 = torch.quantile(err, 0.999).item()
-    gate_x = name != "polished"
+    gate_x = kind != "polished"
     print(
         f"{name}: max|x_kernel - x_twin| on rows converged on both sides after "
         f"the same iterations: q999 {err_q999:.3e}"
         f"{f' (tol {TOL_X_Q999:.0e})' if gate_x else ' (not gated)'}, max "
         f"{err_max:.3e}; over all rows max {row_err.max().item():.3e}; converged agree {conv_agree:.5f} "
-        f"(tol {TOL_CONV_AGREE[name]}); converged {rate_k:.5f} vs twin {rate_t:.5f}; "
+        f"(tol {TOL_CONV_AGREE[kind]}); converged {rate_k:.5f} vs twin {rate_t:.5f}; "
         f"executed iterations agree {ni_agree:.5f} (tol {TOL_NI_AGREE}); mean "
         f"executed {ni_k.mean().item():.2f} vs twin {ni_t.mean().item():.2f}",
         flush=True,
     )
-    ok = conv_agree >= TOL_CONV_AGREE[name] and ni_agree >= TOL_NI_AGREE
+    ok = conv_agree >= TOL_CONV_AGREE[kind] and ni_agree >= TOL_NI_AGREE
     ok = ok and (err_q999 <= TOL_X_Q999 if gate_x else abs(rate_k - rate_t) <= TOL_CONV_RATE)
     if not ok:
         raise SystemExit(f"kernel disagrees with its twin on the {name} config")
@@ -400,16 +441,19 @@ def main() -> int:
     # nx=3 / nu=2 case's
     build_all([
         (K.library_name(ADMM_COLS), lambda: K._build_library(ADMM_COLS)),
+        (K.library_name(MHE_COLS), lambda: K._build_library(MHE_COLS)),
+        (K.library_name(WIDE_COLS, 32), lambda: K._build_library(WIDE_COLS, 32)),
         *((KI.library_name(g), lambda g=g: KI._build_library(g)) for g in PARK_GROUPS),
         *((KF.library_name(g), lambda g=g: KF._build_library(g)) for g in RACE_GROUPS),
         *((KR.library_name(nx, nu, g), lambda nx=nx, nu=nu, g=g: KR._build_library(nx, nu, g))
           for nx, nu in ((2, 1), (3, 2)) for g in LH_GROUPS),
     ])
     admm = admm_phases(torch, port, K, card, device)
+    wide = family_phases(torch, port, K, card, device)
     ilqr = ilqr_phases(torch, port, KI, card, device)
     racing = [racing_phases(torch, port, KF, tier, card, device) for tier in RACE_TIERS]
     stagewise = stagewise_phases(torch, port, KR, card, device)
-    kernels = [admm, ilqr, *racing, stagewise]
+    kernels = [admm, wide, ilqr, *racing, stagewise]
     phase(None)
 
     print(json.dumps({"kernels": kernels}))
@@ -684,6 +728,152 @@ def admm_phases(torch, port, K, card, device) -> dict:
         "source": "model_predictive_control_tpu_torch/csrc/admm_kernel.cu",
         "replaces": "model_predictive_control_tpu/ops/pallas/admm_kernel.py:82",
         "launches": launches,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": twin_ms,
+        **roof,
+    }
+
+
+def wide_controller(torch, port, device):
+    """The MHE loop's slack-softened MPC at N = 20 (n = 60, m = 140: K1's
+    wide mode), as ``mhe_loop_sweep`` builds it."""
+    problem = port.session2_problem(N=WIDE_N)
+    return problem, port.make_linear_mpc(problem, iters=WIDE_ITERS, dtype=torch.float32,
+                                         device=device, soft_state=True,
+                                         slack_weight=WIDE_SLACK_WEIGHT, rho=WIDE_RHO)
+
+
+def gate_summary(path, summary, gates) -> None:
+    """Print a sweep's summary and fail on any quality gate it misses."""
+    bad = [f"{k} {summary[k]:.5f} (gate {op} {v})" for k, (op, v) in gates.items()
+           if not (summary[k] >= v if op == ">=" else summary[k] <= v)]
+    print(f"{path}: " + ", ".join(f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
+                                  for k, v in summary.items()), flush=True)
+    if bad:
+        raise SystemExit(f"the {path} path misses its gates: {'; '.join(bad)}")
+
+
+def family_phases(torch, port, K, card, device) -> dict:
+    """The rest of the linear ADMM family on K1: the wide mode against its
+    twin on the soft-state MPC at N = 20, then the tube, stochastic and
+    MHE-loop paths at the contract's sizes (launches counted, quality gated,
+    a kernel-vs-twin closed loop, one timed round each). Returns the wide
+    instantiation's entry of the ``kernels`` line."""
+    from model_predictive_control_tpu_torch.parallel import batch as PB
+
+    problem, ctrl = wide_controller(torch, port, device)
+    wide_name = K.library_name(WIDE_COLS, 32)
+    n, m = ctrl.qp.n, ctrl.qp.m
+    plan = K.launch_plan(n, m, K.DEFAULT_TILE, True)
+    phase(f"ADMM kernel wide mode vs twin on the card (soft-state MPC, B={WIDE_BATCH}, n={n}, "
+          f"m={m}, tile={K.DEFAULT_TILE})")
+    if not plan.wide or K.library_name(plan.cols, plan.lanes) != wide_name:
+        raise SystemExit(f"the soft-state operator does not take the wide mode: {plan}")
+    g = torch.Generator().manual_seed(0)
+    x0s = PB.mhe_loop_scenarios(g, WIDE_BATCH, 1, 10, problem.Ts, 0.02, 0.1)[0].to(
+        dtype=torch.float32, device=device)
+    q, l, u = ctrl.qp.qp_vectors(x0s)
+    cold_kw = dict(iters=4 * WIDE_ITERS, chunks=8, probe_iters=0, polish=False,
+                   tile=K.DEFAULT_TILE, return_iters=True)
+    err = compare(torch, "wide cold", K.admm_solve_cuda(ctrl.op, q, l, u, **cold_kw),
+                  K.admm_solve_twin(ctrl.op, q, l, u, **cold_kw), kind="cold")
+    cold_kw["polish"] = True  # the presolve's config
+    cold_k = K.admm_solve_cuda(ctrl.op, q, l, u, **cold_kw)
+    compare(torch, "wide polished", cold_k, K.admm_solve_twin(ctrl.op, q, l, u, **cold_kw),
+            kind="polished")
+    x1 = problem.system(torch.float32, device)(x0s, cold_k[0].x[:, : ctrl.qp.nu])
+    wx, wy = ctrl._shift_warm(cold_k[0].x, cold_k[0].y, axis=1)
+    q1, l1, u1 = ctrl.qp.qp_vectors(x1)
+    # the loop's steady solve (polish on) on iterations and success; the
+    # same step without the polish also on x
+    warm_kw = dict(iters=WIDE_ITERS, tile=K.DEFAULT_TILE, return_iters=True)
+    compare(torch, "wide warm polished", K.admm_solve_cuda(ctrl.op, q1, l1, u1, wx, wy, **warm_kw),
+            K.admm_solve_twin(ctrl.op, q1, l1, u1, wx, wy, **warm_kw), kind="polished")
+    warm_kw["polish"] = False
+    err = max(err, compare(torch, "wide warm", K.admm_solve_cuda(ctrl.op, q1, l1, u1, wx, wy,
+                                                                   **warm_kw),
+                           K.admm_solve_twin(ctrl.op, q1, l1, u1, wx, wy, **warm_kw),
+                           kind="warm"))
+    args, raw_kw = K.prepare_tiles(ctrl.op, q1, l1, u1, wx, wy, iters=WIDE_ITERS, chunks=2,
+                                   probe_iters=32, max_rho_moves=None, schedule="uniform",
+                                   tile=K.DEFAULT_TILE, cg_iters=40, alpha=1.6, eps_abs=None,
+                                   polish=True)
+    kernel_ms = time_cuda(torch, lambda: K._launch(*args, **raw_kw), 10)
+    twin_ms = time_cuda(torch, lambda: K.admm_solve_tiles_reference(*args, **raw_kw), 2)
+    print(f"wide warm step (the MHE loop's MPC solve: {WIDE_ITERS} iterations, probe 32, polish) "
+          f"alone: kernel {kernel_ms:.3f} ms per launch of {WIDE_BATCH}, twin {twin_ms:.3f} ms; "
+          f"{plan.threads_per_tile} threads a tile, {plan.tiles_per_cta} tiles a CTA of "
+          f"{plan.threads} threads, {plan.smem_bytes} bytes of shared memory [{card}]", flush=True)
+    k = n + m
+    outs = K._launch(*args, **raw_kw)
+    roof = bound(torch, float(outs[3].sum()) * (2 * k * k + 12 * k), [*args, *outs])
+
+    launches = {}
+    for path, (name, batch, steps, per_step, gates) in FAMILY.items():
+        sweep = getattr(PB, name)
+        phase(f"{path} path: {name}({batch}, {steps}), tile {K.DEFAULT_TILE}")
+        K.LAUNCHES = 0
+        K.LAUNCHES_BY_LIBRARY.clear()
+        res, summary = sweep(batch, steps, device=device)
+        torch.cuda.synchronize()
+        launches[path] = (K.LAUNCHES, dict(K.LAUNCHES_BY_LIBRARY))
+        expected = per_step * steps + 1
+        print(f"kernel launches in the run: {K.LAUNCHES} (expected {expected}), by library "
+              f"{launches[path][1]}", flush=True)
+        if K.LAUNCHES != expected:
+            raise SystemExit(f"the {path} path did not go through the kernel once per solve")
+        if path == "mhe_loop" and launches[path][1].get(wide_name, 0) != steps + 1:
+            raise SystemExit("the MHE loop's MPC did not go through the wide mode once per solve")
+        if not bool(torch.isfinite(res.states).all()) or res.states.shape != (steps + 1, batch, 2):
+            raise SystemExit(f"the {path} path's states: {res.states.shape}, or not finite")
+        gate_summary(path, summary, gates)
+        del res
+        # kernel against twin in closed loop on the same scenarios. Every
+        # path starts from a polished presolve (the MHE loop polishes every
+        # solve), whose FP32 CG is chaotic at N=20, so the loop is held on
+        # the polished config's bars: success masks and rates, and the share
+        # of scenarios whose final states agree within TOL_STATES
+        sub = dict(batch=FAMILY_TWIN_SCENARIOS, steps=FAMILY_TWIN_STEPS, device=device)
+        got, _ = sweep(**sub)
+        ref, _ = sweep(**sub, backend="twin")
+        d_final = (got.states[-1] - ref.states[-1]).abs().amax(dim=1)
+        s_k, s_t = got.logs["solver_success"], ref.logs["solver_success"]
+        agree = (s_k == s_t).float().mean().item()
+        rate_d = abs(s_k.float().mean().item() - s_t.float().mean().item())
+        within = (d_final <= TOL_STATES).float().mean().item()
+        print(f"{FAMILY_TWIN_SCENARIOS} scenarios x {FAMILY_TWIN_STEPS} steps, kernel vs twin: "
+              f"final states within {TOL_STATES} on {within:.5f} of the scenarios (tol "
+              f"{TOL_CONV_AGREE['polished']}), max {d_final.max().item():.3e}; success masks agree "
+              f"{agree:.5f} (tol {TOL_CONV_AGREE['polished']}), rates differ {rate_d:.5f} (tol "
+              f"{TOL_CONV_RATE})", flush=True)
+        if not (within >= TOL_CONV_AGREE["polished"] and agree >= TOL_CONV_AGREE["polished"]
+                and rate_d <= TOL_CONV_RATE):
+            raise SystemExit(f"the {path} path's closed loop disagrees with its twin")
+        # one timed round: best of 3 after a warm-up, then CUDA events around
+        # every launch of one more run
+        sweep(batch, steps, device=device)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sweep(batch, steps, device=device)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        dt = min(times)
+        unit = "loop-steps" if path == "mhe_loop" else "solves"
+        print(f"{path}: wall {dt:.4f} s (best of 3: {', '.join(f'{t:.4f}' for t in times)}); "
+              f"{batch * steps / dt:.1f} {unit}/s; step {1e3 * dt / steps:.3f} ms [{card}]",
+              flush=True)
+        wall, events, _ = timed_sweep(torch, K, sweep, batch, device, steps=steps)
+        print_events(wall, events, card)
+
+    return {
+        "name": "admm_tile_kernel (wide mode)",
+        "route": "cuda",
+        "source": "model_predictive_control_tpu_torch/csrc/admm_kernel.cu",
+        "replaces": "model_predictive_control_tpu/ops/pallas/admm_kernel.py:82",
+        "launches": launches["mhe_loop"][1].get(wide_name, 0),
         "max_abs_err": err,
         "ms": kernel_ms,
         "plain_ms": twin_ms,

@@ -13,37 +13,116 @@ with its plain-PyTorch twin:
   model-parametric fused tracker kernel;
 - the long-horizon closed-loop linear MPC (``make_stagewise_mpc``): the
   stagewise Riccati interior-point solver, batched in plain torch and as the
-  fused stagewise-IP kernel.
+  fused stagewise-IP kernel;
+- the rest of the linear ADMM family on the fused ADMM kernel: the DARE
+  terminal cost, the terminal set, soft state boxes and reference tracking
+  of ``make_linear_mpc``; the tube (``tube_sweep``), stochastic
+  (``stochastic_sweep``), offset-free and rate-limited controllers; the
+  Kalman filter, MHE and the MHE-in-the-loop sweep (``mhe_loop_sweep``,
+  whose soft-state MPC takes the kernel's wide mode). Session-1 LQR and the
+  single-scenario ``simulate`` come with them.
 
 Entry points that take ``device`` run on the card unless the caller passes
 ``device="cpu"``. Imports ``torch`` only.
 """
 
 from .control.batch_loop import BatchSimResult, simulate_batch
+from .control.simulate import SimResult, open_loop_policy, policy_from_law, rollout, simulate
+from .estimation import (
+    ExtendedKalmanFilter,
+    KalmanFilter,
+    MHE,
+    kalman_filter_trajectory,
+    kalman_gain,
+    make_mhe,
+    mhe_trajectory,
+    output_feedback_policy,
+)
+from .models.linear import LinearSystem
 from .models.parameters import VehicleParameters
+from .ops.riccati import dare_residual, dare_sda, lqr_gain, riccati_recursion
 from .parallel.batch import (
     batched_parking_policy,
     batched_plant,
     boundary_compaction_key,
+    mhe_loop_sweep,
     parking_sweep,
     racing_sweep,
     racing_sweep_dynamic,
+    stochastic_sweep,
+    tube_sweep,
 )
-from .solvers.linear_mpc import make_linear_mpc, session2_problem
+from .solvers.linear_mpc import (
+    BoxProblem,
+    make_box_mpc,
+    make_linear_mpc,
+    session2_problem,
+    session3_problem,
+)
+from .solvers.lqr import (
+    cost_to_go,
+    lqr_terminal_set,
+    prediction_policy,
+    receding_horizon_policy,
+    solve_finite_horizon,
+    solve_infinite_horizon,
+)
+from .solvers.offset_free import make_offset_free_mpc
+from .solvers.qp import admm_solve, pdip_solve, qp_setup
+from .solvers.rate_mpc import make_rate_limited_mpc
 from .solvers.riccati_ip import make_stagewise_mpc, stagewise_ip_solve
+from .solvers.stochastic import make_stochastic_mpc
+from .solvers.tube import make_tube_mpc
 
 __all__ = [
     "BatchSimResult",
+    "BoxProblem",
+    "ExtendedKalmanFilter",
+    "KalmanFilter",
+    "LinearSystem",
+    "MHE",
+    "SimResult",
     "VehicleParameters",
+    "admm_solve",
     "batched_parking_policy",
     "batched_plant",
     "boundary_compaction_key",
+    "cost_to_go",
+    "dare_residual",
+    "dare_sda",
+    "kalman_filter_trajectory",
+    "kalman_gain",
+    "lqr_gain",
+    "lqr_terminal_set",
+    "make_box_mpc",
     "make_linear_mpc",
+    "make_mhe",
+    "make_offset_free_mpc",
+    "make_rate_limited_mpc",
     "make_stagewise_mpc",
+    "make_stochastic_mpc",
+    "make_tube_mpc",
+    "mhe_loop_sweep",
+    "mhe_trajectory",
+    "open_loop_policy",
+    "output_feedback_policy",
     "parking_sweep",
+    "pdip_solve",
+    "policy_from_law",
+    "prediction_policy",
+    "qp_setup",
     "racing_sweep",
     "racing_sweep_dynamic",
+    "receding_horizon_policy",
+    "riccati_recursion",
+    "rollout",
     "session2_problem",
+    "session3_problem",
+    "simulate",
     "simulate_batch",
+    "solve_finite_horizon",
+    "solve_infinite_horizon",
     "stagewise_ip_solve",
+    "stochastic_sweep",
+    "tube_sweep",
 ]

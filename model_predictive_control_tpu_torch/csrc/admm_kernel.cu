@@ -66,13 +66,25 @@
 // buffers 77 KB), so an SM holds one: 2 warps a scheduler leave the
 // loads' latency partly exposed. Both limits come from the register and
 // shared-memory footprint, not from the product's issue rate.
+//
+// Wide mode (LN = 32, a library of its own built with -DADMM_LANES=32), for
+// operators whose staged copy does not fit shared memory (the soft-state
+// MPC at N = 20: n = 60, m = 140, W alone 160 KB a level). A whole warp
+// serves a quad of 4 rows, lane c keeping columns c, c + 32, ...,
+// c + 32 (C - 1) (C = ceil(K / 32)), so the 4 x C block stays in registers;
+// a tile of T rows is ceil(T / 4) warps joined by a named barrier. Nothing
+// of the operator is staged: W, Wq, A, P, S and P^-1 are read from device
+// memory through the read-only path at every use (row stride K, as a moved
+// rho level reads them in the staged mode), so shared memory holds only the
+// quads' row buffers. Each output element keeps the staged mode's chain: 0,
+// then fmaf over k ascending, then the same epilogue.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define MAX_CHUNKS 64
-#define MAX_COLS 8  // columns per lane: K <= 16 * MAX_COLS
-#define RB 4        // rows per lane (and per half-warp)
+#define MAX_COLS 8  // columns per lane: K <= LN * MAX_COLS
+#define RB 4        // rows per lane (and per quad of LN lanes)
 #define MAX_THREADS 256
 #define BIG 1e19f
 
@@ -96,11 +108,12 @@ __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" : : "r"(id), "r"(count) : "memory");
 }
 
-// Shared memory of one CTA, in floats: the staged operator, then per quad
-// of rows G, q, a scratch vector (k-major, 4 rows a float4) and l, u; then
-// per tile group an exchange area for two barrier phases and the pulled
-// tile index.
-__host__ __device__ static size_t operator_floats(int n, int m, int polish) {
+// Shared memory of one CTA, in floats: the staged operator (none in the
+// wide mode), then per quad of rows G, q, a scratch vector (k-major, 4 rows
+// a float4) and l, u; then per tile group an exchange area for two barrier
+// phases and the pulled tile index. `lanes` is LN: 16, or 32 in the wide mode.
+__host__ __device__ static size_t operator_floats(int n, int m, int polish, int lanes) {
+  if (lanes == 32) return 0;
   const size_t K = n + m, Kp = 16 * ((K + 15) / 16);
   size_t f = K * Kp + n * Kp + 2 * (size_t)m * n + (size_t)n * n;
   if (polish) f += (size_t)m * m + (size_t)n * n;
@@ -109,14 +122,22 @@ __host__ __device__ static size_t operator_floats(int n, int m, int polish) {
 
 __host__ __device__ static size_t quad_floats(int n, int m) { return 4 * (2 * (size_t)(n + m) + n + 2 * (size_t)m); }
 
-__host__ __device__ static int quads_per_tile(int T) { return T <= 4 ? 1 : 2 * ((T + 7) / 8); }
+// half-warp quads: one up to 4 rows, else an even number (whole warps);
+// warp quads: one per 4 rows
+__host__ __device__ static int quads_per_tile(int T, int lanes) {
+  if (lanes == 32) return (T + 3) / 4;
+  return T <= 4 ? 1 : 2 * ((T + 7) / 8);
+}
 
-__host__ __device__ static int warps_per_group(int qpg) { return qpg > 2 ? qpg / 2 : 1; }
+__host__ __device__ static int warps_per_group(int qpg, int lanes) {
+  if (lanes == 32) return qpg;
+  return qpg > 2 ? qpg / 2 : 1;
+}
 
-static size_t smem_floats(int n, int m, int T, int polish, int tiles_per_cta) {
-  const int qpg = quads_per_tile(T);
-  return operator_floats(n, m, polish) + (size_t)tiles_per_cta * qpg * quad_floats(n, m) +
-         (size_t)tiles_per_cta * (2 * warps_per_group(qpg) * 8 + 2);
+static size_t smem_floats(int n, int m, int T, int polish, int tiles_per_cta, int lanes) {
+  const int qpg = quads_per_tile(T, lanes);
+  return operator_floats(n, m, polish, lanes) + (size_t)tiles_per_cta * qpg * quad_floats(n, m) +
+         (size_t)tiles_per_cta * (2 * warps_per_group(qpg, lanes) * 8 + 2);
 }
 
 // The lanes of one tile group, as one lane sees them.
@@ -130,31 +151,33 @@ struct Group {
 
 __device__ __forceinline__ void quad_sync(const Group& g) { __syncwarp(g.mask); }
 
-// max / sum over the 16 lanes of a half-warp
+// max / sum over the LN lanes of a quad (a half-warp, or the warp)
+template <int LN>
 __device__ __forceinline__ float half_max(const Group& g, float v) {
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = nmax(v, __shfl_xor_sync(g.mask, v, o));
+  for (int o = LN / 2; o > 0; o >>= 1) v = nmax(v, __shfl_xor_sync(g.mask, v, o));
   return v;
 }
 
+template <int LN>
 __device__ __forceinline__ float half_sum(const Group& g, float v) {
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(g.mask, v, o);
+  for (int o = LN / 2; o > 0; o >>= 1) v += __shfl_xor_sync(g.mask, v, o);
   return v;
 }
 
 // Tile-wide reduction of V lane values: nmax for the first NM, fminf for
 // the rest; every lane of the group gets the result.
-template <int V, int NM>
+template <int V, int NM, int LN>
 __device__ __forceinline__ void group_reduce(Group& g, float* v) {
 #pragma unroll
   for (int s = 0; s < V; ++s) {
 #pragma unroll
-    for (int o = 8; o > 0; o >>= 1) {
+    for (int o = LN / 2; o > 0; o >>= 1) {
       const float w = __shfl_xor_sync(g.mask, v[s], o);
       v[s] = s < NM ? nmax(v[s], w) : fminf(v[s], w);
     }
-    if (g.qpg >= 2) {
+    if (LN == 16 && g.qpg >= 2) {
       const float w = __shfl_xor_sync(0xffffffffu, v[s], 16);
       v[s] = s < NM ? nmax(v[s], w) : fminf(v[s], w);
     }
@@ -175,6 +198,7 @@ __device__ __forceinline__ void group_reduce(Group& g, float* v) {
 }
 
 // The group's next tile from the queue.
+template <int LN>
 __device__ __forceinline__ int pull_tile(Group& g, int* next_tile) {
   const int lane = threadIdx.x & 31;
   if (g.warps > 1) {
@@ -184,22 +208,22 @@ __device__ __forceinline__ int pull_tile(Group& g, int* next_tile) {
     g.phase += 1;
     return *s;
   }
-  const int src = g.qpg == 1 ? (lane & 16) : 0;
+  const int src = LN == 16 && g.qpg == 1 ? (lane & 16) : 0;
   int t = 0;
   if (lane == src) t = atomicAdd(next_tile, 1);
   return __shfl_sync(g.mask, t, src);
 }
 
-// One chunk's L iterations on a lane's 4 x C block. GLOBAL: W of a moved
-// rho level from device memory (row stride K) instead of the staged copy
-// (row stride 16 C).
-template <int C, bool GLOBAL>
+// One chunk's L iterations on a lane's 4 x C block. GLOBAL: W from device
+// memory (row stride K; a moved rho level, or the wide mode) instead of the
+// staged copy (row stride 16 C).
+template <int C, bool GLOBAL, int LN>
 __device__ __forceinline__ void iterate(const Group& g, int L, int K, int n, const float* Wsrc,
                                         const float4* LO, const float4* HI, const float4* XZQ,
                                         float4* G4, int col0, float rho, float inv_rho,
                                         float alpha, float beta, float (&c)[RB][C],
                                         float (&yv)[RB][C]) {
-  const int Kp = 16 * C;
+  const int Kp = LN * C;
   for (int it = 0; it < L; ++it) {
     float acc[RB][C];
 #pragma unroll
@@ -212,7 +236,7 @@ __device__ __forceinline__ void iterate(const Group& g, int L, int K, int n, con
       float w[C];
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + 16 * jj;
+        const int j = col0 + LN * jj;
         if (GLOBAL)
           w[jj] = j < K ? __ldg(Wsrc + (size_t)k * K + j) : 0.f;
         else
@@ -229,7 +253,7 @@ __device__ __forceinline__ void iterate(const Group& g, int L, int K, int n, con
     quad_sync(g);
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + 16 * jj;
+      const int j = col0 + LN * jj;
       if (j >= K) continue;
       float gn[RB];
       const float4 xq4 = XZQ[j];
@@ -260,10 +284,11 @@ __device__ __forceinline__ void iterate(const Group& g, int L, int K, int n, con
 }
 
 
-template <int C>
+template <int C, int LN>
 __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) {
   extern __shared__ float sm[];
-  const int n = p.n, m = p.m, K = n + m, Kp = 16 * C, T = p.T;
+  constexpr bool WIDE = LN == 32;  // nothing of the operator staged
+  const int n = p.n, m = p.m, K = n + m, Kp = LN * C, T = p.T;
   float* Wb = sm;             // (K, Kp) W of the initial level, zero-padded columns
   float* Wqb = Wb + K * Kp;   // (n, Kp)
   float* As = Wqb + n * Kp;   // A, row-major (m, n)
@@ -271,13 +296,20 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
   float* Ps = Ats + n * m;    // P, (n, n)
   float* Sb = Ps + n * n;     // S (m, m), with the polish
   float* Pinvb = Sb + m * m;  // P^-1 (n, n), with the polish
-  const int qpg = p.quads_per_tile, wpg = warps_per_group(qpg);
-  float* quad_base = sm + operator_floats(n, m, p.polish);
+  // the operator's elements: the staged copies, or device memory in the
+  // wide mode (A^T read as A with its indices swapped)
+  auto a_at = [&](int i, int j) { return WIDE ? __ldg(p.A + i * n + j) : As[i * n + j]; };
+  auto at_at = [&](int k, int i) { return WIDE ? __ldg(p.A + i * n + k) : Ats[k * m + i]; };
+  auto p_at = [&](int k, int j) { return WIDE ? __ldg(p.P + k * n + j) : Ps[k * n + j]; };
+  auto s_at = [&](int k, int i) { return WIDE ? __ldg(p.S + k * m + i) : Sb[k * m + i]; };
+  auto pinv_at = [&](int k, int j) { return WIDE ? __ldg(p.Pinv + k * n + j) : Pinvb[k * n + j]; };
+  const int qpg = p.quads_per_tile, wpg = warps_per_group(qpg, LN);
+  float* quad_base = sm + operator_floats(n, m, p.polish, LN);
   float* xch_base = quad_base + (size_t)p.tiles_per_cta * qpg * quad_floats(n, m);
   int* slot_base = (int*)(xch_base + (size_t)p.tiles_per_cta * 2 * wpg * 8);
 
   const int tid = threadIdx.x, nthr = blockDim.x;
-  {
+  if (!WIDE) {
     const float* Wsrc = p.W + (size_t)p.init_idx * K * K;
     const float* Wqsrc = p.Wq + (size_t)p.init_idx * n * K;
     for (int e = tid; e < K * Kp; e += nthr) {
@@ -301,15 +333,15 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
   }
   __syncthreads();
 
-  const int lane = tid & 31, half = lane >> 4, col0 = lane & 15;
-  const int quad = 2 * (tid >> 5) + half;  // this lane's quad of rows in the CTA
+  const int lane = tid & 31, half = WIDE ? 0 : lane >> 4, col0 = lane & (LN - 1);
+  const int quad = WIDE ? tid >> 5 : 2 * (tid >> 5) + half;  // this lane's quad of rows in the CTA
   Group g;
   g.qpg = qpg;
   g.gid = quad / qpg;
   g.warps = wpg;
   g.nthr = 32 * wpg;
-  g.first = qpg == 1 ? (tid & ~15) : g.gid * g.nthr;
-  g.mask = qpg == 1 ? 0xffffu << (16 * half) : 0xffffffffu;
+  g.first = !WIDE && qpg == 1 ? (tid & ~15) : g.gid * g.nthr;
+  g.mask = !WIDE && qpg == 1 ? 0xffffu << (16 * half) : 0xffffffffu;
   g.xch = xch_base + g.gid * 2 * wpg * 8;
   g.slot = slot_base + 2 * g.gid;
   g.phase = 0;
@@ -322,7 +354,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
   const float alpha = p.alpha, beta = 1.f - alpha;
 
   for (;;) {
-    const int tile = pull_tile(g, p.next_tile);
+    const int tile = pull_tile<LN>(g, p.next_tile);
     if (tile >= p.n_tiles) break;
     const size_t rbase = (size_t)tile * T + row0;  // global index of the quad's row 0
     bool valid[RB];
@@ -335,7 +367,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     float sc[RB], qm = 0.f;
 #pragma unroll
     for (int r = 0; r < RB; ++r) sc[r] = 0.f;
-    for (int k = col0; k < n; k += 16) {
+    for (int k = col0; k < n; k += LN) {
       float qv[RB], xv[RB];
       const float dc = p.Dcinv[k];
 #pragma unroll
@@ -348,7 +380,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       Q4[k] = make_float4(qv[0], qv[1], qv[2], qv[3]);
       G4[k] = make_float4(xv[0], xv[1], xv[2], xv[3]);
     }
-    for (int i = col0; i < m; i += 16) {
+    for (int i = col0; i < m; i += LN) {
       float lv[RB], uv[RB];
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
@@ -359,10 +391,10 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       HI[i] = make_float4(uv[0], uv[1], uv[2], uv[3]);
     }
 #pragma unroll
-    for (int r = 0; r < RB; ++r) sc[r] = 1.f + half_max(g, sc[r]);
+    for (int r = 0; r < RB; ++r) sc[r] = 1.f + half_max<LN>(g, sc[r]);
     {
       float v[1] = {qm};
-      group_reduce<1, 1>(g, v);
+      group_reduce<1, 1, LN>(g, v);
       qm = v[0];
     }
     quad_sync(g);
@@ -371,7 +403,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     float c[RB][C], yv[RB][C];
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + 16 * jj;
+      const int j = col0 + LN * jj;
 #pragma unroll
       for (int r = 0; r < RB; ++r) c[r][jj] = yv[r][jj] = 0.f;
       if (j >= K) continue;
@@ -383,7 +415,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
         float a[RB] = {0.f, 0.f, 0.f, 0.f};
         for (int k = 0; k < n; ++k) {
           const float4 x4 = G4[k];
-          const float w = Ats[k * m + i];
+          const float w = at_at(k, i);
           a[0] = fmaf(x4.x, w, a[0]); a[1] = fmaf(x4.y, w, a[1]);
           a[2] = fmaf(x4.z, w, a[2]); a[3] = fmaf(x4.w, w, a[3]);
         }
@@ -402,13 +434,13 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     for (int ci = 0; ci < p.n_chunks; ++ci) {
       const float rho = p.rho[idx], inv_rho = 1.f / rho;
       const int L = p.chunk_lens[ci];
-      const bool staged = idx == p.init_idx;
+      const bool staged = !WIDE && idx == p.init_idx;
       const float* Wqg = p.Wq + (size_t)idx * n * K;
       // q Wq of this level into the scratch vector, and G = [x | rho z - y]
       quad_sync(g);  // every lane is past its reads of G and of the scratch vector
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + 16 * jj;
+        const int j = col0 + LN * jj;
         float xzq[RB] = {0.f, 0.f, 0.f, 0.f};
         for (int k = 0; k < n; ++k) {
           const float4 q4 = Q4[k];
@@ -420,7 +452,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       }
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + 16 * jj;
+        const int j = col0 + LN * jj;
         if (j >= K) continue;
         float gv[RB];
 #pragma unroll
@@ -429,9 +461,9 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       }
       quad_sync(g);
       if (staged)
-        iterate<C, false>(g, L, K, n, Wb, LO, HI, S4, G4, col0, rho, inv_rho, alpha, beta, c, yv);
+        iterate<C, false, LN>(g, L, K, n, Wb, LO, HI, S4, G4, col0, rho, inv_rho, alpha, beta, c, yv);
       else
-        iterate<C, true>(g, L, K, n, p.W + (size_t)idx * K * K, LO, HI, S4, G4, col0, rho,
+        iterate<C, true, LN>(g, L, K, n, p.W + (size_t)idx * K * K, LO, HI, S4, G4, col0, rho,
                          inv_rho, alpha, beta, c, yv);
 
       // residuals A x - z (z columns) and P x + q + A^T y (x columns), dealt
@@ -440,7 +472,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       // (the iteration ends with a sync)
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + 16 * jj;
+        const int j = col0 + LN * jj;
         if (j >= n && j < K) S4[j - n] = make_float4(yv[0][jj], yv[1][jj], yv[2][jj], yv[3][jj]);
       }
       quad_sync(g);
@@ -449,19 +481,19 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       float rowres[RB] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + 16 * jj;
+        const int j = col0 + LN * jj;
         if (j >= K) continue;
         if (j < n) {
           float a[RB] = {0.f, 0.f, 0.f, 0.f}, b[RB] = {0.f, 0.f, 0.f, 0.f};
           for (int k = 0; k < n; ++k) {
             const float4 x4 = G4[k];
-            const float w = Ps[k * n + j];
+            const float w = p_at(k, j);
             a[0] = fmaf(x4.x, w, a[0]); a[1] = fmaf(x4.y, w, a[1]);
             a[2] = fmaf(x4.z, w, a[2]); a[3] = fmaf(x4.w, w, a[3]);
           }
           for (int i = 0; i < m; ++i) {
             const float4 y4 = S4[i];
-            const float w = As[i * n + j];
+            const float w = a_at(i, j);
             b[0] = fmaf(y4.x, w, b[0]); b[1] = fmaf(y4.y, w, b[1]);
             b[2] = fmaf(y4.z, w, b[2]); b[3] = fmaf(y4.w, w, b[3]);
           }
@@ -482,7 +514,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
           float a[RB] = {0.f, 0.f, 0.f, 0.f};
           for (int k = 0; k < n; ++k) {
             const float4 x4 = G4[k];
-            const float w = Ats[k * m + i];
+            const float w = at_at(k, i);
             a[0] = fmaf(x4.x, w, a[0]); a[1] = fmaf(x4.y, w, a[1]);
             a[2] = fmaf(x4.z, w, a[2]); a[3] = fmaf(x4.w, w, a[3]);
           }
@@ -501,9 +533,9 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       }
       if (p.polish) {
 #pragma unroll
-        for (int r = 0; r < RB; ++r) res0[r] = half_max(g, rowres[r]);
+        for (int r = 0; r < RB; ++r) res0[r] = half_max<LN>(g, rowres[r]);
       }
-      group_reduce<7, 6>(g, v);
+      group_reduce<7, 6, LN>(g, v);
       const bool conv = v[6] > 0.5f;
       // OSQP-style target rho from tile-wide normalized residuals
       const float rp_rel = v[0] / nmax(nmax(v[1], v[2]), 1e-10f);
@@ -533,7 +565,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     // the ADMM iterate out (the polish overwrites the rows it improves)
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + 16 * jj;
+      const int j = col0 + LN * jj;
       if (j >= K) continue;
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
@@ -560,15 +592,15 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       float ym = 0.f;
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + 16 * jj;
+        const int j = col0 + LN * jj;
         if (j >= n && j < K) ym = nmax(ym, fabsf(yv[r][jj]));
       }
-      ytol[r] = 1e-6f * nmax(half_max(g, ym), 1e-6f);
+      ytol[r] = 1e-6f * nmax(half_max<LN>(g, ym), 1e-6f);
     }
     unsigned low = 0, up = 0;  // bit r * C + jj
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + 16 * jj;
+      const int j = col0 + LN * jj;
       if (j < n || j >= K) continue;
       const float4 lo4 = LO[j - n], hi4 = HI[j - n];
       const float lo[RB] = {lo4.x, lo4.y, lo4.z, lo4.w}, hi[RB] = {hi4.x, hi4.y, hi4.z, hi4.w};
@@ -583,12 +615,12 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     quad_sync(g);  // every lane is past its reads of y there
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + 16 * jj;
+      const int j = col0 + LN * jj;
       if (j >= n) continue;
       float a[RB] = {0.f, 0.f, 0.f, 0.f};
       for (int k = 0; k < n; ++k) {
         const float4 q4 = Q4[k];
-        const float w = Pinvb[k * n + j];
+        const float w = pinv_at(k, j);
         a[0] = fmaf(q4.x, w, a[0]); a[1] = fmaf(q4.y, w, a[1]);
         a[2] = fmaf(q4.z, w, a[2]); a[3] = fmaf(q4.w, w, a[3]);
       }
@@ -600,7 +632,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     for (int r = 0; r < RB; ++r) rs[r] = 0.f;
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + 16 * jj;
+      const int j = col0 + LN * jj;
 #pragma unroll
       for (int r = 0; r < RB; ++r) nu[r][jj] = rr[r][jj] = pp[r][jj] = 0.f;
       if (j < n || j >= K) continue;
@@ -608,7 +640,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       float apq[RB] = {0.f, 0.f, 0.f, 0.f};
       for (int k = 0; k < n; ++k) {
         const float4 h4 = S4[k];
-        const float w = Ats[k * m + i];
+        const float w = at_at(k, i);
         apq[0] = fmaf(h4.x, w, apq[0]); apq[1] = fmaf(h4.y, w, apq[1]);
         apq[2] = fmaf(h4.z, w, apq[2]); apq[3] = fmaf(h4.w, w, apq[3]);
       }
@@ -625,18 +657,18 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       }
     }
 #pragma unroll
-    for (int r = 0; r < RB; ++r) rs0[r] = rs[r] = half_sum(g, rs[r]);
+    for (int r = 0; r < RB; ++r) rs0[r] = rs[r] = half_sum<LN>(g, rs[r]);
 
     for (int it = 0; it < p.cg_iters; ++it) {
       float v[1] = {0.f};
 #pragma unroll
       for (int r = 0; r < RB; ++r) v[0] = nmax(v[0], rs[r] / fmaxf(rs0[r], 1e-30f));
-      group_reduce<1, 1>(g, v);
+      group_reduce<1, 1, LN>(g, v);
       if (!(v[0] > 1e-12f)) break;
       quad_sync(g);  // the last pass's reads of G are done
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + 16 * jj;
+        const int j = col0 + LN * jj;
         if (j < n || j >= K) continue;
         float dp[RB];
 #pragma unroll
@@ -647,7 +679,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       float Mp[RB][C], pmp[RB] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + 16 * jj;
+        const int j = col0 + LN * jj;
 #pragma unroll
         for (int r = 0; r < RB; ++r) Mp[r][jj] = 0.f;
         if (j < n || j >= K) continue;
@@ -655,7 +687,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
         float sv[RB] = {0.f, 0.f, 0.f, 0.f};
         for (int k = 0; k < m; ++k) {
           const float4 d4 = G4[k];
-          const float w = Sb[k * m + i];
+          const float w = s_at(k, i);
           sv[0] = fmaf(d4.x, w, sv[0]); sv[1] = fmaf(d4.y, w, sv[1]);
           sv[2] = fmaf(d4.z, w, sv[2]); sv[3] = fmaf(d4.w, w, sv[3]);
         }
@@ -667,7 +699,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       }
       float a[RB], rsn[RB] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < RB; ++r) a[r] = rs[r] / fmaxf(half_sum(g, pmp[r]), 1e-30f);
+      for (int r = 0; r < RB; ++r) a[r] = rs[r] / fmaxf(half_sum<LN>(g, pmp[r]), 1e-30f);
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
 #pragma unroll
@@ -679,7 +711,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       }
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
-        rsn[r] = half_sum(g, rsn[r]);
+        rsn[r] = half_sum<LN>(g, rsn[r]);
         const float bet = rsn[r] / fmaxf(rs[r], 1e-30f);
 #pragma unroll
         for (int jj = 0; jj < C; ++jj) pp[r][jj] = rr[r][jj] + bet * pp[r][jj];
@@ -693,7 +725,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     quad_sync(g);      // the CG's reads of G and of the scratch are done
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + 16 * jj;
+      const int j = col0 + LN * jj;
       if (j < n || j >= K) continue;
       float yp[RB];
 #pragma unroll
@@ -709,14 +741,14 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     float hx[RB][C];  // (A^T y_p)_j, then x_p on the x columns
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + 16 * jj;
+      const int j = col0 + LN * jj;
 #pragma unroll
       for (int r = 0; r < RB; ++r) hx[r][jj] = 0.f;
       if (j >= n) continue;
       float b[RB] = {0.f, 0.f, 0.f, 0.f};
       for (int i = 0; i < m; ++i) {
         const float4 y4 = S4[i];
-        const float w = As[i * n + j];
+        const float w = a_at(i, j);
         b[0] = fmaf(y4.x, w, b[0]); b[1] = fmaf(y4.y, w, b[1]);
         b[2] = fmaf(y4.z, w, b[2]); b[3] = fmaf(y4.w, w, b[3]);
       }
@@ -729,14 +761,14 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     float xp[RB][C];
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + 16 * jj;
+      const int j = col0 + LN * jj;
 #pragma unroll
       for (int r = 0; r < RB; ++r) xp[r][jj] = 0.f;
       if (j >= n) continue;
       float a[RB] = {0.f, 0.f, 0.f, 0.f};
       for (int k = 0; k < n; ++k) {
         const float4 g4 = G4[k];
-        const float w = Pinvb[k * n + j];
+        const float w = pinv_at(k, j);
         a[0] = fmaf(g4.x, w, a[0]); a[1] = fmaf(g4.y, w, a[1]);
         a[2] = fmaf(g4.z, w, a[2]); a[3] = fmaf(g4.w, w, a[3]);
       }
@@ -746,14 +778,14 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     quad_sync(g);  // y_p's reads of the scratch are done
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + 16 * jj;
+      const int j = col0 + LN * jj;
       if (j < n) S4[j] = make_float4(xp[0][jj], xp[1][jj], xp[2][jj], xp[3][jj]);  // x_p
     }
     quad_sync(g);
     float r1[RB] = {0.f, 0.f, 0.f, 0.f}, zp[RB][C];
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + 16 * jj;
+      const int j = col0 + LN * jj;
 #pragma unroll
       for (int r = 0; r < RB; ++r) zp[r][jj] = 0.f;
       if (j >= K) continue;
@@ -761,7 +793,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       if (j < n) {
         for (int k = 0; k < n; ++k) {
           const float4 x4 = S4[k];
-          const float w = Ps[k * n + j];
+          const float w = p_at(k, j);
           a[0] = fmaf(x4.x, w, a[0]); a[1] = fmaf(x4.y, w, a[1]);
           a[2] = fmaf(x4.z, w, a[2]); a[3] = fmaf(x4.w, w, a[3]);
         }
@@ -773,7 +805,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
         const int i = j - n;
         for (int k = 0; k < n; ++k) {
           const float4 x4 = S4[k];
-          const float w = Ats[k * m + i];
+          const float w = at_at(k, i);
           a[0] = fmaf(x4.x, w, a[0]); a[1] = fmaf(x4.y, w, a[1]);
           a[2] = fmaf(x4.z, w, a[2]); a[3] = fmaf(x4.w, w, a[3]);
         }
@@ -788,14 +820,14 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       }
     }
 #pragma unroll
-    for (int o = 8; o > 0; o >>= 1) bad |= __shfl_xor_sync(g.mask, bad, o);
+    for (int o = LN / 2; o > 0; o >>= 1) bad |= __shfl_xor_sync(g.mask, bad, o);
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
-      const bool accept = half_max(g, r1[r]) < res0[r] && !(bad >> r & 1u);
+      const bool accept = half_max<LN>(g, r1[r]) < res0[r] && !(bad >> r & 1u);
       if (!accept || !valid[r]) continue;
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + 16 * jj;
+        const int j = col0 + LN * jj;
         if (j >= K) continue;
         if (j < n) {
           p.x_out[(rbase + r) * n + j] = xp[r][jj];
@@ -810,21 +842,27 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
 
 typedef void (*kernel_fn)(const Params);
 
-// One library per column count: built with -DADMM_COLS=C, it serves
-// 16 (C - 1) < n + m <= 16 C.
+// One library per column count and mode: built with -DADMM_COLS=C and
+// -DADMM_LANES=LN (16, or 32 for the wide mode), it serves
+// LN (C - 1) < n + m <= LN C.
 #ifndef ADMM_COLS
 #define ADMM_COLS 5
 #endif
+#ifndef ADMM_LANES
+#define ADMM_LANES 16
+#endif
 static_assert(ADMM_COLS >= 1 && ADMM_COLS <= MAX_COLS, "ADMM_COLS out of range");
+static_assert(ADMM_LANES == 16 || ADMM_LANES == 32, "ADMM_LANES is 16 or 32");
 
 static kernel_fn kernel_for(int K) {
-  return (K + 15) / 16 == ADMM_COLS ? admm_tile_kernel<ADMM_COLS> : nullptr;
+  return (K + ADMM_LANES - 1) / ADMM_LANES == ADMM_COLS ? admm_tile_kernel<ADMM_COLS, ADMM_LANES>
+                                                        : nullptr;
 }
 
-// Dynamic shared memory one CTA needs, in bytes (launch_plan reckons the
-// same; a test holds the two together).
-extern "C" long admm_smem_bytes(int n, int m, int T, int polish, int tiles_per_cta) {
-  return (long)(4 * smem_floats(n, m, T, polish, tiles_per_cta));
+// Dynamic shared memory one CTA needs, in bytes, for `lanes` lanes a quad
+// (launch_plan reckons the same; a test holds the two together).
+extern "C" long admm_smem_bytes(int n, int m, int T, int polish, int tiles_per_cta, int lanes) {
+  return (long)(4 * smem_floats(n, m, T, polish, tiles_per_cta, lanes));
 }
 
 // CTAs of `threads` threads and `smem` bytes the card holds per SM, and its
@@ -852,12 +890,12 @@ extern "C" int admm_tiles_launch(
     int R, int T, int n_tiles, int tiles_per_cta, int threads, int grid, float eps_abs,
     float alpha, void* stream) {
   kernel_fn kernel = kernel_for(n + m);
-  const int qpg = quads_per_tile(T);
+  const int qpg = quads_per_tile(T, ADMM_LANES);
   if (n_chunks < 1 || n_chunks > MAX_CHUNKS || kernel == nullptr || threads > MAX_THREADS ||
-      threads != tiles_per_cta * 16 * qpg || threads % 32 != 0 ||
-      (qpg > 2 && tiles_per_cta > 15) || grid < 1)
+      threads != tiles_per_cta * ADMM_LANES * qpg || threads % 32 != 0 ||
+      (warps_per_group(qpg, ADMM_LANES) > 1 && tiles_per_cta > 15) || grid < 1)
     return (int)cudaErrorInvalidValue;
-  const int smem_bytes = (int)admm_smem_bytes(n, m, T, polish, tiles_per_cta);
+  const int smem_bytes = (int)admm_smem_bytes(n, m, T, polish, tiles_per_cta, ADMM_LANES);
   Params p;
   p.W = W; p.Wq = Wq; p.A = A; p.P = P; p.Pinv = Pinv; p.S = S; p.rho = rho;
   p.Einv = Einv; p.Dcinv = Dcinv; p.q = q; p.l = l; p.u = u; p.x0 = x0;

@@ -16,10 +16,12 @@ from ..utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class LinearSystem:
-    """``x⁺ = A x + B u`` on a batch of row vectors."""
+    """``x⁺ = A x + B u`` on a batch of row vectors, with an optional output
+    map ``y = C x`` (the estimators need it)."""
 
     A: torch.Tensor  # (nx, nx)
     B: torch.Tensor  # (nx, nu)
+    C: torch.Tensor | None = None  # (ny, nx)
 
     @property
     def nx(self) -> int:
@@ -31,6 +33,10 @@ class LinearSystem:
 
     def __call__(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return x @ self.A.T + u @ self.B.T
+
+    def output(self, x: torch.Tensor) -> torch.Tensor:
+        """``y = C x`` on a batch of row vectors."""
+        return x @ self.C.T
 
 
 def session2_dynamics(

@@ -21,7 +21,11 @@ issue of shared-memory loads and FMAs sets the pace. The design
   their tile groups pull tiles from a device counter, so a tile that exits
   early frees its lanes for the next one;
 - plain FP32 FMA loops: no bf16 split, no TF32 (the reference measured
-  low-precision iteration products collapsing closed-loop success).
+  low-precision iteration products collapsing closed-loop success);
+- operators whose staged copy does not fit shared memory (``n + m > 128``,
+  e.g. the soft-state MPC at N=20, n + m = 200) take the wide mode
+  (:func:`kernel_lanes`): a warp serves 4 rows, a lane a 4 × ⌈(n+m)/32⌉
+  block, and the operator is read from device memory at every use.
 
 Tile semantics (kept from the reference): exits and ρ are per tile, so ``T``
 changes results at the tolerance edge; padded zero rows take part in the last
@@ -41,12 +45,14 @@ from ...solvers.qp import QPOperator, QPSolution, _converged, _unscaled_residual
 from ...utils.precision import set_solver_precision
 from ._build import PKG, load_library
 
-# Kernel launches made by admm_solve_cuda (one per solve). Tests and
-# chip_smoke.py read it to show that a run went through the kernel.
+# Kernel launches made by admm_solve_cuda (one per solve), in all and per
+# library (:func:`library_name`: the column count and mode). Tests and
+# chip_smoke.py read them to show that a run went through the kernel.
 LAUNCHES = 0
+LAUNCHES_BY_LIBRARY: dict[str, int] = {}
 
 MAX_CHUNKS = 64  # size of the kernel's chunk-length table (Params.chunk_lens)
-MAX_COLS = 8  # columns per lane: the kernel takes n + m <= 16 * MAX_COLS
+MAX_COLS = 8  # columns per lane: n + m <= 16 * MAX_COLS staged, 32 * MAX_COLS wide
 MAX_THREADS = 256  # the kernel's launch bounds (registers: up to 255 a thread)
 CTA_THREADS = 256  # threads a CTA aims at: as many tile groups as fit
 SMEM_LIMIT = 232448  # opt-in shared memory per block on sm_90 (bytes)
@@ -256,51 +262,90 @@ def admm_solve_tiles_reference(
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    threads_per_tile: int  # 16 (half a warp) up to 4 rows, else 32 × ⌈tile / 8⌉
+    threads_per_tile: int  # lanes of a tile: 16 × its quads, or 32 × its quads (wide)
     tiles_per_cta: int  # tile groups in one CTA, each pulling its own tiles
     threads: int  # per CTA
     smem_bytes: int  # dynamic shared memory per CTA
     ctas_per_sm: int | None  # the card's occupancy (None: not asked)
     grid: int | None  # persistent CTAs (None: not asked)
+    lanes: int  # lanes a quad of 4 rows: 16 (staged operator) or 32 (wide mode)
+    cols: int  # columns a lane keeps, ⌈(n + m) / lanes⌉: the library's
+
+    @property
+    def wide(self) -> bool:
+        return self.lanes == 32
 
 
-def _quads_per_tile(tile: int) -> int:
-    """Quads of 4 rows (half-warps) that serve a tile: one up to 4 rows,
-    else an even number (whole warps)."""
+def _quads_per_tile(tile: int, lanes: int = 16) -> int:
+    """Quads of 4 rows that serve a tile. Half-warp quads: one up to 4 rows,
+    else an even number (whole warps). Warp quads (wide mode): one per 4
+    rows."""
+    if lanes == 32:
+        return -(-tile // 4)
     return 1 if tile <= 4 else 2 * -(-tile // 8)
+
+
+def _operator_floats(n: int, m: int, polish: bool, lanes: int) -> int:
+    """The staged operator in floats (``csrc/admm_kernel.cu::operator_floats``);
+    nothing in the wide mode."""
+    if lanes == 32:
+        return 0
+    K = n + m
+    Kp = 16 * -(-K // 16)
+    op = K * Kp + n * Kp + 2 * m * n + n * n + (m * m + n * n if polish else 0)
+    return -(-op // 4) * 4
+
+
+def _smem_bytes(n: int, m: int, tile: int, polish: bool, groups: int, lanes: int) -> int:
+    qpg = _quads_per_tile(tile, lanes)
+    warps = qpg if lanes == 32 else max(1, qpg // 2)
+    return 4 * (_operator_floats(n, m, polish, lanes) + groups * qpg * 4 * (2 * (n + m) + n + 2 * m)
+                + groups * (2 * warps * 8 + 2))
+
+
+def kernel_lanes(n: int, m: int, polish: bool) -> int:
+    """The kernel's mode for an operator: 16 lanes a quad with the operator
+    staged in shared memory where ``n + m <= 16 ×`` :data:`MAX_COLS` and the
+    staged operator leaves room for a warp of quads; else 32 lanes a quad
+    with the operator read from device memory (the wide mode). Raises
+    ``ValueError`` for ``n + m`` beyond the wide mode's ``32 ×``
+    :data:`MAX_COLS`."""
+    K = n + m
+    if K <= 16 * MAX_COLS and _smem_bytes(n, m, 1, polish, 2, 16) <= SMEM_LIMIT:
+        return 16
+    if K > 32 * MAX_COLS:
+        raise ValueError(f"n + m = {K} exceeds the kernel's {32 * MAX_COLS}")
+    return 32
 
 
 def launch_plan(n: int, m: int, tile: int, polish: bool, *, n_tiles: int | None = None,
                 ctas_per_sm: int | None = None, sms: int | None = None) -> LaunchPlan:
-    """How the kernel is launched for ``tile``: the lanes of a tile, the tile
-    groups a CTA holds (as many as fit :data:`CTA_THREADS` and
-    :data:`SMEM_LIMIT`), its threads and
-    shared memory (``csrc/admm_kernel.cu::smem_floats``: the staged operator,
-    per quad of rows ``G``, ``q``, a scratch vector, ``l`` and ``u``, per group
-    an exchange area). Given the card's occupancy (``ctas_per_sm``, ``sms``)
-    and ``n_tiles``, also the persistent grid: as many CTAs as the card holds
-    at once, fewer when there are fewer tile groups' worth of tiles. Raises
-    ``ValueError`` for ``n + m`` beyond the kernel, for a tile whose CTA
-    needs more shared memory than :data:`SMEM_LIMIT` or more threads than
-    the launch bounds, and for a card that holds no such CTA: a request is
-    never shrunk."""
+    """How the kernel is launched for ``tile``: its mode
+    (:func:`kernel_lanes`), the lanes of a tile, the tile groups a CTA holds
+    (as many as fit :data:`CTA_THREADS` and :data:`SMEM_LIMIT`), its threads
+    and shared memory (``csrc/admm_kernel.cu::smem_floats``: the staged
+    operator, per quad of rows ``G``, ``q``, a scratch vector, ``l`` and
+    ``u``, per group an exchange area). Given the card's occupancy
+    (``ctas_per_sm``, ``sms``) and ``n_tiles``, also the persistent grid: as
+    many CTAs as the card holds at once, fewer when there are fewer tile
+    groups' worth of tiles. Raises ``ValueError`` for ``n + m`` beyond the
+    kernel, for a tile whose CTA needs more shared memory than
+    :data:`SMEM_LIMIT` or more threads than the launch bounds, and for a
+    card that holds no such CTA: a request is never shrunk."""
     K = n + m
     if tile < 1:
         raise ValueError("tile must be positive")
-    if K > 16 * MAX_COLS:
-        raise ValueError(f"n + m = {K} exceeds the kernel's {16 * MAX_COLS}")
-    qpg = _quads_per_tile(tile)
-    per_tile = 16 * qpg
-    Kp = 16 * -(-K // 16)
-    op = K * Kp + n * Kp + 2 * m * n + n * n + (m * m + n * n if polish else 0)
+    lanes = kernel_lanes(n, m, polish)
+    qpg = _quads_per_tile(tile, lanes)
+    per_tile = lanes * qpg
+    warps = qpg if lanes == 32 else max(1, qpg // 2)
 
     def smem(groups):
-        return 4 * (-(-op // 4) * 4 + groups * qpg * 4 * (2 * K + n + 2 * m)
-                    + groups * (2 * max(1, qpg // 2) * 8 + 2))
+        return _smem_bytes(n, m, tile, polish, groups, lanes)
 
     # half-warp tiles come in pairs (whole warps); named barriers 1-15
-    step = 2 if qpg == 1 else 1
-    most = CTA_THREADS // per_tile if qpg <= 2 else min(CTA_THREADS // per_tile, 15)
+    step = 2 if per_tile == 16 else 1
+    most = CTA_THREADS // per_tile if warps == 1 else min(CTA_THREADS // per_tile, 15)
     tiles_per_cta = max(step, most - most % step)
     while tiles_per_cta > step and smem(tiles_per_cta) > SMEM_LIMIT:
         tiles_per_cta -= step
@@ -321,7 +366,8 @@ def launch_plan(n: int, m: int, tile: int, polish: bool, *, n_tiles: int | None 
         grid = ctas_per_sm * sms
         if n_tiles is not None:
             grid = max(1, min(grid, -(-n_tiles // tiles_per_cta)))
-    return LaunchPlan(per_tile, tiles_per_cta, threads, smem(tiles_per_cta), ctas_per_sm, grid)
+    return LaunchPlan(per_tile, tiles_per_cta, threads, smem(tiles_per_cta), ctas_per_sm, grid,
+                      lanes, -(-K // lanes))
 
 
 def _configure(lib: ctypes.CDLL) -> None:
@@ -330,7 +376,7 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    lib.admm_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.admm_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.admm_smem_bytes.restype = ctypes.c_long
     lib.admm_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_long, ctypes.c_void_p,
                                                         ctypes.c_void_p]
@@ -339,20 +385,21 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.admm_error_string.restype = ctypes.c_char_p
 
 
-def columns(n: int, m: int) -> int:
-    """Columns a lane keeps, ``⌈(n + m) / 16⌉``: the kernel is built once per
-    column count (``-DADMM_COLS``)."""
-    return -(-(n + m) // 16)
+def columns(n: int, m: int, lanes: int = 16) -> int:
+    """Columns a lane keeps, ``⌈(n + m) / lanes⌉``: the kernel is built once
+    per column count and mode (``-DADMM_COLS``, ``-DADMM_LANES``)."""
+    return -(-(n + m) // lanes)
 
 
-def library_name(cols: int) -> str:
-    return f"{LIBRARY}_c{cols}"
+def library_name(cols: int, lanes: int = 16) -> str:
+    return f"{LIBRARY}_c{cols}" + ("_wide" if lanes == 32 else "")
 
 
-def _build_library(cols: int) -> ctypes.CDLL:
+def _build_library(cols: int, lanes: int = 16) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/admm_kernel.cu`` for ``cols``
-    columns a lane."""
-    return load_library(library_name(cols), _SOURCES, _configure, (f"-DADMM_COLS={cols}",))
+    columns a lane and ``lanes`` lanes a quad."""
+    return load_library(library_name(cols, lanes), _SOURCES, _configure,
+                        (f"-DADMM_COLS={cols}", f"-DADMM_LANES={lanes}"))
 
 
 def _check(lib, err: int, what: str) -> None:
@@ -374,7 +421,7 @@ def _launch(W, Wq, A, P, Pinv, S, rho_levels, Einv, Dcinv, q, l, u, x0, y0, *,
     for a in args:
         if a.device != q.device or a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError("kernel operands must be contiguous float32 on one device")
-    lib = _build_library(columns(n, m))
+    lib = _build_library(plan.cols, plan.lanes)
     n_tiles = Bp // tile
     with torch.cuda.device(q.device):
         occ, sms = ctypes.c_int(0), ctypes.c_int(0)
@@ -399,6 +446,8 @@ def _launch(W, Wq, A, P, Pinv, S, rho_levels, Einv, Dcinv, q, l, u, x0, y0, *,
         )
     _check(lib, err, "launch")
     LAUNCHES += 1
+    name = library_name(plan.cols, plan.lanes)
+    LAUNCHES_BY_LIBRARY[name] = LAUNCHES_BY_LIBRARY.get(name, 0) + 1
     return x, z, y, ni
 
 

@@ -651,3 +651,294 @@ def racing_sweep_dynamic(
         "mean_inner_iters": res.logs["kernel_inner_iters"].mean().item(),
     }
     return res, summary
+
+
+# ---------------------------------------------------------------------------
+# The robust, stochastic and output-feedback tiers of the session-2 problem,
+# on the fused ADMM kernel
+# ---------------------------------------------------------------------------
+
+
+def _uniform(generator, shape, lo, hi, dtype=torch.float64):
+    return lo + (hi - lo) * torch.rand(shape, generator=generator, dtype=dtype)
+
+
+def tube_scenarios(generator: torch.Generator, batch: int, steps: int, problem, tube, w_half):
+    """Starts and corner disturbances of :func:`tube_sweep`, on the CPU.
+
+    Feasible starts: ``v`` capped below the tightened v-box and ``p`` far
+    enough from the wall that the worst-case braking (``u_min`` tightened,
+    the disturbance pushing forward every step) still stops before it. Each
+    step's disturbance is a corner of the box, ``±w_half``."""
+    zm, um = tube.z_margin.double().cpu(), tube.u_margin.double().cpu()
+    v_hi = min(15.0, float(problem.v_max - zm[1] - 1.0))
+    u_eff = abs(float(problem.u_min)) - float(um[0]) - float(w_half[1]) / problem.Ts
+    v = _uniform(generator, (batch,), -15.0, v_hi)
+    vp = torch.clamp(v, min=0.0)
+    stop_dist = vp**2 / (2.0 * max(u_eff, 1.0))
+    p_hi = float(problem.p_max - zm[0]) - 2.0 - stop_dist - vp * problem.Ts
+    p = -140.0 + torch.rand(batch, generator=generator, dtype=torch.float64) * (p_hi + 140.0)
+    signs = 2.0 * torch.randint(0, 2, (steps, batch, 2), generator=generator) - 1.0
+    w = signs * torch.as_tensor(w_half, dtype=torch.float64)
+    return torch.stack([p, v], dim=1), w
+
+
+def _sorted(problem, x0s, w, dtype, device):
+    """The scenarios in the compaction order (the disturbances follow their
+    lanes), as ``dtype`` on ``device``."""
+    x0s = x0s.to(dtype=dtype, device=device)
+    w = w.to(dtype=dtype, device=device)
+    order = torch.argsort(boundary_compaction_key(problem.p_max, x0s), stable=True)
+    return x0s[order], w[:, order]
+
+
+def tube_sweep(
+    batch: int,
+    steps: int,
+    generator: torch.Generator | None = None,
+    N: int = 20,
+    w_half=(0.0, 0.45),
+    iters: int = 100,
+    tile: int = DEFAULT_TILE,
+    backend: str = "cuda",
+    rho: float = 0.1,
+    polish: bool = False,
+    mesh=None,
+    dtype=torch.float32,
+    device=None,
+    scenarios=None,
+) -> tuple[BatchSimResult, dict]:
+    """Batched rigid-tube robust MPC of the session-2 braking wall at N=20
+    under adversarial corner disturbances, on ``device`` (the card when
+    ``None``): the nominal tightened solve through the fused ADMM kernel
+    (``backend="cuda"``; ``"twin"`` and ``"xla"`` as
+    :meth:`..solvers.linear_mpc.LinearMPC.batched_policy`), the tube
+    correction two batched products.
+
+    The scenarios come from :func:`tube_scenarios` with ``generator`` (a CPU
+    generator, seed 0 when ``None``), or from ``scenarios = (x0s (B, 2),
+    w (steps, B, 2))``. They are sorted once by
+    :func:`boundary_compaction_key`, the disturbances following their lanes;
+    a 4× adaptive presolve warms step 0; the steps run with ρ fixed
+    (``max_rho_moves=0``) and ``polish``. Returns ``(BatchSimResult,
+    summary)`` with the JAX package's keys."""
+    from ..solvers.linear_mpc import session2_problem
+    from ..solvers.tube import make_tube_mpc
+    from ..utils.precision import set_solver_precision
+
+    if mesh is not None:
+        raise NotImplementedError("mesh sharding is not ported yet: ROADMAP S7.1")
+    set_solver_precision()
+    device = resolve_device(device)
+    problem = session2_problem(N=N)
+    tube = make_tube_mpc(problem, w_half, iters=iters, dtype=dtype, rho=rho, device=device)
+    system = problem.system(dtype, device)
+    if scenarios is None:
+        generator = torch.Generator().manual_seed(0) if generator is None else generator
+        scenarios = tube_scenarios(generator, batch, steps, problem, tube, w_half)
+    x0s, w = _sorted(problem, *scenarios, dtype, device)
+    policy = tube.batched_policy(backend=backend, tile=tile, max_rho_moves=0, polish=polish)
+    inner_warm = tube.inner.presolve_batch_carry(x0s, iters_mult=4, backend=backend, tile=tile)
+    res = simulate_batch(x0s, system, steps, policy, (x0s, inner_warm), disturbances=w)
+
+    x_lo = torch.tensor([problem.p_min, problem.v_min], dtype=dtype, device=device)
+    x_hi = torch.tensor([problem.p_max, problem.v_max], dtype=dtype, device=device)
+    viol = ((res.states > x_hi + 1e-4) | (res.states < x_lo - 1e-4)).any(dim=2).any(dim=0)
+    summary = {
+        "batch": int(batch),
+        "steps": int(steps),
+        "success_rate": res.logs["solver_success"].float().mean().item(),
+        "tube_ok_rate": res.logs["tube_ok"].float().mean().item(),
+        "original_box_violation_frac": viol.float().mean().item(),
+        "backend": backend,
+    }
+    return res, summary
+
+
+def stochastic_scenarios(generator: torch.Generator, batch: int, steps: int, sigma_v: float):
+    """Starts and noise of :func:`stochastic_sweep`, on the CPU: ``p`` in
+    [−130, −70], ``v`` in [10, 20] (the cruise toward the v_max bound),
+    Gaussian velocity noise of deviation ``sigma_v``."""
+    p = _uniform(generator, (batch,), -130.0, -70.0)
+    v = _uniform(generator, (batch,), 10.0, 20.0)
+    w = torch.zeros(steps, batch, 2, dtype=torch.float64)
+    w[:, :, 1] = sigma_v * torch.randn(steps, batch, generator=generator, dtype=torch.float64)
+    return torch.stack([p, v], dim=1), w
+
+
+def stochastic_sweep(
+    batch: int,
+    steps: int,
+    generator: torch.Generator | None = None,
+    N: int = 20,
+    sigma_v: float = 0.12,
+    eps: float = 0.1,
+    iters: int = 200,
+    tile: int = DEFAULT_TILE,
+    backend: str = "cuda",
+    rho: float = 0.01,
+    polish: bool = False,
+    dtype=torch.float32,
+    device=None,
+    scenarios=None,
+) -> tuple[BatchSimResult, dict]:
+    """Batched chance-constrained MPC under Gaussian velocity noise on the
+    v_max-riding cruise, on ``device`` (the card when ``None``): a
+    Monte-Carlo check of the ε-level on the fused ADMM kernel. Reports the
+    violation rate among the near-limit steps (``v > v_max − 3σ``), which the
+    chance constraint holds at or below ``eps``.
+
+    Scenarios from :func:`stochastic_scenarios` (``generator``, seed 0 when
+    ``None``) or ``scenarios = (x0s, w)``; sorted by the compaction key, a 4×
+    presolve, ρ fixed and ``polish`` on the steps, as :func:`tube_sweep`."""
+    from ..solvers.linear_mpc import session2_problem
+    from ..solvers.stochastic import make_stochastic_mpc
+    from ..utils.precision import set_solver_precision
+
+    set_solver_precision()
+    device = resolve_device(device)
+    problem = session2_problem(N=N)
+    ctrl = make_stochastic_mpc(problem, [[0.0, 0.0], [0.0, sigma_v**2]], eps=eps, iters=iters,
+                               dtype=dtype, rho=rho, device=device)
+    system = problem.system(dtype, device)
+    if scenarios is None:
+        generator = torch.Generator().manual_seed(0) if generator is None else generator
+        scenarios = stochastic_scenarios(generator, batch, steps, sigma_v)
+    x0s, w = _sorted(problem, *scenarios, dtype, device)
+    policy = ctrl.batched_policy(backend=backend, tile=tile, max_rho_moves=0, polish=polish)
+    inner_warm = ctrl.inner.presolve_batch_carry(x0s, iters_mult=4, backend=backend, tile=tile)
+    res = simulate_batch(x0s, system, steps, policy, inner_warm, disturbances=w)
+
+    v = res.states[1:, :, 1]
+    near = v > problem.v_max - 3.0 * sigma_v
+    viol = v > problem.v_max
+    n_near = max(near.sum().item(), 1.0)
+    summary = {
+        "batch": int(batch),
+        "steps": int(steps),
+        "eps": float(eps),
+        "success_rate": res.logs["solver_success"].float().mean().item(),
+        "near_limit_violation_rate": viol.sum().item() / n_near,
+        "backend": backend,
+    }
+    return res, summary
+
+
+def mhe_loop_scenarios(generator: torch.Generator, batch: int, steps: int, M: int, ts: float,
+                       process_sigma: float, meas_sigma: float):
+    """Starts, process noise and measurement noise of :func:`mhe_loop_sweep`,
+    on the CPU. The starts keep the backward-consistent warm-up history
+    inside the MHE's box and leave room to brake before the wall."""
+    v0 = _uniform(generator, (batch,), -10.0, 20.0)
+    hist = float(M * ts)
+    p_lo = -145.0 + hist * torch.clamp(v0, min=0.0)
+    p_hi = torch.clamp(-5.0 - hist * torch.clamp(-v0, min=0.0), max=-30.0)
+    p0 = p_lo + torch.rand(batch, generator=generator, dtype=torch.float64) * (p_hi - p_lo)
+    ws = process_sigma * torch.randn(steps, batch, 2, generator=generator, dtype=torch.float64)
+    vs = meas_sigma * torch.randn(steps, batch, 1, generator=generator, dtype=torch.float64)
+    return torch.stack([p0, v0], dim=1), ws, vs
+
+
+def mhe_loop_sweep(
+    batch: int,
+    steps: int,
+    generator: torch.Generator | None = None,
+    N: int = 20,
+    M: int = 10,
+    meas_sigma: float = 0.1,
+    process_sigma: float = 0.02,
+    mpc_iters: int = 200,
+    mpc_rho: float = 0.02,
+    mhe_iters: int = 100,
+    tile: int = DEFAULT_TILE,
+    backend: str = "cuda",
+    dtype=torch.float32,
+    device=None,
+    scenarios=None,
+) -> tuple[BatchSimResult, dict]:
+    """Batched MHE-in-the-loop output feedback: the session-2 braking loop
+    closed on noisy position measurements, on ``device`` (the card when
+    ``None``), both halves on the fused ADMM kernel each step: the bounded
+    linear-MHE windows (:meth:`..estimation.MHE.solve_batch`, the physical
+    box, warm-started window to window; n + m = 44) and the slack-softened
+    session-2 MPC (n + m = 200 at N = 20, the kernel's wide mode).
+    ``backend="twin"`` runs both on the twin.
+
+    Scenarios from :func:`mhe_loop_scenarios` (``generator``, seed 0 when
+    ``None``) or ``scenarios = (x0s, ws (steps, B, 2), vs (steps, B, 1))``.
+    The window buffers start from a backward-consistent constant-velocity
+    history, the MPC from a 4× presolve."""
+    from ..estimation import make_mhe
+    from ..models.linear import LinearSystem
+    from ..solvers.linear_mpc import make_linear_mpc, session2_problem
+    from ..utils.precision import set_solver_precision
+
+    set_solver_precision()
+    device = resolve_device(device)
+    problem = session2_problem(N=N)
+    system = problem.system(dtype, device)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    C = t([[1.0, 0.0]])  # position-only measurement
+    eye2 = torch.eye(2, dtype=dtype, device=device)
+    # the MHE's hard box is the physical envelope, 5 m / 5 m/s over the
+    # operating box: the soft MPC may exceed the operating box transiently
+    mhe = make_mhe(
+        LinearSystem(A=system.A, B=system.B, C=C), process_sigma**2 * eye2,
+        t([[meas_sigma**2]]), P0=0.1 * eye2, M=M,
+        x_min=t([problem.p_min - 5.0, problem.v_min - 5.0]),
+        x_max=t([problem.p_max + 5.0, problem.v_max + 5.0]), iters=mhe_iters,
+    )
+    ctrl = make_linear_mpc(problem, iters=mpc_iters, dtype=dtype, device=device,
+                           soft_state=True, slack_weight=1e4, rho=mpc_rho)
+    mpc_policy = ctrl.batched_policy(backend=backend, tile=tile)
+    if scenarios is None:
+        generator = torch.Generator().manual_seed(0) if generator is None else generator
+        scenarios = mhe_loop_scenarios(generator, batch, steps, M, problem.Ts, process_sigma,
+                                       meas_sigma)
+    x0s, ws, vs = (a.to(dtype=dtype, device=device) for a in scenarios)
+    A, B = system.A, system.B
+
+    def policy(x_batch, step, carry):
+        ys_buf, us_buf, xbar, mpc_carry, mhe_warm = carry
+        y = x_batch @ C.T + vs[step]
+        ys_buf = torch.cat([ys_buf[:, 1:], y[:, None]], dim=1)
+        x_t, X, w, sol = mhe.solve_batch(xbar, us_buf, ys_buf, backend=backend, tile=tile,
+                                         warm=mhe_warm)
+        u, mpc_carry, mpc_aux = mpc_policy(x_t, step, mpc_carry)
+        # frozen-arrival recursion (mhe_trajectory's), batched
+        xbar_next = X[:, 0] @ A.T + u @ B.T + w[:, 0]
+        us_buf = torch.cat([us_buf[:, 1:], u[:, None]], dim=1)
+        aux = {
+            "solver_success": mpc_aux["solver_success"],
+            "mhe_converged": sol.converged,
+            "state_estimate": x_t,
+        }
+        return u, (ys_buf, us_buf, xbar_next, mpc_carry, (sol.x, sol.y)), aux
+
+    # warm-up buffers: a constant-velocity history that ends at x0, with zero
+    # input and zero noise, which the model represents exactly
+    offs = (M - torch.arange(M + 1, dtype=dtype, device=device)) * problem.Ts
+    ys_buf0 = (x0s[:, 0:1] - offs[None, :] * x0s[:, 1:2])[:, :, None]
+    us_buf0 = torch.zeros(batch, M, 1, dtype=dtype, device=device)
+    # the arrival mean is that of the window's head (its oldest state)
+    xbar0 = torch.stack([x0s[:, 0] - M * problem.Ts * x0s[:, 1], x0s[:, 1]], dim=1)
+    mhe_warm0 = (torch.zeros(batch, mhe.op.P.shape[0], dtype=dtype, device=device),
+                 torch.zeros(batch, mhe.op.A_c.shape[0], dtype=dtype, device=device))
+    mpc_warm0 = ctrl.presolve_batch_carry(x0s, iters_mult=4, backend=backend, tile=tile)
+    carry0 = (ys_buf0, us_buf0, xbar0, mpc_warm0, mhe_warm0)
+    res = simulate_batch(x0s, system, steps, policy, carry0, disturbances=ws)
+
+    # the step-t window end estimates the pre-step state (the one measured)
+    tail = (res.logs["state_estimate"] - res.states[:-1])[M + 2:]
+    summary = {
+        "batch": int(batch),
+        "steps": int(steps),
+        "M": int(M),
+        "success_rate": res.logs["solver_success"].float().mean().item(),
+        "mhe_converged_rate": res.logs["mhe_converged"].float().mean().item(),
+        "est_rmse_pos": tail[..., 0].square().mean().sqrt().item(),
+        "est_rmse_vel": tail[..., 1].square().mean().sqrt().item(),
+        # the mean of the two middle values for an even count, as jnp.median
+        "median_final_pos": torch.quantile(res.states[-1][:, 0].abs(), 0.5).item(),
+    }
+    return res, summary

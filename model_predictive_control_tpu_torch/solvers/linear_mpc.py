@@ -2,9 +2,10 @@
 ``solvers/linear_mpc.py``): problem data, controller construction and the
 batch-level receding-horizon policy.
 
-This slice covers the hard-constrained regulation controller with the plain
-``terminal="Q"`` cost. The DARE terminal cost, the terminal set, the soft
-state boxes and reference tracking come with ROADMAP S2.
+Options: the DARE terminal cost, the invariant terminal set, slack-softened
+state boxes, a baked reference and preview tracking, and the ADMM or the
+interior-point solver for single-scenario solves. The differentiable policy
+is not ported yet (ROADMAP S5).
 """
 
 from __future__ import annotations
@@ -15,13 +16,19 @@ import numpy as np
 import torch
 
 from ..models.linear import LinearSystem, session2_dynamics
-from ..ops.condensed import CondensedQP, build_condensed_qp
+from ..ops.condensed import (
+    CondensedQP,
+    SoftCondensedQP,
+    build_condensed_qp,
+    soften_condensed_qp,
+)
 from ..ops.cuda.admm_kernel import DEFAULT_TILE, admm_solve_cuda, admm_solve_twin
+from ..ops.riccati import dare_sda
 from ..utils.device import resolve_device
 from ..utils.precision import set_solver_precision
-from .qp import QPOperator, admm_solve, qp_setup
+from .qp import QPOperator, QPSolution, admm_solve, pdip_solve, qp_setup
 
-_S2 = "not ported yet (ROADMAP S2)"
+_S5 = "the differentiable (implicit) solve is not ported yet: ROADMAP S5"
 # tiled backends: the fused kernel (its twin on CPU tensors), the twin alone
 _TILED = {"cuda": admm_solve_cuda, "twin": admm_solve_twin}
 
@@ -131,15 +138,31 @@ def as_box_problem(problem) -> BoxProblem:
     )
 
 
+def _roll(v, d: int, repeat: bool, axis: int):
+    """Shift ``v`` by ``d`` entries along ``axis``: drop the first ``d``,
+    append the last ``d`` again (``repeat``) or zeros."""
+    size = v.shape[axis]
+    tail = v.narrow(axis, size - d, d) if repeat else torch.zeros_like(v.narrow(axis, 0, d))
+    return torch.cat([v.narrow(axis, d, size - d), tail], dim=axis)
+
+
+def _squeeze(sol: QPSolution) -> QPSolution:
+    """A batch-of-one solution as one scenario's."""
+    return QPSolution(**{f.name: getattr(sol, f.name)[0] for f in dataclasses.fields(sol)})
+
+
 @dataclasses.dataclass(frozen=True)
 class LinearMPC:
-    """Receding-horizon linear MPC over a condensed box-QP. The QP family and
-    its operator are built once; each step solves ``(q, l, u)`` of the
-    measured states."""
+    """Receding-horizon linear MPC over a condensed box-QP (hard, or with
+    slack-softened state boxes). The QP family and its operator are built
+    once; each step solves ``(q, l, u)`` of the measured states."""
 
-    qp: CondensedQP
+    qp: CondensedQP | SoftCondensedQP
     op: QPOperator
     iters: int = 200
+    terminal_P: torch.Tensor | None = None  # the DARE terminal weight, when used
+    solver: str = "admm"
+    soft: bool = False
 
     @property
     def N(self) -> int:
@@ -147,19 +170,97 @@ class LinearMPC:
 
     def _shift_warm(self, x, y, axis: int = 0):
         """Shift a warm start one stage along ``axis``: repeat the last input
-        block of the primal, zero the freed input and state dual rows."""
+        (and slack) block of the primal, zero the freed dual rows of every
+        constraint block. Hard layout ``[ū | (in, st)]``, soft layout
+        ``[ū, s | (in, up, lo, sl)]``."""
         nu, nx, N = self.qp.nu, self.qp.nx, self.qp.N
+        roll = lambda v, d, repeat: _roll(v, d, repeat, axis)
+        if not self.soft:
+            y_in, y_st = torch.split(y, (N * nu, N * nx), dim=axis)
+            y_warm = torch.cat([roll(y_in, nu, False), roll(y_st, nx, False)], dim=axis)
+            return roll(x, nu, True), y_warm
+        ns = N * nx
+        z_u, z_s = torch.split(x, (N * nu, ns), dim=axis)
+        x_warm = torch.cat([roll(z_u, nu, True), roll(z_s, nx, True)], dim=axis)
+        y_in, y_up, y_lo, y_sl = torch.split(y, (N * nu, ns, ns, ns), dim=axis)
+        y_warm = torch.cat(
+            [roll(y_in, nu, False), roll(y_up, nx, False), roll(y_lo, nx, False),
+             roll(y_sl, nx, False)],
+            dim=axis,
+        )
+        return x_warm, y_warm
 
-        def roll(v, d, repeat):
-            size = v.shape[axis]
-            tail = v.narrow(axis, size - d, d) if repeat else torch.zeros_like(
-                v.narrow(axis, 0, d)
-            )
-            return torch.cat([v.narrow(axis, d, size - d), tail], dim=axis)
+    def solve(self, x0, warm=None, q_extra=None, implicit: bool = False):
+        """Solve the MPC QP at one measured state ``x0 (nx,)``: ``(u_traj
+        (N, nu), sol)``. ``q_extra`` adds to the leading entries of the linear
+        term (the ū block; the preview-tracking hook)."""
+        if implicit:
+            raise NotImplementedError(_S5)
+        q, l, u = self.qp.qp_vectors(x0[None])
+        if q_extra is not None:
+            k = q_extra.shape[-1]
+            q = torch.cat([q[:, :k] + q_extra, q[:, k:]], dim=1)
+        if self.solver == "admm":
+            w = None if warm is None else (warm[0][None], warm[1][None])
+            sol = admm_solve(self.op, q, l, u, iters=self.iters, warm=w)
+        elif self.solver == "pdip":
+            sol = pdip_solve(self.op, q, l, u, iters=self.iters)
+        else:
+            raise ValueError(f"unknown solver {self.solver!r}")
+        sol = _squeeze(sol)
+        N, nu = self.qp.N, self.qp.nu
+        return sol.x[: N * nu].reshape(N, nu), sol
 
-        y_in, y_st = torch.split(y, (N * nu, N * nx), dim=axis)
-        y_warm = torch.cat([roll(y_in, nu, False), roll(y_st, nx, False)], dim=axis)
-        return roll(x, nu, True), y_warm
+    def _step(self, x, carry, q_extra=None):
+        warm = carry if (isinstance(carry, tuple) and len(carry) == 2) else None
+        u_traj, sol = self.solve(x, warm=warm, q_extra=q_extra)
+        x_warm, y_warm = self._shift_warm(sol.x, sol.y)
+        aux = {
+            "solver_success": sol.converged,
+            "state_prediction": self.qp.predict_states(x, sol.x),
+            "input_prediction": u_traj,
+            "prim_res": sol.prim_res,
+            "dual_res": sol.dual_res,
+        }
+        if self.soft:
+            aux["max_slack"] = sol.x[self.qp.N * self.qp.nu :].max()
+        return u_traj[0], (x_warm, y_warm), aux
+
+    def policy(self, differentiable: bool = False):
+        """Receding-horizon policy for :func:`..control.simulate.simulate`:
+        carry the shifted warm start ``(x, y)`` (``()`` starts cold), aux
+        ``solver_success``, ``state_prediction (N, nx)``,
+        ``input_prediction (N, nu)``, the residuals (and ``max_slack`` on the
+        soft QP)."""
+        if differentiable:
+            raise NotImplementedError(_S5)
+
+        def policy_fn(x, t, carry):
+            return self._step(x, carry)
+
+        return policy_fn
+
+    def initial_carry(self, dtype=torch.float32, device=None):
+        device = resolve_device(device)
+        return (
+            torch.zeros(self.qp.n, dtype=dtype, device=device),
+            torch.zeros(self.qp.m, dtype=dtype, device=device),
+        )
+
+    def tracking_policy(self, ref_traj: torch.Tensor):
+        """Preview tracking: at step ``t`` the MPC tracks the window
+        ``ref_traj[t+1 : t+1+N]`` of a ``(steps + N, nx)`` reference (padded
+        N rows past the run). Build the controller without ``x_ref``. Aux
+        adds ``ref``, the stage-1 reference of the step."""
+        base = self.qp.base if self.soft else self.qp
+        N = base.N
+
+        def policy_fn(x, t, carry):
+            window = ref_traj[t + 1 : t + 1 + N]
+            u0, carry, aux = self._step(x, carry, q_extra=base.ref_linear_term(window))
+            return u0, carry, dict(aux, ref=window[0])
+
+        return policy_fn
 
     def batched_policy(
         self, backend: str = "cuda", tile: int = DEFAULT_TILE, chunks: int = 2,
@@ -174,7 +275,7 @@ class LinearMPC:
         reference on the card; ``"xla"`` is the per-scenario batched
         :func:`..solvers.qp.admm_solve` with per-scenario ρ adaptation.
         """
-        nu = self.qp.nu
+        nu, N = self.qp.nu, self.qp.N
         if backend not in _TILED and backend != "xla":
             raise ValueError(f"unknown backend {backend!r}")
         kw = {} if probe_iters is None else {"probe_iters": probe_iters}
@@ -197,6 +298,8 @@ class LinearMPC:
                 "prim_res": sol.prim_res,
                 "dual_res": sol.dual_res,
             }
+            if self.soft:
+                aux["max_slack"] = sol.x[:, N * nu :].amax(dim=1)
             return sol.x[:, :nu], (x_warm, y_warm), aux
 
         return policy_fn
@@ -239,32 +342,54 @@ def make_box_mpc(
     x_ref=None,
     rho: float = 0.1,
     soft_state: bool = False,
+    slack_weight: float = 100.0,
+    slack_linear: float = 1.0,
     terminal_set: bool = False,
 ) -> LinearMPC:
     """Build a :class:`LinearMPC` from :class:`BoxProblem` data on ``device``
-    (the card when ``None``) in ``dtype``. Only ``solver="admm"``, ``terminal="Q"``, no reference,
-    no soft boxes and no terminal set are ported so far."""
-    if solver != "admm":
-        raise NotImplementedError(f"solver={solver!r} is {_S2}")
-    if terminal != "Q":
-        raise NotImplementedError(f"terminal={terminal!r} is {_S2}")
-    if soft_state:
-        raise NotImplementedError(f"soft_state is {_S2}")
-    if terminal_set:
-        raise NotImplementedError(f"terminal_set is {_S2}")
-    if x_ref is not None:
-        raise NotImplementedError(f"x_ref tracking is {_S2}")
+    (the card when ``None``) in ``dtype``.
+
+    ``terminal="dare"`` takes the infinite-horizon Riccati solution as the
+    terminal cost; ``terminal_set=True`` (implies it) also bounds ``x_N`` to
+    the certified inner box of the invariant DARE ellipsoid
+    (:func:`.lqr.lqr_terminal_set`) and certifies the origin, so it refuses
+    ``x_ref``. ``soft_state=True`` softens the state boxes with per-stage
+    slacks (quadratic weight ``slack_weight``, ℓ1 weight ``slack_linear``).
+    ``solver`` is ``"admm"`` or ``"pdip"`` for :meth:`LinearMPC.solve`."""
+    if solver not in ("admm", "pdip"):
+        raise ValueError(f"unknown solver {solver!r}")
+    if terminal not in ("Q", "dare"):
+        raise ValueError(f"unknown terminal {terminal!r}")
     set_solver_precision()
     device = resolve_device(device)
     box = as_box_problem(box)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    Q = t(box.Q)
+    A, B, Q, R = t(box.A), t(box.B), t(box.Q), t(box.R)
+    u_min, u_max, x_min, x_max = t(box.u_min), t(box.u_max), t(box.x_min), t(box.x_max)
+
+    terminal_P = None
+    x_term_min = x_term_max = None
+    if terminal_set:
+        if x_ref is not None:
+            raise ValueError("terminal_set certifies the origin; drop x_ref")
+        from .lqr import lqr_terminal_set
+
+        terminal_P, _K, _alpha, d = lqr_terminal_set(A, B, Q, R, x_min, x_max, u_min, u_max)
+        x_term_min, x_term_max = -d, d
+    elif terminal == "dare":
+        terminal_P = dare_sda(A, B, Q, R)
+    QN = Q if terminal_P is None else terminal_P
+
     qp = build_condensed_qp(
-        t(box.A), t(box.B), Q, t(box.R), Q, box.N,
-        u_min=t(box.u_min), u_max=t(box.u_max),
-        x_min=t(box.x_min), x_max=t(box.x_max),
+        A, B, Q, R, QN, box.N, u_min=u_min, u_max=u_max, x_min=x_min, x_max=x_max,
+        x_ref=x_ref, x_term_min=x_term_min, x_term_max=x_term_max,
     )
-    return LinearMPC(qp=qp, op=qp_setup(qp.P, qp.A_c, rho=rho), iters=iters)
+    if soft_state:
+        qp = soften_condensed_qp(qp, slack_weight=slack_weight, slack_linear=slack_linear)
+    return LinearMPC(
+        qp=qp, op=qp_setup(qp.P, qp.A_c, rho=rho), iters=iters, terminal_P=terminal_P,
+        solver=solver, soft=soft_state,
+    )
 
 
 def make_linear_mpc(problem, **kwargs) -> LinearMPC:

@@ -1,5 +1,5 @@
-"""Batched box-constrained QP: operator setup and the per-scenario ADMM path
-(port of ``solvers/qp.py``).
+"""Batched box-constrained QP: operator setup, the per-scenario ADMM path and
+the Mehrotra interior point (port of ``solvers/qp.py``).
 
 Problem form (OSQP convention): ``min ½ xᵀPx + qᵀx  s.t.  l ≤ A_c x ≤ u``.
 The operator (Ruiz scaling, ρ-ladder KKT inverses, polish operators) is built
@@ -209,16 +209,17 @@ def admm_solve(
     )
 
 
-def _polish(op: QPOperator, q, l, u, x, y, z, reg: float = 1e-9):
+def _polish(op: QPOperator, q, l, u, x, y, z, reg: float = 1e-9,
+            lower_active=None, upper_active=None):
     """Active-set polish (OSQP §5.2) on a batch: read the active set off the
-    duals, solve the equality-constrained KKT system, keep the result per
-    scenario only where it is finite, keeps valid dual signs and improves the
-    residuals."""
+    duals (or take the given masks), solve the equality-constrained KKT
+    system, keep the result per scenario only where it is finite, keeps valid
+    dual signs and improves the residuals."""
     dtype = op.P.dtype
     B, n = x.shape
     m = op.A_c.shape[0]
-    lower = y < -1e-12
-    upper = y > 1e-12
+    lower = y < -1e-12 if lower_active is None else lower_active
+    upper = y > 1e-12 if upper_active is None else upper_active
     d = (lower | upper).to(dtype)
     b = torch.where(lower, l, u)
     b = torch.where(torch.isfinite(b), b, torch.zeros_like(b))
@@ -255,4 +256,102 @@ def _polish(op: QPOperator, q, l, u, x, y, z, reg: float = 1e-9):
         torch.where(better, x_p, x),
         torch.where(better, y_p, y),
         torch.where(better, z_p, z),
+    )
+
+
+_BIG = 1e20
+
+
+def pdip_solve(
+    op: QPOperator,
+    q: torch.Tensor,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    iters: int = 25,
+    eps_abs: float | None = None,
+    polish: bool = True,
+) -> QPSolution:
+    """Mehrotra predictor-corrector primal-dual interior point on a batch:
+    ``min ½xᵀPx + qᵀx s.t. Gx ≤ h`` with ``G = [A_c; −A_c]``,
+    ``h = [u; −l]``. Infinite bounds are masked out; a fixed iteration
+    count, each scenario's iterate frozen once converged, then the active-set
+    polish with the active set read off ``λ > s``."""
+    set_solver_precision()
+    dtype = op.P.dtype
+    P, A_c = op.P, op.A_c
+    Bn, n = q.shape
+    m_r = A_c.shape[0]
+    if eps_abs is None:
+        eps_abs = 1e-8 if dtype == torch.float64 else 1e-4
+
+    G = torch.cat([A_c, -A_c], dim=0)
+    h = torch.cat([u, -l], dim=1)
+    finite = torch.isfinite(h)
+    h_safe = torch.where(finite, h, torch.full_like(h, _BIG))
+    mask = finite.to(dtype)
+    count = torch.clamp(mask.sum(dim=1), min=1.0)
+    eye = torch.eye(n, dtype=dtype, device=q.device)
+
+    x = torch.linalg.solve(P + 1e-8 * eye, -q.T).T
+    s = torch.clamp(h_safe - x @ G.T, 1.0, _BIG)
+    lam = mask * (1.0 / s) + (1.0 - mask) * 1e-12
+
+    def newton_dx(W, r_d, r_g, r_s, s, lam):
+        # (P + Gᵀ W G) Δx = −r_d − Gᵀ((λ∘r_g − r_s)/s), masked rows zeroed
+        KKT = P + torch.einsum("ki,bk,kj->bij", G, W, G)
+        rhs = -r_d - (mask * (lam * r_g - r_s) / s) @ G
+        return torch.linalg.solve_ex(KKT, rhs).result
+
+    def step_len(v, dv):
+        ratio = torch.where(dv < 0, -v / torch.where(dv < 0, dv, -1.0), _BIG)
+        ratio = torch.where(mask > 0, ratio, _BIG)
+        return torch.clamp(0.99 * ratio.amin(dim=1), max=1.0)
+
+    eps_machine = torch.finfo(dtype).eps
+    scale = 1.0 + q.abs().amax(dim=1)
+    mu_freeze = 50.0 * eps_machine * scale
+    rd_freeze = 1e3 * eps_machine * scale
+    col = lambda a: a[:, None]
+    for _ in range(iters):
+        r_d = x @ P.T + q + (mask * lam) @ G
+        r_g = mask * (x @ G.T + s - h_safe)
+        mu = (mask * s * lam).sum(dim=1) / count
+        frozen = (mu < mu_freeze) & (r_d.abs().amax(dim=1) < rd_freeze)
+        W = mask * lam / s
+
+        r_s_aff = s * lam
+        dx_aff = newton_dx(W, r_d, r_g, r_s_aff, s, lam)
+        ds_aff = -r_g - (dx_aff @ G.T) * mask
+        dlam_aff = mask * (-r_s_aff - lam * ds_aff) / s
+        a_aff = torch.minimum(step_len(s, ds_aff), step_len(lam, dlam_aff))
+        mu_aff = (mask * (s + col(a_aff) * ds_aff) * (lam + col(a_aff) * dlam_aff)).sum(dim=1) / count
+        sig = (mu_aff / torch.clamp(mu, min=1e-30)) ** 3
+
+        r_s = s * lam + ds_aff * dlam_aff - col(sig * mu)
+        dx = newton_dx(W, r_d, r_g, r_s, s, lam)
+        ds = -r_g - (dx @ G.T) * mask
+        dlam = mask * (-r_s - lam * ds) / s
+
+        a = col(torch.minimum(step_len(s, ds), step_len(lam, dlam)))
+        x_n = x + a * dx
+        s_n = torch.where(mask > 0, s + a * ds, s)
+        lam_n = torch.where(mask > 0, lam + a * dlam, lam)
+        ok = col(~frozen & torch.isfinite(x_n).all(dim=1) & torch.isfinite(s_n).all(dim=1)
+                 & torch.isfinite(lam_n).all(dim=1))
+        x = torch.where(ok, x_n, x)
+        s = torch.where(ok, s_n, s)
+        lam = torch.where(ok, lam_n, lam)
+
+    lam_m = mask * lam
+    y = lam_m[:, :m_r] - lam_m[:, m_r:]
+    z = torch.clamp(x @ A_c.T, l, u)
+    if polish:
+        upper_active = (mask[:, :m_r] > 0) & (lam[:, :m_r] > s[:, :m_r])
+        lower_active = (mask[:, m_r:] > 0) & (lam[:, m_r:] > s[:, m_r:])
+        x, y, z = _polish(op, q, l, u, x, y, z, lower_active=lower_active,
+                          upper_active=upper_active)
+    rp, rd = _unscaled_residuals(op, x, y, z, q)
+    return QPSolution(
+        x=x, z=z, y=y, prim_res=rp, dual_res=rd,
+        converged=_converged(rp, rd, q, eps_abs),
     )

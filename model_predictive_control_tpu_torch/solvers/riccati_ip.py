@@ -658,16 +658,17 @@ def make_stagewise_mpc(
 ) -> StagewiseMPC:
     """Build a :class:`StagewiseMPC` from session-2/3 ``Problem`` (or
     ``BoxProblem``) data on ``device`` in ``dtype``, with horizon ``N``
-    (the problem's own when ``None``). The DARE terminal cost, the terminal
-    set and the parallel-in-horizon solver are not ported yet."""
+    (the problem's own when ``None``). ``terminal="dare"`` takes the
+    infinite-horizon Riccati solution as the terminal weight;
+    ``terminal_set=True`` (implies it) tightens the last stage's state box
+    to the certified inner box of the invariant DARE ellipsoid
+    (:func:`.lqr.lqr_terminal_set`), which makes the bounds per stage
+    ``(N, nx)``: the fused kernel refuses those, ``backend="torch"`` takes
+    them. The parallel-in-horizon solver is not ported yet."""
+    from ..ops.riccati import dare_sda
     from .linear_mpc import as_box_problem
 
-    if terminal == "dare" or terminal_set:
-        raise NotImplementedError(
-            "terminal='dare' and terminal_set need ops/riccati.py and "
-            "solvers/lqr.py, not ported yet: ROADMAP S2.1"
-        )
-    if terminal != "Q":
+    if terminal not in ("Q", "dare"):
         raise ValueError(f"unknown terminal {terminal!r}")
     if parallel:
         raise NotImplementedError(
@@ -676,9 +677,20 @@ def make_stagewise_mpc(
     device = resolve_device(device)
     box = as_box_problem(problem)
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    Q = t(box.Q)
+    A, B, Q, R = t(box.A), t(box.B), t(box.Q), t(box.R)
+    Pf = dare_sda(A, B, Q, R) if terminal == "dare" or terminal_set else Q
+    N_eff = N if N is not None else box.N
+    x_lb, x_ub, u_lb, u_ub = t(box.x_min), t(box.x_max), t(box.u_min), t(box.u_max)
+    if terminal_set:
+        from .lqr import lqr_terminal_set
+
+        _P, _K, _alpha, d = lqr_terminal_set(A, B, Q, R, x_lb, x_ub, u_lb, u_ub)
+        nx = x_lb.shape[0]
+        x_lb = x_lb.expand(N_eff, nx).clone()
+        x_ub = x_ub.expand(N_eff, nx).clone()
+        x_lb[-1] = torch.maximum(x_lb[-1], -d)
+        x_ub[-1] = torch.minimum(x_ub[-1], d)
     return StagewiseMPC(
-        A=t(box.A), B=t(box.B), Q=Q, R=t(box.R), Pf=Q,
-        x_lb=t(box.x_min), x_ub=t(box.x_max), u_lb=t(box.u_min), u_ub=t(box.u_max),
-        N=N if N is not None else box.N, iters=iters, parallel=parallel,
+        A=A, B=B, Q=Q, R=R, Pf=Pf, x_lb=x_lb, x_ub=x_ub, u_lb=u_lb, u_ub=u_ub,
+        N=N_eff, iters=iters, parallel=parallel,
     )

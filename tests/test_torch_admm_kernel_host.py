@@ -147,8 +147,8 @@ static void host_grid(Kn kernel, int grid, int threads, const Params& p) {
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """``cols -> library``: the source built for the host, once per column
-    count."""
+    """``(cols, lanes) -> library``: the source built for the host, once per
+    column count and mode."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source for the host")
     src = K._SOURCES[0].read_text()
@@ -167,11 +167,11 @@ def host_lib(tmp_path_factory):
     (d / "k.cpp").write_text(src)
 
     @functools.lru_cache(maxsize=None)
-    def build(cols):
-        lib = d / f"libadmm_c{cols}.so"
+    def build(cols, lanes=16):
+        lib = d / f"libadmm_c{cols}_l{lanes}.so"
         subprocess.run(
             ["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared", "-pthread", "-w",
-             f"-DADMM_COLS={cols}", str(d / "k.cpp"), "-o", str(lib)],
+             f"-DADMM_COLS={cols}", f"-DADMM_LANES={lanes}", str(d / "k.cpp"), "-o", str(lib)],
             check=True, capture_output=True,
         )
         lib = ctypes.CDLL(str(lib))
@@ -218,8 +218,14 @@ def host_launch(host_lib, monkeypatch):
 
 
 @functools.lru_cache(maxsize=None)
-def _ctrl(N):
+def _ctrl(N, soft=False):
+    """The headline controller at horizon ``N``, or (``soft``) the MHE
+    loop's slack-softened one, whose operator at N = 20 (n = 60, m = 140)
+    takes the wide mode."""
     problem = port.session2_problem(N=N)
+    if soft:
+        return problem, port.make_linear_mpc(problem, iters=200, rho=0.02, soft_state=True,
+                                             slack_weight=1e4, device="cpu")
     return problem, port.make_linear_mpc(problem, iters=80, rho=0.035, dtype=torch.float32,
                                          device="cpu")
 
@@ -230,10 +236,10 @@ def _states(B, seed):
     return torch.as_tensor(x, dtype=torch.float32)
 
 
-def _operands(N, B, seed, warm, **kw):
+def _operands(N, B, seed, warm, soft=False, **kw):
     """The launch's operands for ``B`` session-2 states: cold, or warm from
     a twin presolve shifted one step, as the closed loop launches them."""
-    problem, c = _ctrl(N)
+    problem, c = _ctrl(N, soft)
     x0 = _states(B, seed)
     q, l, u = c.qp.qp_vectors(x0)
     wx = wy = None
@@ -247,10 +253,10 @@ def _operands(N, B, seed, warm, **kw):
     return K.prepare_tiles(c.op, q, l, u, wx, wy, **{**base, **kw})
 
 
-def _gate_budget(got, want, B, N):
+def _gate_budget(got, want, B, N, soft=False):
     """The card test's bars on the launch's outputs; x unscaled (``D x``),
     as the card test compares it."""
-    D = _ctrl(N)[1].op.D
+    D = _ctrl(N, soft)[1].op.D
     x, ni = D * got[0][:B], got[3][:B]
     xr, nir = D * want[0][:B], want[3][:B]
     for a in got:
@@ -316,6 +322,42 @@ def test_warm_with_probe_matches_twin(host_launch, N, tile):
     _gate_budget(got, want, B, N)
 
 
+@pytest.mark.parametrize("tile", [4, 8])
+def test_wide_one_iteration_matches_twin(host_launch, tile):
+    """The wide mode (a warp a quad, the operator read from device memory)
+    on the soft-state operator at N = 20 (n + m = 200), one iteration from a
+    cold start on a ragged batch: x, z and y within 1e-5 of the twin's,
+    relative to each output's ∞-norm."""
+    B = 2 * tile + 1
+    args, kw = _operands(20, B, seed=40 + tile, warm=False, soft=True, iters=1, chunks=1,
+                         probe_iters=0, tile=tile)
+    assert K.launch_plan(60, 140, tile, False).wide
+    got = host_launch(*args, **kw)
+    want = K.admm_solve_tiles_reference(*args, **kw)
+    for a, b, name in zip(got, want, ("x", "z", "y", "iterations")):
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale, msg=name)
+
+
+@pytest.mark.parametrize("polish", [False, True])
+def test_wide_cold_with_rho_moves_matches_twin(host_launch, polish):
+    """The wide mode on the MHE loop's presolve (4× the soft controller's
+    budget in 8 chunks, ρ moves, no probe), polish on and off, tile 8, a
+    ragged batch, on the bars of
+    :func:`test_cold_with_rho_moves_matches_twin` (the polished N = 20 case
+    on iterations only)."""
+    B = 11
+    args, kw = _operands(20, B, seed=7, warm=False, soft=True, iters=800, chunks=8,
+                         probe_iters=0, max_rho_moves=8, polish=polish, tile=8)
+    got = host_launch(*args, **kw)
+    want = K.admm_solve_tiles_reference(*args, **kw)
+    if polish:
+        assert (got[3] == want[3]).float().mean().item() >= 0.9
+        assert all(bool(torch.isfinite(a).all()) for a in got)
+        return
+    _gate_budget(got, want, B, 20, soft=True)
+
+
 def test_converged_masks_match_through_the_wrapper(host_launch):
     """Through the wrapper's solve (scaling, the launch, the unscaled finish)
     at N=20, tile 8, cold with ρ moves (no polish: its FP32 CG is chaotic at
@@ -334,11 +376,19 @@ def test_converged_masks_match_through_the_wrapper(host_launch):
     torch.testing.assert_close(got.x[same], ref.x[same], rtol=0, atol=2e-2)
 
 
-@pytest.mark.parametrize("n, m", [(4, 12), (20, 60), (3, 5), (40, 88)])
+@pytest.mark.parametrize(
+    "n, m", [(4, 12), (20, 60), (3, 5), (40, 88), (22, 22), (20, 80), (60, 140)]
+)
 @pytest.mark.parametrize("tile", [1, 4, 6, 8, 16, 32])
 @pytest.mark.parametrize("polish", [False, True])
 def test_launch_plan_matches_the_source(host_lib, n, m, tile, polish):
-    """``launch_plan``'s shared memory is the source's ``smem_floats``."""
+    """``launch_plan``'s shared memory is the source's ``smem_floats`` in
+    the plan's mode. The MHE window (n + m = 44), the rate-limited MPC (100)
+    and every operator up to 128 stage the operator; the soft-state MPC at
+    N = 20 (200) takes the wide mode, polished or not."""
     plan = K.launch_plan(n, m, tile, polish)
+    assert plan.lanes == (32 if n + m > 128 else 16)
+    assert plan.cols == K.columns(n, m, plan.lanes)
     lib = host_lib(K.columns(20, 60))  # the reckoning does not depend on the build
-    assert plan.smem_bytes == lib.admm_smem_bytes(n, m, tile, int(polish), plan.tiles_per_cta)
+    assert plan.smem_bytes == lib.admm_smem_bytes(n, m, tile, int(polish), plan.tiles_per_cta,
+                                                  plan.lanes)

@@ -103,10 +103,20 @@ def test_xla_backend_matches_jax(setup):
 
 
 def test_unported_options_raise():
+    """What the port still lacks raises, naming its ROADMAP item: the
+    differentiable policy (S5) and the parallel-in-horizon stagewise solver
+    (S6). The linear MPC options of S2 build."""
     problem = port.session2_problem(N=4)
-    for kw in ({"terminal": "dare"}, {"soft_state": True}, {"terminal_set": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP S2"):
-            port.make_linear_mpc(problem, device="cpu", **kw)
+    ctrl = port.make_linear_mpc(problem, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP S5"):
+        ctrl.policy(differentiable=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP S5"):
+        ctrl.solve(torch.zeros(2), implicit=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP S6"):
+        port.make_stagewise_mpc(problem, parallel=True, device="cpu")
+    for kw in ({"terminal": "dare"}, {"soft_state": True}, {"terminal_set": True},
+               {"solver": "pdip"}, {"x_ref": (-1.0, 0.0)}):
+        port.make_linear_mpc(problem, device="cpu", **kw)
 
 
 def test_port_builds_the_same_controller():

@@ -419,3 +419,96 @@ def test_oversize_stagewise_tile_raises(stagewise):
     with pytest.raises(ValueError, match="group must be one of"):
         KR.stagewise_ip_solve_cuda(*data, x0, N=N, group=16)
     assert KR.LAUNCHES == before
+
+
+@pytest.fixture
+def soft():
+    """The MHE loop's slack-softened controller at N = 20: n = 60, m = 140,
+    the ADMM kernel's wide mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    problem = port.session2_problem(N=20)
+    return problem, port.make_linear_mpc(problem, iters=200, rho=0.02, soft_state=True,
+                                         slack_weight=1e4)
+
+
+@pytest.mark.parametrize("polish", [False, True])
+@pytest.mark.parametrize("tile", [4, 8, 16])
+def test_wide_mode_matches_twin(soft, polish, tile):
+    """The wide mode (a warp a quad of rows, the operator read from device
+    memory) on the presolve's configuration (4× budget in 8 chunks, ρ moves)
+    on a ragged batch, and the warm step after it: the bars of
+    test_kernel_matches_twin (iterations agree on 90% of the scenarios, x
+    within 2e-2 where they do; the polished solve on iterations and its
+    success only, its FP32 CG being chaotic at N = 20)."""
+    problem, c = soft
+    assert K.launch_plan(c.qp.n, c.qp.m, tile, polish).wide
+    x0 = _states(seed=7, batch=B - 5)
+    q, l, u = c.qp.qp_vectors(x0)
+    kw = dict(iters=800, chunks=8, probe_iters=0, tile=tile, polish=polish, return_iters=True)
+    before = K.LAUNCHES
+    got, ni = K.admm_solve_cuda(c.op, q, l, u, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == before + 1
+    ref, ni_ref = K.admm_solve_twin(c.op, q, l, u, **kw)
+    same = ni == ni_ref
+    assert same.float().mean() >= 0.9
+    if polish:
+        assert abs(got.converged.float().mean() - ref.converged.float().mean()) <= 0.05
+    else:
+        torch.testing.assert_close(got.x[same], ref.x[same], rtol=0, atol=2e-2)
+    x1 = problem.system()(x0, ref.x[:, :1])
+    wx, wy = c._shift_warm(ref.x, ref.y, axis=1)
+    q1, l1, u1 = c.qp.qp_vectors(x1)
+    kw = dict(iters=200, tile=tile, polish=polish, return_iters=True)
+    got, ni = K.admm_solve_cuda(c.op, q1, l1, u1, wx, wy, **kw)
+    ref, ni_ref = K.admm_solve_twin(c.op, q1, l1, u1, wx, wy, **kw)
+    same = ni == ni_ref
+    assert same.float().mean() >= 0.9
+    if not polish:
+        torch.testing.assert_close(got.x[same], ref.x[same], rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("path", ["tube", "stochastic", "mhe_loop"])
+def test_new_sweeps_kernel_matches_twin(soft, path):
+    """Each sweep of the robust, stochastic and output-feedback tiers, 64
+    scenarios × 3 steps on the same scenarios through the kernel and
+    through the twin: one launch per solve (the MHE loop: two a step, the
+    MHE windows and the soft MPC in the wide mode). Every path starts from a
+    polished presolve, whose FP32 CG is chaotic at N=20, so the loops are
+    held as chip_smoke.py holds them: final states within 5e-2 on 95% of the
+    scenarios, success masks equal on 95% of the entries."""
+    from model_predictive_control_tpu_torch.parallel import batch as PB
+
+    sweep = getattr(PB, f"{path}_sweep")
+    kw = dict(batch=64, steps=3)
+    before = K.LAUNCHES
+    res_k, _ = sweep(**kw, backend="cuda")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES - before == (2 * 3 + 1 if path == "mhe_loop" else 3 + 1)
+    res_t, _ = sweep(**kw, backend="twin")
+    assert K.LAUNCHES - before == (2 * 3 + 1 if path == "mhe_loop" else 3 + 1)
+    assert res_k.states.is_cuda and bool(torch.isfinite(res_k.states).all())
+    d_final = (res_k.states[-1] - res_t.states[-1]).abs().amax(dim=1)
+    assert (d_final <= 5e-2).float().mean() >= 0.95
+    success = res_k.logs["solver_success"] == res_t.logs["solver_success"]
+    assert success.float().mean() >= 0.95
+
+
+def test_offset_free_and_rate_policies_kernel_match_twin(soft):
+    """One step of the offset-free and the rate-limited batched policies
+    (n + m = 80 and 100, staged) through the kernel and the twin: inputs
+    within 5e-2, one launch each."""
+    from model_predictive_control_tpu_torch.solvers.offset_free import make_offset_free_mpc
+    from model_predictive_control_tpu_torch.solvers.rate_mpc import make_rate_limited_mpc
+
+    x0 = _states(seed=9)
+    of = make_offset_free_mpc(port.session2_problem(N=20), r=-5.0, iters=300)
+    rate = make_rate_limited_mpc(port.session2_problem(N=20), du_max=3.0, iters=400)
+    for ctrl, carry in ((of, of.initial_batch_carry(x0)), (rate, rate.initial_batch_carry(B))):
+        before = K.LAUNCHES
+        u_k, _, aux_k = ctrl.batched_policy(backend="cuda")(x0, 0, carry)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == before + 1
+        u_t, _, aux_t = ctrl.batched_policy(backend="twin")(x0, 0, carry)
+        torch.testing.assert_close(u_k, u_t, rtol=0, atol=5e-2)
