@@ -14,14 +14,17 @@ kernel, and times it:
 - the rest of the linear ADMM family on the same kernel: its wide mode
   (a warp per quad of rows, the operator read from device memory) held to
   the twin on the MHE loop's slack-softened MPC at N=20 (n + m = 200, 4,096
-  scenarios, the polished cold presolve and the first warm step), then the
-  tube sweep (65,536 × 50), the stochastic sweep (65,536 × 50) and the
+  scenarios, the polished cold presolve and the first warm step), the
+  build of the MHE loop's windows (n + m = 44) held to the twin on the
+  loop's own first two batches of windows at 2,048 (cold and warm), then
+  the tube sweep (65,536 × 50), the stochastic sweep (65,536 × 50) and the
   MHE-in-the-loop sweep (2,048 × 50, two launches a step: the MHE windows
   and the soft MPC in the wide mode), each with its launches counted, the
-  contract's quality gates, a kernel-vs-twin closed loop on 256 scenarios ×
-  3 steps (held on the polished config's bars: every path starts from a
-  polished presolve) and one timed round (best of 3, CUDA events around
-  every launch);
+  contract's quality gates, a kernel-vs-twin closed loop on four draws of
+  256 scenarios × 3 steps (every final state within 5e-2 of the twin's or
+  of the twin's algorithm run in float64) and one timed round (best of 3,
+  CUDA events around every launch; the MHE loop's two builds each timed and
+  bounded on a launch of the loop);
 - the nonlinear obstacle-parking sweep (N=30, 2,048 scenarios × 50 steps)
   on the fused AL-iLQR kernel (held to its twin bit for bit at one thread
   per lane and at two thread groups, on the launch's operands and through
@@ -66,6 +69,8 @@ the kernel, idle share) for the port found under ``DIR``: run it on two
 checkouts in one call to compare two versions on one card. ``python3
 chip_smoke.py --long-horizon-phases`` prints where a stagewise-IP launch
 spends its cycles, phase by phase, from a clocked build of the kernel.
+``python3 chip_smoke.py --family-phases`` runs the linear family's phases
+alone (the ADMM kernel's builds they launch, then the phases above).
 """
 
 from __future__ import annotations
@@ -210,8 +215,20 @@ FAMILY = {
                  {"success_rate": (">=", 0.92), "mhe_converged_rate": (">=", 0.99),
                   "est_rmse_pos": ("<=", 0.12), "est_rmse_vel": ("<=", 0.12)}),
 }
-FAMILY_TWIN_SCENARIOS = 256  # kernel-vs-twin closed loop of each path
+# Kernel-vs-twin closed loop of each path, FAMILY_TWIN_SEEDS draws of
+# FAMILY_TWIN_SCENARIOS x FAMILY_TWIN_STEPS, with a third run: the twin's
+# algorithm in float64 arithmetic on the same float32 operands. The steady
+# solves stop loosely (eps (1 + |q|), |q| in the thousands), so two float32
+# programs may stop at different points of that band and part by more than
+# TOL_STATES in a scenario; the witness says which one rounding moved. On
+# the card the kernel repeats bit for bit and the one scenario in 1,024 of
+# the tube and of the MHE loop outside TOL_STATES of the twin lies within
+# 1e-5 of the witness, the twin 6-8e-2 from both (PERF.md section 7). So
+# every final state is held within TOL_STATES of the twin's or of the
+# witness's, and the success rate within TOL_CONV_RATE of either.
+FAMILY_TWIN_SCENARIOS = 256
 FAMILY_TWIN_STEPS = 3
+FAMILY_TWIN_SEEDS = (0, 1, 2, 3)
 # K1's wide mode (n + m = 200: the MHE loop's soft-state MPC at N = 20),
 # held to the twin at WIDE_BATCH scenarios of the MHE loop's starts
 WIDE_BATCH = 4096
@@ -415,6 +432,16 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import model_predictive_control_tpu_torch as port
     from model_predictive_control_tpu_torch.ops.cuda import admm_kernel as K
+
+    if sys.argv[1:2] == ["--family-phases"]:
+        # the linear family's phases alone, on the ADMM kernel's two builds
+        # they launch
+        card = smi()
+        build_all([(K.library_name(c, lanes), lambda c=c, lanes=lanes: K._build_library(c, lanes))
+                   for c, lanes in ((MHE_COLS, 16), (WIDE_COLS, 32), (ADMM_COLS, 16))])
+        print(json.dumps({"kernels": family_phases(torch, port, K, card, torch.device("cuda"))}))
+        phase(None)
+        return 0
     from model_predictive_control_tpu_torch.ops.cuda import ilqr_factory as KF
     from model_predictive_control_tpu_torch.ops.cuda import ilqr_kernel as KI
     from model_predictive_control_tpu_torch.ops.cuda import riccati_ip_kernel as KR
@@ -449,11 +476,11 @@ def main() -> int:
           for nx, nu in ((2, 1), (3, 2)) for g in LH_GROUPS),
     ])
     admm = admm_phases(torch, port, K, card, device)
-    wide = family_phases(torch, port, K, card, device)
+    family = family_phases(torch, port, K, card, device)
     ilqr = ilqr_phases(torch, port, KI, card, device)
     racing = [racing_phases(torch, port, KF, tier, card, device) for tier in RACE_TIERS]
     stagewise = stagewise_phases(torch, port, KR, card, device)
-    kernels = [admm, wide, ilqr, *racing, stagewise]
+    kernels = [admm, *family, ilqr, *racing, stagewise]
     phase(None)
 
     print(json.dumps({"kernels": kernels}))
@@ -754,16 +781,142 @@ def gate_summary(path, summary, gates) -> None:
         raise SystemExit(f"the {path} path misses its gates: {'; '.join(bad)}")
 
 
-def family_phases(torch, port, K, card, device) -> dict:
+def mhe_windows(torch, port, batch, device):
+    """The MHE loop's first two batches of windows at ``batch`` scenarios,
+    as ``mhe_loop_sweep`` poses them to the kernel: ``[(mhe, q, l, u, (wx,
+    wy)), ...]`` of step 0 (its warm start zero: a cold start) and step 1
+    (warm from step 0's solution)."""
+    from model_predictive_control_tpu_torch import estimation
+    from model_predictive_control_tpu_torch.parallel import batch as PB
+
+    seen = []
+    solve = estimation.MHE.solve_batch
+
+    def spy(self, xbars, us, ys, *args, warm=None, **kw):
+        if len(seen) < 2:
+            l, u, _ = self._bounds(us)
+            seen.append((self, self._linear_term(xbars, us, ys), l, u, warm))
+        return solve(self, xbars, us, ys, *args, warm=warm, **kw)
+
+    estimation.MHE.solve_batch = spy
+    try:
+        PB.mhe_loop_sweep(batch, 2, device=device)
+    finally:
+        estimation.MHE.solve_batch = solve
+    return seen
+
+
+def float64_twin(torch, plain):
+    """The twin's algorithm in float64 on the same float32 operands, its
+    results rounded back to float32: a witness of which side float32
+    rounding moved a closed loop to."""
+    def witness(*args, **kw):
+        return tuple(o.float() for o in plain(*(a.double() for a in args), **kw))
+
+    return witness
+
+
+def family_twin_loop(torch, K, sweep, path, device) -> None:
+    """Kernel against twin in closed loop: FAMILY_TWIN_SCENARIOS scenarios x
+    FAMILY_TWIN_STEPS steps of each draw in FAMILY_TWIN_SEEDS through the
+    kernel (twice: it must repeat bit for bit), the twin and the twin's
+    float64 witness. Every scenario's final state lies within TOL_STATES of
+    the twin's or of the witness's; the success rate over all draws within
+    TOL_CONV_RATE of the twin's or of the witness's, and the success masks
+    agree with the twin's on TOL_CONV_AGREE["polished"] of each draw's
+    entries. Every scenario outside TOL_STATES of the twin is printed with
+    its distances to the witness."""
+    d_kt, d_kw, d_tw, agree, succ = [], [], [], [], {"kernel": [], "twin": [], "witness": []}
+    for seed in FAMILY_TWIN_SEEDS:
+        def run(**kw):
+            res, _ = sweep(FAMILY_TWIN_SCENARIOS, FAMILY_TWIN_STEPS, device=device,
+                           generator=torch.Generator().manual_seed(seed), **kw)
+            return res
+
+        got, again, ref = run(), run(), run(backend="twin")
+        plain = K.admm_solve_tiles_reference
+        K.admm_solve_tiles_reference = float64_twin(torch, plain)
+        try:
+            wit = run(backend="twin")
+        finally:
+            K.admm_solve_tiles_reference = plain
+        if not (torch.equal(got.states, again.states) and torch.equal(got.inputs, again.inputs)):
+            raise SystemExit(f"the {path} path's kernel closed loop does not repeat bit for bit")
+        fin = lambda a, b: (a.states[-1] - b.states[-1]).abs().amax(dim=1)
+        d_kt.append(fin(got, ref))
+        d_kw.append(fin(got, wit))
+        d_tw.append(fin(ref, wit))
+        masks = {k: r.logs["solver_success"] for k, r in (("kernel", got), ("twin", ref),
+                                                          ("witness", wit))}
+        for k, v in masks.items():
+            succ[k].append(v)
+        agree.append((masks["kernel"] == masks["twin"]).float().mean().item())
+        print(f"  seed {seed}: success kernel / twin / witness "
+              + " / ".join(f"{v.float().mean().item():.5f}" for v in masks.values())
+              + f", masks agree {agree[-1]:.5f}", flush=True)
+        for i in torch.nonzero(d_kt[-1] > TOL_STATES).flatten().tolist():
+            traj = lambda r: " ".join(f"({a:.4f}, {b:.4f})" for a, b in r.states[:, i].tolist())
+            print(f"  seed {seed} scenario {i} outside {TOL_STATES}: kernel-twin "
+                  f"{d_kt[-1][i].item():.3e}, kernel-witness {d_kw[-1][i].item():.3e}, "
+                  f"twin-witness {d_tw[-1][i].item():.3e}; success kernel "
+                  f"{masks['kernel'][:, i].int().tolist()} twin {masks['twin'][:, i].int().tolist()} "
+                  f"witness {masks['witness'][:, i].int().tolist()}; states kernel {traj(got)}; "
+                  f"twin {traj(ref)}; witness {traj(wit)}", flush=True)
+    d_kt, d_kw, d_tw = (torch.cat(d) for d in (d_kt, d_kw, d_tw))
+    rate = {k: torch.cat(v, dim=1).float().mean().item() for k, v in succ.items()}
+    held = torch.minimum(d_kt, d_kw)
+    rate_d = min(abs(rate["kernel"] - rate["twin"]), abs(rate["kernel"] - rate["witness"]))
+    print(f"{len(FAMILY_TWIN_SEEDS)} draws of {FAMILY_TWIN_SCENARIOS} scenarios x "
+          f"{FAMILY_TWIN_STEPS} steps (the kernel repeats bit for bit): final states of the kernel "
+          f"within {TOL_STATES} of the twin's on {(d_kt <= TOL_STATES).float().mean().item():.5f} "
+          f"of the scenarios (max {d_kt.max().item():.3e}), of the float64 witness's on "
+          f"{(d_kw <= TOL_STATES).float().mean().item():.5f} (max {d_kw.max().item():.3e}); twin "
+          f"to witness within on {(d_tw <= TOL_STATES).float().mean().item():.5f} (max "
+          f"{d_tw.max().item():.3e}); of either, max {held.max().item():.3e} (tol {TOL_STATES}); "
+          f"success kernel {rate['kernel']:.5f}, twin {rate['twin']:.5f}, witness "
+          f"{rate['witness']:.5f} (tol {TOL_CONV_RATE} to either); masks agree {min(agree):.5f} at "
+          f"worst (tol {TOL_CONV_AGREE['polished']})", flush=True)
+    if not (held.max().item() <= TOL_STATES and rate_d <= TOL_CONV_RATE
+            and min(agree) >= TOL_CONV_AGREE["polished"]):
+        raise SystemExit(f"the {path} path's closed loop disagrees with its twin")
+
+
+def loop_launch_entry(torch, K, name, launches, card) -> dict:
+    """The ``kernels`` entry of one instantiation from a closed loop's
+    launches ``[(ms, args, kw, outs), ...]`` (CUDA events around each):
+    prints every launch's time and executed iterations (mean, max over the
+    scenarios), then times the launch of median time after the first (a
+    cold start) alone (the kernel, 10 calls; the twin, 2) and takes its
+    bound from that launch's executed iterations."""
+    print(f"{name}: {len(launches)} launches, ms / mean / max executed iterations: "
+          + ", ".join(f"{ms:.3f}/{o[3].mean().item():.1f}/{o[3].max().item():.0f}"
+                      for ms, _, _, o in launches) + f" [{card}]", flush=True)
+    ms, args, kw, _ = sorted(launches[1:], key=lambda r: r[0])[(len(launches) - 1) // 2]
+    kernel_ms = time_cuda(torch, lambda: K._launch(*args, **kw), 10)
+    twin_ms = time_cuda(torch, lambda: K.admm_solve_tiles_reference(*args, **kw), 2)
+    outs = K._launch(*args, **kw)
+    k = args[9].shape[1] + args[10].shape[1]
+    print(f"{name}: the launch of median time ({ms:.3f} ms in the loop; mean executed "
+          f"{outs[3].mean().item():.2f}, max {outs[3].max().item():.0f}) alone: kernel "
+          f"{kernel_ms:.3f} ms, twin {twin_ms:.3f} ms [{card}]", flush=True)
+    # per scenario and executed iteration: [x | rho z - y] W, 2 (n + m)^2,
+    # and ~12 operations on each of the n + m columns
+    roof = bound(torch, float(outs[3].sum()) * (2 * k * k + 12 * k), [*args, *outs])
+    return {"ms": kernel_ms, "plain_ms": twin_ms, **roof}
+
+
+def family_phases(torch, port, K, card, device) -> list:
     """The rest of the linear ADMM family on K1: the wide mode against its
-    twin on the soft-state MPC at N = 20, then the tube, stochastic and
-    MHE-loop paths at the contract's sizes (launches counted, quality gated,
-    a kernel-vs-twin closed loop, one timed round each). Returns the wide
-    instantiation's entry of the ``kernels`` line."""
+    twin on the soft-state MPC at N = 20, the MHE loop's windows against the
+    twin, then the tube, stochastic and MHE-loop paths at the contract's
+    sizes (launches counted, quality gated, a kernel-vs-twin closed loop
+    with a float64 witness, one timed round each). Returns the ``kernels``
+    entries of the wide instantiation and of the MHE windows' one, each
+    timed and bounded on a launch of the MHE loop."""
     from model_predictive_control_tpu_torch.parallel import batch as PB
 
     problem, ctrl = wide_controller(torch, port, device)
-    wide_name = K.library_name(WIDE_COLS, 32)
+    wide_name, mhe_name = K.library_name(WIDE_COLS, 32), K.library_name(MHE_COLS)
     n, m = ctrl.qp.n, ctrl.qp.m
     plan = K.launch_plan(n, m, K.DEFAULT_TILE, True)
     phase(f"ADMM kernel wide mode vs twin on the card (soft-state MPC, B={WIDE_BATCH}, n={n}, "
@@ -776,8 +929,8 @@ def family_phases(torch, port, K, card, device) -> dict:
     q, l, u = ctrl.qp.qp_vectors(x0s)
     cold_kw = dict(iters=4 * WIDE_ITERS, chunks=8, probe_iters=0, polish=False,
                    tile=K.DEFAULT_TILE, return_iters=True)
-    err = compare(torch, "wide cold", K.admm_solve_cuda(ctrl.op, q, l, u, **cold_kw),
-                  K.admm_solve_twin(ctrl.op, q, l, u, **cold_kw), kind="cold")
+    wide_err = compare(torch, "wide cold", K.admm_solve_cuda(ctrl.op, q, l, u, **cold_kw),
+                       K.admm_solve_twin(ctrl.op, q, l, u, **cold_kw), kind="cold")
     cold_kw["polish"] = True  # the presolve's config
     cold_k = K.admm_solve_cuda(ctrl.op, q, l, u, **cold_kw)
     compare(torch, "wide polished", cold_k, K.admm_solve_twin(ctrl.op, q, l, u, **cold_kw),
@@ -791,25 +944,45 @@ def family_phases(torch, port, K, card, device) -> dict:
     compare(torch, "wide warm polished", K.admm_solve_cuda(ctrl.op, q1, l1, u1, wx, wy, **warm_kw),
             K.admm_solve_twin(ctrl.op, q1, l1, u1, wx, wy, **warm_kw), kind="polished")
     warm_kw["polish"] = False
-    err = max(err, compare(torch, "wide warm", K.admm_solve_cuda(ctrl.op, q1, l1, u1, wx, wy,
-                                                                   **warm_kw),
-                           K.admm_solve_twin(ctrl.op, q1, l1, u1, wx, wy, **warm_kw),
-                           kind="warm"))
+    wide_err = max(wide_err, compare(torch, "wide warm",
+                                     K.admm_solve_cuda(ctrl.op, q1, l1, u1, wx, wy, **warm_kw),
+                                     K.admm_solve_twin(ctrl.op, q1, l1, u1, wx, wy, **warm_kw),
+                                     kind="warm"))
     args, raw_kw = K.prepare_tiles(ctrl.op, q1, l1, u1, wx, wy, iters=WIDE_ITERS, chunks=2,
                                    probe_iters=32, max_rho_moves=None, schedule="uniform",
                                    tile=K.DEFAULT_TILE, cg_iters=40, alpha=1.6, eps_abs=None,
                                    polish=True)
-    kernel_ms = time_cuda(torch, lambda: K._launch(*args, **raw_kw), 10)
-    twin_ms = time_cuda(torch, lambda: K.admm_solve_tiles_reference(*args, **raw_kw), 2)
-    print(f"wide warm step (the MHE loop's MPC solve: {WIDE_ITERS} iterations, probe 32, polish) "
-          f"alone: kernel {kernel_ms:.3f} ms per launch of {WIDE_BATCH}, twin {twin_ms:.3f} ms; "
-          f"{plan.threads_per_tile} threads a tile, {plan.tiles_per_cta} tiles a CTA of "
-          f"{plan.threads} threads, {plan.smem_bytes} bytes of shared memory [{card}]", flush=True)
-    k = n + m
-    outs = K._launch(*args, **raw_kw)
-    roof = bound(torch, float(outs[3].sum()) * (2 * k * k + 12 * k), [*args, *outs])
+    ni = K._launch(*args, **raw_kw)[3]
+    print(f"informational: wide first warm step (the MHE loop's MPC solve: {WIDE_ITERS} "
+          f"iterations, probe 32, polish; executed mean {ni.mean().item():.2f}, max "
+          f"{ni.max().item():.0f}) alone: kernel "
+          f"{time_cuda(torch, lambda: K._launch(*args, **raw_kw), 10):.3f} ms per launch of "
+          f"{WIDE_BATCH}; {plan.threads_per_tile} threads a tile, {plan.tiles_per_cta} tiles a "
+          f"CTA of {plan.threads} threads, {plan.smem_bytes} bytes of shared memory [{card}]",
+          flush=True)
 
-    launches = {}
+    mhe_batch = FAMILY["mhe_loop"][1]
+    windows = mhe_windows(torch, port, mhe_batch, device)
+    mhe = windows[0][0]
+    wn, wm = mhe.op.P.shape[0], mhe.op.A_c.shape[0]
+    phase(f"ADMM kernel vs twin on the MHE loop's windows (B={mhe_batch}, n={wn}, m={wm}, "
+          f"tile={K.DEFAULT_TILE})")
+    wplan = K.launch_plan(wn, wm, K.DEFAULT_TILE, True)
+    if wplan.wide or K.library_name(wplan.cols, wplan.lanes) != mhe_name:
+        raise SystemExit(f"the MHE windows do not take the {mhe_name} build: {wplan}")
+    mhe_err = 0.0
+    for step, (name, (_, q, l, u, (wx, wy))) in enumerate(zip(("cold", "warm"), windows)):
+        kw = dict(iters=mhe.iters, tile=K.DEFAULT_TILE, return_iters=True)
+        compare(torch, f"MHE windows step {step} (the loop's config, polished)",
+                K.admm_solve_cuda(mhe.op, q, l, u, wx, wy, **kw),
+                K.admm_solve_twin(mhe.op, q, l, u, wx, wy, **kw), kind="polished")
+        kw["polish"] = False
+        mhe_err = max(mhe_err, compare(torch, f"MHE windows step {step} ({name})",
+                                       K.admm_solve_cuda(mhe.op, q, l, u, wx, wy, **kw),
+                                       K.admm_solve_twin(mhe.op, q, l, u, wx, wy, **kw),
+                                       kind=name))
+
+    launches, loop = {}, {}
     for path, (name, batch, steps, per_step, gates) in FAMILY.items():
         sweep = getattr(PB, name)
         phase(f"{path} path: {name}({batch}, {steps}), tile {K.DEFAULT_TILE}")
@@ -823,33 +996,15 @@ def family_phases(torch, port, K, card, device) -> dict:
               f"{launches[path][1]}", flush=True)
         if K.LAUNCHES != expected:
             raise SystemExit(f"the {path} path did not go through the kernel once per solve")
-        if path == "mhe_loop" and launches[path][1].get(wide_name, 0) != steps + 1:
-            raise SystemExit("the MHE loop's MPC did not go through the wide mode once per solve")
+        if path == "mhe_loop" and (launches[path][1].get(wide_name, 0) != steps + 1
+                                   or launches[path][1].get(mhe_name, 0) != steps):
+            raise SystemExit("the MHE loop did not go through the wide mode once per MPC solve "
+                             f"and {mhe_name} once per batch of windows")
         if not bool(torch.isfinite(res.states).all()) or res.states.shape != (steps + 1, batch, 2):
             raise SystemExit(f"the {path} path's states: {res.states.shape}, or not finite")
         gate_summary(path, summary, gates)
         del res
-        # kernel against twin in closed loop on the same scenarios. Every
-        # path starts from a polished presolve (the MHE loop polishes every
-        # solve), whose FP32 CG is chaotic at N=20, so the loop is held on
-        # the polished config's bars: success masks and rates, and the share
-        # of scenarios whose final states agree within TOL_STATES
-        sub = dict(batch=FAMILY_TWIN_SCENARIOS, steps=FAMILY_TWIN_STEPS, device=device)
-        got, _ = sweep(**sub)
-        ref, _ = sweep(**sub, backend="twin")
-        d_final = (got.states[-1] - ref.states[-1]).abs().amax(dim=1)
-        s_k, s_t = got.logs["solver_success"], ref.logs["solver_success"]
-        agree = (s_k == s_t).float().mean().item()
-        rate_d = abs(s_k.float().mean().item() - s_t.float().mean().item())
-        within = (d_final <= TOL_STATES).float().mean().item()
-        print(f"{FAMILY_TWIN_SCENARIOS} scenarios x {FAMILY_TWIN_STEPS} steps, kernel vs twin: "
-              f"final states within {TOL_STATES} on {within:.5f} of the scenarios (tol "
-              f"{TOL_CONV_AGREE['polished']}), max {d_final.max().item():.3e}; success masks agree "
-              f"{agree:.5f} (tol {TOL_CONV_AGREE['polished']}), rates differ {rate_d:.5f} (tol "
-              f"{TOL_CONV_RATE})", flush=True)
-        if not (within >= TOL_CONV_AGREE["polished"] and agree >= TOL_CONV_AGREE["polished"]
-                and rate_d <= TOL_CONV_RATE):
-            raise SystemExit(f"the {path} path's closed loop disagrees with its twin")
+        family_twin_loop(torch, K, sweep, path, device)
         # one timed round: best of 3 after a warm-up, then CUDA events around
         # every launch of one more run
         sweep(batch, steps, device=device)
@@ -865,20 +1020,33 @@ def family_phases(torch, port, K, card, device) -> dict:
         print(f"{path}: wall {dt:.4f} s (best of 3: {', '.join(f'{t:.4f}' for t in times)}); "
               f"{batch * steps / dt:.1f} {unit}/s; step {1e3 * dt / steps:.3f} ms [{card}]",
               flush=True)
-        wall, events, _ = timed_sweep(torch, K, sweep, batch, device, steps=steps)
+        kept = []
+        wall, events, _ = timed_sweep(torch, K, sweep, batch, device, steps=steps, kept=kept)
         print_events(wall, events, card)
+        if path == "mhe_loop":
+            for lib in (wide_name, mhe_name):
+                loop[lib] = [(a.elapsed_time(b), *rest) for (a, b), rest in zip(events, kept)
+                             if _library(K, rest[0], rest[1]) == lib]
 
-    return {
-        "name": "admm_tile_kernel (wide mode)",
-        "route": "cuda",
-        "source": "model_predictive_control_tpu_torch/csrc/admm_kernel.cu",
-        "replaces": "model_predictive_control_tpu/ops/pallas/admm_kernel.py:82",
-        "launches": launches["mhe_loop"][1].get(wide_name, 0),
-        "max_abs_err": err,
-        "ms": kernel_ms,
-        "plain_ms": twin_ms,
-        **roof,
-    }
+    entries = []
+    for lib, label, err in ((wide_name, "wide mode", wide_err),
+                            (mhe_name, "MHE windows", mhe_err)):
+        entries.append({
+            "name": f"admm_tile_kernel ({label})",
+            "route": "cuda",
+            "source": "model_predictive_control_tpu_torch/csrc/admm_kernel.cu",
+            "replaces": "model_predictive_control_tpu/ops/pallas/admm_kernel.py:82",
+            "launches": launches["mhe_loop"][1].get(lib, 0),
+            "max_abs_err": err,
+            **loop_launch_entry(torch, K, f"mhe_loop {lib}", loop[lib], card),
+        })
+    return entries
+
+
+def _library(K, args, kw) -> str:
+    """The library a launch with ``args`` and ``kw`` goes through."""
+    plan = K.launch_plan(args[9].shape[1], args[10].shape[1], kw["tile"], kw["polish"])
+    return K.library_name(plan.cols, plan.lanes)
 
 
 def parking_scenarios(torch, port, batch, device):
@@ -919,9 +1087,10 @@ def compare_launches(torch, kernel, name, outs, ref, twin_s, card) -> float:
     return err
 
 
-def timed_launches(torch, K, events):
+def timed_launches(torch, K, events, kept=None):
     """A stand-in for ``K._launch`` that appends a CUDA event pair around
-    each launch to ``events``."""
+    each launch to ``events`` (and, with ``kept``, its ``(args, kwargs,
+    outputs)`` to ``kept``)."""
     launch = K._launch
 
     def timed(*args, **kw):
@@ -930,17 +1099,20 @@ def timed_launches(torch, K, events):
         out = launch(*args, **kw)
         end.record()
         events.append((start, end))
+        if kept is not None:
+            kept.append((args, kw, out))
         return out
 
     return timed
 
 
-def timed_sweep(torch, K, sweep, B, device, **kw):
+def timed_sweep(torch, K, sweep, B, device, kept=None, **kw):
     """One ``sweep(B, steps)`` with CUDA events around every launch of
-    ``K``'s kernel: its wall, the event pairs and its summary."""
+    ``K``'s kernel: its wall, the event pairs and its summary (``kept``: as
+    :func:`timed_launches`)."""
     events = []
     launch = K._launch
-    K._launch = timed_launches(torch, K, events)
+    K._launch = timed_launches(torch, K, events, kept)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()

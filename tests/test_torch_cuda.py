@@ -469,15 +469,51 @@ def test_wide_mode_matches_twin(soft, polish, tile):
         torch.testing.assert_close(got.x[same], ref.x[same], rtol=0, atol=2e-2)
 
 
+def test_mhe_windows_kernel_matches_twin(soft, monkeypatch):
+    """The MHE loop's own windows (n + m = 44, a staged build): its first
+    two batches at 256 scenarios, cold and warm from the first's solution,
+    through the kernel and the twin, with the loop's polish and without:
+    the bars of test_kernel_matches_twin (iterations agree on 90% of the
+    scenarios, x within 2e-2 where they do; the polished solve on
+    iterations and success only)."""
+    from model_predictive_control_tpu_torch import estimation
+    from model_predictive_control_tpu_torch.parallel import batch as PB
+
+    seen = []
+    solve = estimation.MHE.solve_batch
+
+    def spy(self, xbars, us, ys, *args, warm=None, **kw):
+        l, u, _ = self._bounds(us)
+        seen.append((self, self._linear_term(xbars, us, ys), l, u, warm))
+        return solve(self, xbars, us, ys, *args, warm=warm, **kw)
+
+    monkeypatch.setattr(estimation.MHE, "solve_batch", spy)
+    PB.mhe_loop_sweep(256, 2)
+    assert len(seen) == 2
+    for mhe, q, l, u, (wx, wy) in seen:
+        assert not K.launch_plan(q.shape[1], l.shape[1], K.DEFAULT_TILE, True).wide
+        for polish in (True, False):
+            kw = dict(iters=mhe.iters, polish=polish, return_iters=True)
+            got, ni = K.admm_solve_cuda(mhe.op, q, l, u, wx, wy, **kw)
+            ref, ni_ref = K.admm_solve_twin(mhe.op, q, l, u, wx, wy, **kw)
+            same = ni == ni_ref
+            assert same.float().mean() >= 0.9
+            if polish:
+                assert abs(got.converged.float().mean() - ref.converged.float().mean()) <= 0.05
+            else:
+                torch.testing.assert_close(got.x[same], ref.x[same], rtol=0, atol=2e-2)
+
+
 @pytest.mark.parametrize("path", ["tube", "stochastic", "mhe_loop"])
-def test_new_sweeps_kernel_matches_twin(soft, path):
+def test_new_sweeps_kernel_matches_twin(soft, path, monkeypatch):
     """Each sweep of the robust, stochastic and output-feedback tiers, 64
-    scenarios × 3 steps on the same scenarios through the kernel and
-    through the twin: one launch per solve (the MHE loop: two a step, the
-    MHE windows and the soft MPC in the wide mode). Every path starts from a
-    polished presolve, whose FP32 CG is chaotic at N=20, so the loops are
-    held as chip_smoke.py holds them: final states within 5e-2 on 95% of the
-    scenarios, success masks equal on 95% of the entries."""
+    scenarios × 3 steps on the same scenarios through the kernel, the twin
+    and the twin's algorithm in float64 (the witness): one launch per solve
+    (the MHE loop: two a step, the MHE windows and the soft MPC in the wide
+    mode). Held as chip_smoke.py holds them: every final state within 5e-2
+    of the twin's or of the witness's (two float32 programs stop at
+    different points of a loose solve's band; the witness tells which one
+    rounding moved), success masks equal on 95% of the entries."""
     from model_predictive_control_tpu_torch.parallel import batch as PB
 
     sweep = getattr(PB, f"{path}_sweep")
@@ -487,10 +523,14 @@ def test_new_sweeps_kernel_matches_twin(soft, path):
     torch.cuda.synchronize()
     assert K.LAUNCHES - before == (2 * 3 + 1 if path == "mhe_loop" else 3 + 1)
     res_t, _ = sweep(**kw, backend="twin")
+    plain = K.admm_solve_tiles_reference
+    monkeypatch.setattr(K, "admm_solve_tiles_reference", lambda *a, **k: tuple(
+        o.float() for o in plain(*(t.double() for t in a), **k)))
+    res_w, _ = sweep(**kw, backend="twin")
     assert K.LAUNCHES - before == (2 * 3 + 1 if path == "mhe_loop" else 3 + 1)
     assert res_k.states.is_cuda and bool(torch.isfinite(res_k.states).all())
-    d_final = (res_k.states[-1] - res_t.states[-1]).abs().amax(dim=1)
-    assert (d_final <= 5e-2).float().mean() >= 0.95
+    d_final = lambda r: (res_k.states[-1] - r.states[-1]).abs().amax(dim=1)
+    assert torch.minimum(d_final(res_t), d_final(res_w)).max() <= 5e-2
     success = res_k.logs["solver_success"] == res_t.logs["solver_success"]
     assert success.float().mean() >= 0.95
 
