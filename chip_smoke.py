@@ -36,6 +36,19 @@ kernel, and times it:
   groups, on the launch's operands and through the policy; with CUDA
   events around every launch of one sweep, a profiled window and the sweeps
   per tile × group, all informational);
+- the AL-iLQR kernel's operand modes (``refs`` alone, and ``refs``,
+  ``dist``, ``urefs`` together) held to the twin bit for bit on the launches
+  of the offset-free sweeps' first two steps (2,048 × N=15 crosswind,
+  1,024 × N=12 slope parking) at one thread per lane and at two thread
+  groups; then the three loops on those modes, each with its launches
+  counted and the contract's quality gates: ``racing_sweep(2048, 50,
+  backend="pallas-hand")``, ``wind_sweep(2048, 50)`` and
+  ``offset_free_sweep(1024, 240)``, the last two with their ablations
+  (``compensate=False``) showing the offset they remove; a kernel-vs-twin
+  closed loop of each (64 scenarios); and one small run of the
+  per-scenario route on the card (``batched_parking_policy(backend=
+  "torch")``, the batched AL-iLQR with ``torch.func`` derivatives) held
+  against the kernel on the same states;
 - the long-horizon closed loop (session-2 linear MPC on the stagewise
   interior-point solver, N=100, 20 iterations, 4,096 scenarios × 50 steps)
   on the fused stagewise-IP kernel (held to its twin bit for bit at one
@@ -200,6 +213,35 @@ LH_PROFILE_ITERS = 1  # iterations of the profiled plain-torch solve
 LH_SMALL_N = 12  # the nx=3 / nu=2 case (dense R, infinite bounds)
 TOL_LH_STATES = 2e-3  # closed loop, tests/test_pallas_riccati_ip.py:193
 
+# K2's operand modes: the loops on them (BENCH_CONTRACT.json "racing_sweep",
+# "wind_sweep", "offset_free_sweep": batch, steps and the quality gates,
+# read from the file; its solves/s were taken on a TPU: printed, not gated),
+# and the ablations' gates, the JAX package's (tests/test_wind_sweep.py:
+# 117-120, tests/test_offset_free_sweep.py:35-41): the nominal tracker's
+# steady error over 2.5 times the compensated one's, its wind estimate off
+# by more than 1e-3; the nominal parking's median final distance over twice
+# the compensated one's, its d-hat off by more than 5e-3.
+MODE_LOOPS = {
+    # name: (entry point, batch, steps, keywords, contract entry)
+    "racing_hand": ("racing_sweep", 2048, 50, {"backend": "pallas-hand"}, "racing_sweep"),
+    "wind": ("wind_sweep", 2048, 50, {}, "wind_sweep"),
+    "offset_free": ("offset_free_sweep", 1024, 240, {}, "offset_free_sweep"),
+}
+MODE_ABLATIONS = {
+    "wind": (("steady_tracking_error", 2.5), ("wind_estimate_rms_error", 1e-3)),
+    "offset_free": (("median_final_dist", 2.0), ("d_hat_rms_error", 5e-3)),
+}
+MODE_TWIN_SCENARIOS = 64
+MODE_TWIN_STEPS = 2
+TOL_MODE_STATES = 5e-3  # closed loop, tests/test_wind_sweep.py:95-102
+PER_SCENARIO_BATCH = 256
+PER_SCENARIO_STEPS = 2
+# the per-scenario route against the kernel, both float32 at N = 30 with
+# the obstacle, where float32 AL iterations part (ROADMAP queue 3): the
+# median scenario's final state within TOL_PARK_STATES, the success rates
+# within 0.1
+TOL_PER_SCENARIO_SUCCESS = 0.1
+
 # the rest of the linear ADMM family on K1 (BENCH_CONTRACT.json "tube_sweep",
 # "stochastic_sweep", "mhe_loop": batch, steps and the quality gates; the
 # solves/s there were taken on a TPU). Each path's launches per run: a 4x
@@ -256,7 +298,11 @@ PEAK_HBM = 3.35e12  # B/s
 # - Pacejka tracker / RK4x4: one step is 16 model evaluations of 59 plus the
 #   combination, 1,184; the tangents of 8 directions 8 x 2 x 1,184 = ~18,900,
 #   nx=6 algebra ~1,900, rollouts 7 x 1,261.
-FLOPS_STAGE_ITER = {"parking": 3010, "kinematic": 2100, "pacejka": 29600}
+# - parking AL-iLQR in its tracking modes (12 box rows, no clearance):
+#   backward ~600 (Jacobian 45, box rows 54, reference errors 6, Riccati
+#   algebra ~500), the 7 rollouts 7 x 155 (control 22, stage cost with the
+#   reference and input-reference errors 100, Euler step with the offset 31).
+FLOPS_STAGE_ITER = {"parking": 3010, "kinematic": 2100, "pacejka": 29600, "tracking": 1690}
 
 
 def bound(torch, flops: float, tensors) -> dict:
@@ -478,9 +524,10 @@ def main() -> int:
     admm = admm_phases(torch, port, K, card, device)
     family = family_phases(torch, port, K, card, device)
     ilqr = ilqr_phases(torch, port, KI, card, device)
+    modes = mode_phases(torch, port, KI, card, device)
     racing = [racing_phases(torch, port, KF, tier, card, device) for tier in RACE_TIERS]
     stagewise = stagewise_phases(torch, port, KR, card, device)
-    kernels = [admm, *family, ilqr, *racing, stagewise]
+    kernels = [admm, *family, ilqr, modes, *racing, stagewise]
     phase(None)
 
     print(json.dumps({"kernels": kernels}))
@@ -1366,6 +1413,186 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
 
     return {
         "name": "alilqr_tile_kernel",
+        "route": "cuda",
+        "source": "model_predictive_control_tpu_torch/csrc/ilqr_kernel.cu",
+        "replaces": "model_predictive_control_tpu/ops/pallas/ilqr_kernel.py:70",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": twin_ms,
+        **roof,
+    }
+
+
+def contract_gates(name) -> dict:
+    """The quality gates of ``name`` in BENCH_CONTRACT.json: its floors
+    (``>=``) and ceilings (``<=``), without the solves/s (a TPU's rate)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "BENCH_CONTRACT.json")
+    entry = json.load(open(path))[name]
+    gates = {k: (">=", v) for k, v in entry["floors"].items() if k != "solves_per_s"}
+    return {**gates, **{k: ("<=", v) for k, v in entry["ceilings"].items()}}
+
+
+def captured_launches(torch, K, run, count=2) -> list:
+    """The operands and keywords of the first ``count`` launches of ``K``'s
+    kernel while ``run()`` runs: ``[(args, kw), ...]``."""
+    seen = []
+    launch = K._launch
+
+    def spy(*args, **kw):
+        if len(seen) < count:
+            seen.append((args, dict(kw)))
+        return launch(*args, **kw)
+
+    K._launch = spy
+    try:
+        run()
+    finally:
+        K._launch = launch
+    return seen
+
+
+def mode_phases(torch, port, K, card, device) -> dict:
+    """K2's operand modes: the kernel against its twin on the first two
+    launches (cold, warm) of the crosswind and slope sweeps, with all three
+    operands and with ``refs`` alone, at every group of ``PARK_GROUPS`` that
+    fits the default tile, bit for bit; the three loops on the modes
+    (counted, gated, the ablations), the kernel-vs-twin closed loops and
+    the per-scenario route on the card. Returns the modes' ``kernels``
+    entry."""
+    from model_predictive_control_tpu_torch.parallel import batch as PB
+
+    tile = K.DEFAULT_TILE
+    groups = [g for g in PARK_GROUPS if tile * g <= K.MAX_THREADS[g]]
+    phase(f"AL-iLQR kernel's operand modes vs twin on the card (tile {tile}, groups {groups})")
+    err = 0.0
+    for name in ("wind", "offset_free"):
+        entry, B, _, _, _ = MODE_LOOPS[name]
+        sweep = getattr(port, entry)
+        seen = captured_launches(torch, K, lambda: sweep(B, 2, device=device))
+        for (args, kw), when in zip(seen, ("cold", "warm")):
+            kw.pop("group")
+            for mode, operands in (("refs, dist, urefs", args), ("refs alone", (*args[:5], None, None))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = K.al_ilqr_tiles_reference(*operands, **kw)
+                torch.cuda.synchronize()
+                twin_s = time.perf_counter() - t0
+                outs = {g: K._launch(*operands, group=g, **kw) for g in groups}
+                label = f"{name} {when}, {mode} ({B} lanes, N={kw['N']})"
+                err = max(err, compare_launches(torch, "AL-iLQR kernel", label, outs, want, twin_s,
+                                                card))
+
+    phase("the loops on the operand modes (main path)")
+    launches, wind_loop, summaries = 0, None, {}
+    for name, (entry, B, steps, extra, contract) in MODE_LOOPS.items():
+        sweep = getattr(port, entry)
+        for compensate in ((True, False) if name in MODE_ABLATIONS else (None,)):
+            kw = dict(extra, **({} if compensate is None else {"compensate": compensate}))
+            K.LAUNCHES = 0
+            kept = [] if name == "wind" and compensate else None
+            wall, events, summary = timed_sweep(torch, K, sweep, B, device, steps=steps,
+                                                kept=kept, **kw)
+            torch.cuda.synchronize()
+            n = K.LAUNCHES
+            label = f"{entry}({B}, {steps}{''.join(f', {k}={v!r}' for k, v in kw.items())})"
+            print(f"{label}: {n} AL-iLQR kernel launches (expected {steps}); wall {wall:.4f} s, "
+                  f"{B * steps / wall:.1f} solves/s (not gated: the contract's rate is a TPU's) "
+                  f"[{card}]", flush=True)
+            print_events(wall, events, card)
+            if n != steps:
+                raise SystemExit(f"{label} did not go through the kernel once per step")
+            launches += n
+            summaries[(name, compensate)] = summary
+            if compensate is not False:
+                gate_summary(label, summary, contract_gates(contract))
+            else:
+                gate_summary(label, summary, {})
+            if kept is not None:
+                wind_loop = [(a.elapsed_time(b), *rest) for (a, b), rest in zip(events, kept)]
+    for name, rules in MODE_ABLATIONS.items():
+        on, off = summaries[(name, True)], summaries[(name, False)]
+        (ratio_key, ratio), (est_key, est_floor) = rules
+        print(f"{name} ablation: {ratio_key} {off[ratio_key]:.5f} without compensation vs "
+              f"{on[ratio_key]:.5f} with (gate: over {ratio}x); {est_key} {off[est_key]:.5f} "
+              f"(gate: over {est_floor})", flush=True)
+        if not (off[ratio_key] > ratio * on[ratio_key] and off[est_key] > est_floor):
+            raise SystemExit(f"the {name} ablation does not show the offset removed")
+
+    phase(f"kernel-vs-twin closed loops on the modes ({MODE_TWIN_SCENARIOS} scenarios, "
+          f"{MODE_TWIN_STEPS} steps)")
+    launch = K._launch
+    on_twin = lambda *args, group=None, **kw: K.al_ilqr_tiles_reference(*args, **kw)
+    for name, (entry, _, _, extra, _) in MODE_LOOPS.items():
+        finals = {}
+        for side in ("kernel", "twin"):
+            # the twin: the same loop with the launch answered by the twin
+            # on the card's tensors
+            K._launch = launch if side == "kernel" else on_twin
+            try:
+                res, _ = getattr(port, entry)(MODE_TWIN_SCENARIOS, MODE_TWIN_STEPS,
+                                              device=device, **extra)
+            finally:
+                K._launch = launch
+            finals[side] = res.states[-1]
+        a, b = finals["kernel"], finals["twin"]
+        d = (a - b).abs().max().item()
+        print(f"{entry}: final states, kernel vs twin: max {d:.3e}, bitwise equal "
+              f"{torch.equal(a, b)} (tol {TOL_MODE_STATES})", flush=True)
+        if not d <= TOL_MODE_STATES:
+            raise SystemExit(f"the {entry} closed loop disagrees with the twin's")
+
+    phase(f"the per-scenario route on the card: batched_parking_policy(backend='torch'), "
+          f"{PER_SCENARIO_BATCH} scenarios x {PER_SCENARIO_STEPS} steps, N={PARK_N}")
+    base = port.VehicleParameters()
+    plant_params, x0 = parking_scenarios(torch, port, PER_SCENARIO_BATCH, device)
+    S = PER_SCENARIO_BATCH
+    sub = dataclasses.replace(plant_params, acceleration=plant_params.acceleration[:S],
+                              friction=plant_params.friction[:S])
+    out = {}
+    for backend in ("torch", "cuda"):
+        pol = PB.batched_parking_policy(base, PARK_N, PARK_TS, x_obs=PARK_OBSTACLE, backend=backend)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[backend] = port.simulate_batch(x0[:S], port.batched_plant(sub, PARK_TS),
+                                           PER_SCENARIO_STEPS, pol, pol.initial_carry(S, device))
+        torch.cuda.synchronize()
+        print(f"{backend}: {PER_SCENARIO_STEPS} steps in {time.perf_counter() - t0:.2f} s "
+              f"[{card}]", flush=True)
+    d = (out["torch"].states[-1] - out["cuda"].states[-1]).abs().amax(dim=1)
+    succ = {b: o.logs["solver_success"].float().mean().item() for b, o in out.items()}
+    print(f"per-scenario route vs kernel: final states max|dx| median {d.median().item():.3e}, "
+          f"q90 {torch.quantile(d, 0.9).item():.3e}, max {d.max().item():.3e} (median gated at "
+          f"{TOL_PARK_STATES}); success {succ['torch']:.4f} vs {succ['cuda']:.4f} (within "
+          f"{TOL_PER_SCENARIO_SUCCESS})", flush=True)
+    if not (d.median().item() <= TOL_PARK_STATES
+            and abs(succ["torch"] - succ["cuda"]) <= TOL_PER_SCENARIO_SUCCESS):
+        raise SystemExit("the per-scenario route disagrees with the kernel on the card")
+
+    # the entry: the wind loop's launch of median time after the first (a
+    # cold start), timed alone, with the twin and the bound on its operands
+    print("wind loop, ms / mean / max executed inner iterations a launch: "
+          + ", ".join(f"{ms:.3f}/{o[5].mean().item():.1f}/{o[5].max().item():.0f}"
+                      for ms, _, _, o in wind_loop) + f" [{card}]", flush=True)
+    loop_ms, args, kw, _ = sorted(wind_loop[1:], key=lambda r: r[0])[(len(wind_loop) - 1) // 2]
+    kernel_ms = time_cuda(torch, lambda: K._launch(*args, **kw), 10)
+    plain = {k: v for k, v in kw.items() if k != "group"}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = K.al_ilqr_tiles_reference(*args, **plain)
+    torch.cuda.synchronize()
+    twin_ms = 1e3 * (time.perf_counter() - t0)
+    outs = K._launch(*args, **kw)
+    err = max(err, compare_launches(torch, "AL-iLQR kernel", "wind loop's median launch",
+                                    {kw["group"]: outs}, want, twin_ms / 1e3, card))
+    print(f"tracking modes: the wind loop's launch of median time ({loop_ms:.3f} ms in the "
+          f"loop; mean executed {outs[5].mean().item():.2f}) alone: kernel {kernel_ms:.3f} ms "
+          f"(group {kw['group']}), twin {twin_ms:.1f} ms (timed once); {launches} launches in "
+          f"the loops [{card}]", flush=True)
+    roof = bound(torch, FLOPS_STAGE_ITER["tracking"] * kw["N"] * float(outs[5].sum()),
+                 [a for a in args if torch.is_tensor(a)] + list(outs))
+    return {
+        "name": "alilqr_tile_kernel<0, M_TRACK | M_ALL>",
         "route": "cuda",
         "source": "model_predictive_control_tpu_torch/csrc/ilqr_kernel.cu",
         "replaces": "model_predictive_control_tpu/ops/pallas/ilqr_kernel.py:70",

@@ -59,3 +59,67 @@ def stagewise_mpc_from_jax(ctrl, *, device=None, dtype=torch.float32):
     from .solvers.riccati_ip import StagewiseMPC
 
     return from_jax_arrays(ctrl, StagewiseMPC, device=device, dtype=dtype)
+
+
+def _t(value, dtype, device):
+    return torch.as_tensor(np.array(value, dtype=np.float64), dtype=dtype, device=device)
+
+
+def tracking_nmpc_from_jax(ctrl, step_fn, *, device=None, dtype=torch.float32):
+    """A port :class:`~.solvers.nmpc_tracking.TrackingNMPC` from the JAX
+    package's: its weights, input box and reference as tensors of ``dtype``
+    on ``device`` (the card when ``None``), its horizon, tube and budgets;
+    ``step_fn`` is the port's prediction step (a JAX closure cannot be
+    copied)."""
+    from .solvers.nmpc_tracking import TrackingNMPC
+
+    device = resolve_device(device)
+    t = lambda a: _t(a, dtype, device)
+    return TrackingNMPC(step_fn, nx=ctrl.nx, nu=ctrl.nu, N=ctrl.N, Q=t(ctrl.Q), R=t(ctrl.R),
+                        QN=t(ctrl.QN), u_lb=t(ctrl.u_lb), u_ub=t(ctrl.u_ub),
+                        ref_traj=t(ctrl.ref_traj), tube_radius=ctrl.tube_radius,
+                        outer_iters=ctrl.outer_iters, inner_iters=ctrl.inner_iters)
+
+
+def _copy_ekf(port_ctrl, ctrl, dtype, device):
+    """The augmented EKF's covariances as the JAX object holds them (its
+    constructor's scalars are not kept there), copied over the port
+    object's."""
+    for name in ("Qw", "Rv_mat"):
+        setattr(port_ctrl, name, _t(getattr(ctrl, name), dtype, device))
+    return port_ctrl
+
+
+def offset_free_nmpc_from_jax(ctrl, step_fn, obs_fn=None, *, device=None, dtype=torch.float32):
+    """A port :class:`~.solvers.offset_free_nmpc.OffsetFreeNMPC` from the JAX
+    package's: ``r``, ``H``, ``Bd``, the EKF covariances, the weights and
+    boxes as tensors of ``dtype`` on ``device`` (the card when ``None``);
+    ``step_fn`` / ``obs_fn`` are the port's functions."""
+    from .solvers.offset_free_nmpc import OffsetFreeNMPC
+
+    device = resolve_device(device)
+    t = lambda a: None if a is None else _t(a, dtype, device)
+    out = OffsetFreeNMPC(step_fn, nx=ctrl.nx, nu=ctrl.nu, N=ctrl.N, Q=t(ctrl.Q), R=t(ctrl.R),
+                         QN=t(ctrl.QN), u_lb=t(ctrl.u_lb), u_ub=t(ctrl.u_ub), r=t(ctrl.r),
+                         H=t(ctrl.H), Bd=t(ctrl.Bd), obs_fn=obs_fn, x_lb=t(ctrl.x_lb),
+                         x_ub=t(ctrl.x_ub), newton_iters=ctrl.newton_iters,
+                         outer_iters=ctrl.outer_iters, inner_iters=ctrl.inner_iters,
+                         dtype=dtype, device=device)
+    return _copy_ekf(out, ctrl, dtype, device)
+
+
+def disturbance_compensated_tracking_from_jax(ctrl, step_fn, obs_fn=None, *, device=None,
+                                              dtype=torch.float32):
+    """A port :class:`~.solvers.offset_free_nmpc.DisturbanceCompensatedTracking`
+    from the JAX package's, as :func:`offset_free_nmpc_from_jax` (its
+    reference, ``ts`` and re-projection too)."""
+    from .solvers.offset_free_nmpc import DisturbanceCompensatedTracking
+
+    device = resolve_device(device)
+    t = lambda a: _t(a, dtype, device)
+    out = DisturbanceCompensatedTracking(
+        step_fn, nx=ctrl.nx, nu=ctrl.nu, N=ctrl.N, Q=t(ctrl.Q), R=t(ctrl.R), QN=t(ctrl.QN),
+        u_lb=t(ctrl.u_lb), u_ub=t(ctrl.u_ub), ref_traj=t(ctrl.ref_traj), Bd=t(ctrl.Bd),
+        obs_fn=obs_fn, outer_iters=ctrl.outer_iters, inner_iters=ctrl.inner_iters, ts=ctrl.ts,
+        reproject=ctrl.reproject, dtype=dtype, device=device)
+    return _copy_ekf(out, ctrl, dtype, device)

@@ -58,6 +58,16 @@
 //     the outputs in their own buffers;
 //   - __launch_bounds__ caps the registers so that T x G threads fit the
 //     register file: 256 threads at G = 1, 512 at G > 1.
+// Operand modes, chosen at compile time as the Pallas kernel's static track /
+// has_dist / has_uref flags (template parameter MODE, bits M_TRACK, M_DIST,
+// M_UREF): the state costs penalize x - ref_t, the Euler step adds the lane's
+// offset d after the nominal update, the R-cost is on u - uref_t. Each mode's
+// operands are a lane's regions like the rest (R_REF, R_UREF, R_DIST; empty
+// in the modes that do not read them), so the regulation mode (MODE 0) runs
+// the instructions and the layout it ran before the modes existed. Built:
+// MODE 0, M_TRACK and all three, each without and with the obstacle rows; the
+// wrapper gives any other combination as all three, the missing operands zero.
+//
 // On an NVIDIA H100 80GB HBM3 (700 W), 2,048 lanes, N = 30, at tile 16: a
 // warm launch takes 5.4 ms at G = 8 (27.4 ms at G = 1, 10.2 ms at G = 32;
 // 32.0 ms with one thread per lane and the working set in L2); the bound of
@@ -74,6 +84,12 @@
 #define NU 2
 #define NALPHA 7
 #define MAX_CIRCLES 3
+
+// operand modes (the template parameter MODE)
+#define M_TRACK 1  // refs (N+1, 4): state costs on x - ref_t
+#define M_DIST 2   // dist (4): x+ = F(x, u) + d
+#define M_UREF 4   // urefs (N, 2): R-cost on u - uref_t
+#define M_ALL (M_TRACK | M_DIST | M_UREF)
 
 // Threads per lane; one library is built per value (-DALILQR_GROUP=G).
 #ifndef ALILQR_GROUP
@@ -98,6 +114,7 @@ struct Consts {
 
 struct Args {
   const float *x0, *u0, *pp, *lam0;  // (4, Bp), (N, 2, Bp), (2, Bp), (N, nc, Bp)
+  const float *refs, *dist, *urefs;  // (N+1, 4, Bp), (4, Bp), (N, 2, Bp); null when unused
   float *us, *xs, *viol, *conv, *lam, *ni;  // outputs; us, xs, lam are the state
   float* work;  // (rows, Bp): the workspace regions that are not in shared memory
   int N, outer, inner, Bp;
@@ -115,27 +132,30 @@ enum {
 
 // A lane's working set, by region, in the order the wrapper fills shared
 // memory (ops/cuda/ilqr_kernel.py regions). xs, us and lam have their home in
-// the output buffers; the derivative store, the gains and the candidates have
-// theirs in `work`, in this order.
-enum { R_DER, R_GAIN, R_XS, R_US, R_LAM, R_CAND, N_REGIONS };
+// the output buffers, the mode's operands in their inputs; the derivative
+// store, the gains and the candidates have theirs in `work`, in this order.
+enum { R_DER, R_GAIN, R_XS, R_US, R_LAM, R_CAND, R_REF, R_UREF, R_DIST, N_REGIONS };
 
-__host__ __device__ inline int region_floats(int r, int N, int nc) {
+__host__ __device__ inline int region_floats(int r, int N, int nc, int mode) {
   switch (r) {
     case R_DER: return N * ND;
     case R_GAIN: return N * NU * (1 + NX);
     case R_XS: return (N + 1) * NX;
     case R_US: return N * NU;
     case R_LAM: return N * nc;
-    default: return NALPHA * ((N + 1) * NX + N * NU + 1);
+    case R_CAND: return NALPHA * ((N + 1) * NX + N * NU + 1);
+    case R_REF: return mode & M_TRACK ? (N + 1) * NX : 0;
+    case R_UREF: return mode & M_UREF ? N * NU : 0;
+    default: return mode & M_DIST ? NX : 0;
   }
 }
 
 // Floats of one lane's block in shared memory: its regions in `smask`, padded
 // to an odd count (neighbouring lanes then start on different banks).
-__host__ __device__ inline int lane_floats(int smask, int N, int nc) {
+__host__ __device__ inline int lane_floats(int smask, int N, int nc, int mode) {
   int n = 0;
   for (int r = 0; r < N_REGIONS; ++r)
-    if (smask >> r & 1) n += region_floats(r, N, nc);
+    if (smask >> r & 1) n += region_floats(r, N, nc, mode);
   return n | 1;
 }
 
@@ -148,10 +168,12 @@ __device__ __forceinline__ float nmax(float a, float b) {
 __device__ __forceinline__ float relu(float a) { return a < 0.0f ? 0.0f : a; }
 
 // One Euler step of the kinematic bicycle; sin(beta) = K tan(d) / sqrt(1 +
-// K^2 tan^2(d)), so no atan.
+// K^2 tan^2(d)), so no atan. With M_DIST the lane's offset dv is added after
+// the nominal update.
+template <int MODE>
 __device__ __forceinline__ void euler_step(const Consts& c, float acc, float fric,
-                                           float& px, float& py, float& psi,
-                                           float& v, float a, float dl) {
+                                           const float* dv, float& px, float& py,
+                                           float& psi, float& v, float a, float dl) {
   const float t = tanf(dl);
   const float den = sqrtf(1.0f + c.kb2 * t * t);
   const float sinb = c.kb * t / den;
@@ -163,10 +185,17 @@ __device__ __forceinline__ void euler_step(const Consts& c, float acc, float fri
   const float npy = py + c.ts * v * s_pb;
   const float npsi = psi + c.ts * v * sinb * c.inv_lr;
   const float nv = v + c.ts * (acc * a - fric * v);
-  px = npx;
-  py = npy;
-  psi = npsi;
-  v = nv;
+  if (MODE & M_DIST) {
+    px = npx + dv[0];
+    py = npy + dv[1];
+    psi = npsi + dv[2];
+    v = nv + dv[3];
+  } else {
+    px = npx;
+    py = npy;
+    psi = npsi;
+    v = nv;
+  }
 }
 
 // Constraint rows in the reference's order: x - ub (4), lb - x (4),
@@ -205,15 +234,28 @@ __device__ __forceinline__ float quad_x(const Consts& c, float px, float py,
          c.qd[3] * v * v;
 }
 
-// Quadratic cost plus the AL penalty sum_r (act_r^2 - lam_r^2) / (2 mu).
-template <int NC>
+// The state cost Qd e e of e = x (e = x - r with M_TRACK).
+template <int MODE>
+__device__ __forceinline__ float state_cost(const Consts& c, float px, float py, float psi,
+                                            float v, const float* ref) {
+  if (MODE & M_TRACK) return quad_x(c, px - ref[0], py - ref[1], psi - ref[2], v - ref[3]);
+  return quad_x(c, px, py, psi, v);
+}
+
+// Quadratic cost plus the AL penalty sum_r (act_r^2 - lam_r^2) / (2 mu); ref
+// and uref are the stage's references (read with M_TRACK, M_UREF).
+template <int NC, int MODE>
 __device__ __forceinline__ float stage_cost(const Consts& c, float px, float py,
                                             float psi, float v, float a, float dl,
-                                            const float* lam, float mu) {
+                                            const float* lam, float mu, const float* ref,
+                                            const float* uref) {
   constexpr int NCON = 2 * NX + 2 * NU + NC * NC;
   float cr[NCON];
   constraint_rows<NC>(c, px, py, psi, v, a, dl, cr);
-  const float quad = quad_x(c, px, py, psi, v) + (c.rd[0] * a * a + c.rd[1] * dl * dl);
+  const float fa = MODE & M_UREF ? a - uref[0] : a;
+  const float fd = MODE & M_UREF ? dl - uref[1] : dl;
+  const float quad =
+      state_cost<MODE>(c, px, py, psi, v, ref) + (c.rd[0] * fa * fa + c.rd[1] * fd * fd);
   float phi = 0.0f;
 #pragma unroll
   for (int r = 0; r < NCON; ++r) {
@@ -233,9 +275,11 @@ struct Region {
 
 // A lane's views of its working set.
 struct LaneView {
-  Region der, gain, xs, us, lam, cand;
+  Region der, gain, xs, us, lam, cand, ref, uref, dist;
   int nc, N;
   __device__ float& x(int t, int i) const { return xs[t * NX + i]; }
+  __device__ float& r(int t, int i) const { return ref[t * NX + i]; }
+  __device__ float& ur(int t, int j) const { return uref[t * NU + j]; }
   __device__ float& u(int t, int j) const { return us[t * NU + j]; }
   __device__ float& l(int t, int r) const { return lam[t * nc + r]; }
   __device__ float& d(int t, int k) const { return der[t * ND + k]; }
@@ -257,23 +301,39 @@ __device__ __forceinline__ void group_sync(unsigned mask) {
   if (G > 1) __syncwarp(mask);
 }
 
-template <int NC>
+// A stage's references, in registers (left unset in the modes that do not read them).
+template <int MODE>
+__device__ __forceinline__ void stage_refs(const LaneView& w, int t, float* r, float* ur) {
+  if (MODE & M_TRACK) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) r[i] = w.r(t, i);
+  }
+  if ((MODE & M_UREF) && t < w.N) {
+#pragma unroll
+    for (int j = 0; j < NU; ++j) ur[j] = w.ur(t, j);
+  }
+}
+
+template <int NC, int MODE>
 __device__ __forceinline__ float total_cost(const Consts& c, const LaneView& w, float mu) {
   constexpr int NCON = 2 * NX + 2 * NU + NC * NC;
-  float lam[NCON];
+  float lam[NCON], r[NX], ur[NU];
   float cost = 0.0f;
   for (int t = 0; t < w.N; ++t) {
 #pragma unroll
-    for (int r = 0; r < NCON; ++r) lam[r] = w.l(t, r);
-    cost = cost + stage_cost<NC>(c, w.x(t, 0), w.x(t, 1), w.x(t, 2), w.x(t, 3),
-                                 w.u(t, 0), w.u(t, 1), lam, mu);
+    for (int q = 0; q < NCON; ++q) lam[q] = w.l(t, q);
+    stage_refs<MODE>(w, t, r, ur);
+    cost = cost + stage_cost<NC, MODE>(c, w.x(t, 0), w.x(t, 1), w.x(t, 2), w.x(t, 3),
+                                       w.u(t, 0), w.u(t, 1), lam, mu, r, ur);
   }
-  return cost + c.qn * quad_x(c, w.x(w.N, 0), w.x(w.N, 1), w.x(w.N, 2), w.x(w.N, 3));
+  stage_refs<MODE>(w, w.N, r, ur);
+  return cost + c.qn * state_cost<MODE>(c, w.x(w.N, 0), w.x(w.N, 1), w.x(w.N, 2),
+                                        w.x(w.N, 3), r);
 }
 
 // The derivative store of every stage at the stored (x_t, u_t, lam_t): the
 // stages are dealt to the group's members.
-template <int NC, int G>
+template <int NC, int MODE, int G>
 __device__ __forceinline__ void derivatives(const Consts& c, const LaneView& w, float mu,
                                             int member) {
   constexpr int P = NC * NC;
@@ -284,6 +344,8 @@ __device__ __forceinline__ void derivatives(const Consts& c, const LaneView& w, 
   for (int t = member; t < w.N; t += G) {
     const float X[NX] = {w.x(t, 0), w.x(t, 1), w.x(t, 2), w.x(t, 3)};
     const float U[NU] = {w.u(t, 0), w.u(t, 1)};
+    float R[NX], UR[NU];
+    stage_refs<MODE>(w, t, R, UR);
     const float psi = X[2], v = X[3], dl = U[1];
     // Jacobian entries of the Euler step
     const float tn = tanf(dl);
@@ -310,7 +372,7 @@ __device__ __forceinline__ void derivatives(const Consts& c, const LaneView& w, 
     for (int i = 0; i < NX; ++i) {
       const float act_u = relu(w.l(t, i) + mu * (X[i] - c.ubx[i]));
       const float act_l = relu(w.l(t, NX + i) + mu * (c.lbx[i] - X[i]));
-      lx[i] = c.qd2[i] * X[i] + act_u - act_l;
+      lx[i] = c.qd2[i] * (MODE & M_TRACK ? X[i] - R[i] : X[i]) + act_u - act_l;
       const float ind = (act_u > 0.0f ? 1.0f : 0.0f) + (act_l > 0.0f ? 1.0f : 0.0f);
       hd[i] = c.qd2[i] + mu * ind;
     }
@@ -318,7 +380,7 @@ __device__ __forceinline__ void derivatives(const Consts& c, const LaneView& w, 
     for (int j = 0; j < NU; ++j) {
       const float act_u = relu(w.l(t, B0 + j) + mu * (U[j] - c.ubu[j]));
       const float act_l = relu(w.l(t, B0 + NU + j) + mu * (c.lbu[j] - U[j]));
-      lu[j] = c.rd2[j] * U[j] + act_u - act_l;
+      lu[j] = c.rd2[j] * (MODE & M_UREF ? U[j] - UR[j] : U[j]) + act_u - act_l;
       const float ind = (act_u > 0.0f ? 1.0f : 0.0f) + (act_l > 0.0f ? 1.0f : 0.0f);
       huu[j] = c.rd2[j] + mu * ind;
     }
@@ -384,6 +446,7 @@ __device__ __forceinline__ void derivatives(const Consts& c, const LaneView& w, 
 // Riccati sweep over the derivative store; returns whether every stage's
 // regularized Quu was positive definite, and max|Qu|. Every member of the
 // group computes it alike; `store` (one member) writes the gains.
+template <int MODE>
 __device__ __forceinline__ void backward(const Consts& c, const LaneView& w, float acc,
                                          float fric, float reg, bool store, bool& ok_out,
                                          float& grad_out) {
@@ -393,7 +456,7 @@ __device__ __forceinline__ void backward(const Consts& c, const LaneView& w, flo
   float Vx[NX], V[NX][NX];
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
-    Vx[i] = c.qnqd2[i] * w.x(N, i);
+    Vx[i] = c.qnqd2[i] * (MODE & M_TRACK ? w.x(N, i) - w.r(N, i) : w.x(N, i));
 #pragma unroll
     for (int j = 0; j < NX; ++j) V[i][j] = i == j ? c.qnqd2[i] : 0.0f;
   }
@@ -540,16 +603,17 @@ __device__ __forceinline__ void ls_control(float alpha, const float* xh, const f
 // The closed-loop rollouts of the line search, one candidate per member
 // (members 0..6 at G >= 8): candidate s keeps its trajectory in cx / cu and
 // its cost, summed in stage order, in cc.
-template <int NC, int G>
+template <int NC, int MODE, int G>
 __device__ __forceinline__ void rollouts(const Consts& c, const LaneView& w, const float* x0,
-                                         float acc, float fric, float mu, int member) {
+                                         const float* dv, float acc, float fric, float mu,
+                                         int member) {
   constexpr int NCON = 2 * NX + 2 * NU + NC * NC;
 #pragma unroll 1
   for (int s = member; s < NALPHA; s += G) {
     const float alpha = c.alpha[s];
     float px = x0[0], py = x0[1], psi = x0[2], v = x0[3];
     float cost = 0.0f;
-    float xh[NX], uh[NU], kg[NU], Kg[NU * NX], lam[NCON];
+    float xh[NX], uh[NU], kg[NU], Kg[NU * NX], lam[NCON], r[NX], ur[NU];
 #pragma unroll 1
     for (int t = 0; t < w.N; ++t) {
 #pragma unroll
@@ -562,7 +626,8 @@ __device__ __forceinline__ void rollouts(const Consts& c, const LaneView& w, con
 #pragma unroll
       for (int r = 0; r < NU * NX; ++r) Kg[r] = w.Kg(t, r);
 #pragma unroll
-      for (int r = 0; r < NCON; ++r) lam[r] = w.l(t, r);
+      for (int q = 0; q < NCON; ++q) lam[q] = w.l(t, q);
+      stage_refs<MODE>(w, t, r, ur);
       float a, dl;
       ls_control(alpha, xh, uh, kg, Kg, px, py, psi, v, a, dl);
       w.cx(s, t, 0) = px;
@@ -571,14 +636,15 @@ __device__ __forceinline__ void rollouts(const Consts& c, const LaneView& w, con
       w.cx(s, t, 3) = v;
       w.cu(s, t, 0) = a;
       w.cu(s, t, 1) = dl;
-      cost = cost + stage_cost<NC>(c, px, py, psi, v, a, dl, lam, mu);
-      euler_step(c, acc, fric, px, py, psi, v, a, dl);
+      cost = cost + stage_cost<NC, MODE>(c, px, py, psi, v, a, dl, lam, mu, r, ur);
+      euler_step<MODE>(c, acc, fric, dv, px, py, psi, v, a, dl);
     }
     w.cx(s, w.N, 0) = px;
     w.cx(s, w.N, 1) = py;
     w.cx(s, w.N, 2) = psi;
     w.cx(s, w.N, 3) = v;
-    w.cc(s) = cost + c.qn * quad_x(c, px, py, psi, v);
+    stage_refs<MODE>(w, w.N, r, ur);
+    w.cc(s) = cost + c.qn * state_cost<MODE>(c, px, py, psi, v, r);
   }
 }
 
@@ -602,7 +668,7 @@ __device__ __forceinline__ float constraint_row(const Consts& c, const LaneView&
 
 extern __shared__ float lane_blocks[];  // T blocks of lane_floats() floats
 
-template <int NC, int G>
+template <int NC, int MODE, int G>
 __global__ void __launch_bounds__(MAX_THREADS) alilqr_tile_kernel(const Args g, const Consts c) {
   constexpr int NCON = 2 * NX + 2 * NU + NC * NC;
   const int member = threadIdx.x % G, slot = threadIdx.x / G;
@@ -615,10 +681,10 @@ __global__ void __launch_bounds__(MAX_THREADS) alilqr_tile_kernel(const Args g, 
   LaneView w;
   w.nc = NCON;
   w.N = N;
-  float* const block = lane_blocks + (size_t)slot * lane_floats(g.smask, N, NCON);
+  float* const block = lane_blocks + (size_t)slot * lane_floats(g.smask, N, NCON, MODE);
   int in_block = 0, in_work = 0;
   auto place = [&](int r, float* home) {  // called once per region, in region order
-    const int n = region_floats(r, N, NCON);
+    const int n = region_floats(r, N, NCON, MODE);
     Region v;
     if (g.smask >> r & 1) {
       v = Region{block + in_block, 1};
@@ -637,16 +703,29 @@ __global__ void __launch_bounds__(MAX_THREADS) alilqr_tile_kernel(const Args g, 
   w.us = place(R_US, g.us);
   w.lam = place(R_LAM, g.lam);
   w.cand = place(R_CAND, nullptr);
+  // the mode's operands: read where they are, or copied into the lane's block
+  w.ref = place(R_REF, const_cast<float*>(g.refs));
+  w.uref = place(R_UREF, const_cast<float*>(g.urefs));
+  w.dist = place(R_DIST, const_cast<float*>(g.dist));
   const float acc = g.pp[lane], fric = g.pp[Bp + lane];
   float x0[NX];
 #pragma unroll
   for (int i = 0; i < NX; ++i) x0[i] = g.x0[i * Bp + lane];
 
-  // init: controls and multipliers from the warm start, then a rollout (a
-  // chain: one member)
+  // init: controls and multipliers from the warm start (and the mode's
+  // operands kept in shared memory), then a rollout (a chain: one member)
   for (int i = member; i < N * NU; i += G) w.us[i] = g.u0[(size_t)i * Bp + lane];
   for (int i = member; i < N * NCON; i += G) w.lam[i] = g.lam0[(size_t)i * Bp + lane];
+  if ((MODE & M_TRACK) && (g.smask >> R_REF & 1))
+    for (int i = member; i < (N + 1) * NX; i += G) w.ref[i] = g.refs[(size_t)i * Bp + lane];
+  if ((MODE & M_UREF) && (g.smask >> R_UREF & 1))
+    for (int i = member; i < N * NU; i += G) w.uref[i] = g.urefs[(size_t)i * Bp + lane];
+  if ((MODE & M_DIST) && (g.smask >> R_DIST & 1))
+    for (int i = member; i < NX; i += G) w.dist[i] = g.dist[(size_t)i * Bp + lane];
   group_sync<G>(warp);
+  float dv[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) dv[i] = MODE & M_DIST ? w.dist[i] : 0.0f;
   if (member == 0) {
     float px = x0[0], py = x0[1], psi = x0[2], v = x0[3];
     for (int t = 0; t < N; ++t) {
@@ -654,7 +733,7 @@ __global__ void __launch_bounds__(MAX_THREADS) alilqr_tile_kernel(const Args g, 
       w.x(t, 1) = py;
       w.x(t, 2) = psi;
       w.x(t, 3) = v;
-      euler_step(c, acc, fric, px, py, psi, v, w.u(t, 0), w.u(t, 1));
+      euler_step<MODE>(c, acc, fric, dv, px, py, psi, v, w.u(t, 0), w.u(t, 1));
     }
     w.x(N, 0) = px;
     w.x(N, 1) = py;
@@ -670,17 +749,17 @@ __global__ void __launch_bounds__(MAX_THREADS) alilqr_tile_kernel(const Args g, 
   for (int oi = 0; oi < g.outer; ++oi) {
     if (__syncthreads_and((viol < c.viol_tol) && (lam_step < 1e-3f))) break;
     // inner Levenberg-iLQR on the current multipliers
-    float cost = total_cost<NC>(c, w, mu);
+    float cost = total_cost<NC, MODE>(c, w, mu);
     float reg = c.reg_init, grad = INFINITY;
     int it = 0;
     for (; it < g.inner; ++it) {
       if (__syncthreads_and(grad < c.grad_tol)) break;
-      derivatives<NC, G>(c, w, mu, member);
+      derivatives<NC, MODE, G>(c, w, mu, member);
       group_sync<G>(warp);
       bool ok;
-      backward(c, w, acc, fric, reg, member == 0, ok, grad);
+      backward<MODE>(c, w, acc, fric, reg, member == 0, ok, grad);
       group_sync<G>(warp);
-      rollouts<NC, G>(c, w, x0, acc, fric, mu, member);
+      rollouts<NC, MODE, G>(c, w, x0, dv, acc, fric, mu, member);
       group_sync<G>(warp);
       float costs[NALPHA];
       float best = INFINITY;
@@ -748,10 +827,10 @@ __global__ void __launch_bounds__(MAX_THREADS) alilqr_tile_kernel(const Args g, 
   }
 }
 
-template <int NC>
+template <int NC, int MODE>
 static int launch_kernel(const Args& g, const Consts& c, int n_tiles, int tile, size_t bytes,
                          cudaStream_t s) {
-  auto kernel = alilqr_tile_kernel<NC, GROUP>;
+  auto kernel = alilqr_tile_kernel<NC, MODE, GROUP>;
   if (bytes > 48 * 1024) {  // beyond the default, dynamic shared memory is opt-in
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -762,28 +841,37 @@ static int launch_kernel(const Args& g, const Consts& c, int n_tiles, int tile, 
 }
 
 extern "C" int alilqr_tiles_launch(const float* x0, const float* u0, const float* pp,
-                                   const float* lam0, float* us, float* xs, float* viol,
+                                   const float* lam0, const float* refs, const float* dist,
+                                   const float* urefs, float* us, float* xs, float* viol,
                                    float* conv, float* lam, float* ni, float* work,
                                    const float* consts, int n_consts, int N, int n_circ,
-                                   int outer, int inner, int tile, int n_tiles, int group,
-                                   int smask, void* stream) {
+                                   int mode, int outer, int inner, int tile, int n_tiles,
+                                   int group, int smask, void* stream) {
   if (n_consts * sizeof(float) != sizeof(Consts) || N < 1 || tile < 1 || n_tiles < 1 ||
-      group != GROUP || tile * GROUP > MAX_THREADS || smask < 0 || smask >= 1 << N_REGIONS)
+      group != GROUP || tile * GROUP > MAX_THREADS || smask < 0 || smask >= 1 << N_REGIONS ||
+      ((mode & M_TRACK) != 0) != (refs != nullptr) || ((mode & M_DIST) != 0) != (dist != nullptr) ||
+      ((mode & M_UREF) != 0) != (urefs != nullptr))
     return (int)cudaErrorInvalidValue;
   Consts c;
   memcpy(&c, consts, sizeof(Consts));
   Args g;
   g.x0 = x0; g.u0 = u0; g.pp = pp; g.lam0 = lam0;
+  g.refs = refs; g.dist = dist; g.urefs = urefs;
   g.us = us; g.xs = xs; g.viol = viol; g.conv = conv; g.lam = lam; g.ni = ni;
   g.work = work;
   g.N = N; g.outer = outer; g.inner = inner; g.Bp = tile * n_tiles;
   g.smask = smask;
   const int nc = 2 * NX + 2 * NU + n_circ * n_circ;
-  const size_t bytes = smask ? (size_t)tile * lane_floats(smask, N, nc) * sizeof(float) : 0;
+  const size_t bytes =
+      smask ? (size_t)tile * lane_floats(smask, N, nc, mode) * sizeof(float) : 0;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (n_circ) {
-    case 0: return launch_kernel<0>(g, c, n_tiles, tile, bytes, s);
-    case 3: return launch_kernel<3>(g, c, n_tiles, tile, bytes, s);
+  switch (n_circ * 8 + mode) {
+    case 0: return launch_kernel<0, 0>(g, c, n_tiles, tile, bytes, s);
+    case M_TRACK: return launch_kernel<0, M_TRACK>(g, c, n_tiles, tile, bytes, s);
+    case M_ALL: return launch_kernel<0, M_ALL>(g, c, n_tiles, tile, bytes, s);
+    case 24: return launch_kernel<3, 0>(g, c, n_tiles, tile, bytes, s);
+    case 24 + M_TRACK: return launch_kernel<3, M_TRACK>(g, c, n_tiles, tile, bytes, s);
+    case 24 + M_ALL: return launch_kernel<3, M_ALL>(g, c, n_tiles, tile, bytes, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

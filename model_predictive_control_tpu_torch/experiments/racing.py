@@ -2,9 +2,9 @@
 the reference builder of ``experiments/racing.py``).
 
 The kinematic tier tracks at 0.35 m/s inside the kinematic model's velocity
-box; the dynamic Pacejka tier at 1.2 m/s. ``make_racing_mpc``, ``run`` and
-the crosswind demo need the per-scenario tracking controller and are not
-ported yet (ROADMAP S4.2, S7.3).
+box; the dynamic Pacejka tier at 1.2 m/s. ``make_racing_mpc`` builds the
+lap-tracking controller; ``run`` and the crosswind demo are not ported yet
+(ROADMAP S7.3).
 """
 
 from __future__ import annotations
@@ -12,6 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.bicycle import NX, NX_DYNAMIC, dynamic_bicycle_ode, kinematic_bicycle_ode
+from ..models.parameters import VehicleParameters
+from ..ops.integrators import euler, rk4_fine
+from ..solvers.nmpc_tracking import TrackingNMPC
 from ..utils.device import resolve_device
 
 # track + scenario constants (miniature scale: the car is 0.17 m long and the
@@ -70,3 +74,46 @@ def ellipse_reference(
     else:
         ref = np.stack([px, py, psi, np.full(n, speed)], axis=1)
     return torch.as_tensor(ref, dtype=dtype, device=device)
+
+
+def make_racing_mpc(
+    params: VehicleParameters | None = None,
+    N: int = HORIZON,
+    ts: float = TS,
+    steps: int = 200,
+    dynamic: bool = True,
+    tube_radius: float | None = 0.25,
+    speed: float = SPEED,
+    dtype=torch.float32,
+    device=None,
+) -> tuple[TrackingNMPC, torch.Tensor]:
+    """The lap-tracking controller and its reference, on ``device`` (the
+    card when ``None``). The dynamic tier predicts with RK4 over 4 substeps
+    (forward Euler is unstable on the stiff Pacejka yaw mode at ``ts =
+    0.05``, as the JAX package measured), the kinematic tier with Euler."""
+    params = params or VehicleParameters()
+    if dynamic:
+        nx, Q, R = NX_DYNAMIC, Q_DYNAMIC, R_DYNAMIC
+        pred_step = rk4_fine(lambda x, u: dynamic_bicycle_ode(params, x, u), ts, substeps=4)
+    else:
+        nx, Q, R = NX, Q_KINEMATIC, R_KINEMATIC
+        pred_step = euler(lambda x, u: kinematic_bicycle_ode(params, x, u), ts)
+    ref = ellipse_reference(steps + N + 1, speed=speed, ts=ts, dynamic=dynamic, dtype=dtype,
+                            device=device)
+    ctrl = TrackingNMPC(
+        step_fn=pred_step, nx=nx, nu=2, N=N, Q=Q, R=R, QN=[QN_SCALE * q for q in Q],
+        u_lb=[params.min_drive, -params.max_steer], u_ub=[params.max_drive, params.max_steer],
+        ref_traj=ref, tube_radius=tube_radius,
+    )
+    return ctrl, ref
+
+
+def run(*args, **kwargs):
+    """The closed-loop lap demo of the JAX package: not ported yet."""
+    raise NotImplementedError("experiments.racing.run is not ported yet: ROADMAP S7.3")
+
+
+def crosswind_comparison(*args, **kwargs):
+    """The crosswind demo of the JAX package: not ported yet."""
+    raise NotImplementedError(
+        "experiments.racing.crosswind_comparison is not ported yet: ROADMAP S7.3")

@@ -21,6 +21,15 @@ tensors.
 Both work on stage-major operands, ``(stage, row, lane)`` with the padded
 batch last: a warp's lanes then read neighbouring addresses in the kernel.
 
+Operand modes (the Pallas kernel's static ``track`` / ``has_dist`` /
+``has_uref``): ``refs`` (B, N+1, 4) puts the state costs on ``x − ref_t``,
+``dist`` (B, 4) adds an offset to the Euler step after the nominal update,
+``urefs`` (B, N, 2) puts the R-cost on ``u − uref_t``. The kernel is
+instantiated for no operand (the regulation mode, unchanged), ``refs`` alone
+and all three (:data:`KERNEL_MODES`); :func:`prepare_tiles` gives any other
+combination as all three, the missing ones zero, which computes the same
+numbers. The twin follows the same modes.
+
 Lane groups: on the card ``group`` threads serve one lane (the stages of the
 derivative pre-pass and the line-search candidates are dealt to them;
 ``csrc/ilqr_kernel.cu``), so a CTA has ``tile × group`` threads. ``tile``
@@ -49,6 +58,11 @@ ALPHAS = (1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125, 0.01)
 REG_INIT, REG_MIN, REG_MAX = 1.0, 1e-8, 1e8
 MAX_CIRCLES = 3
 KERNEL_CIRCLES = (0, 3)  # the kernel's instantiations (csrc/ilqr_kernel.cu)
+# operand modes, bits as csrc/ilqr_kernel.cu's M_TRACK, M_DIST, M_UREF; the
+# instantiated ones: regulation, tracking, all three
+M_TRACK, M_DIST, M_UREF = 1, 2, 4
+M_ALL = M_TRACK | M_DIST | M_UREF
+KERNEL_MODES = (0, M_TRACK, M_ALL)
 # GPU default scenario tile and thread group, chosen by a tile × group sweep
 # on the H100 at the parking sweep's contract configuration, by the time the
 # sweep spends in the kernel (PERF.md, Findings)
@@ -148,14 +162,15 @@ def _relu(a):
 
 
 def al_ilqr_tiles_reference(
-    x0, u0, pp, lam0, *, N, n_circ, tile, ts, geom, limits, weights,
-    outer_iters, inner_iters, mu_init, mu_scale, mu_max, viol_tol, tol,
+    x0, u0, pp, lam0, refs=None, dist=None, urefs=None, *, N, n_circ, tile, ts, geom,
+    limits, weights, outer_iters, inner_iters, mu_init, mu_scale, mu_max, viol_tol, tol,
 ):
     """Plain-PyTorch twin of the kernel on stage-major padded operands.
 
     ``x0`` is ``(4, Bp)``, ``u0`` ``(N, 2, Bp)``, ``pp`` ``(2, Bp)``
     (acceleration, friction), ``lam0`` ``(N, nc, Bp)``, with ``Bp`` a
-    multiple of ``tile``. Works on ``(Bp/T, T)`` lane views with per-lane
+    multiple of ``tile``; ``refs`` ``(N+1, 4, Bp)``, ``dist`` ``(4, Bp)`` and
+    ``urefs`` ``(N, 2, Bp)`` or ``None`` (the mode's operands). Works on ``(Bp/T, T)`` lane views with per-lane
     masks, tile-wide loop exits and the 7 line-search steps as one leading
     dimension. Every operation is the reference kernel's, in its order.
     Returns ``us (N, 2, Bp)``, ``xs (N+1, 4, Bp)``, ``viol (Bp,)``,
@@ -177,6 +192,9 @@ def al_ilqr_tiles_reference(
 
     x0 = lanes(x0)
     acc, fric = lanes(pp)
+    refs = None if refs is None else lanes(refs)
+    dist = None if dist is None else lanes(dist)
+    urefs = None if urefs is None else lanes(urefs)
     us = lanes(u0).clone()
     lam = lanes(lam0).clone()
     xs = torch.empty(N + 1, NX, nt, T, dtype=f32, device=dev)
@@ -201,12 +219,15 @@ def al_ilqr_tiles_reference(
         sp, cp = torch.sin(psi), torch.cos(psi)
         s_pb = sp * cosb + cp * sinb
         c_pb = cp * cosb - sp * sinb
-        return (
+        xn = (
             px + ts * v * c_pb,
             py + ts * v * s_pb,
             psi + ts * v * sinb * inv_lr,
             v + ts * (acc * a - fric * v),
         )
+        if dist is None:
+            return xn
+        return tuple(xn[i] + dist[i] for i in range(NX))  # the offset after the step
 
     def rows(px, py, psi, v, a, dl):
         """Constraint rows ``(nc, ...)`` in the reference's order."""
@@ -225,38 +246,46 @@ def al_ilqr_tiles_reference(
     def quad_x(px, py, psi, v):
         return QD[0] * px * px + QD[1] * py * py + QD[2] * psi * psi + QD[3] * v * v
 
-    def stage_cost(x, u, lam_t, mu):
+    def state_cost(x, t):
+        """``Qd e e`` of ``e = x`` (``x − refs[t]`` when tracking)."""
+        if refs is None:
+            return quad_x(*x)
+        return quad_x(*(x[i] - refs[t][i] for i in range(NX)))
+
+    def stage_cost(x, u, t, mu):
         c = rows(*x, *u)
-        lam_t = lam_t.reshape(nc, *([1] * (c.ndim - 3)), nt, T)
-        quad = quad_x(*x) + (RD[0] * u[0] * u[0] + RD[1] * u[1] * u[1])
+        lam_t = lam[t].reshape(nc, *([1] * (c.ndim - 3)), nt, T)
+        f = u if urefs is None else (u[0] - urefs[t][0], u[1] - urefs[t][1])
+        quad = state_cost(x, t) + (RD[0] * f[0] * f[0] + RD[1] * f[1] * f[1])
         act = _relu(lam_t + mu * c)
         phi = _seqsum(act * act - lam_t * lam_t)
         return quad + phi / (2.0 * mu)
 
     def total_cost(mu):
-        cost = stage_cost(xs[0], us[0], lam[0], mu)
+        cost = stage_cost(xs[0], us[0], 0, mu)
         for t in range(1, N):
-            cost = cost + stage_cost(xs[t], us[t], lam[t], mu)
-        return cost + QN * quad_x(*xs[N])
+            cost = cost + stage_cost(xs[t], us[t], t, mu)
+        return cost + QN * state_cost(xs[N], N)
 
     def rollout():
         xs[0] = x0
         for t in range(N):
             xs[t + 1] = torch.stack(dyn(*xs[t], *us[t]))
 
-    def stage_derivs(x, u, lam_t, mu):
+    def stage_derivs(x, u, t, mu):
         """lx (4), lu (2), the upper triangle of lxx and diag(luu); lux = 0."""
+        lam_t = lam[t]
         X = torch.stack(list(x))
         act_u = _relu(lam_t[0:NX] + mu * (X - ubx))
         act_l = _relu(lam_t[NX:2 * NX] + mu * (lbx - X))
-        lx = list(qd2 * X + act_u - act_l)
+        lx = list(qd2 * (X if refs is None else X - refs[t]) + act_u - act_l)
         ind = (act_u > 0.0).to(f32) + (act_l > 0.0).to(f32)
         hd = list(qd2 + mu * ind)
         U = torch.stack(list(u))
         b = 2 * NX
         act_u = _relu(lam_t[b:b + NU] + mu * (U - ubu))
         act_l = _relu(lam_t[b + NU:b + 2 * NU] + mu * (lbu - U))
-        lu = list(rd2 * U + act_u - act_l)
+        lu = list(rd2 * (U if urefs is None else U - urefs[t]) + act_u - act_l)
         ind = (act_u > 0.0).to(f32) + (act_l > 0.0).to(f32)
         huu = list(rd2 + mu * ind)
         zero = torch.zeros_like(x[0])
@@ -293,7 +322,7 @@ def al_ilqr_tiles_reference(
 
     def backward(mu, reg):
         """Riccati sweep over (xs, us); writes the gains, returns (ok, grad)."""
-        xN = xs[N]
+        xN = xs[N] if refs is None else xs[N] - refs[N]
         Vx = [2.0 * QN * QD[i] * xN[i] for i in range(NX)]
         full = lambda v: torch.full((nt, T), v, dtype=f32, device=dev)
         zero = full(0.0)
@@ -325,7 +354,7 @@ def al_ilqr_tiles_reference(
             b11 = ts * v * c_pb * bp
             b21 = ts * v * cosb * bp * inv_lr
             b30 = ts * acc
-            lx, lu, hxx, huu = stage_derivs(xs[t], us[t], lam[t], mu)
+            lx, lu, hxx, huu = stage_derivs(xs[t], us[t], t, mu)
             V = lambda i, j: Vxx[i][j]
             Qx = [
                 lx[0] + Vx[0],
@@ -422,11 +451,11 @@ def al_ilqr_tiles_reference(
             du1 = alpha * kg[1] + (Kg[4] * dx[0] + Kg[5] * dx[1] + Kg[6] * dx[2] + Kg[7] * dx[3])
             u = (uh[0] + du0, uh[1] + du1)
             us_p[t] = torch.stack(u)
-            sc = stage_cost(x, u, lam[t], mu)
+            sc = stage_cost(x, u, t, mu)
             cost = sc if cost is None else cost + sc
             x = dyn(*x, *u)
         xs_p[N] = torch.stack(x)
-        return cost + QN * quad_x(*x), xs_p, us_p
+        return cost + QN * state_cost(x, N), xs_p, us_p
 
     def pick(pack, idx):  # (S, R, A, nt, T) -> (S, R, nt, T) at each lane's α
         i = idx.expand(pack.shape[0], pack.shape[1], 1, nt, T)
@@ -569,9 +598,10 @@ def resolve_group(group, tile: int, default: int, groups, max_threads) -> int:
 
 # A lane's working set by region, in the order shared memory is filled
 # (csrc/ilqr_kernel.cu's enum): name, floats per lane, and whether the region
-# has a home outside the workspace (an output buffer).
-def regions(N: int, nc: int) -> tuple:
-    return (
+# has a home outside the workspace (an output or an input buffer). The mode's
+# operands come last: the regulation mode's regions are the first six alone.
+def regions(N: int, nc: int, mode: int = 0) -> tuple:
+    base = (
         ("der", N * N_DERIV, False),  # the derivative store
         ("gain", N * NU * (1 + NX), False),  # k and K
         ("xs", (N + 1) * NX, True),
@@ -579,13 +609,26 @@ def regions(N: int, nc: int) -> tuple:
         ("lam", N * nc, True),
         ("cand", len(ALPHAS) * ((N + 1) * NX + N * NU + 1), False),  # 7 candidates, costs
     )
+    if not mode:
+        return base
+    return base + (
+        ("ref", (N + 1) * NX if mode & M_TRACK else 0, True),
+        ("uref", N * NU if mode & M_UREF else 0, True),
+        ("dist", NX if mode & M_DIST else 0, True),
+    )
 
 
-def launch_plan(N: int, nc: int, tile: int, group: int) -> LaunchPlan:
-    """:func:`plan_launch` for the parking kernel: :data:`GROUPS`,
-    :data:`MAX_THREADS`, :data:`SMEM_LIMIT`."""
-    return plan_launch(regions(N, nc), tile, group, groups=GROUPS, max_threads=MAX_THREADS,
-                       smem_limit=SMEM_LIMIT)
+def launch_plan(N: int, nc: int, tile: int, group: int, mode: int = 0) -> LaunchPlan:
+    """:func:`plan_launch` for the parking kernel in operand ``mode``:
+    :data:`GROUPS`, :data:`MAX_THREADS`, :data:`SMEM_LIMIT`."""
+    return plan_launch(regions(N, nc, mode), tile, group, groups=GROUPS,
+                       max_threads=MAX_THREADS, smem_limit=SMEM_LIMIT)
+
+
+def operand_mode(refs, dist, urefs) -> int:
+    """The mode bits of the operands that are given (not ``None``)."""
+    return ((refs is not None) * M_TRACK | (dist is not None) * M_DIST
+            | (urefs is not None) * M_UREF)
 
 
 def library_name(group: int) -> str:
@@ -594,7 +637,9 @@ def library_name(group: int) -> str:
 
 def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.alilqr_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    # 14 buffers and the constants' address, 10 ints, the stream: every
+    # pointer a c_void_p (a c_int would cut it to 32 bits)
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.alilqr_error_string.argtypes = [ctypes.c_int]
     lib.alilqr_error_string.restype = ctypes.c_char_p
@@ -610,15 +655,20 @@ def _build_library(group: int = 1) -> ctypes.CDLL:
     return lib
 
 
-def _launch(x0, u0, pp, lam0, *, N, n_circ, tile, outer_iters, inner_iters, group=1,
-            **consts):
+def _launch(x0, u0, pp, lam0, refs=None, dist=None, urefs=None, *, N, n_circ, tile,
+            outer_iters, inner_iters, group=1, **consts):
     global LAUNCHES
     if n_circ not in KERNEL_CIRCLES:
         raise ValueError(f"the kernel takes n_circles in {KERNEL_CIRCLES}, not {n_circ}")
+    mode = operand_mode(refs, dist, urefs)
+    if mode not in KERNEL_MODES:
+        raise ValueError(f"the kernel takes the operand modes {KERNEL_MODES}, not {mode} "
+                         "(prepare_tiles fills the missing operands)")
     nc = n_constraints(n_circ)
-    plan = launch_plan(N, nc, tile, group)
-    for a in (x0, u0, pp, lam0):
-        if a.device != x0.device or a.dtype != torch.float32 or not a.is_contiguous():
+    plan = launch_plan(N, nc, tile, group, mode)
+    for a in (x0, u0, pp, lam0, refs, dist, urefs):
+        if a is not None and (a.device != x0.device or a.dtype != torch.float32
+                              or not a.is_contiguous()):
             raise ValueError("kernel operands must be contiguous float32 on one device")
     lib = _build_library(group)
     Bp = x0.shape[-1]
@@ -633,10 +683,12 @@ def _launch(x0, u0, pp, lam0, *, N, n_circ, tile, outer_iters, inner_iters, grou
     values = _consts(n_circ=n_circ, **consts)
     cvals = (ctypes.c_float * len(values))(*values)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda a: None if a is None else a.data_ptr()
     with torch.cuda.device(dev):
         err = lib.alilqr_tiles_launch(
-            *(a.data_ptr() for a in (x0, u0, pp, lam0, us, xs, viol, conv, lam, ni, work)),
-            ctypes.addressof(cvals), len(values), N, n_circ, outer_iters,
+            *(ptr(a) for a in (x0, u0, pp, lam0, refs, dist, urefs, us, xs, viol, conv, lam,
+                               ni, work)),
+            ctypes.addressof(cvals), len(values), N, n_circ, mode, outer_iters,
             inner_iters, tile, Bp // tile, group, plan.smask, stream,
         )
     if err != 0:
@@ -647,24 +699,39 @@ def _launch(x0, u0, pp, lam0, *, N, n_circ, tile, outer_iters, inner_iters, grou
     return us, xs, viol, conv > 0.5, lam, ni
 
 
-def prepare_tiles(x0s, u_init, acc, fric, lam_init, *, N, tile, n_circles):
-    """The kernel's stage-major operands, padded to a tile multiple
-    (``ilqr_kernel.py:851-876`` of the JAX package): padded lanes get zero
-    state, controls and multipliers and parameters of 1.0."""
+def prepare_tiles(x0s, u_init, acc, fric, lam_init, *, N, tile, n_circles, refs=None,
+                  dist=None, urefs=None):
+    """The kernel's stage-major operands ``[x0, u0, pp, lam0, refs, dist,
+    urefs]``, padded to a tile multiple (``ilqr_kernel.py:851-876`` of the
+    JAX package): padded lanes get zero state, controls, multipliers and
+    mode operands and parameters of 1.0. A mode the kernel is not built for
+    (:data:`KERNEL_MODES`) is given as all three operands, the missing ones
+    zero; an unused operand is ``None``."""
     B = x0s.shape[0]
     nc = n_constraints(n_circles)
     f32 = torch.float32
     if tile < 1:
         raise ValueError("tile must be positive")
+    shapes = {"refs": (B, N + 1, NX), "dist": (B, NX), "urefs": (B, N, NU)}
+    given = {"refs": refs, "dist": dist, "urefs": urefs}
+    for name, a in given.items():
+        if a is not None and tuple(a.shape) != shapes[name]:
+            raise ValueError(f"{name} must be {shapes[name]}, not {tuple(a.shape)}")
+    if operand_mode(refs, dist, urefs) not in KERNEL_MODES:
+        given = {k: torch.zeros(shapes[k], dtype=f32, device=x0s.device) if a is None else a
+                 for k, a in given.items()}
     if lam_init is None:
         lam_init = torch.zeros(B, N, nc, dtype=f32, device=x0s.device)
     pad = -B % tile
     padded = lambda a, value=0.0: torch.nn.functional.pad(a.to(f32), (0, pad), value=value)
+    stage_major = lambda a: None if a is None else padded(
+        a.T if a.ndim == 2 else a.permute(1, 2, 0)).contiguous()
     x0 = padded(x0s.T)
     u0 = padded(u_init.permute(1, 2, 0))
     pp = padded(torch.stack([acc, fric]), 1.0)
     lam0 = padded(lam_init.permute(1, 2, 0))
-    return [a.contiguous() for a in (x0, u0, pp, lam0)]
+    return [a.contiguous() for a in (x0, u0, pp, lam0)] + [
+        stage_major(given[k]) for k in ("refs", "dist", "urefs")]
 
 
 def _solve_tiled(
@@ -673,16 +740,11 @@ def _solve_tiled(
     mu_scale, mu_max, viol_tol, tol, tile,
 ):
     """Prepare, run ``solver`` on the padded tiles, return the public layout."""
-    if refs is not None or dist is not None or urefs is not None:
-        raise NotImplementedError(
-            "refs/dist/urefs (racing, wind and offset-free sweeps) are not "
-            "ported yet: ROADMAP S4.2 and S4.5"
-        )
     if not 0 <= n_circles <= MAX_CIRCLES or len(geom[4]) != n_circles:
         raise ValueError(f"n_circles must be 0..{MAX_CIRCLES} and match the obstacle")
     B = x0s.shape[0]
     args = prepare_tiles(x0s, u_init, acc, fric, lam_init, N=N, tile=tile,
-                         n_circles=n_circles)
+                         n_circles=n_circles, refs=refs, dist=dist, urefs=urefs)
     us, xs, viol, conv, lam, ni = solver(
         *args, N=N, n_circ=n_circles, tile=tile, ts=float(ts), geom=geom,
         limits=limits, weights=weights, outer_iters=outer_iters,
@@ -735,10 +797,9 @@ def al_ilqr_solve_cuda(
     when ``None``, or the largest group that fits ``tile`` where that does
     not); the solution does not depend on it. A CTA has ``tile × group``
     threads, and more than :data:`MAX_THREADS` raises ``ValueError``
-    (:func:`launch_plan`). The twin ignores a valid ``group``. ``refs``,
-    ``dist`` and ``urefs`` (tracking, additive offset, input reference) raise
-    ``NotImplementedError``: only the racing, wind and offset-free sweeps use
-    them, and those are not ported yet.
+    (:func:`launch_plan`). The twin ignores a valid ``group``. ``refs``
+    (B, N+1, 4), ``dist`` (B, 4) and ``urefs`` (B, N, 2) select the tracking,
+    additive-offset and input-reference modes (module docstring).
     """
     group = resolve_group(group, tile, DEFAULT_GROUP, GROUPS, MAX_THREADS)
     if group not in GROUPS:

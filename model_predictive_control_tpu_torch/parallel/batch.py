@@ -1,8 +1,19 @@
 """Scenario batching (port of ``parallel/batch.py``): the session-2
 compaction key, the nonlinear obstacle-parking sweep on the fused AL-iLQR
-kernel, and the two lap-tracking sweeps (kinematic and Pacejka racing) on
-the fused tracker kernel; each sweep runs randomized initial states ×
-perturbed plant parameters.
+kernel, the two lap-tracking sweeps (kinematic and Pacejka racing) on the
+fused tracker kernel (the kinematic one also on the AL-iLQR kernel's
+tracking mode), the crosswind and slope offset-free sweeps on the AL-iLQR
+kernel's offset and input-reference modes, and the linear family's sweeps on
+the ADMM kernel; each sweep runs randomized initial states × perturbed
+plants.
+
+Every nonlinear sweep also has the per-scenario route (``backend="torch"``,
+the JAX package's ``"xla"``): the batched AL-iLQR or SQP of
+:mod:`..solvers.ilqr` / :mod:`..solvers.sqp` on each scenario's own problem,
+in any dtype and for any perturbed field. A kernel request the kernel
+cannot serve (another dtype than float32, a perturbed field it has no
+operand for) raises a ``ValueError`` naming ``backend="torch"``, where the
+JAX package falls back to its ``"xla"`` route without a word.
 
 A sweep is a Python loop over closed-loop steps
 (:func:`..control.batch_loop.simulate_batch`); each step is one kernel
@@ -36,15 +47,42 @@ from ..ops.cuda.ilqr_kernel import (
     parking_geometry,
 )
 from ..ops.cuda.parking_factory import make_parking_ode_rows
-from ..ops.integrators import rk4_fine
-from ..solvers.parking import Q_MAIN, QN_SCALE_MAIN, R_MAIN
+from ..ops.integrators import euler, rk4, rk4_fine
+from ..solvers.ilqr import ILQRProblem, al_ilqr_solve
+from ..solvers.parking import (
+    Q_MAIN,
+    Q_SOL,
+    QN_SCALE_MAIN,
+    QN_SCALE_SOL,
+    R_MAIN,
+    make_parking_ilqr,
+    make_parking_ocp,
+    scenario_fields,
+    with_fields,
+)
+from ..solvers.sqp import sqp_solve
 from ..utils.device import resolve_device
 
 # fields whose perturbation is physically meaningful for the kinematic model
 DEFAULT_PERTURB_FIELDS = ("friction", "acceleration")
-# per-scenario model fields the kernel takes as operands; any other batched
-# field needs the per-scenario solver path (ROADMAP S3.2)
+# per-scenario model fields the kernels take as operands; any other batched
+# field takes the per-scenario route
 KERNEL_FIELDS = {"acceleration", "friction"}
+XLA_NAME = ("backend='xla' is the JAX package's name of the per-scenario route; "
+            "here it is backend='torch'")
+
+
+def _refuse_kernel(backend: str, dtype, exotic) -> None:
+    """Raise where a kernel backend was asked for a dtype or a per-scenario
+    model field the kernel cannot serve (the JAX package falls back to its
+    per-scenario route there; the port makes the caller choose it)."""
+    if dtype != torch.float32:
+        raise ValueError(f"backend={backend!r} runs in float32 only; the per-scenario "
+                         f"route backend='torch' takes {dtype}")
+    if exotic:
+        raise ValueError(f"backend={backend!r} has no operand for the per-scenario "
+                         f"fields {sorted(exotic)}; the per-scenario route "
+                         "backend='torch' takes them")
 
 
 def boundary_compaction_key(p_max: float, x0s: torch.Tensor) -> torch.Tensor:
@@ -152,47 +190,43 @@ def batched_parking_policy(
     dtype=torch.float32,
 ):
     """Batch-level receding-horizon nonlinear-MPC policy for
-    :func:`simulate_batch`: every step is one fused AL-iLQR solve of the
-    whole batch.
+    :func:`simulate_batch`.
 
     ``model_params`` fields are floats (the nominal model) or ``(B,)``
-    tensors for ``acceleration`` and ``friction`` (a per-scenario model).
-    The carry is ``(u_warm (B, N·2), lam (B, N, nc))``: the solved controls
-    shifted one stage, and the converged multipliers shifted and decayed
-    (``0.7``, zero where the solve did not converge), as in the JAX package.
+    tensors (a per-scenario model). ``solver="ilqr"`` with ``backend="cuda"``
+    makes every step one fused AL-iLQR solve of the whole batch (``"twin"``:
+    the kernel's plain twin on any device); its carry is ``(u_warm (B,
+    N·2), lam (B, N, nc))``, the multipliers shifted and decayed (``0.7``,
+    zero where the solve did not converge), as in the JAX package.
+    ``group`` is the kernel's threads per lane (``ilqr_kernel.GROUPS``; the
+    default when ``None``): it moves time, never numbers.
 
-    ``backend="cuda"`` launches the kernel for CUDA tensors (its plain twin
-    for CPU tensors); ``"twin"`` runs the twin on any device. ``group`` is
-    the kernel's threads per lane (``ilqr_kernel.GROUPS``; the default when
-    ``None``): it moves time, never numbers. The SQP
-    solver, the per-scenario XLA path (``backend="xla"``, other dtypes and
-    other perturbed fields), the factory kernel and device meshes are not
-    ported yet and raise ``NotImplementedError``.
+    The per-scenario route, the JAX package's vmapped solves: ``solver=
+    "sqp"`` (the SQP of :func:`..solvers.parking.make_parking_ocp`; the
+    backend concerns ``"ilqr"`` alone, as in the JAX package) or
+    ``backend="torch"`` (the batched AL-iLQR on each scenario's
+    :func:`..solvers.parking.make_parking_ilqr`). It is the only route for
+    another dtype than float32 or a perturbed field other than acceleration
+    and friction: the kernel backends raise ``ValueError`` for them. Its
+    carry is ``u_warm``; its problems are built on the device of the first
+    states it is given. The factory kernel and device meshes raise
+    ``NotImplementedError``.
     """
-    del sqp_iters, qp_iters  # SQP only, which is not ported yet
-    if solver == "sqp":
-        raise NotImplementedError("solver='sqp' is not ported yet: ROADMAP S3.2")
-    if solver != "ilqr":
+    if solver not in ("ilqr", "sqp"):
         raise ValueError(f"unknown solver {solver!r}")
     if backend == "xla":
-        raise NotImplementedError("backend='xla' is not ported yet: ROADMAP S3.2")
+        raise ValueError(XLA_NAME)
     if backend == "factory":
         raise NotImplementedError("backend='factory' is not ported yet: ROADMAP S4.3")
-    if backend not in ("cuda", "twin"):
+    if backend not in ("cuda", "twin", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
     if mesh is not None:
         raise NotImplementedError("device meshes are not ported yet: ROADMAP S7.1")
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            "the kernel is float32; other dtypes take the per-scenario path, "
-            "not ported yet: ROADMAP S3.2"
-        )
-    exotic = model_params.batched_fields() - KERNEL_FIELDS
-    if exotic:
-        raise NotImplementedError(
-            f"per-scenario {sorted(exotic)} need the per-scenario solver path, "
-            "not ported yet: ROADMAP S3.2"
-        )
+    if solver == "sqp" or backend == "torch":
+        return _per_scenario_parking_policy(
+            model_params, N, ts, x_obs, Q, R, qn_scale, sqp_iters, qp_iters, solver,
+            outer_iters, inner_iters, dtype)
+    _refuse_kernel(backend, dtype, model_params.batched_fields() - KERNEL_FIELDS)
     solve_fn = al_ilqr_solve_cuda if backend == "cuda" else al_ilqr_solve_twin
     n_circ = 0 if x_obs is None else 3
     nc = n_constraints(n_circ)
@@ -238,6 +272,40 @@ def batched_parking_policy(
     return policy
 
 
+def _per_scenario_parking_policy(model_params, N, ts, x_obs, Q, R, qn_scale, sqp_iters,
+                                 qp_iters, solver, outer_iters, inner_iters, dtype):
+    """The per-scenario route of :func:`batched_parking_policy` (the JAX
+    package's ``solve_one_sqp`` / ``solve_one_ilqr`` under ``vmap``)."""
+    built = {}
+
+    def problem(device):
+        if device not in built:
+            make = make_parking_ocp if solver == "sqp" else make_parking_ilqr
+            built[device] = make(model_params, N=N, ts=ts, x_obs=x_obs, Q=Q, R=R,
+                                 qn_scale=qn_scale, dtype=dtype, device=device)
+        return built[device]
+
+    def policy(x_batch, t, carry):
+        B = x_batch.shape[0]
+        if solver == "sqp":
+            sol = sqp_solve(problem(x_batch.device), x_batch, u_init=carry, iters=sqp_iters,
+                            qp_iters=qp_iters)
+            u_next = torch.cat([sol.u[:, NU:], sol.u[:, -NU:]], dim=1)
+            aux = {"solver_success": sol.converged, "kkt_res": sol.kkt_res, "viol": sol.viol}
+            return sol.u[:, :NU], u_next, aux
+        prob, cons, nc = problem(x_batch.device)
+        # success at the engine-wide 1e-4 (float32 multipliers cannot
+        # certify 1e-6 on rows of order one)
+        sol = al_ilqr_solve(prob, cons, nc, x_batch, u_init=carry.reshape(B, N, NU),
+                            outer_iters=outer_iters, inner_iters=inner_iters, viol_tol=1e-4)
+        u_next = torch.cat([sol.us[:, 1:], sol.us[:, -1:]], dim=1).reshape(B, N * NU)
+        aux = {"solver_success": sol.converged, "kkt_res": sol.viol, "viol": sol.viol}
+        return sol.us[:, 0], u_next, aux
+
+    policy.initial_carry = lambda batch, device=None: initial_warm_carry(batch, N, dtype, device)
+    return policy
+
+
 def parking_sweep(
     batch: int,
     steps: int,
@@ -273,17 +341,17 @@ def parking_sweep(
     the plant parameters, then the initial states. The controller predicts
     with the nominal model unless ``controller_knows``, when it gets each
     scenario's acceleration and friction. ``tile`` and ``group`` are the
-    kernel's (:func:`batched_parking_policy`). ``checkpoint_every``/
-    ``checkpoint_path`` and ``u_seed`` are not ported yet and raise
+    kernel's, ``solver`` and ``backend`` pick the route
+    (:func:`batched_parking_policy`). ``u_seed`` ``(B, N, 2)``: the step-0
+    warm-start controls in place of zeros (the multipliers stay zero).
+    ``checkpoint_every``/``checkpoint_path`` are not ported yet and raise
     ``NotImplementedError``.
 
     Returns ``(BatchSimResult, summary)`` with the JAX package's summary
-    keys.
+    keys (``mean_inner_iters`` on the kernel route).
     """
     if checkpoint_every > 0 or checkpoint_path is not None:
         raise NotImplementedError("sweep checkpoints are not ported yet: ROADMAP S7.2")
-    if u_seed is not None:
-        raise NotImplementedError("u_seed warm seeds are not ported yet: ROADMAP S3.4")
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -301,7 +369,11 @@ def parking_sweep(
         group=group, mesh=mesh, dtype=dtype,
     )
     plant = batched_plant(plant_params, ts, substeps=plant_substeps)
-    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device))
+    carry0 = policy.initial_carry(batch, device)
+    if u_seed is not None:
+        seed = torch.as_tensor(u_seed, dtype=dtype, device=device).reshape(batch, N * NU)
+        carry0 = (seed, *carry0[1:]) if isinstance(carry0, tuple) else seed
+    res = simulate_batch(x0s, plant, steps, policy, carry0)
 
     success = res.logs["solver_success"]
     dist = torch.linalg.vector_norm(res.states[-1][:, :2], dim=-1)
@@ -314,8 +386,9 @@ def parking_sweep(
         "parked_frac_5cm": (dist < 0.05).float().mean().item(),
         "controller_knows": bool(controller_knows),
         "rel_scale": float(rel_scale),
-        "mean_inner_iters": res.logs["kernel_inner_iters"].mean().item(),
     }
+    if "kernel_inner_iters" in res.logs:
+        summary["mean_inner_iters"] = res.logs["kernel_inner_iters"].mean().item()
     return res, summary
 
 
@@ -329,32 +402,82 @@ RACING_R = (0.5, 0.5)
 RACING_QN_SCALE = 5.0
 
 
-def _check_racing(backend: str, mesh, dtype, model_params, kinematic: bool) -> None:
-    """Raise for the racing backends and options not ported yet (the
-    kinematic tier also knows the hand kernel's backend and takes a
-    per-scenario acceleration and friction)."""
-    if kinematic and backend == "pallas-hand":
-        raise NotImplementedError(
-            "backend='pallas-hand' needs the parking kernel's refs operand, not "
-            "ported yet: ROADMAP S4.2"
-        )
+def _racing_route(backend: str, mesh, dtype, model_params, kinematic: bool) -> str:
+    """Check a racing backend: a kernel backend raises ``ValueError`` for
+    another dtype than float32 or a per-scenario controller model the kernel
+    has no operand for (the kinematic tier takes acceleration and friction),
+    which the per-scenario route ``"torch"`` takes; the kinematic tier also
+    knows the parking kernel's tracking mode, ``"pallas-hand"``."""
     if backend == "xla":
-        raise NotImplementedError("backend='xla' is not ported yet: ROADMAP S3.2")
-    if backend not in ("cuda", "twin"):
+        raise ValueError(XLA_NAME)
+    known = ("cuda", "twin", "torch") + (("pallas-hand",) if kinematic else ())
+    if backend not in known:
         raise ValueError(f"unknown backend {backend!r}")
     if mesh is not None:
         raise NotImplementedError("device meshes are not ported yet: ROADMAP S7.1")
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            "the kernel is float32; other dtypes take the per-scenario path, "
-            "not ported yet: ROADMAP S3.2"
-        )
-    exotic = model_params.batched_fields() - (KERNEL_FIELDS if kinematic else set())
-    if exotic:
-        raise NotImplementedError(
-            f"a per-scenario controller model ({sorted(exotic)}) needs the "
-            "per-scenario solver path, not ported yet: ROADMAP S3.2"
-        )
+    if backend != "torch":
+        _refuse_kernel(backend, dtype,
+                       model_params.batched_fields() - (KERNEL_FIELDS if kinematic else set()))
+    return backend
+
+
+def _window_tracking_problem(params, windows, model_step, Q, R, qn_scale, constraints, nc,
+                             dtype):
+    """The window-tracking AL-iLQR problem of the racing tiers' per-scenario
+    route: ``(x − ref_t)ᵀQ(x − ref_t) + uᵀRu`` a stage, ``qn_scale · Q`` at
+    the end, ``model_step(params, x, u)`` with each scenario's own fields of
+    a per-scenario ``params``; ``windows`` ``(B, N + 1, nx)``. Returns
+    ``(prob, constraints, nc)``."""
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=windows.device)
+    Qd, Rd = t(Q), t(R)
+    QNd = qn_scale * Qd
+    N = windows.shape[1] - 1
+
+    def stage_cost(x, u, p, s):
+        e = x - s["ref"]
+        return e @ (Qd * e) + u @ (Rd * u)
+
+    def terminal_cost(x, p):
+        e = x - p["ref_N"]
+        return e @ (QNd * e)
+
+    prob = ILQRProblem(
+        dynamics=lambda x, u, p: model_step(with_fields(params, p), x, u),
+        stage_cost=stage_cost, terminal_cost=terminal_cost, N=N, nx=windows.shape[-1], nu=NU,
+        params={"ref_N": windows[:, N], **scenario_fields(params)},
+        stages={"ref": windows[:, :N]},
+    )
+    return prob, constraints, nc
+
+
+def make_tracking_ilqr_window(
+    params: VehicleParameters,
+    window: torch.Tensor,
+    Q,
+    R,
+    qn_scale: float,
+    x_lb,
+    x_ub,
+    ts: float,
+    dtype=torch.float32,
+):
+    """Window-tracking iLQR problem with the constraint rows of the parking
+    kernel's tracking mode (state box, input box, no obstacle): ``(prob,
+    constraints, nc)``, the kernel's oracle and the per-scenario route of
+    :func:`racing_sweep`. ``window`` is ``(B, N + 1, 4)`` (one window per
+    scenario) or ``(N + 1, 4)`` (one scenario); the problem's tensors follow
+    it."""
+    window = torch.as_tensor(window, dtype=dtype)
+    windows = window if window.ndim == 3 else window[None]
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=windows.device)
+    lb_x, ub_x = t(x_lb), t(x_ub)
+    lb_u = t([float(params.min_drive), -float(params.max_steer)])
+    ub_u = t([float(params.max_drive), float(params.max_steer)])
+    step = lambda pp, x, u: euler(lambda xx, uu: kinematic_bicycle_ode(pp, xx, uu), ts)(x, u)
+    return _window_tracking_problem(
+        params, windows, step, Q, R, qn_scale,
+        lambda x, u, p, s: torch.cat([x - ub_x, lb_x - x, u - ub_u, lb_u - u]),
+        2 * NX + 2 * NU, dtype)
 
 
 def _tracking_step(sol, x_batch, window, N):
@@ -367,9 +490,26 @@ def _tracking_step(sol, x_batch, window, N):
         "solver_success": sol.converged,
         "viol": sol.viol,
         "tracking_error": torch.linalg.vector_norm(x_batch[:, :2] - window[0, :2], dim=-1),
-        "kernel_inner_iters": sol.inner_iters_executed,
     }
+    if hasattr(sol, "inner_iters_executed"):
+        aux["kernel_inner_iters"] = sol.inner_iters_executed
     return sol.us[:, 0], u_next.reshape(B, N * NU), aux
+
+
+def _per_scenario_policy(ref, N, dtype, problem, outer_iters, inner_iters):
+    """A racing policy on the per-scenario route: ``problem(windows (B, N+1,
+    nx)) -> (prob, constraints, nc)`` solved by the batched AL-iLQR."""
+
+    def policy(x_batch, t, carry):
+        B = x_batch.shape[0]
+        window = ref[t : t + N + 1]
+        prob, cons, nc = problem(window[None].expand(B, N + 1, window.shape[-1]))
+        sol = al_ilqr_solve(prob, cons, nc, x_batch, u_init=carry.reshape(B, N, NU),
+                            outer_iters=outer_iters, inner_iters=inner_iters, viol_tol=1e-4)
+        return _tracking_step(sol, x_batch, window, N)
+
+    policy.initial_carry = lambda batch, device=None: initial_warm_carry(batch, N, dtype, device)
+    return policy
 
 
 def batched_racing_policy(
@@ -402,25 +542,36 @@ def batched_racing_policy(
     ``backend="cuda"`` launches the kernel for CUDA tensors (its plain twin
     for CPU tensors); ``"twin"`` runs the twin on any device. ``group`` is
     the kernel's threads per lane (``ilqr_factory.GROUPS``; the
-    instantiation's default when ``None``): it moves time, never numbers. The hand
-    kernel's tracking mode (``"pallas-hand"``), the per-scenario path
-    (``"xla"``, other dtypes, a per-scenario model other than acceleration
-    and friction) and device meshes raise ``NotImplementedError``.
+    instantiation's default when ``None``): it moves time, never numbers.
+    ``"pallas-hand"`` solves on the parking AL-iLQR kernel's tracking mode
+    (``refs``; its group and tile, its twin for CPU tensors), the JAX
+    package's A/B backend. ``"torch"`` is the per-scenario route (the batched
+    AL-iLQR on :func:`make_tracking_ilqr_window`), the only one for another
+    dtype or a per-scenario model other than acceleration and friction (the
+    kernel backends raise ``ValueError`` for them). Device meshes raise
+    ``NotImplementedError``.
     """
     base = model_params if model_params is not None else VehicleParameters()
-    _check_racing(backend, mesh, dtype, base, kinematic=True)
-    solve_fn = fused_tracker_solve_cuda if backend == "cuda" else fused_tracker_solve_twin
-    geom, _ = parking_geometry(base, None)
-    model = make_parking_ode_rows(float(geom[0]), float(geom[1]))
-    u_lims = (
-        (float(base.min_drive), -float(base.max_steer)),
-        (float(base.max_drive), float(base.max_steer)),
-    )
+    backend = _racing_route(backend, mesh, dtype, base, kinematic=True)
     x_lims = (
         (float(base.min_pos_x), float(base.min_pos_y), -100.0, float(base.min_vel)),
         (float(base.max_pos_x), float(base.max_pos_y), 100.0, float(base.max_vel)),
     )
+    if backend == "torch":
+        return _per_scenario_policy(ref, N, dtype, lambda w: make_tracking_ilqr_window(
+            base, w, Q, R, qn_scale, x_lims[0], x_lims[1], ts, dtype=dtype), outer_iters,
+            inner_iters)
+    geom, _ = parking_geometry(base, None)
+    u_lims = (
+        (float(base.min_drive), -float(base.max_steer)),
+        (float(base.max_drive), float(base.max_steer)),
+    )
     weights = (tuple(float(v) for v in Q), tuple(float(v) for v in R), float(qn_scale))
+    if backend == "pallas-hand":
+        return _hand_tracking_policy(ref, base, N, ts, geom, x_lims + u_lims, weights,
+                                     outer_iters, inner_iters, tile, group, dtype)
+    solve_fn = fused_tracker_solve_cuda if backend == "cuda" else fused_tracker_solve_twin
+    model = make_parking_ode_rows(float(geom[0]), float(geom[1]))
 
     def policy(x_batch, t, carry):
         B = x_batch.shape[0]
@@ -436,6 +587,29 @@ def batched_racing_policy(
             integrator="euler", limits=u_lims, state_limits=x_lims, weights=weights,
             params=params, n_params=2, outer_iters=outer_iters,
             inner_iters=inner_iters, viol_tol=1e-4,
+            tile=min(tile, math.ceil(B / 128) * 128), group=group,
+        )
+        return _tracking_step(sol, x_batch, window, N)
+
+    policy.initial_carry = lambda batch, device=None: initial_warm_carry(batch, N, dtype, device)
+    return policy
+
+
+def _hand_tracking_policy(ref, base, N, ts, geom, limits, weights, outer_iters, inner_iters,
+                          tile, group, dtype):
+    """The kinematic lap-tracking policy on the parking kernel's tracking
+    mode: the window broadcast to every lane as ``refs``."""
+
+    def policy(x_batch, t, carry):
+        B = x_batch.shape[0]
+        window = ref[t : t + N + 1]
+        sol = al_ilqr_solve_cuda(
+            x_batch, carry.reshape(B, N, NU),
+            _per_scenario(base.acceleration, B, dtype, x_batch.device),
+            _per_scenario(base.friction, B, dtype, x_batch.device),
+            window[None].expand(B, N + 1, NX).contiguous(),
+            N=N, ts=float(ts), geom=geom, limits=limits, weights=weights, n_circles=0,
+            outer_iters=outer_iters, inner_iters=inner_iters, viol_tol=1e-4,
             tile=min(tile, math.ceil(B / 128) * 128), group=group,
         )
         return _tracking_step(sol, x_batch, window, N)
@@ -478,13 +652,18 @@ def racing_sweep(
     ``torch.Generator``, seed 0 when ``None``) draws the plant parameters,
     then the start-pose noise, in the JAX package's order.
 
+    ``backend``: ``"cuda"`` / ``"twin"`` (the tracker kernel), ``"pallas-hand"``
+    (the parking kernel's tracking mode), ``"torch"`` (the per-scenario
+    route), as :func:`batched_racing_policy`.
+
     Returns ``(BatchSimResult, summary)`` with the JAX package's summary
-    keys and ``mean_inner_iters`` (executed inner iterations per solve).
+    keys and, on a kernel, ``mean_inner_iters`` (executed inner iterations
+    per solve).
     """
     from ..experiments.racing import ellipse_reference
 
     base = VehicleParameters()
-    _check_racing(backend, mesh, dtype, base, kinematic=True)
+    _racing_route(backend, mesh, dtype, base, kinematic=True)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -521,8 +700,9 @@ def racing_sweep(
         "max_tracking_error": tail.max().item(),
         "rel_scale": float(rel_scale),
         "backend": backend,
-        "mean_inner_iters": res.logs["kernel_inner_iters"].mean().item(),
     }
+    if "kernel_inner_iters" in res.logs:
+        summary["mean_inner_iters"] = res.logs["kernel_inner_iters"].mean().item()
     return res, summary
 
 
@@ -550,18 +730,23 @@ def batched_racing_dynamic_policy(
     """Batch-level Pacejka lap-tracking policy for :func:`simulate_batch`
     (the JAX ``racing_sweep_dynamic``'s policy): every step is one fused
     tracker solve of the whole batch, RK4 with ``pred_substeps`` substeps on
-    the nominal ``model_params`` (floats only), the dynamic tier's weights
-    and an input box. Backends as :func:`batched_racing_policy`."""
+    the nominal ``model_params``, the dynamic tier's weights and an input
+    box. Backends as :func:`batched_racing_policy` (no ``"pallas-hand"``);
+    only the per-scenario route (``"torch"``) takes another dtype or a
+    per-scenario model."""
     from ..experiments.racing import Q_DYNAMIC, QN_SCALE, R_DYNAMIC
 
     base = model_params if model_params is not None else VehicleParameters()
-    _check_racing(backend, mesh, dtype, base, kinematic=False)
-    solve_fn = al_ilqr_dyn_solve_cuda if backend == "cuda" else al_ilqr_dyn_solve_twin
-    model = model_tuple(base)
+    backend = _racing_route(backend, mesh, dtype, base, kinematic=False)
     u_lims = (
         (float(base.min_drive), -float(base.max_steer)),
         (float(base.max_drive), float(base.max_steer)),
     )
+    if backend == "torch":
+        return _per_scenario_policy(ref, N, dtype, lambda w: dynamic_window_problem(
+            base, w, ts, pred_substeps, u_lims, dtype), outer_iters, inner_iters)
+    solve_fn = al_ilqr_dyn_solve_cuda if backend == "cuda" else al_ilqr_dyn_solve_twin
+    model = model_tuple(base)
     weights = (tuple(Q_DYNAMIC), tuple(R_DYNAMIC), float(QN_SCALE))
 
     def policy(x_batch, t, carry):
@@ -577,6 +762,22 @@ def batched_racing_dynamic_policy(
 
     policy.initial_carry = lambda batch, device=None: initial_warm_carry(batch, N, dtype, device)
     return policy
+
+
+def dynamic_window_problem(params, windows, ts, pred_substeps, u_lims, dtype=torch.float32):
+    """The Pacejka window-tracking problem of the per-scenario route
+    (``racing_sweep_dynamic``'s ``"xla"`` solve in the JAX package): RK4
+    with ``pred_substeps`` substeps on ``params``, the dynamic tier's
+    weights, the input box; ``windows`` ``(B, N + 1, 6)``."""
+    from ..experiments.racing import Q_DYNAMIC, QN_SCALE, R_DYNAMIC
+
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=windows.device)
+    lb_u, ub_u = t(u_lims[0]), t(u_lims[1])
+    step = lambda pp, x, u: rk4_fine(
+        lambda xx, uu: dynamic_bicycle_ode(pp, xx, uu), ts, substeps=pred_substeps)(x, u)
+    return _window_tracking_problem(
+        params, windows, step, Q_DYNAMIC, R_DYNAMIC, QN_SCALE,
+        lambda x, u, p, s: torch.cat([u - ub_u, lb_u - u]), 2 * NU, dtype)
 
 
 def racing_sweep_dynamic(
@@ -607,13 +808,13 @@ def racing_sweep_dynamic(
 
     Prediction is RK4 with ``pred_substeps`` substeps, the plant RK4 with
     ``plant_substeps``. Draws as :func:`racing_sweep`. Returns
-    ``(BatchSimResult, summary)`` with the JAX package's summary keys and
-    ``mean_inner_iters``.
+    ``(BatchSimResult, summary)`` with the JAX package's summary keys and,
+    on the kernel, ``mean_inner_iters``.
     """
     from ..experiments.racing import ellipse_reference
 
     base = VehicleParameters()
-    _check_racing(backend, mesh, dtype, base, kinematic=False)
+    _racing_route(backend, mesh, dtype, base, kinematic=False)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -648,8 +849,306 @@ def racing_sweep_dynamic(
         "p95_tracking_error": torch.quantile(tail.flatten(), 0.95).item(),
         "rel_scale": float(rel_scale),
         "backend": backend,
-        "mean_inner_iters": res.logs["kernel_inner_iters"].mean().item(),
     }
+    if "kernel_inner_iters" in res.logs:
+        summary["mean_inner_iters"] = res.logs["kernel_inner_iters"].mean().item()
+    return res, summary
+
+
+# ---------------------------------------------------------------------------
+# Offset-free tiers: crosswind racing and slope parking on the AL-iLQR
+# kernel's offset and input-reference modes
+# ---------------------------------------------------------------------------
+
+
+def _window_solver(backend, base, N, ts, weights, outer_iters, inner_iters, tile, group,
+                   dtype):
+    """``solve(x, u_warm (B, N·2), refs, dist, urefs, problem)`` of the two
+    offset-free sweeps: the parking kernel with all three operands (``"cuda"``,
+    ``"twin"``; float32 only, else ``ValueError``), or the per-scenario route
+    on ``problem()``'s ``(prob, constraints)`` (``"torch"``, any dtype). The kernel's state rows are boxed at ±100, so that
+    only the input box binds, as in the per-scenario problems."""
+    if backend == "xla":
+        raise ValueError(XLA_NAME)
+    if backend not in ("cuda", "twin", "torch"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend != "torch":
+        _refuse_kernel(backend, dtype, set())
+    geom, _ = parking_geometry(base, None)
+    limits = ((-100.0,) * 4, (100.0,) * 4,
+              (float(base.min_drive), -float(base.max_steer)),
+              (float(base.max_drive), float(base.max_steer)))
+    solve_fn = al_ilqr_solve_cuda if backend == "cuda" else al_ilqr_solve_twin
+
+    def solve(x, u_warm, refs, dist, urefs, problem):
+        B = x.shape[0]
+        if backend == "torch":
+            prob, cons = problem()
+            return al_ilqr_solve(prob, cons, 2 * NU, x, u_init=u_warm.reshape(B, N, NU),
+                                 outer_iters=outer_iters, inner_iters=inner_iters, viol_tol=1e-4)
+        return solve_fn(
+            x, u_warm.reshape(B, N, NU), _per_scenario(base.acceleration, B, x.dtype, x.device),
+            _per_scenario(base.friction, B, x.dtype, x.device), refs.contiguous(),
+            dist.contiguous(), urefs.contiguous(), N=N, ts=float(ts), geom=geom,
+            limits=limits, weights=weights, n_circles=0, outer_iters=outer_iters,
+            inner_iters=inner_iters, viol_tol=1e-4, tile=min(tile, math.ceil(B / 128) * 128),
+            group=group,
+        )
+
+    return solve
+
+
+def _loop_step(sol, B, N, aux):
+    """The policy's u0, shifted warm start and logs from a window solve."""
+    aux = {"solver_success": sol.converged, "viol": sol.viol, **aux}
+    if hasattr(sol, "inner_iters_executed"):
+        aux["kernel_inner_iters"] = sol.inner_iters_executed
+    warm = torch.cat([sol.us[:, 1:], sol.us[:, -1:]], dim=1).reshape(B, N * NU)
+    return sol.us[:, 0], warm, aux
+
+
+def _ekf_carry0(ctrl, x0s):
+    """``(ẑ (B, nx+nd), P (B, ·, ·), u_warm (B, N·2))`` from the starts."""
+    B = x0s.shape[0]
+    z0 = torch.cat([x0s, torch.zeros(B, ctrl.nd, dtype=x0s.dtype, device=x0s.device)], dim=1)
+    P0 = ctrl.initial_P().to(x0s.device).expand(B, -1, -1).contiguous()
+    return z0, P0, initial_warm_carry(B, ctrl.N, x0s.dtype, x0s.device)
+
+
+def wind_scenarios(generator: torch.Generator, batch: int, ref0, wind: float = 0.004,
+                   wind_rel_spread: float = 0.5, dtype=torch.float32):
+    """Starts and persistent winds of :func:`wind_sweep`, on the CPU: a wind
+    of random direction and magnitude ``wind · U[1 − spread, 1 + spread]``
+    (a per-step position drift, ``(B, 4)`` with the speed and heading rows
+    zero), then start poses scattered around ``ref0`` (speed kept in [0,
+    0.5])."""
+    ang = 2.0 * math.pi * torch.rand(batch, generator=generator, dtype=dtype)
+    lo, hi = 1.0 - wind_rel_spread, 1.0 + wind_rel_spread
+    mag = wind * (lo + (hi - lo) * torch.rand(batch, generator=generator, dtype=dtype))
+    w_full = torch.zeros(batch, NX, dtype=dtype)
+    w_full[:, 0], w_full[:, 1] = mag * torch.cos(ang), mag * torch.sin(ang)
+    noise = (2.0 * torch.rand(batch, NX, generator=generator, dtype=dtype) - 1.0) * torch.tensor(
+        [0.05, 0.05, 0.1, 0.03], dtype=dtype)
+    x0s = torch.as_tensor(ref0, dtype=dtype).cpu() + noise
+    x0s[:, 3] = torch.clamp(x0s[:, 3], 0.0, float(VehicleParameters().max_vel))
+    return x0s, w_full
+
+
+def wind_sweep(
+    batch: int,
+    steps: int,
+    generator: torch.Generator | None = None,
+    N: int = 15,
+    ts: float = 0.05,
+    speed: float = 0.35,
+    wind: float = 0.004,
+    wind_rel_spread: float = 0.5,
+    compensate: bool = True,
+    outer_iters: int = 3,
+    inner_iters: int = 8,
+    backend: str = "cuda",
+    tile: int = DEFAULT_TILE,
+    group: int | None = None,
+    mesh=None,
+    dtype=torch.float32,
+    device=None,
+    scenarios=None,
+) -> tuple[BatchSimResult, dict]:
+    """Offset-free racing under per-scenario crosswinds, on ``device`` (the
+    card when ``None``): the output-feedback stack of
+    :class:`..solvers.offset_free_nmpc.DisturbanceCompensatedTracking`
+    batched. Per step: the augmented EKF's correction (``vmap``), the window
+    re-projected and the input reference per scenario, the window solve on
+    the parking kernel with ``refs``, ``dist = B_d d̂`` and ``urefs``, the
+    EKF's prediction. ``compensate=False`` is the ablation: the plain
+    tracking solve (zero offset and input reference) under the same winds.
+
+    ``backend``: ``"cuda"`` (the kernel; its twin for CPU tensors),
+    ``"twin"``, or ``"torch"`` (the per-scenario route on the controller's
+    own window problems, any dtype). Scenarios from :func:`wind_scenarios`
+    (``generator``, seed 0 when ``None``) or ``scenarios = (x0s (B, 4),
+    w_full (B, 4))``. Returns ``(BatchSimResult, summary)`` with the JAX
+    package's keys (and ``mean_inner_iters`` on the kernel)."""
+    from ..experiments.racing import Q_KINEMATIC, QN_SCALE, R_KINEMATIC, ellipse_reference
+    from ..solvers.offset_free_nmpc import DisturbanceCompensatedTracking
+
+    if mesh is not None:
+        raise NotImplementedError("device meshes are not ported yet: ROADMAP S7.1")
+    device = resolve_device(device)
+    base = VehicleParameters()
+    weights = (tuple(Q_KINEMATIC), tuple(R_KINEMATIC), float(QN_SCALE))
+    solve = _window_solver(backend, base, N, ts, weights, outer_iters, inner_iters, tile, group,
+                           dtype)
+    ref = ellipse_reference(steps + N + 1, speed=speed, ts=ts, dynamic=False, dtype=dtype,
+                            device="cpu")
+    if scenarios is None:
+        generator = torch.Generator().manual_seed(0) if generator is None else generator
+        scenarios = wind_scenarios(generator, batch, ref[0], wind, wind_rel_spread, dtype)
+    x0s, w_full = (torch.as_tensor(a).to(dtype=dtype, device=device) for a in scenarios)
+    ref = ref.to(device)
+    ctrl = DisturbanceCompensatedTracking(
+        euler(lambda x, u: kinematic_bicycle_ode(base, x, u), ts), nx=NX, nu=NU, N=N,
+        Q=Q_KINEMATIC, R=R_KINEMATIC, QN=[QN_SCALE * q for q in Q_KINEMATIC],
+        u_lb=[base.min_drive, -base.max_steer], u_ub=[base.max_drive, base.max_steer],
+        ref_traj=ref, ts=ts, outer_iters=outer_iters, inner_iters=inner_iters, dtype=dtype,
+        device=device,
+    )
+    correct_b = torch.func.vmap(ctrl._ekf_correct)
+    predict_b = torch.func.vmap(ctrl._ekf_predict)
+
+    def policy(y, t, carry):
+        z_pred, P, u_warm = carry
+        B = y.shape[0]
+        window = ref[t : t + N + 1]
+        if compensate:
+            z, Pc = correct_b(z_pred, P, y)
+            x_hat, d_hat = z[:, :NX], z[:, NX:]
+            wins, urefs = ctrl.prepared_windows(window, d_hat)
+        else:
+            x_hat, d_hat = y, torch.zeros(B, ctrl.nd, dtype=dtype, device=y.device)
+            wins = window[None].expand(B, N + 1, NX)
+            urefs = torch.zeros(B, N, NU, dtype=dtype, device=y.device)
+        sol = solve(x_hat, u_warm, wins, d_hat @ ctrl.Bd.T, urefs,
+                    lambda: ctrl.window_problem(wins, d_hat, urefs))
+        u0, warm, aux = _loop_step(sol, B, N, {
+            "tracking_error": torch.linalg.vector_norm(y[:, :2] - window[0, :2], dim=-1),
+            "d_hat": d_hat,
+        })
+        if compensate:
+            z_pred, P = predict_b(z, Pc, u0)
+        return u0, (z_pred, P, warm), aux
+
+    plant_base = rk4(lambda x, u: kinematic_bicycle_ode(base, x, u), ts)
+    res = simulate_batch(x0s, lambda x, u: plant_base(x, u) + w_full, steps, policy,
+                         _ekf_carry0(ctrl, x0s))
+
+    tail = res.logs["tracking_error"][-max(10, steps // 3):]
+    d_last = res.logs["d_hat"][-1]
+    summary = {
+        "batch": int(batch),
+        "steps": int(steps),
+        "wind_per_step": float(wind),
+        "compensate": bool(compensate),
+        "success_rate": res.logs["solver_success"].float().mean().item(),
+        "steady_tracking_error": tail.mean().item(),
+        "p95_steady_tracking_error": torch.quantile(tail.flatten().double(), 0.95).item(),
+        # the EKF's identification: position rows of the estimate vs the drift
+        "wind_estimate_rms_error": (d_last[:, :2] - w_full[:, :2]).square().mean().sqrt().item(),
+    }
+    if "kernel_inner_iters" in res.logs:
+        summary["mean_inner_iters"] = res.logs["kernel_inner_iters"].mean().item()
+    return res, summary
+
+
+def offset_free_scenarios(generator: torch.Generator, batch: int, slope_range=(0.15, 0.45),
+                          friction_scale_range=(0.7, 0.9), dtype=torch.float32):
+    """Starts, slopes and friction scales of :func:`offset_free_sweep`, on
+    the CPU: a slope (a persistent deceleration) and a friction scale per
+    scenario, then starts scattered around the reference's parking start
+    ``(0.6, −0.25, 0, 0)``."""
+    u = lambda lo_hi: lo_hi[0] + (lo_hi[1] - lo_hi[0]) * torch.rand(
+        batch, generator=generator, dtype=dtype)
+    slope, fscale = u(slope_range), u(friction_scale_range)
+    noise = (2.0 * torch.rand(batch, NX, generator=generator, dtype=dtype) - 1.0) * torch.tensor(
+        [0.1, 0.1, 0.2, 0.03], dtype=dtype)
+    return torch.tensor([0.6, -0.25, 0.0, 0.0], dtype=dtype) + noise, slope, fscale
+
+
+def offset_free_sweep(
+    batch: int,
+    steps: int,
+    generator: torch.Generator | None = None,
+    N: int = 12,
+    ts: float = 0.05,
+    slope_range=(0.15, 0.45),
+    friction_scale_range=(0.7, 0.9),
+    compensate: bool = True,
+    outer_iters: int = 5,
+    inner_iters: int = 10,
+    backend: str = "cuda",
+    tile: int = DEFAULT_TILE,
+    group: int | None = None,
+    plant_substeps: int = 16,
+    dtype=torch.float32,
+    device=None,
+    scenarios=None,
+) -> tuple[BatchSimResult, dict]:
+    """Offset-free nonlinear parking under per-scenario slope and friction
+    mismatch (the reference's exercise-5 loop), on ``device`` (the card when
+    ``None``): :class:`..solvers.offset_free_nmpc.OffsetFreeNMPC` batched.
+    Per step: the augmented EKF's correction, the damped-Newton target
+    ``(x_s, u_s)`` per scenario, the solve on the parking kernel with ``refs
+    = x_s`` on every stage, ``urefs = u_s`` and ``dist = B_d d̂``, the EKF's
+    prediction. ``compensate=False`` forces ``d̂ = 0`` (the nominal
+    ablation).
+
+    ``backend`` as :func:`wind_sweep`. Scenarios from
+    :func:`offset_free_scenarios` (``generator``, seed 0 when ``None``) or
+    ``scenarios = (x0s (B, 4), slope (B,), friction_scale (B,))``. The plant
+    is fine RK4 (``plant_substeps``) of the bicycle with the scenario's
+    friction and the slope's deceleration. Returns ``(BatchSimResult,
+    summary)`` with the JAX package's keys."""
+    from ..solvers.offset_free_nmpc import OffsetFreeNMPC
+
+    device = resolve_device(device)
+    base = VehicleParameters()
+    R_OF = (1.0, 0.01)
+    solve = _window_solver(backend, base, N, ts, (tuple(Q_SOL), R_OF, float(QN_SCALE_SOL)),
+                           outer_iters, inner_iters, tile, group, dtype)
+    if scenarios is None:
+        generator = torch.Generator().manual_seed(0) if generator is None else generator
+        scenarios = offset_free_scenarios(generator, batch, slope_range, friction_scale_range,
+                                          dtype)
+    x0s, slope, fscale = (torch.as_tensor(a).to(dtype=dtype, device=device) for a in scenarios)
+    ctrl = OffsetFreeNMPC(
+        euler(lambda x, u: kinematic_bicycle_ode(base, x, u), ts), nx=NX, nu=NU, N=N,
+        Q=Q_SOL, R=R_OF, QN=[QN_SCALE_SOL * q for q in Q_SOL],
+        u_lb=[base.min_drive, -base.max_steer], u_ub=[base.max_drive, base.max_steer],
+        r=[0.0, 0.0], outer_iters=outer_iters, inner_iters=inner_iters, dtype=dtype,
+        device=device,
+    )
+    correct_b = torch.func.vmap(ctrl._ekf_correct)
+    predict_b = torch.func.vmap(ctrl._ekf_predict)
+    target_b = torch.func.vmap(lambda d, xg: ctrl.solve_target(d, x_guess=xg))
+
+    def policy(y, t, carry):
+        z_pred, P, u_warm = carry
+        B = y.shape[0]
+        z, Pc = correct_b(z_pred, P, y)
+        x_hat, d_hat = z[:, :NX], z[:, NX:]
+        if not compensate:
+            d_hat = torch.zeros_like(d_hat)
+        x_s, u_s, t_res = target_b(d_hat, x_hat)
+        sol = solve(x_hat, u_warm, x_s[:, None].expand(B, N + 1, NX), d_hat @ ctrl.Bd.T,
+                    u_s[:, None].expand(B, N, NU),
+                    lambda: ctrl.shifted_problem(d_hat, x_s, u_s))
+        u0, warm, aux = _loop_step(sol, B, N, {
+            "d_hat": d_hat, "target_residual": t_res,
+            "dist_to_target": torch.linalg.vector_norm(y[:, :2], dim=-1),
+        })
+        z_next, P_next = predict_b(z, Pc, u0)
+        return u0, (z_next, P_next, warm), aux
+
+    plant_params = dataclasses.replace(base, friction=base.friction * fscale)
+    drift = torch.zeros(x0s.shape[0], NX, dtype=dtype, device=device)
+    drift[:, 3] = -slope
+    plant = rk4_fine(lambda x, u: kinematic_bicycle_ode(plant_params, x, u) + drift, ts,
+                     substeps=plant_substeps)
+    res = simulate_batch(x0s, plant, steps, policy, _ekf_carry0(ctrl, x0s))
+
+    final_dist = torch.linalg.vector_norm(res.states[-1][:, :2], dim=-1)
+    d_last = res.logs["d_hat"][-1]
+    summary = {
+        "batch": int(batch),
+        "steps": int(steps),
+        "compensate": bool(compensate),
+        "success_rate": res.logs["solver_success"].float().mean().item(),
+        "median_final_dist": torch.quantile(final_dist, 0.5).item(),
+        "p95_final_dist": torch.quantile(final_dist, 0.95).item(),
+        "d_hat_rms_error": (d_last[:, 3] + slope * ts).square().mean().sqrt().item(),
+    }
+    if "kernel_inner_iters" in res.logs:
+        summary["mean_inner_iters"] = res.logs["kernel_inner_iters"].mean().item()
     return res, summary
 
 

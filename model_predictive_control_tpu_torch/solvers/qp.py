@@ -5,6 +5,9 @@ Problem form (OSQP convention): ``min ½ xᵀPx + qᵀx  s.t.  l ≤ A_c x ≤ u
 The operator (Ruiz scaling, ρ-ladder KKT inverses, polish operators) is built
 once per QP family; ``(q, l, u)`` vary per scenario. Every solver here takes a
 leading batch axis: ``q`` is ``(B, n)``, ``l`` and ``u`` are ``(B, m)``.
+The interior point and the polish read ``P`` and ``A_c`` alone, so they also
+take a :class:`QPMatrices`, which may hold one QP per scenario (the SQP's
+subproblems).
 """
 
 from __future__ import annotations
@@ -33,6 +36,16 @@ class QPOperator:
     Minv_stack: torch.Tensor  # (R, n, n) inv(P_s + σI + ρ_r A_sᵀA_s)
     Pinv_s: torch.Tensor  # (n, n) inv(P_s)
     S: torch.Tensor  # (m, m) A_s inv(P_s) A_sᵀ
+
+
+@dataclasses.dataclass(frozen=True)
+class QPMatrices:
+    """The bare QP matrices for :func:`pdip_solve`, shared or one QP per
+    scenario: ``P`` ``(n, n)`` or ``(B, n, n)``, ``A_c`` ``(m, n)`` or
+    ``(B, m, n)``."""
+
+    P: torch.Tensor
+    A_c: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,10 +122,20 @@ def qp_setup(
     )
 
 
+def _mv(M, x):
+    """``M x`` row by row: ``M`` shared ``(r, c)`` or per scenario ``(B, r, c)``."""
+    return x @ M.T if M.ndim == 2 else (M @ x[..., None])[..., 0]
+
+
+def _mtv(M, y):
+    """``Mᵀ y`` row by row, ``M`` as in :func:`_mv`."""
+    return y @ M if M.ndim == 2 else (M.transpose(-1, -2) @ y[..., None])[..., 0]
+
+
 def _unscaled_residuals(op: QPOperator, x, y, z, q):
     """Per-scenario ∞-norm primal and dual residuals of ``(B, ·)`` iterates."""
-    rp = (x @ op.A_c.T - z).abs().amax(dim=-1)
-    rd = (x @ op.P.T + q + y @ op.A_c).abs().amax(dim=-1)
+    rp = (_mv(op.A_c, x) - z).abs().amax(dim=-1)
+    rd = (_mv(op.P, x) + q + _mtv(op.A_c, y)).abs().amax(dim=-1)
     return rp, rd
 
 
@@ -209,7 +232,7 @@ def admm_solve(
     )
 
 
-def _polish(op: QPOperator, q, l, u, x, y, z, reg: float = 1e-9,
+def _polish(op: QPOperator | QPMatrices, q, l, u, x, y, z, reg: float = 1e-9,
             lower_active=None, upper_active=None):
     """Active-set polish (OSQP §5.2) on a batch: read the active set off the
     duals (or take the given masks), solve the equality-constrained KKT
@@ -217,7 +240,7 @@ def _polish(op: QPOperator, q, l, u, x, y, z, reg: float = 1e-9,
     dual signs and improves the residuals."""
     dtype = op.P.dtype
     B, n = x.shape
-    m = op.A_c.shape[0]
+    m = op.A_c.shape[-2]
     lower = y < -1e-12 if lower_active is None else lower_active
     upper = y > 1e-12 if upper_active is None else upper_active
     d = (lower | upper).to(dtype)
@@ -227,7 +250,7 @@ def _polish(op: QPOperator, q, l, u, x, y, z, reg: float = 1e-9,
     # K = [[P, A_cᵀ·diag(d)], [diag(d)·A_c, −(I − diag(d)) − reg·diag(d)]]
     K = torch.zeros(B, n + m, n + m, dtype=dtype, device=x.device)
     K[:, :n, :n] = op.P
-    K[:, :n, n:] = op.A_c.T * d[:, None, :]
+    K[:, :n, n:] = op.A_c.transpose(-1, -2) * d[:, None, :]
     K[:, n:, :n] = d[:, :, None] * op.A_c
     K[:, n:, n:] = torch.diag_embed(-(1.0 - d) - reg * d)
     rhs = torch.cat([-q, d * b], dim=1)
@@ -239,7 +262,7 @@ def _polish(op: QPOperator, q, l, u, x, y, z, reg: float = 1e-9,
     sol = sol + torch.linalg.solve_ex(K, r).result
     x_p = sol[:, :n]
     y_p = sol[:, n:] * d
-    z_p = torch.clamp(x_p @ op.A_c.T, l, u)
+    z_p = torch.clamp(_mv(op.A_c, x_p), l, u)
 
     sign_tol = 1e-10
     sign_ok = (
@@ -263,7 +286,7 @@ _BIG = 1e20
 
 
 def pdip_solve(
-    op: QPOperator,
+    op: QPOperator | QPMatrices,
     q: torch.Tensor,
     l: torch.Tensor,
     u: torch.Tensor,
@@ -275,16 +298,18 @@ def pdip_solve(
     ``min ½xᵀPx + qᵀx s.t. Gx ≤ h`` with ``G = [A_c; −A_c]``,
     ``h = [u; −l]``. Infinite bounds are masked out; a fixed iteration
     count, each scenario's iterate frozen once converged, then the active-set
-    polish with the active set read off ``λ > s``."""
+    polish with the active set read off ``λ > s``. ``op`` is a
+    :class:`QPOperator` or a :class:`QPMatrices` (one QP per scenario
+    allowed): only ``P`` and ``A_c`` are read."""
     set_solver_precision()
     dtype = op.P.dtype
     P, A_c = op.P, op.A_c
     Bn, n = q.shape
-    m_r = A_c.shape[0]
+    m_r = A_c.shape[-2]
     if eps_abs is None:
         eps_abs = 1e-8 if dtype == torch.float64 else 1e-4
 
-    G = torch.cat([A_c, -A_c], dim=0)
+    G = torch.cat([A_c, -A_c], dim=-2)
     h = torch.cat([u, -l], dim=1)
     finite = torch.isfinite(h)
     h_safe = torch.where(finite, h, torch.full_like(h, _BIG))
@@ -292,14 +317,16 @@ def pdip_solve(
     count = torch.clamp(mask.sum(dim=1), min=1.0)
     eye = torch.eye(n, dtype=dtype, device=q.device)
 
-    x = torch.linalg.solve(P + 1e-8 * eye, -q.T).T
-    s = torch.clamp(h_safe - x @ G.T, 1.0, _BIG)
+    x = torch.linalg.solve(P + 1e-8 * eye, -q.T).T if P.ndim == 2 else \
+        torch.linalg.solve(P + 1e-8 * eye, -q)
+    s = torch.clamp(h_safe - _mv(G, x), 1.0, _BIG)
     lam = mask * (1.0 / s) + (1.0 - mask) * 1e-12
 
     def newton_dx(W, r_d, r_g, r_s, s, lam):
         # (P + Gᵀ W G) Δx = −r_d − Gᵀ((λ∘r_g − r_s)/s), masked rows zeroed
-        KKT = P + torch.einsum("ki,bk,kj->bij", G, W, G)
-        rhs = -r_d - (mask * (lam * r_g - r_s) / s) @ G
+        KKT = P + (torch.einsum("ki,bk,kj->bij", G, W, G) if G.ndim == 2 else
+                   torch.einsum("bki,bk,bkj->bij", G, W, G))
+        rhs = -r_d - _mtv(G, mask * (lam * r_g - r_s) / s)
         return torch.linalg.solve_ex(KKT, rhs).result
 
     def step_len(v, dv):
@@ -313,15 +340,15 @@ def pdip_solve(
     rd_freeze = 1e3 * eps_machine * scale
     col = lambda a: a[:, None]
     for _ in range(iters):
-        r_d = x @ P.T + q + (mask * lam) @ G
-        r_g = mask * (x @ G.T + s - h_safe)
+        r_d = _mv(P, x) + q + _mtv(G, mask * lam)
+        r_g = mask * (_mv(G, x) + s - h_safe)
         mu = (mask * s * lam).sum(dim=1) / count
         frozen = (mu < mu_freeze) & (r_d.abs().amax(dim=1) < rd_freeze)
         W = mask * lam / s
 
         r_s_aff = s * lam
         dx_aff = newton_dx(W, r_d, r_g, r_s_aff, s, lam)
-        ds_aff = -r_g - (dx_aff @ G.T) * mask
+        ds_aff = -r_g - _mv(G, dx_aff) * mask
         dlam_aff = mask * (-r_s_aff - lam * ds_aff) / s
         a_aff = torch.minimum(step_len(s, ds_aff), step_len(lam, dlam_aff))
         mu_aff = (mask * (s + col(a_aff) * ds_aff) * (lam + col(a_aff) * dlam_aff)).sum(dim=1) / count
@@ -329,7 +356,7 @@ def pdip_solve(
 
         r_s = s * lam + ds_aff * dlam_aff - col(sig * mu)
         dx = newton_dx(W, r_d, r_g, r_s, s, lam)
-        ds = -r_g - (dx @ G.T) * mask
+        ds = -r_g - _mv(G, dx) * mask
         dlam = mask * (-r_s - lam * ds) / s
 
         a = col(torch.minimum(step_len(s, ds), step_len(lam, dlam)))
@@ -344,7 +371,7 @@ def pdip_solve(
 
     lam_m = mask * lam
     y = lam_m[:, :m_r] - lam_m[:, m_r:]
-    z = torch.clamp(x @ A_c.T, l, u)
+    z = torch.clamp(_mv(A_c, x), l, u)
     if polish:
         upper_active = (mask[:, :m_r] > 0) & (lam[:, :m_r] > s[:, :m_r])
         lower_active = (mask[:, m_r:] > 0) & (lam[:, m_r:] > s[:, m_r:])

@@ -160,6 +160,42 @@ def test_alilqr_kernel_matches_twin(parking, tile, group):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
 
 
+@pytest.mark.parametrize("mode", ["refs", "dist+urefs", "all"])
+@pytest.mark.parametrize("group", [1, 8, 32])
+def test_alilqr_modes_match_twin(parking, mode, group):
+    """The tracking, offset and input-reference modes (``dist+urefs`` runs
+    as all three, the reference zero) on the card: bit for bit with the
+    twin, each launch counted."""
+    KI, kw = parking
+    g = torch.Generator().manual_seed(4)
+    B, N = 37, kw["N"]
+    x0 = random_initial_states(g, B, x_obs=(0.25, 0.0, 0.0, 0.0), device="cuda")
+    extra = {}
+    if mode != "dist+urefs":
+        extra["refs"] = (x0[:, None] + 0.01 * torch.randn(B, N + 1, 4, generator=g).cuda())
+    if mode != "refs":
+        extra["dist"] = 4e-3 * torch.randn(B, 4, generator=g).cuda()
+        extra["urefs"] = 0.1 * torch.randn(B, N, 2, generator=g).cuda()
+    u, acc, fric = torch.zeros(B, N, 2).cuda(), torch.full((B,), 2.0).cuda(), torch.ones(B).cuda()
+    before = KI.LAUNCHES
+    got = KI.al_ilqr_solve_cuda(x0, u, acc, fric, **extra, tile=8, group=group, **kw)
+    torch.cuda.synchronize()
+    assert KI.LAUNCHES == before + 1
+    ref = KI.al_ilqr_solve_twin(x0, u, acc, fric, **extra, tile=8, **kw)
+    for name in ("us", "xs", "viol", "converged", "lam", "inner_iters_executed"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+def test_offset_free_sweeps_launch_the_kernel(parking):
+    """Each step of the crosswind and slope loops is one launch."""
+    KI, _ = parking
+    before = KI.LAUNCHES
+    res, _ = port.wind_sweep(64, 3, device="cuda")
+    assert KI.LAUNCHES == before + 3 and res.states.is_cuda
+    res, _ = port.offset_free_sweep(64, 3, device="cuda")
+    assert KI.LAUNCHES == before + 6 and bool(torch.isfinite(res.states).all())
+
+
 def test_oversize_alilqr_tile_raises(parking):
     """More threads per CTA (tile × group) than the kernel's launch bounds
     allow: the wrapper raises before anything is built or launched."""

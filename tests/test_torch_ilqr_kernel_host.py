@@ -86,7 +86,7 @@ def host_kernel(tmp_path_factory):
         "host_grid(kernel, n_tiles, tile * GROUP, g, c)", src,
     )
     assert n == 1, "the launch line of csrc/ilqr_kernel.cu changed"
-    marker = "template <int NC>\nstatic int launch_kernel"
+    marker = "template <int NC, int MODE>\nstatic int launch_kernel"
     assert src.count(marker) == 1
     src = src.replace(marker, GRID + "\n" + marker)
     d = tmp_path_factory.mktemp("host_kernel")
@@ -189,6 +189,99 @@ def test_host_build_without_shared_memory_matches(host_launch, monkeypatch):
     plan = K.launch_plan(N, nc, 2, 8)
     assert plan.smask == 0 and plan.smem_bytes == 0 and plan.work_rows == N * (23 + 10) + 7 * 41
     _assert_equal(host_launch(*args, group=8, **kw), want)
+
+
+# ---------------------------------------------------------------------------
+# the tracking, additive-offset and input-reference modes
+# ---------------------------------------------------------------------------
+
+MODES = {
+    # name: (refs, dist, urefs) given
+    "refs": (True, False, False),
+    "dist+urefs": (False, True, True),
+    "all": (True, True, True),
+}
+
+
+def _mode_case(mode, obstacle=False, tile=4, warm=False, seed=5, outer=3, inner=8):
+    """:func:`_case` with the mode's operands: a reference window around a
+    forward arc from the start, an offset of a few millimetres a step and a
+    small input reference, made with numpy from ``seed``."""
+    args, kw = _case(obstacle, tile, warm, seed, outer, inner)
+    rng = np.random.default_rng(seed + 100)
+    has_ref, has_dist, has_uref = MODES[mode]
+    x0 = args[0][:, :B].T.numpy().astype(np.float64)
+    t = np.arange(N + 1)[None, :, None]
+    ref = x0[:, None, :] + t * np.array([0.01, 0.004, 0.02, 0.0]) + rng.normal(0, 0.01, (B, N + 1, 4))
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    extra = dict(
+        refs=f32(ref) if has_ref else None,
+        dist=f32(rng.uniform(-4e-3, 4e-3, (B, 4))) if has_dist else None,
+        urefs=f32(rng.uniform(-0.2, 0.2, (B, N, 2))) if has_uref else None,
+    )
+    u = args[1][:, :, :B].permute(2, 0, 1)
+    lam = args[3][:, :, :B].permute(2, 0, 1)
+    n_circ = kw["n_circ"]
+    pp = args[2][:, :B]
+    args = K.prepare_tiles(args[0][:, :B].T, u, pp[0], pp[1], lam, N=N, tile=tile,
+                           n_circles=n_circ, **extra)
+    return args, kw
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("group", K.GROUPS)
+def test_host_build_modes_match_twin(host_launch, mode, group):
+    """Each new mode, cold: every output of the host build at every group
+    is the twin's, bit for bit (``dist+urefs`` runs as all three operands,
+    the reference zero)."""
+    args, kw = _mode_case(mode)
+    assert [a is not None for a in args[4:]] == ([True] * 3 if mode != "refs" else [True, False, False])
+    want = K.al_ilqr_tiles_reference(*args, **kw)
+    _assert_equal(host_launch(*args, group=group, **kw), want)
+    assert bool(want[3].any())
+
+
+@pytest.mark.parametrize("mode", ["refs", "all"])
+def test_host_build_modes_warm_and_obstacle_match_twin(host_launch, mode):
+    """Warm (controls and multipliers) with the obstacle rows, at group 8."""
+    args, kw = _mode_case(mode, obstacle=True, warm=True, seed=7, outer=4, inner=10)
+    _assert_equal(host_launch(*args, group=8, **kw), K.al_ilqr_tiles_reference(*args, **kw))
+
+
+def test_host_build_modes_out_of_shared_memory(host_launch, monkeypatch):
+    """The mode's operands read from their inputs (regions out of shared
+    memory), then everything out of it: same bits."""
+    args, kw = _mode_case("all", tile=2)
+    want = K.al_ilqr_tiles_reference(*args, **kw)
+    nc = K.n_constraints(0)
+    names = [r[0] for r in K.regions(N, nc, K.M_ALL)]
+    assert names[6:] == ["ref", "uref", "dist"]
+    base = sum(f for _, f, _ in K.regions(N, nc))
+    monkeypatch.setattr(K, "SMEM_LIMIT", 8 * (base + 1))  # the regulation regions only
+    plan = K.launch_plan(N, nc, 2, 8, K.M_ALL)
+    assert plan.smask == 0b000111111 and plan.work_rows == 0
+    _assert_equal(host_launch(*args, group=8, **kw), want)
+    monkeypatch.setattr(K, "SMEM_LIMIT", 0)
+    assert K.launch_plan(N, nc, 2, 8, K.M_ALL).smask == 0
+    _assert_equal(host_launch(*args, group=8, **kw), want)
+
+
+def test_mode_regions_and_refusals(monkeypatch):
+    """A lane's extra floats per mode, (N+1)·4 + N·2 + 4 with all three; the
+    regulation plan is the six regions' alone; a launch with a mode the
+    kernel is not built for raises before any build."""
+    n, nc = 15, 12
+    extra = lambda mode: sum(f for _, f, _ in K.regions(n, nc, mode)[6:])
+    assert extra(K.M_ALL) == (n + 1) * 4 + n * 2 + 4
+    assert extra(K.M_TRACK) == (n + 1) * 4
+    assert len(K.regions(n, nc)) == 6 and K.launch_plan(n, nc, 16, 8).smask == 0b111111
+    assert K.launch_plan(n, nc, 16, 8, K.M_ALL).smask == 0b111111111
+    with pytest.raises(ValueError, match="threads per CTA"):
+        K.launch_plan(n, nc, 128, 8, K.M_ALL)
+    monkeypatch.setattr(K, "_build_library", lambda group=1: pytest.fail("built a library"))
+    args, kw = _mode_case("all")
+    with pytest.raises(ValueError, match="operand modes"):
+        K._launch(*args[:5], None, args[6], group=8, **kw)
 
 
 # ---------------------------------------------------------------------------

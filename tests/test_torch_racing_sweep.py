@@ -125,21 +125,46 @@ def test_twin_backend_is_the_cpu_route():
         ("racing_sweep", {"backend": "pallas-hand"}, "S4.2"),
         ("racing_sweep", {"backend": "xla"}, "S3.2"),
         ("racing_sweep", {"mesh": object()}, "S7.1"),
-        ("racing_sweep", {"dtype": torch.float64}, "S3.2"),
+        ("racing_sweep", {"dtype": torch.float64, "backend": "torch"}, "S3.2"),
         ("racing_sweep_dynamic", {"backend": "xla"}, "S3.2"),
         ("racing_sweep_dynamic", {"mesh": object()}, "S7.1"),
     ],
 )
 def test_unported_options_raise(sweep, kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(port, sweep)(2, 1, N=4, device="cpu", **kw)
+    """Meshes (ROADMAP S7.1) still raise; the options of S3.2 and S4.2 (the
+    per-scenario route, the parking kernel's tracking mode) are ported and
+    run; ``backend="xla"`` is the JAX name of ``"torch"``; the kernel
+    refuses float64, naming the per-scenario route."""
+    if kw.get("backend") == "torch":
+        with pytest.raises(ValueError, match="float32 only.*backend='torch'"):
+            getattr(port, sweep)(2, 1, N=4, device="cpu", **{**kw, "backend": "cuda"})
+    if item == "S7.1":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            getattr(port, sweep)(2, 1, N=4, device="cpu", **kw)
+    elif kw.get("backend") == "xla":
+        with pytest.raises(ValueError, match="backend='torch'"):
+            getattr(port, sweep)(2, 1, N=4, device="cpu", **kw)
+    else:
+        res, _ = getattr(port, sweep)(2, 1, N=4, device="cpu", outer_iters=1, inner_iters=2,
+                                      plant_substeps=2, **kw)
+        assert bool(torch.isfinite(res.states).all())
 
 
 def test_per_scenario_controller_model_raises():
+    """A per-scenario controller model the kernel has no operand for raises
+    on the kernel backends, naming the per-scenario route, which takes it;
+    a backend the Pacejka tier does not know still raises."""
     ref = ellipse_reference(10, speed=0.35, dynamic=False, device="cpu")
     per_lane = port.VehicleParameters(axis_rear=torch.full((2,), 0.05))
-    with pytest.raises(NotImplementedError, match="ROADMAP S3.2"):
-        PB.batched_racing_policy(ref, per_lane, N=4)
+    for backend in ("cuda", "twin", "pallas-hand"):
+        with pytest.raises(ValueError, match="axis_rear.*backend='torch'"):
+            PB.batched_racing_policy(ref, per_lane, N=4, backend=backend)
+    with pytest.raises(ValueError, match="axis_rear.*backend='torch'"):
+        PB.batched_racing_dynamic_policy(ref, per_lane, N=4)
+    pol = PB.batched_racing_policy(ref, per_lane, N=4, outer_iters=1, inner_iters=2,
+                                   backend="torch")
+    u, _, aux = pol(ref[:1].expand(2, 4).clone(), 0, pol.initial_carry(2, device="cpu"))
+    assert u.shape == (2, 2) and "kernel_inner_iters" not in aux
     with pytest.raises(ValueError, match="unknown backend"):
         port.racing_sweep_dynamic(2, 1, N=4, backend="pallas-hand", device="cpu")
 
