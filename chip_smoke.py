@@ -34,8 +34,8 @@ kernel, and times it:
   × 50 steps each) on the two instantiations of the fused tracker kernel
   (held to its twin bit for bit at one thread per lane and at two thread
   groups, on the launch's operands and through the policy; with CUDA
-  events around every launch of one sweep, a profiled window and the sweeps
-  per tile × group, all informational);
+  events around every launch of one sweep and a profiled window, both
+  informational);
 - the AL-iLQR kernel's operand modes (``refs`` alone, and ``refs``,
   ``dist``, ``urefs`` together) held to the twin bit for bit on the launches
   of the offset-free sweeps' first two steps (2,048 × N=15 crosswind,
@@ -49,6 +49,15 @@ kernel, and times it:
   per-scenario route on the card (``batched_parking_policy(backend=
   "torch")``, the batched AL-iLQR with ``torch.func`` derivatives) held
   against the kernel on the same states;
+- the tracker kernel's benchmark models (cart-pole nu=1, planar quadrotor
+  nu=2, omnidirectional base nu=3 with and without a per-scenario mass,
+  thrust cluster nu=4): each instantiation held to its twin bit for bit at
+  one thread per lane and at two thread groups, in regulation and tracking
+  and without an input box; then ``quadrotor_sweep(2048, 50)`` and
+  ``thruster_sweep(2048, 50)`` (N=10, RK4x2 prediction, 8 plant substeps)
+  with their launches counted and the contract's quality gates, the other
+  models' solves, a kernel-vs-twin closed loop of each sweep, and each sweep
+  timed with CUDA events around its launches;
 - the long-horizon closed loop (session-2 linear MPC on the stagewise
   interior-point solver, N=100, 20 iterations, 4,096 scenarios × 50 steps)
   on the fused stagewise-IP kernel (held to its twin bit for bit at one
@@ -83,7 +92,11 @@ checkouts in one call to compare two versions on one card. ``python3
 chip_smoke.py --long-horizon-phases`` prints where a stagewise-IP launch
 spends its cycles, phase by phase, from a clocked build of the kernel.
 ``python3 chip_smoke.py --family-phases`` runs the linear family's phases
-alone (the ADMM kernel's builds they launch, then the phases above).
+alone (the ADMM kernel's builds they launch, then the phases above);
+``python3 chip_smoke.py --benchmark-phases`` runs the tracker kernel's
+benchmark-model phases alone (its libraries, then those phases);
+``python3 chip_smoke.py --tracker-launches DIR`` times the racing tiers'
+warm tracker launch alone for the port found under ``DIR``.
 """
 
 from __future__ import annotations
@@ -164,14 +177,49 @@ RACE_TWIN_STEPS = 2
 # contraction) at every thread group, so all six outputs are gated bit for bit.
 # The groups built and held here: one thread per lane, and both defaults.
 RACE_GROUPS = (1, 8, 32)
-# Informational sweep of whole sweeps over (tile, group), one round at the
-# default tile only, to keep the script's time. PERF.md's full tables are
-# this script's with
+# Informational sweep of whole sweeps over (tile, group): none, to keep the
+# script's time (the kernel-vs-twin checks at every group hold
+# the group's independence). PERF.md's full tables are this script's with
 # RACE_GROUPS = (1, 8, 16, 32), RACE_SWEEP_TILES = (8, 16, 32, 64) and 4
 # rounds.
-RACE_SWEEP_TILES = (16,)
+RACE_SWEEP_TILES = ()
 RACE_SWEEP_ROUNDS = 1
-RACE_PROFILE_STEPS = 10  # the window of each sweep run under torch.profiler (parking too)
+RACE_PROFILE_STEPS = 5  # the window of each sweep run under torch.profiler (parking too)
+
+# the tracker kernel's benchmark models (BENCH_CONTRACT.json "quadrotor_sweep",
+# "thruster_sweep": batch, steps, N=10, RK4x2 prediction, 8 plant substeps and
+# the quality gates, read from the file; the solves/s there were a TPU's).
+# Models no sweep uses are driven by one solve each through make_fused_tracker
+# at the sweeps' batch: the JAX tests' problems (cart-pole regulation with a
+# binding force box, tests/test_ilqr_factory.py:140; the omnibase in
+# regulation, test_ilqr_factory_wide.py:60, and with a per-scenario mass,
+# test_ilqr_factory_constrained.py:179), N=10, RK4x2.
+BENCH_BATCH = 2048
+BENCH_STEPS = 50
+BENCH_N = 10
+BENCH_SWEEPS = {"quadrotor": "quadrotor_sweep", "thruster": "thruster_sweep"}
+BENCH_SOLVES = {
+    # instantiation: (builder, limits, weights, start spread, per-lane mass range)
+    "cartpole": ("make_cartpole_ode_rows", ((-3.0,), (3.0,)),
+                 ((1.0, 2.0, 0.1, 0.1), (0.01,), 10.0), (2.0, 0.5, 0.2, 0.2), None),
+    "omnibase": ("make_omnibase_ode_rows", ((-12.0, -12.0, -3.0), (12.0, 12.0, 3.0)),
+                 ((5.0, 5.0, 1.0, 0.5, 0.5, 0.1), (0.01, 0.01, 0.005), 10.0),
+                 (2.5, 0.5, 1.0, 0.2, 0.1, 0.3), None),
+    "omnibase_param": ("make_omnibase_param_ode_rows", ((-12.0, -12.0, -3.0), (12.0, 12.0, 3.0)),
+                       ((5.0, 5.0, 1.0, 0.5, 0.5, 0.1), (0.01, 0.01, 0.005), 10.0),
+                       (2.5, 0.5, 1.0, 0.2, 0.1, 0.3), (4.0, 10.0)),
+}
+BENCH_FUNCTORS = {"cartpole": "CartpoleRows", "quadrotor": "QuadrotorRows",
+                  "omnibase": "OmnibaseRows", "omnibase_param": "OmnibaseParamRows",
+                  "thruster": "ThrusterRows"}
+# the solves' sanity floor: the share of lanes converged within the 6 x 15
+# budget from the seeded starts (the omnibase's far starts leave ~1% short;
+# the kernel is held to the twin bit for bit above)
+BENCH_SOLVE_CONVERGED = 0.95
+BENCH_TWIN_SCENARIOS = 64
+BENCH_TWIN_STEPS = 2
+TOL_BENCH_STATES = 5e-3  # closed loop, as the kinematic racing tier's
+BENCH_TILES = (8, 16, 32)  # informational launch sweep of (tile, group)
 # long-horizon stagewise-IP loop (the JAX package's README "Long-horizon
 # box-QP" workload: N=100, batch 4096, 20 iterations; nothing cut)
 LH_BATCH = 4096
@@ -302,7 +350,18 @@ PEAK_HBM = 3.35e12  # B/s
 #   backward ~600 (Jacobian 45, box rows 54, reference errors 6, Riccati
 #   algebra ~500), the 7 rollouts 7 x 155 (control 22, stage cost with the
 #   reference and input-reference errors 100, Euler step with the offset 31).
-FLOPS_STAGE_ITER = {"parking": 3010, "kinematic": 2100, "pacejka": 29600, "tracking": 1690}
+# - the benchmark models (RK4x2 prediction, N=10): one step is 2 substeps of
+#   4 model evaluations plus the combination; the tangents of nx + nu
+#   directions charged 2 x that step; the Riccati algebra at (nx, nu) with the
+#   Quu solve; the 7 rollouts (control, stage cost with its box rows, step):
+#   cart-pole (25 a model evaluation; step 304, 5 directions; algebra ~500),
+#   quadrotor (12; step 252, 8 directions, algebra with the tilt box ~1,950),
+#   omnibase with or without the per-lane mass (17; step 292, 9 directions;
+#   algebra ~2,400), thruster (50; step 556, 10 directions; algebra with the
+#   4 x 4 Cholesky and its 7 right-hand sides ~2,900).
+FLOPS_STAGE_ITER = {"parking": 3010, "kinematic": 2100, "pacejka": 29600, "tracking": 1690,
+                    "cartpole": 6000, "quadrotor": 9000, "omnibase": 10500,
+                    "omnibase_param": 10500, "thruster": 19000}
 
 
 def bound(torch, flops: float, tensors) -> dict:
@@ -468,6 +527,18 @@ def main() -> int:
         print(f"the port at {os.path.dirname(port.__file__)} [{card}]", flush=True)
         loop_report(torch, port, KR, card, torch.device("cuda"))
         return 0
+    if sys.argv[1:2] == ["--tracker-launches"]:
+        # the racing tiers' warm tracker launch alone, for the port found
+        # under the given directory (another version of it, to compare two
+        # on one card)
+        sys.path.insert(0, os.path.abspath(sys.argv[2] if len(sys.argv) > 2 else "."))
+        import model_predictive_control_tpu_torch as port
+        from model_predictive_control_tpu_torch.ops.cuda import ilqr_factory as KF
+
+        card = smi()
+        print(f"the port at {os.path.dirname(port.__file__)} [{card}]", flush=True)
+        tracker_launch_report(torch, port, KF, card, torch.device("cuda"))
+        return 0
     if sys.argv[1:2] == ["--long-horizon-phases"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         import model_predictive_control_tpu_torch as port
@@ -494,6 +565,13 @@ def main() -> int:
 
     device = torch.device("cuda")
     card = smi()
+    if sys.argv[1:2] == ["--benchmark-phases"]:
+        # the tracker kernel's benchmark models alone, on its libraries
+        print(card, flush=True)
+        build_all([(KF.library_name(g), lambda g=g: KF._build_library(g)) for g in RACE_GROUPS])
+        print(json.dumps({"kernels": benchmark_phases(torch, port, KF, card, device)}))
+        phase(None)
+        return 0
 
     phase("environment")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -526,8 +604,9 @@ def main() -> int:
     ilqr = ilqr_phases(torch, port, KI, card, device)
     modes = mode_phases(torch, port, KI, card, device)
     racing = [racing_phases(torch, port, KF, tier, card, device) for tier in RACE_TIERS]
+    bench = benchmark_phases(torch, port, KF, card, device)
     stagewise = stagewise_phases(torch, port, KR, card, device)
-    kernels = [admm, *family, ilqr, modes, *racing, stagewise]
+    kernels = [admm, *family, ilqr, modes, *racing, *bench, stagewise]
     phase(None)
 
     print(json.dumps({"kernels": kernels}))
@@ -592,7 +671,7 @@ def headline(torch, port, K, device):
         policy = ctrl.batched_policy(
             backend=backend, tile=tile, max_rho_moves=0, polish=False, probe_iters=PROBE_ITERS,
         )
-        return port.simulate_batch(x0, system, steps, policy, carry)
+        return port.simulate_batch(x0, system, steps, policy, carry, batched_dynamics=True)
 
     return problem, ctrl, system, episode
 
@@ -618,7 +697,7 @@ def headline_report(torch, port, K, card, device) -> float:
     """Times the headline episode at the kernel's default tile: the wall
     (best of 3, after a warm-up), CUDA events around every launch of one
     more episode (the presolve launch, the steady ones, the kernel's share
-    of the wall), a 10-step window under ``torch.profiler`` (the device's
+    of the wall), a 5-step window under ``torch.profiler`` (the device's
     idle share) and the warm launch alone. Returns the best wall."""
     problem, ctrl, system, episode = headline(torch, port, K, device)
     x0 = initial_states(torch, device)
@@ -1375,7 +1454,7 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
     for backend in ("cuda", "twin"):
         pol = PB.batched_parking_policy(base, N, PARK_TS, x_obs=PARK_OBSTACLE, backend=backend)
         out = port.simulate_batch(x0[:S], port.batched_plant(sub, PARK_TS), PARK_TWIN_STEPS,
-                                  pol, pol.initial_carry(S, device))
+                                  pol, pol.initial_carry(S, device), batched_dynamics=True)
         finals[backend] = out.states[-1]
     d_final = (finals["cuda"] - finals["twin"]).abs().max().item()
     print(f"first {S} scenarios over {PARK_TWIN_STEPS} steps, final states kernel vs twin "
@@ -1555,7 +1634,8 @@ def mode_phases(torch, port, K, card, device) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out[backend] = port.simulate_batch(x0[:S], port.batched_plant(sub, PARK_TS),
-                                           PER_SCENARIO_STEPS, pol, pol.initial_carry(S, device))
+                                           PER_SCENARIO_STEPS, pol, pol.initial_carry(S, device),
+                                           batched_dynamics=True)
         torch.cuda.synchronize()
         print(f"{backend}: {PER_SCENARIO_STEPS} steps in {time.perf_counter() - t0:.2f} s "
               f"[{card}]", flush=True)
@@ -1714,12 +1794,14 @@ def racing_phases(torch, port, K, tier, card, device) -> dict:
 
     profile_sweep(torch, sweep, B, card, device)
 
-    phase(f"racing sweep per tile x group ({tier}; informational)")
-    quality = sweep_points(torch, K, sweep, B, RACE_STEPS, points, RACE_SWEEP_ROUNDS, device, card)
-    same_tile = {pt: quality[pt] for pt in points if pt[0] == tile}
-    keys = ("success_rate", "mean_tracking_error", "mean_inner_iters")
-    if any(sm[k] != summary[k] for sm in same_tile.values() for k in keys):
-        raise SystemExit(f"{sweep_name}'s summary depends on the group at tile {tile}")
+    if points:
+        phase(f"racing sweep per tile x group ({tier}; informational)")
+        quality = sweep_points(torch, K, sweep, B, RACE_STEPS, points, RACE_SWEEP_ROUNDS,
+                               device, card)
+        same_tile = {pt: quality[pt] for pt in points if pt[0] == tile}
+        keys = ("success_rate", "mean_tracking_error", "mean_inner_iters")
+        if any(sm[k] != summary[k] for sm in same_tile.values() for k in keys):
+            raise SystemExit(f"{sweep_name}'s summary depends on the group at tile {tile}")
 
     return {
         "name": f"tracker_tile_kernel<{'PacejkaRows' if dynamic else 'KinematicRows'}>",
@@ -1732,6 +1814,197 @@ def racing_phases(torch, port, K, tier, card, device) -> dict:
         "plain_ms": twin_ms,
         **roof,
     }
+
+
+def bench_solve(torch, port, K, name, device, limits="box"):
+    """One regulation solve of a benchmark model no sweep uses, through
+    ``make_fused_tracker`` at ``BENCH_BATCH`` lanes from seeded starts (and,
+    for the per-lane mass, seeded masses); returns the solution."""
+    builder, box, weights, spread, masses = BENCH_SOLVES[name]
+    model = getattr(port, builder)()
+    g = torch.Generator().manual_seed(0)
+    x0 = (2.0 * torch.rand(BENCH_BATCH, model.nx, generator=g) - 1.0) * torch.tensor(spread)
+    kw = {}
+    if masses is not None:
+        lo, hi = masses
+        kw = dict(params=(lo + (hi - lo) * torch.rand(BENCH_BATCH, 1, generator=g)).to(device))
+    step = K.make_fused_tracker(model, model.nx, model.nu, N=BENCH_N, ts=0.1, substeps=2,
+                                limits=box, weights=weights, n_params=model.n_params,
+                                viol_tol=1e-4)
+    return step(x0.to(device), torch.zeros(BENCH_BATCH, BENCH_N, model.nu, device=device), **kw)
+
+
+def twin_launch(torch, K, args, kw):
+    """The twin on a launch's operands (the card's tensors): its outputs and
+    seconds."""
+    plain = {k: v for k, v in kw.items() if k != "group"}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = K.tracker_tiles_reference(*args, **plain)
+    torch.cuda.synchronize()
+    return want, time.perf_counter() - t0
+
+
+def benchmark_phases(torch, port, K, card, device) -> list:
+    """The tracker kernel's benchmark models: each new instantiation against
+    its twin on the card, bit for bit at every group of ``RACE_GROUPS`` that
+    fits the default tile, on one launch (the loiter sweeps' warm step, the
+    other models' regulation solve, and the quadrotor's warm step without
+    its input box); an informational (tile, group) launch sweep; then the
+    main path, counted: ``quadrotor_sweep`` and ``thruster_sweep`` at their
+    contract shapes with the contract's quality gates, and the other models'
+    solves; a kernel-vs-twin closed loop of each sweep; each sweep timed with
+    CUDA events around its launches, its launch of median time timed alone.
+    Returns one ``kernels`` entry per instantiation."""
+    tile = K.DEFAULT_TILE
+    B, N = BENCH_BATCH, BENCH_N
+    phase(f"tracker kernel vs twin on the card, benchmark models ({B} lanes, N={N}, tile {tile})")
+    held = {}  # instantiation -> (args, kw) of the launch held bit for bit
+    err, twin_times = {}, {}
+    for name, entry in BENCH_SWEEPS.items():
+        seen = captured_launches(torch, K, lambda: getattr(port, entry)(B, 2, device=device))
+        held[name] = seen[1]  # the warm step
+    held["quadrotor, no input box"] = (held["quadrotor"][0], {**held["quadrotor"][1],
+                                                              "limits": None})
+    for name in BENCH_SOLVES:
+        solve = lambda: bench_solve(torch, port, K, name, device)
+        held[name] = captured_launches(torch, K, solve)[0]
+    for name, (args, kw) in held.items():
+        kernel = kw["ode_rows"].kernel
+        group = K.DEFAULT_GROUP[kernel]
+        groups = [g for g in RACE_GROUPS if tile * g <= K.MAX_THREADS[g]]
+        want, twin_s = twin_launch(torch, K, args, kw)
+        twin_times[name] = twin_s
+        at = {k: v for k, v in kw.items() if k != "group"}
+        outs = {g: K._launch(*args, group=g, **at) for g in groups}
+        label = (f"{name} ({'tracking' if args[2] is not None else 'regulation'}, nu "
+                 f"{kw['nu']}, nc {want[4].shape[1]}, default group {group})")
+        e = compare_launches(torch, "tracker kernel", label, outs, want, twin_s, card)
+        err[kernel] = max(err.get(kernel, 0.0), e)
+        if kernel == "cartpole":
+            at_box = (want[0].abs() >= 3.0 - 1e-3).any(dim=(0, 1)).float().mean().item()
+            print(f"cart-pole: share of lanes whose force reaches the box |u| = 3: {at_box:.4f}",
+                  flush=True)
+            if at_box == 0.0:
+                raise SystemExit("the cart-pole solve's force box never binds")
+
+    phase("tracker kernel, benchmark models: launch per (tile, group) (informational)")
+    for name, (args, kw) in held.items():
+        print(f"{name}:", flush=True)
+        launch_points(torch, K, args, kw, sweep_grid(K, RACE_GROUPS, BENCH_TILES), card)
+
+    sweeps = ", ".join(f"{e}({B}, {BENCH_STEPS})" for e in BENCH_SWEEPS.values())
+    phase(f"benchmark models main path: {sweeps}, the solves of {', '.join(BENCH_SOLVES)}")
+    for k in K.LAUNCHES_BY_KERNEL:
+        K.LAUNCHES_BY_KERNEL[k] = 0
+    runs = {}
+    for name, entry in BENCH_SWEEPS.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, summary = getattr(port, entry)(B, BENCH_STEPS, device=device)
+        torch.cuda.synchronize()
+        runs[name] = time.perf_counter() - t0
+        nu = {"quadrotor": 2, "thruster": 4}[name]
+        if res.states.shape != (BENCH_STEPS + 1, B, 6) or res.inputs.shape != (BENCH_STEPS, B, nu):
+            raise SystemExit(f"unexpected shapes {res.states.shape} {res.inputs.shape}")
+        if not bool(torch.isfinite(res.states).all()):
+            raise SystemExit(f"non-finite states in {entry}")
+        gate_summary(entry, summary, contract_gates(entry))
+        print(f"{entry}({B}, {BENCH_STEPS}): wall {runs[name]:.4f} s (first run), "
+              f"{B * BENCH_STEPS / runs[name]:.1f} solves/s [{card}]", flush=True)
+    for name in BENCH_SOLVES:
+        sol = bench_solve(torch, port, K, name, device)
+        conv = sol.converged.float().mean().item()
+        print(f"{name} solve ({B} lanes): converged {conv:.5f}, max viol "
+              f"{sol.viol.max().item():.2e}, mean inner iterations "
+              f"{sol.inner_iters_executed.mean().item():.2f}", flush=True)
+        if not (conv >= BENCH_SOLVE_CONVERGED and bool(torch.isfinite(sol.us).all())):
+            raise SystemExit(f"the {name} solve does not converge")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES_BY_KERNEL)
+    print(f"tracker kernel launches by instantiation: {launches} (expected {BENCH_STEPS} a "
+          f"sweep, 1 a solve)", flush=True)
+    expected = {**{n: BENCH_STEPS for n in BENCH_SWEEPS}, **{n: 1 for n in BENCH_SOLVES}}
+    if any(launches[n] != c for n, c in expected.items()):
+        raise SystemExit("the benchmark models' path did not go through the kernel as expected")
+
+    phase(f"benchmark sweeps: kernel-vs-twin closed loops ({BENCH_TWIN_SCENARIOS} scenarios, "
+          f"{BENCH_TWIN_STEPS} steps)")
+    for entry in BENCH_SWEEPS.values():
+        finals = {b: getattr(port, entry)(BENCH_TWIN_SCENARIOS, BENCH_TWIN_STEPS, backend=b,
+                                          device=device)[0].states[-1] for b in ("cuda", "twin")}
+        d = (finals["cuda"] - finals["twin"]).abs().max().item()
+        print(f"{entry}: final states, kernel vs twin policy: max {d:.3e}, bitwise equal "
+              f"{torch.equal(finals['cuda'], finals['twin'])} (tol {TOL_BENCH_STATES})", flush=True)
+        if not d <= TOL_BENCH_STATES:
+            raise SystemExit(f"the {entry} closed loop disagrees with the twin policy")
+
+    phase("benchmark sweeps timed: CUDA events around every launch, the launch of median time "
+          "alone")
+    entries = {}
+    for name, entry in BENCH_SWEEPS.items():
+        kept = []
+        wall, events, summary = timed_sweep(torch, K, getattr(port, entry), B, device,
+                                            steps=BENCH_STEPS, kept=kept)
+        print(f"{entry}({B}, {BENCH_STEPS}) with events: wall {wall:.4f} s, "
+              f"{B * BENCH_STEPS / wall:.1f} solves/s; mean inner iterations "
+              f"{summary['mean_inner_iters']:.2f}; tile {tile}, group "
+              f"{K.DEFAULT_GROUP[name]} [{card}]", flush=True)
+        print_events(wall, events, card)
+        loop = [(a.elapsed_time(b), *rest) for (a, b), rest in zip(events, kept)]
+        loop_ms, args, kw, _ = sorted(loop[1:], key=lambda r: r[0])[(len(loop) - 1) // 2]
+        kernel_ms = time_cuda(torch, lambda: K._launch(*args, **kw), 10)
+        want, twin_s = twin_launch(torch, K, args, kw)
+        outs = K._launch(*args, **kw)
+        err[name] = max(err[name], compare_launches(
+            torch, "tracker kernel", f"{entry}'s launch of median time", {kw["group"]: outs},
+            want, twin_s, card))
+        print(f"{name}: the loop's launch of median time ({loop_ms:.3f} ms in the loop; mean "
+              f"executed {outs[5].mean().item():.2f}) alone: kernel {kernel_ms:.3f} ms, twin "
+              f"{1e3 * twin_s:.1f} ms [{card}]", flush=True)
+        entries[name] = (kernel_ms, 1e3 * twin_s, args, kw, outs)
+    for name in BENCH_SOLVES:
+        # the solve's launch held above: its twin time from there
+        args, kw = held[name]
+        kernel_ms = time_cuda(torch, lambda: K._launch(*args, **kw), 10)
+        outs = K._launch(*args, **kw)
+        twin_ms = 1e3 * twin_times[name]
+        print(f"{name}: the solve's launch alone: kernel {kernel_ms:.3f} ms (group "
+              f"{kw['group']}), twin {twin_ms:.1f} ms [{card}]", flush=True)
+        entries[name] = (kernel_ms, twin_ms, args, kw, outs)
+
+    kernels = []
+    for name, functor in BENCH_FUNCTORS.items():
+        kernel_ms, twin_ms, args, kw, outs = entries[name]
+        print(f"{functor}:", end=" ")
+        roof = bound(torch, FLOPS_STAGE_ITER[name] * kw["N"] * float(outs[5].sum()),
+                     [a for a in args if torch.is_tensor(a)] + list(outs))
+        kernels.append({
+            "name": f"tracker_tile_kernel<{functor}>",
+            "route": "cuda",
+            "source": "model_predictive_control_tpu_torch/csrc/ilqr_factory.cu",
+            "replaces": "model_predictive_control_tpu/ops/pallas/ilqr_factory.py:204",
+            "launches": launches[name],
+            "max_abs_err": err[name],
+            "ms": kernel_ms,
+            "plain_ms": twin_ms,
+            **roof,
+        })
+    return kernels
+
+
+def tracker_launch_report(torch, port, K, card, device) -> None:
+    """The warm step's tracker launch of each racing tier (``RACE_BATCH``
+    lanes, N=15, the default tile and group), timed alone (20 calls after a
+    warm-up), with its library's ptxas report."""
+    groups = sorted({K.DEFAULT_GROUP[tier] for tier in RACE_TIERS})
+    build_all([(K.library_name(g), lambda g=g: K._build_library(g)) for g in groups])
+    for tier, (sweep_name, *_) in RACE_TIERS.items():
+        sweep = getattr(port, sweep_name)
+        args, kw = captured_launches(torch, K, lambda: sweep(RACE_BATCH, 2, device=device))[1]
+        ms = time_cuda(torch, lambda: K._launch(*args, **kw), 20)
+        print(f"{tier}: warm launch alone {ms:.4f} ms (tile {kw['tile']}, group {kw['group']}) "
+              f"[{card}]", flush=True)
 
 
 def profile_sweep(torch, sweep, B, card, device, kernel="tracker_tile_kernel") -> None:
@@ -1839,7 +2112,8 @@ def long_horizon_loop(torch, port, K, device, batch=None, **policy_kw):
     def run(steps=LH_STEPS, **kw):
         policy = ctrl.batched_policy(backend="cuda", **{**policy_kw, **kw})
         return port.simulate_batch(x0, system, steps, policy,
-                                   ctrl.initial_batch_carry(batch, device=device))
+                                   ctrl.initial_batch_carry(batch, device=device),
+                                   batched_dynamics=True)
 
     return run
 
@@ -1847,7 +2121,7 @@ def long_horizon_loop(torch, port, K, device, batch=None, **policy_kw):
 def loop_report(torch, port, K, card, device) -> float:
     """Times the long-horizon loop at the kernel's defaults: the wall (best
     of 3, after a warm-up), CUDA events around every launch of one more run
-    (time in the kernel, its share of the wall) and a 10-step window under
+    (time in the kernel, its share of the wall) and a 5-step window under
     ``torch.profiler`` (the device's idle share). Returns the best wall."""
     run = long_horizon_loop(torch, port, K, device)
     run()  # warm-up
@@ -2031,7 +2305,8 @@ def stagewise_phases(torch, port, K, card, device) -> dict:
     def loop(x, backend, steps=LH_STEPS):
         policy = ctrl.batched_policy(backend=backend)
         return port.simulate_batch(
-            x, system, steps, policy, ctrl.initial_batch_carry(x.shape[0], device=device)
+            x, system, steps, policy, ctrl.initial_batch_carry(x.shape[0], device=device),
+            batched_dynamics=True
         )
 
     K.LAUNCHES = 0

@@ -1,7 +1,7 @@
 """model_predictive_control_tpu_torch — the PyTorch and CUDA port of
 ``model_predictive_control_tpu``.
 
-Five paths so far, each on a kernel written in CUDA for Hopper (``csrc/``)
+Six paths so far, each on a kernel written in CUDA for Hopper (``csrc/``)
 with its plain-PyTorch twin:
 
 - the closed-loop linear MPC (session-2 problem data, condensed box-QP, the
@@ -21,6 +21,10 @@ with its plain-PyTorch twin:
   Kalman filter, MHE and the MHE-in-the-loop sweep (``mhe_loop_sweep``,
   whose soft-state MPC takes the kernel's wide mode). Session-1 LQR and the
   single-scenario ``simulate`` come with them;
+- the benchmark models of the model-parametric tracker (cart-pole,
+  planar quadrotor, omnidirectional base, thrust cluster: ``nu`` from 1 to
+  4, in regulation or tracking) and their loiter sweeps (``quadrotor_sweep``,
+  ``thruster_sweep``) on the fused tracker kernel;
 - the per-scenario nonlinear solvers, batched over scenarios in plain torch
   with ``torch.func`` derivatives: iLQR and AL-iLQR (``ilqr_solve``,
   ``al_ilqr_solve``), the SQP (``sqp_solve``), the parking OCPs and their
@@ -45,6 +49,13 @@ from .estimation import (
     mhe_trajectory,
     output_feedback_policy,
 )
+from .models.benchmarks import (
+    make_cartpole_ode_rows,
+    make_omnibase_ode_rows,
+    make_omnibase_param_ode_rows,
+    make_planar_quadrotor_ode_rows,
+    make_thruster_ode_rows,
+)
 from .models.linear import LinearSystem
 from .models.parameters import VehicleParameters
 from .ops.riccati import dare_residual, dare_sda, lqr_gain, riccati_recursion
@@ -57,9 +68,11 @@ from .parallel.batch import (
     mhe_loop_sweep,
     offset_free_sweep,
     parking_sweep,
+    quadrotor_sweep,
     racing_sweep,
     racing_sweep_dynamic,
     stochastic_sweep,
+    thruster_sweep,
     tube_sweep,
     wind_sweep,
 )
@@ -123,15 +136,20 @@ __all__ = [
     "lqr_gain",
     "lqr_terminal_set",
     "make_box_mpc",
+    "make_cartpole_ode_rows",
     "make_linear_mpc",
     "make_mhe",
     "make_parking_ilqr",
     "make_parking_ocp",
     "make_racing_mpc",
     "make_offset_free_mpc",
+    "make_omnibase_ode_rows",
+    "make_omnibase_param_ode_rows",
+    "make_planar_quadrotor_ode_rows",
     "make_rate_limited_mpc",
     "make_stagewise_mpc",
     "make_stochastic_mpc",
+    "make_thruster_ode_rows",
     "make_tracking_ilqr_window",
     "make_tube_mpc",
     "mhe_loop_sweep",
@@ -143,6 +161,7 @@ __all__ = [
     "pdip_solve",
     "policy_from_law",
     "prediction_policy",
+    "quadrotor_sweep",
     "qp_setup",
     "racing_sweep",
     "racing_sweep_dynamic",
@@ -158,6 +177,7 @@ __all__ = [
     "sqp_solve",
     "stagewise_ip_solve",
     "stochastic_sweep",
+    "thruster_sweep",
     "tube_sweep",
     "wind_sweep",
 ]

@@ -31,11 +31,11 @@ def simulate_batch(
 ) -> BatchSimResult:
     """Roll a batch of plants forward ``steps`` times.
 
-    ``dynamics`` maps ``(B, nx) × (B, nu) → (B, nx)``, as a
-    :class:`LinearSystem` or :func:`..parallel.batch.batched_plant` does.
-    ``batched_dynamics`` is accepted for the JAX package's signature; both
-    values mean the same here, since nothing vmaps (a per-scenario function
-    written for row vectors takes a batch as it is).
+    ``batched_dynamics=True`` means ``dynamics`` already maps ``(B, nx) ×
+    (B, nu) → (B, nx)``, as a :class:`LinearSystem` or
+    :func:`..parallel.batch.batched_plant` does; otherwise ``dynamics`` is a
+    per-scenario ``(nx,) × (nu,) → (nx,)`` function, mapped over the batch
+    with ``torch.func.vmap`` (as the JAX package ``vmap``s it).
 
     ``disturbances``: optional ``(steps, B, nx)`` additive process
     disturbances, added after the plant step: ``x_{t+1} = f(x_t, u_t) + w_t``.
@@ -44,11 +44,12 @@ def simulate_batch(
         raise ValueError("steps must be positive")
     if disturbances is not None and disturbances.shape[0] != steps:
         raise ValueError(f"disturbances hold {disturbances.shape[0]} steps, not {steps}")
+    dyn = dynamics if batched_dynamics else torch.func.vmap(dynamics)
     x, carry = x0, policy_carry
     states, inputs, logs = [x0], [], []
     for t in range(steps):
         u, carry, aux = policy(x, t, carry)
-        x = dynamics(x, u)
+        x = dyn(x, u)
         if disturbances is not None:
             x = x + disturbances[t]
         states.append(x)

@@ -12,21 +12,31 @@
 // What it computes, per lane: an outer PHR loop (lam <- max(0, lam + mu c),
 // mu x mu_scale where still infeasible) around an inner Levenberg-iLQR on the
 // tracking cost sum (x - ref)' Qd (x - ref) + u' Rd u + qn (x_N - ref_N)' Qd
-// (x_N - ref_N), with an input box and an optional state box as AL rows, and a
-// 7-step line search. Step Jacobians are exact: forward-mode dual numbers run
-// through the same integrator code as the values (the reference's packed jvp
-// on an (nx + nu, T) basis). Quu (2 x 2) is solved in closed form. Both loop
-// exits are tile-wide (__syncthreads_and) over the same T lanes whatever G is,
-// so a solve at tile T gives the same numbers for every G.
+// (x_N - ref_N) (in regulation, refs == nullptr, ref = 0), with an optional
+// input box and an optional state box as AL rows (at least one of them), and
+// a 7-step line search. Step Jacobians are exact: forward-mode dual numbers
+// run through the same integrator code as the values (the reference's packed
+// jvp on an (nx + nu, T) basis). The regularised Quu (nu x nu, nu = M::NU from
+// 1 to 8) is solved as the reference solves it: 1 / q at nu = 1, the 2 x 2
+// inverse in closed form at nu = 2, an unrolled Cholesky factor and two
+// triangular sweeps per right-hand side beyond. Both loop exits are
+// tile-wide (__syncthreads_and) over the same T lanes whatever G is, so a
+// solve at tile T gives the same numbers for every G.
 //
 // A model is a functor with
 //   template <class S> static void rows(const S* x, const S* u, const float* p,
 //                                       const float* mc, S* xdot);
 // (S is float or Dual<W>; p the lane's parameters, mc the model constants).
-// The kernel is templated on the model and on the integrator (Euler or RK4,
-// `substeps` sub-intervals per interval); the state box is a runtime flag.
-// Two models are compiled in, each behind its own entry point:
-// KinematicRows (nx 4, per-lane (acc, fric)) and PacejkaRows (nx 6).
+// The kernel is templated on the model (its NX, NU and NP, and whether it
+// has an input box) and on the integrator (Euler or RK4, `substeps`
+// sub-intervals per interval); the state box and the reference are runtime
+// flags. Seven models are compiled in, each behind its own entry point, as
+// their paths use them: the racing pair KinematicRows (nx 4, nu 2, per-lane
+// (acc, fric)) and PacejkaRows (nx 6, nu 2) with either integrator and an
+// input box; the benchmark family with RK4, with or without an input box:
+// CartpoleRows (nx 4, nu 1), QuadrotorRows (nx 6, nu 2), OmnibaseRows and
+// OmnibaseParamRows (nx 6, nu 3; the latter with a per-lane mass) and
+// ThrusterRows (nx 6, nu 4).
 //
 // What bounds it: latency and the warp schedulers, not bytes or FLOPs. The
 // operands are ~0.5 k floats per lane and the algorithm needs ~2 k (Euler,
@@ -39,7 +49,7 @@
 // of a lane's group (TRACKER_GROUP, one library per G; thread threadIdx.x
 // serves lane threadIdx.x / G as member threadIdx.x % G):
 //   - a pre-pass computes the step Jacobians of all N stages before the
-//     Riccati sweep: the N (nx + 2) (stage, direction) items are dealt to the
+//     Riccati sweep: the N (nx + nu) (stage, direction) items are dealt to the
 //     members, each item one Dual<1> pass through the integrator, written to
 //     a per-lane A/B store. A tangent is the same float program whatever the
 //     pass width, so A and B keep their bits, and a Dual<1> pass needs far
@@ -83,9 +93,9 @@
 #include <math.h>
 #include <string.h>
 
-#define NU 2
 #define NALPHA 7
 #define MAXX 8   // largest state dimension (ops/cuda/ilqr_factory.py MAX_NX)
+#define MAXU 8   // largest input dimension (MAX_NU)
 #define MAXC 16  // model constants (MAX_CONSTS)
 
 // Threads per lane; one library is built per value (-DTRACKER_GROUP=G).
@@ -98,12 +108,13 @@ static_assert(GROUP == 1 || GROUP == 8 || GROUP == 16 || GROUP == 32,
 // Threads per CTA (tile x GROUP) the launch bounds allow; the wrapper reads it.
 constexpr int MAX_THREADS = GROUP == 1 ? 256 : 512;
 
-// Float constants, in the order ops/cuda/ilqr_factory.py::_consts writes them.
+// Float constants, in the order ops/cuda/ilqr_factory.py::_consts writes them
+// (the same layout for every model: state- and input-sized arrays padded).
 struct Consts {
   float h, h_half, h_sixth;  // ts / substeps, 0.5 h, h / 6
-  float qd[MAXX], rd[NU], qn;
-  float qd2[MAXX], rd2[NU], qnqd2[MAXX];  // 2 Qd, 2 Rd, 2 qn Qd
-  float lbu[NU], ubu[NU], lbx[MAXX], ubx[MAXX];
+  float qd[MAXX], rd[MAXU], qn;
+  float qd2[MAXX], rd2[MAXU], qnqd2[MAXX];  // 2 Qd, 2 Rd, 2 qn Qd
+  float lbu[MAXU], ubu[MAXU], lbx[MAXX], ubx[MAXX];
   float mu_init, mu_scale, mu_max, viol_tol, grad_tol;
   float alpha[NALPHA];
   float reg_init, reg_min, reg_max;
@@ -111,7 +122,8 @@ struct Consts {
 };
 
 struct Args {
-  const float *x0, *u0, *refs, *par;  // (nx, Bp), (N, 2, Bp), (N+1, nx, Bp), (np, Bp)
+  // (nx, Bp), (N, nu, Bp), (N+1, nx, Bp) or nullptr (regulation), (np, Bp)
+  const float *x0, *u0, *refs, *par;
   float *us, *xs, *viol, *conv, *lam, *ni;  // outputs; us, xs, lam are the state
   float* work;  // (rows, Bp): the workspace regions that are not in shared memory
   int N, substeps, sbox, outer, inner, Bp;
@@ -124,23 +136,25 @@ struct Args {
 // and the candidates have theirs in `work`, in this order.
 enum { R_AB, R_GAIN, R_XS, R_US, R_LAM, R_REF, R_CAND, N_REGIONS };
 
-__host__ __device__ inline int region_floats(int r, int nx, int N, int nc) {
+// (The ref region holds nothing in regulation.)
+__host__ __device__ inline int region_floats(int r, int nx, int nu, int N, int nc, bool track) {
   switch (r) {
-    case R_AB: return N * nx * (nx + NU);
-    case R_GAIN: return N * NU * (1 + nx);
-    case R_XS: case R_REF: return (N + 1) * nx;
-    case R_US: return N * NU;
+    case R_AB: return N * nx * (nx + nu);
+    case R_GAIN: return N * nu * (1 + nx);
+    case R_XS: return (N + 1) * nx;
+    case R_REF: return track ? (N + 1) * nx : 0;
+    case R_US: return N * nu;
     case R_LAM: return N * nc;
-    default: return NALPHA * ((N + 1) * nx + N * NU + 1);
+    default: return NALPHA * ((N + 1) * nx + N * nu + 1);
   }
 }
 
 // Floats of one lane's block in shared memory: its regions in `smask`, padded
 // to an odd count (neighbouring lanes then start on different banks).
-__host__ __device__ inline int lane_floats(int smask, int nx, int N, int nc) {
+__host__ __device__ inline int lane_floats(int smask, int nx, int nu, int N, int nc, bool track) {
   int n = 0;
   for (int r = 0; r < N_REGIONS; ++r)
-    if (smask >> r & 1) n += region_floats(r, nx, N, nc);
+    if (smask >> r & 1) n += region_floats(r, nx, nu, N, nc, track);
   return n | 1;
 }
 
@@ -223,6 +237,22 @@ __device__ __forceinline__ Dual<W> operator/(const Dual<W>& a, const Dual<W>& b)
   r.v = a.v / b.v;
 #pragma unroll
   for (int q = 0; q < W; ++q) r.d[q] = (a.d[q] - r.v * b.d[q]) / b.v;
+  return r;
+}
+template <int W>
+__device__ __forceinline__ Dual<W> operator/(const Dual<W>& a, float c) {
+  Dual<W> r;
+  r.v = a.v / c;
+#pragma unroll
+  for (int q = 0; q < W; ++q) r.d[q] = a.d[q] / c;
+  return r;
+}
+template <int W>
+__device__ __forceinline__ Dual<W> operator-(const Dual<W>& a) {
+  Dual<W> r;
+  r.v = -a.v;
+#pragma unroll
+  for (int q = 0; q < W; ++q) r.d[q] = -a.d[q];
   return r;
 }
 template <int W>
@@ -324,13 +354,15 @@ __device__ __forceinline__ Dual<W> dwhere(bool m, const Dual<W>& a, const Dual<W
 }
 
 // ---------------------------------------------------------------------------
-// models: the row functions of ops/cuda/parking_factory.py and
-// ops/cuda/ilqr_dyn_kernel.py, operation for operation
+// models: the row functions of ops/cuda/parking_factory.py,
+// ops/cuda/ilqr_dyn_kernel.py and models/benchmarks.py, operation for
+// operation (a float constant times a dual is the dual times the constant:
+// the same product)
 // ---------------------------------------------------------------------------
 
 // Kinematic bicycle, p = (acc, fric), mc = (kb, kb^2, 1 / lr).
 struct KinematicRows {
-  static constexpr int NX = 4, NP = 2;
+  static constexpr int NX = 4, NU = 2, NP = 2;
   template <class S>
   __device__ __forceinline__ static void rows(const S* x, const S* u, const float* p,
                                               const float* mc, S* f) {
@@ -349,7 +381,7 @@ struct KinematicRows {
 // Dynamic single-track (Pacejka) bicycle, mc = (lf, lr, 1/m, 1/Iz, bf, cf, df,
 // br, cr, dr, cm1, cm2, cr1, cr2, 1/0.01).
 struct PacejkaRows {
-  static constexpr int NX = 6, NP = 0;
+  static constexpr int NX = 6, NU = 2, NP = 0;
   template <class S>
   __device__ __forceinline__ static void rows(const S* x, const S* u, const float* p,
                                               const float* mc, S* f) {
@@ -369,6 +401,96 @@ struct PacejkaRows {
     f[3] = (F_x - F_f * sd) * mc[2] + vy * om;
     f[4] = (F_r + F_f * cd) * mc[2] - vx * om;
     f[5] = (F_f * mc[0] * cd - F_r * mc[1]) * mc[3];
+  }
+};
+
+// Cart-pole, theta from the downward vertical, mc = (mc, mp, l, g, mp l,
+// (mc + mp) g).
+struct CartpoleRows {
+  static constexpr int NX = 4, NU = 1, NP = 0;
+  template <class S>
+  __device__ __forceinline__ static void rows(const S* x, const S* u, const float* p,
+                                              const float* mc, S* f) {
+    const S s = dsin(x[1]), c = dcos(x[1]);
+    const S den = mc[0] + mc[1] * s * s;
+    f[0] = x[2];
+    f[1] = x[3];
+    f[2] = (u[0] + mc[1] * s * (mc[2] * x[3] * x[3] + mc[3] * c)) / den;
+    f[3] = (-u[0] * c - mc[4] * x[3] * x[3] * c * s - mc[5] * s) / (mc[2] * den);
+  }
+};
+
+// Planar quadrotor, mc = (1/m, g, arm, 1/I).
+struct QuadrotorRows {
+  static constexpr int NX = 6, NU = 2, NP = 0;
+  template <class S>
+  __device__ __forceinline__ static void rows(const S* x, const S* u, const float* p,
+                                              const float* mc, S* f) {
+    const S s = dsin(x[2]), c = dcos(x[2]);
+    const S thrust = u[0] + u[1];
+    f[0] = x[3];
+    f[1] = x[4];
+    f[2] = x[5];
+    f[3] = -thrust * s * mc[0];
+    f[4] = thrust * c * mc[0] - mc[1];
+    f[5] = (u[0] - u[1]) * mc[2] * mc[3];
+  }
+};
+
+// Omnidirectional base, body-frame forces and a torque, mc = (1/m, 1/I, c_v,
+// c_w).
+struct OmnibaseRows {
+  static constexpr int NX = 6, NU = 3, NP = 0;
+  template <class S>
+  __device__ __forceinline__ static void rows(const S* x, const S* u, const float* p,
+                                              const float* mc, S* f) {
+    const S s = dsin(x[2]), c = dcos(x[2]);
+    f[0] = x[3];
+    f[1] = x[4];
+    f[2] = x[5];
+    f[3] = (u[0] * c - u[1] * s) * mc[0] - mc[2] * x[3];
+    f[4] = (u[0] * s + u[1] * c) * mc[0] - mc[2] * x[4];
+    f[5] = u[2] * mc[1] - mc[3] * x[5];
+  }
+};
+
+// The omnidirectional base with a per-lane mass, p = (m,), mc = (1/I, c_v,
+// c_w): the division by the mass is a true division.
+struct OmnibaseParamRows {
+  static constexpr int NX = 6, NU = 3, NP = 1;
+  template <class S>
+  __device__ __forceinline__ static void rows(const S* x, const S* u, const float* p,
+                                              const float* mc, S* f) {
+    const S s = dsin(x[2]), c = dcos(x[2]);
+    f[0] = x[3];
+    f[1] = x[4];
+    f[2] = x[5];
+    f[3] = (u[0] * c - u[1] * s) / p[0] - mc[1] * x[3];
+    f[4] = (u[0] * s + u[1] * c) / p[0] - mc[1] * x[4];
+    f[5] = u[2] * mc[0] - mc[2] * x[5];
+  }
+};
+
+// Thrust cluster: a 3-D point mass, four pyramid thrusters of directions
+// (sa, 0, ca), (0, sa, ca), (-sa, 0, ca), (0, -sa, ca), linear and quadratic
+// drag, mc = (1/m, g, c1, c2, sa, ca). The force sums start at 0, as the
+// reference's Python sums do.
+struct ThrusterRows {
+  static constexpr int NX = 6, NU = 4, NP = 0;
+  template <class S>
+  __device__ __forceinline__ static void rows(const S* x, const S* u, const float* p,
+                                              const float* mc, S* f) {
+    const float sa = mc[4], ca = mc[5];
+    const S sp = dsqrt(x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + 1e-9f);
+    const S fx = (0.0f + u[0] * sa + u[1] * 0.0f + u[2] * -sa + u[3] * 0.0f) * mc[0];
+    const S fy = (0.0f + u[0] * 0.0f + u[1] * sa + u[2] * 0.0f + u[3] * -sa) * mc[0];
+    const S fz = (0.0f + u[0] * ca + u[1] * ca + u[2] * ca + u[3] * ca) * mc[0];
+    f[0] = x[3];
+    f[1] = x[4];
+    f[2] = x[5];
+    f[3] = fx - mc[2] * x[3] - mc[3] * sp * x[3];
+    f[4] = fy - mc[2] * x[4] - mc[3] * sp * x[4];
+    f[5] = fz - mc[1] - mc[2] * x[5] - mc[3] * sp * x[5];
   }
 };
 
@@ -435,12 +557,18 @@ struct Region {
   __device__ __forceinline__ float& operator[](int i) const { return p[(size_t)i * stride]; }
 };
 
-// A lane's views of its working set.
-template <int NX>
+// A lane's views of its working set, and the problem's constraint rows: nc,
+// the input box's 2 NU rows when `ubox` (a compile-time property of the
+// instantiation: a runtime flag cost the kinematic launch 12%, PERF.md), then
+// the state box's 2 NX when `sbox`, in lam (a lane's local arrays keep every
+// row at a fixed slot instead, see constraint_rows).
+template <int NX, int NU, bool UBOX>
 struct LaneView {
   static constexpr int NZ = NX + NU;
+  static constexpr bool ubox = UBOX;
   Region ab, gain, xs, us, lam, ref, cand;
   int nc, N;
+  bool sbox;
   __device__ float& x(int t, int i) const { return xs[t * NX + i]; }
   __device__ float& u(int t, int j) const { return us[t * NU + j]; }
   __device__ float& l(int t, int r) const { return lam[t * nc + r]; }
@@ -466,13 +594,13 @@ __device__ __forceinline__ void group_sync(unsigned mask) {
 }
 
 // The step Jacobians of all N stages at the stored (x_t, u_t): J(t, k, i) =
-// dx+_k / dx_i for i < nx, dx+_k / du_j at column nx + j. The N (nx + 2)
+// dx+_k / dx_i for i < nx, dx+_k / du_j at column nx + j. The N (nx + nu)
 // (stage, direction) items are dealt to the group's members, each item one
 // Dual<1> pass through the integrator.
 template <class M, bool RK4, int G>
-__device__ __forceinline__ void jacobians(const Consts& c, const LaneView<M::NX>& w,
+__device__ __forceinline__ void jacobians(const Consts& c, const LaneView<M::NX, M::NU, M::UBOX>& w,
                                           const float* p, int substeps, int member) {
-  constexpr int NX = M::NX, NZ = NX + NU;
+  constexpr int NX = M::NX, NU = M::NU, NZ = NX + NU;
   const int items = w.N * NZ;
 #pragma unroll 1
   for (int item = member; item < items; item += G) {
@@ -494,21 +622,21 @@ __device__ __forceinline__ void jacobians(const Consts& c, const LaneView<M::NX>
   }
 }
 
-// Constraint rows in the reference's order: u - ub (2), lb - u (2), then with
-// the state box x - ub (nx), lb - x (nx). Returns the row count.
-template <int NX>
-__device__ __forceinline__ int constraint_rows(const Consts& c, bool sbox, const float* x,
-                                               const float* u, float* cr) {
+// Constraint rows in the reference's order at fixed slots: u - ub (nu), lb -
+// u (nu), then x - ub (nx), lb - x (nx), whether or not each box is present
+// (a slot indexed at compile time keeps the local arrays in registers; the
+// slots of an absent box are never read).
+template <int NX, int NU>
+__device__ __forceinline__ void constraint_rows(const Consts& c, const float* x,
+                                                const float* u, float* cr) {
 #pragma unroll
   for (int j = 0; j < NU; ++j) cr[j] = u[j] - c.ubu[j];
 #pragma unroll
   for (int j = 0; j < NU; ++j) cr[NU + j] = c.lbu[j] - u[j];
-  if (!sbox) return 2 * NU;
 #pragma unroll
   for (int i = 0; i < NX; ++i) cr[2 * NU + i] = x[i] - c.ubx[i];
 #pragma unroll
   for (int i = 0; i < NX; ++i) cr[2 * NU + NX + i] = c.lbx[i] - x[i];
-  return 2 * NU + 2 * NX;
 }
 
 template <int NX>
@@ -520,52 +648,65 @@ __device__ __forceinline__ float quad_err(const Consts& c, const float* x, const
 }
 
 // Tracking cost plus the AL penalty sum_r (act_r^2 - lam_r^2) / (2 mu).
-template <int NX>
-__device__ __forceinline__ float stage_cost(const Consts& c, bool sbox, const float* x,
-                                            const float* u, const float* r,
+template <int NX, int NU>
+__device__ __forceinline__ float stage_cost(const Consts& c, bool ubox, bool sbox,
+                                            const float* x, const float* u, const float* r,
                                             const float* lam, float mu) {
   float cr[2 * NU + 2 * NX];
-  const int nc = constraint_rows<NX>(c, sbox, x, u, cr);
-  const float quad = quad_err<NX>(c, x, r) + (c.rd[0] * u[0] * u[0] + c.rd[1] * u[1] * u[1]);
+  constraint_rows<NX, NU>(c, x, u, cr);
+  float ru = c.rd[0] * u[0] * u[0];
+#pragma unroll
+  for (int j = 1; j < NU; ++j) ru = ru + c.rd[j] * u[j] * u[j];
+  const float quad = quad_err<NX>(c, x, r) + ru;
+  // phi starts at 0: a term is never -0 (act^2 - lam^2 with act, lam >= 0),
+  // so 0 + term has the term's bits, as the twin's sum from its first row
   float phi = 0.0f;
 #pragma unroll
   for (int q = 0; q < 2 * NU + 2 * NX; ++q) {
-    if (q < nc) {
+    if (q < 2 * NU ? ubox : sbox) {
       const float act = relu(lam[q] + mu * cr[q]);
-      const float term = act * act - lam[q] * lam[q];
-      phi = q == 0 ? term : phi + term;
+      phi = phi + (act * act - lam[q] * lam[q]);
     }
   }
   return quad + phi / (2.0f * mu);
 }
 
-template <int NX>
-__device__ __forceinline__ void load_x(const LaneView<NX>& w, int t, float* x) {
+template <int NX, int NU, bool UB>
+__device__ __forceinline__ void load_x(const LaneView<NX, NU, UB>& w, int t, float* x) {
 #pragma unroll
   for (int i = 0; i < NX; ++i) x[i] = w.x(t, i);
 }
-template <int NX>
-__device__ __forceinline__ void load_r(const LaneView<NX>& w, int t, float* r) {
+template <int NX, int NU, bool UB>
+__device__ __forceinline__ void load_u(const LaneView<NX, NU, UB>& w, int t, float* u) {
+#pragma unroll
+  for (int j = 0; j < NU; ++j) u[j] = w.u(t, j);
+}
+template <int NX, int NU, bool UB>
+__device__ __forceinline__ void load_r(const LaneView<NX, NU, UB>& w, int t, float* r) {
 #pragma unroll
   for (int i = 0; i < NX; ++i) r[i] = w.r(t, i);
 }
-template <int NX>
-__device__ __forceinline__ void load_lam(const LaneView<NX>& w, int t, bool sbox, float* l) {
+// A stage's multipliers at constraint_rows' fixed slots (0 where a box is
+// absent); lam holds the present rows only.
+template <int NX, int NU, bool UB>
+__device__ __forceinline__ void load_lam(const LaneView<NX, NU, UB>& w, int t, float* l) {
+  const int ox = w.ubox ? 0 : 2 * NU;  // the slot of lam's row 0 when the input box is absent
 #pragma unroll
-  for (int q = 0; q < 2 * NU + 2 * NX; ++q) l[q] = (q < 2 * NU || sbox) ? w.l(t, q) : 0.0f;
+  for (int q = 0; q < 2 * NU + 2 * NX; ++q)
+    l[q] = (q < 2 * NU ? w.ubox : w.sbox) ? w.l(t, q - ox) : 0.0f;
 }
 
-template <int NX>
-__device__ __forceinline__ float total_cost(const Consts& c, const LaneView<NX>& w, bool sbox,
+template <int NX, int NU, bool UB>
+__device__ __forceinline__ float total_cost(const Consts& c, const LaneView<NX, NU, UB>& w,
                                             float mu) {
-  float x[NX], r[NX], l[2 * NU + 2 * NX];
+  float x[NX], u[NU], r[NX], l[2 * NU + 2 * NX];
   float cost = 0.0f;
   for (int t = 0; t < w.N; ++t) {
     load_x(w, t, x);
+    load_u(w, t, u);
     load_r(w, t, r);
-    load_lam(w, t, sbox, l);
-    const float u[NU] = {w.u(t, 0), w.u(t, 1)};
-    const float sc = stage_cost<NX>(c, sbox, x, u, r, l, mu);
+    load_lam(w, t, l);
+    const float sc = stage_cost<NX, NU>(c, w.ubox, w.sbox, x, u, r, l, mu);
     cost = t == 0 ? sc : cost + sc;
   }
   load_x(w, w.N, x);
@@ -573,14 +714,104 @@ __device__ __forceinline__ float total_cost(const Consts& c, const LaneView<NX>&
   return cost + c.qn * quad_err<NX>(c, x, r);
 }
 
+// The regularised Quu solve of one stage, in the reference's three forms:
+// kg = -Quu_r^-1 Qu and Kg = -Quu_r^-1 Qux; returns whether Quu_r was found
+// positive definite (nu = 1: q > 0; nu = 2: q00 > 0 and det > 0; beyond:
+// every Cholesky pivot > 0).
+template <int NX, int NU>
+__device__ __forceinline__ bool quu_solve(const float (&quu)[NU][NU], float reg,
+                                          const float* Qu, const float (&Qux)[NU][NX],
+                                          float* kg, float (&Kg)[NU][NX]) {
+  if constexpr (NU <= 2) {
+    float inv[NU][NU];
+    bool ok;
+    if constexpr (NU == 1) {
+      const float q00r = quu[0][0] + reg;
+      ok = q00r > 0.0f;
+      const float det_safe = q00r > 0.0f ? q00r : 1.0f;
+      inv[0][0] = 1.0f / det_safe;
+    } else {  // closed form
+      const float q00r = quu[0][0] + reg;
+      const float q11r = quu[1][1] + reg;
+      const float q01 = quu[0][1];
+      const float det = q00r * q11r - q01 * q01;
+      ok = (q00r > 0.0f) && (det > 0.0f);
+      const float det_safe = det > 0.0f ? det : 1.0f;
+      inv[0][0] = q11r / det_safe;
+      inv[0][1] = -q01 / det_safe;
+      inv[1][0] = -q01 / det_safe;
+      inv[1][1] = q00r / det_safe;
+    }
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      float s = inv[a][0] * Qu[0];
+#pragma unroll
+      for (int b = 1; b < NU; ++b) s = s + inv[a][b] * Qu[b];
+      kg[a] = -s;
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        float sj = inv[a][0] * Qux[0][j];
+#pragma unroll
+        for (int b = 1; b < NU; ++b) sj = sj + inv[a][b] * Qux[b][j];
+        Kg[a][j] = -sj;
+      }
+    }
+    return ok;
+  } else {
+    // unrolled Cholesky of Quu + reg I: L L^T, with a safe pivot where it is not
+    // positive
+    float L[NU][NU];
+    bool ok = true;
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+#pragma unroll
+      for (int b = 0; b <= a; ++b) {
+        float s = a == b ? quu[a][b] + reg : quu[a][b];
+#pragma unroll
+        for (int v = 0; v < b; ++v) s = s - L[a][v] * L[b][v];
+        if (a == b) {
+          ok = ok && s > 0.0f;
+          L[a][a] = sqrtf(s > 0.0f ? s : 1.0f);
+        } else {
+          L[a][b] = s / L[b][b];
+        }
+      }
+    }
+    // the forward then the backward sweep, for Qu and each column of Qux
+#pragma unroll
+    for (int col = 0; col <= NX; ++col) {
+      float y[NU], sol[NU];
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+        float s = col == 0 ? Qu[a] : Qux[a][col - 1];
+#pragma unroll
+        for (int v = 0; v < a; ++v) s = s - L[a][v] * y[v];
+        y[a] = s / L[a][a];
+      }
+#pragma unroll
+      for (int a = NU - 1; a >= 0; --a) {
+        float s = y[a];
+#pragma unroll
+        for (int v = a + 1; v < NU; ++v) s = s - L[v][a] * sol[v];
+        sol[a] = s / L[a][a];
+      }
+#pragma unroll
+      for (int a = 0; a < NU; ++a) {
+        if (col == 0) kg[a] = -sol[a];
+        else Kg[a][col - 1] = -sol[a];
+      }
+    }
+    return ok;
+  }
+}
+
 // Riccati sweep over the stored trajectory and its stored step Jacobians;
 // returns whether every stage's regularised Quu was positive definite, and
 // max|Qu|. Every member of the group computes it alike; `store` (one member)
 // writes the gains.
-template <int NX>
-__device__ __forceinline__ void backward(const Consts& c, const LaneView<NX>& w, bool sbox,
-                                         float mu, float reg, bool store, bool& ok_out,
-                                         float& grad_out) {
+template <int NX, int NU, bool UB>
+__device__ __forceinline__ void backward(const Consts& c, const LaneView<NX, NU, UB>& w, float mu,
+                                         float reg, bool store, bool& ok_out, float& grad_out) {
   const int N = w.N;
   float Vx[NX], V[NX][NX];
 #pragma unroll
@@ -592,11 +823,11 @@ __device__ __forceinline__ void backward(const Consts& c, const LaneView<NX>& w,
   bool ok = true;
   float grad = 0.0f;
   for (int t = N - 1; t >= 0; --t) {
-    float X[NX], R[NX], L[2 * NU + 2 * NX];
+    float X[NX], U[NU], R[NX], L[2 * NU + 2 * NX];
     load_x(w, t, X);
+    load_u(w, t, U);
     load_r(w, t, R);
-    load_lam(w, t, sbox, L);
-    const float U[NU] = {w.u(t, 0), w.u(t, 1)};
+    load_lam(w, t, L);
     float A[NX][NX], Bm[NX][NU];
 #pragma unroll
     for (int k = 0; k < NX; ++k) {
@@ -616,13 +847,16 @@ __device__ __forceinline__ void backward(const Consts& c, const LaneView<NX>& w,
 #pragma unroll
     for (int j = 0; j < NU; ++j) {
       lu[j] = c.rd2[j] * U[j];
-      const float act_u = relu(L[j] + mu * (U[j] - c.ubu[j]));
-      const float act_l = relu(L[NU + j] + mu * (c.lbu[j] - U[j]));
-      lu[j] = lu[j] + act_u - act_l;
-      const float ind = (act_u > 0.0f ? 1.0f : 0.0f) + (act_l > 0.0f ? 1.0f : 0.0f);
-      huu[j] = c.rd2[j] + mu * ind;
+      huu[j] = c.rd2[j];
+      if (w.ubox) {
+        const float act_u = relu(L[j] + mu * (U[j] - c.ubu[j]));
+        const float act_l = relu(L[NU + j] + mu * (c.lbu[j] - U[j]));
+        lu[j] = lu[j] + act_u - act_l;
+        const float ind = (act_u > 0.0f ? 1.0f : 0.0f) + (act_l > 0.0f ? 1.0f : 0.0f);
+        huu[j] = c.rd2[j] + mu * ind;
+      }
     }
-    if (sbox) {
+    if (w.sbox) {
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         const float act_u = relu(L[2 * NU + i] + mu * (X[i] - c.ubx[i]));
@@ -711,43 +945,50 @@ __device__ __forceinline__ void backward(const Consts& c, const LaneView<NX>& w,
         Qux[a][j] = s;
       }
     }
-    // regularised 2x2 solve in closed form
-    const float q00r = quu[0][0] + reg;
-    const float q11r = quu[1][1] + reg;
-    const float q01 = quu[0][1];
-    const float det = q00r * q11r - q01 * q01;
-    ok = ok && (q00r > 0.0f) && (det > 0.0f);
-    const float det_safe = det > 0.0f ? det : 1.0f;
-    const float inv[NU][NU] = {{q11r / det_safe, -q01 / det_safe},
-                               {-q01 / det_safe, q00r / det_safe}};
     float kg[NU], Kg[NU][NX];
-#pragma unroll
-    for (int a = 0; a < NU; ++a) {
-      kg[a] = -(inv[a][0] * Qu[0] + inv[a][1] * Qu[1]);
-#pragma unroll
-      for (int j = 0; j < NX; ++j) Kg[a][j] = -(inv[a][0] * Qux[0][j] + inv[a][1] * Qux[1][j]);
-    }
+    ok = quu_solve<NX, NU>(quu, reg, Qu, Qux, kg, Kg) && ok;
     // Vx, Vxx with the unregularised Quu
     float g[NU];
 #pragma unroll
-    for (int a = 0; a < NU; ++a) g[a] = (quu[a][0] * kg[0] + quu[a][1] * kg[1]) + Qu[a];
+    for (int a = 0; a < NU; ++a) {
+      float s = quu[a][0] * kg[0];
 #pragma unroll
-    for (int j = 0; j < NX; ++j)
-      Vx[j] = (Qx[j] + (Kg[0][j] * g[0] + Kg[1][j] * g[1])) +
-              (Qux[0][j] * kg[0] + Qux[1][j] * kg[1]);
+      for (int b = 1; b < NU; ++b) s = s + quu[a][b] * kg[b];
+      g[a] = s + Qu[a];
+    }
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float s1 = Kg[0][j] * g[0], s2 = Qux[0][j] * kg[0];
+#pragma unroll
+      for (int a = 1; a < NU; ++a) {
+        s1 = s1 + Kg[a][j] * g[a];
+        s2 = s2 + Qux[a][j] * kg[a];
+      }
+      Vx[j] = (Qx[j] + s1) + s2;
+    }
     float KQ[NU][NX];
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
 #pragma unroll
-      for (int j = 0; j < NX; ++j) KQ[a][j] = quu[a][0] * Kg[0][j] + quu[a][1] * Kg[1][j];
+      for (int j = 0; j < NX; ++j) {
+        float s = quu[a][0] * Kg[0][j];
+#pragma unroll
+        for (int b = 1; b < NU; ++b) s = s + quu[a][b] * Kg[b][j];
+        KQ[a][j] = s;
+      }
     }
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
 #pragma unroll
       for (int j = 0; j < NX; ++j) {
-        V[i][j] = ((V[i][j] + (Kg[0][i] * KQ[0][j] + Kg[1][i] * KQ[1][j])) +
-                   (Kg[0][i] * Qux[0][j] + Kg[1][i] * Qux[1][j])) +
-                  (Qux[0][i] * Kg[0][j] + Qux[1][i] * Kg[1][j]);
+        float s1 = Kg[0][i] * KQ[0][j], s2 = Kg[0][i] * Qux[0][j], s3 = Qux[0][i] * Kg[0][j];
+#pragma unroll
+        for (int a = 1; a < NU; ++a) {
+          s1 = s1 + Kg[a][i] * KQ[a][j];
+          s2 = s2 + Kg[a][i] * Qux[a][j];
+          s3 = s3 + Qux[a][i] * Kg[a][j];
+        }
+        V[i][j] = ((V[i][j] + s1) + s2) + s3;
       }
     }
     if (store) {
@@ -758,14 +999,17 @@ __device__ __forceinline__ void backward(const Consts& c, const LaneView<NX>& w,
         for (int j = 0; j < NX; ++j) w.Kg(t, a * NX + j) = Kg[a][j];
       }
     }
-    grad = nmax(grad, nmax(fabsf(Qu[0]), fabsf(Qu[1])));
+    float gq = fabsf(Qu[0]);
+#pragma unroll
+    for (int a = 1; a < NU; ++a) gq = nmax(gq, fabsf(Qu[a]));
+    grad = nmax(grad, gq);
   }
   ok_out = ok;
   grad_out = grad;
 }
 
 // Control of one line-search candidate at a stage: u = (uh + alpha k) + K dx.
-template <int NX>
+template <int NX, int NU>
 __device__ __forceinline__ void ls_control(float alpha, const float* xh, const float* uh,
                                            const float* kg, const float* Kg, const float* x,
                                            float* u) {
@@ -781,9 +1025,9 @@ __device__ __forceinline__ void ls_control(float alpha, const float* xh, const f
   }
 }
 
-template <int NX>
-__device__ __forceinline__ void load_stage(const LaneView<NX>& w, int t, float* xh, float* uh,
-                                           float* kg, float* Kg) {
+template <int NX, int NU, bool UB>
+__device__ __forceinline__ void load_stage(const LaneView<NX, NU, UB>& w, int t, float* xh,
+                                           float* uh, float* kg, float* Kg) {
   load_x(w, t, xh);
 #pragma unroll
   for (int j = 0; j < NU; ++j) {
@@ -798,10 +1042,10 @@ __device__ __forceinline__ void load_stage(const LaneView<NX>& w, int t, float* 
 // (members 0..6 at G >= 8): candidate s keeps its trajectory in cx / cu and
 // its cost, summed in stage order, in cc.
 template <class M, bool RK4, int G>
-__device__ __forceinline__ void rollouts(const Consts& c, const LaneView<M::NX>& w,
+__device__ __forceinline__ void rollouts(const Consts& c, const LaneView<M::NX, M::NU, M::UBOX>& w,
                                          const float* x0, const float* p, int substeps,
-                                         bool sbox, float mu, int member) {
-  constexpr int NX = M::NX;
+                                         float mu, int member) {
+  constexpr int NX = M::NX, NU = M::NU;
 #pragma unroll 1
   for (int s = member; s < NALPHA; s += G) {
     const float alpha = c.alpha[s];
@@ -814,14 +1058,14 @@ __device__ __forceinline__ void rollouts(const Consts& c, const LaneView<M::NX>&
     for (int t = 0; t < w.N; ++t) {
       load_stage(w, t, xh, uh, kg, Kg);
       load_r(w, t, r);
-      load_lam(w, t, sbox, l);
+      load_lam(w, t, l);
       float u[NU];
-      ls_control<NX>(alpha, xh, uh, kg, Kg, x, u);
+      ls_control<NX, NU>(alpha, xh, uh, kg, Kg, x, u);
 #pragma unroll
       for (int i = 0; i < NX; ++i) w.cx(s, t, i) = x[i];
 #pragma unroll
       for (int j = 0; j < NU; ++j) w.cu(s, t, j) = u[j];
-      const float sc = stage_cost<NX>(c, sbox, x, u, r, l, mu);
+      const float sc = stage_cost<NX, NU>(c, w.ubox, w.sbox, x, u, r, l, mu);
       cost = t == 0 ? sc : cost + sc;
       step<M, RK4>(c, substeps, x, u, p);
     }
@@ -833,36 +1077,43 @@ __device__ __forceinline__ void rollouts(const Consts& c, const LaneView<M::NX>&
 }
 
 // Row q of the constraints at stage t (constraint_rows' order and operations).
-template <int NX>
-__device__ __forceinline__ float constraint_row(const Consts& c, const LaneView<NX>& w, int t,
-                                                int q) {
-  if (q < NU) return w.u(t, q) - c.ubu[q];
-  if (q < 2 * NU) return c.lbu[q - NU] - w.u(t, q - NU);
-  if (q < 2 * NU + NX) return w.x(t, q - 2 * NU) - c.ubx[q - 2 * NU];
-  return c.lbx[q - 2 * NU - NX] - w.x(t, q - 2 * NU - NX);
+template <int NX, int NU, bool UB>
+__device__ __forceinline__ float constraint_row(const Consts& c, const LaneView<NX, NU, UB>& w,
+                                                int t, int q) {
+  if (w.ubox) {
+    if (q < NU) return w.u(t, q) - c.ubu[q];
+    if (q < 2 * NU) return c.lbu[q - NU] - w.u(t, q - NU);
+    q -= 2 * NU;
+  }
+  if (q < NX) return w.x(t, q) - c.ubx[q];
+  return c.lbx[q - NX] - w.x(t, q - NX);
 }
 
 extern __shared__ float lane_blocks[];  // T blocks of lane_floats() floats
+// The reference of a regulated lane: every entry reads this 0 (x - 0 has the
+// bits of x, so regulation is tracking a zero reference).
+__device__ float zero_ref = 0.0f;
 
 template <class M, bool RK4, int G>
 __global__ void __launch_bounds__(MAX_THREADS) tracker_tile_kernel(const Args g, const Consts c) {
-  constexpr int NX = M::NX, NP = M::NP > 0 ? M::NP : 1;
+  constexpr int NX = M::NX, NU = M::NU, NP = M::NP > 0 ? M::NP : 1;
   const int member = threadIdx.x % G, slot = threadIdx.x / G;
   const int lane = blockIdx.x * (blockDim.x / G) + slot;
   // the threads of this warp: all of them are here, none has diverged yet
   const unsigned warp = G > 1 ? __activemask() : 0u;
   const int Bp = g.Bp, N = g.N;
-  const bool sbox = g.sbox != 0;
-  const int nc = 2 * NU + (sbox ? 2 * NX : 0);
+  const bool track = g.refs != nullptr;
 
   // place the regions: in the lane's shared block, in its home, or in `work`
-  LaneView<NX> w;
-  w.nc = nc;
+  LaneView<NX, NU, M::UBOX> w;
+  w.sbox = g.sbox != 0;
+  w.nc = (w.ubox ? 2 * NU : 0) + (w.sbox ? 2 * NX : 0);
   w.N = N;
-  float* const block = lane_blocks + (size_t)slot * lane_floats(g.smask, NX, N, nc);
+  const int nc = w.nc;
+  float* const block = lane_blocks + (size_t)slot * lane_floats(g.smask, NX, NU, N, nc, track);
   int in_block = 0, in_work = 0;
   auto place = [&](int r, float* home) {  // called once per region, in region order
-    const int n = region_floats(r, NX, N, nc);
+    const int n = region_floats(r, NX, NU, N, nc, track);
     Region v;
     if (g.smask >> r & 1) {
       v = Region{block + in_block, 1};
@@ -880,7 +1131,7 @@ __global__ void __launch_bounds__(MAX_THREADS) tracker_tile_kernel(const Args g,
   w.xs = place(R_XS, g.xs);
   w.us = place(R_US, g.us);
   w.lam = place(R_LAM, g.lam);
-  w.ref = place(R_REF, const_cast<float*>(g.refs));
+  w.ref = track ? place(R_REF, const_cast<float*>(g.refs)) : Region{&zero_ref, 0};
   w.cand = place(R_CAND, nullptr);
   float p[NP];
 #pragma unroll
@@ -893,17 +1144,17 @@ __global__ void __launch_bounds__(MAX_THREADS) tracker_tile_kernel(const Args g,
   // window into its region, then a rollout (a chain: one member)
   for (int i = member; i < N * NU; i += G) w.us[i] = g.u0[(size_t)i * Bp + lane];
   for (int i = member; i < N * nc; i += G) w.lam[i] = 0.0f;
-  if (g.smask >> R_REF & 1)
+  if (track && (g.smask >> R_REF & 1))
     for (int i = member; i < (N + 1) * NX; i += G) w.ref[i] = g.refs[(size_t)i * Bp + lane];
   group_sync<G>(warp);
   if (member == 0) {
-    float x[NX];
+    float x[NX], u[NU];
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = x0[i];
     for (int t = 0; t < N; ++t) {
 #pragma unroll
       for (int i = 0; i < NX; ++i) w.x(t, i) = x[i];
-      const float u[NU] = {w.u(t, 0), w.u(t, 1)};
+      load_u(w, t, u);
       step<M, RK4>(c, g.substeps, x, u, p);
     }
 #pragma unroll
@@ -918,7 +1169,7 @@ __global__ void __launch_bounds__(MAX_THREADS) tracker_tile_kernel(const Args g,
   for (int oi = 0; oi < g.outer; ++oi) {
     if (__syncthreads_and((viol < c.viol_tol) && (lam_step < 1e-3f))) break;
     // inner Levenberg-iLQR on the current multipliers
-    float cost = total_cost<NX>(c, w, sbox, mu);
+    float cost = total_cost(c, w, mu);
     float reg = c.reg_init, grad = INFINITY;
     int it = 0;
     for (; it < g.inner; ++it) {
@@ -926,9 +1177,9 @@ __global__ void __launch_bounds__(MAX_THREADS) tracker_tile_kernel(const Args g,
       jacobians<M, RK4, G>(c, w, p, g.substeps, member);
       group_sync<G>(warp);
       bool ok;
-      backward<NX>(c, w, sbox, mu, reg, member == 0, ok, grad);
+      backward(c, w, mu, reg, member == 0, ok, grad);
       group_sync<G>(warp);
-      rollouts<M, RK4, G>(c, w, x0, p, g.substeps, sbox, mu, member);
+      rollouts<M, RK4, G>(c, w, x0, p, g.substeps, mu, member);
       group_sync<G>(warp);
       float costs[NALPHA];
       float best = INFINITY;
@@ -961,7 +1212,7 @@ __global__ void __launch_bounds__(MAX_THREADS) tracker_tile_kernel(const Args g,
     float v_n = 0.0f, step_n = 0.0f, lmax = 0.0f;
     for (int t = 0; t < N; ++t) {
       for (int q = 0; q < nc; ++q) {
-        const float cr = constraint_row<NX>(c, w, t, q);
+        const float cr = constraint_row(c, w, t, q);
         const float lam = w.l(t, q);
         const float lam_n = relu(lam + mu * cr);
         v_n = nmax(v_n, relu(cr));
@@ -972,7 +1223,7 @@ __global__ void __launch_bounds__(MAX_THREADS) tracker_tile_kernel(const Args g,
     group_sync<G>(warp);
     for (int item = member; item < N * nc; item += G) {
       const int t = item / nc, q = item - t * nc;
-      w.l(t, q) = relu(w.l(t, q) + mu * constraint_row<NX>(c, w, t, q));
+      w.l(t, q) = relu(w.l(t, q) + mu * constraint_row(c, w, t, q));
     }
     group_sync<G>(warp);
     viol = v_n;
@@ -1006,15 +1257,27 @@ static int launch_kernel(const Args& g, const Consts& c, int n_tiles, int tile, 
   return (int)cudaGetLastError();
 }
 
-template <class M>
+// A model with its input box present (UBOX) or absent, a compile-time
+// property of the instantiation (see LaneView).
+template <class Model, bool UBOX_>
+struct Boxed : Model {
+  static constexpr bool UBOX = UBOX_;
+};
+
+// Every model is built with RK4 and an input box; EULER: also with Euler and
+// the box (the racing pair), NOBOX: also with RK4 and no input box (the
+// benchmark models). A launch the library does not hold is refused.
+template <class Model, bool EULER, bool NOBOX>
 static int launch(const float* x0, const float* u0, const float* refs, const float* par,
                   float* us, float* xs, float* viol, float* conv, float* lam, float* ni,
                   float* work, const float* consts, int n_consts, int N, int substeps,
-                  int rk4, int sbox, int outer, int inner, int tile, int n_tiles, int group,
-                  int smask, void* stream) {
+                  int rk4, int ubox, int sbox, int outer, int inner, int tile, int n_tiles,
+                  int group, int smask, void* stream) {
+  const int nc = (ubox ? 2 * Model::NU : 0) + (sbox ? 2 * Model::NX : 0);
   if (n_consts * sizeof(float) != sizeof(Consts) || N < 1 || substeps < 1 || tile < 1 ||
-      n_tiles < 1 || (M::NP > 0 && par == nullptr) || group != GROUP ||
-      tile * GROUP > MAX_THREADS || smask < 0 || smask >= 1 << N_REGIONS)
+      n_tiles < 1 || (Model::NP > 0 && par == nullptr) || group != GROUP ||
+      tile * GROUP > MAX_THREADS || smask < 0 || smask >= 1 << N_REGIONS || nc == 0 ||
+      (!rk4 && !(EULER && ubox)) || (!ubox && !NOBOX))
     return (int)cudaErrorInvalidValue;
   Consts c;
   memcpy(&c, consts, sizeof(Consts));
@@ -1025,27 +1288,39 @@ static int launch(const float* x0, const float* u0, const float* refs, const flo
   g.N = N; g.substeps = substeps; g.sbox = sbox; g.outer = outer; g.inner = inner;
   g.Bp = tile * n_tiles;
   g.smask = smask;
-  const int nc = 2 * NU + (sbox ? 2 * M::NX : 0);
   const size_t bytes =
-      smask ? (size_t)tile * lane_floats(smask, M::NX, N, nc) * sizeof(float) : 0;
+      smask ? (size_t)tile *
+                  lane_floats(smask, Model::NX, Model::NU, N, nc, refs != nullptr) *
+                  sizeof(float)
+            : 0;
   cudaStream_t s = (cudaStream_t)stream;
-  return rk4 ? launch_kernel<M, true>(g, c, n_tiles, tile, bytes, s)
-             : launch_kernel<M, false>(g, c, n_tiles, tile, bytes, s);
+  if constexpr (NOBOX) {
+    if (!ubox) return launch_kernel<Boxed<Model, false>, true>(g, c, n_tiles, tile, bytes, s);
+  }
+  if constexpr (EULER) {
+    if (!rk4) return launch_kernel<Boxed<Model, true>, false>(g, c, n_tiles, tile, bytes, s);
+  }
+  return launch_kernel<Boxed<Model, true>, true>(g, c, n_tiles, tile, bytes, s);
 }
 
-#define TRACKER_ENTRY(NAME, MODEL)                                                         \
+#define TRACKER_ENTRY(NAME, MODEL, EULER, NOBOX)                                           \
   extern "C" int NAME(const float* x0, const float* u0, const float* refs, const float* par, \
                       float* us, float* xs, float* viol, float* conv, float* lam, float* ni, \
                       float* work, const float* consts, int n_consts, int N, int substeps,   \
-                      int rk4, int sbox, int outer, int inner, int tile, int n_tiles,        \
-                      int group, int smask, void* stream) {                                  \
-    return launch<MODEL>(x0, u0, refs, par, us, xs, viol, conv, lam, ni, work, consts,      \
-                         n_consts, N, substeps, rk4, sbox, outer, inner, tile, n_tiles,     \
-                         group, smask, stream);                                             \
+                      int rk4, int ubox, int sbox, int outer, int inner, int tile,           \
+                      int n_tiles, int group, int smask, void* stream) {                     \
+    return launch<MODEL, EULER, NOBOX>(x0, u0, refs, par, us, xs, viol, conv, lam, ni, work,\
+                                consts, n_consts, N, substeps, rk4, ubox, sbox, outer,      \
+                                inner, tile, n_tiles, group, smask, stream);                \
   }
 
-TRACKER_ENTRY(tracker_kinematic_launch, KinematicRows)
-TRACKER_ENTRY(tracker_pacejka_launch, PacejkaRows)
+TRACKER_ENTRY(tracker_kinematic_launch, KinematicRows, true, false)
+TRACKER_ENTRY(tracker_pacejka_launch, PacejkaRows, true, false)
+TRACKER_ENTRY(tracker_cartpole_launch, CartpoleRows, false, true)
+TRACKER_ENTRY(tracker_quadrotor_launch, QuadrotorRows, false, true)
+TRACKER_ENTRY(tracker_omnibase_launch, OmnibaseRows, false, true)
+TRACKER_ENTRY(tracker_omnibase_param_launch, OmnibaseParamRows, false, true)
+TRACKER_ENTRY(tracker_thruster_launch, ThrusterRows, false, true)
 
 // The group this library was built for, and the threads per CTA it allows.
 extern "C" int tracker_group() { return GROUP; }

@@ -5,8 +5,10 @@ Replaces ``model_predictive_control_tpu/ops/pallas/ilqr_factory.py``
 (``_tracker_tile_kernel``, wrapper ``fused_tracker_solve``). One launch runs
 the whole augmented-Lagrangian tracking solve for every scenario: the outer
 PHR multiplier/μ loop, the inner Levenberg-iLQR on a row-form ODE (exact step
-Jacobians by forward-mode dual numbers through the integrator, a closed-form
-regularised 2×2 Quu solve) and the 7-step line search.
+Jacobians by forward-mode dual numbers through the integrator, the regularised
+Quu solved as the reference solves it: ``1/q`` at ``nu = 1``, the closed-form
+2×2 inverse at ``nu = 2``, an unrolled Cholesky up to ``nu = 8``) and the
+7-step line search.
 
 How a model reaches the kernel: a :class:`TrackerModel` pairs the torch row
 function ``(xr, ur[, pr]) -> nx rows`` with the name of its C++ instantiation
@@ -17,10 +19,14 @@ arithmetic. A bare Python ``ode_rows`` has no C++ counterpart: it runs on the
 twin, and on CUDA tensors it raises (code generation for user ODEs is
 ROADMAP S4.6).
 
-Ported features: tracking mode (``refs``), per-scenario ODE parameters, an
-input box and an optional state box, Euler or RK4 prediction with substeps,
-static weights, ``nu = 2``. The rest of the JAX signature raises
-``NotImplementedError`` naming its ROADMAP item.
+Ported features: tracking (``refs``) and regulation (``refs=None``: x costed
+against the origin), per-scenario ODE parameters, an optional input box and
+an optional state box (at least one), Euler or RK4 prediction with substeps,
+static weights, ``1 ≤ nu ≤ 8``. The rest of the JAX signature raises
+``NotImplementedError`` naming its ROADMAP item. The C++ instantiations are
+the racing pair (``"kinematic"``, ``"pacejka"``; Euler and RK4, with an
+input box) and the benchmark models of :mod:`...models.benchmarks` (RK4,
+with or without an input box): the pairs their paths use.
 
 Tile semantics (kept from the reference): the inner exit (every lane's
 ``max|Qu| < 0.01·tol``) and the outer exit (every lane primal-feasible with
@@ -64,8 +70,8 @@ from .ilqr_kernel import (
     resolve_group,
 )
 
-NU_KERNEL = 2  # the closed-form Quu solve
 MAX_NX = 8  # csrc/ilqr_factory.cu MAXX
+MAX_NU = 8  # csrc/ilqr_factory.cu MAXU: the unrolled Cholesky's widest Quu
 MAX_CONSTS = 16  # csrc/ilqr_factory.cu MAXC
 # GPU default scenario tile and (below) thread group, chosen by a tile × group
 # sweep on the H100 at both racing sweeps' contract configurations, by the
@@ -76,13 +82,24 @@ DEFAULT_TILE = 16
 # (tile × group) its launch bounds allow (csrc/ilqr_factory.cu MAX_THREADS)
 GROUPS = (1, 8, 16, 32)
 MAX_THREADS = {1: 256, 8: 512, 16: 512, 32: 512}
-# default group per C++ instantiation, from the same sweep
-DEFAULT_GROUP = {"kinematic": 8, "pacejka": 32}
+# default group per C++ instantiation, from the same sweep (the racing pair)
+# and from a launch sweep at the benchmark sweeps' shapes (PERF.md, Findings)
+DEFAULT_GROUP = {"kinematic": 8, "pacejka": 32, "cartpole": 8, "quadrotor": 8,
+                 "omnibase": 8, "omnibase_param": 8, "thruster": 8}
+# What each library holds beyond RK4 with an input box, as the paths use the
+# models: Euler (with the box) for the racing pair, the solve without an input
+# box (RK4) for the benchmark models. The input box is a compile-time property
+# of an instantiation: as a runtime flag it cost the kinematic launch 12%
+# (PERF.md, Findings).
+EULER_KERNELS = ("kinematic", "pacejka")
+NO_INPUT_BOX_KERNELS = ("cartpole", "quadrotor", "omnibase", "omnibase_param", "thruster")
 N_ALPHA = len(ALPHAS)
 
-# Kernel launches made by fused_tracker_solve_cuda (one per solve). Tests and
-# chip_smoke.py read it to show that a run went through the kernel.
+# Kernel launches made by fused_tracker_solve_cuda (one per solve), in all and
+# by instantiation (TrackerModel.kernel). Tests and chip_smoke.py read them to
+# show that a run went through the kernel.
 LAUNCHES = 0
+LAUNCHES_BY_KERNEL = dict.fromkeys(DEFAULT_GROUP, 0)
 
 LIBRARY = "ilqr_factory"  # library_name(group) is the file's stem
 _SOURCES = [PKG / "csrc" / "ilqr_factory.cu"]
@@ -345,8 +362,9 @@ def tracker_tiles_reference(
     """Plain-PyTorch twin of the kernel on stage-major padded operands.
 
     ``x0`` is ``(nx, Bp)``, ``u0`` ``(N, nu, Bp)``, ``refs`` ``(N+1, nx,
-    Bp)``, ``par`` ``(n_params, Bp)`` or ``None``, with ``Bp`` a multiple of
-    ``tile``. Works on ``(Bp/T, T)`` lane views with per-tile masks and
+    Bp)`` or ``None`` (regulation), ``par`` ``(n_params, Bp)`` or ``None``,
+    with ``Bp`` a multiple of ``tile``; ``limits`` or ``state_limits`` may be
+    ``None`` (not both). Works on ``(Bp/T, T)`` lane views with per-tile masks and
     tile-wide loop exits; the 7 line-search rollouts run as one leading
     dimension. Every operation is the reference kernel's, in its order.
     Returns ``us (N, nu, Bp)``, ``xs (N+1, nx, Bp)``, ``viol (Bp,)``,
@@ -354,13 +372,12 @@ def tracker_tiles_reference(
     iterations ``(Bp,)``.
     """
     QD, RD, QN = weights
-    LBU, UBU = limits
     dev, f32 = x0.device, torch.float32
     Bp = x0.shape[-1]
     T = tile
     nt = Bp // T
-    sbox = state_limits is not None
-    nc = 2 * nu + (2 * nx if sbox else 0)
+    ubox, sbox = limits is not None, state_limits is not None
+    nc = (2 * nu if ubox else 0) + (2 * nx if sbox else 0)
     rk4 = integrator == "rk4"
     h = ts / substeps
     lanes = lambda a: a.reshape(*a.shape[:-1], nt, T)
@@ -372,14 +389,17 @@ def tracker_tiles_reference(
     idx = torch.arange(nx, device=dev)
     qd, rd, qd2, rd2 = col(QD), col(RD), col([2.0 * q for q in QD]), col([2.0 * r for r in RD])
     qnqd2 = col([2.0 * QN * q for q in QD])
-    lbu, ubu = col(LBU), col(UBU)
+    if ubox:
+        lbu, ubu = (col(b) for b in limits)
     if sbox:
         lbx, ubx = (col(b) for b in state_limits)
     # a column against (n, nt, T) rows, or against (n, A, nt, T) candidate packs
     fit = lambda c, X: c if X.ndim == 3 else c[:, None]
 
     x0 = lanes(x0)
-    refs = lanes(refs)
+    # regulation costs x against the origin: x - 0 has the bits of x
+    refs = (lanes(refs) if refs is not None
+            else torch.zeros(N + 1, nx, nt, T, dtype=f32, device=dev))
     us = lanes(u0).clone()
     pr = tuple(lanes(par)) if par is not None else None
     lam = torch.zeros(N, nc, nt, T, dtype=f32, device=dev)
@@ -401,9 +421,9 @@ def tracker_tiles_reference(
     # (the kernel's too); only independent entries are batched together.
 
     def constraint_rows(X, U):
-        """[u − ub_u, lb_u − u] and, with a state box, [x − ub_x, lb_x − x],
-        stacked ``(nc, ...)``."""
-        rows = [U - fit(ubu, U), fit(lbu, U) - U]
+        """With the input box [u − ub_u, lb_u − u] and with the state box
+        [x − ub_x, lb_x − x], stacked ``(nc, ...)``."""
+        rows = [U - fit(ubu, U), fit(lbu, U) - U] if ubox else []
         if sbox:
             rows += [X - fit(ubx, X), fit(lbx, X) - X]
         return torch.cat(rows)
@@ -435,14 +455,17 @@ def tracker_tiles_reference(
     def stage_derivs(X, U, lam_t, mu, r):
         """lx, lu and the diagonals of lxx and luu (the tracking cost and
         the box rows touch only diagonals)."""
-        act_u = _relu(lam_t[:nu] + mu * (U - ubu))
-        act_l = _relu(lam_t[nu : 2 * nu] + mu * (lbu - U))
-        lu = rd2 * U + act_u - act_l
-        huu = rd2 + mu * ((act_u > 0.0).to(f32) + (act_l > 0.0).to(f32))
+        lu = rd2 * U
+        huu = rd2.expand(nu, nt, T)
+        if ubox:
+            act_u = _relu(lam_t[:nu] + mu * (U - ubu))
+            act_l = _relu(lam_t[nu : 2 * nu] + mu * (lbu - U))
+            lu = lu + act_u - act_l
+            huu = rd2 + mu * ((act_u > 0.0).to(f32) + (act_l > 0.0).to(f32))
         lx = qd2 * (X - r)
         hxx = qd2.expand(nx, nt, T)
         if sbox:
-            o = 2 * nu
+            o = 2 * nu if ubox else 0
             act_u = _relu(lam_t[o : o + nx] + mu * (X - ubx))
             act_l = _relu(lam_t[o + nx :] + mu * (lbx - X))
             lx = lx + (act_u - act_l)
@@ -451,6 +474,59 @@ def tracker_tiles_reference(
 
     def outer(a, b):  # (m, ...) × (n, ...) -> (m, n, ...) products a_i b_j
         return a[:, None] * b[None]
+
+    jdx = torch.arange(nu, device=dev)
+
+    def quu_solve(quu, Qu, Qux, reg):
+        """``kg = −Quu_r⁻¹ Qu`` ``(nu, ...)`` and ``Kg = −Quu_r⁻¹ Qux``
+        ``(nu, nx, ...)`` with ``Quu_r = Quu + reg I``, and whether it was
+        found positive definite: ``1/q`` at nu = 1, the closed-form inverse at
+        nu = 2, an unrolled Cholesky with a forward and a backward sweep per
+        right-hand side beyond (the reference's three forms)."""
+        if nu <= 2:
+            q00r = quu[0, 0] + reg
+            if nu == 1:
+                ok = q00r > 0.0
+                inv = (1.0 / torch.where(q00r > 0.0, q00r, torch.ones_like(q00r)))[None, None]
+            else:
+                q11r = quu[1, 1] + reg
+                q01 = quu[0, 1]
+                det = q00r * q11r - q01 * q01
+                ok = (q00r > 0.0) & (det > 0.0)
+                det_safe = torch.where(det > 0.0, det, torch.ones_like(det))
+                inv = torch.stack([torch.stack([q11r / det_safe, -q01 / det_safe]),
+                                   torch.stack([-q01 / det_safe, q00r / det_safe])])
+            # columns of the inverse against the rows of Qu and Qux
+            kg = -fold([inv[:, b] * Qu[b] for b in range(nu)])
+            Kg = -fold([outer(inv[:, b], Qux[b]) for b in range(nu)])
+            return kg, Kg, ok
+        ok = torch.ones(nt, T, dtype=torch.bool, device=dev)
+        L = [[None] * nu for _ in range(nu)]
+        for a in range(nu):
+            for b in range(a + 1):
+                s = quu[a, b] + reg if a == b else quu[a, b]
+                for v in range(b):
+                    s = s - L[a][v] * L[b][v]
+                if a == b:
+                    ok = ok & (s > 0.0)
+                    L[a][a] = torch.sqrt(torch.where(s > 0.0, s, torch.ones_like(s)))
+                else:
+                    L[a][b] = s / L[b][b]
+        rhs = torch.cat([Qu[:, None], Qux], dim=1)  # (nu, 1 + nx, ...): every column at once
+        y = []
+        for a in range(nu):
+            s = rhs[a]
+            for v in range(a):
+                s = s - L[a][v] * y[v]
+            y.append(s / L[a][a])
+        sol = [None] * nu
+        for a in reversed(range(nu)):
+            s = y[a]
+            for v in range(a + 1, nu):
+                s = s - L[v][a] * sol[v]
+            sol[a] = s / L[a][a]
+        sol = torch.stack(sol)
+        return -sol[:, 0], -sol[:, 1:], ok
 
     def backward(mu, reg):
         """Riccati sweep over (xs, us); writes the gains, returns (ok, grad).
@@ -476,30 +552,25 @@ def tracker_tiles_reference(
             BVB = fold([outer(B[k], VB[k]) for k in range(nx)])  # off-diagonal Quu
             quu_d = fold([huu] + [B[k] * VB[k] for k in range(nx)])  # diagonal Quu
             Qux = fold([outer(B[k], M[k]) for k in range(nx)])
-            q00r = quu_d[0] + reg
-            q11r = quu_d[1] + reg
-            q01 = BVB[0, 1]
-            det = q00r * q11r - q01 * q01
-            ok = ok & (q00r > 0.0) & (det > 0.0)
-            det_safe = torch.where(det > 0.0, det, torch.ones_like(det))
-            # columns of the inverse and of Quu, (a, nt, T) for a = 0, 1
-            inv0 = torch.stack([q11r / det_safe, -q01 / det_safe])
-            inv1 = torch.stack([-q01 / det_safe, q00r / det_safe])
-            quu0 = torch.stack([quu_d[0], BVB[1, 0]])
-            quu1 = torch.stack([q01, quu_d[1]])
-            kg = -(inv0 * Qu[0] + inv1 * Qu[1])
-            Kg = -(outer(inv0, Qux[0]) + outer(inv1, Qux[1]))
-            # Vx, Vxx with the unregularised Quu
-            g = (quu0 * kg[0] + quu1 * kg[1]) + Qu
-            Vx = (Qx + (Kg[0] * g[0] + Kg[1] * g[1])) + (Qux[0] * kg[0] + Qux[1] * kg[1])
-            KQ = outer(quu0, Kg[0]) + outer(quu1, Kg[1])
+            quu = BVB.clone()
+            quu[jdx, jdx] = quu_d
+            kg, Kg, ok_t = quu_solve(quu, Qu, Qux, reg)
+            ok = ok & ok_t
+            # Vx, Vxx with the unregularised Quu (quu[:, b]: its column b)
+            g = fold([quu[:, b] * kg[b] for b in range(nu)]) + Qu
+            Vx = (Qx + fold([Kg[a] * g[a] for a in range(nu)])) + fold(
+                [Qux[a] * kg[a] for a in range(nu)])
+            KQ = fold([outer(quu[:, b], Kg[b]) for b in range(nu)])
             V = (
-                (Qxx + (outer(Kg[0], KQ[0]) + outer(Kg[1], KQ[1])))
-                + (outer(Kg[0], Qux[0]) + outer(Kg[1], Qux[1]))
-            ) + (outer(Qux[0], Kg[0]) + outer(Qux[1], Kg[1]))
+                (Qxx + fold([outer(Kg[a], KQ[a]) for a in range(nu)]))
+                + fold([outer(Kg[a], Qux[a]) for a in range(nu)])
+            ) + fold([outer(Qux[a], Kg[a]) for a in range(nu)])
             k_s[t] = kg
             K_s[t] = Kg.reshape(nu * nx, nt, T)
-            grad = torch.maximum(grad, torch.maximum(Qu[0].abs(), Qu[1].abs()))
+            grad_t = Qu[0].abs()
+            for a in range(1, nu):
+                grad_t = torch.maximum(grad_t, Qu[a].abs())
+            grad = torch.maximum(grad, grad_t)
         return ok, grad
 
     def forward_all(mu):
@@ -596,17 +667,20 @@ def tracker_tiles_reference(
 def _consts(model: TrackerModel, *, ts, substeps, limits, state_limits, weights,
             mu_init, mu_scale, mu_max, viol_tol, tol):
     """The float constants in the order of ``struct Consts``
-    (``csrc/ilqr_factory.cu``)."""
+    (``csrc/ilqr_factory.cu``), state- and input-sized ones padded with zeros
+    (an absent box is zeros too)."""
     QD, RD, QN = weights
-    LBU, UBU = limits
-    LBX, UBX = state_limits if state_limits is not None else ((0.0,) * model.nx,) * 2
+    LBU, UBU = limits if limits is not None else ((),) * 2
+    LBX, UBX = state_limits if state_limits is not None else ((),) * 2
     pad = lambda v, n=MAX_NX: [float(a) for a in v] + [0.0] * (n - len(v))
+    padu = lambda v: pad(v, MAX_NU)
     h = ts / substeps
     return [
         h, 0.5 * h, h / 6.0,
-        *pad(QD), *RD, QN,
-        *pad([2.0 * q for q in QD]), *(2.0 * r for r in RD), *pad([2.0 * QN * q for q in QD]),
-        *LBU, *UBU, *pad(LBX), *pad(UBX),
+        *pad(QD), *padu(RD), QN,
+        *pad([2.0 * q for q in QD]), *padu([2.0 * r for r in RD]),
+        *pad([2.0 * QN * q for q in QD]),
+        *padu(LBU), *padu(UBU), *pad(LBX), *pad(UBX),
         mu_init, mu_scale, mu_max, viol_tol, 0.01 * tol,
         *ALPHAS, REG_INIT, REG_MIN, REG_MAX,
         *pad(model.consts, MAX_CONSTS),
@@ -615,28 +689,30 @@ def _consts(model: TrackerModel, *, ts, substeps, limits, state_limits, weights,
 
 # A lane's working set by region, in the order shared memory is filled
 # (csrc/ilqr_factory.cu's enum): name, floats per lane, and whether the region
-# has a home outside the workspace (an output buffer or the refs operand).
-def regions(nx: int, N: int, nc: int) -> tuple:
+# has a home outside the workspace (an output buffer or the refs operand). In
+# regulation (``track=False``) the ref region holds nothing.
+def regions(nx: int, N: int, nc: int, nu: int = 2, track: bool = True) -> tuple:
     return (
-        ("ab", N * nx * (nx + NU_KERNEL), False),  # step Jacobians [A | B]
-        ("gain", N * NU_KERNEL * (1 + nx), False),  # k and K
+        ("ab", N * nx * (nx + nu), False),  # step Jacobians [A | B]
+        ("gain", N * nu * (1 + nx), False),  # k and K
         ("xs", (N + 1) * nx, True),
-        ("us", N * NU_KERNEL, True),
+        ("us", N * nu, True),
         ("lam", N * nc, True),
-        ("ref", (N + 1) * nx, True),
-        ("cand", N_ALPHA * ((N + 1) * nx + N * NU_KERNEL + 1), False),  # 7 candidates, costs
+        ("ref", (N + 1) * nx if track else 0, True),
+        ("cand", N_ALPHA * ((N + 1) * nx + N * nu + 1), False),  # 7 candidates, costs
     )
 
 
-def launch_plan(nx: int, N: int, nc: int, tile: int, group: int) -> LaunchPlan:
+def launch_plan(nx: int, N: int, nc: int, tile: int, group: int, nu: int = 2,
+                track: bool = True) -> LaunchPlan:
     """How the kernel is launched for one tile shape
     (:func:`.ilqr_kernel.plan_launch` with :data:`GROUPS`,
     :data:`MAX_THREADS`, :data:`SMEM_LIMIT`): the regions that fit shared
     memory in their order, the workspace for the rest; raises ``ValueError``
     for a group no library is built for and for more threads than the
     kernel's launch bounds allow."""
-    return plan_launch(regions(nx, N, nc), tile, group, groups=GROUPS, max_threads=MAX_THREADS,
-                       smem_limit=SMEM_LIMIT)
+    return plan_launch(regions(nx, N, nc, nu, track), tile, group, groups=GROUPS,
+                       max_threads=MAX_THREADS, smem_limit=SMEM_LIMIT)
 
 
 def library_name(group: int) -> str:
@@ -644,9 +720,9 @@ def library_name(group: int) -> str:
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    for name in ("tracker_kinematic_launch", "tracker_pacejka_launch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    for kernel in DEFAULT_GROUP:
+        fn = getattr(lib, f"tracker_{kernel}_launch")
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.tracker_error_string.argtypes = [ctypes.c_int]
     lib.tracker_error_string.restype = ctypes.c_char_p
@@ -665,8 +741,19 @@ def _build_library(group: int = 1) -> ctypes.CDLL:
 def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integrator,
             limits, state_limits, weights, outer_iters, inner_iters, group=1, **solver):
     global LAUNCHES
-    nc = 2 * nu + (2 * nx if state_limits is not None else 0)
-    plan = launch_plan(nx, N, nc, tile, group)
+    nc = (2 * nu if limits is not None else 0) + (2 * nx if state_limits is not None else 0)
+    plan = launch_plan(nx, N, nc, tile, group, nu, refs is not None)
+    if integrator == "euler" and ode_rows.kernel not in EULER_KERNELS:
+        raise NotImplementedError(
+            f"the kernel library builds the {ode_rows.kernel!r} model with RK4 only; Euler "
+            f"is built for {EULER_KERNELS} (the twin takes any integrator)"
+        )
+    if limits is None and ode_rows.kernel not in NO_INPUT_BOX_KERNELS:
+        raise NotImplementedError(
+            f"the kernel library builds the {ode_rows.kernel!r} model with an input box only; "
+            f"the solve without one is built for {NO_INPUT_BOX_KERNELS} (the twin takes any "
+            "model)"
+        )
     operands = [a for a in (x0, u0, refs, par) if a is not None]
     for a in operands:
         if a.device != x0.device or a.dtype != torch.float32 or not a.is_contiguous():
@@ -692,47 +779,49 @@ def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integ
         err = fn(
             *(ptr(a) for a in (x0, u0, refs, par, us, xs, viol, conv, lam, ni, work)),
             ctypes.addressof(cvals), len(values), N, substeps, int(integrator == "rk4"),
-            int(state_limits is not None), outer_iters, inner_iters, tile, Bp // tile,
+            int(limits is not None), int(state_limits is not None), outer_iters, inner_iters,
+            tile, Bp // tile,
             group, plan.smask, stream,
         )
     if err != 0:
         raise RuntimeError(f"tracker kernel launch failed: {lib.tracker_error_string(err).decode()}")
     LAUNCHES += 1
+    LAUNCHES_BY_KERNEL[ode_rows.kernel] += 1
     return us, xs, viol, conv > 0.5, lam, ni
 
 
 def prepare_tiles(x0s, u_init, refs, params, *, tile):
     """The kernel's stage-major operands, padded with zeros to a tile
     multiple as the reference pads every operand (``lanes()``,
-    ``ilqr_factory.py:1364-1368`` of the JAX package)."""
+    ``ilqr_factory.py:1364-1368`` of the JAX package); ``refs`` and
+    ``params`` may be ``None``."""
     if tile < 1:
         raise ValueError("tile must be positive")
     pad = -x0s.shape[0] % tile
-    lanes = lambda a, perm: torch.nn.functional.pad(
+    lanes = lambda a, perm: None if a is None else torch.nn.functional.pad(
         a.to(torch.float32).permute(*perm), (0, pad)
     ).contiguous()
-    par = None if params is None else lanes(params, (1, 0))
-    return lanes(x0s, (1, 0)), lanes(u_init, (1, 2, 0)), lanes(refs, (1, 2, 0)), par
+    return (lanes(x0s, (1, 0)), lanes(u_init, (1, 2, 0)), lanes(refs, (1, 2, 0)),
+            lanes(params, (1, 0)))
 
 
-def _check_options(*, ode_rows, nx, nu, refs, limits, weights, integrator, params, n_params,
-                   weights_rt=None, extra_constraints=None, n_extra=0, input_mode="ode",
-                   exo=None, n_exo=0, input_weights_rt=None, terminal_state_limits=None,
-                   lam_init=None):
+def _check_options(*, ode_rows, nx, nu, limits, state_limits, weights, integrator, params,
+                   n_params, weights_rt=None, extra_constraints=None, n_extra=0,
+                   input_mode="ode", exo=None, n_exo=0, input_weights_rt=None,
+                   terminal_state_limits=None, lam_init=None):
     """Raise for what the kernel and its twin do not take (yet)."""
-    if refs is None:
+    if not 1 <= nu <= MAX_NU:
         raise NotImplementedError(
-            "regulation mode (refs=None) is not ported yet: ROADMAP S4.3"
+            f"fused_tracker_solve supports 1 <= nu <= {MAX_NU} (closed form at nu <= 2, "
+            "unrolled Cholesky beyond), as the JAX package's"
         )
     if extra_constraints is not None or n_extra:
         raise NotImplementedError("extra_constraints are not ported yet: ROADMAP S4.3")
-    if nu != NU_KERNEL:
-        raise NotImplementedError(
-            "only nu = 2 (the closed-form Quu solve) is ported; nu = 1 and the "
-            "nu > 2 Cholesky are not ported yet: ROADMAP S4.3"
+    if limits is None and state_limits is None:
+        raise ValueError(
+            "the AL kernel needs at least one constraint row: pass an input box (limits) or "
+            "a state box (state_limits)"
         )
-    if limits is None:
-        raise NotImplementedError("a solve without an input box is not ported yet: ROADMAP S4.3")
     if lam_init is not None:
         raise NotImplementedError("lam_init (AL warm start) is not ported yet: ROADMAP S4.3")
     if weights_rt is not None:
@@ -765,14 +854,15 @@ def _solve_tiled(solver, x0s, u_init, refs=None, *, ode_rows, nx, nu, N, ts, sub
                  mu_max=1e8, viol_tol=1e-4, tol=1e-6, tile=DEFAULT_TILE, **unported):
     """Check, prepare, run ``solver`` on the padded tiles, return the public
     layout."""
-    _check_options(ode_rows=ode_rows, nx=nx, nu=nu, refs=refs, limits=limits, weights=weights,
-                   integrator=integrator, params=params, n_params=n_params, **unported)
+    _check_options(ode_rows=ode_rows, nx=nx, nu=nu, limits=limits, state_limits=state_limits,
+                   weights=weights, integrator=integrator, params=params, n_params=n_params,
+                   **unported)
     B = x0s.shape[0]
     x0, u0, rf, par = prepare_tiles(x0s, u_init, refs, params, tile=tile)
     us, xs, viol, conv, lam, ni = solver(
         x0, u0, rf, par, ode_rows=ode_rows, nx=nx, nu=nu, N=N, tile=tile, ts=float(ts),
         substeps=int(substeps), integrator=integrator,
-        limits=tuple(tuple(float(v) for v in b) for b in limits),
+        limits=None if limits is None else tuple(tuple(float(v) for v in b) for b in limits),
         state_limits=None if state_limits is None
         else tuple(tuple(float(v) for v in b) for b in state_limits),
         weights=(tuple(float(v) for v in weights[0]), tuple(float(v) for v in weights[1]),
@@ -794,7 +884,7 @@ def _solve_tiled(solver, x0s, u_init, refs=None, *, ode_rows, nx, nu, N, ts, sub
 def fused_tracker_solve_cuda(
     x0s: torch.Tensor,  # (B, nx)
     u_init: torch.Tensor,  # (B, N, nu)
-    refs: torch.Tensor | None = None,  # (B, N + 1, nx) tracking windows
+    refs: torch.Tensor | None = None,  # (B, N + 1, nx) tracking windows; None: regulation
     *,
     ode_rows,  # a TrackerModel, or a bare row function (twin only)
     nx: int,
@@ -802,7 +892,7 @@ def fused_tracker_solve_cuda(
     N: int,
     ts: float,
     substeps: int,
-    limits: tuple | None,  # (lb_u(nu), ub_u(nu))
+    limits: tuple | None,  # (lb_u(nu), ub_u(nu)); None: no input box
     weights: tuple | None = None,  # (Qd(nx), Rd(nu), qn)
     weights_rt: torch.Tensor | None = None,
     state_limits: tuple | None = None,  # (lb_x(nx), ub_x(nx))

@@ -2,10 +2,11 @@
 compaction key, the nonlinear obstacle-parking sweep on the fused AL-iLQR
 kernel, the two lap-tracking sweeps (kinematic and Pacejka racing) on the
 fused tracker kernel (the kinematic one also on the AL-iLQR kernel's
-tracking mode), the crosswind and slope offset-free sweeps on the AL-iLQR
-kernel's offset and input-reference modes, and the linear family's sweeps on
-the ADMM kernel; each sweep runs randomized initial states × perturbed
-plants.
+tracking mode), the planar-quadrotor and thrust-cluster loiter sweeps on the
+fused tracker kernel, the crosswind and slope offset-free sweeps on the
+AL-iLQR kernel's offset and input-reference modes, and the linear family's
+sweeps on the ADMM kernel; each sweep runs randomized initial states ×
+perturbed plants.
 
 Every nonlinear sweep also has the per-scenario route (``backend="torch"``,
 the JAX package's ``"xla"``): the batched AL-iLQR or SQP of
@@ -30,6 +31,14 @@ import math
 import torch
 
 from ..control.batch_loop import BatchSimResult, simulate_batch
+from ..models.benchmarks import (
+    NU_THRUSTER,
+    QUADROTOR_PARAMS,
+    THRUSTER_PARAMS,
+    make_planar_quadrotor_ode_rows,
+    make_thruster_ode_rows,
+    thruster_directions,
+)
 from ..models.bicycle import NU, NX, NX_DYNAMIC, dynamic_bicycle_ode, kinematic_bicycle_ode
 from ..models.parameters import VehicleParameters
 from ..ops.cuda import ilqr_factory
@@ -373,7 +382,7 @@ def parking_sweep(
     if u_seed is not None:
         seed = torch.as_tensor(u_seed, dtype=dtype, device=device).reshape(batch, N * NU)
         carry0 = (seed, *carry0[1:]) if isinstance(carry0, tuple) else seed
-    res = simulate_batch(x0s, plant, steps, policy, carry0)
+    res = simulate_batch(x0s, plant, steps, policy, carry0, batched_dynamics=True)
 
     success = res.logs["solver_success"]
     dist = torch.linalg.vector_norm(res.states[-1][:, :2], dim=-1)
@@ -480,10 +489,10 @@ def make_tracking_ilqr_window(
         2 * NX + 2 * NU, dtype)
 
 
-def _tracking_step(sol, x_batch, window, N):
+def _tracking_step(sol, x_batch, window, N, nu=NU):
     """The policy's output from a tracker solution: u0, the shifted warm
-    start, and the logs (tracking error of the measured state against the
-    window's first reference point)."""
+    start, and the logs (tracking error of the measured state's first two
+    components against the window's first reference point)."""
     B = x_batch.shape[0]
     u_next = torch.cat([sol.us[:, 1:], sol.us[:, -1:]], dim=1)
     aux = {
@@ -493,7 +502,7 @@ def _tracking_step(sol, x_batch, window, N):
     }
     if hasattr(sol, "inner_iters_executed"):
         aux["kernel_inner_iters"] = sol.inner_iters_executed
-    return sol.us[:, 0], u_next.reshape(B, N * NU), aux
+    return sol.us[:, 0], u_next.reshape(B, N * nu), aux
 
 
 def _per_scenario_policy(ref, N, dtype, problem, outer_iters, inner_iters):
@@ -687,7 +696,8 @@ def racing_sweep(
         dtype=dtype,
     )
     plant = batched_plant(plant_params, ts, substeps=plant_substeps)
-    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device))
+    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device),
+                         batched_dynamics=True)
 
     tail = res.logs["tracking_error"][steps // 4 :]  # steady state after the catch-up
     summary = {
@@ -836,7 +846,8 @@ def racing_sweep_dynamic(
         dtype=dtype,
     )
     plant = batched_dynamic_plant(plant_params, ts, substeps=plant_substeps)
-    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device))
+    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device),
+                         batched_dynamics=True)
 
     tail = res.logs["tracking_error"][steps // 4 :]
     summary = {
@@ -1020,7 +1031,7 @@ def wind_sweep(
 
     plant_base = rk4(lambda x, u: kinematic_bicycle_ode(base, x, u), ts)
     res = simulate_batch(x0s, lambda x, u: plant_base(x, u) + w_full, steps, policy,
-                         _ekf_carry0(ctrl, x0s))
+                         _ekf_carry0(ctrl, x0s), batched_dynamics=True)
 
     tail = res.logs["tracking_error"][-max(10, steps // 3):]
     d_last = res.logs["d_hat"][-1]
@@ -1134,7 +1145,7 @@ def offset_free_sweep(
     drift[:, 3] = -slope
     plant = rk4_fine(lambda x, u: kinematic_bicycle_ode(plant_params, x, u) + drift, ts,
                      substeps=plant_substeps)
-    res = simulate_batch(x0s, plant, steps, policy, _ekf_carry0(ctrl, x0s))
+    res = simulate_batch(x0s, plant, steps, policy, _ekf_carry0(ctrl, x0s), batched_dynamics=True)
 
     final_dist = torch.linalg.vector_norm(res.states[-1][:, :2], dim=-1)
     d_last = res.logs["d_hat"][-1]
@@ -1238,7 +1249,8 @@ def tube_sweep(
     x0s, w = _sorted(problem, *scenarios, dtype, device)
     policy = tube.batched_policy(backend=backend, tile=tile, max_rho_moves=0, polish=polish)
     inner_warm = tube.inner.presolve_batch_carry(x0s, iters_mult=4, backend=backend, tile=tile)
-    res = simulate_batch(x0s, system, steps, policy, (x0s, inner_warm), disturbances=w)
+    res = simulate_batch(x0s, system, steps, policy, (x0s, inner_warm), batched_dynamics=True,
+                         disturbances=w)
 
     x_lo = torch.tensor([problem.p_min, problem.v_min], dtype=dtype, device=device)
     x_hi = torch.tensor([problem.p_max, problem.v_max], dtype=dtype, device=device)
@@ -1306,7 +1318,8 @@ def stochastic_sweep(
     x0s, w = _sorted(problem, *scenarios, dtype, device)
     policy = ctrl.batched_policy(backend=backend, tile=tile, max_rho_moves=0, polish=polish)
     inner_warm = ctrl.inner.presolve_batch_carry(x0s, iters_mult=4, backend=backend, tile=tile)
-    res = simulate_batch(x0s, system, steps, policy, inner_warm, disturbances=w)
+    res = simulate_batch(x0s, system, steps, policy, inner_warm, batched_dynamics=True,
+                         disturbances=w)
 
     v = res.states[1:, :, 1]
     near = v > problem.v_max - 3.0 * sigma_v
@@ -1425,7 +1438,8 @@ def mhe_loop_sweep(
                  torch.zeros(batch, mhe.op.A_c.shape[0], dtype=dtype, device=device))
     mpc_warm0 = ctrl.presolve_batch_carry(x0s, iters_mult=4, backend=backend, tile=tile)
     carry0 = (ys_buf0, us_buf0, xbar0, mpc_warm0, mhe_warm0)
-    res = simulate_batch(x0s, system, steps, policy, carry0, disturbances=ws)
+    res = simulate_batch(x0s, system, steps, policy, carry0, batched_dynamics=True,
+                         disturbances=ws)
 
     # the step-t window end estimates the pre-step state (the one measured)
     tail = (res.logs["state_estimate"] - res.states[:-1])[M + 2:]
@@ -1441,3 +1455,255 @@ def mhe_loop_sweep(
         "median_final_pos": torch.quantile(res.states[-1][:, 0].abs(), 0.5).item(),
     }
     return res, summary
+
+
+# ---------------------------------------------------------------------------
+# the benchmark models' loiter sweeps (planar quadrotor, thrust cluster) on
+# the fused tracker kernel
+# ---------------------------------------------------------------------------
+
+QUADROTOR_WEIGHTS = ((5.0, 5.0, 1.0, 0.5, 0.5, 0.1), (0.02, 0.02), 10.0)
+QUADROTOR_TILT = 0.5  # the tilt state box |θ| ≤ 0.5; the other states are boxed at ±50
+THRUSTER_WEIGHTS = ((5.0, 5.0, 5.0, 0.5, 0.5, 0.5), (0.02,) * 4, 10.0)
+THRUSTER_U_MAX = 6.0
+
+
+def loiter_reference(n: int, radius: float = 1.0, period: float = 12.0, ts: float = 0.1,
+                     dtype=torch.float32, device=None) -> torch.Tensor:
+    """``(n, 6)`` loiter circle of ``radius`` flown in ``period`` seconds,
+    sampled every ``ts``: ``(p₁, p₂, 0, v₁, v₂, 0)`` with ``p₁ = r sin ωt``,
+    ``p₂ = r (1 − cos ωt)`` (the quadrotor's (x, z), the thrust cluster's
+    (x, y)), as the JAX sweeps build it. Computed on the CPU, returned on
+    ``device`` (the card when ``None``)."""
+    t = torch.arange(n, dtype=dtype) * ts
+    om = 2.0 * math.pi / period
+    zero = torch.zeros_like(t)
+    ref = torch.stack([
+        radius * torch.sin(om * t), radius * (1.0 - torch.cos(om * t)), zero,
+        radius * om * torch.cos(om * t), radius * om * torch.sin(om * t), zero,
+    ], dim=-1)
+    return ref.to(resolve_device(device))
+
+
+def batched_quadrotor_plant(plant_params, ts: float, substeps: int = 8):
+    """``(B, 6) × (B, 2) → (B, 6)`` planar-quadrotor plant: fine RK4 with each
+    scenario's ``(mass, inertia, arm)`` ``(B,)`` each (the JAX
+    ``quadrotor_sweep``'s per-scenario plant, on the batch)."""
+    m, inr, arm = plant_params
+    grav = QUADROTOR_PARAMS[3]
+
+    def ode(x, u):
+        s, c = torch.sin(x[:, 2]), torch.cos(x[:, 2])
+        thrust = u[:, 0] + u[:, 1]
+        return torch.stack([
+            x[:, 3], x[:, 4], x[:, 5],
+            -thrust * s / m, thrust * c / m - grav, (u[:, 0] - u[:, 1]) * arm / inr,
+        ], dim=-1)
+
+    return rk4_fine(ode, ts, substeps=substeps)
+
+
+def batched_thruster_plant(plant_params, ts: float, substeps: int = 8):
+    """``(B, 6) × (B, 4) → (B, 6)`` thrust-cluster plant: fine RK4 with each
+    scenario's ``(mass, c₁, c₂)`` ``(B,)`` each (the JAX ``thruster_sweep``'s
+    per-scenario plant, on the batch)."""
+    m, c1, c2 = (p[:, None] for p in plant_params)
+    grav = THRUSTER_PARAMS[1]
+    dirs = torch.tensor(thruster_directions(THRUSTER_PARAMS[4]), dtype=m.dtype, device=m.device)
+    gvec = torch.tensor([0.0, 0.0, grav], dtype=m.dtype, device=m.device)
+
+    def ode(x, u):
+        v = x[:, 3:]
+        sp = torch.sqrt((v * v).sum(dim=-1, keepdim=True) + 1e-9)
+        f = (u @ dirs) / m - gvec
+        return torch.cat([v, f - c1 * v - c2 * sp * v], dim=-1)
+
+    return rk4_fine(ode, ts, substeps=substeps)
+
+
+def _loiter_policy(ref, model, N, ts, pred_substeps, limits, state_limits, weights,
+                   outer_iters, inner_iters, backend, tile, group, hover, dtype):
+    """A loiter tracking policy: every step one fused tracker solve of the
+    whole batch on the window ``ref[t : t + N + 1]``, RK4 prediction with the
+    nominal model, the solved controls shifted one stage as the carry."""
+    if backend == "xla":
+        raise ValueError("backend='xla' is the JAX package's name; the loiter sweeps run on "
+                         "the tracker kernel, backend='cuda' (or its twin, 'twin')")
+    if backend not in ("cuda", "twin"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if dtype != torch.float32:
+        raise ValueError(f"backend={backend!r} runs in float32 only")
+    solve_fn = fused_tracker_solve_cuda if backend == "cuda" else fused_tracker_solve_twin
+    nx, nu = model.nx, model.nu
+
+    def policy(x_batch, t, carry):
+        B = x_batch.shape[0]
+        window = ref[t : t + N + 1]
+        sol = solve_fn(
+            x_batch, carry.reshape(B, N, nu), window[None].expand(B, N + 1, nx),
+            ode_rows=model, nx=nx, nu=nu, N=N, ts=float(ts), substeps=pred_substeps,
+            limits=limits, state_limits=state_limits, weights=weights,
+            outer_iters=outer_iters, inner_iters=inner_iters, viol_tol=1e-4,
+            tile=min(tile, math.ceil(B / 128) * 128), group=group,
+        )
+        return _tracking_step(sol, x_batch, window, N, nu)
+
+    policy.initial_carry = lambda batch, device=None: torch.full(
+        (batch, N * nu), hover, dtype=dtype, device=resolve_device(device))
+    return policy
+
+
+def batched_quadrotor_policy(ref: torch.Tensor, N: int = 10, ts: float = 0.1,
+                             pred_substeps: int = 2, outer_iters: int = 4,
+                             inner_iters: int = 10, backend: str = "cuda",
+                             tile: int = ilqr_factory.DEFAULT_TILE, group: int | None = None,
+                             dtype=torch.float32):
+    """Batch-level planar-quadrotor loiter policy (the JAX ``quadrotor_sweep``'s
+    policy): the nominal model (:func:`..models.benchmarks.
+    make_planar_quadrotor_ode_rows`), thrusts boxed in ``[0, 1.5 m g]``, the
+    tilt boxed at ±0.5, RK4 × ``pred_substeps`` prediction. ``backend="cuda"``
+    launches the kernel for CUDA tensors (its twin for CPU tensors);
+    ``"twin"`` runs the twin on any device. ``initial_carry`` is hover."""
+    m0, _, _, grav = QUADROTOR_PARAMS
+    u_max = 1.5 * m0 * grav
+    big = 50.0
+    return _loiter_policy(
+        ref, make_planar_quadrotor_ode_rows(QUADROTOR_PARAMS), N, ts, pred_substeps,
+        ((0.0, 0.0), (float(u_max), float(u_max))),
+        ((-big, -big, -QUADROTOR_TILT, -big, -big, -big),
+         (big, big, QUADROTOR_TILT, big, big, big)),
+        QUADROTOR_WEIGHTS, outer_iters, inner_iters, backend, tile, group, 0.5 * m0 * grav,
+        dtype)
+
+
+def batched_thruster_policy(ref: torch.Tensor, N: int = 10, ts: float = 0.1,
+                            pred_substeps: int = 2, outer_iters: int = 4,
+                            inner_iters: int = 10, backend: str = "cuda",
+                            tile: int = ilqr_factory.DEFAULT_TILE, group: int | None = None,
+                            dtype=torch.float32):
+    """Batch-level thrust-cluster loiter policy (the JAX ``thruster_sweep``'s
+    policy): the nominal model (:func:`..models.benchmarks.
+    make_thruster_ode_rows`, nu = 4), thrusts boxed in ``[0, 6]``, no state
+    box, RK4 × ``pred_substeps`` prediction; backends as
+    :func:`batched_quadrotor_policy`. ``initial_carry`` is the four
+    symmetric thrusts that cancel gravity."""
+    m0, grav, _, _, cone = THRUSTER_PARAMS
+    return _loiter_policy(
+        ref, make_thruster_ode_rows(THRUSTER_PARAMS), N, ts, pred_substeps,
+        ((0.0,) * NU_THRUSTER, (THRUSTER_U_MAX,) * NU_THRUSTER), None, THRUSTER_WEIGHTS,
+        outer_iters, inner_iters, backend, tile, group, m0 * grav / (4.0 * math.cos(cone)), dtype)
+
+
+def _loiter_sweep(model_name, make_policy, make_plant, noise_scale, nominal, batch, steps,
+                  generator, N, ts, radius, period, rel_scale, outer_iters, inner_iters,
+                  plant_substeps, pred_substeps, backend, tile, group, mesh, dtype, device):
+    """One loiter sweep: the draws (on the CPU, in the JAX package's order:
+    plant factors ``1 + rel_scale·U[−1, 1]`` ``(batch, 3)``, then start states
+    ``ref[0] + U[−1, 1]·noise_scale``), the reference, policy and plant, the
+    closed loop and its summary."""
+    if mesh is not None:
+        raise NotImplementedError("device meshes are not ported yet: ROADMAP S7.1")
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    ref = loiter_reference(steps + N + 1, radius, period, ts, dtype=dtype, device="cpu")
+    uniform = lambda *shape: 2.0 * torch.rand(*shape, generator=generator, dtype=dtype) - 1.0
+    factors = 1.0 + rel_scale * uniform(batch, 3)
+    x0s = ref[0] + uniform(batch, 6) * torch.tensor(noise_scale, dtype=dtype)
+    plant_params = tuple((v * factors[:, i]).to(device) for i, v in enumerate(nominal))
+    policy = make_policy(ref.to(device), N=N, ts=ts, pred_substeps=pred_substeps,
+                         outer_iters=outer_iters, inner_iters=inner_iters, backend=backend,
+                         tile=tile, group=group, dtype=dtype)
+    plant = make_plant(plant_params, ts, substeps=plant_substeps)
+    res = simulate_batch(x0s.to(device), plant, steps, policy, policy.initial_carry(batch, device),
+                         batched_dynamics=True)
+
+    tail = res.logs["tracking_error"][steps // 4 :]
+    summary = {
+        "batch": int(batch),
+        "steps": int(steps),
+        "model": model_name,
+        "success_rate": res.logs["solver_success"].float().mean().item(),
+        "mean_tracking_error": tail.mean().item(),
+        "p95_tracking_error": torch.quantile(tail.flatten(), 0.95).item(),
+        "rel_scale": float(rel_scale),
+        "mean_inner_iters": res.logs["kernel_inner_iters"].mean().item(),
+    }
+    return res, summary
+
+
+def quadrotor_sweep(
+    batch: int,
+    steps: int,
+    generator: torch.Generator | None = None,
+    N: int = 10,
+    ts: float = 0.1,
+    radius: float = 1.0,
+    period: float = 12.0,
+    rel_scale: float = 0.1,
+    outer_iters: int = 4,
+    inner_iters: int = 10,
+    plant_substeps: int = 8,
+    pred_substeps: int = 2,
+    backend: str = "cuda",
+    tile: int = ilqr_factory.DEFAULT_TILE,
+    group: int | None = None,
+    mesh=None,
+    dtype=torch.float32,
+    device=None,
+) -> tuple[BatchSimResult, dict]:
+    """Closed-loop planar-quadrotor loiter tracking on the fused tracker
+    kernel (the JAX package's ``quadrotor_sweep``): ``batch`` scenarios enter
+    the loiter circle (:func:`loiter_reference`) from perturbed hovers at its
+    start, each plant's mass, inertia and arm scaled by ``1 ± rel_scale``
+    while the controller keeps the nominal model; thrusts in ``[0, 1.5 m g]``,
+    the tilt boxed at ±0.5 (:func:`batched_quadrotor_policy`); the plant is
+    fine RK4 with ``plant_substeps`` (:func:`batched_quadrotor_plant`).
+
+    ``generator`` (a CPU ``torch.Generator``, seed 0 when ``None``) draws the
+    plant factors, then the start noise, in the JAX package's order.
+    ``tile`` is the kernel's lanes per CTA (the port's default, not the JAX
+    package's TPU tile of 512); ``group`` its threads per lane. Returns
+    ``(BatchSimResult, summary)`` with the JAX package's summary keys and
+    ``mean_inner_iters`` (executed inner iterations per solve)."""
+    return _loiter_sweep(
+        "planar-quadrotor", batched_quadrotor_policy, batched_quadrotor_plant,
+        [0.15, 0.15, 0.1, 0.1, 0.1, 0.1], QUADROTOR_PARAMS[:3], batch, steps, generator, N, ts,
+        radius, period, rel_scale, outer_iters, inner_iters, plant_substeps, pred_substeps,
+        backend, tile, group, mesh, dtype, device)
+
+
+def thruster_sweep(
+    batch: int,
+    steps: int,
+    generator: torch.Generator | None = None,
+    N: int = 10,
+    ts: float = 0.1,
+    radius: float = 1.0,
+    period: float = 12.0,
+    rel_scale: float = 0.1,
+    outer_iters: int = 4,
+    inner_iters: int = 10,
+    plant_substeps: int = 8,
+    pred_substeps: int = 2,
+    backend: str = "cuda",
+    tile: int = ilqr_factory.DEFAULT_TILE,
+    group: int | None = None,
+    mesh=None,
+    dtype=torch.float32,
+    device=None,
+) -> tuple[BatchSimResult, dict]:
+    """Closed-loop 3-D thrust-cluster loiter tracking, the ``nu = 4`` tier
+    (the JAX package's ``thruster_sweep``): a lateral loiter circle at
+    constant height (:func:`loiter_reference`) entered from perturbed
+    offsets, each plant's mass and drags ``(c₁, c₂)`` scaled by ``1 ±
+    rel_scale`` while the controller keeps the nominal model; thrusts in
+    ``[0, 6]`` (:func:`batched_thruster_policy`); the plant is fine RK4 with
+    ``plant_substeps`` (:func:`batched_thruster_plant`). Draws, ``tile``,
+    ``group`` and the summary as :func:`quadrotor_sweep`."""
+    m0, _, c1_0, c2_0, _ = THRUSTER_PARAMS
+    return _loiter_sweep(
+        "thrust-cluster-nu4", batched_thruster_policy, batched_thruster_plant,
+        [0.15, 0.15, 0.15, 0.1, 0.1, 0.1], (m0, c1_0, c2_0), batch, steps, generator, N, ts,
+        radius, period, rel_scale, outer_iters, inner_iters, plant_substeps, pred_substeps,
+        backend, tile, group, mesh, dtype, device)

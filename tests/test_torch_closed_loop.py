@@ -70,7 +70,7 @@ def test_closed_loop_matches_jax(setup, policy):
     carry_t = ctrl_t.presolve_batch_carry(xt, iters_mult=3, tile=TILE)
     system = port.session2_problem(N=N).system(device="cpu")
     got = port.simulate_batch(
-        xt, system, STEPS, ctrl_t.batched_policy(tile=TILE, **kw), carry_t
+        xt, system, STEPS, ctrl_t.batched_policy(tile=TILE, **kw), carry_t, batched_dynamics=True
     )
 
     assert got.states.shape == (STEPS + 1, B, 2)
@@ -96,6 +96,7 @@ def test_xla_backend_matches_jax(setup):
     got = port.simulate_batch(
         torch.as_tensor(x0), port.session2_problem(N=N).system(device="cpu"), 8,
         ctrl_t.batched_policy(backend="xla"), ctrl_t.initial_batch_carry(2, device="cpu"),
+        batched_dynamics=True,
     )
     np.testing.assert_allclose(got.states.numpy(), np.asarray(ref.states), atol=5e-2)
     np.testing.assert_allclose(got.inputs.numpy(), np.asarray(ref.inputs), atol=3e-2)
@@ -133,3 +134,21 @@ def test_port_builds_the_same_controller():
         np.testing.assert_allclose(
             getattr(got.op, name).numpy(), r, atol=1e-9 * np.abs(r).max()
         )
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_per_scenario_dynamics_are_vmapped_like_jax(batched):
+    """``batched_dynamics=False`` maps a per-scenario plant over the batch, as
+    the JAX loop ``vmap``s it; ``True`` hands it the batch. At B = nx a
+    plant that indexes ``x[0]`` as a state component tells the two apart:
+    f(x, u) = [x₀ + 0.1·x₁, x₁ + 0.1·u₀], u = −v, from [[2, 1], [3, −1]]."""
+    x0 = np.asarray([[2.0, 1.0], [3.0, -1.0]], np.float32)
+    f_j = lambda x, u: jnp.stack([x[0] + 0.1 * x[1], x[1] + 0.1 * u[0]])
+    f_t = lambda x, u: torch.stack([x[0] + 0.1 * x[1], x[1] + 0.1 * u[0]])
+    policy = lambda x, t, c: (-x[:, 1:], c, {"v": x[:, 1]})  # either array type
+    ref = jax_simulate(jnp.asarray(x0), f_j, 3, policy, (), batched_dynamics=batched)
+    got = port.simulate_batch(torch.as_tensor(x0), f_t, 3, policy, (), batched_dynamics=batched)
+    np.testing.assert_allclose(got.states.numpy(), np.asarray(ref.states), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.logs["v"].numpy(), np.asarray(ref.logs["v"]), rtol=0, atol=1e-6)
+    if not batched:  # one step of the per-scenario plant, by hand
+        np.testing.assert_allclose(got.states[1].numpy(), [[2.1, 0.9], [2.9, -0.9]], atol=1e-6)

@@ -116,7 +116,7 @@ def test_closed_loop_kernel_matches_twin(ctrl):
         carry = c.presolve_batch_carry(x0, iters_mult=3, backend=backend, tile=TILE)
         pol = c.batched_policy(backend=backend, tile=TILE, max_rho_moves=0,
                                polish=False, probe_iters=8)
-        out[backend] = port.simulate_batch(x0, system, 12, pol, carry)
+        out[backend] = port.simulate_batch(x0, system, 12, pol, carry, batched_dynamics=True)
     torch.testing.assert_close(
         out["cuda"].states, out["twin"].states, rtol=0, atol=5e-2
     )
@@ -351,6 +351,138 @@ def test_tracker_widest_ctas_launch(tracker, model):
 
 
 @pytest.fixture
+def benchmark_models():
+    """The tracker kernel's benchmark instantiations at small batch, N=6,
+    RK4x2: cart-pole in regulation with a binding force box (nu 1), the
+    quadrotor tracking with its tilt box and the same without its input box
+    (nu 2), the omnibase in regulation and with a per-lane mass (nu 3), the
+    thrust cluster in regulation (nu 4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from model_predictive_control_tpu_torch.ops.cuda import ilqr_factory as F
+    from model_predictive_control_tpu_torch.parallel.batch import loiter_reference
+
+    g = torch.Generator().manual_seed(5)
+    b, n = 45, 6
+    start = lambda *spread: ((2.0 * torch.rand(b, len(spread), generator=g) - 1.0)
+                             * torch.tensor(spread))
+    big, omni_box = 50.0, ((-12.0, -12.0, -3.0), (12.0, 12.0, 3.0))
+    omni_w = ((5.0, 5.0, 1.0, 0.5, 0.5, 0.1), (0.01, 0.01, 0.005), 10.0)
+    ref = loiter_reference(60, device="cpu")
+    off = torch.randint(0, 40, (b,), generator=g).tolist()
+    quad = dict(
+        args=(ref[off] + start(0.15, 0.15, 0.1, 0.1, 0.1, 0.1), torch.full((b, n, 2), 2.45),
+              torch.stack([ref[o:o + n + 1] for o in off])),
+        kw=dict(ode_rows=port.make_planar_quadrotor_ode_rows(),
+                limits=((0.0, 0.0), (7.3575, 7.3575)),
+                state_limits=((-big, -big, -0.5, -big, -big, -big), (big, big, 0.5, big, big, big)),
+                weights=((5.0, 5.0, 1.0, 0.5, 0.5, 0.1), (0.02, 0.02), 10.0), outer_iters=4,
+                inner_iters=10))
+    cases = {
+        "cartpole": dict(
+            args=(start(2.0, 0.5, 0.2, 0.2), torch.zeros(b, n, 1), None),
+            kw=dict(ode_rows=port.make_cartpole_ode_rows(), limits=((-3.0,), (3.0,)),
+                    weights=((1.0, 2.0, 0.1, 0.1), (0.01,), 10.0))),
+        "quadrotor": quad,
+        "quadrotor_no_input_box": dict(args=quad["args"], kw={**quad["kw"], "limits": None}),
+        "omnibase": dict(
+            args=(start(2.5, 0.5, 1.0, 0.2, 0.1, 0.3), torch.zeros(b, n, 3), None),
+            kw=dict(ode_rows=port.make_omnibase_ode_rows(), limits=omni_box, weights=omni_w)),
+        "omnibase_param": dict(
+            args=(start(2.5, 0.5, 1.0, 0.2, 0.1, 0.3), torch.zeros(b, n, 3), None),
+            kw=dict(ode_rows=port.make_omnibase_param_ode_rows(), limits=omni_box, weights=omni_w,
+                    params=(4.0 + 6.0 * torch.rand(b, 1, generator=g)).cuda(), n_params=1)),
+        "thruster": dict(
+            args=(start(1.5, 1.5, 0.5, 0.5, 0.5, 0.2), torch.zeros(b, n, 4), None),
+            kw=dict(ode_rows=port.make_thruster_ode_rows(), limits=((0.0,) * 4, (6.0,) * 4),
+                    weights=((5.0, 5.0, 5.0, 0.5, 0.5, 0.5), (0.02,) * 4, 10.0))),
+    }
+    for case in cases.values():
+        model = case["kw"]["ode_rows"]
+        case["args"] = tuple(None if a is None else a.cuda() for a in case["args"])
+        case["kw"].update(nx=model.nx, nu=model.nu, N=n, ts=0.1, substeps=2)
+    return F, cases
+
+
+BENCHMARK_CASES = ["cartpole", "quadrotor", "quadrotor_no_input_box", "omnibase",
+                   "omnibase_param", "thruster"]
+
+
+@pytest.mark.parametrize("case", BENCHMARK_CASES)
+@pytest.mark.parametrize("tile", [8, 32])
+@pytest.mark.parametrize("group", [1, 8, 32])
+def test_benchmark_models_match_twin(benchmark_models, case, tile, group):
+    """Each benchmark instantiation (nu from 1 to 4, regulation and tracking,
+    with and without the input box) equals its twin bit for bit at every
+    group; tile 32 at group 32 is beyond the launch bounds, tile 16 stands in."""
+    F, cases = benchmark_models
+    c = cases[case]
+    tile = min(tile, F.MAX_THREADS[group] // group)
+    kernel = c["kw"]["ode_rows"].kernel
+    before = F.LAUNCHES_BY_KERNEL[kernel]
+    got = F.fused_tracker_solve_cuda(*c["args"], tile=tile, group=group, **c["kw"])
+    torch.cuda.synchronize()
+    assert F.LAUNCHES_BY_KERNEL[kernel] == before + 1
+    ref = F.fused_tracker_solve_twin(*c["args"], tile=tile, **c["kw"])
+    for name in ("us", "xs", "viol", "converged", "lam", "inner_iters_executed"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("case", ["cartpole", "thruster"])
+def test_benchmark_widest_ctas_launch(benchmark_models, case):
+    """The widest CTA of each group launches the narrowest and the widest
+    input models and gives the group-1 kernel's bits at the same tile."""
+    F, cases = benchmark_models
+    c = cases[case]
+    for group in (8, 16, 32):
+        tile = F.MAX_THREADS[group] // group
+        got = F.fused_tracker_solve_cuda(*c["args"], tile=tile, group=group, **c["kw"])
+        one = F.fused_tracker_solve_cuda(*c["args"], tile=tile, group=1, **c["kw"])
+        torch.cuda.synchronize()
+        for name in ("us", "xs", "viol", "converged", "lam", "inner_iters_executed"):
+            assert torch.equal(getattr(got, name), getattr(one, name)), (group, name)
+
+
+def test_euler_on_an_rk4_only_model_raises(benchmark_models):
+    """The benchmark models' libraries hold RK4 only: Euler raises on the
+    card before anything launches (the twin takes it)."""
+    F, cases = benchmark_models
+    c = cases["cartpole"]
+    before = F.LAUNCHES
+    with pytest.raises(NotImplementedError, match="RK4 only"):
+        F.fused_tracker_solve_cuda(*c["args"], integrator="euler", **c["kw"])
+    assert F.LAUNCHES == before
+
+
+def test_no_input_box_on_a_racing_model_raises(tracker):
+    """The racing pair's libraries hold the solve with an input box only:
+    ``limits=None`` raises on the card before anything launches (the twin
+    takes it)."""
+    F, cases = tracker
+    case = cases["kinematic"]
+    before = F.LAUNCHES
+    with pytest.raises(NotImplementedError, match="with an input box only"):
+        F.fused_tracker_solve_cuda(*case["args"], **{**case["kw"], "limits": None})
+    assert F.LAUNCHES == before
+
+
+@pytest.mark.parametrize("sweep, kernel", [("quadrotor_sweep", "quadrotor"),
+                                           ("thruster_sweep", "thruster")])
+def test_loiter_sweeps_launch_the_kernel(benchmark_models, sweep, kernel):
+    """One launch a step, through the model's own instantiation; the group
+    moves time, never numbers; the kernel loop equals the twin loop."""
+    F, _ = benchmark_models
+    before = F.LAUNCHES_BY_KERNEL[kernel]
+    res, summary = getattr(port, sweep)(64, 3, device="cuda")
+    assert F.LAUNCHES_BY_KERNEL[kernel] == before + 3
+    assert res.states.is_cuda and bool(torch.isfinite(res.states).all())
+    assert summary["success_rate"] == 1.0
+    other, _ = getattr(port, sweep)(64, 3, group=1, device="cuda")
+    twin, _ = getattr(port, sweep)(64, 3, backend="twin", device="cuda")
+    assert torch.equal(res.states, other.states) and torch.equal(res.states, twin.states)
+
+
+@pytest.fixture
 def stagewise():
     """The session-2 family (the long-horizon path's size, nx=2, nu=1) and
     the synthetic nx=3 / nu=2 system with a dense R and infinite bounds."""
@@ -413,13 +545,15 @@ def test_long_horizon_loop_launches_the_kernel(stagewise):
     x0 = _states(seed=4)
     before = KR.LAUNCHES
     res = port.simulate_batch(
-        x0, problem.system(), 4, ctrl.batched_policy(backend="cuda"), ctrl.initial_batch_carry(B)
+        x0, problem.system(), 4, ctrl.batched_policy(backend="cuda"), ctrl.initial_batch_carry(B),
+        batched_dynamics=True
     )
     assert KR.LAUNCHES == before + 4
     assert res.states.is_cuda and bool(torch.isfinite(res.states).all())
     assert res.logs["solver_success"].float().mean() >= 0.99
     ref = port.simulate_batch(
-        x0, problem.system(), 4, ctrl.batched_policy(backend="torch"), ctrl.initial_batch_carry(B)
+        x0, problem.system(), 4, ctrl.batched_policy(backend="torch"), ctrl.initial_batch_carry(B),
+        batched_dynamics=True
     )
     torch.testing.assert_close(res.states, ref.states, rtol=0, atol=2e-3)
 
@@ -435,10 +569,12 @@ def test_long_horizon_loop_at_the_defaults(stagewise):
     x0 = _states(seed=6, batch=2 * KR.DEFAULT_TILE + 3)
     carry = ctrl.initial_batch_carry(x0.shape[0])
     before = KR.LAUNCHES
-    res = port.simulate_batch(x0, problem.system(), 3, ctrl.batched_policy(backend="cuda"), carry)
+    res = port.simulate_batch(x0, problem.system(), 3, ctrl.batched_policy(backend="cuda"), carry,
+                              batched_dynamics=True)
     assert KR.LAUNCHES == before + 3
     assert res.logs["solver_success"].float().mean() >= 0.99
-    ref = port.simulate_batch(x0, problem.system(), 3, ctrl.batched_policy(backend="torch"), carry)
+    ref = port.simulate_batch(x0, problem.system(), 3, ctrl.batched_policy(backend="torch"), carry,
+                              batched_dynamics=True)
     torch.testing.assert_close(res.states, ref.states, rtol=0, atol=2e-3)
 
 

@@ -275,3 +275,57 @@ def test_mhe_loop_builds_each_kernel_operator_once(monkeypatch):
     monkeypatch.setattr(K, "_fused_operator", lambda op: builds.append(op) or build(op))
     mhe_loop_sweep(4, 4, tile=4, device="cpu")
     assert len(builds) == 2 and builds[0] is not builds[1]
+
+
+def test_ekf_output_feedback_over_ilqr_mpc_matches_jax():
+    """The EKF output feedback over the parking AL-iLQR MPC (JAX
+    ``tests/test_ekf.py:105``'s composition: y = the position and heading
+    plus noise, EKF correct → ``ILQRMPC`` solve → EKF predict), two steps
+    from the session-4 start in float64, the same noise on both sides: the
+    planned inputs (u₀ is on the input box in both steps) and the state
+    estimates within 1e-8."""
+    from model_predictive_control_tpu_torch.models.bicycle import kinematic_bicycle_ode
+    from model_predictive_control_tpu_torch.models.parameters import VehicleParameters
+    from model_predictive_control_tpu_torch.ops.integrators import euler
+    from model_predictive_control_tpu_torch.solvers.parking import ILQRMPC, make_parking_ilqr
+    from model_predictive_control_tpu.solvers.parking import ILQRMPC as JILQRMPC
+
+    N, ts, sigma, steps = 12, 0.08, 0.01, 2
+    x0 = np.array([0.6, -0.25, 0.0, 0.0])
+    P0 = np.diag([1e-4] * 3 + [1e-2])
+    vs = sigma * np.random.default_rng(0).normal(size=(steps, 3))
+
+    def run(lib, ctrl, ekf, carry, step):
+        policy = ekf_policy[lib](ctrl, ekf)
+        x, out = x0 if lib == "jax" else torch.as_tensor(x0), []
+        for t in range(steps):
+            y = x[:3] + (jnp.asarray(vs[t]) if lib == "jax" else torch.as_tensor(vs[t]))
+            u, carry, aux = policy(y, t, carry)
+            out.append((np.asarray(aux["input_prediction"]), np.asarray(aux["state_estimate"])))
+            x = step(x, u)
+        return out
+
+    ekf_policy = {"jax": JE.ekf_output_feedback_policy, "torch": PE.ekf_output_feedback_policy}
+    pj = mpc.VehicleParameters()
+    prob, cons, nc = mpc.make_parking_ilqr(pj, N, ts, dtype=jnp.float64)
+    cj = JILQRMPC(prob, cons, nc, outer_iters=6, inner_iters=15)
+    step_j = mpc.euler(lambda x, u: mpc.kinematic_bicycle_ode(pj, x, u), ts)
+    ej = JE.ExtendedKalmanFilter(step_fn=step_j, obs_fn=lambda x: x[:3],
+                                 Qw=1e-6 * jnp.eye(4, dtype=jnp.float64),
+                                 Rv=sigma**2 * jnp.eye(3, dtype=jnp.float64))
+    want = run("jax", cj, ej, JE.initial_ekf_carry(cj, x0, P0, dtype=jnp.float64), step_j)
+
+    pt = VehicleParameters()
+    prob, cons, nc = make_parking_ilqr(pt, N, ts, dtype=torch.float64, device="cpu")
+    ct = ILQRMPC(prob, cons, nc, outer_iters=6, inner_iters=15)
+    step_t = euler(lambda x, u: kinematic_bicycle_ode(pt, x, u), ts)
+    et = PE.ExtendedKalmanFilter(step_fn=step_t, obs_fn=lambda x: x[:3],
+                                 Qw=1e-6 * torch.eye(4, dtype=torch.float64),
+                                 Rv=sigma**2 * torch.eye(3, dtype=torch.float64))
+    got = run("torch", ct, et, PE.initial_ekf_carry(ct, x0, P0, dtype=torch.float64,
+                                                    device="cpu"), step_t)
+    for t, ((u_t, xh_t), (u_j, xh_j)) in enumerate(zip(got, want)):
+        print(f"step {t}: max|du| {np.abs(u_t - u_j).max():.2e}, "
+              f"max|dxhat| {np.abs(xh_t - xh_j).max():.2e}")
+        np.testing.assert_allclose(u_t, u_j, rtol=0, atol=1e-8)
+        np.testing.assert_allclose(xh_t, xh_j, rtol=0, atol=1e-8)

@@ -103,12 +103,48 @@ def test_bare_row_function_runs_on_the_twin():
 
 
 @pytest.mark.parametrize(
+    "extra, tol",
+    [({"refs": None}, 1e-5), ({"refs": None}, 5e-3), ({"limits": None}, 1e-5),
+     ({"limits": None}, 5e-3)],
+    ids=["regulation_one_iteration", "regulation_budget", "no_input_box_one_iteration",
+         "no_input_box_budget"],
+)
+def test_regulation_and_no_input_box_match_pallas_tracker(extra, tol):
+    """The kinematic configuration in regulation (``refs=None``: x costed
+    against the origin) and without its input box (``limits=None``: the state
+    box's rows alone), twin against the JAX kernel in interpret mode: after
+    one inner iteration within 1e-5, at a 3 × 5 budget within 5e-3; converged
+    masks and executed inner iterations equal."""
+    B, N, tile = 5, 6, 4
+    x0, u0, refs, par = _inputs(B, N)
+    outer, inner = (1, 1) if tol == 1e-5 else (3, 5)
+    kw = {**_config(N, tile, outer, inner), "refs": refs, **extra}
+    j = lambda a: None if a is None else jnp.asarray(a)
+    ref = fused_tracker_solve(
+        jnp.asarray(x0), jnp.asarray(u0), ode_rows=jax_kinematic_rows(KB, LR),
+        params=jnp.asarray(par), **{**kw, "refs": j(kw["refs"])},
+    )
+    t = lambda a: None if a is None else torch.as_tensor(a)
+    got = F.fused_tracker_solve_cuda(
+        t(x0), t(u0), ode_rows=make_parking_ode_rows(KB, LR), params=t(par),
+        **{**kw, "refs": t(kw["refs"])},
+    )
+    assert got.lam.shape == (B, N, 8 if "limits" in extra else 12)
+    np.testing.assert_array_equal(got.converged.numpy(), np.asarray(ref.converged))
+    np.testing.assert_array_equal(
+        got.inner_iters_executed.numpy(), np.asarray(ref.inner_iters_executed)
+    )
+    du = np.abs(got.us.numpy() - np.asarray(ref.us)).max()
+    dx = np.abs(got.xs.numpy() - np.asarray(ref.xs)).max()
+    print(f"{extra}: max|us - us_jax| {du:.3e}, max|xs - xs_jax| {dx:.3e} (tol {tol})")
+    assert du <= tol and dx <= tol
+
+
+@pytest.mark.parametrize(
     "extra, item",
     [
-        ({"refs": None}, "S4.3"),
         ({"extra_constraints": lambda xr, ur, pr: (xr[0],), "n_extra": 1}, "S4.3"),
         ({"lam_init": torch.zeros(2, 4, 12)}, "S4.3"),
-        ({"limits": None}, "S4.3"),
         ({"weights_rt": torch.ones(2, 7)}, "S5"),
         ({"input_mode": "additive"}, "S4.4"),
         ({"terminal_state_limits": X_LIMS}, "S4.4"),
@@ -124,10 +160,16 @@ def test_unported_options_raise(extra, item):
 
 
 def test_other_input_widths_raise():
+    """1 <= nu <= 8, as the JAX kernel (``ilqr_factory.py:1308``); and at
+    least one box."""
     x0, u0, refs, par = (torch.as_tensor(a) for a in _inputs(2, 4))
-    kw = {**_config(4, 4, 1, 1), "nu": 3}
-    with pytest.raises(NotImplementedError, match="ROADMAP S4.3"):
+    kw = {**_config(4, 4, 1, 1), "nu": 9}
+    with pytest.raises(NotImplementedError, match="nu <= 8"):
         F.fused_tracker_solve_cuda(x0, u0, refs, ode_rows=lambda *a: a[0], params=par, **kw)
+    kw = {**_config(4, 4, 1, 1), "limits": None, "state_limits": None}
+    with pytest.raises(ValueError, match="at least one constraint row"):
+        F.fused_tracker_solve_cuda(x0, u0, refs, ode_rows=make_parking_ode_rows(KB, LR),
+                                   params=par, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +273,8 @@ def test_group_is_validated_and_ignored_on_the_twin():
 
 
 def test_default_groups_fit_the_default_tile():
-    assert set(F.DEFAULT_GROUP) == {"kinematic", "pacejka"}
+    assert set(F.DEFAULT_GROUP) == {"kinematic", "pacejka", "cartpole", "quadrotor", "omnibase",
+                                    "omnibase_param", "thruster"}
     for group in F.DEFAULT_GROUP.values():
         assert group in F.GROUPS and F.DEFAULT_TILE * group <= F.MAX_THREADS[group]
     assert F.library_name(1) == F.LIBRARY and F.library_name(16) == F.LIBRARY + "_g16"

@@ -113,12 +113,17 @@ static void host_grid(K kernel, int n_tiles, int threads, const Args& g, const C
 B = 6
 
 
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
-    """``group -> library``: the source built for the host, once per group."""
+def _host_builder(tmp_path_factory, math=False):
+    """``group -> library``: the source built for the host, once per group;
+    with ``math`` its ``tanf``, ``sinf``, ``cosf`` and ``sqrtf`` call back
+    into torch (``test_torch_ilqr_kernel_host.py``'s routing: glibc rounds
+    some values apart from torch's CPU functions)."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source for the host")
-    src = F._SOURCES[0].read_text().replace("#include <cuda_runtime.h>", STUB)
+    if math:
+        from test_torch_ilqr_kernel_host import CALLBACKS, MATH
+    src = F._SOURCES[0].read_text().replace("#include <cuda_runtime.h>",
+                                            STUB + (MATH if math else ""))
     src, n = re.subn(
         r"kernel<<<n_tiles, tile \* GROUP, bytes, s>>>\(g, c\)",
         "host_grid(kernel, n_tiles, tile * GROUP, g, c)", src,
@@ -140,18 +145,41 @@ def host_kernel(tmp_path_factory):
         )
         lib = ctypes.CDLL(str(lib))
         F._configure(lib)
+        if math:
+            for k, fn in enumerate(CALLBACKS):
+                lib.set_host_math(k, fn)
         return lib
 
     return build
 
 
-@pytest.fixture
-def host_launch(host_kernel, monkeypatch):
-    """``ilqr_factory._launch`` running the host build on CPU tensors."""
-    monkeypatch.setattr(F, "_build_library", lambda group=1: host_kernel(group))
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    return _host_builder(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def routed_host_kernel(tmp_path_factory):
+    return _host_builder(tmp_path_factory, math=True)
+
+
+def _on_host(build, monkeypatch):
+    """``ilqr_factory._launch`` running the host build ``build`` on CPU
+    tensors."""
+    monkeypatch.setattr(F, "_build_library", lambda group=1: build(group))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type("S", (), {"cuda_stream": 0}))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     return F._launch
+
+
+@pytest.fixture
+def host_launch(host_kernel, monkeypatch):
+    return _on_host(host_kernel, monkeypatch)
+
+
+@pytest.fixture
+def routed_host_launch(routed_host_kernel, monkeypatch):
+    return _on_host(routed_host_kernel, monkeypatch)
 
 
 def _case(model, seed=0, tile=1):
@@ -237,3 +265,52 @@ def test_host_build_without_shared_memory_matches(host_launch, monkeypatch):
     none = host_launch(*args, group=8, **kw)
     for a, b, c in zip(some, part, none):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _benchmark_case(case, tile):
+    """A benchmark-model solve from ``test_torch_benchmark_models.CASES``
+    (regulation, tracking, no input box; nu 1 to 4), prepared for the
+    launch at ``tile``."""
+    from test_torch_benchmark_models import CASES, TS, case_inputs
+
+    from model_predictive_control_tpu_torch.models import benchmarks as BM
+
+    builder, nx, nu, limits, state_limits, weights, *_ = CASES[case]
+    x0, u0, refs, par = (None if a is None else torch.as_tensor(a) for a in case_inputs(case, B))
+    args = F.prepare_tiles(x0, u0, refs, par, tile=tile)
+    kw = dict(ode_rows=getattr(BM, builder)(), nx=nx, nu=nu, N=u0.shape[1], ts=TS, substeps=2,
+              integrator="rk4", limits=limits, state_limits=state_limits, weights=weights,
+              mu_init=10.0, mu_scale=10.0, mu_max=1e8, viol_tol=1e-4, tol=1e-6, tile=tile)
+    return args, kw
+
+
+BENCHMARK_CASES = ["cartpole_regulation", "quadrotor_tracking_tilt_box", "quadrotor_no_input_box",
+                   "omnibase_regulation", "omnibase_param_mass", "thruster_regulation"]
+
+
+@pytest.mark.parametrize("case", BENCHMARK_CASES)
+def test_host_build_benchmark_models_match_twin(routed_host_launch, case):
+    """Each benchmark instantiation of the source (nu = 1 to 4, the three
+    Quu solves, regulation, no input box), its transcendentals routed to
+    torch, against the twin at one thread per lane: after one inner
+    iteration bit for bit, at a 3 × 5 budget converged masks equal and
+    controls within 2e-2; then a group of 8 over two lanes a tile gives the
+    one-thread build's bits."""
+    host_launch = routed_host_launch
+    args, kw = _benchmark_case(case, tile=1)
+    for outer, inner, tol in ((1, 1, 0.0), (3, 5, 2e-2)):
+        got = host_launch(*args, outer_iters=outer, inner_iters=inner, **kw)
+        want = F.tracker_tiles_reference(*args, outer_iters=outer, inner_iters=inner, **kw)
+        assert torch.equal(got[3], want[3])  # converged
+        du = (got[0] - want[0]).abs().max().item()
+        print(f"{case} {outer}x{inner}: max|du| {du:.3e} (tol {tol})")
+        assert du <= tol
+        if outer == 1:
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+    args, kw = _benchmark_case(case, tile=2)
+    kw.update(outer_iters=2, inner_iters=3)
+    got = host_launch(*args, group=8, **kw)
+    one = host_launch(*args, group=1, **kw)
+    for a, b, name in zip(got, one, ("us", "xs", "viol", "converged", "lam", "inner iterations")):
+        assert torch.equal(a, b), name

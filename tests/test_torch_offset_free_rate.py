@@ -93,7 +93,7 @@ def test_offset_free_batched_over_bias_realizations():
                                   lambda x, u: st(x, u + dt[:, None]), 60,
                                   ct.batched_policy(backend=backend_t, tile=4),
                                   ct.initial_batch_carry(torch.as_tensor(x0, dtype=dtype_t),
-                                                         dtype=dtype_t))
+                                                         dtype=dtype_t), batched_dynamics=True)
         if backend_j == "xla":
             np.testing.assert_allclose(got.inputs.numpy(), np.asarray(ref.inputs), atol=1e-4)
         else:
@@ -161,7 +161,8 @@ def test_rate_batched_policy_matches_jax():
         got = port.simulate_batch(torch.as_tensor(x0s, dtype=dtype_t),
                                   port.session2_problem(N=12).system(dtype_t, "cpu"), 40,
                                   ct.batched_policy(backend=backend_t, tile=4),
-                                  ct.initial_batch_carry(3, dtype=dtype_t, device="cpu"))
+                                  ct.initial_batch_carry(3, dtype=dtype_t, device="cpu"),
+                                  batched_dynamics=True)
         if backend_j == "xla":
             np.testing.assert_allclose(got.inputs.numpy(), np.asarray(ref.inputs), atol=1e-4)
         else:

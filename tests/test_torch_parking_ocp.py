@@ -177,5 +177,6 @@ def test_parking_sweep_u_seed():
     pol = PB.batched_parking_policy(VehicleParameters(), N, 0.08, x_obs=X_OBS, outer_iters=2,
                                     inner_iters=3)
     carry = (seed.reshape(B, N * 2), pol.initial_carry(B, device="cpu")[1])
-    want = port.simulate_batch(x0, PB.batched_plant(plant, 0.08, substeps=2), steps, pol, carry)
+    want = port.simulate_batch(x0, PB.batched_plant(plant, 0.08, substeps=2), steps, pol, carry,
+                               batched_dynamics=True)
     assert torch.equal(res.states, want.states) and not torch.equal(res.states, plain.states)

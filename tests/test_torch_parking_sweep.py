@@ -62,7 +62,7 @@ def test_closed_loop_matches_jax():
     pol_t = port.batched_parking_policy(port.VehicleParameters(), N, TS, x_obs=X_OBS, tile=TILE)
     got = port.simulate_batch(
         torch.as_tensor(x0), port.batched_plant(plant_t, TS, substeps=SUBSTEPS), STEPS,
-        pol_t, pol_t.initial_carry(B, device="cpu"),
+        pol_t, pol_t.initial_carry(B, device="cpu"), batched_dynamics=True,
     )
 
     assert got.states.shape == (STEPS + 1, B, 4) and got.inputs.shape == (STEPS, B, 2)

@@ -62,7 +62,7 @@ def test_kinematic_closed_loop_matches_jax():
     )
     got = port.simulate_batch(
         torch.as_tensor(np.array(ref.states[0])), PB.batched_plant(plant, 0.05, substeps=8),
-        STEPS, policy, policy.initial_carry(B, device="cpu"),
+        STEPS, policy, policy.initial_carry(B, device="cpu"), batched_dynamics=True,
     )
     assert got.states.shape == (STEPS + 1, B, 4) and got.inputs.shape == (STEPS, B, 2)
     assert bool(torch.isfinite(got.states).all())
@@ -89,6 +89,7 @@ def test_dynamic_closed_loop_matches_jax():
     got = port.simulate_batch(
         torch.as_tensor(np.array(ref.states[0]), dtype=torch.float32),
         PB.batched_dynamic_plant(plant, 0.05, substeps=16), STEPS, policy, policy.initial_carry(B, device="cpu"),
+        batched_dynamics=True,
     )
     assert got.states.shape == (STEPS + 1, B, 6)
     np.testing.assert_allclose(got.inputs.numpy(), np.asarray(ref.inputs), atol=2e-2)

@@ -317,7 +317,7 @@ def test_problem_is_prepared_once_per_policy(monkeypatch):
     policy = ctrl.batched_policy(backend="cuda", tile=4, group=8)
     x0 = _states(SESSION2, seed=3)
     res = port.simulate_batch(x0, problem.system(device="cpu"), 3, policy,
-                              ctrl.initial_batch_carry(B, device="cpu"))
+                              ctrl.initial_batch_carry(B, device="cpu"), batched_dynamics=True)
     assert len(calls) == 1
     monkeypatch.setattr(K, "prepare_problem", prepare)
     names = ("A", "B", "Q", "R", "Pf", "x_lb", "x_ub", "u_lb", "u_ub")

@@ -154,7 +154,8 @@ def test_closed_loop_matches_pallas_policy():
     carry = ctrl_t.initial_batch_carry(4, device="cpu")
     runs = {
         b: port.simulate_batch(
-            torch.as_tensor(x0), system, 6, ctrl_t.batched_policy(backend=b, tile=TILE), carry
+            torch.as_tensor(x0), system, 6, ctrl_t.batched_policy(backend=b, tile=TILE), carry,
+            batched_dynamics=True
         )
         for b in ("twin", "cuda", "torch")
     }

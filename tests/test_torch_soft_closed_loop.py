@@ -53,7 +53,8 @@ def _port_loop(problem, ctrl_t, x0, backend="cuda", dtype=torch.float32):
     carry = ctrl_t.presolve_batch_carry(xt, iters_mult=3, backend=backend, tile=TILE)
     system = port.session2_problem(N=N).system(dtype, device="cpu")
     return port.simulate_batch(xt, system, STEPS,
-                               ctrl_t.batched_policy(backend=backend, tile=TILE), carry)
+                               ctrl_t.batched_policy(backend=backend, tile=TILE), carry,
+                               batched_dynamics=True)
 
 
 def _gate(got, ref):

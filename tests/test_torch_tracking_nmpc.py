@@ -117,7 +117,7 @@ def test_racing_sweep_on_the_tracking_mode_matches_jax(jax_backend):
         tile=TILE, backend="pallas-hand")
     got = port.simulate_batch(torch.as_tensor(np.array(want.states[0])),
                               PB.batched_plant(plant, 0.05, substeps=8), STEPS, policy,
-                              policy.initial_carry(B, device="cpu"))
+                              policy.initial_carry(B, device="cpu"), batched_dynamics=True)
     np.testing.assert_allclose(got.inputs.numpy(), np.asarray(want.inputs), atol=5e-3)
     np.testing.assert_allclose(got.states.numpy(), np.asarray(want.states), atol=5e-3)
     np.testing.assert_array_equal(got.logs["solver_success"].numpy(),

@@ -8,7 +8,7 @@ Gates:
 - the single-scenario tube policy, float64 interior point on both sides:
   u-trajectories within 1e-4;
 - the batched closed loops under the same starts and disturbances through
-  ``simulate_batch(disturbances=...)`` on tests/test_torch_closed_loop.py's
+  ``simulate_batch(disturbances=..., batched_dynamics=True)`` on tests/test_torch_closed_loop.py's
   bars (states 5e-2, inputs 3e-2, success masks equal on 95% of the
   entries), the tube certificate equal: the tube's on the port's twin of
   the fused kernel against the JAX Pallas kernel in interpret mode, both
@@ -148,7 +148,7 @@ def _batched_pair(tier, backend, dtype_j, dtype_t, B=16, steps=10, N=10, tile=8)
     got = port.simulate_batch(xt, pt.system(dtype_t, device="cpu"), steps,
                               ct.batched_policy(backend="cuda" if backend == "pallas" else "xla",
                                                 tile=tile),
-                              carry_t, disturbances=torch.as_tensor(w))
+                              carry_t, disturbances=torch.as_tensor(w), batched_dynamics=True)
     return ref, got
 
 
