@@ -58,6 +58,19 @@ kernel, and times it:
   with their launches counted and the contract's quality gates, the other
   models' solves, a kernel-vs-twin closed loop of each sweep, and each sweep
   timed with CUDA events around its launches;
+- the tracker kernel's second library (``csrc/ilqr_factory_ext.cu``): the
+  factory parking launches (the sweep's warm step at derivative order 2 with
+  its warm multipliers, order 1, seeded per-lane weights, and per-lane
+  weights equal to the constants, which must give the constant build's bits)
+  held to the twin bit for bit at a 2 × 3 budget and the MHE windows (4,096
+  × M=10, 4 × 8) at their full budget, each at one thread per lane and at two
+  thread groups; a (tile, group) launch sweep (informational); then
+  ``parking_sweep(2048, 50, backend="factory", inner_iters=14)`` and
+  ``NonlinearMHE.solve_batch_fused`` on 4,096 windows with their launches
+  counted and the contract's quality gates, the windows held to the
+  Gauss-Newton oracle on 64 of them, the 6 × 15 sweep beside the hand
+  kernel's (informational), CUDA events around the launches and each launch
+  timed alone;
 - the long-horizon closed loop (session-2 linear MPC on the stagewise
   interior-point solver, N=100, 20 iterations, 4,096 scenarios × 50 steps)
   on the fused stagewise-IP kernel (held to its twin bit for bit at one
@@ -95,8 +108,10 @@ spends its cycles, phase by phase, from a clocked build of the kernel.
 alone (the ADMM kernel's builds they launch, then the phases above);
 ``python3 chip_smoke.py --benchmark-phases`` runs the tracker kernel's
 benchmark-model phases alone (its libraries, then those phases);
-``python3 chip_smoke.py --tracker-launches DIR`` times the racing tiers'
-warm tracker launch alone for the port found under ``DIR``.
+``python3 chip_smoke.py --factory-phases`` runs the factory parking and MHE
+windows' phases alone (their libraries and the hand parking kernel's, then
+those phases); ``python3 chip_smoke.py --tracker-launches DIR`` times the
+racing tiers' warm tracker launch alone for the port found under ``DIR``.
 """
 
 from __future__ import annotations
@@ -573,6 +588,17 @@ def main() -> int:
         phase(None)
         return 0
 
+    if sys.argv[1:2] == ["--factory-phases"]:
+        # the tracker kernel's second library alone: factory parking, the MHE
+        # windows (and the hand parking kernel for the informational sweep)
+        print(card, flush=True)
+        build_all([*((KF.library_name(g, True), lambda g=g: KF._build_library(g, True))
+                     for g in FACTORY_GROUPS),
+                   (KI.library_name(KI.DEFAULT_GROUP), lambda: KI._build_library(KI.DEFAULT_GROUP))])
+        print(json.dumps({"kernels": factory_phases(torch, port, KF, card, device)}))
+        phase(None)
+        return 0
+
     phase("environment")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
@@ -596,6 +622,8 @@ def main() -> int:
         (K.library_name(WIDE_COLS, 32), lambda: K._build_library(WIDE_COLS, 32)),
         *((KI.library_name(g), lambda g=g: KI._build_library(g)) for g in PARK_GROUPS),
         *((KF.library_name(g), lambda g=g: KF._build_library(g)) for g in RACE_GROUPS),
+        *((KF.library_name(g, True), lambda g=g: KF._build_library(g, True))
+          for g in FACTORY_GROUPS),
         *((KR.library_name(nx, nu, g), lambda nx=nx, nu=nu, g=g: KR._build_library(nx, nu, g))
           for nx, nu in ((2, 1), (3, 2)) for g in LH_GROUPS),
     ])
@@ -605,8 +633,9 @@ def main() -> int:
     modes = mode_phases(torch, port, KI, card, device)
     racing = [racing_phases(torch, port, KF, tier, card, device) for tier in RACE_TIERS]
     bench = benchmark_phases(torch, port, KF, card, device)
+    factory = factory_phases(torch, port, KF, card, device)
     stagewise = stagewise_phases(torch, port, KR, card, device)
-    kernels = [admm, *family, ilqr, modes, *racing, *bench, stagewise]
+    kernels = [admm, *family, ilqr, modes, *racing, *bench, *factory, stagewise]
     phase(None)
 
     print(json.dumps({"kernels": kernels}))
@@ -1505,10 +1534,11 @@ def ilqr_phases(torch, port, K, card, device) -> dict:
 
 def contract_gates(name) -> dict:
     """The quality gates of ``name`` in BENCH_CONTRACT.json: its floors
-    (``>=``) and ceilings (``<=``), without the solves/s (a TPU's rate)."""
+    (``>=``) and ceilings (``<=``), without the solves/s or windows/s (a
+    TPU's rate)."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "BENCH_CONTRACT.json")
     entry = json.load(open(path))[name]
-    gates = {k: (">=", v) for k, v in entry["floors"].items() if k != "solves_per_s"}
+    gates = {k: (">=", v) for k, v in entry["floors"].items() if not k.endswith("_per_s")}
     return {**gates, **{k: ("<=", v) for k, v in entry["ceilings"].items()}}
 
 
@@ -1992,6 +2022,300 @@ def benchmark_phases(torch, port, K, card, device) -> list:
         })
     return kernels
 
+
+# ---------------------------------------------------------------------------
+# the tracker kernel's second library (csrc/ilqr_factory_ext.cu): factory
+# parking and the MHE windows
+# ---------------------------------------------------------------------------
+
+FACTORY_BATCH = 2048
+FACTORY_STEPS = 50
+FACTORY_INNER = 14  # BENCH_CONTRACT.json sweep_factory's configuration
+FACTORY_GROUPS = (1, 8, 32)
+FACTORY_TILES = (8, 16, 32)  # informational launch sweep of (tile, group)
+# the budget at which the parking launches' operands are held to the twin bit
+# for bit: the twin takes ~0.8 s an inner iteration at N=30 on the card, so the
+# warm step's full budget (~65 inner iterations) would take ~50 s a launch
+FACTORY_TWIN_BUDGET = (2, 3)
+MHE_NL_BATCH, MHE_NL_M, MHE_NL_TS = 4096, 10, 0.05  # tools/bench_suite.py seg_mhe_batch_nl
+MHE_NL_BUDGET = (4, 8)
+MHE_NL_ORACLE = 64  # windows held to the Gauss-Newton oracle
+# FP32 operations per stage and executed inner iteration, counted from the
+# code as FLOPS_STAGE_ITER's entries are (a value charged once, tangents two
+# operations per operation and direction):
+# - factory parking, kinematic bicycle with Euler and the nine clearance rows
+#   (68 operations for their values): the step's 6 Jacobian directions 6 x 2
+#   x 27 = 324; the rows' gradient pack Dual<3> 3 x 2 x 68 = 408 with act,
+#   the gradient and the Gauss-Newton sums ~230; at order 2 three curvature
+#   passes, each the second-order tangents of 3 directions 3 x 2 x 68 = 408
+#   and the contraction ~72, ~1,440; the 12 box rows 54; the Riccati algebra
+#   at nx=4, nu=2 with the extra Hessian entries ~510; the 7 line-search
+#   rollouts 7 x 240 (control 22, stage cost with 21 AL rows 191, step 27):
+#   ~4,650 at order 2, ~3,210 at order 1;
+# - the MHE windows, the gated kinematic model with RK4 in the additive mode
+#   (one step: 4 evaluations of 34 and the combination, ~165): the 4 Jacobian
+#   directions 4 x 2 x 165 = 1,320; the 8 box rows 36; the Riccati algebra at
+#   nx = nu = 4 with the 4 x 4 Cholesky and its 5 right-hand sides ~1,000;
+#   the 7 rollouts 7 x 277 (control 44, stage cost 64, step 169): ~4,300.
+FLOPS_STAGE_ITER.update({"factory_parking": 4650, "factory_parking_o1": 3210,
+                         "mhe_windows": 4300})
+
+
+def mhe_nl_problem(torch, port, device, batch=None, seed=0):
+    """``tools/bench_suite.py::seg_mhe_batch_nl``'s estimator and data,
+    regenerated with torch from ``seed``: the kinematic bicycle with RK4,
+    position-only measurements, v bounded to [0, 1], windows of M=10 from
+    starts uniform in [-0.5, 0.5] at v = 0.3 under (0.2, 0.05), 0.1 m noise.
+    Returns ``(mhe, ode_rows, x0, us, ys, Xs)``."""
+    from model_predictive_control_tpu_torch.models.bicycle import kinematic_bicycle_ode
+    from model_predictive_control_tpu_torch.ops.integrators import rk4
+
+    params = port.VehicleParameters()
+    f32 = torch.float32
+    step = rk4(lambda x, u: kinematic_bicycle_ode(params, x, u), MHE_NL_TS)
+    mhe = port.NonlinearMHE(
+        step, lambda x: x[..., :2],
+        torch.diag(torch.tensor([1e-6, 1e-6, 1e-5, 1e-3], dtype=f32)).to(device),
+        (0.1 ** 2) * torch.eye(2, dtype=f32, device=device),
+        torch.diag(torch.tensor([1e-4, 1e-4, 1e-3, 1e-2], dtype=f32)).to(device),
+        MHE_NL_M, nx=4, x_min=[-3.0, -2.0, -7.0, 0.0], x_max=[3.0, 2.0, 7.0, 1.0],
+        gn_iters=3, qp_iters=60, qp_solver="admm")
+    rows = port.make_kinematic_ode_rows(
+        float(params.axis_rear) / float(params.axis_front + params.axis_rear),
+        float(params.axis_rear), float(params.acceleration), float(params.friction))
+    batch = MHE_NL_BATCH if batch is None else batch
+    g = torch.Generator().manual_seed(seed)
+    x0 = torch.rand(batch, 4, generator=g) - 0.5
+    x0[:, 3] = 0.3
+    us = torch.tensor([[0.2, 0.05]]).repeat(batch, MHE_NL_M, 1)
+    x0, us = x0.to(device), us.to(device)
+    xs = [x0]
+    for k in range(MHE_NL_M):
+        xs.append(step(xs[-1], us[:, k]))
+    Xs = torch.stack(xs, dim=1)
+    ys = Xs[..., :2] + 0.1 * torch.randn(batch, MHE_NL_M + 1, 2, generator=g).to(device)
+    return mhe, rows, x0, us, ys, Xs
+
+
+def factory_phases(torch, port, K, card, device) -> list:
+    """The tracker kernel's second library on the card: factory parking (the
+    clearance rows at derivative order 2 and 1, warm multipliers, per-lane
+    weights) and the MHE windows (additive mode, terminal rows): each launch
+    held to its twin bit for bit at every group of ``FACTORY_GROUPS``, a
+    per-lane weight row equal to the constants giving the constant build's
+    bits; then the main path, counted: ``parking_sweep(2048, 50,
+    backend="factory", inner_iters=14)`` and ``solve_batch_fused`` on 4,096
+    windows with their contract's quality gates, the windows held to the
+    Gauss-Newton oracle on 64 of them; the 6 x 15 sweep beside the hand
+    kernel's (informational); each launch timed alone and between the loop's
+    events. Returns the two instantiations' ``kernels`` entries."""
+    from model_predictive_control_tpu_torch import estimation_nl
+    from model_predictive_control_tpu_torch.ops.cuda import parking_factory
+
+    B = FACTORY_BATCH
+    phase(f"factory parking and MHE windows vs twin on the card ({B} lanes, N=30; "
+          f"{MHE_NL_BATCH} windows, M={MHE_NL_M})")
+    cold, warm = captured_launches(torch, K, lambda: port.parking_sweep(
+        B, 2, backend="factory", inner_iters=FACTORY_INNER, device=device))
+    args, kw = warm
+    kw = {k: v for k, v in kw.items() if k != "group"}
+    tile = kw["tile"]
+    QD, RD, QN = kw["weights"]
+    w = torch.tensor([*QD, *RD, QN], dtype=torch.float32)
+    g = torch.Generator().manual_seed(0)
+    rows = {"seeded": (w * (1.0 + 0.2 * (torch.rand(B, 7, generator=g) - 0.5))).to(device),
+            "static": w.expand(B, 7).contiguous().to(device)}
+    wrt = {k: K.prepare_operands(B, tile=tile, weights_rt=v)["wrt"] for k, v in rows.items()}
+    cut = dict(outer_iters=FACTORY_TWIN_BUDGET[0], inner_iters=FACTORY_TWIN_BUDGET[1])
+    held = {
+        "order 2, warm multipliers": {**kw, **cut},
+        "order 1, warm multipliers": {**kw, **cut, "extra_order": 1},
+        "order 2, seeded per-lane weights": {**kw, **cut, "weights": None, "wrt": wrt["seeded"]},
+        "order 2, per-lane weights equal to the constants": {**kw, **cut, "weights": None,
+                                                              "wrt": wrt["static"]},
+    }
+    err, twin_s = {}, {}
+    outs_at = {}
+    for name, at in held.items():
+        key = K.instantiation(at["ode_rows"], at["extra_constraints"], at["extra_order"],
+                              at.get("wrt") is not None)
+        want, twin_s[key] = twin_launch(torch, K, args, at)
+        outs_at[name] = {grp: K._launch(*args, group=grp, **at) for grp in FACTORY_GROUPS}
+        label = (f"factory parking warm step, {name} ({key}, lam_init from the step before, "
+                 f"budget {cut['outer_iters']} x {cut['inner_iters']}, tile {tile})")
+        err[key] = max(err.get(key, 0.0), compare_launches(
+            torch, "tracker kernel", label, outs_at[name], want, twin_s[key], card))
+    static = outs_at["order 2, warm multipliers"]
+    same = outs_at["order 2, per-lane weights equal to the constants"]
+    for grp in FACTORY_GROUPS:
+        if not all(torch.equal(a, b) for a, b in zip(static[grp], same[grp])):
+            raise SystemExit("a launch with per-lane weights equal to the constants differs "
+                             f"from the constant build (group {grp})")
+    print("per-lane weights equal to the constants: bit for bit the constant build's at groups "
+          f"{FACTORY_GROUPS}", flush=True)
+
+    mhe, ode_rows, x0, us, ys, Xs = mhe_nl_problem(torch, port, device)
+    solve = lambda **k: mhe.solve_batch_fused(
+        x0, us, ys, ode_rows=ode_rows, ts=MHE_NL_TS, obs_indices=(0, 1),
+        outer_iters=MHE_NL_BUDGET[0], inner_iters=MHE_NL_BUDGET[1], **k)
+    margs, mkw = captured_launches(torch, K, solve, count=1)[0]
+    mkw = {k: v for k, v in mkw.items() if k != "group"}
+    want, twin_s["gated_kinematic"] = twin_launch(torch, K, margs, mkw)
+    mouts = {grp: K._launch(*margs, group=grp, **mkw) for grp in FACTORY_GROUPS}
+    err["gated_kinematic"] = compare_launches(
+        torch, "tracker kernel", f"MHE windows ({MHE_NL_BATCH} x M={MHE_NL_M}, "
+        f"{MHE_NL_BUDGET[0]} x {MHE_NL_BUDGET[1]}, additive, terminal rows, tile {mkw['tile']})",
+        mouts, want, twin_s["gated_kinematic"], card)
+
+    phase("factory parking and MHE windows: launch per (tile, group) (informational)")
+    for name, (a, at) in {"factory parking order 2, the warm step": (args, kw),
+                          "factory parking order 1, the warm step": (args, {**kw,
+                                                                            "extra_order": 1}),
+                          "MHE windows": (margs, mkw)}.items():
+        print(f"{name}:", flush=True)
+        launch_points(torch, K, a, at, sweep_grid(K, FACTORY_GROUPS, FACTORY_TILES), card)
+
+    phase(f"factory parking and MHE main path: parking_sweep({B}, {FACTORY_STEPS}, "
+          f"backend='factory', inner_iters={FACTORY_INNER}), solve_batch_fused({MHE_NL_BATCH} "
+          f"windows)")
+    for k in K.LAUNCHES_BY_KERNEL:
+        K.LAUNCHES_BY_KERNEL[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, summary = port.parking_sweep(B, FACTORY_STEPS, backend="factory",
+                                      inner_iters=FACTORY_INNER, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if res.states.shape != (FACTORY_STEPS + 1, B, 4) or not bool(torch.isfinite(res.states).all()):
+        raise SystemExit("the factory parking sweep's states are not finite of the expected shape")
+    gate_summary("parking_sweep(backend='factory')", summary, contract_gates("sweep_factory"))
+    print(f"parking_sweep({B}, {FACTORY_STEPS}, backend='factory', inner_iters={FACTORY_INNER}): "
+          f"wall {wall:.4f} s (first run), {B * FACTORY_STEPS / wall:.1f} solves/s [{card}]",
+          flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xM, X, W_, conv = solve()
+    torch.cuda.synchronize()
+    mhe_wall = time.perf_counter() - t0
+    err_pos = torch.linalg.vector_norm(xM[:, :2] - Xs[:, -1, :2], dim=-1)
+    if X.shape != (MHE_NL_BATCH, MHE_NL_M + 1, 4) or not bool(torch.isfinite(X).all()):
+        raise SystemExit("the fused MHE windows are not finite of the expected shape")
+    mhe_summary = {"median_pos_err": torch.quantile(err_pos, 0.5).item(),
+                   "min_v_estimate": X[..., 3].min().item(),
+                   "converged_frac": conv.float().mean().item()}
+    gate_summary("NonlinearMHE.solve_batch_fused", mhe_summary, contract_gates("mhe_batch_nl"))
+    print(f"solve_batch_fused({MHE_NL_BATCH} windows, M={MHE_NL_M}): wall {mhe_wall:.4f} s "
+          f"(first run), {MHE_NL_BATCH / mhe_wall:.1f} windows/s [{card}]", flush=True)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES_BY_KERNEL)
+    print(f"tracker kernel launches by instantiation: {launches} (expected {FACTORY_STEPS} "
+          "kinematic_clearance_o2, 1 gated_kinematic)", flush=True)
+    if launches["kinematic_clearance_o2"] != FACTORY_STEPS or launches["gated_kinematic"] != 1:
+        raise SystemExit("the factory parking and MHE paths did not go through the kernel")
+
+    phase(f"MHE windows: the fused kernel vs the Gauss-Newton oracle ({MHE_NL_ORACLE} windows)")
+    n = MHE_NL_ORACLE
+    xM_g, X_g, _ = mhe.solve_batch(x0[:n], us[:n], ys[:n])
+    xM_f, X_f = xM[:n], X[:n]
+    e_f = torch.linalg.vector_norm(xM_f[:, :2] - Xs[:n, -1, :2], dim=-1)
+    e_g = torch.linalg.vector_norm(xM_g[:, :2] - Xs[:n, -1, :2], dim=-1)
+    dxm, dX = (xM_f - xM_g).abs().max().item(), (X_f - X_g).abs().max().item()
+    med_f, med_g = torch.quantile(e_f, 0.5).item(), torch.quantile(e_g, 0.5).item()
+    print(f"fused vs Gauss-Newton + ADMM windows: max|x_M| {dxm:.3e} (tol 2e-2), max|X| "
+          f"{dX:.3e} (tol 3e-2); converged {conv[:n].float().mean().item():.3f}; min v "
+          f"{X_f[..., 3].min().item():.3e} (>= -1e-5); median position error {med_f:.4f} m vs "
+          f"{med_g:.4f} m (< 0.06, < oracle + 0.02)", flush=True)
+    if not (bool(conv[:n].all()) and X_f[..., 3].min().item() >= -1e-5 and dxm <= 2e-2
+            and dX <= 3e-2 and med_f < 0.06 and med_f < med_g + 0.02):
+        raise SystemExit("the fused MHE windows disagree with the Gauss-Newton oracle")
+
+    phase("factory parking at the hand tier's 6 x 15 budget beside the hand kernel "
+          "(informational)")
+    for backend in ("factory", "cuda"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, sm = port.parking_sweep(B, FACTORY_STEPS, backend=backend, device=device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"informational: parking_sweep({B}, {FACTORY_STEPS}, backend={backend!r}) at 6 x 15: "
+              f"success {sm['success_rate']:.5f}, parked {sm['parked_frac_5cm']:.5f}, median "
+              f"{sm['median_final_dist']:.5f} m, mean inner iterations "
+              f"{sm['mean_inner_iters']:.2f}, wall {dt:.4f} s, {B * FACTORY_STEPS / dt:.1f} "
+              f"solves/s [{card}]", flush=True)
+
+    phase("factory parking and MHE windows timed: CUDA events around the launches, launches "
+          "alone")
+    kept = []
+    sweep = lambda batch, **k: port.parking_sweep(batch, backend="factory",
+                                                  inner_iters=FACTORY_INNER, **k)
+    wall, events, summary = timed_sweep(torch, K, sweep, B, device, kept=kept,
+                                        steps=FACTORY_STEPS)
+    print(f"parking_sweep(backend='factory') with events: wall {wall:.4f} s, "
+          f"{B * FACTORY_STEPS / wall:.1f} solves/s; mean inner iterations "
+          f"{summary['mean_inner_iters']:.2f}; tile {tile}, group "
+          f"{K.DEFAULT_GROUP['kinematic_clearance_o2']} [{card}]", flush=True)
+    print_events(wall, events, card)
+    loop = [(a.elapsed_time(b), *rest) for (a, b), rest in zip(events, kept)]
+    loop_ms, pargs, pkw, _ = sorted(loop[1:], key=lambda r: r[0])[(len(loop) - 1) // 2]
+    park_ms = time_cuda(torch, lambda: K._launch(*pargs, **pkw), 10)
+    pouts = K._launch(*pargs, **pkw)
+    cut_ms = time_cuda(torch, lambda: K._launch(*pargs, **{**pkw, **cut}), 10)
+    print(f"factory parking: the sweep's launch of median time ({loop_ms:.3f} ms in the loop; "
+          f"mean executed {pouts[5].mean().item():.2f}) alone: kernel {park_ms:.3f} ms; at the "
+          f"{cut['outer_iters']} x {cut['inner_iters']} budget kernel {cut_ms:.3f} ms, twin "
+          f"{1e3 * twin_s['kinematic_clearance_o2']:.1f} ms (timed once) [{card}]", flush=True)
+    others = {}
+    for name, at in held.items():
+        key = K.instantiation(at["ode_rows"], at["extra_constraints"], at["extra_order"],
+                              at.get("wrt") is not None)
+        if key == "kinematic_clearance_o2":
+            continue
+        full = {**at, "outer_iters": kw["outer_iters"], "inner_iters": kw["inner_iters"],
+                "group": K.DEFAULT_GROUP[key]}
+        ms = time_cuda(torch, lambda: K._launch(*args, **full), 5)
+        ni = K._launch(*args, **full)[5]
+        flops = FLOPS_STAGE_ITER["factory_parking_o1" if "_o1" in key else "factory_parking"]
+        print(f"{key} ({name}): the warm step's launch alone at the sweep's budget: kernel "
+              f"{ms:.3f} ms, {ni.mean().item():.2f} executed iterations; twin at the cut budget "
+              f"{1e3 * twin_s[key]:.1f} ms [{card}]; ", end="")
+        others[key] = bound(torch, flops * kw["N"] * float(ni.sum()), [*args, *full.values()])
+    mevents, mkept = [], []
+    launch = K._launch
+    K._launch = timed_launches(torch, K, mevents, mkept)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        mwall = time.perf_counter() - t0
+    finally:
+        K._launch = launch
+    mloop_ms = mevents[0][0].elapsed_time(mevents[0][1])
+    mkw = {**mkw, "group": K.DEFAULT_GROUP["gated_kinematic"]}  # the path's group
+    mhe_ms = time_cuda(torch, lambda: K._launch(*margs, **mkw), 10)
+    mo = K._launch(*margs, **mkw)
+    print(f"MHE windows: solve_batch_fused wall {mwall:.4f} s, the launch {mloop_ms:.3f} ms "
+          f"between its events ({100 * mloop_ms / (1e3 * mwall):.1f}% of the wall); alone: kernel "
+          f"{mhe_ms:.3f} ms (group {mkw['group']}), mean executed {mo[5].mean().item():.2f}; twin "
+          f"{1e3 * twin_s['gated_kinematic']:.1f} ms (timed once) [{card}]", flush=True)
+
+    print("KinematicRows + ClearanceRows, order 2:", end=" ")
+    park_roof = bound(torch, FLOPS_STAGE_ITER["factory_parking"] * pkw["N"]
+                      * float(pouts[5].sum()), [*pargs, *pouts])
+    print("GatedKinematicRows (additive):", end=" ")
+    mhe_roof = bound(torch, FLOPS_STAGE_ITER["mhe_windows"] * mkw["N"] * float(mo[5].sum()),
+                     [a for a in (*margs, mkw["exo"], mkw["rw"]) if torch.is_tensor(a)] + list(mo))
+    common = {"route": "cuda",
+              "source": "model_predictive_control_tpu_torch/csrc/ilqr_factory_ext.cu",
+              "replaces": "model_predictive_control_tpu/ops/pallas/ilqr_factory.py:204"}
+    return [
+        {"name": "tracker_tile_kernel<Problem<KinematicRows, ClearanceRows, 2>>", **common,
+         "launches": launches["kinematic_clearance_o2"], "max_abs_err": err["kinematic_clearance_o2"],
+         "ms": park_ms, "plain_ms": 1e3 * twin_s["kinematic_clearance_o2"], **park_roof},
+        {"name": "tracker_tile_kernel<Problem<GatedKinematicRows, additive, terminal rows>>",
+         **common, "launches": launches["gated_kinematic"], "max_abs_err": err["gated_kinematic"],
+         "ms": mhe_ms, "plain_ms": 1e3 * twin_s["gated_kinematic"], **mhe_roof},
+    ]
 
 def tracker_launch_report(torch, port, K, card, device) -> None:
     """The warm step's tracker launch of each racing tier (``RACE_BATCH``

@@ -1,7 +1,7 @@
 """model_predictive_control_tpu_torch — the PyTorch and CUDA port of
 ``model_predictive_control_tpu``.
 
-Six paths so far, each on a kernel written in CUDA for Hopper (``csrc/``)
+Eight paths so far, each on a kernel written in CUDA for Hopper (``csrc/``)
 with its plain-PyTorch twin:
 
 - the closed-loop linear MPC (session-2 problem data, condensed box-QP, the
@@ -31,7 +31,13 @@ with its plain-PyTorch twin:
   controllers, the tracking NMPC (``TrackingNMPC``, ``make_racing_mpc``) and
   the offset-free NMPC (``OffsetFreeNMPC``, ``DisturbanceCompensatedTracking``);
   the crosswind (``wind_sweep``) and slope (``offset_free_sweep``) loops on
-  the AL-iLQR kernel's offset and input-reference modes.
+  the AL-iLQR kernel's offset and input-reference modes;
+- the obstacle-parking OCP through the model-parametric tracker kernel
+  (``al_ilqr_parking_solve_factory``, ``parking_sweep(backend="factory")``:
+  the clearances as user constraint rows with their exact curvature, the
+  multipliers warm-started), and the nonlinear moving-horizon estimator
+  (``NonlinearMHE``: Gauss-Newton windows with a box-QP step, and its
+  bounded windows batched on the tracker kernel's additive mode).
 
 Entry points that take ``device`` run on the card unless the caller passes
 ``device="cpu"``. Imports ``torch`` only.
@@ -39,6 +45,11 @@ Entry points that take ``device`` run on the card unless the caller passes
 
 from .control.batch_loop import BatchSimResult, simulate_batch
 from .control.simulate import SimResult, open_loop_policy, policy_from_law, rollout, simulate
+from .estimation_nl import (
+    NonlinearMHE,
+    initial_mhe_feedback_carry,
+    mhe_output_feedback_policy,
+)
 from .estimation import (
     ExtendedKalmanFilter,
     KalmanFilter,
@@ -49,6 +60,7 @@ from .estimation import (
     mhe_trajectory,
     output_feedback_policy,
 )
+from .models.bicycle import make_kinematic_ode_rows
 from .models.benchmarks import (
     make_cartpole_ode_rows,
     make_omnibase_ode_rows,
@@ -58,6 +70,7 @@ from .models.benchmarks import (
 )
 from .models.linear import LinearSystem
 from .models.parameters import VehicleParameters
+from .ops.cuda.parking_factory import al_ilqr_parking_solve_factory, make_clearance_rows
 from .ops.riccati import dare_residual, dare_sda, lqr_gain, riccati_recursion
 from .experiments.racing import make_racing_mpc
 from .parallel.batch import (
@@ -115,6 +128,7 @@ __all__ = [
     "KalmanFilter",
     "LinearSystem",
     "MHE",
+    "NonlinearMHE",
     "NonlinearMPC",
     "OffsetFreeNMPC",
     "SQPSolution",
@@ -123,6 +137,7 @@ __all__ = [
     "TrackingNMPC",
     "VehicleParameters",
     "admm_solve",
+    "al_ilqr_parking_solve_factory",
     "al_ilqr_solve",
     "batched_parking_policy",
     "batched_plant",
@@ -131,21 +146,24 @@ __all__ = [
     "dare_residual",
     "dare_sda",
     "ilqr_solve",
+    "initial_mhe_feedback_carry",
     "kalman_filter_trajectory",
     "kalman_gain",
     "lqr_gain",
     "lqr_terminal_set",
     "make_box_mpc",
     "make_cartpole_ode_rows",
+    "make_clearance_rows",
+    "make_kinematic_ode_rows",
     "make_linear_mpc",
     "make_mhe",
-    "make_parking_ilqr",
-    "make_parking_ocp",
-    "make_racing_mpc",
     "make_offset_free_mpc",
     "make_omnibase_ode_rows",
     "make_omnibase_param_ode_rows",
+    "make_parking_ilqr",
+    "make_parking_ocp",
     "make_planar_quadrotor_ode_rows",
+    "make_racing_mpc",
     "make_rate_limited_mpc",
     "make_stagewise_mpc",
     "make_stochastic_mpc",
@@ -153,6 +171,7 @@ __all__ = [
     "make_tracking_ilqr_window",
     "make_tube_mpc",
     "mhe_loop_sweep",
+    "mhe_output_feedback_policy",
     "mhe_trajectory",
     "offset_free_sweep",
     "open_loop_policy",
@@ -161,8 +180,8 @@ __all__ = [
     "pdip_solve",
     "policy_from_law",
     "prediction_policy",
-    "quadrotor_sweep",
     "qp_setup",
+    "quadrotor_sweep",
     "racing_sweep",
     "racing_sweep_dynamic",
     "receding_horizon_policy",

@@ -81,6 +81,22 @@ def tracking_nmpc_from_jax(ctrl, step_fn, *, device=None, dtype=torch.float32):
                         outer_iters=ctrl.outer_iters, inner_iters=ctrl.inner_iters)
 
 
+def nonlinear_mhe_from_jax(mhe, step_fn, obs_fn, *, device=None, dtype=torch.float32):
+    """A port :class:`~.estimation_nl.NonlinearMHE` from the JAX package's:
+    ``Qw``, ``Rv``, ``P0`` and the state bounds copied through numpy as
+    tensors of ``dtype`` on ``device`` (the card when ``None``), its window
+    and its iteration settings; ``step_fn`` / ``obs_fn`` are the port's
+    functions (a JAX closure cannot be copied)."""
+    from .estimation_nl import NonlinearMHE
+
+    device = resolve_device(device)
+    t = lambda a: None if a is None else _t(a, dtype, device)
+    return NonlinearMHE(step_fn, obs_fn, t(mhe.Qw), t(mhe.Rv), t(mhe.P0), mhe.M, mhe.nx,
+                        x_min=t(mhe.x_min), x_max=t(mhe.x_max), gn_iters=mhe.gn_iters,
+                        qp_iters=mhe.qp_iters, qp_solver=mhe.qp_solver,
+                        propagate_arrival=mhe.propagate_arrival, reg=mhe.reg)
+
+
 def _copy_ekf(port_ctrl, ctrl, dtype, device):
     """The augmented EKF's covariances as the JAX object holds them (its
     constructor's scalars are not kept there), copied over the port

@@ -15,8 +15,12 @@ Dynamic state ``(p_x, p_y, ψ, v_x, v_y, ω)``, same input: see
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..ops.cuda.ilqr_factory import TrackerModel
+from ..ops.cuda.ilqr_kernel import inv_f32
 from .parameters import VehicleParameters
 
 NX = 4  # (p_x, p_y, psi, v)
@@ -43,6 +47,39 @@ def kinematic_bicycle_ode(
     psi_dot = v * torch.sin(beta) / lr
     v_dot = params.acceleration * a - params.friction * v
     return torch.stack([px_dot, py_dot, psi_dot, v_dot], dim=-1)
+
+
+@functools.lru_cache(maxsize=16)
+def make_kinematic_ode_rows(kb: float, lr: float, acc: float, fric: float) -> TrackerModel:
+    """Row-form kinematic-bicycle ODE with CONSTANT acceleration and friction
+    (``kb = l_r / (l_f + l_r)``; β through sin β = kb tan δ / √(1 + kb²
+    tan² δ), no ``atan``), the JAX package's ``make_kinematic_ode_rows``:
+    the same math as :func:`kinematic_bicycle_ode`, the JAX operation order,
+    the division by ``lr`` a multiplication by its float32 reciprocal (as
+    XLA compiles it, and as ``ops/cuda/parking_factory.py`` does). Cached on
+    its arguments, so that a model keeps one identity. Its constants are
+    ``(kb, kb², 1/lr, acc, fric)``; the kernel runs it gated, in the
+    nonlinear MHE windows (``estimation_nl.py``: ``GatedKinematicRows``)."""
+    kb2 = kb * kb
+    inv_lr = inv_f32(lr)
+
+    def ode_rows(xr, ur):
+        _px, _py, psi, v = xr
+        a, dl = ur
+        t = torch.tan(dl)
+        den = torch.sqrt(1.0 + kb2 * t * t)
+        sinb = kb * t / den
+        cosb = 1.0 / den
+        sp, cp = torch.sin(psi), torch.cos(psi)
+        return (
+            v * (cp * cosb - sp * sinb),
+            v * (sp * cosb + cp * sinb),
+            v * sinb * inv_lr,
+            acc * a - fric * v,
+        )
+
+    return TrackerModel(rows=ode_rows, kernel="kinematic_const",
+                        consts=(kb, kb2, inv_lr, acc, fric), nx=NX, nu=NU)
 
 
 NX_DYNAMIC = 6  # (p_x, p_y, psi, v_x, v_y, omega)

@@ -12,21 +12,35 @@ Quu solved as the reference solves it: ``1/q`` at ``nu = 1``, the closed-form
 
 How a model reaches the kernel: a :class:`TrackerModel` pairs the torch row
 function ``(xr, ur[, pr]) -> nx rows`` with the name of its C++ instantiation
-and the float constants that instantiation reads. The twin runs the torch
-rows, on tensors for values and on :class:`Dual` numbers for Jacobians; the
-kernel runs the C++ functor of the same name, templated on the same dual
-arithmetic. A bare Python ``ode_rows`` has no C++ counterpart: it runs on the
-twin, and on CUDA tensors it raises (code generation for user ODEs is
+and the float constants that instantiation reads; a
+:class:`TrackerConstraints` does the same for user constraint rows. The twin
+runs the torch rows, on tensors for values and on :class:`Dual` numbers for
+derivatives (nested duals for the rows' curvature); the kernel runs the C++
+functors of the same names, templated on the same dual arithmetic. A bare
+Python ``ode_rows`` or ``extra_constraints`` has no C++ counterpart: it runs
+on the twin, and on CUDA tensors it raises (code generation for user ODEs is
 ROADMAP S4.6).
 
-Ported features: tracking (``refs``) and regulation (``refs=None``: x costed
-against the origin), per-scenario ODE parameters, an optional input box and
-an optional state box (at least one), Euler or RK4 prediction with substeps,
-static weights, ``1 ≤ nu ≤ 8``. The rest of the JAX signature raises
-``NotImplementedError`` naming its ROADMAP item. The C++ instantiations are
-the racing pair (``"kinematic"``, ``"pacejka"``; Euler and RK4, with an
-input box) and the benchmark models of :mod:`...models.benchmarks` (RK4,
-with or without an input box): the pairs their paths use.
+The whole JAX signature is ported: tracking (``refs``) and regulation
+(``refs=None``: x costed against the origin), per-scenario ODE parameters, an
+optional input box and an optional state box, user constraint rows
+(``extra_constraints`` with ``n_extra``, ``extra_deps``, ``extra_order``),
+the multipliers' warm start (``lam_init``), the additive input mode
+(``input_mode="additive"`` with ``exo``), per-stage input weights
+(``input_weights_rt``), terminal state-box rows (``terminal_state_limits``:
+the multipliers then have a row N), per-lane weights (``weights_rt``),
+Euler or RK4 prediction with substeps, ``1 ≤ nu ≤ 8``. It raises where the
+JAX package raises. The C++ instantiations (:data:`DEFAULT_GROUP`) are the
+pairs the paths use, from two sources, one library each per group: the
+racing pair (``"kinematic"``, ``"pacejka"``; Euler and RK4, with an input
+box) and the benchmark models of :mod:`...models.benchmarks` (RK4, with or
+without an input box) from ``csrc/ilqr_factory.cu``; the factory parking OCP
+(the kinematic model with the clearance rows at order 2 and 1, each with
+constant and per-lane weights) and the nonlinear MHE windows (the gated
+kinematic model in the additive mode) from ``csrc/ilqr_factory_ext.cu``, the
+generalized solver (in one source with the first, it cost the kinematic
+racing launch 5%: PERF.md). The first library's instantiations take no
+``lam_init`` on the card.
 
 Tile semantics (kept from the reference): the inner exit (every lane's
 ``max|Qu| < 0.01·tol``) and the outer exit (every lane primal-feasible with
@@ -73,6 +87,7 @@ from .ilqr_kernel import (
 MAX_NX = 8  # csrc/ilqr_factory.cu MAXX
 MAX_NU = 8  # csrc/ilqr_factory.cu MAXU: the unrolled Cholesky's widest Quu
 MAX_CONSTS = 16  # csrc/ilqr_factory.cu MAXC
+MAX_EXTRA_CONSTS = 16  # csrc/ilqr_factory.cu MAXE
 # GPU default scenario tile and (below) thread group, chosen by a tile × group
 # sweep on the H100 at both racing sweeps' contract configurations, by the
 # time the sweeps spend in the kernel (PERF.md, Findings): 128 CTAs for 2,048
@@ -82,27 +97,48 @@ DEFAULT_TILE = 16
 # (tile × group) its launch bounds allow (csrc/ilqr_factory.cu MAX_THREADS)
 GROUPS = (1, 8, 16, 32)
 MAX_THREADS = {1: 256, 8: 512, 16: 512, 32: 512}
-# default group per C++ instantiation, from the same sweep (the racing pair)
-# and from a launch sweep at the benchmark sweeps' shapes (PERF.md, Findings)
+# default group per C++ instantiation, from the same sweep (the racing pair),
+# from a launch sweep at the benchmark sweeps' shapes, and from one at the
+# factory parking sweep's and the MHE windows' shapes (PERF.md, Findings)
 DEFAULT_GROUP = {"kinematic": 8, "pacejka": 32, "cartpole": 8, "quadrotor": 8,
-                 "omnibase": 8, "omnibase_param": 8, "thruster": 8}
-# What each library holds beyond RK4 with an input box, as the paths use the
-# models: Euler (with the box) for the racing pair, the solve without an input
-# box (RK4) for the benchmark models. The input box is a compile-time property
-# of an instantiation: as a runtime flag it cost the kinematic launch 12%
-# (PERF.md, Findings).
+                 "omnibase": 8, "omnibase_param": 8, "thruster": 8,
+                 "kinematic_clearance_o2": 8, "kinematic_clearance_o2_wrt": 8,
+                 "kinematic_clearance_o1": 8, "kinematic_clearance_o1_wrt": 8,
+                 "gated_kinematic": 8}
+# What the first library holds beyond RK4 with an input box, as the paths use
+# the models: Euler (with the box) for the racing pair, the solve without an
+# input box (RK4) for the benchmark models. The input box is a compile-time
+# property of an instantiation: as a runtime flag it cost the kinematic
+# launch 12% (PERF.md, Findings).
+BASE_KERNELS = ("kinematic", "pacejka", "cartpole", "quadrotor", "omnibase", "omnibase_param",
+                "thruster")
 EULER_KERNELS = ("kinematic", "pacejka")
 NO_INPUT_BOX_KERNELS = ("cartpole", "quadrotor", "omnibase", "omnibase_param", "thruster")
+# The second library (csrc/ilqr_factory_ext.cu): each instantiation built
+# with one integrator, its input box present or not, terminal rows, per-stage
+# input weights and the additive mode as listed, and its rows' dependency
+# columns.
+_PARKING_BUILD = dict(integrator="euler", ubox=True, tbox=False, rw=False, additive=False,
+                      deps=(0, 1, 2))
+EXT_BUILDS = {
+    "kinematic_clearance_o2": _PARKING_BUILD,
+    "kinematic_clearance_o2_wrt": _PARKING_BUILD,
+    "kinematic_clearance_o1": _PARKING_BUILD,
+    "kinematic_clearance_o1_wrt": _PARKING_BUILD,
+    "gated_kinematic": dict(integrator="rk4", ubox=False, tbox=True, rw=True, additive=True),
+}
+EXT_KERNELS = tuple(EXT_BUILDS)
 N_ALPHA = len(ALPHAS)
 
 # Kernel launches made by fused_tracker_solve_cuda (one per solve), in all and
-# by instantiation (TrackerModel.kernel). Tests and chip_smoke.py read them to
-# show that a run went through the kernel.
+# by instantiation (:func:`instantiation`). Tests and chip_smoke.py read them
+# to show that a run went through the kernel.
 LAUNCHES = 0
 LAUNCHES_BY_KERNEL = dict.fromkeys(DEFAULT_GROUP, 0)
 
 LIBRARY = "ilqr_factory"  # library_name(group) is the file's stem
 _SOURCES = [PKG / "csrc" / "ilqr_factory.cu"]
+_EXT_SOURCES = [PKG / "csrc" / "ilqr_factory_ext.cu"]
 # the twin rounds after every operation; so does the kernel without
 # contraction into fused multiply-adds (as K2, PERF.md)
 NVCC_EXTRA = ("--fmad=false",)
@@ -114,7 +150,7 @@ class BatchedTrackerSolution:
     xs: torch.Tensor  # (B, N + 1, nx)
     viol: torch.Tensor  # (B,)
     converged: torch.Tensor  # (B,) bool
-    lam: torch.Tensor  # (B, N, nc) AL multipliers (the warm-start handle)
+    lam: torch.Tensor  # (B, N[+1], nc) AL multipliers (the warm-start handle)
     inner_iters_executed: torch.Tensor  # (B,) the tile's inner iterations
 
 
@@ -139,6 +175,28 @@ class TrackerModel:
     nx: int
     nu: int
     n_params: int = 0
+
+    def __call__(self, *args):
+        return self.rows(*args)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackerConstraints:
+    """User constraint rows ``c(x, u[, p]) ≤ 0`` with a C++ instantiation in
+    ``csrc/ilqr_factory.cu``.
+
+    ``rows(xr, ur[, pr])`` is the torch row function (``n_extra`` rows, the
+    operations :class:`Dual` supports, nested too), ``kernel`` names the C++
+    functor (the instantiation's name carries it, :func:`instantiation`),
+    ``consts`` lists the float constants it reads in its order, and ``deps``
+    the z columns (x rows, then u rows) the rows depend on, as the C++
+    functor's ``dep``. Calling it calls ``rows``."""
+
+    rows: Callable
+    kernel: str
+    consts: tuple
+    n_extra: int
+    deps: tuple
 
     def __call__(self, *args):
         return self.rows(*args)
@@ -354,30 +412,49 @@ def rowform_to_vector(ode_rows, nx: int, nu: int):
 # ---------------------------------------------------------------------------
 
 
+def _resolve_deps(extra_deps, nx: int, nu: int) -> tuple:
+    """The z columns (x rows, then u rows) the user rows depend on."""
+    if extra_deps == "xu":
+        return tuple(range(nx + nu))
+    if extra_deps == "x":
+        return tuple(range(nx))
+    return tuple(int(d) for d in extra_deps)
+
+
 def tracker_tiles_reference(
     x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integrator,
     limits, state_limits, weights, outer_iters, inner_iters, mu_init, mu_scale,
-    mu_max, viol_tol, tol,
+    mu_max, viol_tol, tol, extra_constraints=None, n_extra=0, extra_deps=(), extra_order=2,
+    input_mode="ode", exo=None, rw=None, wrt=None, terminal_state_limits=None, lam0=None,
 ):
     """Plain-PyTorch twin of the kernel on stage-major padded operands.
 
     ``x0`` is ``(nx, Bp)``, ``u0`` ``(N, nu, Bp)``, ``refs`` ``(N+1, nx,
     Bp)`` or ``None`` (regulation), ``par`` ``(n_params, Bp)`` or ``None``,
     with ``Bp`` a multiple of ``tile``; ``limits`` or ``state_limits`` may be
-    ``None`` (not both). Works on ``(Bp/T, T)`` lane views with per-tile masks and
-    tile-wide loop exits; the 7 line-search rollouts run as one leading
-    dimension. Every operation is the reference kernel's, in its order.
+    ``None``. The other operands, each ``None`` where the solve has none:
+    ``exo`` ``(N, n_exo, Bp)`` (the additive mode's exogenous rows), ``rw``
+    ``(N, nu, Bp)`` (per-stage Rd), ``wrt`` ``(nx + nu + 1, Bp)`` (per-lane
+    ``[Qd, Rd, qn]`` in place of ``weights``), ``lam0`` ``(n_lam, nc, Bp)``
+    (the multipliers' warm start); ``extra_constraints`` gives ``n_extra``
+    rows ``c ≤ 0`` on the resolved dependency columns ``extra_deps``, at
+    derivative order ``extra_order``. Works on ``(Bp/T, T)`` lane views with
+    per-tile masks and tile-wide loop exits; the 7 line-search rollouts run as
+    one leading dimension. Every operation is the kernel's, in its order.
     Returns ``us (N, nu, Bp)``, ``xs (N+1, nx, Bp)``, ``viol (Bp,)``,
-    ``converged (Bp,)``, ``lam (N, nc, Bp)`` and the tile's executed inner
+    ``converged (Bp,)``, ``lam (n_lam, nc, Bp)`` and the tile's executed inner
     iterations ``(Bp,)``.
     """
-    QD, RD, QN = weights
     dev, f32 = x0.device, torch.float32
     Bp = x0.shape[-1]
     T = tile
     nt = Bp // T
     ubox, sbox = limits is not None, state_limits is not None
-    nc = (2 * nu if ubox else 0) + (2 * nx if sbox else 0)
+    tbox = terminal_state_limits is not None
+    n_extra = n_extra if extra_constraints is not None else 0
+    nc = (2 * nu if ubox else 0) + (2 * nx if sbox else 0) + n_extra
+    n_lam = N + 1 if tbox else N
+    additive = input_mode == "additive"
     rk4 = integrator == "rk4"
     h = ts / substeps
     lanes = lambda a: a.reshape(*a.shape[:-1], nt, T)
@@ -387,12 +464,28 @@ def tracker_tiles_reference(
     A_LS = len(ALPHAS)
     alpha = col(ALPHAS)
     idx = torch.arange(nx, device=dev)
-    qd, rd, qd2, rd2 = col(QD), col(RD), col([2.0 * q for q in QD]), col([2.0 * r for r in RD])
-    qnqd2 = col([2.0 * QN * q for q in QD])
+    # the weights (constant columns, or the lane's rows) and the products the
+    # solver reads, 2 Qd, 2 Rd and (2 qn) Qd, in float32
+    if wrt is None:
+        QD, RD, QN = weights
+        qd, rd = col(QD), col(RD)
+        qnqd2 = (2.0 * torch.tensor(QN, dtype=f32, device=dev)) * qd
+    else:
+        wl = lanes(wrt)
+        qd, rd, QN = wl[:nx], wl[nx : nx + nu], wl[nx + nu]
+        qnqd2 = (2.0 * QN) * qd
+    qd2, rd2 = 2.0 * qd, 2.0 * rd
+    rws = lanes(rw) if rw is not None else None
+
+    def rd_of(t):  # Rd and 2 Rd of stage t
+        return (rd, rd2) if rws is None else (rws[t], 2.0 * rws[t])
+
     if ubox:
         lbu, ubu = (col(b) for b in limits)
     if sbox:
         lbx, ubx = (col(b) for b in state_limits)
+    if tbox:
+        tlb, tub = (col(b) for b in terminal_state_limits)
     # a column against (n, nt, T) rows, or against (n, A, nt, T) candidate packs
     fit = lambda c, X: c if X.ndim == 3 else c[:, None]
 
@@ -402,13 +495,45 @@ def tracker_tiles_reference(
             else torch.zeros(N + 1, nx, nt, T, dtype=f32, device=dev))
     us = lanes(u0).clone()
     pr = tuple(lanes(par)) if par is not None else None
-    lam = torch.zeros(N, nc, nt, T, dtype=f32, device=dev)
+    exos = lanes(exo) if exo is not None else None
+    lam = (lanes(lam0).clone() if lam0 is not None
+           else torch.zeros(n_lam, nc, nt, T, dtype=f32, device=dev))
     xs = torch.empty(N + 1, nx, nt, T, dtype=f32, device=dev)
     k_s = torch.zeros(N, nu, nt, T, dtype=f32, device=dev)
     K_s = torch.zeros(N, nu * nx, nt, T, dtype=f32, device=dev)
+    deps = tuple(extra_deps)
+    NE = len(deps)
+    pos = {d: p for p, d in enumerate(deps)}
+    base = (2 * nu if ubox else 0) + (2 * nx if sbox else 0)  # the user rows' first multiplier
 
-    def step(xr, ur):
-        return _step(ode_rows, xr, ur, pr, h, substeps, rk4)
+    def ode(xr, dr):
+        return ode_rows(xr, dr) if pr is None else ode_rows(xr, dr, pr)
+
+    def step(xr, ur, t):
+        """One interval: the model's step, or in the additive mode step(x;
+        exo_t) + u."""
+        if additive:
+            er = tuple(exos[t])
+            base_x = _integrate(lambda x: ode(x, er), tuple(xr), h, substeps, rk4)
+            return tuple(base_x[i] + ur[i] for i in range(nx))
+        return _integrate(lambda x: ode(x, tuple(ur)), tuple(xr), h, substeps, rk4)
+
+    def jacobians(X, U, t):
+        """A (nx, nx, nt, T) and B (nx, nu, nt, T) (``None`` in the additive
+        mode, where B = I), one dual pass over the directions."""
+        if not additive:
+            return step_jacobian(ode_rows, X, U, pr, ts=ts, substeps=substeps,
+                                 integrator=integrator)
+        eye = torch.eye(nx, dtype=f32, device=dev)
+        xd = tuple(Dual(X[i], eye[i].reshape(nx, 1, 1).expand(nx, nt, T)) for i in range(nx))
+        er = tuple(exos[t])
+        out = _integrate(lambda x: ode(x, er), xd, h, substeps, rk4)
+        return torch.stack([o.d for o in out]), None
+
+    def extra_rows(X, U):
+        xr, ur = tuple(X), tuple(U)
+        rows = extra_constraints(xr, ur) if pr is None else extra_constraints(xr, ur, pr)
+        return list(rows)
 
     def fold(rows):  # left-to-right sum over the leading dimension
         s = rows[0]
@@ -417,60 +542,109 @@ def tracker_tiles_reference(
         return s
 
     # Below, a row or matrix entry is one slice of a stacked tensor, and
-    # each element sees the reference's operations in the reference's order
-    # (the kernel's too); only independent entries are batched together.
+    # each element sees the kernel's operations in the kernel's order; only
+    # independent entries are batched together.
 
     def constraint_rows(X, U):
-        """With the input box [u − ub_u, lb_u − u] and with the state box
-        [x − ub_x, lb_x − x], stacked ``(nc, ...)``."""
+        """With the input box [u − ub_u, lb_u − u], with the state box [x −
+        ub_x, lb_x − x], then the user rows, stacked ``(nc, ...)``."""
         rows = [U - fit(ubu, U), fit(lbu, U) - U] if ubox else []
         if sbox:
             rows += [X - fit(ubx, X), fit(lbx, X) - X]
+        if n_extra:
+            rows.append(torch.stack(extra_rows(X, U)))
         return torch.cat(rows)
+
+    def terminal_rows(X):
+        return torch.cat([X - fit(tub, X), fit(tlb, X) - X])
 
     def quad_err(X, r):
         e = X - r
         return fold(fit(qd, X) * e * e)
 
-    def stage_cost(X, U, lam_t, mu, r):
+    def stage_cost(X, U, lam_t, mu, r, t):
         """Stage cost of stacked states ``(nx, ...)`` and inputs ``(nu, ...)``
         (``...`` = ``(nt, T)`` or ``(A, nt, T)``)."""
         if X.ndim == 4:
             lam_t, r = lam_t[:, None], r[:, None]
-        quad = quad_err(X, r) + fold(fit(rd, U) * U * U)
+        quad = quad_err(X, r) + fold(fit(rd_of(t)[0], U) * U * U)
         act = _relu(lam_t + mu * constraint_rows(X, U))
         return quad + fold(act * act - lam_t * lam_t) / (2.0 * mu)
 
+    def terminal_cost(X, r, mu):
+        c = QN * quad_err(X, r)
+        if tbox:
+            lam_t = lam[N][: 2 * nx]
+            if X.ndim == 4:
+                lam_t = lam_t[:, None]
+            act = _relu(lam_t + mu * terminal_rows(X))
+            c = c + fold(act * act - lam_t * lam_t) / (2.0 * mu)
+        return c
+
     def total_cost(mu):
-        cost = stage_cost(xs[0], us[0], lam[0], mu, refs[0])
+        cost = stage_cost(xs[0], us[0], lam[0], mu, refs[0], 0)
         for t in range(1, N):
-            cost = cost + stage_cost(xs[t], us[t], lam[t], mu, refs[t])
-        return cost + QN * quad_err(xs[N], refs[N])
+            cost = cost + stage_cost(xs[t], us[t], lam[t], mu, refs[t], t)
+        return cost + terminal_cost(xs[N], refs[N], mu)
 
     def rollout():
         xs[0] = x0
         for t in range(N):
-            xs[t + 1] = torch.stack(step(xs[t], us[t]))
+            xs[t + 1] = torch.stack(step(xs[t], us[t], t))
 
-    def stage_derivs(X, U, lam_t, mu, r):
+    def stage_derivs(X, U, lam_t, mu, r, t):
         """lx, lu and the diagonals of lxx and luu (the tracking cost and
         the box rows touch only diagonals)."""
-        lu = rd2 * U
-        huu = rd2.expand(nu, nt, T)
+        rd_t, rd2_t = rd_of(t)
+        lu = rd2_t * U
+        huu = rd2_t.expand(nu, nt, T)
         if ubox:
             act_u = _relu(lam_t[:nu] + mu * (U - ubu))
             act_l = _relu(lam_t[nu : 2 * nu] + mu * (lbu - U))
             lu = lu + act_u - act_l
-            huu = rd2 + mu * ((act_u > 0.0).to(f32) + (act_l > 0.0).to(f32))
+            huu = rd2_t + mu * ((act_u > 0.0).to(f32) + (act_l > 0.0).to(f32))
         lx = qd2 * (X - r)
         hxx = qd2.expand(nx, nt, T)
         if sbox:
             o = 2 * nu if ubox else 0
             act_u = _relu(lam_t[o : o + nx] + mu * (X - ubx))
-            act_l = _relu(lam_t[o + nx :] + mu * (lbx - X))
+            act_l = _relu(lam_t[o + nx : o + 2 * nx] + mu * (lbx - X))
             lx = lx + (act_u - act_l)
             hxx = hxx + mu * ((act_u > 0.0).to(f32) + (act_l > 0.0).to(f32))
         return lx, lu, hxx, huu
+
+    def extra_record(X, U, lam_t, mu):
+        """The user rows' derivative record of a stage (the kernel's
+        ``extra_items``): the gradient Σ_r act_r ∂c_r (NE rows), and per
+        pair ``a ≤ b`` of dependency columns the Gauss-Newton term Σ_r μ
+        1[act_r > 0] ∂_a c_r ∂_b c_r and, at order 2, the curvature term Σ_r
+        act_r ∂²c_r/∂_a∂_b (column b by one pass of nested duals, the rows
+        contracted with the frozen act first)."""
+        z = list(X) + list(U)
+        eye = torch.eye(max(NE, 1), dtype=f32, device=dev)
+        seed = lambda c: (eye[pos[c]].reshape(NE, 1, 1).expand(NE, nt, T) if c in pos
+                          else torch.zeros(NE, nt, T, dtype=f32, device=dev))
+        zd = [Dual(z[c], seed(c)) for c in range(nx + nu)]
+        rows = extra_rows(zd[:nx], zd[nx:])
+        act = [_relu(lam_t[base + r] + mu * rows[r].v) for r in range(n_extra)]
+        ind = [mu * (a > 0.0).to(f32) for a in act]
+        grad = [fold([act[r] * rows[r].d[a] for r in range(n_extra)]) for a in range(NE)]
+        gn = {(a, b): fold([(ind[r] * rows[r].d[a]) * rows[r].d[b] for r in range(n_extra)])
+              for a in range(NE) for b in range(a, NE)}
+        curv = {}
+        if extra_order == 2:
+            zero = torch.zeros(NE, nt, T, dtype=f32, device=dev)
+            for q in range(NE):
+                zh = [Dual(Dual(z[c], seed(c)),
+                           Dual(torch.full_like(z[c], 1.0 if pos.get(c) == q else 0.0), zero))
+                      for c in range(nx + nu)]
+                rh = extra_rows(zh[:nx], zh[nx:])
+                ws = rh[0] * act[0]
+                for r in range(1, n_extra):
+                    ws = ws + rh[r] * act[r]
+                for a in range(q, NE):
+                    curv[(q, a)] = ws.d.d[a]
+        return grad, gn, curv
 
     def outer(a, b):  # (m, ...) × (n, ...) -> (m, n, ...) products a_i b_j
         return a[:, None] * b[None]
@@ -535,25 +709,77 @@ def tracker_tiles_reference(
         Vx = qnqd2 * (xs[N] - refs[N])
         V = torch.zeros(nx, nx, nt, T, dtype=f32, device=dev)
         V[idx, idx] = qnqd2.expand(nx, nt, T)
+        if tbox:
+            act_u = _relu(lam[N][:nx] + mu * (xs[N] - tub))
+            act_l = _relu(lam[N][nx : 2 * nx] + mu * (tlb - xs[N]))
+            Vx = Vx + (act_u - act_l)
+            V[idx, idx] = V[idx, idx] + mu * ((act_u > 0.0).to(f32) + (act_l > 0.0).to(f32))
         ok = torch.ones(nt, T, dtype=torch.bool, device=dev)
         grad = full(0.0)
         for t in range(N - 1, -1, -1):
             X, U = xs[t], us[t]
-            A, B = step_jacobian(ode_rows, X, U, pr, ts=ts, substeps=substeps,
-                                 integrator=integrator)
-            lx, lu, hxx, huu = stage_derivs(X, U, lam[t], mu, refs[t])
+            A, B = jacobians(X, U, t)
+            lx, lu, hxx, huu = stage_derivs(X, U, lam[t], mu, refs[t], t)
+            # the user rows' entries of the stage Hessian, by (column, column)
+            hz = {}
+            if n_extra:
+                g, gn, curv = extra_record(X, U, lam[t], mu)
+                lx, lu, hxx, huu = list(lx), list(lu), list(hxx), list(huu)
+                for a, d in enumerate(deps):
+                    if d < nx:
+                        lx[d] = lx[d] + g[a]
+                    else:
+                        lu[d - nx] = lu[d - nx] + g[a]
+                for a in range(NE):
+                    for b in range(a, NE):
+                        d1, d2 = sorted((deps[a], deps[b]))
+                        if d1 == d2:
+                            hb = hxx if d1 < nx else huu
+                            k = d1 if d1 < nx else d1 - nx
+                            hb[k] = hb[k] + gn[(a, b)]
+                            if (a, b) in curv:
+                                hb[k] = hb[k] + curv[(a, b)]
+                        else:
+                            v = 0.0 + gn[(a, b)]
+                            if (a, b) in curv:
+                                v = v + curv[(a, b)]
+                            hz[(d1, d2)] = v
+                lx, lu, hxx, huu = (torch.stack(v) for v in (lx, lu, hxx, huu))
             Qx = fold([lx] + [A[k] * Vx[k] for k in range(nx)])
-            Qu = fold([lu] + [B[k] * Vx[k] for k in range(nx)])
+            Qu = lu + Vx if additive else fold([lu] + [B[k] * Vx[k] for k in range(nx)])
             M = fold([outer(V[:, k], A[k]) for k in range(nx)])  # Vxx A
+            if additive:  # B = I: Quu = luu + Vxx, Qux = lux + M
+                quu = V.clone()
+                quu[jdx, jdx] = huu + V[jdx, jdx]
+                Qux = M.clone()
+                for (d1, d2), v in hz.items():
+                    if d1 >= nx:
+                        quu[d1 - nx, d2 - nx] = v + V[d1 - nx, d2 - nx]
+                        quu[d2 - nx, d1 - nx] = v + V[d2 - nx, d1 - nx]
+                    elif d2 >= nx:
+                        Qux[d2 - nx, d1] = v + M[d2 - nx, d1]
             P = fold([outer(A[k], M[k]) for k in range(nx)])  # Aᵀ Vxx A
             Qxx = 0.5 * (P + P.transpose(0, 1))
             Qxx[idx, idx] = Qxx[idx, idx] + hxx
-            VB = fold([outer(V[:, m], B[m]) for m in range(nx)])  # Vxx B
-            BVB = fold([outer(B[k], VB[k]) for k in range(nx)])  # off-diagonal Quu
-            quu_d = fold([huu] + [B[k] * VB[k] for k in range(nx)])  # diagonal Quu
-            Qux = fold([outer(B[k], M[k]) for k in range(nx)])
-            quu = BVB.clone()
-            quu[jdx, jdx] = quu_d
+            for (d1, d2), v in hz.items():
+                if d2 < nx:
+                    Qxx[d1, d2] = Qxx[d1, d2] + v
+                    Qxx[d2, d1] = Qxx[d2, d1] + v
+            if not additive:
+                VB = fold([outer(V[:, m], B[m]) for m in range(nx)])  # Vxx B
+                BVB = fold([outer(B[k], VB[k]) for k in range(nx)])  # off-diagonal Quu
+                quu_d = fold([huu] + [B[k] * VB[k] for k in range(nx)])  # diagonal Quu
+                Qux = fold([outer(B[k], M[k]) for k in range(nx)])
+                quu = BVB.clone()
+                quu[jdx, jdx] = quu_d
+                for (d1, d2), v in hz.items():
+                    if d1 >= nx:
+                        a, b = d1 - nx, d2 - nx
+                        quu[a, b] = fold([v] + [B[k, a] * VB[k, b] for k in range(nx)])
+                        quu[b, a] = fold([v] + [B[k, b] * VB[k, a] for k in range(nx)])
+                    elif d2 >= nx:
+                        a = d2 - nx
+                        Qux[a, d1] = fold([v] + [B[k, a] * M[k, d1] for k in range(nx)])
             kg, Kg, ok_t = quu_solve(quu, Qu, Qux, reg)
             ok = ok & ok_t
             # Vx, Vxx with the unregularised Quu (quu[:, b]: its column b)
@@ -586,11 +812,11 @@ def tracker_tiles_reference(
             dx = x - xs[t][:, None]
             u = (us[t][:, None] + alpha * k_s[t][:, None]) + fold([Kg[:, j] * dx[j] for j in range(nx)])
             us_p[t] = u
-            sc = stage_cost(x, u, lam[t], mu, refs[t])
+            sc = stage_cost(x, u, lam[t], mu, refs[t], t)
             cost = sc if cost is None else cost + sc
-            x = torch.stack(step(tuple(x), tuple(u)))
+            x = torch.stack(step(tuple(x), tuple(u), t))
         xs_p[N] = x
-        return cost + QN * quad_err(x, refs[N][:, None]), xs_p, us_p
+        return cost + terminal_cost(x, refs[N][:, None], mu), xs_p, us_p
 
     def pick(pack, idx):  # (S, R, A, nt, T) -> (S, R, nt, T) at each lane's α
         i = idx.expand(pack.shape[0], pack.shape[1], 1, nt, T)
@@ -639,7 +865,8 @@ def tracker_tiles_reference(
             break
         run2 = run[:, None]
         ni = ni + ilqr(mu, run)
-        # multiplier sweep: violation, λ update, λ step
+        # multiplier sweep: violation, λ update, λ step (the terminal rows
+        # last, the rest of their row zero)
         v_n = step_n = lmax = full(0.0)
         for t in range(N):
             c = constraint_rows(xs[t], us[t])
@@ -648,6 +875,15 @@ def tracker_tiles_reference(
             step_n = torch.maximum(step_n, (lam_n - lam[t]).abs().amax(dim=0))
             lmax = torch.maximum(lmax, lam_n.abs().amax(dim=0))
             lam[t] = torch.where(run2, lam_n, lam[t])
+        if tbox:
+            c = terminal_rows(xs[N])
+            lam_t = lam[N][: 2 * nx]
+            lam_n = _relu(lam_t + mu * c)
+            v_n = torch.maximum(v_n, _relu(c).amax(dim=0))
+            step_n = torch.maximum(step_n, (lam_n - lam_t).abs().amax(dim=0))
+            lmax = torch.maximum(lmax, lam_n.abs().amax(dim=0))
+            row = torch.cat([lam_n, torch.zeros(nc - 2 * nx, nt, T, dtype=f32, device=dev)])
+            lam[N] = torch.where(run2, row, lam[N])
         mu_n = torch.where(v_n > viol_tol, torch.clamp(mu * mu_scale, max=mu_max), mu)
         mu = torch.where(run2, mu_n, mu)
         viol = torch.where(run2, v_n, viol)
@@ -665,84 +901,146 @@ def tracker_tiles_reference(
 
 
 def _consts(model: TrackerModel, *, ts, substeps, limits, state_limits, weights,
-            mu_init, mu_scale, mu_max, viol_tol, tol):
+            mu_init, mu_scale, mu_max, viol_tol, tol, extra_constraints=None,
+            terminal_state_limits=None, ext=False):
     """The float constants in the order of ``struct Consts``
-    (``csrc/ilqr_factory.cu``), state- and input-sized ones padded with zeros
-    (an absent box is zeros too)."""
-    QD, RD, QN = weights
+    (``csrc/ilqr_factory.cu``; with ``ext``, ``csrc/ilqr_factory_ext.cu``'s,
+    which adds the constraint rows' constants and the terminal box), state-
+    and input-sized ones padded with zeros (an absent box is zeros too; so
+    are the weights where they are per lane).
+    The products 2 Qd, 2 Rd and (2 qn) Qd are formed in float32, as the twin
+    forms them, so a launch with per-lane weights equal to these gives the
+    same bits."""
+    nx, nu = model.nx, model.nu
+    QD, RD, QN = weights if weights is not None else ((0.0,) * nx, (0.0,) * nu, 0.0)
+    qd, rd = torch.tensor(QD, dtype=torch.float32), torch.tensor(RD, dtype=torch.float32)
+    qn = torch.tensor(QN, dtype=torch.float32)
     LBU, UBU = limits if limits is not None else ((),) * 2
     LBX, UBX = state_limits if state_limits is not None else ((),) * 2
+    TLB, TUB = terminal_state_limits if terminal_state_limits is not None else ((),) * 2
     pad = lambda v, n=MAX_NX: [float(a) for a in v] + [0.0] * (n - len(v))
     padu = lambda v: pad(v, MAX_NU)
+    ec = extra_constraints.consts if extra_constraints is not None else ()
     h = ts / substeps
     return [
         h, 0.5 * h, h / 6.0,
-        *pad(QD), *padu(RD), QN,
-        *pad([2.0 * q for q in QD]), *padu([2.0 * r for r in RD]),
-        *pad([2.0 * QN * q for q in QD]),
+        *pad(qd.tolist()), *padu(rd.tolist()), float(qn),
+        *pad((2.0 * qd).tolist()), *padu((2.0 * rd).tolist()), *pad(((2.0 * qn) * qd).tolist()),
         *padu(LBU), *padu(UBU), *pad(LBX), *pad(UBX),
         mu_init, mu_scale, mu_max, viol_tol, 0.01 * tol,
         *ALPHAS, REG_INIT, REG_MIN, REG_MAX,
         *pad(model.consts, MAX_CONSTS),
-    ]
+    ] + ([*pad(ec, MAX_EXTRA_CONSTS), *pad(TLB), *pad(TUB)] if ext else [])
 
 
 # A lane's working set by region, in the order shared memory is filled
 # (csrc/ilqr_factory.cu's enum): name, floats per lane, and whether the region
-# has a home outside the workspace (an output buffer or the refs operand). In
-# regulation (``track=False``) the ref region holds nothing.
-def regions(nx: int, N: int, nc: int, nu: int = 2, track: bool = True) -> tuple:
-    return (
-        ("ab", N * nx * (nx + nu), False),  # step Jacobians [A | B]
+# has a home outside the workspace (an output buffer or an operand). In
+# regulation (``track=False``) the ref region holds nothing. ``jac_cols`` is
+# the step Jacobian's columns (``nx`` in the additive mode, where B = I),
+# ``n_lam`` the multiplier stages (N + 1 with terminal rows), ``n_exo`` the
+# exogenous rows, ``rw`` per-stage input weights, ``exd`` the user rows'
+# derivative record per stage; a solve with none of the last three has the
+# first seven regions alone.
+def regions(nx: int, N: int, nc: int, nu: int = 2, track: bool = True, *, jac_cols=None,
+            n_lam=None, n_exo: int = 0, rw: bool = False, exd: int = 0) -> tuple:
+    jac = nx + nu if jac_cols is None else jac_cols
+    base = (
+        ("ab", N * nx * jac, False),  # step Jacobians [A | B]
         ("gain", N * nu * (1 + nx), False),  # k and K
         ("xs", (N + 1) * nx, True),
         ("us", N * nu, True),
-        ("lam", N * nc, True),
+        ("lam", (N if n_lam is None else n_lam) * nc, True),
         ("ref", (N + 1) * nx if track else 0, True),
         ("cand", N_ALPHA * ((N + 1) * nx + N * nu + 1), False),  # 7 candidates, costs
+    )
+    if not (n_exo or rw or exd):
+        return base
+    return base + (
+        ("exo", N * n_exo, True),
+        ("rw", N * nu if rw else 0, True),
+        ("exd", N * exd, False),
     )
 
 
 def launch_plan(nx: int, N: int, nc: int, tile: int, group: int, nu: int = 2,
-                track: bool = True) -> LaunchPlan:
+                track: bool = True, **shape) -> LaunchPlan:
     """How the kernel is launched for one tile shape
     (:func:`.ilqr_kernel.plan_launch` with :data:`GROUPS`,
-    :data:`MAX_THREADS`, :data:`SMEM_LIMIT`): the regions that fit shared
-    memory in their order, the workspace for the rest; raises ``ValueError``
-    for a group no library is built for and for more threads than the
-    kernel's launch bounds allow."""
-    return plan_launch(regions(nx, N, nc, nu, track), tile, group, groups=GROUPS,
+    :data:`MAX_THREADS`, :data:`SMEM_LIMIT`; ``shape``: :func:`regions`'
+    keywords): the regions that fit shared memory in their order, the
+    workspace for the rest; raises ``ValueError`` for a group no library is
+    built for and for more threads than the kernel's launch bounds allow."""
+    return plan_launch(regions(nx, N, nc, nu, track, **shape), tile, group, groups=GROUPS,
                        max_threads=MAX_THREADS, smem_limit=SMEM_LIMIT)
 
 
-def library_name(group: int) -> str:
-    return LIBRARY if group == 1 else f"{LIBRARY}_g{group}"
+def library_name(group: int, ext: bool = False) -> str:
+    stem = LIBRARY + "_ext" if ext else LIBRARY
+    return stem if group == 1 else f"{stem}_g{group}"
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    for kernel in DEFAULT_GROUP:
+    # the second library's entries take the exo, rw, wrt and lam0 operands too
+    ext = hasattr(lib, f"tracker_{EXT_KERNELS[0]}_launch")
+    for kernel in EXT_KERNELS if ext else BASE_KERNELS:
         fn = getattr(lib, f"tracker_{kernel}_launch")
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (16 if ext else 12) + [ctypes.c_int] * 12 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.tracker_error_string.argtypes = [ctypes.c_int]
     lib.tracker_error_string.restype = ctypes.c_char_p
 
 
-def _build_library(group: int = 1) -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/ilqr_factory.cu`` for ``group``
-    threads per lane."""
-    lib = load_library(library_name(group), _SOURCES, _configure,
+def _build_library(group: int = 1, ext: bool = False) -> ctypes.CDLL:
+    """Build (at first use) and load the racing and benchmark instantiations
+    (``csrc/ilqr_factory.cu``), or with ``ext`` the factory parking and MHE
+    ones (``csrc/ilqr_factory_ext.cu``), for ``group`` threads per lane."""
+    lib = load_library(library_name(group, ext), _EXT_SOURCES if ext else _SOURCES, _configure,
                        extra_flags=(*NVCC_EXTRA, f"-DTRACKER_GROUP={group}"))
     if (lib.tracker_group(), lib.tracker_max_threads()) != (group, MAX_THREADS[group]):
-        raise RuntimeError(f"{library_name(group)} was not built for group {group}")
+        raise RuntimeError(f"{library_name(group, ext)} was not built for group {group}")
     return lib
 
 
-def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integrator,
-            limits, state_limits, weights, outer_iters, inner_iters, group=1, **solver):
-    global LAUNCHES
-    nc = (2 * nu if limits is not None else 0) + (2 * nx if state_limits is not None else 0)
-    plan = launch_plan(nx, N, nc, tile, group, nu, refs is not None)
+def instantiation(ode_rows, extra_constraints=None, extra_order: int = 2,
+                  weights_rt: bool = False) -> str:
+    """The name of the C++ instantiation a solve needs (its entry is
+    ``tracker_<name>_launch``): the model's functor, then the constraint
+    rows' functor and their derivative order, then ``_wrt`` for per-lane
+    weights."""
+    name = getattr(ode_rows, "kernel", None) or "?"
+    if extra_constraints is not None:
+        name += f"_{getattr(extra_constraints, 'kernel', None) or '?'}_o{extra_order}"
+    return name + ("_wrt" if weights_rt else "")
+
+
+def _refuse_unbuilt(key, ode_rows, integrator, limits, extra_constraints, extra_deps,
+                    input_mode, rw, terminal_state_limits, lam0=None) -> None:
+    """Raise ``NotImplementedError`` for a solve no library holds an
+    instantiation for (the twin takes it)."""
+    if key not in DEFAULT_GROUP:
+        raise NotImplementedError(
+            f"the kernel libraries hold no instantiation {key!r} (built: {sorted(DEFAULT_GROUP)}; "
+            "the twin takes any model and rows)")
+    if key in EXT_BUILDS:
+        build = EXT_BUILDS[key]
+        asked = dict(integrator=integrator, ubox=limits is not None,
+                     tbox=terminal_state_limits is not None, rw=rw is not None,
+                     additive=input_mode == "additive")
+        if extra_constraints is not None:
+            asked["deps"] = tuple(extra_deps)
+        wrong = [k for k, v in asked.items() if build.get(k, v) != v]
+        if wrong:
+            raise NotImplementedError(
+                f"the {key!r} instantiation is built with {build}; this solve asks for "
+                f"{ {k: asked[k] for k in wrong} } (the twin takes it)")
+        return
+    if (input_mode != "ode" or terminal_state_limits is not None or rw is not None
+            or lam0 is not None):
+        raise NotImplementedError(
+            f"the {key!r} instantiation has no additive mode, terminal rows, per-stage input "
+            "weights or multiplier warm start (the twin takes them)")
     if integrator == "euler" and ode_rows.kernel not in EULER_KERNELS:
         raise NotImplementedError(
             f"the kernel library builds the {ode_rows.kernel!r} model with RK4 only; Euler "
@@ -754,30 +1052,56 @@ def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integ
             f"the solve without one is built for {NO_INPUT_BOX_KERNELS} (the twin takes any "
             "model)"
         )
-    operands = [a for a in (x0, u0, refs, par) if a is not None]
+
+
+def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integrator,
+            limits, state_limits, weights, outer_iters, inner_iters, group=1,
+            extra_constraints=None, n_extra=0, extra_deps=(), extra_order=2, input_mode="ode",
+            exo=None, rw=None, wrt=None, terminal_state_limits=None, lam0=None, **solver):
+    global LAUNCHES
+    n_extra = n_extra if extra_constraints is not None else 0
+    nc = (2 * nu if limits is not None else 0) + (2 * nx if state_limits is not None else 0) + n_extra
+    ne = len(extra_deps) if n_extra else 0
+    tri = ne * (ne + 1) // 2
+    plan = launch_plan(
+        nx, N, nc, tile, group, nu, refs is not None,
+        jac_cols=nx if input_mode == "additive" else nx + nu,
+        n_lam=N + 1 if terminal_state_limits is not None else N,
+        n_exo=0 if exo is None else exo.shape[1], rw=rw is not None,
+        exd=ne + tri * (2 if extra_order == 2 else 1) if n_extra else 0,
+    )
+    key = instantiation(ode_rows, extra_constraints, extra_order, wrt is not None)
+    _refuse_unbuilt(key, ode_rows, integrator, limits, extra_constraints, extra_deps,
+                    input_mode, rw, terminal_state_limits, lam0)
+    operands = [a for a in (x0, u0, refs, par, exo, rw, wrt, lam0) if a is not None]
     for a in operands:
         if a.device != x0.device or a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError("kernel operands must be contiguous float32 on one device")
-    lib = _build_library(group)
+    ext = key in EXT_KERNELS
+    lib = _build_library(group, True) if ext else _build_library(group)
     Bp = x0.shape[-1]
     dev = x0.device
     f32 = torch.float32
+    n_lam = N + 1 if terminal_state_limits is not None else N
     us = torch.empty(N, nu, Bp, dtype=f32, device=dev)
     xs = torch.empty(N + 1, nx, Bp, dtype=f32, device=dev)
     viol = torch.empty(Bp, dtype=f32, device=dev)
     conv = torch.empty(Bp, dtype=f32, device=dev)
-    lam = torch.empty(N, nc, Bp, dtype=f32, device=dev)
+    lam = torch.empty(n_lam, nc, Bp, dtype=f32, device=dev)
     ni = torch.empty(Bp, dtype=f32, device=dev)
     work = torch.empty(max(plan.work_rows, 1), Bp, dtype=f32, device=dev)
     values = _consts(ode_rows, ts=ts, substeps=substeps, limits=limits,
-                     state_limits=state_limits, weights=weights, **solver)
+                     state_limits=state_limits, weights=weights,
+                     extra_constraints=extra_constraints,
+                     terminal_state_limits=terminal_state_limits, ext=ext, **solver)
     cvals = (ctypes.c_float * len(values))(*values)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    fn = getattr(lib, f"tracker_{ode_rows.kernel}_launch")
+    fn = getattr(lib, f"tracker_{key}_launch")
     ptr = lambda a: None if a is None else a.data_ptr()
     with torch.cuda.device(dev):
         err = fn(
-            *(ptr(a) for a in (x0, u0, refs, par, us, xs, viol, conv, lam, ni, work)),
+            *(ptr(a) for a in (x0, u0, refs, par, *((exo, rw, wrt, lam0) if ext else ()), us, xs,
+                               viol, conv, lam, ni, work)),
             ctypes.addressof(cvals), len(values), N, substeps, int(integrator == "rk4"),
             int(limits is not None), int(state_limits is not None), outer_iters, inner_iters,
             tile, Bp // tile,
@@ -786,8 +1110,16 @@ def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integ
     if err != 0:
         raise RuntimeError(f"tracker kernel launch failed: {lib.tracker_error_string(err).decode()}")
     LAUNCHES += 1
-    LAUNCHES_BY_KERNEL[ode_rows.kernel] += 1
+    LAUNCHES_BY_KERNEL[key] += 1
     return us, xs, viol, conv > 0.5, lam, ni
+
+
+def _lanes(a, perm, pad):
+    """A ``(B, ...)`` operand in the kernel's stage-major layout, float32,
+    padded with zeros to ``B + pad`` lanes (``None`` stays ``None``)."""
+    if a is None:
+        return None
+    return torch.nn.functional.pad(a.to(torch.float32).permute(*perm), (0, pad)).contiguous()
 
 
 def prepare_tiles(x0s, u_init, refs, params, *, tile):
@@ -798,48 +1130,72 @@ def prepare_tiles(x0s, u_init, refs, params, *, tile):
     if tile < 1:
         raise ValueError("tile must be positive")
     pad = -x0s.shape[0] % tile
-    lanes = lambda a, perm: None if a is None else torch.nn.functional.pad(
-        a.to(torch.float32).permute(*perm), (0, pad)
-    ).contiguous()
-    return (lanes(x0s, (1, 0)), lanes(u_init, (1, 2, 0)), lanes(refs, (1, 2, 0)),
-            lanes(params, (1, 0)))
+    return (_lanes(x0s, (1, 0), pad), _lanes(u_init, (1, 2, 0), pad),
+            _lanes(refs, (1, 2, 0), pad), _lanes(params, (1, 0), pad))
+
+
+def prepare_operands(B: int, *, tile, exo=None, input_weights_rt=None, weights_rt=None,
+                     lam_init=None) -> dict:
+    """The other operands in the kernel's layout, padded as
+    :func:`prepare_tiles` pads (keywords of :func:`_launch` and the twin):
+    ``exo`` ``(N, n_exo, Bp)``, ``rw`` ``(N, nu, Bp)``, ``wrt`` ``(nx + nu +
+    1, Bp)``, ``lam0`` ``(n_lam, nc, Bp)``."""
+    pad = -B % tile
+    return dict(exo=_lanes(exo, (1, 2, 0), pad), rw=_lanes(input_weights_rt, (1, 2, 0), pad),
+                wrt=_lanes(weights_rt, (1, 0), pad), lam0=_lanes(lam_init, (1, 2, 0), pad))
 
 
 def _check_options(*, ode_rows, nx, nu, limits, state_limits, weights, integrator, params,
                    n_params, weights_rt=None, extra_constraints=None, n_extra=0,
-                   input_mode="ode", exo=None, n_exo=0, input_weights_rt=None,
-                   terminal_state_limits=None, lam_init=None):
-    """Raise for what the kernel and its twin do not take (yet)."""
+                   extra_deps="xu", input_mode="ode", exo=None, n_exo=0,
+                   terminal_state_limits=None):
+    """Raise where the JAX package's ``fused_tracker_solve`` raises, with its
+    exception types (``ilqr_factory.py:1309-1358``), and for what the port
+    has no counterpart of."""
     if not 1 <= nu <= MAX_NU:
         raise NotImplementedError(
             f"fused_tracker_solve supports 1 <= nu <= {MAX_NU} (closed form at nu <= 2, "
             "unrolled Cholesky beyond), as the JAX package's"
         )
-    if extra_constraints is not None or n_extra:
-        raise NotImplementedError("extra_constraints are not ported yet: ROADMAP S4.3")
-    if limits is None and state_limits is None:
+    if extra_constraints is not None and n_extra <= 0:
+        raise ValueError("extra_constraints requires n_extra > 0")
+    if extra_deps not in ("x", "xu") and not (
+        isinstance(extra_deps, tuple)
+        and all(isinstance(d, int) and 0 <= d < nx + nu for d in extra_deps)
+    ):
         raise ValueError(
-            "the AL kernel needs at least one constraint row: pass an input box (limits) or "
-            "a state box (state_limits)"
+            "extra_deps must be 'x', 'xu', or a tuple of z indices "
+            "(x rows 0..nx-1, then u rows nx..nx+nu-1)"
         )
-    if lam_init is not None:
-        raise NotImplementedError("lam_init (AL warm start) is not ported yet: ROADMAP S4.3")
-    if weights_rt is not None:
-        raise NotImplementedError("weights_rt (runtime weights) is not ported yet: ROADMAP S5")
-    if (input_mode != "ode" or exo is not None or n_exo or input_weights_rt is not None
-            or terminal_state_limits is not None):
-        raise NotImplementedError(
-            "input_mode='additive', exo, input_weights_rt and terminal_state_limits "
-            "(the nonlinear MHE shape) are not ported yet: ROADMAP S4.4"
-        )
-    if weights is None:
-        raise ValueError("pass weights (Qd, Rd, qn)")
-    if integrator not in ("rk4", "euler"):
-        raise ValueError("integrator must be 'rk4' or 'euler'")
     if (params is None) != (n_params == 0):
         raise ValueError("pass params together with n_params > 0")
     if params is not None and params.shape[-1] != n_params:
         raise ValueError("params.shape[-1] must equal n_params")
+    if (weights is None) == (weights_rt is None):
+        raise ValueError("pass exactly one of weights / weights_rt")
+    if input_mode not in ("ode", "additive"):
+        raise ValueError("input_mode must be 'ode' or 'additive'")
+    if input_mode == "additive":
+        if nu != nx:
+            raise ValueError("additive input mode requires nu == nx (B = I)")
+        if exo is None or n_exo <= 0:
+            raise ValueError("additive input mode requires exo / n_exo")
+    nc = ((2 * nu if limits is not None else 0) + (2 * nx if state_limits is not None else 0)
+          + (n_extra if extra_constraints is not None else 0))
+    if nc == 0:
+        raise ValueError(
+            "the AL kernel needs at least one constraint row: pass an input "
+            "box (limits), a state box (state_limits), or extra_constraints"
+        )
+    if terminal_state_limits is not None and nc < 2 * nx:
+        raise ValueError(
+            "terminal_state_limits rides the lam buffer rows and needs "
+            "nc >= 2*nx (add a stage state box)"
+        )
+    if weights_rt is not None and weights_rt.shape[-1] != nx + nu + 1:
+        raise ValueError("weights_rt must be (B, nx + nu + 1)")
+    if integrator not in ("rk4", "euler"):
+        raise ValueError("integrator must be 'rk4' or 'euler'")
     if not 1 <= nx <= MAX_NX:
         raise ValueError(f"nx must be 1..{MAX_NX}")
     if isinstance(ode_rows, TrackerModel) and (
@@ -849,27 +1205,37 @@ def _check_options(*, ode_rows, nx, nu, limits, state_limits, weights, integrato
 
 
 def _solve_tiled(solver, x0s, u_init, refs=None, *, ode_rows, nx, nu, N, ts, substeps,
-                 limits, weights=None, state_limits=None, integrator="rk4", params=None,
-                 n_params=0, outer_iters=6, inner_iters=15, mu_init=10.0, mu_scale=10.0,
-                 mu_max=1e8, viol_tol=1e-4, tol=1e-6, tile=DEFAULT_TILE, **unported):
+                 limits, weights=None, weights_rt=None, state_limits=None, integrator="rk4",
+                 extra_constraints=None, n_extra=0, extra_deps="xu", extra_order=2,
+                 params=None, n_params=0, input_mode="ode", exo=None, n_exo=0,
+                 input_weights_rt=None, terminal_state_limits=None, lam_init=None,
+                 outer_iters=6, inner_iters=15, mu_init=10.0, mu_scale=10.0, mu_max=1e8,
+                 viol_tol=1e-4, tol=1e-6, tile=DEFAULT_TILE):
     """Check, prepare, run ``solver`` on the padded tiles, return the public
     layout."""
     _check_options(ode_rows=ode_rows, nx=nx, nu=nu, limits=limits, state_limits=state_limits,
                    weights=weights, integrator=integrator, params=params, n_params=n_params,
-                   **unported)
+                   weights_rt=weights_rt, extra_constraints=extra_constraints, n_extra=n_extra,
+                   extra_deps=extra_deps, input_mode=input_mode, exo=exo, n_exo=n_exo,
+                   terminal_state_limits=terminal_state_limits)
     B = x0s.shape[0]
+    floats = lambda b: None if b is None else tuple(tuple(float(v) for v in r) for r in b)
     x0, u0, rf, par = prepare_tiles(x0s, u_init, refs, params, tile=tile)
     us, xs, viol, conv, lam, ni = solver(
         x0, u0, rf, par, ode_rows=ode_rows, nx=nx, nu=nu, N=N, tile=tile, ts=float(ts),
         substeps=int(substeps), integrator=integrator,
-        limits=None if limits is None else tuple(tuple(float(v) for v in b) for b in limits),
-        state_limits=None if state_limits is None
-        else tuple(tuple(float(v) for v in b) for b in state_limits),
-        weights=(tuple(float(v) for v in weights[0]), tuple(float(v) for v in weights[1]),
-                 float(weights[2])),
+        limits=floats(limits), state_limits=floats(state_limits),
+        weights=None if weights is None else (
+            tuple(float(v) for v in weights[0]), tuple(float(v) for v in weights[1]),
+            float(weights[2])),
         outer_iters=outer_iters, inner_iters=inner_iters, mu_init=float(mu_init),
         mu_scale=float(mu_scale), mu_max=float(mu_max), viol_tol=float(viol_tol),
-        tol=float(tol),
+        tol=float(tol), extra_constraints=extra_constraints,
+        n_extra=int(n_extra) if extra_constraints is not None else 0,
+        extra_deps=_resolve_deps(extra_deps, nx, nu), extra_order=int(extra_order),
+        input_mode=input_mode, terminal_state_limits=floats(terminal_state_limits),
+        **prepare_operands(B, tile=tile, exo=exo, input_weights_rt=input_weights_rt,
+                           weights_rt=weights_rt, lam_init=lam_init),
     )
     return BatchedTrackerSolution(
         us=us.permute(2, 0, 1)[:B],
@@ -894,21 +1260,21 @@ def fused_tracker_solve_cuda(
     substeps: int,
     limits: tuple | None,  # (lb_u(nu), ub_u(nu)); None: no input box
     weights: tuple | None = None,  # (Qd(nx), Rd(nu), qn)
-    weights_rt: torch.Tensor | None = None,
+    weights_rt: torch.Tensor | None = None,  # (B, nx + nu + 1): per-lane [Qd, Rd, qn]
     state_limits: tuple | None = None,  # (lb_x(nx), ub_x(nx))
     integrator: str = "rk4",  # "rk4" | "euler"
-    extra_constraints=None,
+    extra_constraints=None,  # a TrackerConstraints, or bare rows (twin only): c <= 0
     n_extra: int = 0,
-    extra_deps: str = "xu",
-    extra_order: int = 2,
+    extra_deps="xu",  # "x", "xu" or a tuple of z columns the rows depend on
+    extra_order: int = 2,  # 2: exact act·∂²c curvature, 1: Gauss-Newton
     params: torch.Tensor | None = None,  # (B, n_params) per-scenario ODE parameters
     n_params: int = 0,
-    input_mode: str = "ode",
-    exo: torch.Tensor | None = None,
+    input_mode: str = "ode",  # "additive": x⁺ = step(x; exo) + u, B = I
+    exo: torch.Tensor | None = None,  # (B, N, n_exo) per-stage exogenous rows
     n_exo: int = 0,
-    input_weights_rt: torch.Tensor | None = None,
-    terminal_state_limits: tuple | None = None,
-    lam_init: torch.Tensor | None = None,
+    input_weights_rt: torch.Tensor | None = None,  # (B, N, nu) per-stage Rd
+    terminal_state_limits: tuple | None = None,  # box AL rows on x_N
+    lam_init: torch.Tensor | None = None,  # (B, N[+1], nc) AL warm start
     outer_iters: int = 6,
     inner_iters: int = 15,
     mu_init: float = 10.0,
@@ -925,27 +1291,29 @@ def fused_tracker_solve_cuda(
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
     twin :func:`tracker_tiles_reference`. On CUDA ``ode_rows`` must be a
-    :class:`TrackerModel`: a bare row function raises
-    ``NotImplementedError`` (ROADMAP S4.6). One CTA runs one tile with
-    ``group`` threads per lane (one of :data:`GROUPS`; for ``None`` the
-    instantiation's :data:`DEFAULT_GROUP`, or the largest group that fits
-    ``tile`` where that does not); the solution does not depend on it. A CTA
-    has ``tile × group`` threads, and an explicit ``group`` that makes more
-    than :data:`MAX_THREADS` raises ``ValueError`` (:func:`launch_plan`). The
-    twin ignores a valid ``group``.
-    ``extra_deps`` and ``extra_order`` belong to ``extra_constraints``, which
-    is not ported.
+    :class:`TrackerModel` and ``extra_constraints`` a
+    :class:`TrackerConstraints`: a bare row function raises
+    ``NotImplementedError`` (ROADMAP S4.6), and so does a combination no
+    library holds an instantiation of (:func:`instantiation`,
+    :data:`DEFAULT_GROUP`). One CTA runs one tile with ``group`` threads per
+    lane (one of :data:`GROUPS`; for ``None`` the instantiation's
+    :data:`DEFAULT_GROUP`, or the largest group that fits ``tile`` where that
+    does not); the solution does not depend on it. A CTA has ``tile ×
+    group`` threads, and an explicit ``group`` that makes more than
+    :data:`MAX_THREADS` raises ``ValueError`` (:func:`launch_plan`). The
+    twin ignores a valid ``group``. With ``terminal_state_limits`` the
+    multipliers have a row N (``lam`` is ``(B, N + 1, nc)``).
     """
-    del extra_deps, extra_order
-    default = DEFAULT_GROUP.get(getattr(ode_rows, "kernel", None), 1)
-    group = resolve_group(group, tile, default, GROUPS, MAX_THREADS)
+    key = instantiation(ode_rows, extra_constraints, extra_order, weights_rt is not None)
+    group = resolve_group(group, tile, DEFAULT_GROUP.get(key, 1), GROUPS, MAX_THREADS)
     if group not in GROUPS:
         raise ValueError(f"group must be one of {GROUPS}, not {group}")
     if x0s.is_cuda:
-        if not isinstance(ode_rows, TrackerModel):
+        if not isinstance(ode_rows, TrackerModel) or not (
+                extra_constraints is None or isinstance(extra_constraints, TrackerConstraints)):
             raise NotImplementedError(
                 "a row function without a C++ instantiation runs only on the twin; "
-                "code generation for user ODEs is not ported yet: ROADMAP S4.6"
+                "code generation for user ODEs and rows is not ported yet: ROADMAP S4.6"
             )
         # _launch is looked up at call time, so that a run can observe it
         solver = lambda *a, **k: _launch(*a, group=group, **k)
@@ -955,12 +1323,12 @@ def fused_tracker_solve_cuda(
         solver, x0s, u_init, refs, ode_rows=ode_rows, nx=nx, nu=nu, N=N, ts=ts,
         substeps=substeps, limits=limits, weights=weights, weights_rt=weights_rt,
         state_limits=state_limits, integrator=integrator,
-        extra_constraints=extra_constraints, n_extra=n_extra, params=params,
-        n_params=n_params, input_mode=input_mode, exo=exo, n_exo=n_exo,
-        input_weights_rt=input_weights_rt, terminal_state_limits=terminal_state_limits,
-        lam_init=lam_init, outer_iters=outer_iters, inner_iters=inner_iters,
-        mu_init=mu_init, mu_scale=mu_scale, mu_max=mu_max, viol_tol=viol_tol, tol=tol,
-        tile=tile,
+        extra_constraints=extra_constraints, n_extra=n_extra, extra_deps=extra_deps,
+        extra_order=extra_order, params=params, n_params=n_params, input_mode=input_mode,
+        exo=exo, n_exo=n_exo, input_weights_rt=input_weights_rt,
+        terminal_state_limits=terminal_state_limits, lam_init=lam_init,
+        outer_iters=outer_iters, inner_iters=inner_iters, mu_init=mu_init,
+        mu_scale=mu_scale, mu_max=mu_max, viol_tol=viol_tol, tol=tol, tile=tile,
     )
 
 
@@ -974,7 +1342,6 @@ def fused_tracker_solve_twin(*args, **kwargs) -> BatchedTrackerSolution:
     bound = _SIGNATURE.bind(*args, **kwargs)
     bound.apply_defaults()
     kw = dict(bound.arguments)
-    del kw["extra_deps"], kw["extra_order"]
     if kw.pop("group") not in (None, *GROUPS):
         raise ValueError(f"group must be one of {GROUPS}")
     return _solve_tiled(tracker_tiles_reference, **kw)
@@ -987,6 +1354,7 @@ def make_fused_tracker(ode_rows, nx: int, nu: int, **config):
                                   substeps=4, limits=..., weights=...)
         sol = step(x0s, u_init, refs)
 
-    Per-call tensors (``params``) stay call-site keywords; ``tile`` and
-    ``group`` are part of the configuration."""
+    Per-call tensors (``params``, ``lam_init``, ``weights_rt``, ``exo``,
+    ``input_weights_rt``) stay call-site keywords; ``tile`` and ``group``
+    are part of the configuration."""
     return functools.partial(fused_tracker_solve_cuda, ode_rows=ode_rows, nx=nx, nu=nu, **config)

@@ -55,7 +55,7 @@ from ..ops.cuda.ilqr_kernel import (
     n_constraints,
     parking_geometry,
 )
-from ..ops.cuda.parking_factory import make_parking_ode_rows
+from ..ops.cuda.parking_factory import al_ilqr_parking_solve_factory, make_parking_ode_rows
 from ..ops.integrators import euler, rk4, rk4_fine
 from ..solvers.ilqr import ILQRProblem, al_ilqr_solve
 from ..solvers.parking import (
@@ -207,8 +207,14 @@ def batched_parking_policy(
     the kernel's plain twin on any device); its carry is ``(u_warm (B,
     N·2), lam (B, N, nc))``, the multipliers shifted and decayed (``0.7``,
     zero where the solve did not converge), as in the JAX package.
-    ``group`` is the kernel's threads per lane (``ilqr_kernel.GROUPS``; the
-    default when ``None``): it moves time, never numbers.
+    ``backend="factory"`` makes the same step one solve of the same OCP
+    through the fused tracker kernel instead
+    (:func:`..ops.cuda.parking_factory.al_ilqr_parking_solve_factory`: the
+    clearances as user constraint rows with their exact curvature; its twin
+    for CPU states), with the same carry in the tracker's row order.
+    ``group`` is the kernel's threads per lane (``ilqr_kernel.GROUPS``,
+    ``ilqr_factory.GROUPS``; the default when ``None``): it moves time,
+    never numbers.
 
     The per-scenario route, the JAX package's vmapped solves: ``solver=
     "sqp"`` (the SQP of :func:`..solvers.parking.make_parking_ocp`; the
@@ -218,16 +224,13 @@ def batched_parking_policy(
     another dtype than float32 or a perturbed field other than acceleration
     and friction: the kernel backends raise ``ValueError`` for them. Its
     carry is ``u_warm``; its problems are built on the device of the first
-    states it is given. The factory kernel and device meshes raise
-    ``NotImplementedError``.
+    states it is given. Device meshes raise ``NotImplementedError``.
     """
     if solver not in ("ilqr", "sqp"):
         raise ValueError(f"unknown solver {solver!r}")
     if backend == "xla":
         raise ValueError(XLA_NAME)
-    if backend == "factory":
-        raise NotImplementedError("backend='factory' is not ported yet: ROADMAP S4.3")
-    if backend not in ("cuda", "twin", "torch"):
+    if backend not in ("cuda", "twin", "torch", "factory"):
         raise ValueError(f"unknown backend {backend!r}")
     if mesh is not None:
         raise NotImplementedError("device meshes are not ported yet: ROADMAP S7.1")
@@ -236,7 +239,8 @@ def batched_parking_policy(
             model_params, N, ts, x_obs, Q, R, qn_scale, sqp_iters, qp_iters, solver,
             outer_iters, inner_iters, dtype)
     _refuse_kernel(backend, dtype, model_params.batched_fields() - KERNEL_FIELDS)
-    solve_fn = al_ilqr_solve_cuda if backend == "cuda" else al_ilqr_solve_twin
+    solve_fn = {"cuda": al_ilqr_solve_cuda, "twin": al_ilqr_solve_twin,
+                "factory": al_ilqr_parking_solve_factory}[backend]
     n_circ = 0 if x_obs is None else 3
     nc = n_constraints(n_circ)
     geom, limits = parking_geometry(model_params, x_obs, n_circles=3)
@@ -351,7 +355,9 @@ def parking_sweep(
     with the nominal model unless ``controller_knows``, when it gets each
     scenario's acceleration and friction. ``tile`` and ``group`` are the
     kernel's, ``solver`` and ``backend`` pick the route
-    (:func:`batched_parking_policy`). ``u_seed`` ``(B, N, 2)``: the step-0
+    (:func:`batched_parking_policy`: ``"cuda"``, the hand-written parking
+    kernel; ``"factory"``, the same OCP through the tracker kernel, whose
+    contract configuration is ``inner_iters=14``). ``u_seed`` ``(B, N, 2)``: the step-0
     warm-start controls in place of zeros (the multipliers stay zero).
     ``checkpoint_every``/``checkpoint_path`` are not ported yet and raise
     ``NotImplementedError``.

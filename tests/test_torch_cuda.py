@@ -7,6 +7,8 @@ nor the JAX package, so they also run where only torch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -724,3 +726,147 @@ def test_offset_free_and_rate_policies_kernel_match_twin(soft):
         assert K.LAUNCHES == before + 1
         u_t, _, aux_t = ctrl.batched_policy(backend="twin")(x0, 0, carry)
         torch.testing.assert_close(u_k, u_t, rtol=0, atol=5e-2)
+
+
+@pytest.fixture
+def factory_cases():
+    """The second library's instantiations at small batch: the factory
+    parking OCP (N=12; order 2 with warm multipliers, order 1 with per-lane
+    weights, order 2 with per-lane weights equal to the constants, order 1)
+    and the MHE windows (M=10, additive, terminal rows). Each case is a
+    function of the group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from model_predictive_control_tpu_torch.estimation_nl import NonlinearMHE
+    from model_predictive_control_tpu_torch.models.bicycle import (
+        kinematic_bicycle_ode,
+        make_kinematic_ode_rows,
+    )
+    from model_predictive_control_tpu_torch.ops.cuda import ilqr_factory as F
+    from model_predictive_control_tpu_torch.ops.cuda.ilqr_kernel import parking_geometry
+    from model_predictive_control_tpu_torch.ops.cuda.parking_factory import (
+        al_ilqr_parking_solve_factory,
+    )
+    from model_predictive_control_tpu_torch.ops.integrators import rk4
+
+    g = torch.Generator().manual_seed(7)
+    b, n = 48, 12
+    x0 = random_initial_states(g, b, x_obs=(0.25, 0.0, 0.0, 0.0), device="cuda")
+    geom, limits = parking_geometry(port.VehicleParameters(), (0.25, 0.0, 0.0, 0.0))
+    w = ((1.0, 6.0, 0.2, 0.05), (1.0, 0.01), 100.0)
+    wrow = torch.tensor([*w[0], *w[1], w[2]]).expand(b, 7)
+    lam = (torch.rand(b, n, 21, generator=g) * (torch.rand(b, n, 21, generator=g) < 0.3)).cuda()
+
+    def park(**kw):
+        return lambda group: al_ilqr_parking_solve_factory(
+            x0, torch.zeros(b, n, 2, device="cuda"), torch.full((b,), 2.0, device="cuda"),
+            torch.full((b,), 1.0, device="cuda"), N=n, ts=0.08, geom=geom, limits=limits,
+            outer_iters=3, inner_iters=6, group=group, **kw)
+
+    cases = {
+        "kinematic_clearance_o2": park(weights=w, lam_init=lam),
+        "kinematic_clearance_o1_wrt": park(
+            weights_rt=(wrow * (1 + 0.2 * (torch.rand(b, 7, generator=g) - 0.5))).cuda(),
+            extra_order=1),
+        "kinematic_clearance_o2_wrt": park(weights_rt=wrow.contiguous().cuda()),
+        "kinematic_clearance_o1": park(weights=w, extra_order=1),
+    }
+    p = port.VehicleParameters()
+    M = 10
+    mhe = NonlinearMHE(rk4(lambda x, u: kinematic_bicycle_ode(p, x, u), 0.05), lambda x: x[:2],
+                       torch.diag(torch.tensor([1e-6, 1e-6, 1e-5, 1e-3])).cuda(),
+                       0.01 * torch.eye(2).cuda(),
+                       torch.diag(torch.tensor([1e-4, 1e-4, 1e-3, 1e-2])).cuda(), M, nx=4,
+                       x_min=[-3.0, -2.0, -7.0, 0.0], x_max=[3.0, 2.0, 7.0, 1.0])
+    rows = make_kinematic_ode_rows(p.axis_rear / (p.axis_front + p.axis_rear), p.axis_rear,
+                                   p.acceleration, p.friction)
+    xw = torch.rand(b, 4, generator=g) - 0.5
+    xw[:, 3] = 0.3
+    us = torch.tensor([[0.2, 0.05]]).repeat(b, M, 1)
+    ys = xw[:, None, :2] + 0.1 * torch.randn(b, M + 1, 2, generator=g)
+    cases["gated_kinematic"] = lambda group: mhe.solve_batch_fused(
+        xw.cuda(), us.cuda(), ys.cuda(), ode_rows=rows, ts=0.05, obs_indices=(0, 1),
+        group=group)
+    return F, cases
+
+
+@contextlib.contextmanager
+def _on_the_twin(F):
+    """Within the block the factory parking solve and the MHE windows run
+    the kernel's twin on the card's tensors."""
+    from model_predictive_control_tpu_torch import estimation_nl
+    from model_predictive_control_tpu_torch.ops.cuda import parking_factory
+
+    twin = lambda *a, group=None, **k: F.fused_tracker_solve_twin(*a, **k)
+    parking_factory.fused_tracker_solve_cuda = estimation_nl.fused_tracker_solve_cuda = twin
+    try:
+        yield
+    finally:
+        parking_factory.fused_tracker_solve_cuda = F.fused_tracker_solve_cuda
+        estimation_nl.fused_tracker_solve_cuda = F.fused_tracker_solve_cuda
+
+
+def _outputs(sol):
+    if isinstance(sol, tuple):
+        return sol
+    return tuple(getattr(sol, f) for f in ("us", "xs", "viol", "converged", "lam",
+                                           "inner_iters_executed"))
+
+
+@pytest.mark.parametrize("case", ["kinematic_clearance_o2", "kinematic_clearance_o1_wrt",
+                                  "kinematic_clearance_o2_wrt", "kinematic_clearance_o1",
+                                  "gated_kinematic"])
+@pytest.mark.parametrize("group", [1, 8, 32])
+def test_factory_instantiations_match_twin(factory_cases, case, group):
+    """Each instantiation of the second library (factory parking at both
+    derivative orders, with constant and per-lane weights and warm
+    multipliers; the MHE windows) against the twin on the same inputs: every
+    output bit for bit, whatever the group; one launch, through its own
+    instantiation."""
+    F, cases = factory_cases
+    before = F.LAUNCHES_BY_KERNEL[case]
+    got = _outputs(cases[case](group))
+    torch.cuda.synchronize()
+    assert F.LAUNCHES_BY_KERNEL[case] == before + 1
+    with _on_the_twin(F):
+        ref = _outputs(cases[case](group))
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert torch.equal(a, b), k
+
+
+def test_factory_parking_sweep_launches_the_kernel(factory_cases):
+    """``parking_sweep(backend="factory")``: one launch a step of the order-2
+    clearance instantiation; the kernel loop equals the twin loop."""
+    F, _ = factory_cases
+    before = F.LAUNCHES_BY_KERNEL["kinematic_clearance_o2"]
+    res, _ = port.parking_sweep(64, 3, N=12, backend="factory", inner_iters=6, device="cuda")
+    assert F.LAUNCHES_BY_KERNEL["kinematic_clearance_o2"] == before + 3
+    assert res.states.is_cuda and bool(torch.isfinite(res.states).all())
+    with _on_the_twin(F):
+        twin, _ = port.parking_sweep(64, 3, N=12, backend="factory", inner_iters=6,
+                                     device="cuda")
+    assert torch.equal(res.states, twin.states)
+
+
+def test_unbuilt_factory_combinations_raise_on_the_card(factory_cases):
+    """A combination no library holds (the clearances with RK4) raises on the
+    card before anything launches; the twin takes it."""
+    from model_predictive_control_tpu_torch.ops.cuda.ilqr_kernel import parking_geometry
+    from model_predictive_control_tpu_torch.ops.cuda.parking_factory import (
+        make_clearance_rows,
+        make_parking_ode_rows,
+    )
+
+    F, _ = factory_cases
+    geom, limits = parking_geometry(port.VehicleParameters(), (0.25, 0.0, 0.0, 0.0))
+    kb, lr, ox, r2, obs = geom
+    before = F.LAUNCHES
+    with pytest.raises(NotImplementedError, match="built with"):
+        F.fused_tracker_solve_cuda(
+            torch.zeros(16, 4, device="cuda"), torch.zeros(16, 6, 2, device="cuda"),
+            ode_rows=make_parking_ode_rows(kb, lr), nx=4, nu=2, N=6, ts=0.08, substeps=1,
+            integrator="rk4", limits=limits[2:], state_limits=limits[:2],
+            weights=((1.0,) * 4, (1.0,) * 2, 1.0),
+            extra_constraints=make_clearance_rows(tuple(ox), r2, tuple(obs)), n_extra=9,
+            extra_deps=(0, 1, 2), params=torch.ones(16, 2, device="cuda"), n_params=2)
+    assert F.LAUNCHES == before

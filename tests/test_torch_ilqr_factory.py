@@ -140,23 +140,118 @@ def test_regulation_and_no_input_box_match_pallas_tracker(extra, tol):
     assert du <= tol and dx <= tol
 
 
+def _disc_row(xr, ur, pr):
+    """One keep-out disc on (px, py) near the lap, c = r² − ‖p − q‖² ≤ 0:
+    plain arithmetic, so the same function serves both packages."""
+    wx = xr[0] - 0.25
+    wy = xr[1] - 0.05
+    return (0.0225 - (wx * wx + wy * wy),)
+
+
+def _operand_case(case, B, N):
+    """(JAX keywords, port keywords, model pair) of one operand's case on
+    the kinematic racing configuration, from seeded numpy inputs."""
+    x0, u0, refs, par = _inputs(B, N, seed=3)
+    rng = np.random.default_rng(4)
+    jkw, tkw = {}, {}
+    rows = (jax_kinematic_rows(KB, LR), make_parking_ode_rows(KB, LR))
+    if case == "extra_constraints":
+        jkw = tkw = dict(extra_constraints=_disc_row, n_extra=1, extra_deps="x")
+    elif case == "lam_init":
+        lam = (rng.uniform(0, 2, (B, N, 12)) * (rng.uniform(size=(B, N, 12)) < 0.3)).astype(np.float32)
+        jkw, tkw = dict(lam_init=jnp.asarray(lam)), dict(lam_init=torch.as_tensor(lam))
+    elif case == "weights_rt":
+        w = np.array([*WEIGHTS[0], *WEIGHTS[1], WEIGHTS[2]])
+        w = (w * (1 + 0.2 * rng.uniform(-1, 1, (B, 7)))).astype(np.float32)
+        jkw, tkw = dict(weights=None, weights_rt=jnp.asarray(w)), dict(weights=None,
+                                                                       weights_rt=torch.as_tensor(w))
+    elif case == "input_mode":
+        # the gated kinematic model in the additive mode (the MHE windows'
+        # shape): exogenous (γ, a, δ), per-stage input weights
+        from model_predictive_control_tpu.estimation_nl import _gated_ode_rows as jax_gated
+        from model_predictive_control_tpu.models.bicycle import make_kinematic_ode_rows as jax_rows
+
+        from model_predictive_control_tpu_torch.estimation_nl import _gated_ode_rows
+        from model_predictive_control_tpu_torch.models.bicycle import make_kinematic_ode_rows
+
+        rows = (jax_gated(jax_rows(KB, LR, 2.0, 1.0), 2),
+                _gated_ode_rows(make_kinematic_ode_rows(KB, LR, 2.0, 1.0), 2))
+        exo = np.concatenate([np.ones((B, N, 1)), rng.uniform(-0.3, 0.3, (B, N, 2))], -1)
+        exo[:, 0, 0] = 0.0
+        rw = rng.uniform(1.0, 100.0, (B, N, 4))
+        u0 = np.zeros((B, N, 4), np.float32)
+        exo, rw = exo.astype(np.float32), rw.astype(np.float32)
+        common = dict(nu=4, limits=None, n_params=0, input_mode="additive", n_exo=3,
+                      weights=((40.0, 40.0, 0.0, 0.0), (0.0,) * 4, 1.0))
+        jkw = dict(common, exo=jnp.asarray(exo), input_weights_rt=jnp.asarray(rw))
+        tkw = dict(common, exo=torch.as_tensor(exo), input_weights_rt=torch.as_tensor(rw))
+        par = None
+    elif case == "terminal_state_limits":
+        jkw = tkw = dict(terminal_state_limits=((-3.0, -2.0, -100.0, 0.0), (3.0, 2.0, 100.0, 0.35)))
+    return x0, u0, refs, par, jkw, tkw, rows
+
+
+OPERAND_CASES = ["extra_constraints", "lam_init", "weights_rt", "input_mode",
+                 "terminal_state_limits"]
+
+
+@pytest.mark.parametrize("case", OPERAND_CASES)
+def test_operands_match_pallas_tracker(case):
+    """Each operand the port once refused, on the kinematic racing
+    configuration (the additive mode on the gated kinematic model), twin
+    against the JAX kernel in interpret mode after one inner iteration: us
+    and xs within 1e-5, lam within 1e-5 of its largest entry, converged masks
+    and executed inner iterations equal; lam has a row N with terminal
+    rows."""
+    B, N, tile = 5, 6, 4
+    x0, u0, refs, par, jkw, tkw, (jrows, trows) = _operand_case(case, B, N)
+    kw = {**_config(N, tile, 1, 1), "viol_tol": 1e-4}
+    j = lambda a: None if a is None else jnp.asarray(a)
+    t = lambda a: None if a is None else torch.as_tensor(a)
+    if par is None:
+        kw["n_params"] = 0
+    ref = fused_tracker_solve(j(x0), j(u0), j(refs), ode_rows=jrows, params=j(par), **{**kw, **jkw})
+    got = F.fused_tracker_solve_cuda(t(x0), t(u0), t(refs), ode_rows=trows, params=t(par),
+                                     **{**kw, **tkw})
+    n_lam = N + 1 if case == "terminal_state_limits" else N
+    assert got.lam.shape == np.asarray(ref.lam).shape and got.lam.shape[1] == n_lam
+    np.testing.assert_array_equal(got.converged.numpy(), np.asarray(ref.converged))
+    np.testing.assert_array_equal(got.inner_iters_executed.numpy(),
+                                  np.asarray(ref.inner_iters_executed))
+    for name in ("us", "xs", "lam"):
+        want = np.asarray(getattr(ref, name))
+        d = np.abs(getattr(got, name).numpy() - want).max()
+        # multipliers grow with mu: held relative to their largest
+        bar = 1e-5 * max(1.0, np.abs(want).max()) if name == "lam" else 1e-5
+        print(f"{case}: max|{name} - {name}_jax| {d:.3e} (tol {bar:.3e})")
+        assert d <= bar, name
+
+
 @pytest.mark.parametrize(
-    "extra, item",
+    "extra, message",
     [
-        ({"extra_constraints": lambda xr, ur, pr: (xr[0],), "n_extra": 1}, "S4.3"),
-        ({"lam_init": torch.zeros(2, 4, 12)}, "S4.3"),
-        ({"weights_rt": torch.ones(2, 7)}, "S5"),
-        ({"input_mode": "additive"}, "S4.4"),
-        ({"terminal_state_limits": X_LIMS}, "S4.4"),
+        ({"extra_constraints": _disc_row}, "requires n_extra > 0"),
+        ({"extra_deps": "u"}, "extra_deps must be"),
+        ({"input_mode": "additive"}, "requires nu == nx"),
+        ({"input_mode": "additive", "nu": 4, "limits": None, "ode_rows": lambda *a: a[0]},
+         "requires exo / n_exo"),
+        ({"input_mode": "sideways"}, "input_mode must be"),
+        ({"limits": None, "state_limits": None, "extra_constraints": _disc_row, "n_extra": 1,
+          "terminal_state_limits": X_LIMS}, "nc >= 2\\*nx"),
+        ({"weights": None}, "exactly one of weights / weights_rt"),
+        ({"weights_rt": torch.ones(2, 7)}, "exactly one of weights / weights_rt"),
+        ({"weights": None, "weights_rt": torch.ones(2, 6)}, "weights_rt must be"),
     ],
 )
-def test_unported_options_raise(extra, item):
+def test_jax_refusals_raise(extra, message):
+    """Where the JAX package's ``fused_tracker_solve`` raises ``ValueError``
+    (``ilqr_factory.py:1315-1358``), the port raises it too, on the twin and
+    before any launch."""
     x0, u0, refs, par = (torch.as_tensor(a) for a in _inputs(2, 4))
-    kw = {**_config(4, 4, 1, 1), "refs": refs, **extra}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        F.fused_tracker_solve_cuda(
-            x0, u0, ode_rows=make_parking_ode_rows(KB, LR), params=par, **kw
-        )
+    kw = {**_config(4, 4, 1, 1), "refs": refs, "ode_rows": make_parking_ode_rows(KB, LR),
+          **extra}
+    with pytest.raises(ValueError, match=message):
+        F.fused_tracker_solve_cuda(x0, u0, params=par, **kw)
 
 
 def test_other_input_widths_raise():
@@ -274,10 +369,14 @@ def test_group_is_validated_and_ignored_on_the_twin():
 
 def test_default_groups_fit_the_default_tile():
     assert set(F.DEFAULT_GROUP) == {"kinematic", "pacejka", "cartpole", "quadrotor", "omnibase",
-                                    "omnibase_param", "thruster"}
+                                    "omnibase_param", "thruster", "kinematic_clearance_o2",
+                                    "kinematic_clearance_o2_wrt", "kinematic_clearance_o1",
+                                    "kinematic_clearance_o1_wrt", "gated_kinematic"}
+    assert set(F.EXT_KERNELS) | set(F.BASE_KERNELS) == set(F.DEFAULT_GROUP)
     for group in F.DEFAULT_GROUP.values():
         assert group in F.GROUPS and F.DEFAULT_TILE * group <= F.MAX_THREADS[group]
     assert F.library_name(1) == F.LIBRARY and F.library_name(16) == F.LIBRARY + "_g16"
+    assert F.library_name(8, ext=True) == F.LIBRARY + "_ext_g8"
 
 
 @pytest.mark.parametrize("tile, group", [(32, 16), (64, 8)])
@@ -298,3 +397,24 @@ def test_racing_sweep_dynamic_resolves_a_group_that_fits(monkeypatch, tile, grou
     assert F.resolve_group(32, tile, 32, F.GROUPS, F.MAX_THREADS) == 32
     with pytest.raises(ValueError, match="threads per CTA"):
         F.launch_plan(6, 4, 4, tile, 32)
+
+
+def test_unbuilt_combinations_raise_before_the_build(monkeypatch):
+    """On the card a solve no library holds raises ``NotImplementedError``
+    before any build and counts no launch: a multiplier warm start or
+    terminal rows on the racing library's instantiations, per-lane weights
+    on a model without such an instantiation (the twin takes all of them)."""
+    monkeypatch.setattr(F, "_build_library", lambda *a, **k: pytest.fail("built a library"))
+    x0, u0, refs, par = (torch.as_tensor(a) for a in _inputs(4, 5))
+    args = F.prepare_tiles(x0, u0, refs, par, tile=4)
+    kw = {k: v for k, v in _config(5, 4, 1, 1).items() if k not in ("n_params", "viol_tol")}
+    kw.update(ode_rows=make_parking_ode_rows(KB, LR), mu_init=10.0, mu_scale=10.0, mu_max=1e8,
+              viol_tol=1e-4, tol=1e-6)
+    before = F.LAUNCHES
+    with pytest.raises(NotImplementedError, match="warm start"):
+        F._launch(*args, lam0=torch.zeros(5, 12, 4), **kw)
+    with pytest.raises(NotImplementedError, match="terminal rows"):
+        F._launch(*args, terminal_state_limits=X_LIMS, **kw)
+    with pytest.raises(NotImplementedError, match="no instantiation 'kinematic_wrt'"):
+        F._launch(*args, **{**kw, "weights": None}, wrt=torch.ones(7, 4))
+    assert F.LAUNCHES == before

@@ -113,16 +113,18 @@ static void host_grid(K kernel, int n_tiles, int threads, const Args& g, const C
 B = 6
 
 
-def _host_builder(tmp_path_factory, math=False):
+def _host_builder(tmp_path_factory, math=False, ext=False):
     """``group -> library``: the source built for the host, once per group;
     with ``math`` its ``tanf``, ``sinf``, ``cosf`` and ``sqrtf`` call back
     into torch (``test_torch_ilqr_kernel_host.py``'s routing: glibc rounds
-    some values apart from torch's CPU functions)."""
+    some values apart from torch's CPU functions); with ``ext`` the source
+    of the factory parking and MHE instantiations
+    (``csrc/ilqr_factory_ext.cu``)."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source for the host")
     if math:
         from test_torch_ilqr_kernel_host import CALLBACKS, MATH
-    src = F._SOURCES[0].read_text().replace("#include <cuda_runtime.h>",
+    src = (F._EXT_SOURCES if ext else F._SOURCES)[0].read_text().replace("#include <cuda_runtime.h>",
                                             STUB + (MATH if math else ""))
     src, n = re.subn(
         r"kernel<<<n_tiles, tile \* GROUP, bytes, s>>>\(g, c\)",
@@ -163,10 +165,11 @@ def routed_host_kernel(tmp_path_factory):
     return _host_builder(tmp_path_factory, math=True)
 
 
-def _on_host(build, monkeypatch):
-    """``ilqr_factory._launch`` running the host build ``build`` on CPU
-    tensors."""
-    monkeypatch.setattr(F, "_build_library", lambda group=1: build(group))
+def _on_host(build, monkeypatch, ext_build=None):
+    """``ilqr_factory._launch`` running the host build ``build`` (and
+    ``ext_build`` for the second library's instantiations) on CPU tensors."""
+    monkeypatch.setattr(F, "_build_library",
+                        lambda group=1, ext=False: (ext_build if ext else build)(group))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: type("S", (), {"cuda_stream": 0}))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     return F._launch
@@ -312,5 +315,96 @@ def test_host_build_benchmark_models_match_twin(routed_host_launch, case):
     kw.update(outer_iters=2, inner_iters=3)
     got = host_launch(*args, group=8, **kw)
     one = host_launch(*args, group=1, **kw)
+    for a, b, name in zip(got, one, ("us", "xs", "viol", "converged", "lam", "inner iterations")):
+        assert torch.equal(a, b), name
+
+
+@pytest.fixture(scope="module")
+def routed_ext_kernel(tmp_path_factory):
+    return _host_builder(tmp_path_factory, math=True, ext=True)
+
+
+@pytest.fixture
+def ext_host_launch(routed_host_kernel, routed_ext_kernel, monkeypatch):
+    return _on_host(routed_host_kernel, monkeypatch, ext_build=routed_ext_kernel)
+
+
+def _ext_case(case, tile):
+    """A launch of one of the second library's instantiations, prepared at
+    ``tile``: the factory parking OCP (order 2 with warm multipliers, order 1
+    with per-lane weights) or the MHE windows (additive, terminal rows,
+    per-stage input weights)."""
+    from model_predictive_control_tpu_torch.models.bicycle import make_kinematic_ode_rows
+    from model_predictive_control_tpu_torch.estimation_nl import _gated_ode_rows
+    from model_predictive_control_tpu_torch.ops.cuda.ilqr_kernel import parking_geometry
+    from model_predictive_control_tpu_torch.ops.cuda.parking_factory import make_clearance_rows
+
+    rng = np.random.default_rng(5)
+    N = 6
+    kw = dict(mu_init=10.0, mu_scale=10.0, mu_max=1e8, viol_tol=1e-4, tol=1e-6, tile=tile)
+    if case == "mhe":
+        x0 = rng.uniform(-0.5, 0.5, (B, 4))
+        x0[:, 3] = 0.3
+        exo = np.concatenate([np.ones((B, N, 1)), np.tile([0.2, 0.05], (B, N, 1))], -1)
+        exo[:, 0, 0] = 0.0
+        refs = np.zeros((B, N + 1, 4))
+        refs[:, 0] = x0
+        refs[:, 1:, :2] = x0[:, None, :2] + 0.1 * rng.normal(size=(B, N, 2))
+        rw = np.concatenate([np.tile([1e4, 1e4, 1e3, 1e2], (B, 1, 1)),
+                             np.tile([1e6, 1e6, 1e5, 1e3], (B, N - 1, 1))], 1)
+        lims = ((-3.0, -2.0, -7.0, 0.0), (3.0, 2.0, 7.0, 1.0))
+        f = lambda a: torch.as_tensor(a, dtype=torch.float32)
+        args = F.prepare_tiles(f(x0), torch.zeros(B, N, 4), f(refs), None, tile=tile)
+        kw.update(F.prepare_operands(B, tile=tile, exo=f(exo), input_weights_rt=f(rw)),
+                  ode_rows=_gated_ode_rows(make_kinematic_ode_rows(0.05 / 0.097, 0.05, 2.0, 1.0), 2),
+                  nx=4, nu=4, N=N, ts=0.05, substeps=1, integrator="rk4", limits=None,
+                  state_limits=lims, terminal_state_limits=lims, input_mode="additive",
+                  weights=((100.0, 100.0, 0.0, 0.0), (0.0,) * 4, 1.0))
+        return args, kw
+    geom, limits = parking_geometry(VehicleParameters(), (0.25, 0.0, 0.0, 0.0), n_circles=3)
+    kb, lr, ox, r2, obs = geom
+    x0 = np.array([0.3, -0.1, 0.0, 0.0]) + rng.uniform(-1, 1, (B, 4)) * np.array(
+        [0.15, 0.1, 0.3, 0.05])
+    par = np.stack([2.0 * (1 + 0.1 * rng.uniform(-1, 1, B)), 1 + 0.1 * rng.uniform(-1, 1, B)], -1)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    order = 2 if case == "parking_order2_lam_init" else 1
+    extra = {}
+    if order == 2:
+        extra["lam_init"] = f(rng.uniform(0, 2, (B, N, 21)) * (rng.uniform(size=(B, N, 21)) < 0.3))
+    else:
+        extra["weights_rt"] = f(np.array([1.0, 6.0, 0.2, 0.05, 1.0, 0.01, 100.0])
+                                * (1 + 0.2 * rng.uniform(-1, 1, (B, 7))))
+    args = F.prepare_tiles(f(x0), torch.zeros(B, N, 2), None, f(par), tile=tile)
+    kw.update(F.prepare_operands(B, tile=tile, **extra),
+              ode_rows=make_parking_ode_rows(kb, lr), nx=4, nu=2, N=N, ts=0.08, substeps=1,
+              integrator="euler", limits=(limits[2], limits[3]), state_limits=(limits[0], limits[1]),
+              weights=None if order == 1 else ((1.0, 6.0, 0.2, 0.05), (1.0, 0.01), 100.0),
+              extra_constraints=make_clearance_rows(tuple(ox), r2, tuple(obs)), n_extra=9,
+              extra_deps=(0, 1, 2), extra_order=order)
+    return args, kw
+
+
+EXT_CASES = ["parking_order2_lam_init", "parking_order1_weights_rt", "mhe"]
+
+
+@pytest.mark.parametrize("case", EXT_CASES)
+def test_host_build_ext_instantiations_match_twin(ext_host_launch, case):
+    """Each instantiation of the second source (``csrc/ilqr_factory_ext.cu``),
+    its transcendentals routed to torch, against the twin at one thread per
+    lane: after one inner iteration every output bit for bit; then at tile 2
+    a group of 8 gives the one-thread build's bits at a 2 × 3 budget."""
+    args, kw = _ext_case(case, tile=1)
+    before = dict(F.LAUNCHES_BY_KERNEL)
+    got = ext_host_launch(*args, outer_iters=1, inner_iters=1, **kw)
+    want = F.tracker_tiles_reference(*args, outer_iters=1, inner_iters=1, **kw)
+    for a, b, name in zip(got, want, ("us", "xs", "viol", "converged", "lam", "inner iterations")):
+        assert torch.equal(a, b), name
+    key = F.instantiation(kw["ode_rows"], kw.get("extra_constraints"), kw.get("extra_order", 2),
+                          kw["wrt"] is not None)
+    assert key in F.EXT_KERNELS and F.LAUNCHES_BY_KERNEL[key] == before[key] + 1
+    args, kw = _ext_case(case, tile=2)
+    kw.update(outer_iters=2, inner_iters=3)
+    got = ext_host_launch(*args, group=8, **kw)
+    one = ext_host_launch(*args, group=1, **kw)
     for a, b, name in zip(got, one, ("us", "xs", "viol", "converged", "lam", "inner iterations")):
         assert torch.equal(a, b), name

@@ -120,14 +120,15 @@ def test_median_averages_the_middle_pair():
     ],
 )
 def test_unported_options_raise(kw, item):
-    """The options of ROADMAP S4.3, S7.1 and S7.2 still raise, naming their
-    item; those of S3.2 and S3.4 (the per-scenario route, ``u_seed``) are
-    ported and run; ``backend="xla"`` is the JAX name of ``"torch"``. The
-    kernel refuses what only the per-scenario route takes."""
+    """The options of ROADMAP S7.1 and S7.2 still raise, naming their item;
+    those of S3.2, S3.4 and S4.3 (the per-scenario route, ``u_seed``, the
+    factory kernel's route, here on its twin) are ported and run;
+    ``backend="xla"`` is the JAX name of ``"torch"``. The kernel refuses what
+    only the per-scenario route takes."""
     if kw.get("backend") == "torch":
         with pytest.raises(ValueError, match="backend='torch'"):
             port.parking_sweep(2, 1, N=4, device="cpu", **{**kw, "backend": "cuda"})
-    if item in ("S3.2", "S3.4"):
+    if item in ("S3.2", "S3.4", "S4.3"):
         if kw.get("backend") == "xla":
             with pytest.raises(ValueError, match="backend='torch'"):
                 port.parking_sweep(2, 1, N=4, device="cpu", **kw)
