@@ -71,6 +71,19 @@ kernel, and times it:
   Gauss-Newton oracle on 64 of them, the 6 × 15 sweep beside the hand
   kernel's (informational), CUDA events around the launches and each launch
   timed alone;
+- the differentiable layer and the parallel horizon: the tracker kernel's
+  no-obstacle parking build with per-lane weights (``kinematic_wrt``, the
+  fused forward of the tuning layer) held to its twin bit for bit at one
+  thread per lane and at two thread groups (2,048 lanes, N=8, the 8 × 30
+  budget) and a (tile, group) launch sweep on the same operands that sets
+  its default group; the fused closed-loop tuning loss (2,048 starts × 4 steps) with its
+  launches counted, one gradient timed forward and backward apart and held
+  to central differences on all six weights, three updates of
+  ``tune_parking_weights(forward="fused")`` and ``experiments.tuning.run()``
+  at the CLI defaults (the linear tier) with falling losses; the stagewise
+  interior point with the parallel KKT solver against the sequential one
+  (256 starts, N=100, float64) and the parallel LQ solve against the
+  sequential pair at N=1,024, both timed;
 - the long-horizon closed loop (session-2 linear MPC on the stagewise
   interior-point solver, N=100, 20 iterations, 4,096 scenarios × 50 steps)
   on the fused stagewise-IP kernel (held to its twin bit for bit at one
@@ -110,7 +123,9 @@ alone (the ADMM kernel's builds they launch, then the phases above);
 benchmark-model phases alone (its libraries, then those phases);
 ``python3 chip_smoke.py --factory-phases`` runs the factory parking and MHE
 windows' phases alone (their libraries and the hand parking kernel's, then
-those phases); ``python3 chip_smoke.py --tracker-launches DIR`` times the
+those phases); ``python3 chip_smoke.py --differentiable-phases`` runs the
+differentiable layer's and the parallel horizon's phases alone (the tracker
+kernel's second library, then those phases); ``python3 chip_smoke.py --tracker-launches DIR`` times the
 racing tiers' warm tracker launch alone for the port found under ``DIR``.
 """
 
@@ -599,6 +614,16 @@ def main() -> int:
         phase(None)
         return 0
 
+    if sys.argv[1:2] == ["--differentiable-phases"]:
+        # the differentiable layer and the parallel horizon alone, on the
+        # tracker kernel's second library
+        print(card, flush=True)
+        build_all([(KF.library_name(g, True), lambda g=g: KF._build_library(g, True))
+                   for g in DIFF_GROUPS])
+        print(json.dumps({"kernels": differentiable_phases(torch, port, KF, card, device)}))
+        phase(None)
+        return 0
+
     phase("environment")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
@@ -634,8 +659,9 @@ def main() -> int:
     racing = [racing_phases(torch, port, KF, tier, card, device) for tier in RACE_TIERS]
     bench = benchmark_phases(torch, port, KF, card, device)
     factory = factory_phases(torch, port, KF, card, device)
+    differentiable = differentiable_phases(torch, port, KF, card, device)
     stagewise = stagewise_phases(torch, port, KR, card, device)
-    kernels = [admm, *family, ilqr, modes, *racing, *bench, *factory, stagewise]
+    kernels = [admm, *family, ilqr, modes, *racing, *bench, *factory, *differentiable, stagewise]
     phase(None)
 
     print(json.dumps({"kernels": kernels}))
@@ -2316,6 +2342,268 @@ def factory_phases(torch, port, K, card, device) -> list:
          **common, "launches": launches["gated_kinematic"], "max_abs_err": err["gated_kinematic"],
          "ms": mhe_ms, "plain_ms": 1e3 * twin_s["gated_kinematic"], **mhe_roof},
     ]
+
+# The differentiable layer (the fused tuning loss) and the parallel horizon.
+DIFF_LANES = 256  # starts of the untimed first gradient
+DIFF_BATCH = 2048  # starts of the tuning loss, lanes of the held and timed launch
+DIFF_STEPS = 4
+DIFF_N, DIFF_TS = 8, 0.05
+DIFF_BUDGET = (8, 30)  # the tuning layer's outer x inner AL-iLQR budget
+DIFF_TILE = 16  # the tracker's default tile
+DIFF_GROUPS = (1, 8, 32)
+DIFF_TILES = (8, 16, 32)  # the launch sweep of (tile, group) that sets the default group
+DIFF_CENTER = (0.6, -0.25, 0.0, 0.0)  # the CLI's draw, JAX cli.py:294-296
+DIFF_TRUE_Q, DIFF_TRUE_R = (10.0, 10.0, 0.1, 0.1), (0.1, 0.01)  # the CLI's true objective
+# the weights the gradient is taken at (tests/test_implicit_fused.py's)
+DIFF_THETA = {"logQ": (0.8, 2.0, 0.15, 0.02), "logR": (0.7, 0.02)}
+DIFF_FD_EPS = 3e-3  # tests/test_implicit_fused.py:57-67: |g - fd| <= 5e-2 (1 + |fd|)
+DIFF_UPDATES = 3
+LH_PAR_BATCH = 256  # starts of the parallel-vs-sequential interior point
+LQT_N = 1024
+TOL_PARALLEL = 1e-8
+TOL_GRAPH = 1e-6  # graphed against eager ADMM iterations, float32, of 1 + max|x|
+# the no-obstacle parking build per stage and executed inner iteration: the
+# kinematic tracker's count (Euler step 27, 6 tangent directions, nx=4
+# algebra with the 12 box rows, 7 rollouts) in regulation
+FLOPS_STAGE_ITER["kinematic_wrt"] = FLOPS_STAGE_ITER["kinematic"]
+
+
+def graph_vs_eager_admm(torch, port, card, device) -> None:
+    """The plain ADMM solve at ``experiments.tuning.run()``'s shapes
+    (session 2 at N=6, 8 starts, 400 iterations, float32) without autograd,
+    where its iterations replay a CUDA graph, against the eager loop of the
+    same solve with autograd on: the same kernels in the same order, held to
+    ``TOL_GRAPH`` of the solution's scale; both timed."""
+    from model_predictive_control_tpu_torch.ops.condensed import build_condensed_qp
+    from model_predictive_control_tpu_torch.solvers.qp import admm_solve, qp_setup
+
+    f32 = torch.float32
+    problem = port.session2_problem(N=6)
+    system = problem.system(f32, device)
+    t = lambda v: torch.tensor(v, dtype=f32, device=device)
+    cq = build_condensed_qp(system.A, system.B, torch.diag(t(problem.Q)), torch.diag(t(problem.R)),
+                            torch.diag(t(problem.Q)), problem.N, u_min=t([problem.u_min]),
+                            u_max=t([problem.u_max]), x_min=t([problem.p_min, problem.v_min]),
+                            x_max=t([problem.p_max, problem.v_max]))
+    op = qp_setup(cq.P, cq.A_c, rho=0.1)
+    g = torch.Generator().manual_seed(3)
+    x0s = torch.stack([-10.0 + 8.0 * torch.rand(8, generator=g),
+                       -2.0 + 7.0 * torch.rand(8, generator=g)], dim=1).to(device)
+    qlu = cq.qp_vectors(x0s)
+    with torch.no_grad():
+        graphed = admm_solve(op, *qlu, iters=400)
+        graph_ms = time_cuda(torch, lambda: admm_solve(op, *qlu, iters=400), 10)
+    with torch.enable_grad():
+        eager = admm_solve(op, *qlu, iters=400)
+        eager_ms = time_cuda(torch, lambda: admm_solve(op, *qlu, iters=400), 3)
+    diff = max((a - b).abs().max().item() for a, b in
+               ((graphed.x, eager.x), (graphed.y, eager.y), (graphed.z, eager.z)))
+    scale = 1.0 + eager.x.abs().max().item()
+    print(f"admm_solve at experiments.tuning.run()'s shapes (8 x n=6, 400 iterations, float32): "
+          f"graphed {graph_ms:.3f} ms, eager {eager_ms:.3f} ms; max difference {diff:.3e} "
+          f"(bitwise {diff == 0.0}; tol {TOL_GRAPH:.0e} x {scale:.3f}) [{card}]", flush=True)
+    if not diff <= TOL_GRAPH * scale:
+        raise SystemExit("the graphed ADMM iterations disagree with the eager loop")
+
+
+def differentiable_phases(torch, port, K, card, device) -> list:
+    """The differentiable layer and the parallel horizon on the card:
+    ``kinematic_wrt`` (the tuning layer's fused forward) held to its twin bit
+    for bit at every group of ``DIFF_GROUPS`` on the forward's own operands
+    (``DIFF_BATCH`` lanes), a launch sweep on them; then the main path,
+    counted: the
+    fused closed-loop tuning loss's value and gradient (one launch a step),
+    the gradient against central differences on every weight, three Adam
+    updates of ``tune_parking_weights(forward="fused")``, and the linear
+    tier's ``experiments.tuning.run()`` at the CLI defaults; the parallel
+    horizon against the sequential solvers. Returns ``kinematic_wrt``'s
+    ``kernels`` entry."""
+    import numpy as np
+
+    from model_predictive_control_tpu_torch import tuning
+    from model_predictive_control_tpu_torch.experiments import tuning as tuning_exp
+    from model_predictive_control_tpu_torch.ops import parallel_horizon as PH
+    from model_predictive_control_tpu_torch.solvers import riccati_ip as RI
+
+    f64 = torch.float64
+    g = torch.Generator().manual_seed(0)
+    starts = lambda b: (torch.tensor(DIFF_CENTER, dtype=f64)
+                        + 0.1 * torch.randn(b, 4, generator=g, dtype=f64)).to(device)
+    theta = {k: torch.log(torch.tensor(v, dtype=f64, device=device))
+             for k, v in DIFF_THETA.items()}
+    fwd = tuning.make_fused_parking_forward(N=DIFF_N, ts=DIFF_TS, outer_iters=DIFF_BUDGET[0],
+                                            inner_iters=DIFF_BUDGET[1], tile=DIFF_TILE)
+    budget = f"{DIFF_BUDGET[0]} x {DIFF_BUDGET[1]}"
+
+    phase(f"kinematic_wrt vs twin on the card ({DIFF_BATCH} lanes of the fused forward, "
+          f"N={DIFF_N}, {budget}, tile {DIFF_TILE}), then timed alone per (tile, group)")
+    # the twin takes ~8 s a solve on the card at 256 lanes as at 2,048 (its
+    # eager ops are launch-bound): the hold runs on the timed launch's own
+    # operands, so that one twin solve gives both
+    zeros = lambda b: torch.zeros(b, DIFF_N, 2, dtype=f64, device=device)
+    x_big = starts(DIFF_BATCH)
+    (args, kw), = captured_launches(torch, K, lambda: fwd(theta, x_big, zeros(DIFF_BATCH)),
+                                    count=1)
+    kw = {k: v for k, v in kw.items() if k != "group"}
+    key = K.instantiation(kw["ode_rows"], kw.get("extra_constraints"), kw["extra_order"], True)
+    if key != "kinematic_wrt":
+        raise SystemExit(f"the fused forward launched {key}, not kinematic_wrt")
+    want, twin_s = twin_launch(torch, K, args, kw)
+    outs = {grp: K._launch(*args, group=grp, **kw) for grp in DIFF_GROUPS}
+    err = compare_launches(torch, "tracker kernel", f"kinematic_wrt, the fused forward's launch "
+                           f"({DIFF_BATCH} lanes, {budget})", outs, want, twin_s, card)
+    points = {}
+    for t, grp in sweep_grid(K, DIFF_GROUPS, DIFF_TILES):
+        at = {**kw, "tile": t, "group": grp}
+        points[(t, grp)] = time_cuda(torch, lambda: K._launch(*args, **at), 5)
+        print(f"kinematic_wrt at tile {t} group {grp}: {points[(t, grp)]:.3f} ms [{card}]",
+              flush=True)
+    at_tile = {grp: ms for (t, grp), ms in points.items() if t == DIFF_TILE}
+    best = min(at_tile, key=at_tile.get)
+    print(f"kinematic_wrt: fastest group at tile {DIFF_TILE}: {best} ({at_tile[best]:.3f} ms); "
+          f"the default is {K.DEFAULT_GROUP['kinematic_wrt']} [{card}]", flush=True)
+    dkw = {**kw, "group": K.DEFAULT_GROUP["kinematic_wrt"]}
+    wrt_ms = time_cuda(torch, lambda: K._launch(*args, **dkw), 10)
+    bouts = outs[dkw["group"]]
+    print(f"kinematic_wrt at {DIFF_BATCH} lanes, tile {DIFF_TILE}, group {dkw['group']}: kernel "
+          f"{wrt_ms:.3f} ms, mean executed {bouts[5].mean().item():.2f}; twin "
+          f"{1e3 * twin_s:.1f} ms (timed once) [{card}]; ", end="")
+    roof = bound(torch, FLOPS_STAGE_ITER["kinematic_wrt"] * DIFF_N * float(bouts[5].sum()),
+                 [*args, kw["wrt"], *bouts])
+
+    phase(f"the fused tuning loss: make_parking_closed_loop_cost({DIFF_BATCH} starts, "
+          f"steps={DIFF_STEPS}, N={DIFF_N}, forward='fused'), value and gradient, FD gate")
+    loss = tuning.make_parking_closed_loop_cost(
+        x_big, DIFF_STEPS, DIFF_TRUE_Q, DIFF_TRUE_R, N=DIFF_N, ts=DIFF_TS,
+        outer_iters=DIFF_BUDGET[0], inner_iters=DIFF_BUDGET[1], forward="fused", tile=DIFF_TILE)
+    # the first gradient pays the CUDA libraries' start (the batched solves,
+    # torch.func's transforms): one untimed on DIFF_LANES starts, one step
+    t0 = time.perf_counter()
+    small = tuning.make_parking_closed_loop_cost(
+        starts(DIFF_LANES), 1, DIFF_TRUE_Q, DIFF_TRUE_R, N=DIFF_N, ts=DIFF_TS,
+        outer_iters=DIFF_BUDGET[0], inner_iters=DIFF_BUDGET[1], forward="fused", tile=DIFF_TILE)
+    warm = {k: v.clone().requires_grad_(True) for k, v in theta.items()}
+    torch.autograd.grad(small(warm), list(warm.values()))
+    torch.cuda.synchronize()
+    print(f"first gradient ({DIFF_LANES} starts, one step; the libraries' start): "
+          f"{time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+    for k in K.LAUNCHES_BY_KERNEL:
+        K.LAUNCHES_BY_KERNEL[k] = 0
+    leaves = {k: v.clone().requires_grad_(True) for k, v in theta.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = loss(leaves)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(val, [leaves["logQ"], leaves["logR"]])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counted = K.LAUNCHES_BY_KERNEL["kinematic_wrt"]
+    print(f"fused tuning loss {val.item():.6f}: forward {t1 - t0:.4f} s, backward (the KKT "
+          f"solves, one vmap over {DIFF_BATCH} scenarios a step) {t2 - t1:.4f} s; "
+          f"kinematic_wrt launches {counted} (expected {DIFF_STEPS}) [{card}]", flush=True)
+    if counted != DIFF_STEPS or not bool(torch.isfinite(val)):
+        raise SystemExit("the fused tuning loss did not go through kinematic_wrt once a step")
+    worst = 0.0
+    with torch.no_grad():
+        for key_, gk in zip(("logQ", "logR"), grads):
+            if not bool(torch.isfinite(gk).all()):
+                raise SystemExit("the fused tuning gradient is not finite")
+            for i in range(gk.shape[0]):
+                vals = []
+                for sgn in (1.0, -1.0):
+                    th = {k: v.clone() for k, v in theta.items()}
+                    th[key_][i] += sgn * DIFF_FD_EPS
+                    vals.append(loss(th).item())
+                fd = (vals[0] - vals[1]) / (2 * DIFF_FD_EPS)
+                gi = gk[i].item()
+                worst = max(worst, abs(gi - fd) / (5e-2 * (1.0 + abs(fd))))
+                print(f"d loss / d {key_}[{i}]: implicit {gi:.6f}, central difference {fd:.6f} "
+                      f"(gate |g - fd| <= 5e-2 (1 + |fd|))", flush=True)
+    if worst > 1.0:
+        raise SystemExit("the fused tuning gradient fails the central-difference gate")
+
+    phase(f"tune_parking_weights({DIFF_BATCH} starts x {DIFF_STEPS} steps, forward='fused', "
+          f"{DIFF_UPDATES} updates) and experiments.tuning.run() at the CLI defaults")
+    for k in K.LAUNCHES_BY_KERNEL:
+        K.LAUNCHES_BY_KERNEL[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tuning.tune_parking_weights(x_big, DIFF_STEPS, DIFF_TRUE_Q, DIFF_TRUE_R,
+                                      updates=DIFF_UPDATES, N=DIFF_N, ts=DIFF_TS,
+                                      forward="fused", tile=DIFF_TILE)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    launches = K.LAUNCHES_BY_KERNEL["kinematic_wrt"]
+    losses = out["losses"].tolist()
+    # one loss a step for each update's value and gradient, and the last's
+    expected = (DIFF_UPDATES + 1) * DIFF_STEPS
+    print(f"tune_parking_weights(fused): losses {losses}, {tune_s:.3f} s; tuned Q "
+          f"{out['Q'].tolist()}, R {out['R'].tolist()}; kinematic_wrt launches {launches} "
+          f"(expected {expected}) [{card}]", flush=True)
+    if launches != expected:
+        raise SystemExit("tune_parking_weights(forward='fused') did not go through kinematic_wrt "
+                         "once a step")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise SystemExit("tune_parking_weights(forward='fused') did not lower the loss")
+    graph_vs_eager_admm(torch, port, card, device)
+    t0 = time.perf_counter()
+    summary = tuning_exp.run(device=device)
+    print(f"experiments.tuning.run(): {summary} in {time.perf_counter() - t0:.3f} s [{card}]",
+          flush=True)
+    if not summary["reduction"] > 0.0:
+        raise SystemExit("experiments.tuning.run() did not reduce the loss")
+
+    phase(f"the parallel horizon: stagewise_ip_solve(parallel=True) vs sequential "
+          f"({LH_PAR_BATCH} starts, N={LH_N}, float64); lqt_solve_parallel at N={LQT_N}")
+    box = port.session2_problem()
+    data = [torch.as_tensor(np.asarray(v, dtype=np.float64), device=device) for v in (
+        [[1.0, box.Ts], [0.0, 1.0]], [[0.0], [box.Ts]], np.diag(box.Q), np.diag(box.R),
+        np.diag(box.Q), [box.p_min, box.v_min], [box.p_max, box.v_max], [box.u_min],
+        [box.u_max])]
+    x_lh = initial_states(torch, device, LH_PAR_BATCH).to(f64)
+    res, secs = {}, {}
+    for par in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[par] = RI.stagewise_ip_solve(*data, x_lh, N=LH_N, iters=LH_ITERS, parallel=par)
+        torch.cuda.synchronize()
+        secs[par] = time.perf_counter() - t0
+    du = (res[True].us - res[False].us).abs().max().item()
+    print(f"stagewise_ip_solve({LH_PAR_BATCH} x N={LH_N}, float64): parallel {secs[True]:.4f} s, "
+          f"sequential {secs[False]:.4f} s; max|us_parallel - us_sequential| {du:.3e} (tol "
+          f"{TOL_PARALLEL:.0e}); success {res[True].success.float().mean().item():.5f} vs "
+          f"{res[False].success.float().mean().item():.5f} [{card}]", flush=True)
+    if not du <= TOL_PARALLEL:
+        raise SystemExit("the parallel stagewise interior point disagrees with the sequential")
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=f64, device=device)
+    As, Bs = t(np.broadcast_to(data[0].cpu().numpy(), (LQT_N, 2, 2))), t(
+        np.broadcast_to(data[1].cpu().numpy(), (LQT_N, 2, 1)))
+    Qts = t(np.broadcast_to(np.diag(box.Q), (LQT_N + 1, 2, 2)))
+    Rts = t(np.broadcast_to(np.diag(box.R), (LQT_N, 1, 1)))
+    qts, rts, x_init = t(rng.normal(size=(LQT_N + 1, 2))), t(rng.normal(size=(LQT_N, 1))), t(
+        [-30.0, 10.0])
+    par = lambda: PH.lqt_solve_parallel(As, Bs, Qts, Rts, qts, rts, x_init)
+    seq = lambda: RI.lq_affine_solve(RI.lq_factor(As, Bs, Qts, Rts), As, Bs, qts, rts,
+                                     x_init=x_init)
+    (xp, up), (xq, uq) = par(), seq()
+    par_ms, seq_ms = time_cuda(torch, par, 3), time_cuda(torch, seq, 1)
+    dl = max((xp - xq).abs().max().item(), (up - uq).abs().max().item())
+    print(f"lqt_solve_parallel at N={LQT_N}: {par_ms:.3f} ms; the sequential factor and affine "
+          f"solve {seq_ms:.3f} ms; max difference {dl:.3e} (tol {TOL_PARALLEL:.0e}) [{card}]",
+          flush=True)
+    if not dl <= TOL_PARALLEL:
+        raise SystemExit("lqt_solve_parallel disagrees with the sequential LQ solve")
+
+    return [{
+        "name": "tracker_tile_kernel<Problem<KinematicRows, NoRows, WRT>>", "route": "cuda",
+        "source": "model_predictive_control_tpu_torch/csrc/ilqr_factory_ext.cu",
+        "replaces": "model_predictive_control_tpu/ops/pallas/ilqr_factory.py:204",
+        "launches": launches, "max_abs_err": err, "ms": wrt_ms, "plain_ms": 1e3 * twin_s,
+        **roof,
+    }]
+
 
 def tracker_launch_report(torch, port, K, card, device) -> None:
     """The warm step's tracker launch of each racing tier (``RACE_BATCH``

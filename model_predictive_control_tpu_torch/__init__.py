@@ -1,7 +1,7 @@
 """model_predictive_control_tpu_torch — the PyTorch and CUDA port of
 ``model_predictive_control_tpu``.
 
-Eight paths so far, each on a kernel written in CUDA for Hopper (``csrc/``)
+Nine paths so far, each on a kernel written in CUDA for Hopper (``csrc/``)
 with its plain-PyTorch twin:
 
 - the closed-loop linear MPC (session-2 problem data, condensed box-QP, the
@@ -37,7 +37,16 @@ with its plain-PyTorch twin:
   the clearances as user constraint rows with their exact curvature, the
   multipliers warm-started), and the nonlinear moving-horizon estimator
   (``NonlinearMHE``: Gauss-Newton windows with a box-QP step, and its
-  bounded windows batched on the tracker kernel's additive mode).
+  bounded windows batched on the tracker kernel's additive mode);
+- the differentiable layer: the box-QP, the stagewise interior point and the
+  AL-iLQR differentiated at their KKT points (``make_implicit_qp_solver``,
+  ``stagewise_ip_solve_implicit``, ``make_implicit_al_ilqr_solver``,
+  ``make_implicit_al_ilqr_param_solver``), the differentiable linear-MPC
+  policy, and weight tuning against a true closed-loop cost
+  (``tune_mpc_weights``; ``tune_parking_weights``, whose fused forward solves
+  every scenario in one launch of the tracker kernel with per-lane weights);
+  and the O(log N) parallel-in-horizon rollouts, Riccati recursion and LQ
+  solve (``lqt_solve_parallel``, ``stagewise_ip_solve(parallel=True)``).
 
 Entry points that take ``device`` run on the card unless the caller passes
 ``device="cpu"``. Imports ``torch`` only.
@@ -71,6 +80,12 @@ from .models.benchmarks import (
 from .models.linear import LinearSystem
 from .models.parameters import VehicleParameters
 from .ops.cuda.parking_factory import al_ilqr_parking_solve_factory, make_clearance_rows
+from .ops.parallel_horizon import (
+    affine_rollout_parallel,
+    lqt_solve_parallel,
+    riccati_recursion_parallel,
+    rollout_parallel,
+)
 from .ops.riccati import dare_residual, dare_sda, lqr_gain, riccati_recursion
 from .experiments.racing import make_racing_mpc
 from .parallel.batch import (
@@ -104,6 +119,16 @@ from .solvers.lqr import (
     solve_finite_horizon,
     solve_infinite_horizon,
 )
+from .solvers.implicit import (
+    admm_solve_implicit,
+    implicit_qp_solver,
+    make_implicit_al_ilqr_param_solver,
+    make_implicit_al_ilqr_solver,
+    make_implicit_qp_solver,
+    make_implicit_stagewise_solver,
+    pdip_solve_implicit,
+    stagewise_ip_solve_implicit,
+)
 from .solvers.ilqr import ALILQRSolution, ILQRProblem, ILQRSolution, al_ilqr_solve, ilqr_solve
 from .solvers.nmpc_tracking import TrackingNMPC
 from .solvers.offset_free import make_offset_free_mpc
@@ -115,6 +140,15 @@ from .solvers.riccati_ip import make_stagewise_mpc, stagewise_ip_solve
 from .solvers.sqp import ShootingOCP, SQPSolution, sqp_solve
 from .solvers.stochastic import make_stochastic_mpc
 from .solvers.tube import make_tube_mpc
+from .tuning import (
+    TuneResult,
+    make_closed_loop_cost,
+    make_fused_parking_forward,
+    make_parking_closed_loop_cost,
+    theta_to_weights,
+    tune_mpc_weights,
+    tune_parking_weights,
+)
 
 __all__ = [
     "ALILQRSolution",
@@ -135,8 +169,11 @@ __all__ = [
     "ShootingOCP",
     "SimResult",
     "TrackingNMPC",
+    "TuneResult",
     "VehicleParameters",
     "admm_solve",
+    "admm_solve_implicit",
+    "affine_rollout_parallel",
     "al_ilqr_parking_solve_factory",
     "al_ilqr_solve",
     "batched_parking_policy",
@@ -146,20 +183,29 @@ __all__ = [
     "dare_residual",
     "dare_sda",
     "ilqr_solve",
+    "implicit_qp_solver",
     "initial_mhe_feedback_carry",
     "kalman_filter_trajectory",
     "kalman_gain",
     "lqr_gain",
     "lqr_terminal_set",
+    "lqt_solve_parallel",
     "make_box_mpc",
     "make_cartpole_ode_rows",
     "make_clearance_rows",
+    "make_closed_loop_cost",
+    "make_fused_parking_forward",
+    "make_implicit_al_ilqr_param_solver",
+    "make_implicit_al_ilqr_solver",
+    "make_implicit_qp_solver",
+    "make_implicit_stagewise_solver",
     "make_kinematic_ode_rows",
     "make_linear_mpc",
     "make_mhe",
     "make_offset_free_mpc",
     "make_omnibase_ode_rows",
     "make_omnibase_param_ode_rows",
+    "make_parking_closed_loop_cost",
     "make_parking_ilqr",
     "make_parking_ocp",
     "make_planar_quadrotor_ode_rows",
@@ -178,6 +224,7 @@ __all__ = [
     "output_feedback_policy",
     "parking_sweep",
     "pdip_solve",
+    "pdip_solve_implicit",
     "policy_from_law",
     "prediction_policy",
     "qp_setup",
@@ -186,7 +233,9 @@ __all__ = [
     "racing_sweep_dynamic",
     "receding_horizon_policy",
     "riccati_recursion",
+    "riccati_recursion_parallel",
     "rollout",
+    "rollout_parallel",
     "session2_problem",
     "session3_problem",
     "simulate",
@@ -195,8 +244,12 @@ __all__ = [
     "solve_infinite_horizon",
     "sqp_solve",
     "stagewise_ip_solve",
+    "stagewise_ip_solve_implicit",
     "stochastic_sweep",
+    "theta_to_weights",
     "thruster_sweep",
     "tube_sweep",
+    "tune_mpc_weights",
+    "tune_parking_weights",
     "wind_sweep",
 ]

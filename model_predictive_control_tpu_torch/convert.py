@@ -139,3 +139,21 @@ def disturbance_compensated_tracking_from_jax(ctrl, step_fn, obs_fn=None, *, dev
         obs_fn=obs_fn, outer_iters=ctrl.outer_iters, inner_iters=ctrl.inner_iters, ts=ctrl.ts,
         reproject=ctrl.reproject, dtype=dtype, device=device)
     return _copy_ekf(out, ctrl, dtype, device)
+
+
+def tuning_theta_from_jax(theta, *, device=None, dtype=torch.float64):
+    """A tuning parameter set from the JAX package's: a ``dict`` of arrays
+    (``{"logQ", "logR"}`` of the parking tier) becomes a ``dict`` of tensors
+    of ``dtype`` on ``device`` (the card when ``None``)."""
+    device = resolve_device(device)
+    return {k: _t(v, dtype, device) for k, v in theta.items()}
+
+
+def tune_result_from_jax(res, *, device=None, dtype=torch.float64):
+    """A port :class:`~.tuning.TuneResult` from the JAX package's
+    ``tune_mpc_weights`` result, every field a tensor of ``dtype`` on
+    ``device`` (the card when ``None``)."""
+    from .tuning import TuneResult
+
+    device = resolve_device(device)
+    return TuneResult(*(_t(getattr(res, f), dtype, device) for f in TuneResult._fields))

@@ -1608,6 +1608,9 @@ using ParkingO2 = Problem<KinematicRows, true, ClearanceRows, 2>;
 using ParkingO2Wrt = Problem<KinematicRows, true, ClearanceRows, 2, true>;
 using ParkingO1 = Problem<KinematicRows, true, ClearanceRows, 1>;
 using ParkingO1Wrt = Problem<KinematicRows, true, ClearanceRows, 1, true>;
+// the parking OCP without the obstacle, per-lane weights: the tuning layer's
+// forward (no user rows, so no derivative record: NEXD = 0)
+using ParkingWrt = Problem<KinematicRows, true, NoRows, 0, true>;
 // the MHE windows: additive, RK4, no input box, the terminal box, Rd per stage
 using MheWindows = Problem<GatedKinematicRows, false, NoRows, 0, false, true, true>;
 
@@ -1618,6 +1621,7 @@ FIXED_ENTRY(tracker_kinematic_clearance_o2_launch, ParkingO2, false)
 FIXED_ENTRY(tracker_kinematic_clearance_o2_wrt_launch, ParkingO2Wrt, false)
 FIXED_ENTRY(tracker_kinematic_clearance_o1_launch, ParkingO1, false)
 FIXED_ENTRY(tracker_kinematic_clearance_o1_wrt_launch, ParkingO1Wrt, false)
+FIXED_ENTRY(tracker_kinematic_wrt_launch, ParkingWrt, false)
 FIXED_ENTRY(tracker_gated_kinematic_launch, MheWindows, true)
 
 // The group this library was built for, and the threads per CTA it allows.

@@ -104,7 +104,7 @@ DEFAULT_GROUP = {"kinematic": 8, "pacejka": 32, "cartpole": 8, "quadrotor": 8,
                  "omnibase": 8, "omnibase_param": 8, "thruster": 8,
                  "kinematic_clearance_o2": 8, "kinematic_clearance_o2_wrt": 8,
                  "kinematic_clearance_o1": 8, "kinematic_clearance_o1_wrt": 8,
-                 "gated_kinematic": 8}
+                 "gated_kinematic": 8, "kinematic_wrt": 8}
 # What the first library holds beyond RK4 with an input box, as the paths use
 # the models: Euler (with the box) for the racing pair, the solve without an
 # input box (RK4) for the benchmark models. The input box is a compile-time
@@ -126,6 +126,9 @@ EXT_BUILDS = {
     "kinematic_clearance_o1": _PARKING_BUILD,
     "kinematic_clearance_o1_wrt": _PARKING_BUILD,
     "gated_kinematic": dict(integrator="rk4", ubox=False, tbox=True, rw=True, additive=True),
+    # the no-obstacle parking OCP with per-lane weights (the tuning layer's
+    # fused forward): no user rows
+    "kinematic_wrt": dict(_PARKING_BUILD, deps=()),
 }
 EXT_KERNELS = tuple(EXT_BUILDS)
 N_ALPHA = len(ALPHAS)

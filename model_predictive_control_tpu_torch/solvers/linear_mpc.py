@@ -4,8 +4,9 @@ batch-level receding-horizon policy.
 
 Options: the DARE terminal cost, the invariant terminal set, slack-softened
 state boxes, a baked reference and preview tracking, and the ADMM or the
-interior-point solver for single-scenario solves. The differentiable policy
-is not ported yet (ROADMAP S5).
+interior-point solver for single-scenario solves, and the differentiable
+solve and policy (``solve(implicit=True)``, ``policy(differentiable=True)``)
+through the KKT implicit-function wrapper of :mod:`.implicit`.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from ..utils.device import resolve_device
 from ..utils.precision import set_solver_precision
 from .qp import QPOperator, QPSolution, admm_solve, pdip_solve, qp_setup
 
-_S5 = "the differentiable (implicit) solve is not ported yet: ROADMAP S5"
 # tiled backends: the fused kernel (its twin on CPU tensors), the twin alone
 _TILED = {"cuda": admm_solve_cuda, "twin": admm_solve_twin}
 
@@ -193,15 +193,20 @@ class LinearMPC:
     def solve(self, x0, warm=None, q_extra=None, implicit: bool = False):
         """Solve the MPC QP at one measured state ``x0 (nx,)``: ``(u_traj
         (N, nu), sol)``. ``q_extra`` adds to the leading entries of the linear
-        term (the ū block; the preview-tracking hook)."""
-        if implicit:
-            raise NotImplementedError(_S5)
+        term (the ū block; the preview-tracking hook). ``implicit=True`` runs
+        the same solve through the KKT implicit-differentiation wrapper
+        (:func:`.implicit.implicit_qp_solver`): autograd then flows through
+        the solution by one KKT solve, not through the solver's iterations."""
         q, l, u = self.qp.qp_vectors(x0[None])
         if q_extra is not None:
             k = q_extra.shape[-1]
             q = torch.cat([q[:, :k] + q_extra, q[:, k:]], dim=1)
-        if self.solver == "admm":
-            w = None if warm is None else (warm[0][None], warm[1][None])
+        w = None if warm is None else (warm[0][None], warm[1][None])
+        if implicit:
+            from .implicit import implicit_qp_solver
+
+            sol = implicit_qp_solver(self.solver, iters=self.iters)(self.op, q, l, u, w)
+        elif self.solver == "admm":
             sol = admm_solve(self.op, q, l, u, iters=self.iters, warm=w)
         elif self.solver == "pdip":
             sol = pdip_solve(self.op, q, l, u, iters=self.iters)
@@ -211,9 +216,9 @@ class LinearMPC:
         N, nu = self.qp.N, self.qp.nu
         return sol.x[: N * nu].reshape(N, nu), sol
 
-    def _step(self, x, carry, q_extra=None):
+    def _step(self, x, carry, q_extra=None, implicit: bool = False):
         warm = carry if (isinstance(carry, tuple) and len(carry) == 2) else None
-        u_traj, sol = self.solve(x, warm=warm, q_extra=q_extra)
+        u_traj, sol = self.solve(x, warm=warm, q_extra=q_extra, implicit=implicit)
         x_warm, y_warm = self._shift_warm(sol.x, sol.y)
         aux = {
             "solver_success": sol.converged,
@@ -231,12 +236,12 @@ class LinearMPC:
         carry the shifted warm start ``(x, y)`` (``()`` starts cold), aux
         ``solver_success``, ``state_prediction (N, nx)``,
         ``input_prediction (N, nu)``, the residuals (and ``max_slack`` on the
-        soft QP)."""
-        if differentiable:
-            raise NotImplementedError(_S5)
+        soft QP). ``differentiable=True`` solves each step implicitly
+        differentiable, so that autograd flows through a whole closed loop
+        (e.g. the trajectory cost's gradient in ``x0``)."""
 
         def policy_fn(x, t, carry):
-            return self._step(x, carry)
+            return self._step(x, carry, implicit=differentiable)
 
         return policy_fn
 

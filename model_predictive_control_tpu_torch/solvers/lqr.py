@@ -20,12 +20,15 @@ class LQRSolution:
 
 
 def solve_finite_horizon(sys: LinearSystem, Q, R, Pf, N: int, parallel: bool = False) -> LQRSolution:
-    """Backward Riccati solve over ``N`` stages."""
+    """Backward Riccati solve over ``N`` stages. ``parallel=True`` runs the
+    O(log N) associative-scan recursion (``ops/parallel_horizon.py``): the
+    same result to rounding, a shorter critical path at large ``N``."""
     if parallel:
-        raise NotImplementedError(
-            "parallel=True needs ops/parallel_horizon.py, not ported yet: ROADMAP S6"
-        )
-    P, K = riccati_recursion(sys.A, sys.B, Q, R, Pf, N)
+        from ..ops.parallel_horizon import riccati_recursion_parallel
+
+        P, K = riccati_recursion_parallel(sys.A, sys.B, Q, R, Pf, N)
+    else:
+        P, K = riccati_recursion(sys.A, sys.B, Q, R, Pf, N)
     return LQRSolution(P=P, K=K)
 
 

@@ -57,13 +57,23 @@ def with_fields(params: VehicleParameters, p: dict) -> VehicleParameters:
 
 
 def _t(v, dtype, device) -> torch.Tensor:
-    """A float or a tensor as a tensor of ``dtype``."""
-    return v.to(dtype) if torch.is_tensor(v) else torch.tensor(v, dtype=dtype, device=device)
+    """A float, a tuple or a tensor as a tensor of ``dtype`` on ``device``; a
+    tensor keeps its autograd graph (the tuning layer's ``exp(theta["logQ"])``
+    weights)."""
+    if torch.is_tensor(v):
+        return v.to(dtype=dtype, device=device)
+    return torch.tensor(v, dtype=dtype, device=device)
 
 
 def _vec(values, dtype, device) -> torch.Tensor:
     """Floats and tensors stacked along a last axis (broadcast)."""
     return torch.stack(torch.broadcast_tensors(*(_t(v, dtype, device) for v in values)), dim=-1)
+
+
+def _weight_device(Q, device) -> torch.device:
+    """Where a problem builds its tensors: ``device``, or the weights' own
+    device when ``Q`` is a tensor and ``device`` is ``None``."""
+    return Q.device if device is None and torch.is_tensor(Q) else resolve_device(device)
 
 
 def _prediction_step(params, ts, integrator: str):
@@ -118,9 +128,8 @@ def make_parking_ocp(
     of one scenario's stacked inputs, on ``device`` (the card when
     ``None``). The state box's bounds come from ``params`` (shared, or per
     scenario where ``params`` perturbs them)."""
-    device = resolve_device(device)
-    Qd = torch.as_tensor(Q, dtype=dtype, device=device)
-    Rd = torch.as_tensor(R, dtype=dtype, device=device)
+    device = _weight_device(Q, device)
+    Qd, Rd = _t(Q, dtype, device), _t(R, dtype, device)
     sqQ, sqQN, sqR = torch.sqrt(Qd), torch.sqrt(qn_scale * Qd), torch.sqrt(Rd)
     fields = scenario_fields(params)
 
@@ -187,13 +196,13 @@ def make_parking_ilqr(
     device=None,
 ):
     """The parking OCP in iLQR form: ``(ILQRProblem, constraints, nc)`` on
-    ``device`` (the card when ``None``). Same model, cost and constraints
+    ``device`` (the card when ``None``, ``Q``'s device when ``Q`` is a
+    tensor; tensor weights keep their graph). Same model, cost and constraints
     as :func:`make_parking_ocp`, as stagewise rows ``c(x, u, p, s) ≤ 0``:
     state box (8), input box (4) and, with an obstacle, ``(r + r_p)² −
     ‖c_v − c_o‖²`` (``n_circles²``)."""
-    device = resolve_device(device)
-    Qd = torch.as_tensor(Q, dtype=dtype, device=device)
-    Rd = torch.as_tensor(R, dtype=dtype, device=device)
+    device = _weight_device(Q, device)
+    Qd, Rd = _t(Q, dtype, device), _t(R, dtype, device)
     QNd = qn_scale * Qd
     n_colli = n_circles * n_circles if x_obs is not None else 0
     fields = scenario_fields(params)

@@ -12,6 +12,7 @@ subproblems).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -144,6 +145,59 @@ def _converged(rp, rd, q, eps_abs):
     return (rp < eps_abs * scale) & (rd < eps_abs * scale)
 
 
+def _admm_iterations(x, z, y, Minv, rho, q_s, l_s, u_s, A_s, sigma, *, alpha: float, k: int):
+    """``k`` ADMM iterations in the scaled space at a fixed ρ per scenario
+    (``Minv`` ``(B, n, n)`` and ``rho`` ``(B, 1)`` its level's)."""
+    for _ in range(k):
+        w = sigma * x - q_s + (rho * z - y) @ A_s
+        x_t = torch.einsum("bij,bj->bi", Minv, w)
+        z_t = x_t @ A_s.T
+        x_n = alpha * x_t + (1.0 - alpha) * x
+        z_rel = alpha * z_t + (1.0 - alpha) * z
+        z_n = torch.clamp(z_rel + y / rho, l_s, u_s)
+        y = y + rho * (z_rel - z_n)
+        x, z = x_n, z_n
+    return x, z, y
+
+
+# CUDA graphs of :func:`_admm_iterations`, by operand shapes, dtypes,
+# device, alpha and k, least recently used first
+_ITERATION_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_ITERATION_GRAPHS_MAX = 8
+
+
+def _graphed_iterations(*operands, alpha: float, k: int):
+    """:func:`_admm_iterations` on CUDA tensors as one replay of a CUDA
+    graph, captured at the first call for these shapes and kept: the
+    operands are copied into the graph's own buffers, the replay runs the
+    same kernels in the same order, and ``(x, z, y)`` come back as new
+    tensors."""
+    device = operands[0].device
+    key = (tuple((t.shape, t.dtype) for t in operands), device, alpha, k)
+    entry = _ITERATION_GRAPHS.pop(key, None)
+    if entry is None:
+        static = [t.clone() for t in operands]
+        # one iteration off the capture first: the BLAS handles start there
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            _admm_iterations(*static, alpha=alpha, k=1)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for buf, out in zip(static, _admm_iterations(*static, alpha=alpha, k=k)):
+                buf.copy_(out)
+        entry = (graph, static)
+    else:
+        for buf, t in zip(entry[1], operands):
+            buf.copy_(t)
+    _ITERATION_GRAPHS[key] = entry
+    if len(_ITERATION_GRAPHS) > _ITERATION_GRAPHS_MAX:
+        _ITERATION_GRAPHS.popitem(last=False)
+    entry[0].replay()
+    return tuple(buf.clone() for buf in entry[1][:3])
+
+
 def admm_solve(
     op: QPOperator,
     q: torch.Tensor,
@@ -183,18 +237,15 @@ def admm_solve(
     idx = torch.full((B,), op.rho_init_idx, dtype=torch.long, device=q.device)
     chunk = max(1, iters // max(1, adapt_chunks))
     log_levels = torch.log(op.rho_levels)
+    # without autograd, a CUDA chunk is one replay of a captured graph: the
+    # eager loop is bound by its ~20 small launches an iteration
+    iterate = (_graphed_iterations if q.is_cuda and not torch.is_grad_enabled()
+               and not torch.cuda.is_current_stream_capturing() else _admm_iterations)
     for _ in range(max(1, adapt_chunks)):
         Minv = op.Minv_stack[idx]  # (B, n, n)
         rho = op.rho_levels[idx][:, None]  # (B, 1)
-        for _ in range(chunk):
-            w = op.sigma * x - q_s + (rho * z - y) @ op.A_s
-            x_t = torch.einsum("bij,bj->bi", Minv, w)
-            z_t = x_t @ op.A_s.T
-            x_n = alpha * x_t + (1.0 - alpha) * x
-            z_rel = alpha * z_t + (1.0 - alpha) * z
-            z_n = torch.clamp(z_rel + y / rho, l_s, u_s)
-            y = y + rho * (z_rel - z_n)
-            x, z = x_n, z_n
+        x, z, y = iterate(x, z, y, Minv, rho, q_s, l_s, u_s, op.A_s, op.sigma, alpha=alpha,
+                          k=chunk)
 
         # OSQP §5.2 adaptive ρ per scenario, snapped to the ladder, with 5x
         # hysteresis and no move once converged

@@ -23,9 +23,9 @@ the plain batched PyTorch path (``backend="torch"`` of
 solve in one launch is ``ops/cuda/riccati_ip_kernel.py``.
 
 Infinite bounds are allowed entry-wise; their slack, dual and barrier terms
-are masked out. ``parallel=True`` (the O(log N) associative-scan solver of
-``ops/parallel_horizon.py``) is not ported yet and raises
-``NotImplementedError``.
+are masked out. ``parallel=True`` solves every Newton system with the
+O(log N)-depth associative-scan LQ solver of ``ops/parallel_horizon.py``
+instead of the sequential Riccati sweeps.
 """
 
 from __future__ import annotations
@@ -310,11 +310,12 @@ def stagewise_ip_solve(
     factorization and two affine sweeps; a lane freezes once converged
     (μ < 50·eps) and rejects a non-finite candidate, reporting
     ``success=False`` instead of poisoning the batch. An augmented-Lagrangian
-    active-set polish follows."""
-    if parallel:
-        raise NotImplementedError(
-            "parallel=True needs ops/parallel_horizon.py, not ported yet: ROADMAP S6"
-        )
+    active-set polish follows.
+
+    ``parallel=True`` replaces each factorization and affine sweep pair by
+    :func:`..ops.parallel_horizon.lqt_solve_parallel`: the same solutions to
+    rounding, but the predictor and corrector each pay a whole parallel
+    solve, as nothing of it is shared between right-hand sides."""
     set_solver_precision()
     dt, dev = x0.dtype, x0.device
     t_ = lambda v: torch.as_tensor(v, dtype=dt, device=dev)
@@ -364,6 +365,24 @@ def stagewise_ip_solve(
     # (δx₀ = 0) but keeps the sweeps' shapes
     Q_full = torch.cat([torch.zeros(1, nx, nx, dtype=dt, device=dev), Qs[: N - 1], Pf[None]])
 
+    # the KKT solver: sequential Riccati (factor once, solve cheaply for each
+    # right-hand side) or the O(log N)-depth parallel LQ solve, which has no
+    # factorization to share
+    if parallel:
+        from ..ops.parallel_horizon import lqt_solve_parallel
+
+        kkt_factor = lambda Qts, Rts: (Qts, Rts)
+        x_zero = torch.zeros(nx, dtype=dt, device=dev)
+
+        def kkt_solve(factors, qts, rts, x_init=None):
+            return lqt_solve_parallel(As, Bs, *factors, qts, rts,
+                                      x_zero if x_init is None else x_init)
+    else:
+        kkt_factor = lambda Qts, Rts: lq_factor(As, Bs, Qts, Rts)
+
+        def kkt_solve(factors, qts, rts, x_init=None):
+            return lq_affine_solve(factors, As, Bs, qts, rts, x_init=x_init)
+
     def rollout(us):
         xs = [x0.expand(us.shape[0], nx)]
         for t in range(N):
@@ -374,8 +393,7 @@ def stagewise_ip_solve(
         # warm point: the unconstrained LQ optimum from x0 (one shared
         # factorization, an affine sweep in absolute variables), the controls
         # clipped strictly into their box and re-rolled
-        factors0 = lq_factor(As, Bs, Q_full, Rs)
-        _, us_free = lq_affine_solve(factors0, As, Bs, q_lin, r_lin, x_init=x0)
+        _, us_free = kkt_solve(kkt_factor(Q_full, Rs), q_lin, r_lin, x_init=x0)
         margin = 1e-3 * torch.minimum(u_lb.abs() + 1.0, u_ub.abs() + 1.0)
         lo = torch.where(torch.isfinite(u_lb), u_lb + margin, torch.full_like(u_lb, -_BIG))
         hi = torch.where(torch.isfinite(u_ub), u_ub - margin, torch.full_like(u_ub, _BIG))
@@ -402,7 +420,7 @@ def stagewise_ip_solve(
         g_x = cost_grad_x(xs) + _barrier_grad(xs[:, 1:], bx, x_lb, x_ub, sig_mu, corr_xl, corr_xu)
         g_u = cost_grad_u(us) + _barrier_grad(us, bu, u_lb, u_ub, sig_mu, corr_ul, corr_uu)
         qts = torch.cat([torch.zeros_like(g_x[:, :1]), g_x], dim=1)
-        dxs, dus = lq_affine_solve(factors, As, Bs, qts, g_u)
+        dxs, dus = kkt_solve(factors, qts, g_u)
         dbx = _bound_step(xs[:, 1:], bx, x_lb, x_ub, dxs[:, 1:], sig_mu, corr_xl, corr_xu)
         dbu = _bound_step(us, bu, u_lb, u_ub, dus, sig_mu, corr_ul, corr_uu)
         return dxs, dus, dbx, dbu
@@ -415,7 +433,7 @@ def stagewise_ip_solve(
         # barrier-modified stage costs: one Riccati factorization per iteration
         Qts = Q_full + _stage_diag(_sigma_diag(bx, x_lb, x_ub), lead=1)
         Rts = Rs + _stage_diag(_sigma_diag(bu, u_lb, u_ub))
-        factors = lq_factor(As, Bs, Qts, Rts)
+        factors = kkt_factor(Qts, Rts)
 
         zero = torch.zeros((), dtype=dt, device=dev)
         # predictor: pure Newton (σ = 0) to probe the achievable step
@@ -471,14 +489,12 @@ def stagewise_ip_solve(
     act_x, tgt_x, lhat_x = active_and_target(bx, x_lb, x_ub)
     act_u_, tgt_u, lhat_u = active_and_target(bu, u_lb, u_ub)
     rho_x, rho_u = rho * act_x, rho * act_u_
-    factors_p = lq_factor(
-        As, Bs, Q_full + _stage_diag(rho_x, lead=1), Rs + _stage_diag(rho_u)
-    )
+    factors_p = kkt_factor(Q_full + _stage_diag(rho_x, lead=1), Rs + _stage_diag(rho_u))
     q_head = q_lin[:, :1].expand(x0.shape[0], 1, nx)
     for _ in range(2):
         qts_p = torch.cat([q_head, q_lin[:, 1:] + act_x * (lhat_x - rho_x * tgt_x)], dim=1)
         rts_p = r_lin + act_u_ * (lhat_u - rho_u * tgt_u)
-        xs_p, us_p = lq_affine_solve(factors_p, As, Bs, qts_p, rts_p, x_init=x0)
+        xs_p, us_p = kkt_solve(factors_p, qts_p, rts_p, x_init=x0)
         lhat_x = lhat_x + rho_x * (xs_p[:, 1:] - tgt_x) * act_x
         lhat_u = lhat_u + rho_u * (us_p - tgt_u) * act_u_
 
@@ -664,16 +680,15 @@ def make_stagewise_mpc(
     to the certified inner box of the invariant DARE ellipsoid
     (:func:`.lqr.lqr_terminal_set`), which makes the bounds per stage
     ``(N, nx)``: the fused kernel refuses those, ``backend="torch"`` takes
-    them. The parallel-in-horizon solver is not ported yet."""
+    them. ``parallel=True`` solves with the O(log N) parallel-in-horizon
+    KKT solver on ``backend="torch"``; the fused kernel of
+    :meth:`StagewiseMPC.batched_policy` runs its own sequential sweeps
+    whatever ``parallel`` is, as the JAX package's Pallas backend does."""
     from ..ops.riccati import dare_sda
     from .linear_mpc import as_box_problem
 
     if terminal not in ("Q", "dare"):
         raise ValueError(f"unknown terminal {terminal!r}")
-    if parallel:
-        raise NotImplementedError(
-            "parallel=True needs ops/parallel_horizon.py, not ported yet: ROADMAP S6"
-        )
     device = resolve_device(device)
     box = as_box_problem(problem)
     t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)

@@ -104,17 +104,39 @@ def test_xla_backend_matches_jax(setup):
 
 
 def test_unported_options_raise():
-    """What the port still lacks raises, naming its ROADMAP item: the
-    differentiable policy (S5) and the parallel-in-horizon stagewise solver
-    (S6). The linear MPC options of S2 build."""
+    """What once raised here now runs and matches the JAX package: the
+    differentiable policy and the implicit solve (S5; the gradient of a
+    3-step closed-loop cost w.r.t. the start, float64), and the
+    parallel-in-horizon stagewise controller (S6; its first control). The
+    linear MPC options of S2 build."""
+    import jax
+
     problem = port.session2_problem(N=4)
-    ctrl = port.make_linear_mpc(problem, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP S5"):
-        ctrl.policy(differentiable=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP S5"):
-        ctrl.solve(torch.zeros(2), implicit=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP S6"):
-        port.make_stagewise_mpc(problem, parallel=True, device="cpu")
+    ctrl = port.make_linear_mpc(problem, iters=400, dtype=torch.float64, device="cpu")
+    ctrl_j = mpc.make_linear_mpc(mpc.session2_problem(N=4), iters=400, dtype=jnp.float64)
+    system = problem.system(torch.float64, device="cpu")
+    x0 = np.array([-9.0, 4.0])
+
+    def cost_j(x):
+        res = mpc.simulate(x, mpc.session2_problem(N=4).system(jnp.float64), steps=3,
+                           policy=ctrl_j.policy(differentiable=True),
+                           policy_carry=ctrl_j.initial_carry(jnp.float64))
+        return jnp.sum(res.states ** 2) + jnp.sum(res.inputs ** 2)
+
+    x = torch.tensor(x0, requires_grad=True)
+    res = port.simulate(x, system, 3, ctrl.policy(differentiable=True),
+                        ctrl.initial_carry(torch.float64, device="cpu"))
+    (g,) = torch.autograd.grad((res.states ** 2).sum() + (res.inputs ** 2).sum(), x)
+    want = np.asarray(jax.grad(cost_j)(jnp.asarray(x0)))
+    np.testing.assert_allclose(g.numpy(), want, rtol=0, atol=1e-6 * (1 + np.abs(want).max()))
+    u, _ = ctrl.solve(torch.as_tensor(x0), implicit=True)
+    u_j, _ = ctrl_j.solve(jnp.asarray(x0), implicit=True)
+    np.testing.assert_allclose(u.detach().numpy(), np.asarray(u_j), rtol=0, atol=1e-6)
+    par = port.make_stagewise_mpc(problem, parallel=True, dtype=torch.float64, device="cpu")
+    par_j = mpc.make_stagewise_mpc(mpc.session2_problem(N=4), parallel=True, dtype=jnp.float64)
+    u_p, _, _ = par.policy()(torch.as_tensor(x0), 0, None)
+    u_pj, _, _ = par_j.policy()(jnp.asarray(x0), 0, None)
+    np.testing.assert_allclose(u_p.numpy(), np.asarray(u_pj), rtol=0, atol=1e-8)
     for kw in ({"terminal": "dare"}, {"soft_state": True}, {"terminal_set": True},
                {"solver": "pdip"}, {"x_ref": (-1.0, 0.0)}):
         port.make_linear_mpc(problem, device="cpu", **kw)

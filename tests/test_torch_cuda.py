@@ -870,3 +870,66 @@ def test_unbuilt_factory_combinations_raise_on_the_card(factory_cases):
             extra_constraints=make_clearance_rows(tuple(ox), r2, tuple(obs)), n_extra=9,
             extra_deps=(0, 1, 2), params=torch.ones(16, 2, device="cuda"), n_params=2)
     assert F.LAUNCHES == before
+
+
+@pytest.mark.parametrize("group", [1, 8])
+def test_kinematic_wrt_matches_twin(group):
+    """The no-obstacle parking OCP with per-lane weights (``kinematic_wrt``,
+    the tuning layer's fused forward) on 64 lanes: N=8, Euler, ts 0.05,
+    weights from a seeded θ, the 8 × 30 budget, tile 16; every output bit for
+    bit with the twin, one launch through its own instantiation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from model_predictive_control_tpu_torch.ops.cuda import ilqr_factory as F
+    from model_predictive_control_tpu_torch.ops.cuda.ilqr_kernel import parking_geometry
+    from model_predictive_control_tpu_torch.ops.cuda.parking_factory import (
+        al_ilqr_parking_solve_factory,
+    )
+
+    g = torch.Generator().manual_seed(13)
+    b, n = 64, 8
+    x0 = (torch.tensor([0.6, -0.25, 0.0, 0.0])
+          + torch.tensor([0.2, 0.15, 0.3, 0.05]) * (2 * torch.rand(b, 4, generator=g) - 1)).cuda()
+    theta = torch.log(torch.tensor([1.0, 3.0, 0.1, 0.01, 1.0, 0.01])) + 0.2 * torch.randn(6, generator=g)
+    w = torch.cat([theta.exp(), torch.tensor([10.0])]).expand(b, 7).contiguous().cuda()
+    geom, limits = parking_geometry(port.VehicleParameters(), None)
+
+    def solve():
+        return al_ilqr_parking_solve_factory(
+            x0, torch.zeros(b, n, 2, device="cuda"), torch.full((b,), 2.0, device="cuda"),
+            torch.full((b,), 1.0, device="cuda"), N=n, ts=0.05, geom=geom, limits=limits,
+            weights_rt=w, n_circles=0, outer_iters=8, inner_iters=30, tile=16, group=group)
+
+    before = F.LAUNCHES_BY_KERNEL["kinematic_wrt"]
+    got = _outputs(solve())
+    torch.cuda.synchronize()
+    assert F.LAUNCHES_BY_KERNEL["kinematic_wrt"] == before + 1
+    with _on_the_twin(F):
+        ref = _outputs(solve())
+    assert got[4].shape == (b, n, 12)
+    for k, (a, r) in enumerate(zip(got, ref)):
+        assert torch.equal(a, r), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_admm_graphed_iterations_match_eager(ctrl, dtype):
+    """Without autograd the plain ADMM solve's iterations replay a CUDA
+    graph (captured once per shape, reused across operators); with autograd
+    they run eagerly. Both run the same kernels in the same order: the two
+    solutions agree to 1e-6 (float32) / 1e-12 (float64) of 1 + max|x|, on a
+    second operator too, which reuses the graph."""
+    from model_predictive_control_tpu_torch.solvers import qp
+
+    problem, _ = ctrl
+    for r in (1.0, 0.3):
+        c = port.make_linear_mpc(problem, iters=150, dtype=dtype, device="cuda")
+        op = qp.qp_setup(c.op.P * r, c.op.A_c, rho=0.1)
+        q, l, u = (a.to(dtype) for a in c.qp.qp_vectors(_states(batch=16).to(dtype)))
+        with torch.no_grad():
+            graphed = qp.admm_solve(op, q, l, u, iters=100)
+        with torch.enable_grad():
+            eager = qp.admm_solve(op, q, l, u, iters=100)
+        tol = (1e-6 if dtype == torch.float32 else 1e-12) * (1.0 + eager.x.abs().max().item())
+        for a, b in ((graphed.x, eager.x), (graphed.y, eager.y), (graphed.z, eager.z)):
+            torch.testing.assert_close(a, b, rtol=0, atol=tol)
+    assert len(qp._ITERATION_GRAPHS) >= 1

@@ -15,6 +15,8 @@ than the twin differs from the JAX kernel (1.7e-4 and 1.6e-4), while after
 one iteration the two agree within 6e-7.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -371,7 +373,8 @@ def test_default_groups_fit_the_default_tile():
     assert set(F.DEFAULT_GROUP) == {"kinematic", "pacejka", "cartpole", "quadrotor", "omnibase",
                                     "omnibase_param", "thruster", "kinematic_clearance_o2",
                                     "kinematic_clearance_o2_wrt", "kinematic_clearance_o1",
-                                    "kinematic_clearance_o1_wrt", "gated_kinematic"}
+                                    "kinematic_clearance_o1_wrt", "gated_kinematic",
+                                    "kinematic_wrt"}
     assert set(F.EXT_KERNELS) | set(F.BASE_KERNELS) == set(F.DEFAULT_GROUP)
     for group in F.DEFAULT_GROUP.values():
         assert group in F.GROUPS and F.DEFAULT_TILE * group <= F.MAX_THREADS[group]
@@ -403,7 +406,9 @@ def test_unbuilt_combinations_raise_before_the_build(monkeypatch):
     """On the card a solve no library holds raises ``NotImplementedError``
     before any build and counts no launch: a multiplier warm start or
     terminal rows on the racing library's instantiations, per-lane weights
-    on a model without such an instantiation (the twin takes all of them)."""
+    on a model without such an instantiation (the twin takes all of them).
+    The kinematic model with per-lane weights has one (``kinematic_wrt``,
+    the tuning layer's fused forward) and passes the check."""
     monkeypatch.setattr(F, "_build_library", lambda *a, **k: pytest.fail("built a library"))
     x0, u0, refs, par = (torch.as_tensor(a) for a in _inputs(4, 5))
     args = F.prepare_tiles(x0, u0, refs, par, tile=4)
@@ -415,6 +420,10 @@ def test_unbuilt_combinations_raise_before_the_build(monkeypatch):
         F._launch(*args, lam0=torch.zeros(5, 12, 4), **kw)
     with pytest.raises(NotImplementedError, match="terminal rows"):
         F._launch(*args, terminal_state_limits=X_LIMS, **kw)
-    with pytest.raises(NotImplementedError, match="no instantiation 'kinematic_wrt'"):
-        F._launch(*args, **{**kw, "weights": None}, wrt=torch.ones(7, 4))
+    cartpole_named = dataclasses.replace(kw["ode_rows"], kernel="cartpole")
+    with pytest.raises(NotImplementedError, match="no instantiation 'cartpole_wrt'"):
+        F._launch(*args, **{**kw, "weights": None, "ode_rows": cartpole_named},
+                  wrt=torch.ones(7, 4))
     assert F.LAUNCHES == before
+    assert F._refuse_unbuilt("kinematic_wrt", kw["ode_rows"], "euler", U_LIMS, None, (), "ode",
+                             None, None) is None

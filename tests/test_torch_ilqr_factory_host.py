@@ -332,8 +332,8 @@ def ext_host_launch(routed_host_kernel, routed_ext_kernel, monkeypatch):
 def _ext_case(case, tile):
     """A launch of one of the second library's instantiations, prepared at
     ``tile``: the factory parking OCP (order 2 with warm multipliers, order 1
-    with per-lane weights) or the MHE windows (additive, terminal rows,
-    per-stage input weights)."""
+    with per-lane weights, without the obstacle with per-lane weights) or the
+    MHE windows (additive, terminal rows, per-stage input weights)."""
     from model_predictive_control_tpu_torch.models.bicycle import make_kinematic_ode_rows
     from model_predictive_control_tpu_torch.estimation_nl import _gated_ode_rows
     from model_predictive_control_tpu_torch.ops.cuda.ilqr_kernel import parking_geometry
@@ -368,6 +368,7 @@ def _ext_case(case, tile):
     par = np.stack([2.0 * (1 + 0.1 * rng.uniform(-1, 1, B)), 1 + 0.1 * rng.uniform(-1, 1, B)], -1)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32))
     order = 2 if case == "parking_order2_lam_init" else 1
+    rows = case != "parking_no_rows_weights_rt"
     extra = {}
     if order == 2:
         extra["lam_init"] = f(rng.uniform(0, 2, (B, N, 21)) * (rng.uniform(size=(B, N, 21)) < 0.3))
@@ -379,12 +380,13 @@ def _ext_case(case, tile):
               ode_rows=make_parking_ode_rows(kb, lr), nx=4, nu=2, N=N, ts=0.08, substeps=1,
               integrator="euler", limits=(limits[2], limits[3]), state_limits=(limits[0], limits[1]),
               weights=None if order == 1 else ((1.0, 6.0, 0.2, 0.05), (1.0, 0.01), 100.0),
-              extra_constraints=make_clearance_rows(tuple(ox), r2, tuple(obs)), n_extra=9,
-              extra_deps=(0, 1, 2), extra_order=order)
+              extra_constraints=make_clearance_rows(tuple(ox), r2, tuple(obs)) if rows else None,
+              n_extra=9 if rows else 0, extra_deps=(0, 1, 2), extra_order=order)
     return args, kw
 
 
-EXT_CASES = ["parking_order2_lam_init", "parking_order1_weights_rt", "mhe"]
+EXT_CASES = ["parking_order2_lam_init", "parking_order1_weights_rt", "parking_no_rows_weights_rt",
+             "mhe"]
 
 
 @pytest.mark.parametrize("case", EXT_CASES)

@@ -79,8 +79,12 @@ def test_finite_and_infinite_horizon_solutions():
         _close(got, want, TOL64)
     x0 = np.array([1.0, -2.0, 0.5])
     _close(L.cost_to_go(fin_t, _t(x0)), mpc.cost_to_go(fin_j, jnp.asarray(x0)), TOL64)
-    with pytest.raises(NotImplementedError, match="S6"):
-        L.solve_finite_horizon(sys_t, _t(Q), _t(R), _t(Q), 12, parallel=True)
+    # the O(log N) recursion (S6) gives the JAX package's parallel solution
+    par_j = mpc.solve_finite_horizon(sys_j, jnp.asarray(Q), jnp.asarray(R), jnp.asarray(Q), 12,
+                                     parallel=True)
+    par_t = L.solve_finite_horizon(sys_t, _t(Q), _t(R), _t(Q), 12, parallel=True)
+    for got, want in ((par_t.P, par_j.P), (par_t.K, par_j.K), (par_t.P, fin_j.P)):
+        _close(got, want, TOL64)
 
 
 @pytest.mark.parametrize("bounded_inputs", [True, False])

@@ -276,12 +276,20 @@ def test_scalar_policy_matches_jax():
 
 
 def test_unported_options_raise():
+    """``parallel=True`` (S6), which raised here, now solves as JAX's does:
+    the batched solver and the controller built with it, float64."""
     data, x0 = session2(), torch.zeros(2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP S6"):
-        T.stagewise_ip_solve(*(data[k] for k in NAMES), x0, N=4, parallel=True)
+    starts = np.array([[-60.0, 12.0], [-30.0, 20.0]])
+    got = T.stagewise_ip_solve(*(torch.as_tensor(data[k]) for k in NAMES), torch.as_tensor(starts),
+                               N=4, parallel=True)
+    want = jax.vmap(lambda x: J.stagewise_ip_solve(*(jnp.asarray(data[k]) for k in NAMES), x,
+                                                   N=4, parallel=True))(jnp.asarray(starts))
+    np.testing.assert_allclose(got.us.numpy(), np.asarray(want.us), rtol=0, atol=1e-8)
     problem = port.session2_problem(N=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP S6"):
-        port.make_stagewise_mpc(problem, device="cpu", parallel=True)
+    ctrl = port.make_stagewise_mpc(problem, device="cpu", parallel=True, dtype=torch.float64)
+    assert ctrl.parallel
+    u, _, _ = ctrl.policy()(torch.as_tensor(starts[0]), 0, None)
+    np.testing.assert_allclose(u.numpy(), np.asarray(want.us[0, 0]), rtol=0, atol=1e-8)
     # the terminal options of S2.1 build (tests/test_torch_stagewise_terminal.py)
     for kw in ({"terminal": "dare"}, {"terminal_set": True}):
         port.make_stagewise_mpc(problem, device="cpu", **kw)
