@@ -125,7 +125,17 @@ benchmark-model phases alone (its libraries, then those phases);
 windows' phases alone (their libraries and the hand parking kernel's, then
 those phases); ``python3 chip_smoke.py --differentiable-phases`` runs the
 differentiable layer's and the parallel horizon's phases alone (the tracker
-kernel's second library, then those phases); ``python3 chip_smoke.py --tracker-launches DIR`` times the
+kernel's second library, then those phases); ``python3 chip_smoke.py
+--user-model-phases`` runs the user-model phases alone: the tracker
+instantiations generated from row functions (the JAX tests' quadrotor disc
+at orders 2 and 1, the thrust cluster's keep-out, the kinematic model as a
+bare function, the kinematic model under RK4 without its input box), each
+held bit for bit against its twin and the bare function against the hand
+``kinematic`` launch, launched once each through ``fused_tracker_solve_cuda``
+(counted), timed alone with its bound and nvcc's seconds, then the command
+line in process (``cli.main``: session2, ``sweep --backend factory``,
+quadsweep, tune, estimate) with its gates; the full run ends with the same
+phases. ``python3 chip_smoke.py --tracker-launches DIR`` times the
 racing tiers' warm tracker launch alone for the port found under ``DIR``.
 """
 
@@ -624,6 +634,18 @@ def main() -> int:
         phase(None)
         return 0
 
+    if sys.argv[1:2] == ["--user-model-phases"]:
+        # user models on the card (the instantiations generated from row
+        # functions, and the hand kinematic one they are compared with)
+        print(card, flush=True)
+        build_all([*user_libraries(torch, port, KF, device),
+                   (KF.library_name(8), lambda: KF._build_library(8))])
+        kernels = user_model_phases(torch, port, KF, card, device)
+        cli_phases(torch, card)
+        phase(None)
+        print(json.dumps({"kernels": kernels}))
+        return 0
+
     phase("environment")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
@@ -651,6 +673,7 @@ def main() -> int:
           for g in FACTORY_GROUPS),
         *((KR.library_name(nx, nu, g), lambda nx=nx, nu=nu, g=g: KR._build_library(nx, nu, g))
           for nx, nu in ((2, 1), (3, 2)) for g in LH_GROUPS),
+        *user_libraries(torch, port, KF, device),
     ])
     admm = admm_phases(torch, port, K, card, device)
     family = family_phases(torch, port, K, card, device)
@@ -661,7 +684,10 @@ def main() -> int:
     factory = factory_phases(torch, port, KF, card, device)
     differentiable = differentiable_phases(torch, port, KF, card, device)
     stagewise = stagewise_phases(torch, port, KR, card, device)
-    kernels = [admm, *family, ilqr, modes, *racing, *bench, *factory, *differentiable, stagewise]
+    user = user_model_phases(torch, port, KF, card, device)
+    cli_phases(torch, card)
+    kernels = [admm, *family, ilqr, modes, *racing, *bench, *factory, *differentiable, stagewise,
+               *user]
     phase(None)
 
     print(json.dumps({"kernels": kernels}))
@@ -2603,6 +2629,291 @@ def differentiable_phases(torch, port, K, card, device) -> list:
         "launches": launches, "max_abs_err": err, "ms": wrt_ms, "plain_ms": 1e3 * twin_s,
         **roof,
     }]
+
+
+# ---------------------------------------------------------------------------
+# user models: K3 instantiations generated from row functions
+# ---------------------------------------------------------------------------
+
+USER_BATCH = 2048  # lanes of the held, counted and timed launches
+USER_HOLD_BUDGET = (2, 4)  # outer x inner of the bitwise holds: the twin under 10 s
+USER_BUDGET = (6, 15)  # the tracker's default budget: the main path and the timing
+USER_GROUPS = {"quadrotor_disc_o2": (8, 1)}  # groups held; the others at 8 alone
+USER_OBS = (0.55, -0.05, 0.3)  # tests/test_ilqr_factory_constrained.py:37
+USER_KEEPOUT = (0.45, 0.0, 0.1, 0.25)  # tests/test_ilqr_factory_constrained.py:152
+USER_CONVERGED = 0.9  # the share of lanes each main-path solve converges on, at least
+
+
+def quad_clearance_rows(xr, ur):
+    """The JAX tests' keep-out disc of the planar quadrotor, c = r² − ‖p −
+    p_obs‖² ≤ 0 (``tests/test_ilqr_factory_constrained.py:47``)."""
+    ox, oz, r = USER_OBS
+    wx = xr[0] - ox
+    wz = xr[1] - oz
+    return (r * r - (wx * wx + wz * wz),)
+
+
+def keepout_rows(xr, ur):
+    """The JAX tests' spherical keep-out of the thrust cluster
+    (``tests/test_ilqr_factory_constrained.py:145``)."""
+    ox, oy, oz, orad = USER_KEEPOUT
+    wx, wy, wz = xr[0] - ox, xr[1] - oy, xr[2] - oz
+    return (orad * orad - (wx * wx + wy * wy + wz * wz),)
+
+
+def user_cases(torch, port, K, device) -> dict:
+    """``name -> (x0s, u_init, kw)`` of each user-model solve at
+    ``USER_BATCH`` seeded lanes: the quadrotor with the disc row at orders 2
+    and 1, the thrust cluster (nu = 4) with the keep-out, the kinematic
+    model as a bare row function (Euler, input box), and the kinematic
+    model under RK4 without an input box, its state box alone (a combination
+    the hand libraries do not hold: they build it with its input box)."""
+    import numpy as np
+
+    from model_predictive_control_tpu_torch.models import benchmarks as BM
+    from model_predictive_control_tpu_torch.ops.cuda.parking_factory import make_parking_ode_rows
+
+    rng = np.random.default_rng(14)
+    B = USER_BATCH
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    m, _, _, g = BM.QUADROTOR_PARAMS
+    quad = dict(ode_rows=BM.make_planar_quadrotor_ode_rows(BM.QUADROTOR_PARAMS), nx=6, nu=2,
+                N=10, ts=0.1, substeps=2, integrator="rk4",
+                limits=((0.0, 0.0), (1.5 * m * g, 1.5 * m * g)),
+                weights=((5.0, 5.0, 1.0, 0.5, 0.5, 0.1), (0.02, 0.02), 10.0),
+                extra_constraints=quad_clearance_rows, n_extra=1, extra_deps="x")
+    x_quad = f(np.array([1.1, -0.1, 0.0, -0.3, 0.0, 0.0]) + rng.uniform(-0.2, 0.2, (B, 6)))
+    x_thr = f(np.array([0.95, 0.05, 0.15, -0.3, 0.0, 0.0]) + rng.uniform(-0.15, 0.15, (B, 6)))
+    kin_rows = make_parking_ode_rows(0.05 / 0.097, 0.05)
+    kin = dict(nx=4, nu=2, N=15, ts=0.05, substeps=1, integrator="euler",
+               limits=((-1.0, -0.384), (1.0, 0.384)),
+               state_limits=((-3.0, -2.0, -100.0, -0.5), (3.0, 2.0, 100.0, 0.5)),
+               weights=((40.0, 40.0, 4.0, 1.0), (0.5, 0.5), 5.0),
+               params=f(np.stack([rng.uniform(1.5, 2.5, B), rng.uniform(0.5, 1.5, B)], -1)),
+               n_params=2)
+    x_kin = f(rng.uniform([-1.0, -0.8, -0.5, 0.0], [1.0, 0.8, 0.5, 0.4], (B, 4)))
+    zeros = lambda nu, N: torch.zeros(B, N, nu, device=device)
+    return {
+        "quadrotor_disc_o2": (x_quad, zeros(2, 10), {**quad, "extra_order": 2}),
+        "quadrotor_disc_o1": (x_quad, zeros(2, 10), {**quad, "extra_order": 1}),
+        "thruster_keepout": (x_thr, zeros(4, 10), dict(
+            ode_rows=BM.make_thruster_ode_rows(BM.THRUSTER_PARAMS), nx=6, nu=4, N=10, ts=0.1,
+            substeps=2, integrator="rk4", limits=((0.0,) * 4, (6.0,) * 4),
+            weights=((5.0, 5.0, 5.0, 0.5, 0.5, 0.5), (0.02,) * 4, 10.0),
+            extra_constraints=keepout_rows, n_extra=1, extra_deps=(0, 1, 2), extra_order=2)),
+        "kinematic_bare": (x_kin, zeros(2, 15), {**kin, "ode_rows": kin_rows.rows}),
+        "kinematic_rk4_nobox": (x_kin, zeros(2, 15), {**kin, "ode_rows": kin_rows,
+                                                      "integrator": "rk4", "substeps": 2,
+                                                      "limits": None}),
+    }
+
+
+def user_instantiations(torch, port, K, device) -> dict:
+    """``name -> generated instantiation`` of each user-model solve (what
+    ``fused_tracker_solve_cuda`` builds at first use)."""
+    out = {}
+    for name, (x0s, _, kw) in user_cases(torch, port, K, device).items():
+        out[name] = K.generated_instantiation(
+            kw["ode_rows"], nx=kw["nx"], nu=kw["nu"], n_params=kw.get("n_params", 0),
+            integrator=kw["integrator"], limits=kw["limits"],
+            extra_constraints=kw.get("extra_constraints"), n_extra=kw.get("n_extra", 0),
+            extra_deps=K._resolve_deps(kw.get("extra_deps", "xu"), kw["nx"], kw["nu"]),
+            extra_order=kw.get("extra_order", 2))
+    return out
+
+
+def user_libraries(torch, port, K, device) -> list:
+    """``(library name, build function)`` of every generated library the
+    user-model phases launch, for :func:`build_all`."""
+    from model_predictive_control_tpu_torch.ops.cuda import tracker_codegen as TC
+
+    libs = []
+    for name, inst in user_instantiations(torch, port, K, device).items():
+        for g in USER_GROUPS.get(name, (K.GENERATED_GROUP,)):
+            libs.append((TC.library_name(inst, g),
+                         lambda inst=inst, g=g: K._generated_library(inst, g)))
+    return libs
+
+
+def generated_flops(K, inst_trace_ops, kw, executed_stage_iters: float) -> float:
+    """FP32 operations the AL-iLQR algorithm needs for a generated
+    instantiation, counted from its traces per stage and executed inner
+    iteration and multiplied by this run's executed iterations (× N): ``e``
+    operations a model evaluation, ``r`` a constraint-row evaluation. A step
+    is ``substeps`` × (4 e + 14 nx) under RK4, × (e + 2 nx) under Euler; its
+    tangents 2 × step per Jacobian direction (nx + nu); the constraint rows'
+    gradient 2 r per dependency column, their curvature (order 2) 4 (NE + 1)
+    r per column; the Riccati algebra 2 nx³ + 6 nx² nu + 4 nx nu² + nu³; the 7
+    rollouts each the control (2 nx nu), the stage cost (3 nx + 2 nu + 4 nc),
+    the rows' values and a step."""
+    e, r = inst_trace_ops
+    nx, nu, sub = kw["nx"], kw["nu"], kw["substeps"]
+    step = sub * ((4 * e + 14 * nx) if kw["integrator"] == "rk4" else (e + 2 * nx))
+    ne = len(K._resolve_deps(kw["extra_deps"], nx, nu)) if kw.get("extra_constraints") else 0
+    nc = ((2 * nu if kw.get("limits") else 0) + (2 * nx if kw.get("state_limits") else 0)
+          + kw.get("n_extra", 0))
+    rows = 2 * r * ne + (4 * (ne + 1) * r * ne if kw.get("extra_order", 2) == 2 and r else 0)
+    algebra = 2 * nx ** 3 + 6 * nx * nx * nu + 4 * nx * nu * nu + nu ** 3
+    rollouts = 7 * (2 * nx * nu + 3 * nx + 2 * nu + 4 * nc + r + step)
+    return float(2 * step * (nx + nu) + rows + algebra + rollouts) * executed_stage_iters
+
+
+def user_model_phases(torch, port, K, card, device) -> list:
+    """User models on the card: each generated instantiation against its
+    twin bit for bit (``USER_HOLD_BUDGET``, at group 8, the first also at
+    group 1), the bare kinematic function against the hand ``kinematic``
+    instantiation's launch on the same inputs (one float program), then the
+    main path: each solve once through ``fused_tracker_solve_cuda`` at
+    ``USER_BATCH`` lanes and the default budget, counted by instantiation;
+    each launch timed alone with its bound, the twin's time, nvcc's seconds
+    and ptxas's registers and spills. Returns one ``kernels`` entry per
+    generated instantiation."""
+    from model_predictive_control_tpu_torch.ops.cuda import _build
+    from model_predictive_control_tpu_torch.ops.cuda import tracker_codegen as TC
+
+    cases = user_cases(torch, port, K, device)
+    insts = user_instantiations(torch, port, K, device)
+    phase(f"user models: generated K3 instantiations vs twin on the card ({USER_BATCH} lanes, "
+          f"budget {USER_HOLD_BUDGET}, tile {K.DEFAULT_TILE})")
+    held, err, twin_s = {}, {}, {}
+    hold = dict(outer_iters=USER_HOLD_BUDGET[0], inner_iters=USER_HOLD_BUDGET[1])
+    for name, (x0s, u0, kw) in cases.items():
+        (args, lkw), = captured_launches(
+            torch, K, lambda: K.fused_tracker_solve_cuda(x0s, u0, None, **kw, **hold), count=1)
+        lkw = {k: v for k, v in lkw.items() if k != "group"}
+        held[name] = (args, lkw)
+        want, twin_s[name] = twin_launch(torch, K, args, lkw)
+        outs = {g: K._launch(*args, group=g, **lkw) for g in USER_GROUPS.get(name, (8,))}
+        err[name] = compare_launches(torch, "generated tracker kernel", f"{name} ({insts[name].key})",
+                                     outs, want, twin_s[name], card)
+        if twin_s[name] >= 10.0:
+            print(f"note: the twin took {twin_s[name]:.1f} s on {name} (asked: under 10 s)",
+                  flush=True)
+    args, lkw = held["kinematic_bare"]
+    hand_kw = {**lkw, "ode_rows": cases["kinematic_rk4_nobox"][2]["ode_rows"]}
+    if K.instantiation(hand_kw["ode_rows"]) != "kinematic":
+        raise SystemExit("the hand kinematic instantiation is not the one compared")
+    hand = K._launch(*args, group=8, **hand_kw)
+    gen = K._launch(*args, group=8, **lkw)
+    same = [f for f, a, b in zip(KERNEL_FIELDS, gen, hand) if torch.equal(a, b)]
+    print(f"kinematic as a bare function vs the hand kinematic instantiation (same operands, "
+          f"group 8): bitwise equal fields {same} of {len(KERNEL_FIELDS)} [{card}]", flush=True)
+    if len(same) != len(KERNEL_FIELDS):
+        raise SystemExit("the generated kinematic functor is not the hand one's float program")
+
+    phase(f"user models main path: fused_tracker_solve_cuda once per model ({USER_BATCH} lanes, "
+          f"budget {USER_BUDGET}), counted")
+    full = dict(outer_iters=USER_BUDGET[0], inner_iters=USER_BUDGET[1])
+    for k in K.LAUNCHES_BY_KERNEL:
+        K.LAUNCHES_BY_KERNEL[k] = 0
+    sols = {}
+    for name, (x0s, u0, kw) in cases.items():
+        sols[name] = K.fused_tracker_solve_cuda(x0s, u0, None, **kw, **full)
+    torch.cuda.synchronize()
+    launches = {name: K.LAUNCHES_BY_KERNEL.get(inst.key, 0) for name, inst in insts.items()}
+    print(f"generated instantiations' launches: {launches} (expected 1 each)", flush=True)
+    if any(v != 1 for v in launches.values()):
+        raise SystemExit("the user models' path did not go through its generated kernels")
+    for name, sol in sols.items():
+        conv = sol.converged.float().mean().item()
+        fin = bool(torch.isfinite(sol.us).all()) and bool(torch.isfinite(sol.xs).all())
+        print(f"{name}: converged {conv:.5f}, max viol {sol.viol.max().item():.2e}, mean inner "
+              f"iterations {sol.inner_iters_executed.mean().item():.2f}", flush=True)
+        if not fin or sol.us.shape != (USER_BATCH, cases[name][2]["N"], cases[name][2]["nu"]):
+            raise SystemExit(f"the {name} solve is not finite or has the wrong shape")
+        if conv < USER_CONVERGED:
+            raise SystemExit(f"the {name} solve converges on {conv:.3f} of the lanes")
+    # the disc holds on the converged lanes (their violation below viol_tol;
+    # tests/test_ilqr_factory_constrained.py's gate, r - 2e-3)
+    sol = sols["quadrotor_disc_o2"]
+    p = sol.xs[:, :, :2]
+    d = ((p[..., 0] - USER_OBS[0]) ** 2 + (p[..., 1] - USER_OBS[1]) ** 2).sqrt().amin(dim=1)
+    clear = d[sol.converged].min().item()
+    print(f"quadrotor disc: min clearance over the converged lanes {clear:.4f}, over all "
+          f"{d.min().item():.4f} (radius {USER_OBS[2]})", flush=True)
+    if clear < USER_OBS[2] - 2e-3:
+        raise SystemExit("the generated disc row does not keep the quadrotor out")
+
+    phase("user models: each generated launch timed alone (the held launch: the twin's "
+          "work), at the default budget too, bound, build")
+    entries = []
+    for name, (x0s, u0, kw) in cases.items():
+        args, lkw = held[name]
+        outs = K._launch(*args, group=8, **lkw)
+        ms = time_cuda(torch, lambda: K._launch(*args, group=8, **lkw), 5)
+        at = {**lkw, **full}
+        full_ms = time_cuda(torch, lambda: K._launch(*args, group=8, **at), 3)
+        inst = insts[name]
+        lib = TC.library_name(inst, 8)
+        secs = _build.BUILD_SECONDS.get(lib)
+        report = _build.ptxas_report(lib)
+        regs = [ln.strip() for ln in (report.read_text().splitlines() if report.exists() else [])
+                if "registers" in ln or "spill" in ln]
+        ops = lambda tr: sum(1 for n in tr.nodes if n.op not in ("x", "u", "p"))
+        trace_ops = (ops(TC.trace(kw["ode_rows"], kw["nx"], kw["nu"], kw.get("n_params", 0))),
+                     ops(TC.trace(kw["extra_constraints"], kw["nx"], kw["nu"]))
+                     if kw.get("extra_constraints") else 0)
+        executed = kw["N"] * float(outs[5].sum())
+        print(f"{name} ({lib}): launch alone {ms:.3f} ms at {USER_BATCH} lanes, budget "
+              f"{USER_HOLD_BUDGET}, tile {K.DEFAULT_TILE}, group 8, mean executed "
+              f"{outs[5].mean().item():.2f} ({full_ms:.3f} ms at budget {USER_BUDGET}); twin "
+              f"{1e3 * twin_s[name]:.1f} ms on the same launch (timed once); nvcc "
+              f"{'reused' if secs is None else f'{secs:.1f} s'}; ptxas {regs[-2:]} [{card}]; ",
+              end="", flush=True)
+        roof = bound(torch, generated_flops(K, trace_ops, kw, executed),
+                     [*args, *(v for v in lkw.values() if torch.is_tensor(v)), *outs])
+        entries.append({
+            "name": f"tracker_tile_kernel<Problem<generated {name}>>", "route": "cuda",
+            "source": "model_predictive_control_tpu_torch/csrc/ilqr_factory_ext.cu",
+            "generated_by": "model_predictive_control_tpu_torch/ops/cuda/tracker_codegen.py",
+            "replaces": "model_predictive_control_tpu/ops/pallas/ilqr_factory.py:204",
+            "launches": launches[name], "max_abs_err": err[name], "ms": ms,
+            "plain_ms": 1e3 * twin_s[name], "ms_default_budget": full_ms, "nvcc_s": secs,
+            **roof,
+        })
+    return entries
+
+
+# the CLI in process on the card: (arguments, gates on the summary it prints)
+CLI_RUNS = {
+    "session2": (["session2"], {"constraints_respected": True, "success_rate": (0.9, None)}),
+    "sweep": (["sweep", "--batch", "512", "--steps", "10", "--backend", "factory"],
+              {"success_rate": (0.8, None)}),
+    "quadsweep": (["quadsweep", "--batch", "512", "--steps", "10"],
+                  {"success_rate": (0.95, None)}),
+    "tune": (["tune", "--updates", "4"], {"reduction": (1e-6, None)}),
+    "estimate": (["estimate"], {"success_rate": (0.9, None), "est_rmse_pos": (None, 0.1)}),
+}
+
+
+def cli_phases(torch, card) -> None:
+    """``cli.main([...])`` in process on the card for ``CLI_RUNS``: each
+    exits 0 and its summary (the last line it prints) meets its gates."""
+    import io
+
+    from model_predictive_control_tpu_torch import cli
+
+    phase(f"the CLI in process on the card: {', '.join(CLI_RUNS)}")
+    for name, (argv, gates) in CLI_RUNS.items():
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        secs = time.perf_counter() - t0
+        summary = json.loads(out.getvalue().strip().splitlines()[-1])
+        short = {k: v for k, v in summary.items() if not isinstance(v, (list, dict))}
+        print(f"cli {' '.join(argv)}: exit {rc} in {secs:.2f} s, {short} [{card}]", flush=True)
+        if rc != 0:
+            raise SystemExit(f"cli {name} exited {rc}")
+        for key, want in gates.items():
+            got = summary[key]
+            if isinstance(want, tuple):
+                lo, hi = want
+                ok = (lo is None or got >= lo) and (hi is None or got <= hi)
+            else:
+                ok = got == want
+            if not ok:
+                raise SystemExit(f"cli {name}: {key} = {got}, gate {want}")
 
 
 def tracker_launch_report(torch, port, K, card, device) -> None:

@@ -277,15 +277,104 @@ __device__ __forceinline__ Dual<W, S> dcos(const Dual<W, S>& a) {
   for (int q = 0; q < W; ++q) r.d[q] = -(a.d[q] * s);
   return r;
 }
-template <int W>
-__device__ __forceinline__ Dual<W> dtan(const Dual<W>& a) {
-  const float t = tanf(a.v);
+template <int W, class S>
+__device__ __forceinline__ Dual<W, S> dtan(const Dual<W, S>& a) {
+  const S t = dtan(a.v);
   return scaled(t, a, 1.0f + t * t);
 }
-template <int W>
-__device__ __forceinline__ Dual<W> dsqrt(const Dual<W>& a) {
-  const float s = sqrtf(a.v);
+template <int W, class S>
+__device__ __forceinline__ Dual<W, S> dsqrt(const Dual<W, S>& a) {
+  const S s = dsqrt(a.v);
   return scaled(s, a, 0.5f / s);
+}
+
+// The rest of the twin's rules (ops/cuda/ilqr_factory.py _DUAL_FUNCS), which
+// the functors generated from a row function use (ops/cuda/tracker_codegen.py)
+// beside the ones above; any S, so nested duals too.
+__device__ __forceinline__ float datan(float a) { return atanf(a); }
+__device__ __forceinline__ float dtanh(float a) { return tanhf(a); }
+__device__ __forceinline__ float dabs(float a) { return fabsf(a); }
+// clamp from below / above, NaN kept (torch.clamp; jnp.maximum / minimum)
+__device__ __forceinline__ float dclamp_min(float a, float c) { return a < c ? c : a; }
+__device__ __forceinline__ float dclamp_max(float a, float c) { return a > c ? c : a; }
+__device__ __forceinline__ float dwhere(bool m, float a, float b) { return m ? a : b; }
+__device__ __forceinline__ float val(float a) { return a; }
+template <int W, class S>
+__device__ __forceinline__ float val(const Dual<W, S>& a) { return val(a.v); }
+// a float as a value of type S with zero tangents
+template <class S>
+struct Lift {
+  __device__ __forceinline__ static S of(float c) { return c; }
+};
+template <int W, class S>
+struct Lift<Dual<W, S>> {
+  __device__ __forceinline__ static Dual<W, S> of(float c) {
+    Dual<W, S> r;
+    r.v = Lift<S>::of(c);
+#pragma unroll
+    for (int q = 0; q < W; ++q) r.d[q] = Lift<S>::of(0.0f);
+    return r;
+  }
+};
+template <class S>
+__device__ __forceinline__ S lift(float c) { return Lift<S>::of(c); }
+// c / a for a number c, as torch computes it (Tensor.__rtruediv__): the
+// reciprocal of a times c; the tangent -(q d) / a
+__device__ __forceinline__ float rdiv(float c, float a) { return (1.0f / a) * c; }
+template <int W, class S>
+__device__ __forceinline__ Dual<W, S> rdiv(float c, const Dual<W, S>& a) {
+  Dual<W, S> r;
+  r.v = rdiv(c, a.v);
+#pragma unroll
+  for (int q = 0; q < W; ++q) r.d[q] = -(r.v * a.d[q]) / a.v;
+  return r;
+}
+template <int W, class S>
+__device__ __forceinline__ Dual<W, S> datan(const Dual<W, S>& a) {
+  Dual<W, S> r;
+  r.v = datan(a.v);
+  const S den = 1.0f + a.v * a.v;
+#pragma unroll
+  for (int q = 0; q < W; ++q) r.d[q] = a.d[q] / den;
+  return r;
+}
+template <int W, class S>
+__device__ __forceinline__ Dual<W, S> dtanh(const Dual<W, S>& a) {
+  const S t = dtanh(a.v);
+  return scaled(t, a, 1.0f - t * t);
+}
+// JAX's abs jvp: +d where x >= 0, -d elsewhere
+template <int W, class S>
+__device__ __forceinline__ Dual<W, S> dabs(const Dual<W, S>& a) {
+  Dual<W, S> r;
+  r.v = dabs(a.v);
+  const bool pos = val(a.v) >= 0.0f;
+#pragma unroll
+  for (int q = 0; q < W; ++q) r.d[q] = pos ? a.d[q] : -a.d[q];
+  return r;
+}
+// JAX's balanced max/min jvp against a constant: weight 1, 1/2 at a tie, 0
+template <int W, class S>
+__device__ __forceinline__ Dual<W, S> dclamp_min(const Dual<W, S>& a, float c) {
+  const float x = val(a.v), w = x > c ? 1.0f : (x == c ? 0.5f : 0.0f);
+  Dual<W, S> r;
+  r.v = dclamp_min(a.v, c);
+#pragma unroll
+  for (int q = 0; q < W; ++q) r.d[q] = a.d[q] * w;
+  return r;
+}
+template <int W, class S>
+__device__ __forceinline__ Dual<W, S> dclamp_max(const Dual<W, S>& a, float c) {
+  const float x = val(a.v), w = x < c ? 1.0f : (x == c ? 0.5f : 0.0f);
+  Dual<W, S> r;
+  r.v = dclamp_max(a.v, c);
+#pragma unroll
+  for (int q = 0; q < W; ++q) r.d[q] = a.d[q] * w;
+  return r;
+}
+template <int W, class S>
+__device__ __forceinline__ Dual<W, S> dwhere(bool m, const Dual<W, S>& a, const Dual<W, S>& b) {
+  return m ? a : b;
 }
 // ---------------------------------------------------------------------------
 // models: the row functions of ops/cuda/parking_factory.py and
@@ -1602,6 +1691,13 @@ static int launch_fixed(TRACKER_ARGS) {
   return launch_problem<P, RK4>(TRACKER_PASS);
 }
 
+#define FIXED_ENTRY(NAME, PROBLEM, RK4) \
+  extern "C" int NAME(TRACKER_ARGS) { return launch_fixed<PROBLEM, RK4>(TRACKER_PASS); }
+
+// The hand-written instantiations; a translation unit generated from a row
+// function (ops/cuda/tracker_codegen.py) defines TRACKER_GENERATED, includes
+// this file and adds its own.
+#ifndef TRACKER_GENERATED
 // factory parking: Euler, both boxes, the clearances at order 2 and 1, with
 // the constant weights and per lane (WRT)
 using ParkingO2 = Problem<KinematicRows, true, ClearanceRows, 2>;
@@ -1614,15 +1710,13 @@ using ParkingWrt = Problem<KinematicRows, true, NoRows, 0, true>;
 // the MHE windows: additive, RK4, no input box, the terminal box, Rd per stage
 using MheWindows = Problem<GatedKinematicRows, false, NoRows, 0, false, true, true>;
 
-#define FIXED_ENTRY(NAME, PROBLEM, RK4) \
-  extern "C" int NAME(TRACKER_ARGS) { return launch_fixed<PROBLEM, RK4>(TRACKER_PASS); }
-
 FIXED_ENTRY(tracker_kinematic_clearance_o2_launch, ParkingO2, false)
 FIXED_ENTRY(tracker_kinematic_clearance_o2_wrt_launch, ParkingO2Wrt, false)
 FIXED_ENTRY(tracker_kinematic_clearance_o1_launch, ParkingO1, false)
 FIXED_ENTRY(tracker_kinematic_clearance_o1_wrt_launch, ParkingO1Wrt, false)
 FIXED_ENTRY(tracker_kinematic_wrt_launch, ParkingWrt, false)
 FIXED_ENTRY(tracker_gated_kinematic_launch, MheWindows, true)
+#endif
 
 // The group this library was built for, and the threads per CTA it allows.
 extern "C" int tracker_group() { return GROUP; }

@@ -229,10 +229,12 @@ class NonlinearMHE:
         Requirements: state bounds, DIAGONAL ``Qw``/``Rv``/``P0``, a selector
         ``obs_fn`` consistent with ``obs_indices``, ``x̄`` inside the box.
         ``ode_rows`` is the continuous row-form ODE whose ``integrator`` /
-        ``substeps`` / ``ts`` discretization is ``step_fn``; on the card it
-        must be a tracker model with a gated instantiation
-        (:func:`..models.bicycle.make_kinematic_ode_rows`): a bare row
-        function raises ``NotImplementedError`` there (ROADMAP S4.6).
+        ``substeps`` / ``ts`` discretization is ``step_fn``. On the card a
+        tracker model with a gated instantiation
+        (:func:`..models.bicycle.make_kinematic_ode_rows`) launches it; any
+        other row function is gated as the JAX package's
+        ``_gated_ode_rows`` gates it and runs on an instantiation generated
+        from it at first use (``ops/cuda/tracker_codegen.py``).
 
         Returns ``(x̂_M, X, ŵ, converged)``."""
         nx, M = self.nx, self.M

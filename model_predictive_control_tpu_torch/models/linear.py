@@ -49,3 +49,22 @@ def session2_dynamics(
     A = torch.tensor([[1.0, ts], [0.0, 1.0]], dtype=dtype, device=device)
     B = torch.tensor([[0.0], [ts]], dtype=dtype, device=device)
     return LinearSystem(A=A, B=B)
+
+
+def double_integrator_continuous(dtype: torch.dtype = torch.float32, device=None) -> LinearSystem:
+    """The continuous cruise-control model of session 1, relative position
+    and velocity of a lead car, the input decelerating: ``A = [[0, 1], [0,
+    0]]``, ``B = [[0], [−1]]`` (a matrix pair, not a step)."""
+    device = resolve_device(device)
+    A = torch.tensor([[0.0, 1.0], [0.0, 0.0]], dtype=dtype, device=device)
+    B = torch.tensor([[0.0], [-1.0]], dtype=dtype, device=device)
+    return LinearSystem(A=A, B=B)
+
+
+def double_integrator_discrete(ts: float, dtype: torch.dtype = torch.float32,
+                               device=None) -> LinearSystem:
+    """Forward-Euler discretization ``Ad = I + A ts``, ``Bd = B ts`` of the
+    double integrator (session 1), on ``device`` (the card when ``None``)."""
+    cont = double_integrator_continuous(dtype, device)
+    Ad = torch.eye(2, dtype=dtype, device=cont.A.device) + cont.A * ts
+    return LinearSystem(A=Ad, B=cont.B * ts)

@@ -15,6 +15,7 @@ import os
 import pathlib
 import subprocess
 import threading
+import time
 from typing import Callable
 
 PKG = pathlib.Path(__file__).resolve().parents[2]
@@ -25,6 +26,8 @@ NVCC_FLAGS = [
 ]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# nvcc's seconds for each library this process built (not for one reused)
+BUILD_SECONDS: dict[str, float] = {}
 _locks: dict[str, threading.Lock] = {}
 _locks_lock = threading.Lock()
 
@@ -35,9 +38,10 @@ def ptxas_report(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}.ptxas.txt"
 
 
-def _compile(name: str, sources: list[pathlib.Path], flags: list[str]) -> pathlib.Path:
+def _compile(name: str, sources: list[pathlib.Path], flags: list[str],
+             depends: tuple = ()) -> pathlib.Path:
     digest = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
+    for src in (*sources, *depends):
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     if out.exists():
@@ -46,7 +50,9 @@ def _compile(name: str, sources: list[pathlib.Path], flags: list[str]) -> pathli
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *flags, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS[name] = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed for {name} ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
@@ -61,16 +67,18 @@ def load_library(
     sources: list[pathlib.Path],
     configure: Callable[[ctypes.CDLL], None],
     extra_flags: tuple[str, ...] = (),
+    depends: tuple = (),
 ) -> ctypes.CDLL:
     """The library ``name`` built from ``sources`` with :data:`NVCC_FLAGS`
     and ``extra_flags``, loaded once per process; ``configure`` sets its
-    functions' ctypes signatures on first load."""
+    functions' ctypes signatures on first load. ``depends`` lists files the
+    sources include: they key the build too."""
     with _locks_lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_compile(name, sources, [*NVCC_FLAGS, *extra_flags])))
+            lib = ctypes.CDLL(str(_compile(name, sources, [*NVCC_FLAGS, *extra_flags], depends)))
             configure(lib)
             _loaded[name] = lib
         return lib

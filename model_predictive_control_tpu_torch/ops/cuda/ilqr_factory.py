@@ -16,10 +16,12 @@ and the float constants that instantiation reads; a
 :class:`TrackerConstraints` does the same for user constraint rows. The twin
 runs the torch rows, on tensors for values and on :class:`Dual` numbers for
 derivatives (nested duals for the rows' curvature); the kernel runs the C++
-functors of the same names, templated on the same dual arithmetic. A bare
-Python ``ode_rows`` or ``extra_constraints`` has no C++ counterpart: it runs
-on the twin, and on CUDA tensors it raises (code generation for user ODEs is
-ROADMAP S4.6).
+functors of the same names, templated on the same dual arithmetic. Any
+other row function, or a combination of options no hand-written
+instantiation holds, runs on a functor generated from the row functions
+(:mod:`.tracker_codegen`: traced on symbols, emitted as C++ in the rows'
+order of operations, built at first use), the same float program as the
+twin.
 
 The whole JAX signature is ported: tracking (``refs``) and regulation
 (``refs=None``: x costed against the origin), per-scenario ODE parameters, an
@@ -39,8 +41,8 @@ without an input box) from ``csrc/ilqr_factory.cu``; the factory parking OCP
 constant and per-lane weights) and the nonlinear MHE windows (the gated
 kinematic model in the additive mode) from ``csrc/ilqr_factory_ext.cu``, the
 generalized solver (in one source with the first, it cost the kinematic
-racing launch 5%: PERF.md). The first library's instantiations take no
-``lam_init`` on the card.
+racing launch 5%: PERF.md). A solve with ``lam_init`` on the first
+library's models runs on a generated instantiation.
 
 Tile semantics (kept from the reference): the inner exit (every lane's
 ``max|Qu| < 0.01·tol``) and the outer exit (every lane primal-feasible with
@@ -131,6 +133,9 @@ EXT_BUILDS = {
     "kinematic_wrt": dict(_PARKING_BUILD, deps=()),
 }
 EXT_KERNELS = tuple(EXT_BUILDS)
+# threads per lane of a generated instantiation's library (one group is built
+# per library at first use unless another is asked)
+GENERATED_GROUP = 8
 N_ALPHA = len(ALPHAS)
 
 # Kernel launches made by fused_tracker_solve_cuda (one per solve), in all and
@@ -903,18 +908,18 @@ def tracker_tiles_reference(
 # ---------------------------------------------------------------------------
 
 
-def _consts(model: TrackerModel, *, ts, substeps, limits, state_limits, weights,
-            mu_init, mu_scale, mu_max, viol_tol, tol, extra_constraints=None,
-            terminal_state_limits=None, ext=False):
+def _consts(nx: int, nu: int, mc: tuple, ec: tuple, *, ts, substeps, limits, state_limits,
+            weights, mu_init, mu_scale, mu_max, viol_tol, tol, terminal_state_limits=None,
+            ext=False):
     """The float constants in the order of ``struct Consts``
     (``csrc/ilqr_factory.cu``; with ``ext``, ``csrc/ilqr_factory_ext.cu``'s,
     which adds the constraint rows' constants and the terminal box), state-
     and input-sized ones padded with zeros (an absent box is zeros too; so
-    are the weights where they are per lane).
+    are the weights where they are per lane). ``mc`` and ``ec`` are the
+    model's and the constraint rows' constants.
     The products 2 Qd, 2 Rd and (2 qn) Qd are formed in float32, as the twin
     forms them, so a launch with per-lane weights equal to these gives the
     same bits."""
-    nx, nu = model.nx, model.nu
     QD, RD, QN = weights if weights is not None else ((0.0,) * nx, (0.0,) * nu, 0.0)
     qd, rd = torch.tensor(QD, dtype=torch.float32), torch.tensor(RD, dtype=torch.float32)
     qn = torch.tensor(QN, dtype=torch.float32)
@@ -923,7 +928,6 @@ def _consts(model: TrackerModel, *, ts, substeps, limits, state_limits, weights,
     TLB, TUB = terminal_state_limits if terminal_state_limits is not None else ((),) * 2
     pad = lambda v, n=MAX_NX: [float(a) for a in v] + [0.0] * (n - len(v))
     padu = lambda v: pad(v, MAX_NU)
-    ec = extra_constraints.consts if extra_constraints is not None else ()
     h = ts / substeps
     return [
         h, 0.5 * h, h / 6.0,
@@ -932,7 +936,7 @@ def _consts(model: TrackerModel, *, ts, substeps, limits, state_limits, weights,
         *padu(LBU), *padu(UBU), *pad(LBX), *pad(UBX),
         mu_init, mu_scale, mu_max, viol_tol, 0.01 * tol,
         *ALPHAS, REG_INIT, REG_MIN, REG_MAX,
-        *pad(model.consts, MAX_CONSTS),
+        *pad(mc, MAX_CONSTS),
     ] + ([*pad(ec, MAX_EXTRA_CONSTS), *pad(TLB), *pad(TUB)] if ext else [])
 
 
@@ -984,9 +988,11 @@ def library_name(group: int, ext: bool = False) -> str:
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    # the second library's entries take the exo, rw, wrt and lam0 operands too
-    ext = hasattr(lib, f"tracker_{EXT_KERNELS[0]}_launch")
-    for kernel in EXT_KERNELS if ext else BASE_KERNELS:
+    # the second library's entries and a generated library's take the exo,
+    # rw, wrt and lam0 operands too
+    gen = hasattr(lib, "tracker_generated_launch")
+    ext = gen or hasattr(lib, f"tracker_{EXT_KERNELS[0]}_launch")
+    for kernel in ("generated",) if gen else EXT_KERNELS if ext else BASE_KERNELS:
         fn = getattr(lib, f"tracker_{kernel}_launch")
         fn.argtypes = [ctypes.c_void_p] * (16 if ext else 12) + [ctypes.c_int] * 12 + [
             ctypes.c_void_p]
@@ -1018,14 +1024,18 @@ def instantiation(ode_rows, extra_constraints=None, extra_order: int = 2,
     return name + ("_wrt" if weights_rt else "")
 
 
-def _refuse_unbuilt(key, ode_rows, integrator, limits, extra_constraints, extra_deps,
-                    input_mode, rw, terminal_state_limits, lam0=None) -> None:
-    """Raise ``NotImplementedError`` for a solve no library holds an
-    instantiation for (the twin takes it)."""
-    if key not in DEFAULT_GROUP:
-        raise NotImplementedError(
-            f"the kernel libraries hold no instantiation {key!r} (built: {sorted(DEFAULT_GROUP)}; "
-            "the twin takes any model and rows)")
+def _hand_built(key, ode_rows, integrator, limits, extra_constraints, extra_deps, input_mode,
+                rw, terminal_state_limits, lam0=None) -> bool:
+    """Whether a hand-written instantiation of the two libraries holds this
+    solve (:func:`instantiation` names it): the model and its rows, built
+    with this integrator, input box, dependency columns, additive mode,
+    terminal rows and per-stage input weights, and (second library only)
+    the multipliers' warm start. Every other solve the twin takes runs on
+    an instantiation generated from its row functions
+    (:mod:`.tracker_codegen`)."""
+    if key not in DEFAULT_GROUP or not isinstance(ode_rows, TrackerModel) or not (
+            extra_constraints is None or isinstance(extra_constraints, TrackerConstraints)):
+        return False
     if key in EXT_BUILDS:
         build = EXT_BUILDS[key]
         asked = dict(integrator=integrator, ubox=limits is not None,
@@ -1033,28 +1043,45 @@ def _refuse_unbuilt(key, ode_rows, integrator, limits, extra_constraints, extra_
                      additive=input_mode == "additive")
         if extra_constraints is not None:
             asked["deps"] = tuple(extra_deps)
-        wrong = [k for k, v in asked.items() if build.get(k, v) != v]
-        if wrong:
-            raise NotImplementedError(
-                f"the {key!r} instantiation is built with {build}; this solve asks for "
-                f"{ {k: asked[k] for k in wrong} } (the twin takes it)")
-        return
+        return all(build.get(k, v) == v for k, v in asked.items())
     if (input_mode != "ode" or terminal_state_limits is not None or rw is not None
-            or lam0 is not None):
-        raise NotImplementedError(
-            f"the {key!r} instantiation has no additive mode, terminal rows, per-stage input "
-            "weights or multiplier warm start (the twin takes them)")
+            or lam0 is not None or extra_constraints is not None):
+        return False
     if integrator == "euler" and ode_rows.kernel not in EULER_KERNELS:
-        raise NotImplementedError(
-            f"the kernel library builds the {ode_rows.kernel!r} model with RK4 only; Euler "
-            f"is built for {EULER_KERNELS} (the twin takes any integrator)"
-        )
-    if limits is None and ode_rows.kernel not in NO_INPUT_BOX_KERNELS:
-        raise NotImplementedError(
-            f"the kernel library builds the {ode_rows.kernel!r} model with an input box only; "
-            f"the solve without one is built for {NO_INPUT_BOX_KERNELS} (the twin takes any "
-            "model)"
-        )
+        return False
+    return limits is not None or ode_rows.kernel in NO_INPUT_BOX_KERNELS
+
+
+def generated_instantiation(ode_rows, *, nx, nu, n_params, integrator, limits,
+                            extra_constraints=None, n_extra=0, extra_deps=(), extra_order=2,
+                            input_mode="ode", n_exo=0, rw=False, wrt=False,
+                            terminal_state_limits=None):
+    """The instantiation generated for a solve no hand-written one holds:
+    the row functions traced and emitted as C++ functors with the solve's
+    compile-time properties (:func:`.tracker_codegen.instantiation_of`);
+    raises the twin's ``NotImplementedError`` for an operation the twin has
+    no rule for."""
+    from . import tracker_codegen
+
+    additive = input_mode == "additive"
+    return tracker_codegen.instantiation_of(
+        ode_rows, extra_constraints if n_extra else None, nx=nx, nu=nu, n_params=n_params,
+        n_extra=n_extra, extra_deps=tuple(extra_deps), extra_order=extra_order,
+        integrator=integrator, ubox=limits is not None, wrt=wrt,
+        tbox=terminal_state_limits is not None, rw=rw, additive=additive,
+        n_exo=n_exo if additive else 0)
+
+
+def _generated_library(inst, group: int) -> ctypes.CDLL:
+    """Build (at first use) and load the library of a generated
+    instantiation for ``group`` threads per lane."""
+    from . import tracker_codegen
+
+    lib = tracker_codegen.generated_library(inst, group, _configure, NVCC_EXTRA)
+    if (lib.tracker_group(), lib.tracker_max_threads()) != (group, MAX_THREADS[group]):
+        raise RuntimeError(f"{tracker_codegen.library_name(inst, group)} was not built for "
+                           f"group {group}")
+    return lib
 
 
 def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integrator,
@@ -1074,14 +1101,29 @@ def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integ
         exd=ne + tri * (2 if extra_order == 2 else 1) if n_extra else 0,
     )
     key = instantiation(ode_rows, extra_constraints, extra_order, wrt is not None)
-    _refuse_unbuilt(key, ode_rows, integrator, limits, extra_constraints, extra_deps,
-                    input_mode, rw, terminal_state_limits, lam0)
+    hand = _hand_built(key, ode_rows, integrator, limits, extra_constraints, extra_deps,
+                       input_mode, rw, terminal_state_limits, lam0)
+    if not hand:
+        inst = generated_instantiation(
+            ode_rows, nx=nx, nu=nu, n_params=0 if par is None else par.shape[0],
+            integrator=integrator, limits=limits, extra_constraints=extra_constraints,
+            n_extra=n_extra, extra_deps=extra_deps, extra_order=extra_order,
+            input_mode=input_mode, n_exo=0 if exo is None else exo.shape[1], rw=rw is not None,
+            wrt=wrt is not None, terminal_state_limits=terminal_state_limits)
+        key = inst.key
     operands = [a for a in (x0, u0, refs, par, exo, rw, wrt, lam0) if a is not None]
     for a in operands:
         if a.device != x0.device or a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError("kernel operands must be contiguous float32 on one device")
-    ext = key in EXT_KERNELS
-    lib = _build_library(group, True) if ext else _build_library(group)
+    # the second library and the generated ones take the exo, rw, wrt and
+    # lam0 operands and the constraint rows' constants
+    ext = not hand or key in EXT_KERNELS
+    if hand:
+        lib = _build_library(group, True) if ext else _build_library(group)
+        fn = getattr(lib, f"tracker_{key}_launch")
+    else:
+        lib = _generated_library(inst, group)
+        fn = lib.tracker_generated_launch
     Bp = x0.shape[-1]
     dev = x0.device
     f32 = torch.float32
@@ -1093,13 +1135,14 @@ def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integ
     lam = torch.empty(n_lam, nc, Bp, dtype=f32, device=dev)
     ni = torch.empty(Bp, dtype=f32, device=dev)
     work = torch.empty(max(plan.work_rows, 1), Bp, dtype=f32, device=dev)
-    values = _consts(ode_rows, ts=ts, substeps=substeps, limits=limits,
-                     state_limits=state_limits, weights=weights,
-                     extra_constraints=extra_constraints,
-                     terminal_state_limits=terminal_state_limits, ext=ext, **solver)
+    # a generated functor carries its constants in its source
+    values = _consts(nx, nu, ode_rows.consts if hand else (),
+                     extra_constraints.consts if hand and n_extra else (), ts=ts,
+                     substeps=substeps, limits=limits, state_limits=state_limits,
+                     weights=weights, terminal_state_limits=terminal_state_limits, ext=ext,
+                     **solver)
     cvals = (ctypes.c_float * len(values))(*values)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    fn = getattr(lib, f"tracker_{key}_launch")
     ptr = lambda a: None if a is None else a.data_ptr()
     with torch.cuda.device(dev):
         err = fn(
@@ -1113,7 +1156,7 @@ def _launch(x0, u0, refs, par, *, ode_rows, nx, nu, N, tile, ts, substeps, integ
     if err != 0:
         raise RuntimeError(f"tracker kernel launch failed: {lib.tracker_error_string(err).decode()}")
     LAUNCHES += 1
-    LAUNCHES_BY_KERNEL[key] += 1
+    LAUNCHES_BY_KERNEL[key] = LAUNCHES_BY_KERNEL.get(key, 0) + 1
     return us, xs, viol, conv > 0.5, lam, ni
 
 
@@ -1255,7 +1298,7 @@ def fused_tracker_solve_cuda(
     u_init: torch.Tensor,  # (B, N, nu)
     refs: torch.Tensor | None = None,  # (B, N + 1, nx) tracking windows; None: regulation
     *,
-    ode_rows,  # a TrackerModel, or a bare row function (twin only)
+    ode_rows,  # a TrackerModel, or a bare row function
     nx: int,
     nu: int,
     N: int,
@@ -1266,7 +1309,7 @@ def fused_tracker_solve_cuda(
     weights_rt: torch.Tensor | None = None,  # (B, nx + nu + 1): per-lane [Qd, Rd, qn]
     state_limits: tuple | None = None,  # (lb_x(nx), ub_x(nx))
     integrator: str = "rk4",  # "rk4" | "euler"
-    extra_constraints=None,  # a TrackerConstraints, or bare rows (twin only): c <= 0
+    extra_constraints=None,  # a TrackerConstraints, or bare rows: c <= 0
     n_extra: int = 0,
     extra_deps="xu",  # "x", "xu" or a tuple of z columns the rows depend on
     extra_order: int = 2,  # 2: exact act·∂²c curvature, 1: Gauss-Newton
@@ -1293,31 +1336,26 @@ def fused_tracker_solve_cuda(
     ``interpret``), and ``group``.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
-    twin :func:`tracker_tiles_reference`. On CUDA ``ode_rows`` must be a
-    :class:`TrackerModel` and ``extra_constraints`` a
-    :class:`TrackerConstraints`: a bare row function raises
-    ``NotImplementedError`` (ROADMAP S4.6), and so does a combination no
-    library holds an instantiation of (:func:`instantiation`,
-    :data:`DEFAULT_GROUP`). One CTA runs one tile with ``group`` threads per
-    lane (one of :data:`GROUPS`; for ``None`` the instantiation's
-    :data:`DEFAULT_GROUP`, or the largest group that fits ``tile`` where that
-    does not); the solution does not depend on it. A CTA has ``tile ×
+    twin :func:`tracker_tiles_reference`. On CUDA a solve a hand-written
+    instantiation holds (:func:`instantiation`, :func:`_hand_built`) launches
+    it; any other, a bare row function included, launches an instantiation
+    generated from its row functions and built at first use
+    (:func:`generated_instantiation`). One CTA runs one tile with ``group``
+    threads per lane (one of :data:`GROUPS`; for ``None`` the
+    instantiation's :data:`DEFAULT_GROUP`, :data:`GENERATED_GROUP` for a
+    generated one, or the largest group that fits ``tile`` where that does
+    not); the solution does not depend on it. A CTA has ``tile ×
     group`` threads, and an explicit ``group`` that makes more than
     :data:`MAX_THREADS` raises ``ValueError`` (:func:`launch_plan`). The
     twin ignores a valid ``group``. With ``terminal_state_limits`` the
     multipliers have a row N (``lam`` is ``(B, N + 1, nc)``).
     """
     key = instantiation(ode_rows, extra_constraints, extra_order, weights_rt is not None)
-    group = resolve_group(group, tile, DEFAULT_GROUP.get(key, 1), GROUPS, MAX_THREADS)
+    group = resolve_group(group, tile, DEFAULT_GROUP.get(key, GENERATED_GROUP), GROUPS,
+                          MAX_THREADS)
     if group not in GROUPS:
         raise ValueError(f"group must be one of {GROUPS}, not {group}")
     if x0s.is_cuda:
-        if not isinstance(ode_rows, TrackerModel) or not (
-                extra_constraints is None or isinstance(extra_constraints, TrackerConstraints)):
-            raise NotImplementedError(
-                "a row function without a C++ instantiation runs only on the twin; "
-                "code generation for user ODEs and rows is not ported yet: ROADMAP S4.6"
-            )
         # _launch is looked up at call time, so that a run can observe it
         solver = lambda *a, **k: _launch(*a, group=group, **k)
     else:

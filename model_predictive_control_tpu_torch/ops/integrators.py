@@ -24,6 +24,17 @@ def euler(f: Dynamics, ts: float) -> Dynamics:
     return step
 
 
+def heun(f: Dynamics, ts: float) -> Dynamics:
+    """Second-order Heun (the explicit trapezoid): two stages."""
+
+    def step(x, u):
+        s1 = f(x, u)
+        s2 = f(x + ts * s1, u)
+        return x + 0.5 * ts * (s1 + s2)
+
+    return step
+
+
 def rk4(f: Dynamics, ts: float) -> Dynamics:
     """Classic 4th-order Runge-Kutta."""
 

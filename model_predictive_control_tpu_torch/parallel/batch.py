@@ -359,14 +359,16 @@ def parking_sweep(
     kernel; ``"factory"``, the same OCP through the tracker kernel, whose
     contract configuration is ``inner_iters=14``). ``u_seed`` ``(B, N, 2)``: the step-0
     warm-start controls in place of zeros (the multipliers stay zero).
-    ``checkpoint_every``/``checkpoint_path`` are not ported yet and raise
-    ``NotImplementedError``.
+    ``checkpoint_every > 0``: the loop runs in segments of that many steps
+    and writes ``(plant states, warm carry)`` to ``checkpoint_path`` after
+    each (:mod:`..obs.checkpoint`); where ``checkpoint_path`` exists, the
+    sweep resumes from it and returns the remaining segments (the closed
+    loop is deterministic given that state, so the resumed run ends bit for
+    bit where an uninterrupted one ends).
 
     Returns ``(BatchSimResult, summary)`` with the JAX package's summary
     keys (``mean_inner_iters`` on the kernel route).
     """
-    if checkpoint_every > 0 or checkpoint_path is not None:
-        raise NotImplementedError("sweep checkpoints are not ported yet: ROADMAP S7.2")
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -388,7 +390,10 @@ def parking_sweep(
     if u_seed is not None:
         seed = torch.as_tensor(u_seed, dtype=dtype, device=device).reshape(batch, N * NU)
         carry0 = (seed, *carry0[1:]) if isinstance(carry0, tuple) else seed
-    res = simulate_batch(x0s, plant, steps, policy, carry0, batched_dynamics=True)
+    if checkpoint_every <= 0:
+        res = simulate_batch(x0s, plant, steps, policy, carry0, batched_dynamics=True)
+    else:
+        res = _segmented(x0s, plant, steps, policy, carry0, checkpoint_path, checkpoint_every)
 
     success = res.logs["solver_success"]
     dist = torch.linalg.vector_norm(res.states[-1][:, :2], dim=-1)
@@ -405,6 +410,34 @@ def parking_sweep(
     if "kernel_inner_iters" in res.logs:
         summary["mean_inner_iters"] = res.logs["kernel_inner_iters"].mean().item()
     return res, summary
+
+
+def _segmented(x0s, plant, steps, policy, carry0, path, every) -> BatchSimResult:
+    """The closed loop in segments of ``every`` steps, its state saved to
+    ``path`` after each and resumed from it where it exists; the result
+    holds the segments this call ran."""
+    import os
+
+    from ..obs.checkpoint import load_sweep_state, save_sweep_state
+
+    step, x, carry = 0, x0s, carry0
+    if path is not None and os.path.exists(path):
+        step, (x, carry) = load_sweep_state(path, (x0s, carry0))
+    x_start, pieces = x, []
+    while step < steps:
+        n = min(every, steps - step)
+        piece = simulate_batch(x, plant, n, policy, carry, batched_dynamics=True)
+        pieces.append(piece)
+        x, carry = piece.states[-1], piece.final_carry
+        step += n
+        if path is not None:
+            save_sweep_state(path, step, (x, carry))
+    return BatchSimResult(
+        states=torch.cat([x_start[None]] + [p.states[1:] for p in pieces]),
+        inputs=torch.cat([p.inputs for p in pieces]),
+        logs={k: torch.cat([p.logs[k] for p in pieces]) for k in pieces[0].logs},
+        final_carry=carry,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -288,11 +288,21 @@ def test_tracker_kernel_matches_twin(tracker, model, tile, group):
 
 
 def test_bare_row_function_raises_on_the_card(tracker):
+    """A bare row function launches an instantiation generated from it
+    (built at first use), bit for bit with the twin and with the hand
+    ``kinematic`` instantiation on the same inputs: one float program."""
     F, cases = tracker
     case = cases["kinematic"]
     kw = {**case["kw"], "ode_rows": lambda xr, ur, pr: case["kw"]["ode_rows"].rows(xr, ur, pr)}
-    with pytest.raises(NotImplementedError, match="ROADMAP S4.6"):
-        F.fused_tracker_solve_cuda(*case["args"], **kw)
+    before = F.LAUNCHES
+    got = F.fused_tracker_solve_cuda(*case["args"], **kw)
+    torch.cuda.synchronize()
+    assert F.LAUNCHES == before + 1
+    ref = F.fused_tracker_solve_twin(*case["args"], **kw)
+    hand = F.fused_tracker_solve_cuda(*case["args"], **case["kw"])
+    for name in ("us", "xs", "viol", "converged", "lam", "inner_iters_executed"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+        assert torch.equal(getattr(got, name), getattr(hand, name)), name
 
 
 @pytest.mark.parametrize("sweep", ["racing_sweep", "racing_sweep_dynamic"])
@@ -445,27 +455,35 @@ def test_benchmark_widest_ctas_launch(benchmark_models, case):
             assert torch.equal(getattr(got, name), getattr(one, name)), (group, name)
 
 
+def _generated_matches_twin(F, args, kw):
+    """One solve no hand library holds: one launch of an instantiation
+    generated from its rows, bit for bit with the twin."""
+    generated = lambda: sum(v for k, v in F.LAUNCHES_BY_KERNEL.items() if k.startswith("gen_"))
+    before, before_gen = F.LAUNCHES, generated()
+    got = F.fused_tracker_solve_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert F.LAUNCHES == before + 1 and generated() == before_gen + 1
+    ref = F.fused_tracker_solve_twin(*args, **kw)
+    for name in ("us", "xs", "viol", "converged", "lam", "inner_iters_executed"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
 def test_euler_on_an_rk4_only_model_raises(benchmark_models):
-    """The benchmark models' libraries hold RK4 only: Euler raises on the
-    card before anything launches (the twin takes it)."""
+    """The benchmark models' libraries hold RK4 only: Euler runs on an
+    instantiation generated at first use, bit for bit with the twin."""
     F, cases = benchmark_models
     c = cases["cartpole"]
-    before = F.LAUNCHES
-    with pytest.raises(NotImplementedError, match="RK4 only"):
-        F.fused_tracker_solve_cuda(*c["args"], integrator="euler", **c["kw"])
-    assert F.LAUNCHES == before
+    _generated_matches_twin(F, c["args"], {**c["kw"], "integrator": "euler"})
 
 
 def test_no_input_box_on_a_racing_model_raises(tracker):
     """The racing pair's libraries hold the solve with an input box only:
-    ``limits=None`` raises on the card before anything launches (the twin
-    takes it)."""
+    ``limits=None`` runs on a generated instantiation, bit for bit with the
+    twin."""
     F, cases = tracker
     case = cases["kinematic"]
-    before = F.LAUNCHES
-    with pytest.raises(NotImplementedError, match="with an input box only"):
-        F.fused_tracker_solve_cuda(*case["args"], **{**case["kw"], "limits": None})
-    assert F.LAUNCHES == before
+    _generated_matches_twin(F, case["args"], {**case["kw"], "limits": None, "outer_iters": 2,
+                                              "inner_iters": 4})
 
 
 @pytest.mark.parametrize("sweep, kernel", [("quadrotor_sweep", "quadrotor"),
@@ -849,8 +867,9 @@ def test_factory_parking_sweep_launches_the_kernel(factory_cases):
 
 
 def test_unbuilt_factory_combinations_raise_on_the_card(factory_cases):
-    """A combination no library holds (the clearances with RK4) raises on the
-    card before anything launches; the twin takes it."""
+    """A combination no hand library holds (the clearances with RK4) runs on
+    an instantiation generated at first use, bit for bit with the twin (a
+    2 × 3 budget: the twin's nested duals are slow)."""
     from model_predictive_control_tpu_torch.ops.cuda.ilqr_kernel import parking_geometry
     from model_predictive_control_tpu_torch.ops.cuda.parking_factory import (
         make_clearance_rows,
@@ -860,16 +879,15 @@ def test_unbuilt_factory_combinations_raise_on_the_card(factory_cases):
     F, _ = factory_cases
     geom, limits = parking_geometry(port.VehicleParameters(), (0.25, 0.0, 0.0, 0.0))
     kb, lr, ox, r2, obs = geom
-    before = F.LAUNCHES
-    with pytest.raises(NotImplementedError, match="built with"):
-        F.fused_tracker_solve_cuda(
-            torch.zeros(16, 4, device="cuda"), torch.zeros(16, 6, 2, device="cuda"),
-            ode_rows=make_parking_ode_rows(kb, lr), nx=4, nu=2, N=6, ts=0.08, substeps=1,
-            integrator="rk4", limits=limits[2:], state_limits=limits[:2],
-            weights=((1.0,) * 4, (1.0,) * 2, 1.0),
-            extra_constraints=make_clearance_rows(tuple(ox), r2, tuple(obs)), n_extra=9,
-            extra_deps=(0, 1, 2), params=torch.ones(16, 2, device="cuda"), n_params=2)
-    assert F.LAUNCHES == before
+    g = torch.Generator().manual_seed(2)
+    x0 = (torch.tensor([0.3, -0.1, 0.0, 0.0]) + 0.05 * torch.randn(16, 4, generator=g)).cuda()
+    _generated_matches_twin(F, (x0, torch.zeros(16, 6, 2, device="cuda")), dict(
+        ode_rows=make_parking_ode_rows(kb, lr), nx=4, nu=2, N=6, ts=0.08, substeps=1,
+        integrator="rk4", limits=limits[2:], state_limits=limits[:2],
+        weights=((1.0,) * 4, (1.0,) * 2, 1.0),
+        extra_constraints=make_clearance_rows(tuple(ox), r2, tuple(obs)), n_extra=9,
+        extra_deps=(0, 1, 2), params=torch.ones(16, 2, device="cuda"), n_params=2,
+        outer_iters=2, inner_iters=3))
 
 
 @pytest.mark.parametrize("group", [1, 8])

@@ -153,7 +153,9 @@ def test_fused_windows_v_bound_binds():
 
 def test_fused_windows_refuse_what_the_kernel_does_not_take(monkeypatch):
     """No state bounds or a full covariance raise ``ValueError`` (as JAX);
-    on CUDA tensors a bare row function raises naming S4.6."""
+    on CUDA tensors a bare row function, gated, reaches an instantiation
+    generated from it in the additive mode with terminal rows and Rd per
+    stage (the build is stopped here)."""
     mhe, step, rows = _port()
     x0, us, ys, _ = _data(step)
     free = NonlinearMHE(step, lambda x: x[:2], t(QW), t(RV), t(P0), M, nx=4)
@@ -163,6 +165,20 @@ def test_fused_windows_refuse_what_the_kernel_does_not_take(monkeypatch):
     with pytest.raises(ValueError, match="diagonal Qw"):
         full.solve_batch_fused(t(x0), t(us), t(ys), ode_rows=rows, ts=TS, obs_indices=(0, 1))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    with pytest.raises(NotImplementedError, match="ROADMAP S4.6"):
+
+    class Reached(Exception):
+        pass
+
+    seen = []
+
+    def generated(inst, group):
+        seen.append(inst)
+        raise Reached
+
+    monkeypatch.setattr(F, "_generated_library", generated)
+    with pytest.raises(Reached):
         mhe.solve_batch_fused(t(x0), t(us), t(ys), ode_rows=rows.rows, ts=TS, obs_indices=(0, 1))
+    (inst,) = seen
+    assert "ADD = true" in inst.model and "NEXO = 3" in inst.model
+    assert inst.tbox and inst.rw and inst.rk4 and not inst.ubox and not inst.rows
     assert F.instantiation(_gated_ode_rows(rows, 2)) == "gated_kinematic"

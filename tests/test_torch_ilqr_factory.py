@@ -403,27 +403,48 @@ def test_racing_sweep_dynamic_resolves_a_group_that_fits(monkeypatch, tile, grou
 
 
 def test_unbuilt_combinations_raise_before_the_build(monkeypatch):
-    """On the card a solve no library holds raises ``NotImplementedError``
-    before any build and counts no launch: a multiplier warm start or
-    terminal rows on the racing library's instantiations, per-lane weights
-    on a model without such an instantiation (the twin takes all of them).
-    The kinematic model with per-lane weights has one (``kinematic_wrt``,
-    the tuning layer's fused forward) and passes the check."""
+    """On the card a solve no hand-written instantiation holds goes to the
+    generated route before any hand library is built: a multiplier warm
+    start or terminal rows on the racing library's instantiations, per-lane
+    weights on a model without such an instantiation (the twin takes all of
+    them) each reach an instantiation generated from the rows, with the
+    solve's properties (the build is stopped here, so no launch is
+    counted). The kinematic model with per-lane weights has a hand one
+    (``kinematic_wrt``, the tuning layer's fused forward)."""
+
+    class Reached(Exception):
+        pass
+
+    seen = []
+
+    def generated(inst, group):
+        seen.append((inst, group))
+        raise Reached
+
     monkeypatch.setattr(F, "_build_library", lambda *a, **k: pytest.fail("built a library"))
+    monkeypatch.setattr(F, "_generated_library", generated)
     x0, u0, refs, par = (torch.as_tensor(a) for a in _inputs(4, 5))
     args = F.prepare_tiles(x0, u0, refs, par, tile=4)
     kw = {k: v for k, v in _config(5, 4, 1, 1).items() if k not in ("n_params", "viol_tol")}
     kw.update(ode_rows=make_parking_ode_rows(KB, LR), mu_init=10.0, mu_scale=10.0, mu_max=1e8,
               viol_tol=1e-4, tol=1e-6)
     before = F.LAUNCHES
-    with pytest.raises(NotImplementedError, match="warm start"):
+    with pytest.raises(Reached):
         F._launch(*args, lam0=torch.zeros(5, 12, 4), **kw)
-    with pytest.raises(NotImplementedError, match="terminal rows"):
+    with pytest.raises(Reached):
         F._launch(*args, terminal_state_limits=X_LIMS, **kw)
     cartpole_named = dataclasses.replace(kw["ode_rows"], kernel="cartpole")
-    with pytest.raises(NotImplementedError, match="no instantiation 'cartpole_wrt'"):
+    with pytest.raises(Reached):
         F._launch(*args, **{**kw, "weights": None, "ode_rows": cartpole_named},
                   wrt=torch.ones(7, 4))
     assert F.LAUNCHES == before
-    assert F._refuse_unbuilt("kinematic_wrt", kw["ode_rows"], "euler", U_LIMS, None, (), "ode",
-                             None, None) is None
+    (warm, g1), (term, g2), (wrt, g3) = seen
+    assert g1 == g2 == g3 == 1
+    assert not warm.tbox and term.tbox and not wrt.tbox
+    assert wrt.wrt and not warm.wrt and not term.wrt
+    assert all(i.ubox and not i.rk4 and not i.rw and i.order == 0 for i in (warm, term, wrt))
+    assert "NX = 4, NU = 2, NP = 2" in warm.model
+    assert F._hand_built("kinematic_wrt", kw["ode_rows"], "euler", U_LIMS, None, (), "ode",
+                         None, None)
+    assert not F._hand_built("kinematic", kw["ode_rows"], "euler", U_LIMS, None, (), "ode",
+                             None, None, lam0=torch.zeros(1))

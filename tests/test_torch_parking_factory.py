@@ -195,10 +195,22 @@ def test_parking_sweep_factory_entry_point():
 
 
 def test_factory_solve_refuses_on_the_card_what_no_library_holds(monkeypatch):
-    """On CUDA tensors an instantiation no library holds raises before any
-    build (here: two circles), and a bare row function raises naming S4.6;
-    neither counts a launch."""
+    """On CUDA tensors a solve no hand-written instantiation holds (here:
+    two circles, and the nine under RK4) goes to an instantiation generated
+    from its rows, with the solve's properties, before any hand library is
+    built; the build is stopped here, so neither counts a launch."""
+
+    class Reached(Exception):
+        pass
+
+    seen = []
+
+    def generated(inst, group):
+        seen.append(inst)
+        raise Reached
+
     monkeypatch.setattr(F, "_build_library", lambda *a, **k: pytest.fail("built a library"))
+    monkeypatch.setattr(F, "_generated_library", generated)
     geom, limits = parking_geometry(port.VehicleParameters(), X_OBS, n_circles=3)
     kb, lr, ox, r2, obs = geom
     x0, u0, _, par = F.prepare_tiles(torch.zeros(4, 4), torch.zeros(4, N, 2), None,
@@ -210,9 +222,13 @@ def test_factory_solve_refuses_on_the_card_what_no_library_holds(monkeypatch):
               extra_constraints=make_clearance_rows(tuple(ox[:2]), r2, tuple(obs[:2])),
               n_extra=4, extra_deps=(0, 1, 2))
     before = F.LAUNCHES
-    with pytest.raises(NotImplementedError, match="no instantiation"):
+    with pytest.raises(Reached):
         F._launch(x0, u0, None, par, **kw)
-    with pytest.raises(NotImplementedError, match="built with"):
+    with pytest.raises(Reached):
         F._launch(x0, u0, None, par, **{**kw, "extra_constraints": make_clearance_rows(
             tuple(ox), r2, tuple(obs)), "n_extra": 9, "integrator": "rk4"})
     assert F.LAUNCHES == before
+    two, rk4 = seen
+    assert "NEXTRA = 4, NE = 3" in two.rows and "NEXTRA = 9, NE = 3" in rk4.rows
+    assert "k == 0 ? 0 : k == 1 ? 1 : k == 2 ? 2 : -1" in two.rows
+    assert not two.rk4 and rk4.rk4 and two.order == rk4.order == 2 and two.ubox
