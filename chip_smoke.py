@@ -91,7 +91,17 @@ kernel, and times it:
   through the wrapper), beside the batched plain-torch solver (with CUDA
   events around every launch of one loop, a profiled window, the loop per
   tile × group, the placements of the working set and a profile of the
-  plain-torch solver, all informational).
+  plain-torch solver, all informational);
+- the scale-out layer (``parallel/``): the headline through
+  ``batched_policy(mesh=)`` on a world-1 NCCL mesh, bit for bit with the
+  unsharded episode and both walls timed in turns; ``admm_solve_tp`` at
+  model 1 against ``admm_solve`` at a fixed ρ (float64); two spawned ranks
+  sharing the card (gloo, CUDA tensors staged through the host for its
+  collectives; non-performance): K1 on 2 × 32,768 headline scenarios and
+  K2's parking sweep on 2 × 1,024 × 10 steps, each bit for bit with the
+  unsharded launches and its launches counted a rank; ``podscale
+  --scaling`` through ``cli.main`` at the card's count; the multi-rank dry
+  run (``parallel/dryrun.py``) on NCCL ranks, one a card.
 
 Each kernel's line of the ``kernels`` object carries its time beside its
 bound: the least time the card could take for the same work, the larger of
@@ -135,7 +145,9 @@ held bit for bit against its twin and the bare function against the hand
 (counted), timed alone with its bound and nvcc's seconds, then the command
 line in process (``cli.main``: session2, ``sweep --backend factory``,
 quadsweep, tune, estimate) with its gates; the full run ends with the same
-phases. ``python3 chip_smoke.py --tracker-launches DIR`` times the
+phases. ``python3 chip_smoke.py --scaleout-phases`` runs the scale-out
+phases alone (the kernel builds they launch, then those phases).
+``python3 chip_smoke.py --tracker-launches DIR`` times the
 racing tiers' warm tracker launch alone for the port found under ``DIR``.
 """
 
@@ -368,11 +380,8 @@ WIDE_RHO = 0.02
 WIDE_SLACK_WEIGHT = 1e4
 WIDE_COLS = -(-(3 * WIDE_N + 7 * WIDE_N) // 32)  # the wide library's columns a lane
 MHE_COLS = -(-(2 + 2 * 10 + 2 + 2 * 10) // 16)  # the MHE windows' library (M = 10)
+DRYRUN_COLS = 1  # the dry run's QP (N=4: n + m = 16)
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet): FP32 outside the
-# tensor cores, and the HBM rate. A card below 700 W runs under them.
-PEAK_FP32 = 67e12  # FLOP/s
-PEAK_HBM = 3.35e12  # B/s
 # FP32 operations (a transcendental counted as one) that the algorithm needs
 # per stage and executed iteration, counted by hand. A step Jacobian by
 # dual numbers is charged its tangents only, two operations per operation of
@@ -410,12 +419,15 @@ def bound(torch, flops: float, tensors) -> dict:
     (operands and results, each moved once) over the memory rate. ``flops``
     is the algorithm's minimum for this run's executed iterations (every
     intermediate computed once), whatever the kernel's source spends. No single
-    PyTorch call computes any of these fused solves: ``library_ms`` is null."""
+    PyTorch call computes any of these fused solves: ``library_ms`` is null.
+    The peaks are the H100's of :mod:`model_predictive_control_tpu_torch.obs.roofline`."""
+    from model_predictive_control_tpu_torch.obs.roofline import FP32_PEAK, HBM_BW_PEAK
+
     nbytes = sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t))
-    t_ops, t_bytes = 1e3 * flops / PEAK_FP32, 1e3 * nbytes / PEAK_HBM
+    t_ops, t_bytes = 1e3 * flops / FP32_PEAK, 1e3 * nbytes / HBM_BW_PEAK
     by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"bound: {flops:.4g} FP32 operations ({t_ops:.5f} ms at {PEAK_FP32:.3g}/s), "
-          f"{nbytes:.4g} bytes ({t_bytes:.5f} ms at {PEAK_HBM:.3g} B/s): {by}", flush=True)
+    print(f"bound: {flops:.4g} FP32 operations ({t_ops:.5f} ms at {FP32_PEAK:.3g}/s), "
+          f"{nbytes:.4g} bytes ({t_bytes:.5f} ms at {HBM_BW_PEAK:.3g} B/s): {by}", flush=True)
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": by, "library_ms": None}
 
 
@@ -634,6 +646,18 @@ def main() -> int:
         phase(None)
         return 0
 
+    if sys.argv[1:2] == ["--scaleout-phases"]:
+        # the scale-out layer alone, on the kernel builds its paths launch
+        print(card, flush=True)
+        build_all([(K.library_name(ADMM_COLS), lambda: K._build_library(ADMM_COLS)),
+                   (K.library_name(DRYRUN_COLS), lambda: K._build_library(DRYRUN_COLS)),
+                   (KI.library_name(KI.DEFAULT_GROUP), lambda: KI._build_library(KI.DEFAULT_GROUP)),
+                   (KF.library_name(KF.DEFAULT_GROUP["kinematic"]),
+                    lambda: KF._build_library(KF.DEFAULT_GROUP["kinematic"]))])
+        scaleout_phases(torch, port, K, KI, card, device)
+        phase(None)
+        return 0
+
     if sys.argv[1:2] == ["--user-model-phases"]:
         # user models on the card (the instantiations generated from row
         # functions, and the hand kinematic one they are compared with)
@@ -667,6 +691,7 @@ def main() -> int:
         (K.library_name(ADMM_COLS), lambda: K._build_library(ADMM_COLS)),
         (K.library_name(MHE_COLS), lambda: K._build_library(MHE_COLS)),
         (K.library_name(WIDE_COLS, 32), lambda: K._build_library(WIDE_COLS, 32)),
+        (K.library_name(DRYRUN_COLS), lambda: K._build_library(DRYRUN_COLS)),
         *((KI.library_name(g), lambda g=g: KI._build_library(g)) for g in PARK_GROUPS),
         *((KF.library_name(g), lambda g=g: KF._build_library(g)) for g in RACE_GROUPS),
         *((KF.library_name(g, True), lambda g=g: KF._build_library(g, True))
@@ -686,6 +711,7 @@ def main() -> int:
     stagewise = stagewise_phases(torch, port, KR, card, device)
     user = user_model_phases(torch, port, KF, card, device)
     cli_phases(torch, card)
+    scaleout_phases(torch, port, K, KI, card, device)
     kernels = [admm, *family, ilqr, modes, *racing, *bench, *factory, *differentiable, stagewise,
                *user]
     phase(None)
@@ -738,19 +764,27 @@ def headline(torch, port, K, device):
     ``episode(x0, backend="cuda", steps=STEPS, tile=None)``, the closed loop
     through the public entry points only (the same in every version of the
     port, so that two versions time alike): the compaction sort, the 2×
-    presolve, ``steps`` warm steps."""
+    presolve, ``steps`` warm steps; with ``mesh``, the policy's mesh path,
+    each rank presolving and solving its data slice."""
     problem = port.session2_problem(N=HORIZON)
     ctrl = port.make_linear_mpc(
         problem, iters=ADMM_ITERS, rho=RHO, dtype=torch.float32, device=device
     )
     system = problem.system(torch.float32, device)
 
-    def episode(x0, backend="cuda", steps=STEPS, tile=None):
+    def episode(x0, backend="cuda", steps=STEPS, tile=None, mesh=None):
         tile = tile or K.DEFAULT_TILE
         x0 = x0[torch.argsort(port.boundary_compaction_key(problem.p_max, x0), stable=True)]
-        carry = ctrl.presolve_batch_carry(x0, iters_mult=PRESOLVE_MULT, backend=backend, tile=tile)
+        rows = x0
+        if mesh is not None:  # each rank presolves its own rows, which its policy keeps
+            from model_predictive_control_tpu_torch.parallel.mesh import shard_rows
+
+            rows = shard_rows(mesh, x0)
+        carry = ctrl.presolve_batch_carry(rows, iters_mult=PRESOLVE_MULT, backend=backend,
+                                          tile=tile)
         policy = ctrl.batched_policy(
             backend=backend, tile=tile, max_rho_moves=0, polish=False, probe_iters=PROBE_ITERS,
+            mesh=mesh,
         )
         return port.simulate_batch(x0, system, steps, policy, carry, batched_dynamics=True)
 
@@ -3382,6 +3416,181 @@ def stagewise_phases(torch, port, K, card, device) -> dict:
         "plain_ms": twin_ms,
         **roof,
     }
+
+
+
+# the scale-out phases: the world-1 NCCL mesh, two ranks on one card, the
+# weak-scaling ladder and the dry run
+MESH_ROUNDS = 5  # timed rounds of each episode, plain and mesh in turns
+TP_SCENARIOS = 256  # the tensor-parallel check at model 1, float64
+TP_ITERS = 400
+TOL_TP = 5e-8  # tests/test_tensor_parallel.py's bar
+TWO_RANK_PARK = (2048, 10)  # parking sweep: global batch, steps
+SCALING_GATES = {"non_performance": False, "success_rate": 0.99}
+
+
+def same(torch, a, b) -> bool:
+    """Bit for bit: equal shapes, dtypes and bytes (signed zeros and NaNs
+    alike)."""
+    raw = lambda t: t.contiguous().flatten().view(torch.uint8)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(raw(a), raw(b))
+
+
+def same_result(torch, a, b) -> bool:
+    """Two ``BatchSimResult``s bit for bit: states, inputs and every log."""
+    return (same(torch, a.states, b.states) and same(torch, a.inputs, b.inputs)
+            and a.logs.keys() == b.logs.keys()
+            and all(same(torch, a.logs[k], b.logs[k]) for k in a.logs))
+
+
+def two_rank_program(out_dir: str, device: str = "cuda") -> None:
+    """One of two ranks on one card (gloo, CUDA tensors): the headline episode
+    through the mesh policy (each rank 32,768 scenarios) and the parking
+    sweep on a mesh, each with its launches counted; rank 0 then runs both
+    unsharded and writes the comparison to ``out_dir/two_ranks.json``."""
+    import torch
+    import torch.distributed as dist
+
+    import model_predictive_control_tpu_torch as port
+    from model_predictive_control_tpu_torch.ops.cuda import admm_kernel as K
+    from model_predictive_control_tpu_torch.ops.cuda import ilqr_kernel as KI
+    from model_predictive_control_tpu_torch.parallel import make_mesh
+
+    device = torch.device(device)
+    mesh = make_mesh(2, device=device)
+    _, _, _, episode = headline(torch, port, K, device)
+    x0 = initial_states(torch, device)
+    t0 = time.perf_counter()
+    K.LAUNCHES = 0
+    meshed = episode(x0, mesh=mesh)
+    k1 = K.LAUNCHES
+    KI.LAUNCHES = 0
+    park, park_summary = port.parking_sweep(*TWO_RANK_PARK, mesh=mesh, device=device)
+    k2 = KI.LAUNCHES
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, {"k1": k1, "k2": k2, "seconds": seconds})
+    if dist.get_rank() == 0:
+        plain = episode(x0)
+        plain_park, plain_summary = port.parking_sweep(*TWO_RANK_PARK, device=device)
+        with open(os.path.join(out_dir, "two_ranks.json"), "w") as f:
+            json.dump({
+                "ranks": counts,
+                "k1_bit_for_bit": same_result(torch, meshed, plain),
+                "k2_bit_for_bit": same_result(torch, park, plain_park),
+                "k2_summary_equal": park_summary == plain_summary,
+                "k1_success": meshed.logs["solver_success"].float().mean().item(),
+                "k2_summary": park_summary,
+            }, f)
+    dist.barrier()
+
+
+def scaleout_phases(torch, port, K, KI, card, device) -> None:
+    """The scale-out layer on the card: the headline through
+    ``batched_policy(mesh=)`` on a world-1 NCCL mesh, bit for bit with the
+    unsharded episode, both walls timed; ``admm_solve_tp`` at model 1 against
+    ``admm_solve`` at a fixed ρ; two spawned ranks sharing the card (gloo,
+    CUDA tensors staged through the host for its collectives): K1 on 2 ×
+    32,768 headline scenarios and K2's parking sweep on 2 × 1,024, each bit
+    for bit with the unsharded launches (non-performance); ``podscale
+    --scaling`` through ``cli.main`` at the card's count; the dry run at the
+    card's count. Every path's launches are counted; any failure stops the
+    script."""
+    import io
+    import tempfile
+
+    import torch.distributed as dist
+
+    from model_predictive_control_tpu_torch import cli
+    from model_predictive_control_tpu_torch.parallel import admm_solve_tp, make_mesh
+    from model_predictive_control_tpu_torch.parallel.dryrun import dryrun_multichip, run_ranks
+    from model_predictive_control_tpu_torch.solvers.qp import admm_solve
+
+    phase(f"mesh: the headline ({BATCH} x {STEPS}) through batched_policy(mesh=) on a world-1 "
+          "NCCL mesh, and admm_solve_tp at model 1")
+    mesh = make_mesh(1, device=device)
+    try:
+        print(f"process group backend {dist.get_backend()}, mesh {mesh}", flush=True)
+        _, _, _, episode = headline(torch, port, K, device)
+        x0 = initial_states(torch, device)
+        episode(x0), episode(x0, mesh=mesh)  # warm-up
+        K.LAUNCHES = 0
+        meshed = episode(x0, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = K.LAUNCHES
+        plain = episode(x0)
+        equal = same_result(torch, meshed, plain)
+        print(f"mesh episode: {launches} ADMM kernel launches (expected {STEPS + 1}); states, "
+              f"inputs and logs {'bit for bit' if equal else 'DIFFER'} against the unsharded "
+              f"episode; success {meshed.logs['solver_success'].float().mean().item():.5f}",
+              flush=True)
+        if launches != STEPS + 1 or not equal:
+            raise SystemExit("the mesh headline is not the unsharded episode")
+        del meshed, plain
+        walls = {"plain": [], "mesh": []}
+        for _ in range(MESH_ROUNDS):
+            for name in ("plain", "mesh", "mesh", "plain"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                episode(x0, mesh=mesh if name == "mesh" else None)
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t0)
+        best = {k: min(v) for k, v in walls.items()}
+        print(f"headline wall, best of {2 * MESH_ROUNDS} in turns (plain, mesh, mesh, plain): "
+              f"unsharded {best['plain']:.4f} s, world-1 mesh {best['mesh']:.4f} s "
+              f"({100.0 * (best['mesh'] / best['plain'] - 1.0):+.2f}%); all: "
+              f"{json.dumps({k: [round(t, 4) for t in v] for k, v in walls.items()})} [{card}]",
+              flush=True)
+
+        ctrl64 = port.make_linear_mpc(port.session2_problem(N=HORIZON), iters=ADMM_ITERS,
+                                      dtype=torch.float64, device=device)
+        q, l, u = ctrl64.qp.qp_vectors(x0[:TP_SCENARIOS].double())
+        tp = admm_solve_tp(ctrl64.op, q, l, u, mesh=mesh, iters=TP_ITERS)
+        ref = admm_solve(ctrl64.op, q, l, u, iters=TP_ITERS, adapt_chunks=1)
+        err = (tp.x - ref.x).abs().max().item()
+        conv_equal = torch.equal(tp.converged, ref.converged)
+        print(f"admm_solve_tp (model 1, NCCL, {TP_ITERS} iterations, float64, "
+              f"{TP_SCENARIOS} scenarios) vs admm_solve at fixed rho: max|dx| {err:.3e} "
+              f"(tol {TOL_TP:.0e}), converged masks {'equal' if conv_equal else 'DIFFER'} "
+              f"({tp.converged.float().mean().item():.4f})", flush=True)
+        if not err <= TOL_TP or not conv_equal:
+            raise SystemExit("admm_solve_tp disagrees with admm_solve")
+    finally:
+        dist.destroy_process_group()
+
+    phase("two ranks on one card (gloo, CUDA tensors; non-performance)")
+    with tempfile.TemporaryDirectory() as tmp:
+        run_ranks(two_rank_program, 2, args=(tmp, device.type), device=device, backend="gloo",
+                  timeout_s=300)
+        with open(os.path.join(tmp, "two_ranks.json")) as f:
+            report = json.load(f)
+    print(f"two ranks: {json.dumps(report)} [{card}]", flush=True)
+    want = [{"k1": STEPS + 1, "k2": TWO_RANK_PARK[1]}] * 2
+    got = [{k: r[k] for k in ("k1", "k2")} for r in report["ranks"]]
+    if got != want or not (report["k1_bit_for_bit"] and report["k2_bit_for_bit"]
+                           and report["k2_summary_equal"]):
+        raise SystemExit(f"two ranks on one card: launches {got} (expected {want}) or results "
+                         "differ from the unsharded launches")
+
+    phase(f"podscale --scaling through cli.main at the card's count "
+          f"({torch.cuda.device_count()})")
+    out = io.StringIO()
+    K.LAUNCHES = 0
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["podscale", "--scaling"])
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"cli podscale --scaling: exit {rc}, {K.LAUNCHES} ADMM kernel launches, "
+          f"{json.dumps(report)} [{card}]", flush=True)
+    point = report["points"][0]
+    if (rc != 0 or K.LAUNCHES == 0 or dist.is_initialized()
+            or report["non_performance"] != SCALING_GATES["non_performance"]
+            or point["success_rate"] < SCALING_GATES["success_rate"]):
+        raise SystemExit(f"podscale --scaling failed its gates {SCALING_GATES}")
+
+    phase(f"dryrun_multichip at the card's count ({torch.cuda.device_count()}, NCCL)")
+    dryrun_multichip(torch.cuda.device_count(), device=device)
 
 
 if __name__ == "__main__":

@@ -16,15 +16,22 @@ defaults and the keys of the JSON summary it prints last:
   estimate             output-feedback MPC on noisy measurements (KF)
   race                 lap tracking via NMPC (``--wind``: the crosswind demo)
   robust               nominal vs tube vs stochastic vs offset-free demo
-  podscale             batched closed-loop throughput
+  podscale             batched closed-loop throughput (``--scaling``: the
+                       weak-scaling ladder over the ranks)
 
 ``--device`` (default ``cuda``) is where a command runs; the JAX package's
 ``--platform`` is taken too (``cpu``, or ``gpu`` for the card). Backends
 take the port's names (``cuda``, ``twin``, ``torch``, ``factory``); the JAX
 package's ``pallas`` is ``cuda``, its ``pallas-hand`` the parking kernel's
 tracking mode, and its ``xla`` (the per-scenario route) is refused by the
-sweeps, naming ``torch``, as they refuse it. The sweeps run on one device:
-device meshes, and ``podscale --scaling``, are ROADMAP S7.1.
+sweeps, naming ``torch``, as they refuse it.
+
+Launched on G devices, one process each (``torchrun --nproc-per-node=G -m
+model_predictive_control_tpu_torch.cli <command>``; NCCL on the card, gloo
+with ``--device cpu``), the sweeps and ``podscale`` split their scenario
+batch over the mesh of all ranks (:func:`.parallel.distributed.global_mesh`),
+as the JAX package's command line takes a mesh over all devices; rank 0
+prints the summary, computed on the gathered batch.
 """
 
 from __future__ import annotations
@@ -249,7 +256,9 @@ def main(argv=None) -> int:
     pp.add_argument("--iters", type=int, default=100)
     pp.add_argument(
         "--scaling", action="store_true",
-        help="weak-scaling ladder over the devices (not ported yet: ROADMAP S7.1)",
+        help="weak-scaling ladder over the ranks (solves/s per device and the "
+        "efficiency against one; where ranks share a device or run on the CPU the "
+        "report is labelled non_performance)",
     )
     pp.add_argument(
         "--backend", choices=("pallas", "xla", "cuda", "twin"), default="pallas",
@@ -260,8 +269,20 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
     device = _device(args)
-    summary = _run(args, device)
-    print(json.dumps(summary))
+    import torch.distributed as dist
+
+    from .parallel.distributed import global_mesh, initialize
+
+    owned = not dist.is_initialized()  # a group this call starts, it ends
+    multi = initialize(device=device)
+    try:
+        mesh = global_mesh(device=device) if multi else None
+        summary = _run(args, device, mesh)
+        if not multi or dist.get_rank() == 0:
+            print(json.dumps(summary))
+    finally:
+        if multi and owned:
+            dist.destroy_process_group()
     return 0
 
 
@@ -298,7 +319,7 @@ def _timed(sweep_fn, batch: int, steps: int, kw: dict):
     return summary
 
 
-def _run(args, device) -> dict:
+def _run(args, device, mesh=None) -> dict:
     if args.cmd == "session1":
         from .experiments import session1
 
@@ -376,22 +397,25 @@ def _run(args, device) -> dict:
             # the dynamic tier has no hand-kernel mode: pallas-hand is its kernel
             be = "pallas" if args.backend == "pallas-hand" else args.backend
             kw = dict(batch=args.batch, steps=args.steps, N=args.horizon,
-                      rel_scale=min(args.rel_scale, 0.05), backend=_backend(be), device=device)
+                      rel_scale=min(args.rel_scale, 0.05), backend=_backend(be), mesh=mesh,
+                      device=device)
             return _timed(racing_sweep_dynamic, args.batch, args.steps, kw)
         kw = dict(batch=args.batch, steps=args.steps, N=args.horizon, speed=args.speed,
-                  rel_scale=args.rel_scale, backend=_backend(args.backend), device=device)
+                  rel_scale=args.rel_scale, backend=_backend(args.backend), mesh=mesh,
+                  device=device)
         return _timed(racing_sweep, args.batch, args.steps, kw)
     if args.cmd in ("quadsweep", "thrustersweep"):
         from .parallel.batch import quadrotor_sweep, thruster_sweep
 
         sweep = quadrotor_sweep if args.cmd == "quadsweep" else thruster_sweep
-        kw = dict(batch=args.batch, steps=args.steps, rel_scale=args.rel_scale, device=device)
+        kw = dict(batch=args.batch, steps=args.steps, rel_scale=args.rel_scale, mesh=mesh,
+                  device=device)
         return _timed(sweep, args.batch, args.steps, kw)
     if args.cmd == "windsweep":
         from .parallel.batch import wind_sweep
 
         kw = dict(batch=args.batch, steps=args.steps, wind=args.wind,
-                  compensate=not args.nominal, device=device)
+                  compensate=not args.nominal, mesh=mesh, device=device)
         return _timed(wind_sweep, args.batch, args.steps, kw)
     if args.cmd == "sweep":
         import torch
@@ -400,7 +424,8 @@ def _run(args, device) -> dict:
 
         kw = dict(batch=args.batch, steps=args.steps, N=args.horizon, rel_scale=args.rel_scale,
                   controller_knows=args.controller_knows, solver=args.solver,
-                  backend=_backend(args.backend), sqp_iters=args.sqp_iters, device=device)
+                  backend=_backend(args.backend), sqp_iters=args.sqp_iters, mesh=mesh,
+                  device=device)
         from .obs.metrics import Timer
 
         with Timer() as t:
@@ -417,38 +442,43 @@ def _run(args, device) -> dict:
         summary["solves_per_s_steady"] = round(args.batch * args.steps / t2.elapsed, 1)
         return summary
     if args.cmd == "podscale":
-        return _podscale(args, device)
+        return _podscale(args, device, mesh)
     raise ValueError(f"unknown command {args.cmd}")
 
 
-def _podscale(args, device) -> dict:
-    """Batched closed-loop throughput of the session-2 MPC on one device
-    (the JAX package's ``podscale`` at configurable scale)."""
+def _podscale(args, device, mesh=None) -> dict:
+    """Batched closed-loop throughput of the session-2 MPC over the mesh's
+    data axis (one device without a mesh): the JAX package's ``podscale`` at
+    configurable scale; ``--scaling``: :func:`.parallel.podscale.weak_scaling`
+    at ``--batch`` scenarios per rank."""
     import torch
 
-    if args.scaling:
-        raise NotImplementedError(
-            "podscale --scaling (the weak-scaling ladder over devices) is not ported yet: "
-            "ROADMAP S7.1")
     from .control.batch_loop import simulate_batch
     from .obs.metrics import Timer
+    from .parallel.mesh import gather_rows, shard_rows
+    from .parallel.podscale import headline_starts, weak_scaling
     from .solvers.linear_mpc import make_linear_mpc, session2_problem
 
     backend = _backend(args.backend)
+    if args.scaling:
+        return weak_scaling(batch_per_device=args.batch, steps=args.steps, horizon=args.horizon,
+                            iters=args.iters, device=device)
     problem = session2_problem(N=args.horizon)
     ctrl = make_linear_mpc(problem, solver="admm", iters=args.iters, dtype=torch.float32,
                            device=device)
     system = problem.system(torch.float32, device)
     policy = ctrl.batched_policy(backend=backend)
-    B = args.batch
-    g = torch.Generator().manual_seed(0)
-    x0s = torch.stack([-140.0 + 120.0 * torch.rand(B, generator=g),
-                       -15.0 + 39.0 * torch.rand(B, generator=g)], dim=1).to(device)
+    n_dev = 1 if mesh is None else mesh.shape[0]
+    B = (args.batch // n_dev) * n_dev
+    x0s = headline_starts(B, device=device)
+    if mesh is not None:
+        x0s = shard_rows(mesh, x0s)
 
     def run_batch(x0s):
         carry = ctrl.presolve_batch_carry(x0s, iters_mult=4, backend=backend)
         res = simulate_batch(x0s, system, args.steps, policy, carry, batched_dynamics=True)
-        return res.states[-1], res.logs["solver_success"]
+        out = res.states[-1], res.logs["solver_success"]
+        return out if mesh is None else (gather_rows(mesh, out[0]), gather_rows(mesh, out[1], 1))
 
     out = run_batch(x0s)  # warm-up: the kernel's build and first launch
     with Timer() as t:
@@ -459,7 +489,7 @@ def _podscale(args, device) -> dict:
         "metric": "closed_loop_mpc_solves_per_s",
         "batch": B,
         "steps": args.steps,
-        "devices": 1,
+        "devices": n_dev,
         "backend": args.backend,
         "solves_per_s": round(B * args.steps / t.elapsed, 1),
         "success_rate": round(success.float().mean().item(), 4),

@@ -1,10 +1,17 @@
 """Observability: metrics and JSONL logging, wall-clock timing fenced on the
-device, ``torch.profiler`` traces, and checkpoint/resume of long batch
-sweeps (port of the JAX package's ``obs/`` but ``roofline.py``)."""
+device, ``torch.profiler`` traces, checkpoint/resume of long batch sweeps,
+and the kernels' roofline at the H100's peaks (port of the JAX package's
+``obs/``)."""
 
 from .checkpoint import load_sweep_state, save_sweep_state
 from .metrics import MetricsLogger, Timer, summarize_run
 from .profiling import profile_trace
+from .roofline import (
+    KernelRoofline,
+    admm_kernel_roofline,
+    al_ilqr_dyn_kernel_roofline,
+    al_ilqr_kernel_roofline,
+)
 
 __all__ = [
     "MetricsLogger",
@@ -13,4 +20,8 @@ __all__ = [
     "save_sweep_state",
     "load_sweep_state",
     "profile_trace",
+    "KernelRoofline",
+    "admm_kernel_roofline",
+    "al_ilqr_kernel_roofline",
+    "al_ilqr_dyn_kernel_roofline",
 ]

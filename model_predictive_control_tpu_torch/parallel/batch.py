@@ -21,6 +21,15 @@ A sweep is a Python loop over closed-loop steps
 launch for the whole batch, then one fine-RK4 plant step in plain torch.
 Random draws come from an explicit ``torch.Generator`` made on the CPU, so a
 seed gives the same scenarios on every device.
+
+With a device mesh (``mesh=``, :mod:`.mesh`), every rank draws the same
+global batch from the same generator (and sorts it, where a sweep compacts
+it), takes its data slice, runs the whole closed loop on it on its own
+device, with no collective in the loop, and the result is gathered over the
+data axis: every rank returns the global ``BatchSimResult``, and the summary
+is computed on it. A batched policy given ``mesh`` takes the global batch,
+solves this rank's rows, and returns ``u0`` and its logs gathered
+(:func:`.mesh.shard_policy`).
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ from ..solvers.parking import (
 )
 from ..solvers.sqp import sqp_solve
 from ..utils.device import resolve_device
+from .mesh import gather_result, gather_rows, shard_fields, shard_policy, shard_rows
 
 # fields whose perturbation is physically meaningful for the kinematic model
 DEFAULT_PERTURB_FIELDS = ("friction", "acceleration")
@@ -224,7 +234,11 @@ def batched_parking_policy(
     another dtype than float32 or a perturbed field other than acceleration
     and friction: the kernel backends raise ``ValueError`` for them. Its
     carry is ``u_warm``; its problems are built on the device of the first
-    states it is given. Device meshes raise ``NotImplementedError``.
+    states it is given.
+
+    ``mesh``: the policy takes the global batch on every rank and solves
+    this rank's data slice (per-scenario ``model_params`` fields cut
+    alongside), :func:`.mesh.shard_policy`.
     """
     if solver not in ("ilqr", "sqp"):
         raise ValueError(f"unknown solver {solver!r}")
@@ -233,7 +247,9 @@ def batched_parking_policy(
     if backend not in ("cuda", "twin", "torch", "factory"):
         raise ValueError(f"unknown backend {backend!r}")
     if mesh is not None:
-        raise NotImplementedError("device meshes are not ported yet: ROADMAP S7.1")
+        return shard_policy(batched_parking_policy(
+            shard_fields(mesh, model_params), N, ts, x_obs, Q, R, qn_scale, sqp_iters, qp_iters,
+            solver, outer_iters, inner_iters, mu_init, backend, tile, group, None, dtype), mesh)
     if solver == "sqp" or backend == "torch":
         return _per_scenario_parking_policy(
             model_params, N, ts, x_obs, Q, R, qn_scale, sqp_iters, qp_iters, solver,
@@ -367,7 +383,9 @@ def parking_sweep(
     bit where an uninterrupted one ends).
 
     Returns ``(BatchSimResult, summary)`` with the JAX package's summary
-    keys (``mean_inner_iters`` on the kernel route).
+    keys (``mean_inner_iters`` on the kernel route). With ``mesh`` each rank
+    runs its data slice (module docstring); a checkpoint is written per rank,
+    at ``checkpoint_path`` with ``.rank<r>`` appended.
     """
     device = resolve_device(device)
     if generator is None:
@@ -377,23 +395,32 @@ def parking_sweep(
         generator, base, batch, rel_scale=rel_scale, fields=perturb_fields,
         dtype=dtype, device=device,
     )
-    model_params = plant_params if controller_knows else base
     x0s = random_initial_states(generator, batch, x_obs=x_obs, dtype=dtype, device=device)
+    seed = None
+    if u_seed is not None:
+        seed = torch.as_tensor(u_seed, dtype=dtype, device=device).reshape(batch, N * NU)
+    if mesh is not None:
+        plant_params, x0s = shard_fields(mesh, plant_params), shard_rows(mesh, x0s)
+        seed = None if seed is None else shard_rows(mesh, seed)
+        if checkpoint_path is not None:
+            checkpoint_path = f"{checkpoint_path}.rank{torch.distributed.get_rank()}"
+    model_params = plant_params if controller_knows else base
     policy = batched_parking_policy(
         model_params, N=N, ts=ts, x_obs=x_obs, sqp_iters=sqp_iters,
         qp_iters=qp_iters, solver=solver, outer_iters=outer_iters,
         inner_iters=inner_iters, mu_init=mu_init, backend=backend, tile=tile,
-        group=group, mesh=mesh, dtype=dtype,
+        group=group, dtype=dtype,
     )
     plant = batched_plant(plant_params, ts, substeps=plant_substeps)
-    carry0 = policy.initial_carry(batch, device)
-    if u_seed is not None:
-        seed = torch.as_tensor(u_seed, dtype=dtype, device=device).reshape(batch, N * NU)
+    carry0 = policy.initial_carry(x0s.shape[0], device)
+    if seed is not None:
         carry0 = (seed, *carry0[1:]) if isinstance(carry0, tuple) else seed
     if checkpoint_every <= 0:
         res = simulate_batch(x0s, plant, steps, policy, carry0, batched_dynamics=True)
     else:
         res = _segmented(x0s, plant, steps, policy, carry0, checkpoint_path, checkpoint_every)
+    if mesh is not None:
+        res = gather_result(mesh, res)
 
     success = res.logs["solver_success"]
     dist = torch.linalg.vector_norm(res.states[-1][:, :2], dim=-1)
@@ -450,7 +477,7 @@ RACING_R = (0.5, 0.5)
 RACING_QN_SCALE = 5.0
 
 
-def _racing_route(backend: str, mesh, dtype, model_params, kinematic: bool) -> str:
+def _racing_route(backend: str, dtype, model_params, kinematic: bool) -> str:
     """Check a racing backend: a kernel backend raises ``ValueError`` for
     another dtype than float32 or a per-scenario controller model the kernel
     has no operand for (the kinematic tier takes acceleration and friction),
@@ -461,8 +488,6 @@ def _racing_route(backend: str, mesh, dtype, model_params, kinematic: bool) -> s
     known = ("cuda", "twin", "torch") + (("pallas-hand",) if kinematic else ())
     if backend not in known:
         raise ValueError(f"unknown backend {backend!r}")
-    if mesh is not None:
-        raise NotImplementedError("device meshes are not ported yet: ROADMAP S7.1")
     if backend != "torch":
         _refuse_kernel(backend, dtype,
                        model_params.batched_fields() - (KERNEL_FIELDS if kinematic else set()))
@@ -596,11 +621,16 @@ def batched_racing_policy(
     package's A/B backend. ``"torch"`` is the per-scenario route (the batched
     AL-iLQR on :func:`make_tracking_ilqr_window`), the only one for another
     dtype or a per-scenario model other than acceleration and friction (the
-    kernel backends raise ``ValueError`` for them). Device meshes raise
-    ``NotImplementedError``.
+    kernel backends raise ``ValueError`` for them). ``mesh``: the policy
+    takes the global batch and solves this rank's data slice
+    (:func:`.mesh.shard_policy`).
     """
     base = model_params if model_params is not None else VehicleParameters()
-    backend = _racing_route(backend, mesh, dtype, base, kinematic=True)
+    backend = _racing_route(backend, dtype, base, kinematic=True)
+    if mesh is not None:
+        return shard_policy(batched_racing_policy(
+            ref, shard_fields(mesh, base), N, ts, Q, R, qn_scale, outer_iters, inner_iters,
+            backend, tile, group, None, dtype), mesh)
     x_lims = (
         (float(base.min_pos_x), float(base.min_pos_y), -100.0, float(base.min_vel)),
         (float(base.max_pos_x), float(base.max_pos_y), 100.0, float(base.max_vel)),
@@ -711,7 +741,7 @@ def racing_sweep(
     from ..experiments.racing import ellipse_reference
 
     base = VehicleParameters()
-    _racing_route(backend, mesh, dtype, base, kinematic=True)
+    _racing_route(backend, dtype, base, kinematic=True)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -729,14 +759,17 @@ def racing_sweep(
     x0s = ref[0] + noise
     x0s[:, 3] = torch.clamp(x0s[:, 3], 0.0, float(base.max_vel))
     ref, x0s = ref.to(device), x0s.to(device)
+    if mesh is not None:
+        plant_params, x0s = shard_fields(mesh, plant_params), shard_rows(mesh, x0s)
     policy = batched_racing_policy(
         ref, base, N=N, ts=ts, Q=Q, R=R, qn_scale=qn_scale, outer_iters=outer_iters,
-        inner_iters=inner_iters, backend=backend, tile=tile, group=group, mesh=mesh,
-        dtype=dtype,
+        inner_iters=inner_iters, backend=backend, tile=tile, group=group, dtype=dtype,
     )
     plant = batched_plant(plant_params, ts, substeps=plant_substeps)
-    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device),
+    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(x0s.shape[0], device),
                          batched_dynamics=True)
+    if mesh is not None:
+        res = gather_result(mesh, res)
 
     tail = res.logs["tracking_error"][steps // 4 :]  # steady state after the catch-up
     summary = {
@@ -782,11 +815,15 @@ def batched_racing_dynamic_policy(
     the nominal ``model_params``, the dynamic tier's weights and an input
     box. Backends as :func:`batched_racing_policy` (no ``"pallas-hand"``);
     only the per-scenario route (``"torch"``) takes another dtype or a
-    per-scenario model."""
+    per-scenario model. ``mesh`` as :func:`batched_racing_policy`."""
     from ..experiments.racing import Q_DYNAMIC, QN_SCALE, R_DYNAMIC
 
     base = model_params if model_params is not None else VehicleParameters()
-    backend = _racing_route(backend, mesh, dtype, base, kinematic=False)
+    backend = _racing_route(backend, dtype, base, kinematic=False)
+    if mesh is not None:
+        return shard_policy(batched_racing_dynamic_policy(
+            ref, shard_fields(mesh, base), N, ts, pred_substeps, outer_iters, inner_iters,
+            backend, tile, group, None, dtype), mesh)
     u_lims = (
         (float(base.min_drive), -float(base.max_steer)),
         (float(base.max_drive), float(base.max_steer)),
@@ -863,7 +900,7 @@ def racing_sweep_dynamic(
     from ..experiments.racing import ellipse_reference
 
     base = VehicleParameters()
-    _racing_route(backend, mesh, dtype, base, kinematic=False)
+    _racing_route(backend, dtype, base, kinematic=False)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -879,14 +916,17 @@ def racing_sweep_dynamic(
     )
     x0s = (ref[0] + noise).to(device)
     ref = ref.to(device)
+    if mesh is not None:
+        plant_params, x0s = shard_fields(mesh, plant_params), shard_rows(mesh, x0s)
     policy = batched_racing_dynamic_policy(
         ref, base, N=N, ts=ts, pred_substeps=pred_substeps, outer_iters=outer_iters,
-        inner_iters=inner_iters, backend=backend, tile=tile, group=group, mesh=mesh,
-        dtype=dtype,
+        inner_iters=inner_iters, backend=backend, tile=tile, group=group, dtype=dtype,
     )
     plant = batched_dynamic_plant(plant_params, ts, substeps=plant_substeps)
-    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(batch, device),
+    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(x0s.shape[0], device),
                          batched_dynamics=True)
+    if mesh is not None:
+        res = gather_result(mesh, res)
 
     tail = res.logs["tracking_error"][steps // 4 :]
     summary = {
@@ -1022,8 +1062,6 @@ def wind_sweep(
     from ..experiments.racing import Q_KINEMATIC, QN_SCALE, R_KINEMATIC, ellipse_reference
     from ..solvers.offset_free_nmpc import DisturbanceCompensatedTracking
 
-    if mesh is not None:
-        raise NotImplementedError("device meshes are not ported yet: ROADMAP S7.1")
     device = resolve_device(device)
     base = VehicleParameters()
     weights = (tuple(Q_KINEMATIC), tuple(R_KINEMATIC), float(QN_SCALE))
@@ -1035,6 +1073,8 @@ def wind_sweep(
         generator = torch.Generator().manual_seed(0) if generator is None else generator
         scenarios = wind_scenarios(generator, batch, ref[0], wind, wind_rel_spread, dtype)
     x0s, w_full = (torch.as_tensor(a).to(dtype=dtype, device=device) for a in scenarios)
+    if mesh is not None:
+        x0s, w_full = shard_rows(mesh, x0s), shard_rows(mesh, w_full)
     ref = ref.to(device)
     ctrl = DisturbanceCompensatedTracking(
         euler(lambda x, u: kinematic_bicycle_ode(base, x, u), ts), nx=NX, nu=NU, N=N,
@@ -1071,6 +1111,9 @@ def wind_sweep(
     plant_base = rk4(lambda x, u: kinematic_bicycle_ode(base, x, u), ts)
     res = simulate_batch(x0s, lambda x, u: plant_base(x, u) + w_full, steps, policy,
                          _ekf_carry0(ctrl, x0s), batched_dynamics=True)
+    if mesh is not None:
+        res = gather_result(mesh, res)
+        w_full = gather_rows(mesh, w_full)
 
     tail = res.logs["tracking_error"][-max(10, steps // 3):]
     d_last = res.logs["d_hat"][-1]
@@ -1275,8 +1318,6 @@ def tube_sweep(
     from ..solvers.tube import make_tube_mpc
     from ..utils.precision import set_solver_precision
 
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding is not ported yet: ROADMAP S7.1")
     set_solver_precision()
     device = resolve_device(device)
     problem = session2_problem(N=N)
@@ -1286,10 +1327,14 @@ def tube_sweep(
         generator = torch.Generator().manual_seed(0) if generator is None else generator
         scenarios = tube_scenarios(generator, batch, steps, problem, tube, w_half)
     x0s, w = _sorted(problem, *scenarios, dtype, device)
+    if mesh is not None:  # sorted globally first, then split
+        x0s, w = shard_rows(mesh, x0s), shard_rows(mesh, w, 1)
     policy = tube.batched_policy(backend=backend, tile=tile, max_rho_moves=0, polish=polish)
     inner_warm = tube.inner.presolve_batch_carry(x0s, iters_mult=4, backend=backend, tile=tile)
     res = simulate_batch(x0s, system, steps, policy, (x0s, inner_warm), batched_dynamics=True,
                          disturbances=w)
+    if mesh is not None:
+        res = gather_result(mesh, res)
 
     x_lo = torch.tensor([problem.p_min, problem.v_min], dtype=dtype, device=device)
     x_hi = torch.tensor([problem.p_max, problem.v_max], dtype=dtype, device=device)
@@ -1640,8 +1685,6 @@ def _loiter_sweep(model_name, make_policy, make_plant, noise_scale, nominal, bat
     plant factors ``1 + rel_scale·U[−1, 1]`` ``(batch, 3)``, then start states
     ``ref[0] + U[−1, 1]·noise_scale``), the reference, policy and plant, the
     closed loop and its summary."""
-    if mesh is not None:
-        raise NotImplementedError("device meshes are not ported yet: ROADMAP S7.1")
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -1650,12 +1693,18 @@ def _loiter_sweep(model_name, make_policy, make_plant, noise_scale, nominal, bat
     factors = 1.0 + rel_scale * uniform(batch, 3)
     x0s = ref[0] + uniform(batch, 6) * torch.tensor(noise_scale, dtype=dtype)
     plant_params = tuple((v * factors[:, i]).to(device) for i, v in enumerate(nominal))
+    x0s = x0s.to(device)
+    if mesh is not None:
+        plant_params = tuple(shard_rows(mesh, p) for p in plant_params)
+        x0s = shard_rows(mesh, x0s)
     policy = make_policy(ref.to(device), N=N, ts=ts, pred_substeps=pred_substeps,
                          outer_iters=outer_iters, inner_iters=inner_iters, backend=backend,
                          tile=tile, group=group, dtype=dtype)
     plant = make_plant(plant_params, ts, substeps=plant_substeps)
-    res = simulate_batch(x0s.to(device), plant, steps, policy, policy.initial_carry(batch, device),
+    res = simulate_batch(x0s, plant, steps, policy, policy.initial_carry(x0s.shape[0], device),
                          batched_dynamics=True)
+    if mesh is not None:
+        res = gather_result(mesh, res)
 
     tail = res.logs["tracking_error"][steps // 4 :]
     summary = {

@@ -271,6 +271,7 @@ class LinearMPC:
         self, backend: str = "cuda", tile: int = DEFAULT_TILE, chunks: int = 2,
         max_rho_moves: int | None = None, schedule: str = "uniform",
         alpha: float = 1.6, polish: bool = True, probe_iters: int | None = None,
+        mesh=None,
     ):
         """Batch-level policy for :func:`..control.batch_loop.simulate_batch`:
         ``(x_batch (B, nx), t, (warm_x, warm_y)) -> (u0 (B, nu), carry, aux)``.
@@ -279,6 +280,14 @@ class LinearMPC:
         CPU tensors); ``"twin"`` runs the twin on any device, the kernel's
         reference on the card; ``"xla"`` is the per-scenario batched
         :func:`..solvers.qp.admm_solve` with per-scenario ρ adaptation.
+
+        ``mesh`` (a device mesh, :mod:`..parallel.mesh`): the policy takes the
+        global batch on every rank, each rank solves its data slice on its own
+        device, and ``u0`` and the logs are gathered over the data axis; the
+        warm-start carry stays with its rank
+        (:func:`..parallel.mesh.shard_policy`). With the data slices a
+        multiple of ``tile`` apart, the kernel's tiles are those of the
+        unsharded call.
         """
         nu, N = self.qp.nu, self.qp.N
         if backend not in _TILED and backend != "xla":
@@ -307,6 +316,10 @@ class LinearMPC:
                 aux["max_slack"] = sol.x[:, N * nu :].amax(dim=1)
             return sol.x[:, :nu], (x_warm, y_warm), aux
 
+        if mesh is not None:
+            from ..parallel.mesh import shard_policy
+
+            return shard_policy(policy_fn, mesh)
         return policy_fn
 
     def initial_batch_carry(self, batch: int, dtype=torch.float32, device=None):

@@ -95,5 +95,12 @@ def test_sweep_entry_points(entry, model):
         sweep(3, 2, backend="xla", device="cpu")
     with pytest.raises(ValueError, match="float32"):
         sweep(3, 2, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP S7.1"):
-        sweep(3, 2, mesh=object(), device="cpu")
+    import torch.distributed as dist
+
+    from model_predictive_control_tpu_torch.parallel import make_mesh
+
+    try:  # a one-rank mesh gives the unsharded sweep bit for bit
+        meshed, s_mesh = sweep(3, 2, mesh=make_mesh(1, device="cpu"), device="cpu", **SMALL)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(meshed.states, res.states) and s_mesh == s

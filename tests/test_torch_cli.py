@@ -126,13 +126,16 @@ def test_session1_writes_its_plots(tmp_path, capsys):
     assert (tmp_path / "session1_cost_to_go.png").exists()
 
 
-def test_backend_names_and_refusals():
+def test_backend_names_and_refusals(capsys):
     """The JAX package's ``xla`` route is refused by the sweeps, naming the
-    port's ``torch``; ``podscale --scaling`` names ROADMAP S7.1."""
+    port's ``torch``; ``podscale --scaling`` runs (its ladder on one CPU
+    rank, labelled non-performance)."""
     with pytest.raises(ValueError, match="backend='torch'"):
         cli.main(["sweep", "--batch", "2", "--steps", "1", "--backend", "xla", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="S7.1"):
-        cli.main(["podscale", "--scaling", "--device", "cpu"])
+    assert cli.main(["podscale", "--scaling", "--batch", "8", "--steps", "2", "--horizon", "4",
+                     "--iters", "20", "--device", "cpu"]) == 0
+    report = _last_json(capsys)
+    assert report["non_performance"] is True and [p["devices"] for p in report["points"]] == [1]
     assert cli._backend("pallas") == "cuda" and cli._backend("factory") == "factory"
 
 

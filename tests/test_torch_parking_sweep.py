@@ -114,16 +114,16 @@ def test_median_averages_the_middle_pair():
         ({"perturb_fields": ("friction", "axis_rear"), "controller_knows": True,
           "backend": "torch"}, "S3.2"),
         ({"dtype": torch.float64, "backend": "torch"}, "S3.2"),
-        ({"mesh": object()}, "S7.1"),
+        ({"mesh": "one-rank"}, "S7.1"),
         ({"checkpoint_every": 1}, "S7.2"),
         ({"u_seed": np.zeros((2, 4, 2))}, "S3.4"),
     ],
 )
 def test_unported_options_raise(kw, item):
-    """The option of ROADMAP S7.1 still raises, naming its item; those of
-    S3.2, S3.4, S4.3 and S7.2 (the per-scenario route, ``u_seed``, the
-    factory kernel's route, here on its twin, the checkpointed segments) are
-    ported and run;
+    """The options of S3.2, S3.4, S4.3, S7.1 and S7.2 (the per-scenario
+    route, ``u_seed``, the factory kernel's route, here on its twin, a device
+    mesh, the checkpointed segments) are ported and run; on a one-rank mesh
+    the sweep equals the unsharded one bit for bit.
     ``backend="xla"`` is the JAX name of ``"torch"``. The kernel refuses what
     only the per-scenario route takes."""
     if kw.get("backend") == "torch":
@@ -138,5 +138,14 @@ def test_unported_options_raise(kw, item):
                                           outer_iters=1, inner_iters=2, plant_substeps=2, **kw)
         assert bool(torch.isfinite(res.states).all()) and 0.0 <= summary["success_rate"] <= 1.0
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        port.parking_sweep(2, 1, N=4, device="cpu", **kw)
+    import torch.distributed as dist
+
+    from model_predictive_control_tpu_torch.parallel import make_mesh
+
+    small = dict(N=4, device="cpu", outer_iters=1, inner_iters=2, plant_substeps=2)
+    try:
+        res, summary = port.parking_sweep(2, 1, mesh=make_mesh(1, device="cpu"), **small)
+    finally:
+        dist.destroy_process_group()
+    plain, plain_summary = port.parking_sweep(2, 1, **small)
+    assert torch.equal(res.states, plain.states) and summary == plain_summary

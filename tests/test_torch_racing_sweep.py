@@ -125,23 +125,33 @@ def test_twin_backend_is_the_cpu_route():
     [
         ("racing_sweep", {"backend": "pallas-hand"}, "S4.2"),
         ("racing_sweep", {"backend": "xla"}, "S3.2"),
-        ("racing_sweep", {"mesh": object()}, "S7.1"),
+        ("racing_sweep", {"mesh": "one-rank"}, "S7.1"),
         ("racing_sweep", {"dtype": torch.float64, "backend": "torch"}, "S3.2"),
         ("racing_sweep_dynamic", {"backend": "xla"}, "S3.2"),
-        ("racing_sweep_dynamic", {"mesh": object()}, "S7.1"),
+        ("racing_sweep_dynamic", {"mesh": "one-rank"}, "S7.1"),
     ],
 )
 def test_unported_options_raise(sweep, kw, item):
-    """Meshes (ROADMAP S7.1) still raise; the options of S3.2 and S4.2 (the
-    per-scenario route, the parking kernel's tracking mode) are ported and
-    run; ``backend="xla"`` is the JAX name of ``"torch"``; the kernel
-    refuses float64, naming the per-scenario route."""
+    """The options of S3.2, S4.2 and S7.1 (the per-scenario route, the
+    parking kernel's tracking mode, a device mesh: on one rank the sweep
+    equals the unsharded one bit for bit) are ported and run;
+    ``backend="xla"`` is the JAX name of ``"torch"``; the kernel refuses
+    float64, naming the per-scenario route."""
     if kw.get("backend") == "torch":
         with pytest.raises(ValueError, match="float32 only.*backend='torch'"):
             getattr(port, sweep)(2, 1, N=4, device="cpu", **{**kw, "backend": "cuda"})
     if item == "S7.1":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            getattr(port, sweep)(2, 1, N=4, device="cpu", **kw)
+        import torch.distributed as dist
+
+        from model_predictive_control_tpu_torch.parallel import make_mesh
+
+        small = dict(N=4, device="cpu", outer_iters=1, inner_iters=2, plant_substeps=2)
+        try:
+            res, summary = getattr(port, sweep)(2, 1, mesh=make_mesh(1, device="cpu"), **small)
+        finally:
+            dist.destroy_process_group()
+        plain, plain_summary = getattr(port, sweep)(2, 1, **small)
+        assert torch.equal(res.states, plain.states) and summary == plain_summary
     elif kw.get("backend") == "xla":
         with pytest.raises(ValueError, match="backend='torch'"):
             getattr(port, sweep)(2, 1, N=4, device="cpu", **kw)
