@@ -11,15 +11,16 @@ kernel, and times it:
   50 steps) on the fused ADMM kernel (held to its twin's gates; with CUDA
   events around every launch of one episode, a profiled window and one
   round of the episode per tile, informational);
-- the rest of the linear ADMM family on the same kernel: its wide mode
-  (a warp per quad of rows, the operator read from device memory) held to
-  the twin on the MHE loop's slack-softened MPC at N=20 (n + m = 200, 4,096
-  scenarios, the polished cold presolve and the first warm step), the
+- the rest of the linear ADMM family on the same kernel: its panel mode
+  (warps per quad of rows, the operator streamed through shared memory in
+  panels) held to the twin on the MHE loop's slack-softened MPC at N=20
+  (n + m = 200, 4,096 scenarios, the polished cold presolve and the first
+  warm step), the
   build of the MHE loop's windows (n + m = 44) held to the twin on the
   loop's own first two batches of windows at 2,048 (cold and warm), then
   the tube sweep (65,536 × 50), the stochastic sweep (65,536 × 50) and the
   MHE-in-the-loop sweep (2,048 × 50, two launches a step: the MHE windows
-  and the soft MPC in the wide mode), each with its launches counted, the
+  and the soft MPC in the panel mode), each with its launches counted, the
   contract's quality gates, a kernel-vs-twin closed loop on four draws of
   256 scenarios × 3 steps (every final state within 5e-2 of the twin's or
   of the twin's algorithm run in float64) and one timed round (best of 3,
@@ -84,6 +85,14 @@ kernel, and times it:
   interior point with the parallel KKT solver against the sequential one
   (256 starts, N=100, float64) and the parallel LQ solve against the
   sequential pair at N=1,024, both timed;
+- K1's panel mode past 256 columns: the condensed long-horizon closed loop
+  (the hard box at N=100, n + m = 400, ``make_linear_mpc(solver="admm")``
+  at its defaults, 4,096 scenarios × 50 steps from the long-horizon loop's
+  starts; launches counted, the presolve and a warm launch held to the
+  twin, a 256 × 10 kernel-vs-twin loop, the wall, the kernel's share from
+  events, beside K4's stagewise loop's success on the same starts) and the
+  soft-state MPC at N=30 and 100 (n + m = 300 and 1,000; a cold and a warm
+  launch on 1,024 of the MHE loop's starts, held to the twin);
 - the long-horizon closed loop (session-2 linear MPC on the stagewise
   interior-point solver, N=100, 20 iterations, 4,096 scenarios × 50 steps)
   on the fused stagewise-IP kernel (held to its twin bit for bit at one
@@ -129,6 +138,10 @@ chip_smoke.py --long-horizon-phases`` prints where a stagewise-IP launch
 spends its cycles, phase by phase, from a clocked build of the kernel.
 ``python3 chip_smoke.py --family-phases`` runs the linear family's phases
 alone (the ADMM kernel's builds they launch, then the phases above);
+``python3 chip_smoke.py --k1-panel-phases`` runs K1's panel-mode phases
+alone; ``python3 chip_smoke.py --mhe-loop-launch DIR [--operands PATH]``
+times the MHE loop's soft-MPC launch of median time alone for the port
+under ``DIR``, on that loop's operands or on those saved at ``PATH``;
 ``python3 chip_smoke.py --benchmark-phases`` runs the tracker kernel's
 benchmark-model phases alone (its libraries, then those phases);
 ``python3 chip_smoke.py --factory-phases`` runs the factory parking and MHE
@@ -371,14 +384,14 @@ FAMILY = {
 FAMILY_TWIN_SCENARIOS = 256
 FAMILY_TWIN_STEPS = 3
 FAMILY_TWIN_SEEDS = (0, 1, 2, 3)
-# K1's wide mode (n + m = 200: the MHE loop's soft-state MPC at N = 20),
+# K1's panel mode at n + m = 200 (the MHE loop's soft-state MPC at N = 20),
 # held to the twin at WIDE_BATCH scenarios of the MHE loop's starts
 WIDE_BATCH = 4096
 WIDE_N = 20
 WIDE_ITERS = 200  # the MHE loop's MPC budget, 4x in its presolve
 WIDE_RHO = 0.02
 WIDE_SLACK_WEIGHT = 1e4
-WIDE_COLS = -(-(3 * WIDE_N + 7 * WIDE_N) // 32)  # the wide library's columns a lane
+WIDE_COLS = -(-(3 * WIDE_N + 7 * WIDE_N) // 32)  # the panel library's columns a lane (one warp a quad)
 MHE_COLS = -(-(2 + 2 * 10 + 2 + 2 * 10) // 16)  # the MHE windows' library (M = 10)
 DRYRUN_COLS = 1  # the dry run's QP (N=4: n + m = 16)
 
@@ -579,6 +592,20 @@ def main() -> int:
         print(f"the port at {os.path.dirname(port.__file__)} [{card}]", flush=True)
         loop_report(torch, port, KR, card, torch.device("cuda"))
         return 0
+    if sys.argv[1:2] == ["--mhe-loop-launch"]:
+        # the MHE loop's soft-MPC launch of median time alone, for the port
+        # found under the given directory (another version of it, to compare
+        # two on one card); --operands PATH saves that launch's operands to
+        # PATH or, where PATH exists, times the launch on them
+        sys.path.insert(0, os.path.abspath(sys.argv[2] if len(sys.argv) > 2 else "."))
+        import model_predictive_control_tpu_torch as port
+        from model_predictive_control_tpu_torch.ops.cuda import admm_kernel as K
+
+        card = smi()
+        print(f"the port at {os.path.dirname(port.__file__)} [{card}]", flush=True)
+        path = sys.argv[sys.argv.index("--operands") + 1] if "--operands" in sys.argv else None
+        mhe_loop_launch_report(torch, port, K, card, torch.device("cuda"), path)
+        return 0
     if sys.argv[1:2] == ["--tracker-launches"]:
         # the racing tiers' warm tracker launch alone, for the port found
         # under the given directory (another version of it, to compare two
@@ -603,12 +630,26 @@ def main() -> int:
     from model_predictive_control_tpu_torch.ops.cuda import admm_kernel as K
 
     if sys.argv[1:2] == ["--family-phases"]:
-        # the linear family's phases alone, on the ADMM kernel's two builds
-        # they launch
+        # the linear family's phases alone, on the ADMM kernel's builds they
+        # launch
         card = smi()
         build_all([(K.library_name(c, lanes), lambda c=c, lanes=lanes: K._build_library(c, lanes))
                    for c, lanes in ((MHE_COLS, 16), (WIDE_COLS, 32), (ADMM_COLS, 16))])
         print(json.dumps({"kernels": family_phases(torch, port, K, card, torch.device("cuda"))}))
+        phase(None)
+        return 0
+    if sys.argv[1:2] == ["--k1-panel-phases"]:
+        # K1's panel mode past 256 columns alone: its libraries, and K4's
+        # default one for the stagewise loop beside the condensed one
+        from model_predictive_control_tpu_torch.ops.cuda import riccati_ip_kernel as KR
+
+        card = smi()
+        print(card, flush=True)
+        g = KR.DEFAULT_GROUP
+        build_all([*panel_libraries(K),
+                   (KR.library_name(2, 1, g), lambda: KR._build_library(2, 1, g))])
+        print(json.dumps({"kernels": k1_panel_phases(torch, port, K, KR, card,
+                                                     torch.device("cuda"))}))
         phase(None)
         return 0
     from model_predictive_control_tpu_torch.ops.cuda import ilqr_factory as KF
@@ -690,7 +731,7 @@ def main() -> int:
     build_all([
         (K.library_name(ADMM_COLS), lambda: K._build_library(ADMM_COLS)),
         (K.library_name(MHE_COLS), lambda: K._build_library(MHE_COLS)),
-        (K.library_name(WIDE_COLS, 32), lambda: K._build_library(WIDE_COLS, 32)),
+        *panel_libraries(K),
         (K.library_name(DRYRUN_COLS), lambda: K._build_library(DRYRUN_COLS)),
         *((KI.library_name(g), lambda g=g: KI._build_library(g)) for g in PARK_GROUPS),
         *((KF.library_name(g), lambda g=g: KF._build_library(g)) for g in RACE_GROUPS),
@@ -702,6 +743,7 @@ def main() -> int:
     ])
     admm = admm_phases(torch, port, K, card, device)
     family = family_phases(torch, port, K, card, device)
+    panel = k1_panel_phases(torch, port, K, KR, card, device)
     ilqr = ilqr_phases(torch, port, KI, card, device)
     modes = mode_phases(torch, port, KI, card, device)
     racing = [racing_phases(torch, port, KF, tier, card, device) for tier in RACE_TIERS]
@@ -712,8 +754,8 @@ def main() -> int:
     user = user_model_phases(torch, port, KF, card, device)
     cli_phases(torch, card)
     scaleout_phases(torch, port, K, KI, card, device)
-    kernels = [admm, *family, ilqr, modes, *racing, *bench, *factory, *differentiable, stagewise,
-               *user]
+    kernels = [admm, *family, *panel, ilqr, modes, *racing, *bench, *factory, *differentiable,
+               stagewise, *user]
     phase(None)
 
     print(json.dumps({"kernels": kernels}))
@@ -1003,10 +1045,10 @@ def admm_phases(torch, port, K, card, device) -> dict:
     }
 
 
-def wide_controller(torch, port, device):
+def wide_controller(torch, port, device, N=WIDE_N):
     """The MHE loop's slack-softened MPC at N = 20 (n = 60, m = 140: K1's
-    wide mode), as ``mhe_loop_sweep`` builds it."""
-    problem = port.session2_problem(N=WIDE_N)
+    panel mode), as ``mhe_loop_sweep`` builds it (or at horizon ``N``)."""
+    problem = port.session2_problem(N=N)
     return problem, port.make_linear_mpc(problem, iters=WIDE_ITERS, dtype=torch.float32,
                                          device=device, soft_state=True,
                                          slack_weight=WIDE_SLACK_WEIGHT, rho=WIDE_RHO)
@@ -1147,34 +1189,34 @@ def loop_launch_entry(torch, K, name, launches, card) -> dict:
 
 
 def family_phases(torch, port, K, card, device) -> list:
-    """The rest of the linear ADMM family on K1: the wide mode against its
+    """The rest of the linear ADMM family on K1: the panel mode against its
     twin on the soft-state MPC at N = 20, the MHE loop's windows against the
     twin, then the tube, stochastic and MHE-loop paths at the contract's
     sizes (launches counted, quality gated, a kernel-vs-twin closed loop
     with a float64 witness, one timed round each). Returns the ``kernels``
-    entries of the wide instantiation and of the MHE windows' one, each
-    timed and bounded on a launch of the MHE loop."""
+    entries of the panel instantiation at n + m = 200 and of the MHE
+    windows' one, each timed and bounded on a launch of the MHE loop."""
     from model_predictive_control_tpu_torch.parallel import batch as PB
 
     problem, ctrl = wide_controller(torch, port, device)
     wide_name, mhe_name = K.library_name(WIDE_COLS, 32), K.library_name(MHE_COLS)
     n, m = ctrl.qp.n, ctrl.qp.m
     plan = K.launch_plan(n, m, K.DEFAULT_TILE, True)
-    phase(f"ADMM kernel wide mode vs twin on the card (soft-state MPC, B={WIDE_BATCH}, n={n}, "
+    phase(f"ADMM kernel panel mode vs twin on the card (soft-state MPC, B={WIDE_BATCH}, n={n}, "
           f"m={m}, tile={K.DEFAULT_TILE})")
-    if not plan.wide or K.library_name(plan.cols, plan.lanes) != wide_name:
-        raise SystemExit(f"the soft-state operator does not take the wide mode: {plan}")
+    if not plan.panel or K.library_name(plan.cols, plan.lanes) != wide_name:
+        raise SystemExit(f"the soft-state operator does not take the panel mode: {plan}")
     g = torch.Generator().manual_seed(0)
     x0s = PB.mhe_loop_scenarios(g, WIDE_BATCH, 1, 10, problem.Ts, 0.02, 0.1)[0].to(
         dtype=torch.float32, device=device)
     q, l, u = ctrl.qp.qp_vectors(x0s)
     cold_kw = dict(iters=4 * WIDE_ITERS, chunks=8, probe_iters=0, polish=False,
                    tile=K.DEFAULT_TILE, return_iters=True)
-    wide_err = compare(torch, "wide cold", K.admm_solve_cuda(ctrl.op, q, l, u, **cold_kw),
+    wide_err = compare(torch, "n+m=200 cold", K.admm_solve_cuda(ctrl.op, q, l, u, **cold_kw),
                        K.admm_solve_twin(ctrl.op, q, l, u, **cold_kw), kind="cold")
     cold_kw["polish"] = True  # the presolve's config
     cold_k = K.admm_solve_cuda(ctrl.op, q, l, u, **cold_kw)
-    compare(torch, "wide polished", cold_k, K.admm_solve_twin(ctrl.op, q, l, u, **cold_kw),
+    compare(torch, "n+m=200 polished", cold_k, K.admm_solve_twin(ctrl.op, q, l, u, **cold_kw),
             kind="polished")
     x1 = problem.system(torch.float32, device)(x0s, cold_k[0].x[:, : ctrl.qp.nu])
     wx, wy = ctrl._shift_warm(cold_k[0].x, cold_k[0].y, axis=1)
@@ -1182,10 +1224,10 @@ def family_phases(torch, port, K, card, device) -> list:
     # the loop's steady solve (polish on) on iterations and success; the
     # same step without the polish also on x
     warm_kw = dict(iters=WIDE_ITERS, tile=K.DEFAULT_TILE, return_iters=True)
-    compare(torch, "wide warm polished", K.admm_solve_cuda(ctrl.op, q1, l1, u1, wx, wy, **warm_kw),
+    compare(torch, "n+m=200 warm polished", K.admm_solve_cuda(ctrl.op, q1, l1, u1, wx, wy, **warm_kw),
             K.admm_solve_twin(ctrl.op, q1, l1, u1, wx, wy, **warm_kw), kind="polished")
     warm_kw["polish"] = False
-    wide_err = max(wide_err, compare(torch, "wide warm",
+    wide_err = max(wide_err, compare(torch, "n+m=200 warm",
                                      K.admm_solve_cuda(ctrl.op, q1, l1, u1, wx, wy, **warm_kw),
                                      K.admm_solve_twin(ctrl.op, q1, l1, u1, wx, wy, **warm_kw),
                                      kind="warm"))
@@ -1194,7 +1236,7 @@ def family_phases(torch, port, K, card, device) -> list:
                                    tile=K.DEFAULT_TILE, cg_iters=40, alpha=1.6, eps_abs=None,
                                    polish=True)
     ni = K._launch(*args, **raw_kw)[3]
-    print(f"informational: wide first warm step (the MHE loop's MPC solve: {WIDE_ITERS} "
+    print(f"informational: n+m=200 first warm step (the MHE loop's MPC solve: {WIDE_ITERS} "
           f"iterations, probe 32, polish; executed mean {ni.mean().item():.2f}, max "
           f"{ni.max().item():.0f}) alone: kernel "
           f"{time_cuda(torch, lambda: K._launch(*args, **raw_kw), 10):.3f} ms per launch of "
@@ -1209,7 +1251,7 @@ def family_phases(torch, port, K, card, device) -> list:
     phase(f"ADMM kernel vs twin on the MHE loop's windows (B={mhe_batch}, n={wn}, m={wm}, "
           f"tile={K.DEFAULT_TILE})")
     wplan = K.launch_plan(wn, wm, K.DEFAULT_TILE, True)
-    if wplan.wide or K.library_name(wplan.cols, wplan.lanes) != mhe_name:
+    if wplan.panel or K.library_name(wplan.cols, wplan.lanes) != mhe_name:
         raise SystemExit(f"the MHE windows do not take the {mhe_name} build: {wplan}")
     mhe_err = 0.0
     for step, (name, (_, q, l, u, (wx, wy))) in enumerate(zip(("cold", "warm"), windows)):
@@ -1239,7 +1281,7 @@ def family_phases(torch, port, K, card, device) -> list:
             raise SystemExit(f"the {path} path did not go through the kernel once per solve")
         if path == "mhe_loop" and (launches[path][1].get(wide_name, 0) != steps + 1
                                    or launches[path][1].get(mhe_name, 0) != steps):
-            raise SystemExit("the MHE loop did not go through the wide mode once per MPC solve "
+            raise SystemExit("the MHE loop did not go through the panel mode once per MPC solve "
                              f"and {mhe_name} once per batch of windows")
         if not bool(torch.isfinite(res.states).all()) or res.states.shape != (steps + 1, batch, 2):
             raise SystemExit(f"the {path} path's states: {res.states.shape}, or not finite")
@@ -1270,7 +1312,7 @@ def family_phases(torch, port, K, card, device) -> list:
                              if _library(K, rest[0], rest[1]) == lib]
 
     entries = []
-    for lib, label, err in ((wide_name, "wide mode", wide_err),
+    for lib, label, err in ((wide_name, "panel mode, n + m = 200", wide_err),
                             (mhe_name, "MHE windows", mhe_err)):
         entries.append({
             "name": f"admm_tile_kernel ({label})",
@@ -1282,6 +1324,290 @@ def family_phases(torch, port, K, card, device) -> list:
             **loop_launch_entry(torch, K, f"mhe_loop {lib}", loop[lib], card),
         })
     return entries
+
+
+# K1's panel mode past 256 columns: (a) the condensed long-horizon
+# closed loop, the hard box at N = 100 (n = 100, m = 300) through
+# make_linear_mpc(solver="admm") at its defaults and batched_policy, from the
+# starts of long_horizon_loop; (b) the soft-state MPC at N = 30 and 100
+# (n + m = 300 and 1,000) at the MHE loop's settings, a cold launch (the
+# presolve's) and a warm one from its solution.
+PANEL_LH_N = 100
+PANEL_LH_BATCH = 4096
+PANEL_LH_STEPS = 50
+PANEL_TWIN = (256, 10)  # the kernel-vs-twin closed loop: first scenarios, steps
+TOL_PANEL_SUCCESS = 0.01  # |success(kernel loop) - success(twin loop)| over those
+PANEL_SOFT_N = (30, 100)
+PANEL_SOFT_BATCH = 1024
+
+
+def panel_libraries(K) -> list:
+    """``(name, build)`` of the panel-mode libraries the paths take: n + m =
+    200 (the MHE loop), 300, 400 and 1,000."""
+    cols = sorted({K.columns(n, m, 32) for n, m in ((60, 140), (90, 210), (100, 300), (300, 700))})
+    return [(K.library_name(c, 32), lambda c=c: K._build_library(c, 32)) for c in cols]
+
+
+def held_to_twin(torch, name, got, ref, polished, witness=None) -> float:
+    """tests/test_torch_cuda.py's bars on one launch through the wrapper
+    (``(solution, executed iterations)`` of the kernel and of the twin):
+    executed iterations agree on 90% of the scenarios and converged masks on
+    95%; x within 2e-2 where the iterations agree, or (``polished``, the bars
+    of test_wide_mode_matches_twin) the success rates within 0.05. With a
+    ``witness`` (the twin's algorithm in float64 on the same operands), x is
+    held within the larger of 2e-2 and the twin's own distance to it: past
+    a few iterations float32 rounding moves these ill-conditioned iterates
+    further than 2e-2. Returns max|Δx| over the rows held."""
+    (sol_k, ni_k), (sol_t, ni_t) = got, ref
+    same = ni_k == ni_t
+    agree = same.float().mean().item()
+    conv = (sol_k.converged == sol_t.converged).float().mean().item()
+    rate_k, rate_t = sol_k.converged.float().mean().item(), sol_t.converged.float().mean().item()
+    dx = (sol_k.x - sol_t.x).abs().amax(dim=1)
+    err = dx[same].max().item() if bool(same.any()) else 0.0
+    tol = 2e-2
+    if witness is not None:
+        tol = max(tol, (sol_t.x - witness.x).abs().amax(dim=1)[same].max().item())
+    print(f"{name}: executed iterations agree {agree:.5f} (tol 0.9; mean {ni_k.mean().item():.2f} vs "
+          f"twin {ni_t.mean().item():.2f}); converged agree {conv:.5f} (tol 0.95), "
+          f"{rate_k:.5f} vs twin {rate_t:.5f}; max|x_kernel - x_twin| where the iterations agree "
+          f"{err:.3e}{' (not gated)' if polished else f' (tol {tol:.3e})'}, over all rows "
+          f"{dx.max().item():.3e}", flush=True)
+    ok = agree >= 0.9 and conv >= 0.95 and all(bool(torch.isfinite(a).all()) for a in (sol_k.x, sol_k.y))
+    ok = ok and (abs(rate_k - rate_t) <= 0.05 if polished else err <= tol)
+    if not ok:
+        raise SystemExit(f"the panel mode disagrees with its twin on {name}")
+    return 0.0 if polished else err
+
+
+def panel_entry(torch, K, label, launches, err, args, kw, card) -> dict:
+    """The ``kernels`` entry of one panel-mode shape: the launch on ``args``,
+    ``kw`` timed alone (the kernel, 5 calls after a warm-up; the twin, 1) and
+    bounded at its executed iterations."""
+    kernel_ms = time_cuda(torch, lambda: K._launch(*args, **kw), 5)
+    twin_ms = time_cuda(torch, lambda: K.admm_solve_tiles_reference(*args, **kw), 1)
+    outs = K._launch(*args, **kw)
+    n, m = args[9].shape[1], args[10].shape[1]
+    k = n + m
+    plan = K.launch_plan(n, m, kw["tile"], kw["polish"])
+    print(f"{label}: launch alone {kernel_ms:.3f} ms (executed mean {outs[3].mean().item():.2f}, max "
+          f"{outs[3].max().item():.0f}; {plan.warps_per_quad} warps a quad, panels of "
+          f"{plan.panel_rows} rows, {plan.threads} threads and {plan.smem_bytes} bytes a CTA), twin "
+          f"{twin_ms:.3f} ms [{card}]", flush=True)
+    # per scenario and executed iteration: [x | rho z - y] W, 2 (n + m)^2,
+    # and ~12 operations on each of the n + m columns
+    return {
+        "name": f"admm_tile_kernel ({label})",
+        "route": "cuda",
+        "source": "model_predictive_control_tpu_torch/csrc/admm_kernel.cu",
+        "replaces": "model_predictive_control_tpu/ops/pallas/admm_kernel.py:82",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": twin_ms,
+        **bound(torch, float(outs[3].sum()) * (2 * k * k + 12 * k), [*args, *outs]),
+    }
+
+
+def k1_panel_phases(torch, port, K, KR, card, device) -> list:
+    """K1's panel mode on the paths that need it past 256 columns: (a) the
+    condensed long-horizon closed loop (launches counted, the presolve and a
+    warm launch held to the twin, a kernel-vs-twin closed loop, the wall,
+    the kernel's share from events, K4's stagewise loop's success on the
+    same starts beside it); (b) the soft-state operator at n + m = 300 and
+    1,000, a cold and a warm launch, each held to the twin. Returns their
+    ``kernels`` entries."""
+    from model_predictive_control_tpu_torch.obs.roofline import admm_kernel_roofline
+    from model_predictive_control_tpu_torch.parallel import batch as PB
+
+    tile = K.DEFAULT_TILE
+    problem = port.session2_problem(N=PANEL_LH_N)
+    ctrl = port.make_linear_mpc(problem, solver="admm", device=device)
+    n, m, B = ctrl.qp.n, ctrl.qp.m, PANEL_LH_BATCH
+    lib = K.library_name(K.columns(n, m, 32), 32)
+    plan = K.launch_plan(n, m, tile, True)
+    phase(f"K1 panel mode: condensed long-horizon closed loop (hard box N={PANEL_LH_N}, n={n}, "
+          f"m={m}, {B} x {PANEL_LH_STEPS}, tile {tile}, {lib})")
+    if not plan.panel:
+        raise SystemExit(f"the condensed long-horizon operator does not take the panel mode: {plan}")
+    system = problem.system(torch.float32, device)
+    x0 = initial_states(torch, device, B)
+
+    def episode(x, steps=PANEL_LH_STEPS, backend="cuda"):
+        carry = ctrl.presolve_batch_carry(x, backend=backend, tile=tile)
+        return port.simulate_batch(x, system, steps, ctrl.batched_policy(backend=backend, tile=tile),
+                                   carry, batched_dynamics=True)
+
+    K.LAUNCHES = 0
+    K.LAUNCHES_BY_LIBRARY.clear()
+    res = episode(x0)
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES_BY_LIBRARY.get(lib, 0)
+    print(f"launches in the closed loop: {K.LAUNCHES}, by library {dict(K.LAUNCHES_BY_LIBRARY)} "
+          f"(expected {PANEL_LH_STEPS + 1} of {lib})", flush=True)
+    if K.LAUNCHES != PANEL_LH_STEPS + 1 or launches != PANEL_LH_STEPS + 1:
+        raise SystemExit("the condensed long-horizon loop did not go through the panel mode "
+                         "once per solve")
+    if (not bool(torch.isfinite(res.states).all())
+            or res.states.shape != (PANEL_LH_STEPS + 1, B, 2)
+            or res.inputs.shape != (PANEL_LH_STEPS, B, 1)):
+        raise SystemExit(f"the condensed loop's states {res.states.shape}, or not finite")
+    success = res.logs["solver_success"].float().mean().item()
+    stagewise = long_horizon_loop(torch, port, KR, device, B)()
+    print(f"condensed ADMM loop success {success:.5f}; K4's stagewise interior-point loop on the "
+          f"same starts {stagewise.logs['solver_success'].float().mean().item():.5f} "
+          f"(informational: one QP, two algorithms)", flush=True)
+    del stagewise
+
+    # the presolve launch and the first warm launch at full batch
+    q, l, u = ctrl.qp.qp_vectors(x0)
+    cold_kw = dict(iters=4 * ctrl.iters, chunks=8, probe_iters=0, tile=tile, return_iters=True)
+    cold = K.admm_solve_cuda(ctrl.op, q, l, u, **cold_kw)
+    err = held_to_twin(torch, "the presolve launch", cold,
+                       K.admm_solve_twin(ctrl.op, q, l, u, **cold_kw), polished=False)
+    x1 = system(x0, cold[0].x[:, : ctrl.qp.nu])
+    wx, wy = ctrl._shift_warm(cold[0].x, cold[0].y, axis=1)
+    q1, l1, u1 = ctrl.qp.qp_vectors(x1)
+    warm_kw = dict(iters=ctrl.iters, tile=tile, return_iters=True)
+    err = max(err, held_to_twin(torch, "the first warm launch",
+                                K.admm_solve_cuda(ctrl.op, q1, l1, u1, wx, wy, **warm_kw),
+                                K.admm_solve_twin(ctrl.op, q1, l1, u1, wx, wy, **warm_kw),
+                                polished=False))
+    n_twin, steps_twin = PANEL_TWIN
+    got = episode(x0[:n_twin], steps_twin)
+    ref = episode(x0[:n_twin], steps_twin, backend="twin")
+    rate_k = got.logs["solver_success"].float().mean().item()
+    rate_t = ref.logs["solver_success"].float().mean().item()
+    print(f"kernel vs twin closed loop, {n_twin} scenarios x {steps_twin} steps: success "
+          f"{rate_k:.5f} vs twin {rate_t:.5f} (tol {TOL_PANEL_SUCCESS}); max|final state "
+          f"difference| {(got.states[-1] - ref.states[-1]).abs().max().item():.3e} "
+          f"(informational)", flush=True)
+    if abs(rate_k - rate_t) > TOL_PANEL_SUCCESS:
+        raise SystemExit("the condensed long-horizon closed loop disagrees with its twin")
+
+    episode(x0)  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        episode(x0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    dt = min(times)
+    print(f"condensed long-horizon loop {B} x {PANEL_LH_STEPS}: wall {dt:.4f} s (best of 3: "
+          f"{', '.join(f'{t:.4f}' for t in times)}), {B * PANEL_LH_STEPS / dt:.1f} solves/s "
+          f"[{card}]", flush=True)
+    events = []
+    launch = K._launch
+    K._launch = timed_launches(torch, K, events)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        episode(x0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        K._launch = launch
+    print_events(wall, events, card)
+    args, kw = K.prepare_tiles(ctrl.op, q1, l1, u1, wx, wy, iters=ctrl.iters, chunks=2,
+                               probe_iters=32, max_rho_moves=None, schedule="uniform", tile=tile,
+                               cg_iters=40, alpha=1.6, eps_abs=None, polish=True)
+    entry = panel_entry(torch, K, f"panel mode, n + m = {n + m}, the condensed long-horizon "
+                        f"loop's first warm launch", launches, err, args, kw, card)
+    ni = K._launch(*args, **kw)[3].mean().item()
+    rl = admm_kernel_roofline(n, m, iters=round(ni))
+    print(f"obs/roofline.py::admm_kernel_roofline at the mean executed iterations ({ni:.1f}, the "
+          f"polish's full CG budget): {B * rl.flops_per_solve:.4g} FP32 operations, "
+          f"{1e3 * B * rl.flops_per_solve / 67e12:.4f} ms at the FP32 peak", flush=True)
+    entries = [entry]
+    del res, got, ref
+
+    for N in PANEL_SOFT_N:
+        sproblem, sctrl = wide_controller(torch, port, device, N=N)
+        n, m = sctrl.qp.n, sctrl.qp.m
+        lib = K.library_name(K.columns(n, m, 32), 32)
+        phase(f"K1 panel mode: soft-state MPC at N={N} (n={n}, m={m}, {PANEL_SOFT_BATCH} "
+              f"scenarios of the MHE loop, tile {tile}, {lib})")
+        x0 = PB.mhe_loop_scenarios(torch.Generator().manual_seed(0), PANEL_SOFT_BATCH, 1, 10,
+                                   sproblem.Ts, 0.02, 0.1)[0].to(dtype=torch.float32, device=device)
+        q, l, u = sctrl.qp.qp_vectors(x0)
+        # the MHE loop's presolve (4x budget, 8 chunks, rho moves, no probe,
+        # polish), then a warm launch from its solution at the policy's flags
+        cold_kw = dict(iters=4 * sctrl.iters, chunks=8, probe_iters=0, tile=tile,
+                       return_iters=True)
+        K.LAUNCHES_BY_LIBRARY.clear()
+        cold = K.admm_solve_cuda(sctrl.op, q, l, u, **cold_kw)
+        x1 = sproblem.system(torch.float32, device)(x0, cold[0].x[:, : sctrl.qp.nu])
+        wx, wy = sctrl._shift_warm(cold[0].x, cold[0].y, axis=1)
+        q1, l1, u1 = sctrl.qp.qp_vectors(x1)
+        warm_kw = dict(iters=sctrl.iters, tile=tile, return_iters=True)
+        warm = K.admm_solve_cuda(sctrl.op, q1, l1, u1, wx, wy, **warm_kw)
+        torch.cuda.synchronize()
+        launches = K.LAUNCHES_BY_LIBRARY.get(lib, 0)
+        print(f"launches: {dict(K.LAUNCHES_BY_LIBRARY)} (expected 2 of {lib})", flush=True)
+        if launches != 2:
+            raise SystemExit(f"the soft-state operator at N={N} did not go through {lib}")
+        held_to_twin(torch, f"N={N} cold (the presolve)", cold,
+                     K.admm_solve_twin(sctrl.op, q, l, u, **cold_kw), polished=True)
+        held_to_twin(torch, f"N={N} warm (the policy)", warm,
+                     K.admm_solve_twin(sctrl.op, q1, l1, u1, wx, wy, **warm_kw), polished=True)
+        plain = K.admm_solve_tiles_reference
+        K.admm_solve_tiles_reference = float64_twin(torch, plain)
+        try:
+            wit = K.admm_solve_twin(sctrl.op, q1, l1, u1, wx, wy, polish=False, **warm_kw)[0]
+        finally:
+            K.admm_solve_tiles_reference = plain
+        err = held_to_twin(torch, f"N={N} warm without the polish",
+                           K.admm_solve_cuda(sctrl.op, q1, l1, u1, wx, wy, polish=False, **warm_kw),
+                           K.admm_solve_twin(sctrl.op, q1, l1, u1, wx, wy, polish=False,
+                                             **warm_kw), polished=False, witness=wit)
+        base = dict(schedule="uniform", tile=tile, cg_iters=40, alpha=1.6, eps_abs=None,
+                    polish=True, max_rho_moves=None)
+        args, kw = K.prepare_tiles(sctrl.op, q, l, u, None, None, iters=4 * sctrl.iters,
+                                   chunks=8, probe_iters=0, **base)
+        entries.append(panel_entry(torch, K, f"panel mode, n + m = {n + m}, the soft MPC's "
+                                   f"presolve launch", launches, err, args, kw, card))
+        args, kw = K.prepare_tiles(sctrl.op, q1, l1, u1, wx, wy, iters=sctrl.iters, chunks=2,
+                                   probe_iters=32, **base)
+        ms = time_cuda(torch, lambda: K._launch(*args, **kw), 5)
+        outs = K._launch(*args, **kw)
+        k = n + m
+        print(f"N={N} warm launch alone: {ms:.3f} ms (executed mean {outs[3].mean().item():.2f}) "
+              f"[{card}]", flush=True)
+        bound(torch, float(outs[3].sum()) * (2 * k * k + 12 * k), [*args, *outs])
+    return entries
+
+
+def mhe_loop_launch_report(torch, port, K, card, device, path=None) -> None:
+    """Times the soft MPC's launch of median time in
+    ``mhe_loop_sweep(2048, 50)`` (n + m = 200; after the cold first launch)
+    alone, 10 calls after a warm-up, on the operands the loop gave it, or on
+    those saved at ``path`` by another version (saved there when ``path``
+    does not exist yet)."""
+    from model_predictive_control_tpu_torch.parallel import batch as PB
+
+    name, batch, steps, _, _ = FAMILY["mhe_loop"]
+    if path is not None and os.path.exists(path):
+        saved = torch.load(path)
+        args, kw = [a.to(device) for a in saved["args"]], saved["kw"]
+        print(f"the launch's operands from {path}", flush=True)
+    else:
+        sweep = getattr(PB, name)
+        sweep(batch, steps, device=device)  # warm-up
+        kept = []
+        _, events, _ = timed_sweep(torch, K, sweep, batch, device, steps=steps, kept=kept)
+        rows = [(a.elapsed_time(b), *rest) for (a, b), rest in zip(events, kept)
+                if rest[0][9].shape[1] == 3 * WIDE_N]
+        ms, args, kw, _ = sorted(rows[1:], key=lambda r: r[0])[(len(rows) - 1) // 2]
+        print(f"the soft MPC's launch of median time: {ms:.3f} ms in the loop [{card}]",
+              flush=True)
+        if path is not None:
+            torch.save({"args": [a.cpu() for a in args], "kw": kw}, path)
+    plan = K.launch_plan(args[9].shape[1], args[10].shape[1], kw["tile"], kw["polish"])
+    outs = K._launch(*args, **kw)
+    print(f"{plan}: the MHE loop's median n + m = 200 launch alone "
+          f"{time_cuda(torch, lambda: K._launch(*args, **kw), 10):.3f} ms (executed mean "
+          f"{outs[3].mean().item():.2f}) [{card}]", flush=True)
 
 
 def _library(K, args, kw) -> str:
@@ -1679,13 +2005,13 @@ def mode_phases(torch, port, K, card, device) -> dict:
                                                 card))
 
     phase("the loops on the operand modes (main path)")
-    launches, wind_loop, summaries = 0, None, {}
+    launches, kept_loops, summaries = 0, {}, {}
     for name, (entry, B, steps, extra, contract) in MODE_LOOPS.items():
         sweep = getattr(port, entry)
         for compensate in ((True, False) if name in MODE_ABLATIONS else (None,)):
             kw = dict(extra, **({} if compensate is None else {"compensate": compensate}))
             K.LAUNCHES = 0
-            kept = [] if name == "wind" and compensate else None
+            kept = [] if name in ("wind", "offset_free") and compensate else None
             wall, events, summary = timed_sweep(torch, K, sweep, B, device, steps=steps,
                                                 kept=kept, **kw)
             torch.cuda.synchronize()
@@ -1704,7 +2030,7 @@ def mode_phases(torch, port, K, card, device) -> dict:
             else:
                 gate_summary(label, summary, {})
             if kept is not None:
-                wind_loop = [(a.elapsed_time(b), *rest) for (a, b), rest in zip(events, kept)]
+                kept_loops[name] = [(a.elapsed_time(b), *rest) for (a, b), rest in zip(events, kept)]
     for name, rules in MODE_ABLATIONS.items():
         on, off = summaries[(name, True)], summaries[(name, False)]
         (ratio_key, ratio), (est_key, est_floor) = rules
@@ -1765,8 +2091,20 @@ def mode_phases(torch, port, K, card, device) -> dict:
             and abs(succ["torch"] - succ["cuda"]) <= TOL_PER_SCENARIO_SUCCESS):
         raise SystemExit("the per-scenario route disagrees with the kernel on the card")
 
+    # the slope loop's launch of median time after the first, timed alone
+    # and bounded (informational: its loop is host-bound)
+    loop_ms, args, kw, _ = sorted(kept_loops["offset_free"][1:],
+                                  key=lambda r: r[0])[(len(kept_loops["offset_free"]) - 1) // 2]
+    slope_ms = time_cuda(torch, lambda: K._launch(*args, **kw), 10)
+    outs = K._launch(*args, **kw)
+    print(f"tracking modes: the slope loop's launch of median time ({loop_ms:.3f} ms in the loop; "
+          f"N={kw['N']}, mean executed inner iterations {outs[5].mean().item():.2f}) alone: "
+          f"{slope_ms:.3f} ms [{card}]", flush=True)
+    bound(torch, FLOPS_STAGE_ITER["tracking"] * kw["N"] * float(outs[5].sum()),
+          [a for a in args if torch.is_tensor(a)] + list(outs))
     # the entry: the wind loop's launch of median time after the first (a
     # cold start), timed alone, with the twin and the bound on its operands
+    wind_loop = kept_loops["wind"]
     print("wind loop, ms / mean / max executed inner iterations a launch: "
           + ", ".join(f"{ms:.3f}/{o[5].mean().item():.1f}/{o[5].max().item():.0f}"
                       for ms, _, _, o in wind_loop) + f" [{card}]", flush=True)

@@ -19,7 +19,7 @@ with its plain-PyTorch twin:
   of ``make_linear_mpc``; the tube (``tube_sweep``), stochastic
   (``stochastic_sweep``), offset-free and rate-limited controllers; the
   Kalman filter, MHE and the MHE-in-the-loop sweep (``mhe_loop_sweep``,
-  whose soft-state MPC takes the kernel's wide mode). Session-1 LQR and the
+  whose soft-state MPC takes the kernel's panel mode). Session-1 LQR and the
   single-scenario ``simulate`` come with them;
 - the benchmark models of the model-parametric tracker (cart-pole,
   planar quadrotor, omnidirectional base, thrust cluster: ``nu`` from 1 to

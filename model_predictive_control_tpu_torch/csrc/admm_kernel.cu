@@ -67,25 +67,51 @@
 // loads' latency partly exposed. Both limits come from the register and
 // shared-memory footprint, not from the product's issue rate.
 //
-// Wide mode (LN = 32, a library of its own built with -DADMM_LANES=32), for
-// operators whose staged copy does not fit shared memory (the soft-state
-// MPC at N = 20: n = 60, m = 140, W alone 160 KB a level). A whole warp
-// serves a quad of 4 rows, lane c keeping columns c, c + 32, ...,
-// c + 32 (C - 1) (C = ceil(K / 32)), so the 4 x C block stays in registers;
-// a tile of T rows is ceil(T / 4) warps joined by a named barrier. Nothing
-// of the operator is staged: W, Wq, A, P, S and P^-1 are read from device
-// memory through the read-only path at every use (row stride K, as a moved
-// rho level reads them in the staged mode), so shared memory holds only the
-// quads' row buffers. Each output element keeps the staged mode's chain: 0,
-// then fmaf over k ascending, then the same epilogue.
+// Panel mode (LN = 32, a library of its own built with -DADMM_LANES=32), for
+// every operator whose staged copy does not fit shared memory (the soft-state
+// MPC at N = 20, 30 and 100: n + m = 200, 300 and 1,000; the condensed hard
+// box at N = 100: 400). W of one level alone is 160 KB at n + m = 200 and
+// 4 MB at 1,000, so it cannot stay in shared memory, and read from L2 by
+// every quad of rows at every use it would bound the launch by L2 traffic
+// twice over. The design:
+//   - Column split. A quad of 4 rows is served by S = ceil(K / 256) warps;
+//     lane c of the quad (c < 32 S) keeps columns c, c + 32 S, ...,
+//     c + 32 S (C - 1) with C = ceil(K / 32 S) <= MAX_COLS, so the 4 x C
+//     block stays in registers at any K. The quad's per-row reductions go
+//     through warp shuffles and, for S > 1, the group's exchange area.
+//   - Operator staging. One tile group per CTA (threads: 32 S per quad of
+//     the tile; CTAs beyond MAX_THREADS take a build with larger launch
+//     bounds). W of the tile's current rho level and Wq stream through a
+//     two-stage ring of panels (panel_rows rows x all columns) in shared
+//     memory, copied with cp.async by all the CTA's threads while the
+//     previous panel is consumed: a panel is read from L2 once per CTA and
+//     iteration and feeds every quad of the tile. With one tile per CTA the
+//     CTA's stream always follows its tile's level, so a moved rho level
+//     reads its own panels and no two levels compete for the ring (several
+//     tiles a CTA would sit at different levels and phases; occupancy comes
+//     from several CTAs per SM instead). launch_plan sizes the panel depth
+//     against the quads' row buffers (halving it from 16 down to 1).
+//   - A, P, S and P^-1 of the chunk ends and the polish are read through the
+//     read-only path (row stride n or m): they run a few times a solve.
+//   - Each output element keeps the staged mode's chain: 0, then fmaf over k
+//     ascending (the panels are consumed in order), then the same epilogue.
+// What bounds it (H100, tile 8, chip_smoke.py): L2 reads. Each W element
+// read from L2 feeds the tile's 8 rows, 2-3 TB/s at the measured times: the
+// MHE loop's n + m = 200 launch ~3.8-4.0 ms, 12-17% of the FP32 bound at
+// n + m = 200 to 1,000 (the wide mode, W from L2 by every quad, 9.06 ms).
 
 #include <cuda_runtime.h>
+#include <cuda_pipeline.h>
 #include <math.h>
+#include <stdint.h>
 
 #define MAX_CHUNKS 64
-#define MAX_COLS 8  // columns per lane: K <= LN * MAX_COLS
-#define RB 4        // rows per lane (and per quad of LN lanes)
-#define MAX_THREADS 256
+#define MAX_COLS 8  // columns per lane
+#define RB 4        // rows per lane (and per quad of lanes)
+#ifndef ADMM_MAX_THREADS
+#define ADMM_MAX_THREADS 256
+#endif
+#define MAX_THREADS ADMM_MAX_THREADS
 #define BIG 1e19f
 
 struct Params {
@@ -95,7 +121,7 @@ struct Params {
   int* next_tile;
   int chunk_lens[MAX_CHUNKS];
   int n_chunks, probe, max_rho_moves, init_idx, polish, cg_iters;
-  int n, m, R, T, n_tiles, quads_per_tile, tiles_per_cta;
+  int n, m, R, T, n_tiles, quads_per_tile, tiles_per_cta, warps_per_quad, panel_rows;
   float eps_abs, alpha;
 };
 
@@ -108,13 +134,27 @@ __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" : : "r"(id), "r"(count) : "memory");
 }
 
-// Shared memory of one CTA, in floats: the staged operator (none in the
-// wide mode), then per quad of rows G, q, a scratch vector (k-major, 4 rows
-// a float4) and l, u; then per tile group an exchange area for two barrier
-// phases and the pulled tile index. `lanes` is LN: 16, or 32 in the wide mode.
-__host__ __device__ static size_t operator_floats(int n, int m, int polish, int lanes) {
-  if (lanes == 32) return 0;
-  const size_t K = n + m, Kp = 16 * ((K + 15) / 16);
+// Warps serving a quad of rows: one (a half-warp in the staged mode), or
+// ceil(K / (32 MAX_COLS)) in the panel mode.
+__host__ __device__ static int warps_per_quad(int n, int m, int lanes) {
+  return lanes == 32 ? (n + m + 32 * MAX_COLS - 1) / (32 * MAX_COLS) : 1;
+}
+
+// The columns a quad's lanes span, LQ ceil(K / LQ) with LQ = lanes a quad.
+__host__ __device__ static size_t padded_cols(int n, int m, int lanes) {
+  const size_t lq = (size_t)lanes * warps_per_quad(n, m, lanes);
+  return lq * ((n + m + lq - 1) / lq);
+}
+
+// Shared memory of one CTA, in floats: the staged operator (the panel ring
+// in the panel mode: two stages of panel_rows x the padded columns), then
+// per quad of rows G, q, a scratch vector (k-major, 4 rows a float4) and l,
+// u; then per tile group an exchange area for two barrier phases and the
+// pulled tile index. `lanes` is LN: 16, or 32 in the panel mode.
+__host__ __device__ static size_t operator_floats(int n, int m, int polish, int lanes,
+                                                  int panel_rows) {
+  const size_t K = n + m, Kp = padded_cols(n, m, lanes);
+  if (lanes == 32) return 2 * (size_t)panel_rows * Kp;
   size_t f = K * Kp + n * Kp + 2 * (size_t)m * n + (size_t)n * n;
   if (polish) f += (size_t)m * m + (size_t)n * n;
   return (f + 3) & ~(size_t)3;  // the quads' float4 start aligned
@@ -123,47 +163,72 @@ __host__ __device__ static size_t operator_floats(int n, int m, int polish, int 
 __host__ __device__ static size_t quad_floats(int n, int m) { return 4 * (2 * (size_t)(n + m) + n + 2 * (size_t)m); }
 
 // half-warp quads: one up to 4 rows, else an even number (whole warps);
-// warp quads: one per 4 rows
+// panel-mode quads: one per 4 rows
 __host__ __device__ static int quads_per_tile(int T, int lanes) {
   if (lanes == 32) return (T + 3) / 4;
   return T <= 4 ? 1 : 2 * ((T + 7) / 8);
 }
 
-__host__ __device__ static int warps_per_group(int qpg, int lanes) {
-  if (lanes == 32) return qpg;
+__host__ __device__ static int warps_per_group(int qpg, int lanes, int wpq) {
+  if (lanes == 32) return qpg * wpq;
   return qpg > 2 ? qpg / 2 : 1;
 }
 
-static size_t smem_floats(int n, int m, int T, int polish, int tiles_per_cta, int lanes) {
+static size_t smem_floats(int n, int m, int T, int polish, int tiles_per_cta, int lanes,
+                          int panel_rows) {
   const int qpg = quads_per_tile(T, lanes);
-  return operator_floats(n, m, polish, lanes) + (size_t)tiles_per_cta * qpg * quad_floats(n, m) +
-         (size_t)tiles_per_cta * (2 * warps_per_group(qpg, lanes) * 8 + 2);
+  return operator_floats(n, m, polish, lanes, panel_rows) +
+         (size_t)tiles_per_cta * qpg * quad_floats(n, m) +
+         (size_t)tiles_per_cta * (2 * warps_per_group(qpg, lanes, warps_per_quad(n, m, lanes)) * 8 + 2);
 }
 
 // The lanes of one tile group, as one lane sees them.
 struct Group {
   unsigned mask;  // lanes of this warp that sync and shuffle together
   int qpg, gid, warps, nthr, first;  // quads, index in the CTA, warps, threads, first lane's tid
+  int wpq;        // warps a quad (the panel mode's column split; 1 otherwise)
   float* xch;     // exchange area: 2 phases x warps x 8
   int* slot;      // 2 pulled-tile slots
   int phase;
 };
 
-__device__ __forceinline__ void quad_sync(const Group& g) { __syncwarp(g.mask); }
-
-// max / sum over the LN lanes of a quad (a half-warp, or the warp)
-template <int LN>
-__device__ __forceinline__ float half_max(const Group& g, float v) {
-#pragma unroll
-  for (int o = LN / 2; o > 0; o >>= 1) v = nmax(v, __shfl_xor_sync(g.mask, v, o));
-  return v;
+// The lanes of a quad meet: a half-warp or warp; the whole group where a
+// quad spans several warps (its quads move in step).
+__device__ __forceinline__ void quad_sync(const Group& g) {
+  if (g.wpq > 1)
+    named_sync(1 + g.gid, g.nthr);
+  else
+    __syncwarp(g.mask);
 }
 
-template <int LN>
-__device__ __forceinline__ float half_sum(const Group& g, float v) {
+// Per-row reduction over the lanes of a quad, V values at once (V <= 8):
+// sums (SUM) or NaN-propagating maxima; every lane of the quad gets the
+// result. Within a warp by shuffles; across a quad's warps through the
+// exchange area, combined in warp order.
+template <bool SUM, int V, int LN>
+__device__ __forceinline__ void quad_reduce(Group& g, float* v) {
 #pragma unroll
-  for (int o = LN / 2; o > 0; o >>= 1) v += __shfl_xor_sync(g.mask, v, o);
-  return v;
+  for (int s = 0; s < V; ++s) {
+#pragma unroll
+    for (int o = LN / 2; o > 0; o >>= 1) {
+      const float w = __shfl_xor_sync(g.mask, v[s], o);
+      v[s] = SUM ? v[s] + w : nmax(v[s], w);
+    }
+  }
+  if (g.wpq > 1) {
+    const int lane = threadIdx.x & 31, wig = ((int)threadIdx.x - g.first) >> 5;
+    const int w0 = wig - wig % g.wpq;  // the quad's first warp in the group
+    float* x = g.xch + (g.phase & 1) * g.warps * 8;
+    if (lane == 0)
+      for (int s = 0; s < V; ++s) x[wig * 8 + s] = v[s];
+    named_sync(1 + g.gid, g.nthr);
+    for (int s = 0; s < V; ++s) {
+      float r = x[w0 * 8 + s];
+      for (int w = 1; w < g.wpq; ++w) r = SUM ? r + x[(w0 + w) * 8 + s] : nmax(r, x[(w0 + w) * 8 + s]);
+      v[s] = r;
+    }
+    g.phase += 1;
+  }
 }
 
 // Tile-wide reduction of V lane values: nmax for the first NM, fminf for
@@ -214,34 +279,76 @@ __device__ __forceinline__ int pull_tile(Group& g, int* next_tile) {
   return __shfl_sync(g.mask, t, src);
 }
 
-// One chunk's L iterations on a lane's 4 x C block. GLOBAL: W from device
-// memory (row stride K; a moved rho level, or the wide mode) instead of the
-// staged copy (row stride 16 C).
-template <int C, bool GLOBAL, int LN>
-__device__ __forceinline__ void iterate(const Group& g, int L, int K, int n, const float* Wsrc,
-                                        const float4* LO, const float4* HI, const float4* XZQ,
-                                        float4* G4, int col0, float rho, float inv_rho,
-                                        float alpha, float beta, float (&c)[RB][C],
-                                        float (&yv)[RB][C]) {
-  const int Kp = LN * C;
-  for (int it = 0; it < L; ++it) {
-    float acc[RB][C];
-#pragma unroll
-    for (int r = 0; r < RB; ++r)
-#pragma unroll
-      for (int jj = 0; jj < C; ++jj) acc[r][jj] = 0.f;
+// The panel mode's ring: two stages of `rows` rows x Kp columns in shared
+// memory, filled from a (., K) matrix in device memory (row stride K) by all
+// the CTA's threads, 16 bytes a copy where K and the operands allow, else 4.
+struct Ring {
+  float* buf;
+  int rows, Kp, K;
+  int units, row0, rstep, col, cstep;  // this thread's copies: rows row0 + i rstep, units col + j cstep
+  bool vec;
+};
+
+__device__ __forceinline__ Ring make_ring(float* buf, int rows, int Kp, int K, bool vec, int tid,
+                                          int nthr) {
+  Ring r;
+  r.buf = buf; r.rows = rows; r.Kp = Kp; r.K = K; r.vec = vec;
+  r.units = vec ? K >> 2 : K;
+  if (nthr >= r.units) {  // several rows a pass; threads past the last whole row idle
+    r.rstep = nthr / r.units;
+    r.row0 = tid / r.units;
+    r.col = tid - r.row0 * r.units;
+    r.cstep = r.units;
+    if (r.row0 >= r.rstep) r.row0 = 1 << 30;
+  } else {
+    r.rstep = 1; r.row0 = 0; r.col = tid; r.cstep = nthr;
+  }
+  return r;
+}
+
+// Start copying rows [k0, k0 + rows) of M into `stage` (one commit group).
+__device__ __forceinline__ void ring_load(const Ring& r, float* stage, const float* M, int k0,
+                                          int rows) {
+  for (int kk = r.row0; kk < rows; kk += r.rstep) {
+    const float* src = M + (size_t)(k0 + kk) * r.K;
+    float* dst = stage + kk * r.Kp;
+    if (r.vec) {
+      for (int c = r.col; c < r.units; c += r.cstep) __pipeline_memcpy_async(dst + 4 * c, src + 4 * c, 16);
+    } else {
+      for (int c = r.col; c < r.units; c += r.cstep) __pipeline_memcpy_async(dst + c, src + c, 4);
+    }
+  }
+  __pipeline_commit();
+}
+
+// acc[r][jj] += sum over k < rows_total of V[k].r M[k][col0 + LQ jj], k
+// ascending, with M streamed through the ring one panel ahead of its use.
+// Every thread of the CTA calls it (it holds CTA barriers); it leaves the
+// ring free.
+template <int C>
+__device__ __forceinline__ void panel_product(const Ring& r, const float* M, int rows_total,
+                                              const float4* V, int col0, int LQ,
+                                              float (&acc)[RB][C]) {
+  const int np = (rows_total + r.rows - 1) / r.rows, stage_floats = r.rows * r.Kp;
+  ring_load(r, r.buf, M, 0, min(r.rows, rows_total));
+  for (int pi = 0; pi < np; ++pi) {
+    const int k0 = pi * r.rows, rows = min(r.rows, rows_total - k0);
+    if (pi + 1 < np) {
+      // the other stage was last read before the previous panel's closing barrier
+      ring_load(r, r.buf + ((pi + 1) & 1) * stage_floats, M, k0 + r.rows,
+                min(r.rows, rows_total - k0 - r.rows));
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // every thread's copies of this panel have landed
+    const float* st = r.buf + (pi & 1) * stage_floats + col0;
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float4 gk = G4[k];
+    for (int kk = 0; kk < rows; ++kk) {
+      const float4 gk = V[k0 + kk];
       float w[C];
 #pragma unroll
-      for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + LN * jj;
-        if (GLOBAL)
-          w[jj] = j < K ? __ldg(Wsrc + (size_t)k * K + j) : 0.f;
-        else
-          w[jj] = Wsrc[k * Kp + j];
-      }
+      for (int jj = 0; jj < C; ++jj) w[jj] = st[kk * r.Kp + LQ * jj];
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
         acc[0][jj] = fmaf(gk.x, w[jj], acc[0][jj]);
@@ -250,10 +357,57 @@ __device__ __forceinline__ void iterate(const Group& g, int L, int K, int n, con
         acc[3][jj] = fmaf(gk.w, w[jj], acc[3][jj]);
       }
     }
+    __syncthreads();  // every thread is past its reads of this stage
+  }
+}
+
+// Where a chunk's product reads W: the staged copy (row stride LN C), device
+// memory through the read-only path (a moved rho level of the staged mode,
+// row stride K), or the panel ring (the panel mode).
+enum { FROM_STAGED, FROM_GLOBAL, FROM_PANELS };
+
+// One chunk's L iterations on a lane's 4 x C block (columns col0 + LQ jj).
+template <int C, int SRC, int LN>
+__device__ __forceinline__ void iterate(const Group& g, const Ring& ring, int L, int K, int n,
+                                        const float* Wsrc, const float4* LO, const float4* HI,
+                                        const float4* XZQ, float4* G4, int col0, int LQ,
+                                        float rho, float inv_rho, float alpha, float beta,
+                                        float (&c)[RB][C], float (&yv)[RB][C]) {
+  const int Kp = LQ * C;
+  for (int it = 0; it < L; ++it) {
+    float acc[RB][C];
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int jj = 0; jj < C; ++jj) acc[r][jj] = 0.f;
+    if (SRC == FROM_PANELS) {
+      panel_product<C>(ring, Wsrc, K, G4, col0, LQ, acc);
+    } else {
+#pragma unroll 4
+      for (int k = 0; k < K; ++k) {
+        const float4 gk = G4[k];
+        float w[C];
+#pragma unroll
+        for (int jj = 0; jj < C; ++jj) {
+          const int j = col0 + LQ * jj;
+          if (SRC == FROM_GLOBAL)
+            w[jj] = j < K ? __ldg(Wsrc + (size_t)k * K + j) : 0.f;
+          else
+            w[jj] = Wsrc[k * Kp + j];
+        }
+#pragma unroll
+        for (int jj = 0; jj < C; ++jj) {
+          acc[0][jj] = fmaf(gk.x, w[jj], acc[0][jj]);
+          acc[1][jj] = fmaf(gk.y, w[jj], acc[1][jj]);
+          acc[2][jj] = fmaf(gk.z, w[jj], acc[2][jj]);
+          acc[3][jj] = fmaf(gk.w, w[jj], acc[3][jj]);
+        }
+      }
+    }
     quad_sync(g);
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + LN * jj;
+      const int j = col0 + LQ * jj;
       if (j >= K) continue;
       float gn[RB];
       const float4 xq4 = XZQ[j];
@@ -287,8 +441,9 @@ __device__ __forceinline__ void iterate(const Group& g, int L, int K, int n, con
 template <int C, int LN>
 __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) {
   extern __shared__ float sm[];
-  constexpr bool WIDE = LN == 32;  // nothing of the operator staged
-  const int n = p.n, m = p.m, K = n + m, Kp = LN * C, T = p.T;
+  constexpr bool PANEL = LN == 32;  // the operator streamed through panels
+  const int n = p.n, m = p.m, K = n + m, T = p.T;
+  const int wpq = PANEL ? p.warps_per_quad : 1, LQ = LN * wpq, Kp = LQ * C;
   float* Wb = sm;             // (K, Kp) W of the initial level, zero-padded columns
   float* Wqb = Wb + K * Kp;   // (n, Kp)
   float* As = Wqb + n * Kp;   // A, row-major (m, n)
@@ -297,19 +452,26 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
   float* Sb = Ps + n * n;     // S (m, m), with the polish
   float* Pinvb = Sb + m * m;  // P^-1 (n, n), with the polish
   // the operator's elements: the staged copies, or device memory in the
-  // wide mode (A^T read as A with its indices swapped)
-  auto a_at = [&](int i, int j) { return WIDE ? __ldg(p.A + i * n + j) : As[i * n + j]; };
-  auto at_at = [&](int k, int i) { return WIDE ? __ldg(p.A + i * n + k) : Ats[k * m + i]; };
-  auto p_at = [&](int k, int j) { return WIDE ? __ldg(p.P + k * n + j) : Ps[k * n + j]; };
-  auto s_at = [&](int k, int i) { return WIDE ? __ldg(p.S + k * m + i) : Sb[k * m + i]; };
-  auto pinv_at = [&](int k, int j) { return WIDE ? __ldg(p.Pinv + k * n + j) : Pinvb[k * n + j]; };
-  const int qpg = p.quads_per_tile, wpg = warps_per_group(qpg, LN);
-  float* quad_base = sm + operator_floats(n, m, p.polish, LN);
+  // panel mode (A^T read as A with its indices swapped)
+  auto a_at = [&](int i, int j) { return PANEL ? __ldg(p.A + i * n + j) : As[i * n + j]; };
+  auto at_at = [&](int k, int i) { return PANEL ? __ldg(p.A + i * n + k) : Ats[k * m + i]; };
+  auto p_at = [&](int k, int j) { return PANEL ? __ldg(p.P + k * n + j) : Ps[k * n + j]; };
+  auto s_at = [&](int k, int i) { return PANEL ? __ldg(p.S + k * m + i) : Sb[k * m + i]; };
+  auto pinv_at = [&](int k, int j) { return PANEL ? __ldg(p.Pinv + k * n + j) : Pinvb[k * n + j]; };
+  const int qpg = p.quads_per_tile, wpg = warps_per_group(qpg, LN, wpq);
+  float* quad_base = sm + operator_floats(n, m, p.polish, LN, p.panel_rows);
   float* xch_base = quad_base + (size_t)p.tiles_per_cta * qpg * quad_floats(n, m);
   int* slot_base = (int*)(xch_base + (size_t)p.tiles_per_cta * 2 * wpg * 8);
 
   const int tid = threadIdx.x, nthr = blockDim.x;
-  if (!WIDE) {
+  // the panel mode streams whole rows in 16-byte copies where every row
+  // start is 16-byte aligned
+  const bool vec = (K & 3) == 0 && (((uintptr_t)p.W | (uintptr_t)p.Wq) & 15) == 0;
+  const Ring ring = make_ring(sm, p.panel_rows, Kp, K, vec, tid, nthr);
+  if (PANEL) {
+    // the padded columns K..Kp-1 of both stages stay zero (copies write 0..K-1)
+    for (int e = tid; e < 2 * p.panel_rows * Kp; e += nthr) sm[e] = 0.f;
+  } else {
     const float* Wsrc = p.W + (size_t)p.init_idx * K * K;
     const float* Wqsrc = p.Wq + (size_t)p.init_idx * n * K;
     for (int e = tid; e < K * Kp; e += nthr) {
@@ -333,15 +495,19 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
   }
   __syncthreads();
 
-  const int lane = tid & 31, half = WIDE ? 0 : lane >> 4, col0 = lane & (LN - 1);
-  const int quad = WIDE ? tid >> 5 : 2 * (tid >> 5) + half;  // this lane's quad of rows in the CTA
+  // this lane's quad of rows in the CTA and its first column: half-warp
+  // quads in the staged mode; quads of wpq warps, warp-major, in the panel mode
+  const int lane = tid & 31, warp = tid >> 5, half = lane >> 4;
+  const int quad = PANEL ? warp / wpq : 2 * warp + half;
+  const int col0 = PANEL ? (warp - quad * wpq) * 32 + lane : lane & 15;
   Group g;
   g.qpg = qpg;
   g.gid = quad / qpg;
   g.warps = wpg;
   g.nthr = 32 * wpg;
-  g.first = !WIDE && qpg == 1 ? (tid & ~15) : g.gid * g.nthr;
-  g.mask = !WIDE && qpg == 1 ? 0xffffu << (16 * half) : 0xffffffffu;
+  g.wpq = wpq;
+  g.first = !PANEL && qpg == 1 ? (tid & ~15) : g.gid * g.nthr;
+  g.mask = !PANEL && qpg == 1 ? 0xffffu << (16 * half) : 0xffffffffu;
   g.xch = xch_base + g.gid * 2 * wpg * 8;
   g.slot = slot_base + 2 * g.gid;
   g.phase = 0;
@@ -367,7 +533,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     float sc[RB], qm = 0.f;
 #pragma unroll
     for (int r = 0; r < RB; ++r) sc[r] = 0.f;
-    for (int k = col0; k < n; k += LN) {
+    for (int k = col0; k < n; k += LQ) {
       float qv[RB], xv[RB];
       const float dc = p.Dcinv[k];
 #pragma unroll
@@ -380,7 +546,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       Q4[k] = make_float4(qv[0], qv[1], qv[2], qv[3]);
       G4[k] = make_float4(xv[0], xv[1], xv[2], xv[3]);
     }
-    for (int i = col0; i < m; i += LN) {
+    for (int i = col0; i < m; i += LQ) {
       float lv[RB], uv[RB];
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
@@ -390,8 +556,9 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       LO[i] = make_float4(lv[0], lv[1], lv[2], lv[3]);
       HI[i] = make_float4(uv[0], uv[1], uv[2], uv[3]);
     }
+    quad_reduce<false, RB, LN>(g, sc);
 #pragma unroll
-    for (int r = 0; r < RB; ++r) sc[r] = 1.f + half_max<LN>(g, sc[r]);
+    for (int r = 0; r < RB; ++r) sc[r] = 1.f + sc[r];
     {
       float v[1] = {qm};
       group_reduce<1, 1, LN>(g, v);
@@ -403,7 +570,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     float c[RB][C], yv[RB][C];
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + LN * jj;
+      const int j = col0 + LQ * jj;
 #pragma unroll
       for (int r = 0; r < RB; ++r) c[r][jj] = yv[r][jj] = 0.f;
       if (j >= K) continue;
@@ -434,25 +601,39 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     for (int ci = 0; ci < p.n_chunks; ++ci) {
       const float rho = p.rho[idx], inv_rho = 1.f / rho;
       const int L = p.chunk_lens[ci];
-      const bool staged = !WIDE && idx == p.init_idx;
+      const bool staged = !PANEL && idx == p.init_idx;
       const float* Wqg = p.Wq + (size_t)idx * n * K;
       // q Wq of this level into the scratch vector, and G = [x | rho z - y]
       quad_sync(g);  // every lane is past its reads of G and of the scratch vector
+      if (PANEL) {
+        float xzq[RB][C];
 #pragma unroll
-      for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + LN * jj;
-        float xzq[RB] = {0.f, 0.f, 0.f, 0.f};
-        for (int k = 0; k < n; ++k) {
-          const float4 q4 = Q4[k];
-          const float w = staged ? Wqb[k * Kp + j] : (j < K ? __ldg(Wqg + (size_t)k * K + j) : 0.f);
-          xzq[0] = fmaf(q4.x, w, xzq[0]); xzq[1] = fmaf(q4.y, w, xzq[1]);
-          xzq[2] = fmaf(q4.z, w, xzq[2]); xzq[3] = fmaf(q4.w, w, xzq[3]);
+        for (int r = 0; r < RB; ++r)
+#pragma unroll
+          for (int jj = 0; jj < C; ++jj) xzq[r][jj] = 0.f;
+        panel_product<C>(ring, Wqg, n, Q4, col0, LQ, xzq);
+#pragma unroll
+        for (int jj = 0; jj < C; ++jj) {
+          const int j = col0 + LQ * jj;
+          if (j < K) S4[j] = make_float4(xzq[0][jj], xzq[1][jj], xzq[2][jj], xzq[3][jj]);
         }
-        if (j < K) S4[j] = make_float4(xzq[0], xzq[1], xzq[2], xzq[3]);
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < C; ++jj) {
+          const int j = col0 + LQ * jj;
+          float xzq[RB] = {0.f, 0.f, 0.f, 0.f};
+          for (int k = 0; k < n; ++k) {
+            const float4 q4 = Q4[k];
+            const float w = staged ? Wqb[k * Kp + j] : (j < K ? __ldg(Wqg + (size_t)k * K + j) : 0.f);
+            xzq[0] = fmaf(q4.x, w, xzq[0]); xzq[1] = fmaf(q4.y, w, xzq[1]);
+            xzq[2] = fmaf(q4.z, w, xzq[2]); xzq[3] = fmaf(q4.w, w, xzq[3]);
+          }
+          if (j < K) S4[j] = make_float4(xzq[0], xzq[1], xzq[2], xzq[3]);
+        }
       }
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + LN * jj;
+        const int j = col0 + LQ * jj;
         if (j >= K) continue;
         float gv[RB];
 #pragma unroll
@@ -460,11 +641,16 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
         G4[j] = make_float4(gv[0], gv[1], gv[2], gv[3]);
       }
       quad_sync(g);
-      if (staged)
-        iterate<C, false, LN>(g, L, K, n, Wb, LO, HI, S4, G4, col0, rho, inv_rho, alpha, beta, c, yv);
+      const float* Wlevel = p.W + (size_t)idx * K * K;
+      if (PANEL)
+        iterate<C, FROM_PANELS, LN>(g, ring, L, K, n, Wlevel, LO, HI, S4, G4, col0, LQ, rho, inv_rho,
+                                    alpha, beta, c, yv);
+      else if (staged)
+        iterate<C, FROM_STAGED, LN>(g, ring, L, K, n, Wb, LO, HI, S4, G4, col0, LQ, rho, inv_rho,
+                                    alpha, beta, c, yv);
       else
-        iterate<C, true, LN>(g, L, K, n, p.W + (size_t)idx * K * K, LO, HI, S4, G4, col0, rho,
-                         inv_rho, alpha, beta, c, yv);
+        iterate<C, FROM_GLOBAL, LN>(g, ring, L, K, n, Wlevel, LO, HI, S4, G4, col0, LQ, rho,
+                                    inv_rho, alpha, beta, c, yv);
 
       // residuals A x - z (z columns) and P x + q + A^T y (x columns), dealt
       // by (row, column); G holds x in its first n entries. y goes into the
@@ -472,7 +658,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       // (the iteration ends with a sync)
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + LN * jj;
+        const int j = col0 + LQ * jj;
         if (j >= n && j < K) S4[j - n] = make_float4(yv[0][jj], yv[1][jj], yv[2][jj], yv[3][jj]);
       }
       quad_sync(g);
@@ -481,7 +667,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       float rowres[RB] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + LN * jj;
+        const int j = col0 + LQ * jj;
         if (j >= K) continue;
         if (j < n) {
           float a[RB] = {0.f, 0.f, 0.f, 0.f}, b[RB] = {0.f, 0.f, 0.f, 0.f};
@@ -532,8 +718,9 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
         }
       }
       if (p.polish) {
+        quad_reduce<false, RB, LN>(g, rowres);
 #pragma unroll
-        for (int r = 0; r < RB; ++r) res0[r] = half_max<LN>(g, rowres[r]);
+        for (int r = 0; r < RB; ++r) res0[r] = rowres[r];
       }
       group_reduce<7, 6, LN>(g, v);
       const bool conv = v[6] > 0.5f;
@@ -565,7 +752,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     // the ADMM iterate out (the polish overwrites the rows it improves)
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + LN * jj;
+      const int j = col0 + LQ * jj;
       if (j >= K) continue;
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
@@ -592,15 +779,18 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       float ym = 0.f;
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + LN * jj;
+        const int j = col0 + LQ * jj;
         if (j >= n && j < K) ym = nmax(ym, fabsf(yv[r][jj]));
       }
-      ytol[r] = 1e-6f * nmax(half_max<LN>(g, ym), 1e-6f);
+      ytol[r] = ym;
     }
+    quad_reduce<false, RB, LN>(g, ytol);
+#pragma unroll
+    for (int r = 0; r < RB; ++r) ytol[r] = 1e-6f * nmax(ytol[r], 1e-6f);
     unsigned low = 0, up = 0;  // bit r * C + jj
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + LN * jj;
+      const int j = col0 + LQ * jj;
       if (j < n || j >= K) continue;
       const float4 lo4 = LO[j - n], hi4 = HI[j - n];
       const float lo[RB] = {lo4.x, lo4.y, lo4.z, lo4.w}, hi[RB] = {hi4.x, hi4.y, hi4.z, hi4.w};
@@ -615,7 +805,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     quad_sync(g);  // every lane is past its reads of y there
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + LN * jj;
+      const int j = col0 + LQ * jj;
       if (j >= n) continue;
       float a[RB] = {0.f, 0.f, 0.f, 0.f};
       for (int k = 0; k < n; ++k) {
@@ -632,7 +822,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     for (int r = 0; r < RB; ++r) rs[r] = 0.f;
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + LN * jj;
+      const int j = col0 + LQ * jj;
 #pragma unroll
       for (int r = 0; r < RB; ++r) nu[r][jj] = rr[r][jj] = pp[r][jj] = 0.f;
       if (j < n || j >= K) continue;
@@ -656,8 +846,9 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
         rs[r] = fmaf(rhs, rhs, rs[r]);
       }
     }
+    quad_reduce<true, RB, LN>(g, rs);
 #pragma unroll
-    for (int r = 0; r < RB; ++r) rs0[r] = rs[r] = half_sum<LN>(g, rs[r]);
+    for (int r = 0; r < RB; ++r) rs0[r] = rs[r];
 
     for (int it = 0; it < p.cg_iters; ++it) {
       float v[1] = {0.f};
@@ -668,7 +859,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       quad_sync(g);  // the last pass's reads of G are done
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + LN * jj;
+        const int j = col0 + LQ * jj;
         if (j < n || j >= K) continue;
         float dp[RB];
 #pragma unroll
@@ -679,7 +870,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
       float Mp[RB][C], pmp[RB] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + LN * jj;
+        const int j = col0 + LQ * jj;
 #pragma unroll
         for (int r = 0; r < RB; ++r) Mp[r][jj] = 0.f;
         if (j < n || j >= K) continue;
@@ -697,9 +888,10 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
           pmp[r] = fmaf(pp[r][jj], Mp[r][jj], pmp[r]);
         }
       }
+      quad_reduce<true, RB, LN>(g, pmp);
       float a[RB], rsn[RB] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < RB; ++r) a[r] = rs[r] / fmaxf(half_sum<LN>(g, pmp[r]), 1e-30f);
+      for (int r = 0; r < RB; ++r) a[r] = rs[r] / fmaxf(pmp[r], 1e-30f);
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
 #pragma unroll
@@ -709,9 +901,9 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
           rsn[r] = fmaf(rr[r][jj], rr[r][jj], rsn[r]);
         }
       }
+      quad_reduce<true, RB, LN>(g, rsn);
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
-        rsn[r] = half_sum<LN>(g, rsn[r]);
         const float bet = rsn[r] / fmaxf(rs[r], 1e-30f);
 #pragma unroll
         for (int jj = 0; jj < C; ++jj) pp[r][jj] = rr[r][jj] + bet * pp[r][jj];
@@ -721,11 +913,11 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
 
     // candidate (x_p, z_p, y_p); accept per row if finite, dual signs hold
     // and max(primal, dual) residual beats the last chunk's res0
-    unsigned bad = 0;  // bit r: row r's signs or finiteness fail
+    float bad[RB] = {0.f, 0.f, 0.f, 0.f};  // row r's signs or finiteness fail
     quad_sync(g);      // the CG's reads of G and of the scratch are done
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + LN * jj;
+      const int j = col0 + LQ * jj;
       if (j < n || j >= K) continue;
       float yp[RB];
 #pragma unroll
@@ -733,7 +925,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
         const unsigned bit = 1u << (r * C + jj);
         yp[r] = (act & bit) ? nu[r][jj] : 0.f;
         nu[r][jj] = yp[r];
-        if (((low & bit) && yp[r] > 1e-7f) || ((up & bit) && yp[r] < -1e-7f)) bad |= 1u << r;
+        if (((low & bit) && yp[r] > 1e-7f) || ((up & bit) && yp[r] < -1e-7f)) bad[r] = 1.f;
       }
       S4[j - n] = make_float4(yp[0], yp[1], yp[2], yp[3]);  // y_p
     }
@@ -741,7 +933,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     float hx[RB][C];  // (A^T y_p)_j, then x_p on the x columns
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + LN * jj;
+      const int j = col0 + LQ * jj;
 #pragma unroll
       for (int r = 0; r < RB; ++r) hx[r][jj] = 0.f;
       if (j >= n) continue;
@@ -761,7 +953,7 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     float xp[RB][C];
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + LN * jj;
+      const int j = col0 + LQ * jj;
 #pragma unroll
       for (int r = 0; r < RB; ++r) xp[r][jj] = 0.f;
       if (j >= n) continue;
@@ -778,14 +970,14 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
     quad_sync(g);  // y_p's reads of the scratch are done
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + LN * jj;
+      const int j = col0 + LQ * jj;
       if (j < n) S4[j] = make_float4(xp[0][jj], xp[1][jj], xp[2][jj], xp[3][jj]);  // x_p
     }
     quad_sync(g);
-    float r1[RB] = {0.f, 0.f, 0.f, 0.f}, zp[RB][C];
+    float r1[2 * RB] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, zp[RB][C];  // residual, then bad
 #pragma unroll
     for (int jj = 0; jj < C; ++jj) {
-      const int j = col0 + LN * jj;
+      const int j = col0 + LQ * jj;
 #pragma unroll
       for (int r = 0; r < RB; ++r) zp[r][jj] = 0.f;
       if (j >= K) continue;
@@ -813,21 +1005,22 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
         const float lo[RB] = {lo4.x, lo4.y, lo4.z, lo4.w}, hi[RB] = {hi4.x, hi4.y, hi4.z, hi4.w};
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
-          if (!isfinite(a[r])) bad |= 1u << r;
+          if (!isfinite(a[r])) bad[r] = 1.f;
           zp[r][jj] = fminf(fmaxf(a[r], lo[r]), hi[r]);
           r1[r] = nmax(r1[r], fabsf(a[r] - zp[r][jj]));
         }
       }
     }
 #pragma unroll
-    for (int o = LN / 2; o > 0; o >>= 1) bad |= __shfl_xor_sync(g.mask, bad, o);
+    for (int r = 0; r < RB; ++r) r1[RB + r] = bad[r];
+    quad_reduce<false, 2 * RB, LN>(g, r1);
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
-      const bool accept = half_max<LN>(g, r1[r]) < res0[r] && !(bad >> r & 1u);
+      const bool accept = r1[r] < res0[r] && !(r1[RB + r] > 0.5f);
       if (!accept || !valid[r]) continue;
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const int j = col0 + LN * jj;
+        const int j = col0 + LQ * jj;
         if (j >= K) continue;
         if (j < n) {
           p.x_out[(rbase + r) * n + j] = xp[r][jj];
@@ -843,8 +1036,10 @@ __global__ void __launch_bounds__(MAX_THREADS) admm_tile_kernel(const Params p) 
 typedef void (*kernel_fn)(const Params);
 
 // One library per column count and mode: built with -DADMM_COLS=C and
-// -DADMM_LANES=LN (16, or 32 for the wide mode), it serves
-// LN (C - 1) < n + m <= LN C.
+// -DADMM_LANES=LN (16, or 32 for the panel mode), it serves the operators
+// whose lanes a quad LQ (16, or 32 ceil(K / 256)) give C = ceil(K / LQ);
+// -DADMM_MAX_THREADS sets its launch bounds (256, or 1024 for the panel
+// mode's CTAs beyond 256 threads).
 #ifndef ADMM_COLS
 #define ADMM_COLS 5
 #endif
@@ -854,21 +1049,23 @@ typedef void (*kernel_fn)(const Params);
 static_assert(ADMM_COLS >= 1 && ADMM_COLS <= MAX_COLS, "ADMM_COLS out of range");
 static_assert(ADMM_LANES == 16 || ADMM_LANES == 32, "ADMM_LANES is 16 or 32");
 
-static kernel_fn kernel_for(int K) {
-  return (K + ADMM_LANES - 1) / ADMM_LANES == ADMM_COLS ? admm_tile_kernel<ADMM_COLS, ADMM_LANES>
-                                                        : nullptr;
+static kernel_fn kernel_for(int n, int m) {
+  const int lq = ADMM_LANES * warps_per_quad(n, m, ADMM_LANES);
+  return (n + m + lq - 1) / lq == ADMM_COLS ? admm_tile_kernel<ADMM_COLS, ADMM_LANES> : nullptr;
 }
 
 // Dynamic shared memory one CTA needs, in bytes, for `lanes` lanes a quad
-// (launch_plan reckons the same; a test holds the two together).
-extern "C" long admm_smem_bytes(int n, int m, int T, int polish, int tiles_per_cta, int lanes) {
-  return (long)(4 * smem_floats(n, m, T, polish, tiles_per_cta, lanes));
+// and panel_rows rows a panel (launch_plan reckons the same; a test holds
+// the two together).
+extern "C" long admm_smem_bytes(int n, int m, int T, int polish, int tiles_per_cta, int lanes,
+                                int panel_rows) {
+  return (long)(4 * smem_floats(n, m, T, polish, tiles_per_cta, lanes, panel_rows));
 }
 
 // CTAs of `threads` threads and `smem` bytes the card holds per SM, and its
 // SM count; returns a CUDA error code.
 extern "C" int admm_occupancy(int n, int m, int threads, long smem, int* ctas_per_sm, int* sms) {
-  kernel_fn kernel = kernel_for(n + m);
+  kernel_fn kernel = kernel_for(n, m);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -887,15 +1084,18 @@ extern "C" int admm_tiles_launch(
     const float* x0, const float* y0, float* x_out, float* z_out, float* y_out,
     float* ni_out, int* next_tile, const int* chunk_lens, int n_chunks, int probe,
     int max_rho_moves, int init_idx, int polish, int cg_iters, int n, int m,
-    int R, int T, int n_tiles, int tiles_per_cta, int threads, int grid, float eps_abs,
-    float alpha, void* stream) {
-  kernel_fn kernel = kernel_for(n + m);
-  const int qpg = quads_per_tile(T, ADMM_LANES);
+    int R, int T, int n_tiles, int tiles_per_cta, int panel_rows, int threads, int grid,
+    float eps_abs, float alpha, void* stream) {
+  kernel_fn kernel = kernel_for(n, m);
+  const int qpg = quads_per_tile(T, ADMM_LANES), wpq = warps_per_quad(n, m, ADMM_LANES);
+  const int wpg = warps_per_group(qpg, ADMM_LANES, wpq);
+  const bool panel = ADMM_LANES == 32;
   if (n_chunks < 1 || n_chunks > MAX_CHUNKS || kernel == nullptr || threads > MAX_THREADS ||
-      threads != tiles_per_cta * ADMM_LANES * qpg || threads % 32 != 0 ||
-      (warps_per_group(qpg, ADMM_LANES) > 1 && tiles_per_cta > 15) || grid < 1)
+      threads != tiles_per_cta * (panel ? 32 * wpg : 16 * qpg) || threads % 32 != 0 ||
+      (wpg > 1 && tiles_per_cta > 15) || (panel && (tiles_per_cta != 1 || panel_rows < 1)) ||
+      grid < 1)
     return (int)cudaErrorInvalidValue;
-  const int smem_bytes = (int)admm_smem_bytes(n, m, T, polish, tiles_per_cta, ADMM_LANES);
+  const int smem_bytes = (int)admm_smem_bytes(n, m, T, polish, tiles_per_cta, ADMM_LANES, panel_rows);
   Params p;
   p.W = W; p.Wq = Wq; p.A = A; p.P = P; p.Pinv = Pinv; p.S = S; p.rho = rho;
   p.Einv = Einv; p.Dcinv = Dcinv; p.q = q; p.l = l; p.u = u; p.x0 = x0;
@@ -906,6 +1106,7 @@ extern "C" int admm_tiles_launch(
   p.init_idx = init_idx; p.polish = polish; p.cg_iters = cg_iters;
   p.n = n; p.m = m; p.R = R; p.T = T; p.n_tiles = n_tiles;
   p.quads_per_tile = qpg; p.tiles_per_cta = tiles_per_cta;
+  p.warps_per_quad = wpq; p.panel_rows = panel ? panel_rows : 0;
   p.eps_abs = eps_abs; p.alpha = alpha;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;

@@ -23,9 +23,13 @@ issue of shared-memory loads and FMAs sets the pace. The design
 - plain FP32 FMA loops: no bf16 split, no TF32 (the reference measured
   low-precision iteration products collapsing closed-loop success);
 - operators whose staged copy does not fit shared memory (``n + m > 128``,
-  e.g. the soft-state MPC at N=20, n + m = 200) take the wide mode
-  (:func:`kernel_lanes`): a warp serves 4 rows, a lane a 4 × ⌈(n+m)/32⌉
-  block, and the operator is read from device memory at every use.
+  e.g. the soft-state MPC at N=20, 30 and 100, n + m = 200, 300 and 1,000,
+  or the condensed hard box at N=100, 400) take the panel mode
+  (:func:`kernel_lanes`): ``⌈(n+m)/256⌉`` warps serve 4 rows, a lane a
+  4 × ``⌈(n+m)/(32·warps)⌉`` block, one tile a CTA, and ``W`` and ``Wq``
+  stream through a two-stage ring of k-row panels in shared memory
+  (``cp.async``), each panel read once per CTA and iteration. No constant
+  caps ``n + m``: only the shared memory of one tile (:func:`launch_plan`).
 
 Tile semantics (kept from the reference): exits and ρ are per tile, so ``T``
 changes results at the tolerance edge; padded zero rows take part in the last
@@ -52,8 +56,10 @@ LAUNCHES = 0
 LAUNCHES_BY_LIBRARY: dict[str, int] = {}
 
 MAX_CHUNKS = 64  # size of the kernel's chunk-length table (Params.chunk_lens)
-MAX_COLS = 8  # columns per lane: n + m <= 16 * MAX_COLS staged, 32 * MAX_COLS wide
+MAX_COLS = 8  # columns per lane: n + m <= 16 * MAX_COLS staged, 32 * MAX_COLS a panel warp
 MAX_THREADS = 256  # the kernel's launch bounds (registers: up to 255 a thread)
+BIG_CTA_THREADS = 1024  # the launch bounds of a panel build for CTAs above MAX_THREADS
+PANEL_ROWS = 16  # rows of a panel, halved by launch_plan until the CTA fits
 CTA_THREADS = 256  # threads a CTA aims at: as many tile groups as fit
 SMEM_LIMIT = 232448  # opt-in shared memory per block on sm_90 (bytes)
 # GPU default scenario tile, chosen by a sweep on the H100 at the headline
@@ -262,101 +268,123 @@ def admm_solve_tiles_reference(
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    threads_per_tile: int  # lanes of a tile: 16 × its quads, or 32 × its quads (wide)
-    tiles_per_cta: int  # tile groups in one CTA, each pulling its own tiles
+    threads_per_tile: int  # lanes of a tile: 16 × its quads, or 32 × warps a quad × its quads
+    tiles_per_cta: int  # tile groups in one CTA, each pulling its own tiles (1 in the panel mode)
     threads: int  # per CTA
     smem_bytes: int  # dynamic shared memory per CTA
     ctas_per_sm: int | None  # the card's occupancy (None: not asked)
     grid: int | None  # persistent CTAs (None: not asked)
-    lanes: int  # lanes a quad of 4 rows: 16 (staged operator) or 32 (wide mode)
-    cols: int  # columns a lane keeps, ⌈(n + m) / lanes⌉: the library's
+    lanes: int  # lanes of a warp in a quad of 4 rows: 16 (staged operator) or 32 (panel mode)
+    cols: int  # columns a lane keeps (:func:`columns`): the library's
+    warps_per_quad: int = 1  # warps serving a quad of rows (the panel mode's column split)
+    panel_rows: int = 0  # rows of a panel of the ring (the panel mode)
+    max_threads: int = MAX_THREADS  # the library's launch bounds
 
     @property
-    def wide(self) -> bool:
+    def panel(self) -> bool:
         return self.lanes == 32
 
 
 def _quads_per_tile(tile: int, lanes: int = 16) -> int:
     """Quads of 4 rows that serve a tile. Half-warp quads: one up to 4 rows,
-    else an even number (whole warps). Warp quads (wide mode): one per 4
-    rows."""
+    else an even number (whole warps). Panel-mode quads: one per 4 rows."""
     if lanes == 32:
         return -(-tile // 4)
     return 1 if tile <= 4 else 2 * -(-tile // 8)
 
 
-def _operator_floats(n: int, m: int, polish: bool, lanes: int) -> int:
+def _warps_per_quad(n: int, m: int, lanes: int) -> int:
+    """Warps serving a quad of rows: ``⌈(n + m) / 256⌉`` in the panel mode,
+    so a lane keeps at most :data:`MAX_COLS` columns; 1 (a half-warp) in the
+    staged mode."""
+    return -(-(n + m) // (32 * MAX_COLS)) if lanes == 32 else 1
+
+
+def _padded_cols(n: int, m: int, lanes: int) -> int:
+    lq = lanes * _warps_per_quad(n, m, lanes)
+    return lq * -(-(n + m) // lq)
+
+
+def _operator_floats(n: int, m: int, polish: bool, lanes: int, panel_rows: int = 0) -> int:
     """The staged operator in floats (``csrc/admm_kernel.cu::operator_floats``);
-    nothing in the wide mode."""
+    the ring of two panels of ``panel_rows`` rows in the panel mode."""
+    Kp = _padded_cols(n, m, lanes)
     if lanes == 32:
-        return 0
+        return 2 * panel_rows * Kp
     K = n + m
-    Kp = 16 * -(-K // 16)
     op = K * Kp + n * Kp + 2 * m * n + n * n + (m * m + n * n if polish else 0)
     return -(-op // 4) * 4
 
 
-def _smem_bytes(n: int, m: int, tile: int, polish: bool, groups: int, lanes: int) -> int:
+def _smem_bytes(n: int, m: int, tile: int, polish: bool, groups: int, lanes: int,
+                panel_rows: int = 0) -> int:
     qpg = _quads_per_tile(tile, lanes)
-    warps = qpg if lanes == 32 else max(1, qpg // 2)
-    return 4 * (_operator_floats(n, m, polish, lanes) + groups * qpg * 4 * (2 * (n + m) + n + 2 * m)
-                + groups * (2 * warps * 8 + 2))
+    warps = qpg * _warps_per_quad(n, m, lanes) if lanes == 32 else max(1, qpg // 2)
+    return 4 * (_operator_floats(n, m, polish, lanes, panel_rows)
+                + groups * qpg * 4 * (2 * (n + m) + n + 2 * m) + groups * (2 * warps * 8 + 2))
 
 
 def kernel_lanes(n: int, m: int, polish: bool) -> int:
     """The kernel's mode for an operator: 16 lanes a quad with the operator
     staged in shared memory where ``n + m <= 16 ×`` :data:`MAX_COLS` and the
-    staged operator leaves room for a warp of quads; else 32 lanes a quad
-    with the operator read from device memory (the wide mode). Raises
-    ``ValueError`` for ``n + m`` beyond the wide mode's ``32 ×``
-    :data:`MAX_COLS`."""
-    K = n + m
-    if K <= 16 * MAX_COLS and _smem_bytes(n, m, 1, polish, 2, 16) <= SMEM_LIMIT:
+    staged operator leaves room for a warp of quads; else the panel mode
+    (32 lanes a warp), at any ``n + m``."""
+    if n + m <= 16 * MAX_COLS and _smem_bytes(n, m, 1, polish, 2, 16) <= SMEM_LIMIT:
         return 16
-    if K > 32 * MAX_COLS:
-        raise ValueError(f"n + m = {K} exceeds the kernel's {32 * MAX_COLS}")
     return 32
 
 
 def launch_plan(n: int, m: int, tile: int, polish: bool, *, n_tiles: int | None = None,
                 ctas_per_sm: int | None = None, sms: int | None = None) -> LaunchPlan:
     """How the kernel is launched for ``tile``: its mode
-    (:func:`kernel_lanes`), the lanes of a tile, the tile groups a CTA holds
-    (as many as fit :data:`CTA_THREADS` and :data:`SMEM_LIMIT`), its threads
-    and shared memory (``csrc/admm_kernel.cu::smem_floats``: the staged
-    operator, per quad of rows ``G``, ``q``, a scratch vector, ``l`` and
-    ``u``, per group an exchange area). Given the card's occupancy
-    (``ctas_per_sm``, ``sms``) and ``n_tiles``, also the persistent grid: as
-    many CTAs as the card holds at once, fewer when there are fewer tile
-    groups' worth of tiles. Raises ``ValueError`` for ``n + m`` beyond the
-    kernel, for a tile whose CTA needs more shared memory than
-    :data:`SMEM_LIMIT` or more threads than the launch bounds, and for a
+    (:func:`kernel_lanes`), the lanes of a tile, the tile groups a CTA holds,
+    its threads and shared memory (``csrc/admm_kernel.cu::smem_floats``: the
+    staged operator or the panel ring, per quad of rows ``G``, ``q``, a
+    scratch vector, ``l`` and ``u``, per group an exchange area). The staged
+    mode holds as many tile groups as fit :data:`CTA_THREADS` and
+    :data:`SMEM_LIMIT`; the panel mode one, with panels of
+    :data:`PANEL_ROWS` rows halved until the CTA fits, and a build with
+    launch bounds of :data:`BIG_CTA_THREADS` where its CTA needs more than
+    :data:`MAX_THREADS` threads. Given the card's occupancy (``ctas_per_sm``,
+    ``sms``) and ``n_tiles``, also the persistent grid: as many CTAs as the
+    card holds at once, fewer when there are fewer tile groups' worth of
+    tiles. Raises ``ValueError`` for a tile whose CTA needs more shared
+    memory than :data:`SMEM_LIMIT` (in the panel mode with one-row panels:
+    that bounds ``n + m``) or more threads than the launch bounds, and for a
     card that holds no such CTA: a request is never shrunk."""
-    K = n + m
     if tile < 1:
         raise ValueError("tile must be positive")
     lanes = kernel_lanes(n, m, polish)
     qpg = _quads_per_tile(tile, lanes)
-    per_tile = lanes * qpg
-    warps = qpg if lanes == 32 else max(1, qpg // 2)
+    wpq = _warps_per_quad(n, m, lanes)
+    per_tile = lanes * wpq * qpg
+    warps = qpg * wpq if lanes == 32 else max(1, qpg // 2)
+    panel_rows = PANEL_ROWS if lanes == 32 else 0
 
     def smem(groups):
-        return _smem_bytes(n, m, tile, polish, groups, lanes)
+        return _smem_bytes(n, m, tile, polish, groups, lanes, panel_rows)
 
-    # half-warp tiles come in pairs (whole warps); named barriers 1-15
-    step = 2 if per_tile == 16 else 1
-    most = CTA_THREADS // per_tile if warps == 1 else min(CTA_THREADS // per_tile, 15)
-    tiles_per_cta = max(step, most - most % step)
-    while tiles_per_cta > step and smem(tiles_per_cta) > SMEM_LIMIT:
-        tiles_per_cta -= step
+    if lanes == 32:
+        tiles_per_cta = 1
+        while panel_rows > 1 and smem(1) > SMEM_LIMIT:
+            panel_rows //= 2
+    else:
+        # half-warp tiles come in pairs (whole warps); named barriers 1-15
+        step = 2 if per_tile == 16 else 1
+        most = CTA_THREADS // per_tile if warps == 1 else min(CTA_THREADS // per_tile, 15)
+        tiles_per_cta = max(step, most - most % step)
+        while tiles_per_cta > step and smem(tiles_per_cta) > SMEM_LIMIT:
+            tiles_per_cta -= step
     if smem(tiles_per_cta) > SMEM_LIMIT:
         raise ValueError(
-            f"tile {tile} needs {smem(tiles_per_cta)} bytes of shared memory (limit {SMEM_LIMIT})"
+            f"n + m = {n + m} at tile {tile} needs {smem(tiles_per_cta)} bytes of shared memory "
+            f"(limit {SMEM_LIMIT})"
         )
     threads = tiles_per_cta * per_tile
-    if threads > MAX_THREADS:
+    bounds = BIG_CTA_THREADS if lanes == 32 else MAX_THREADS
+    if threads > bounds:
         raise ValueError(
-            f"tile {tile} needs {threads} threads per CTA (the launch bounds allow {MAX_THREADS})"
+            f"tile {tile} needs {threads} threads per CTA (the launch bounds allow {bounds})"
         )
     grid = None
     if ctas_per_sm is not None:
@@ -367,16 +395,17 @@ def launch_plan(n: int, m: int, tile: int, polish: bool, *, n_tiles: int | None 
         if n_tiles is not None:
             grid = max(1, min(grid, -(-n_tiles // tiles_per_cta)))
     return LaunchPlan(per_tile, tiles_per_cta, threads, smem(tiles_per_cta), ctas_per_sm, grid,
-                      lanes, -(-K // lanes))
+                      lanes, columns(n, m, lanes), wpq, panel_rows,
+                      MAX_THREADS if threads <= MAX_THREADS else BIG_CTA_THREADS)
 
 
 def _configure(lib: ctypes.CDLL) -> None:
     fn = lib.admm_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 14 + [
+    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 15 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    lib.admm_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.admm_smem_bytes.argtypes = [ctypes.c_int] * 7
     lib.admm_smem_bytes.restype = ctypes.c_long
     lib.admm_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_long, ctypes.c_void_p,
                                                         ctypes.c_void_p]
@@ -386,20 +415,24 @@ def _configure(lib: ctypes.CDLL) -> None:
 
 
 def columns(n: int, m: int, lanes: int = 16) -> int:
-    """Columns a lane keeps, ``⌈(n + m) / lanes⌉``: the kernel is built once
-    per column count and mode (``-DADMM_COLS``, ``-DADMM_LANES``)."""
-    return -(-(n + m) // lanes)
+    """Columns a lane keeps, ``⌈(n + m) / (lanes × warps a quad)⌉``: the
+    kernel is built once per column count and mode (``-DADMM_COLS``,
+    ``-DADMM_LANES``)."""
+    return -(-(n + m) // (lanes * _warps_per_quad(n, m, lanes)))
 
 
-def library_name(cols: int, lanes: int = 16) -> str:
-    return f"{LIBRARY}_c{cols}" + ("_wide" if lanes == 32 else "")
+def library_name(cols: int, lanes: int = 16, max_threads: int = MAX_THREADS) -> str:
+    return (f"{LIBRARY}_c{cols}" + ("_panel" if lanes == 32 else "")
+            + (f"_t{max_threads}" if max_threads != MAX_THREADS else ""))
 
 
-def _build_library(cols: int, lanes: int = 16) -> ctypes.CDLL:
+def _build_library(cols: int, lanes: int = 16, max_threads: int = MAX_THREADS) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/admm_kernel.cu`` for ``cols``
-    columns a lane and ``lanes`` lanes a quad."""
-    return load_library(library_name(cols, lanes), _SOURCES, _configure,
-                        (f"-DADMM_COLS={cols}", f"-DADMM_LANES={lanes}"))
+    columns a lane, ``lanes`` lanes a warp of a quad and launch bounds of
+    ``max_threads``."""
+    return load_library(library_name(cols, lanes, max_threads), _SOURCES, _configure,
+                        (f"-DADMM_COLS={cols}", f"-DADMM_LANES={lanes}",
+                         f"-DADMM_MAX_THREADS={max_threads}"))
 
 
 def _check(lib, err: int, what: str) -> None:
@@ -421,7 +454,7 @@ def _launch(W, Wq, A, P, Pinv, S, rho_levels, Einv, Dcinv, q, l, u, x0, y0, *,
     for a in args:
         if a.device != q.device or a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError("kernel operands must be contiguous float32 on one device")
-    lib = _build_library(plan.cols, plan.lanes)
+    lib = _build_library(plan.cols, plan.lanes, plan.max_threads)
     n_tiles = Bp // tile
     with torch.cuda.device(q.device):
         occ, sms = ctypes.c_int(0), ctypes.c_int(0)
@@ -442,11 +475,11 @@ def _launch(W, Wq, A, P, Pinv, S, rho_levels, Einv, Dcinv, q, l, u, x0, y0, *,
             ctypes.addressof(lens),
             len(chunk_lens), int(probe), int(max_rho_moves), int(init_idx),
             int(polish), int(cg_iters), n, m, R, tile, n_tiles, plan.tiles_per_cta,
-            plan.threads, plan.grid, float(eps_abs), float(alpha), stream,
+            plan.panel_rows, plan.threads, plan.grid, float(eps_abs), float(alpha), stream,
         )
     _check(lib, err, "launch")
     LAUNCHES += 1
-    name = library_name(plan.cols, plan.lanes)
+    name = library_name(plan.cols, plan.lanes, plan.max_threads)
     LAUNCHES_BY_LIBRARY[name] = LAUNCHES_BY_LIBRARY.get(name, 0) + 1
     return x, z, y, ni
 

@@ -1457,7 +1457,7 @@ def mhe_loop_sweep(
     ``None``), both halves on the fused ADMM kernel each step: the bounded
     linear-MHE windows (:meth:`..estimation.MHE.solve_batch`, the physical
     box, warm-started window to window; n + m = 44) and the slack-softened
-    session-2 MPC (n + m = 200 at N = 20, the kernel's wide mode).
+    session-2 MPC (n + m = 200 at N = 20, the kernel's panel mode).
     ``backend="twin"`` runs both on the twin.
 
     Scenarios from :func:`mhe_loop_scenarios` (``generator``, seed 0 when

@@ -2,13 +2,16 @@
 
 ``csrc/admm_kernel.cu`` is plain C++ apart from its CUDA qualifiers, its warp
 collectives, its named barriers, the tile queue's ``atomicAdd``, the
-shared-memory buffer and the launch. Built by g++ with those stubbed, it runs
-the kernel's arithmetic on the CPU through the real wrapper
-(``prepare_tiles``, ``launch_plan``, ``_launch``): a CTA's threads are host
-threads; ``__syncwarp``, ``__shfl_*_sync`` and ``__all_sync`` meet at a host
-barrier of the lanes their mask names (a half-warp's or the warp's), with an
-exchange array between them; ``bar.sync id, count`` is a host barrier of
-``count`` threads; the tile counter is a host atomic. The CTAs of the
+shared-memory buffer, the panel ring's asynchronous copies and the launch.
+Built by g++ with those stubbed, it runs the kernel's arithmetic on the CPU
+through the real wrapper (``prepare_tiles``, ``launch_plan``, ``_launch``): a
+CTA's threads are host threads; ``__syncwarp``, ``__shfl_*_sync`` and
+``__all_sync`` meet at a host barrier of the lanes their mask names (a
+half-warp's or the warp's), with an exchange array between them; ``bar.sync
+id, count`` is a host barrier of ``count`` threads; the tile counter is a
+host atomic; ``__pipeline_memcpy_async`` copies at once and the commit and
+wait are no-ops, so a panel overwritten while another thread still reads it
+shows as a wrong number. The CTAs of the
 persistent grid run one after another, so the first pulls every tile and the
 others find the queue empty. A missing barrier or a vote that not every lane
 of a tile reaches shows here as a wrong number or a hang (each test has a
@@ -43,6 +46,7 @@ STUB = """
 #include <math.h>
 #include <string.h>
 #include <stdint.h>
+#include <algorithm>
 #include <condition_variable>
 #include <mutex>
 #include <thread>
@@ -54,6 +58,7 @@ STUB = """
 #define __forceinline__ inline
 #define __launch_bounds__(n)
 #define __ldg(p) (*(p))
+using std::min;
 struct Dim { unsigned x; };
 static Dim blockIdx, blockDim;
 static thread_local Dim threadIdx;
@@ -96,7 +101,7 @@ struct Warp {
   Barrier full, half[2];
   uint32_t slot[32];
 };
-static Warp host_warps[16];  // the launch bounds' 512 threads
+static Warp host_warps[32];  // the largest launch bounds' 1024 threads
 static Barrier host_cta, host_named[16];
 // the barrier of the lanes `mask` names: a half-warp's or the whole warp's
 static inline Barrier& lanes(unsigned mask, int* count) {
@@ -129,6 +134,12 @@ inline V __shfl_xor_sync(unsigned mask, V v, int o) { return host_exchange(mask,
 template <class V>
 inline V __shfl_sync(unsigned mask, V v, int src) { return host_exchange(mask, v, src, false); }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+// cp.async: the copy lands at once; the barrier after the wait orders it
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t bytes, size_t = 0) {
+  memcpy(dst, src, bytes);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 """
 
 GRID = """
@@ -147,12 +158,13 @@ static void host_grid(Kn kernel, int grid, int threads, const Params& p) {
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """``(cols, lanes) -> library``: the source built for the host, once per
-    column count and mode."""
+    """``(cols, lanes, max_threads) -> library``: the source built for the
+    host, once per column count, mode and launch bounds."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernel source for the host")
     src = K._SOURCES[0].read_text()
-    src = src.replace("#include <cuda_runtime.h>", STUB)
+    assert src.count("#include <cuda_pipeline.h>\n") == 1
+    src = src.replace("#include <cuda_pipeline.h>\n", "").replace("#include <cuda_runtime.h>", STUB)
     src, n = re.subn(r'asm volatile\("bar\.sync %0, %1;"[^;]*;', "host_named_sync(id, count);", src)
     assert n == 1, "the named barrier of csrc/admm_kernel.cu changed"
     src, n = re.subn(
@@ -167,11 +179,12 @@ def host_lib(tmp_path_factory):
     (d / "k.cpp").write_text(src)
 
     @functools.lru_cache(maxsize=None)
-    def build(cols, lanes=16):
-        lib = d / f"libadmm_c{cols}_l{lanes}.so"
+    def build(cols, lanes=16, max_threads=K.MAX_THREADS):
+        lib = d / f"libadmm_c{cols}_l{lanes}_t{max_threads}.so"
         subprocess.run(
             ["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared", "-pthread", "-w",
-             f"-DADMM_COLS={cols}", f"-DADMM_LANES={lanes}", str(d / "k.cpp"), "-o", str(lib)],
+             f"-DADMM_COLS={cols}", f"-DADMM_LANES={lanes}", f"-DADMM_MAX_THREADS={max_threads}",
+             str(d / "k.cpp"), "-o", str(lib)],
             check=True, capture_output=True,
         )
         lib = ctypes.CDLL(str(lib))
@@ -221,7 +234,7 @@ def host_launch(host_lib, monkeypatch):
 def _ctrl(N, soft=False):
     """The headline controller at horizon ``N``, or (``soft``) the MHE
     loop's slack-softened one, whose operator at N = 20 (n = 60, m = 140)
-    takes the wide mode."""
+    and beyond takes the panel mode (as the headline's does at N = 100)."""
     problem = port.session2_problem(N=N)
     if soft:
         return problem, port.make_linear_mpc(problem, iters=200, rho=0.02, soft_state=True,
@@ -322,16 +335,12 @@ def test_warm_with_probe_matches_twin(host_launch, N, tile):
     _gate_budget(got, want, B, N)
 
 
-@pytest.mark.parametrize("tile", [4, 8])
-def test_wide_one_iteration_matches_twin(host_launch, tile):
-    """The wide mode (a warp a quad, the operator read from device memory)
-    on the soft-state operator at N = 20 (n + m = 200), one iteration from a
-    cold start on a ragged batch: x, z and y within 1e-5 of the twin's,
-    relative to each output's ∞-norm."""
-    B = 2 * tile + 1
-    args, kw = _operands(20, B, seed=40 + tile, warm=False, soft=True, iters=1, chunks=1,
+def _one_iteration(host_launch, N, B, seed, tile, soft):
+    """One iteration from a cold start on a ragged batch through the host
+    build and the twin: x, z and y within 1e-5 of the twin's, relative to
+    each output's ∞-norm."""
+    args, kw = _operands(N, B, seed=seed, warm=False, soft=soft, iters=1, chunks=1,
                          probe_iters=0, tile=tile)
-    assert K.launch_plan(60, 140, tile, False).wide
     got = host_launch(*args, **kw)
     want = K.admm_solve_tiles_reference(*args, **kw)
     for a, b, name in zip(got, want, ("x", "z", "y", "iterations")):
@@ -339,11 +348,20 @@ def test_wide_one_iteration_matches_twin(host_launch, tile):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale, msg=name)
 
 
+@pytest.mark.parametrize("tile", [4, 8])
+def test_wide_one_iteration_matches_twin(host_launch, tile):
+    """The mode that serves the soft-state operator at N = 20 (n + m = 200),
+    the panel mode (one warp a quad, W and Wq streamed through the panel
+    ring), one iteration from a cold start on a ragged batch."""
+    assert K.launch_plan(60, 140, tile, False).panel
+    _one_iteration(host_launch, 20, 2 * tile + 1, 40 + tile, tile, soft=True)
+
+
 @pytest.mark.parametrize("polish", [False, True])
 def test_wide_cold_with_rho_moves_matches_twin(host_launch, polish):
-    """The wide mode on the MHE loop's presolve (4× the soft controller's
-    budget in 8 chunks, ρ moves, no probe), polish on and off, tile 8, a
-    ragged batch, on the bars of
+    """The panel mode on the MHE loop's presolve at N = 20 (n + m = 200; 4×
+    the soft controller's budget in 8 chunks, ρ moves, no probe), polish on
+    and off, tile 8, a ragged batch, on the bars of
     :func:`test_cold_with_rho_moves_matches_twin` (the polished N = 20 case
     on iterations only)."""
     B = 11
@@ -356,6 +374,65 @@ def test_wide_cold_with_rho_moves_matches_twin(host_launch, polish):
         assert all(bool(torch.isfinite(a).all()) for a in got)
         return
     _gate_budget(got, want, B, 20, soft=True)
+
+
+@pytest.mark.parametrize("N, soft, tile, warps", [(30, True, 8, 2), (100, False, 8, 2),
+                                                  (100, False, 4, 2)])
+def test_panel_one_iteration_matches_twin(host_launch, N, soft, tile, warps):
+    """The panel mode past 256 columns, where a quad of rows takes two warps
+    that split its columns: the soft-state operator at N = 30 (n + m = 300)
+    and the condensed hard box at N = 100 (400), one iteration from a cold
+    start on a ragged batch."""
+    _, c = _ctrl(N, soft)
+    plan = K.launch_plan(c.qp.n, c.qp.m, tile, False)
+    assert plan.panel and plan.warps_per_quad == warps and plan.tiles_per_cta == 1
+    _one_iteration(host_launch, N, 2 * tile + 1, N + tile, tile, soft)
+
+
+def test_panel_cold_with_rho_moves_matches_twin(host_launch):
+    """The soft-state operator at N = 30 (n + m = 300) on the MHE loop's
+    presolve settings (4× the budget in 8 chunks, ρ moves, no probe, no
+    polish), tile 8, one ragged tile: tiles move their ρ level and stream
+    that level's panels. The bars of :func:`_gate_budget`."""
+    B = 7
+    args, kw = _operands(30, B, seed=2, warm=False, soft=True, iters=800, chunks=8,
+                         probe_iters=0, max_rho_moves=8, polish=False, tile=8)
+    got = host_launch(*args, **kw)
+    want = K.admm_solve_tiles_reference(*args, **kw)
+    fixed = K.admm_solve_tiles_reference(*args, **{**kw, "max_rho_moves": 0})
+    assert not torch.equal(want[3], fixed[3]), "the tile kept its level"
+    _gate_budget(got, want, B, 30, soft=True)
+
+
+@pytest.mark.parametrize("n, m, tile", [(21, 130, 8), (10, 1100, 8)])
+def test_panel_odd_sizes_match_twin(host_launch, n, m, tile):
+    """Random operators whose rows are not a multiple of 16 bytes (n + m =
+    151: the ring's 4-byte copies) and whose tile needs more than 256
+    threads (n + m = 1,110 at tile 8: five warps a quad, the build with
+    1,024-thread launch bounds), one iteration on a ragged batch, polished:
+    x, z and y within 1e-5 of the twin's (relative to each output's
+    ∞-norm)."""
+    from model_predictive_control_tpu_torch.solvers.qp import qp_setup
+
+    rng = np.random.default_rng(n + m)
+    F = rng.normal(size=(n, n))
+    P = torch.as_tensor(F @ F.T / n + np.eye(n))
+    A = torch.as_tensor(rng.normal(size=(m, n)) / np.sqrt(n))
+    op = qp_setup(P, A, rho=0.1)
+    B = 2 * tile + 3
+    q = torch.as_tensor(rng.normal(size=(B, n)), dtype=torch.float32)
+    l = torch.full((B, m), -0.5)
+    u = torch.full((B, m), 0.5)
+    args, kw = K.prepare_tiles(op, q, l, u, None, None, iters=2, chunks=1, probe_iters=0,
+                               max_rho_moves=0, schedule="uniform", tile=tile, cg_iters=5,
+                               alpha=1.6, eps_abs=None, polish=True)
+    plan = K.launch_plan(n, m, tile, True)
+    assert plan.panel and plan.max_threads == (K.BIG_CTA_THREADS if n + m > 1024 else K.MAX_THREADS)
+    got = host_launch(*args, **kw)
+    want = K.admm_solve_tiles_reference(*args, **kw)
+    for a, b, name in zip(got, want, ("x", "z", "y", "iterations")):
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale, msg=name)
 
 
 def test_converged_masks_match_through_the_wrapper(host_launch):
@@ -377,7 +454,8 @@ def test_converged_masks_match_through_the_wrapper(host_launch):
 
 
 @pytest.mark.parametrize(
-    "n, m", [(4, 12), (20, 60), (3, 5), (40, 88), (22, 22), (20, 80), (60, 140)]
+    "n, m", [(4, 12), (20, 60), (3, 5), (40, 88), (22, 22), (20, 80), (60, 140), (100, 300),
+             (90, 210), (300, 700)]
 )
 @pytest.mark.parametrize("tile", [1, 4, 6, 8, 16, 32])
 @pytest.mark.parametrize("polish", [False, True])
@@ -385,10 +463,42 @@ def test_launch_plan_matches_the_source(host_lib, n, m, tile, polish):
     """``launch_plan``'s shared memory is the source's ``smem_floats`` in
     the plan's mode. The MHE window (n + m = 44), the rate-limited MPC (100)
     and every operator up to 128 stage the operator; the soft-state MPC at
-    N = 20 (200) takes the wide mode, polished or not."""
-    plan = K.launch_plan(n, m, tile, polish)
+    N = 20, 30 and 100 (200, 300, 1,000) and the hard box at N = 100 (400)
+    take the panel mode, polished or not, with the panel depth that fits.
+    Where no panel depth fits, ``launch_plan`` raises, naming the bytes."""
+    lib = host_lib(K.columns(20, 60))  # the reckoning does not depend on the build
+    try:
+        plan = K.launch_plan(n, m, tile, polish)
+    except ValueError as exc:
+        assert n + m > 128 and tile > 8, exc
+        need = lib.admm_smem_bytes(n, m, tile, int(polish), 1, 32, 1)
+        assert need > K.SMEM_LIMIT and f"needs {need} bytes" in str(exc)
+        return
     assert plan.lanes == (32 if n + m > 128 else 16)
     assert plan.cols == K.columns(n, m, plan.lanes)
-    lib = host_lib(K.columns(20, 60))  # the reckoning does not depend on the build
     assert plan.smem_bytes == lib.admm_smem_bytes(n, m, tile, int(polish), plan.tiles_per_cta,
-                                                  plan.lanes)
+                                                  plan.lanes, plan.panel_rows)
+    if plan.panel:
+        assert plan.smem_bytes <= K.SMEM_LIMIT
+        assert plan.panel_rows == K.PANEL_ROWS or lib.admm_smem_bytes(
+            n, m, tile, int(polish), 1, 32, 2 * plan.panel_rows) > K.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("tile", [1, 8])
+def test_panel_limit_is_shared_memory(host_lib, tile):
+    """No constant caps n + m: ``launch_plan`` returns a plan for the soft
+    MPC at N = 100 (n + m = 1,000) at tile 8, and up to the largest n + m
+    whose one-row panels and row buffers fit shared memory at the tile; one
+    column more raises ``ValueError`` with the bytes the source reckons."""
+    lib = host_lib(K.columns(20, 60))
+    assert K.launch_plan(300, 700, 8, True).panel
+    n = 100
+    fits = lambda m: lib.admm_smem_bytes(n, m, tile, 1, 1, 32, 1) <= K.SMEM_LIMIT
+    m = 200
+    while fits(m + 1):
+        m += 1
+    plan = K.launch_plan(n, m, tile, True)
+    assert plan.panel_rows == 1 and plan.smem_bytes <= K.SMEM_LIMIT
+    need = lib.admm_smem_bytes(n, m + 1, tile, 1, 1, 32, 1)
+    with pytest.raises(ValueError, match=f"needs {need} bytes of shared memory"):
+        K.launch_plan(n, m + 1, tile, True)

@@ -616,7 +616,7 @@ def test_oversize_stagewise_tile_raises(stagewise):
 @pytest.fixture
 def soft():
     """The MHE loop's slack-softened controller at N = 20: n = 60, m = 140,
-    the ADMM kernel's wide mode."""
+    the ADMM kernel's panel mode (one warp a quad of rows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     problem = port.session2_problem(N=20)
@@ -627,14 +627,15 @@ def soft():
 @pytest.mark.parametrize("polish", [False, True])
 @pytest.mark.parametrize("tile", [4, 8, 16])
 def test_wide_mode_matches_twin(soft, polish, tile):
-    """The wide mode (a warp a quad of rows, the operator read from device
-    memory) on the presolve's configuration (4× budget in 8 chunks, ρ moves)
+    """The mode that serves n + m = 200, the panel mode (a warp a quad of
+    rows, W and Wq streamed through shared memory in panels, one tile a
+    CTA), on the presolve's configuration (4× budget in 8 chunks, ρ moves)
     on a ragged batch, and the warm step after it: the bars of
     test_kernel_matches_twin (iterations agree on 90% of the scenarios, x
     within 2e-2 where they do; the polished solve on iterations and its
     success only, its FP32 CG being chaotic at N = 20)."""
     problem, c = soft
-    assert K.launch_plan(c.qp.n, c.qp.m, tile, polish).wide
+    assert K.launch_plan(c.qp.n, c.qp.m, tile, polish).panel
     x0 = _states(seed=7, batch=B - 5)
     q, l, u = c.qp.qp_vectors(x0)
     kw = dict(iters=800, chunks=8, probe_iters=0, tile=tile, polish=polish, return_iters=True)
@@ -661,6 +662,104 @@ def test_wide_mode_matches_twin(soft, polish, tile):
         torch.testing.assert_close(got.x[same], ref.x[same], rtol=0, atol=2e-2)
 
 
+def _panel_ctrl(N, soft_state):
+    """The soft MPC at the MHE loop's settings, or the hard box at the
+    defaults, at horizon N on the card."""
+    problem = port.session2_problem(N=N)
+    if soft_state:
+        return problem, port.make_linear_mpc(problem, iters=200, rho=0.02, soft_state=True,
+                                             slack_weight=1e4)
+    return problem, port.make_linear_mpc(problem, solver="admm")
+
+
+@pytest.mark.parametrize("N, soft_state, tile", [(30, True, 8), (100, False, 8), (100, False, 4)])
+def test_panel_one_iteration_matches_twin(soft, N, soft_state, tile):
+    """The panel mode past 256 columns (two warps a quad): the soft MPC at
+    N = 30 (n + m = 300) and the hard box at N = 100 (400), one iteration
+    from a cold start on a ragged batch: x, z and y within 1e-5 of each
+    output's ∞-norm (tests/test_torch_admm_kernel_host.py's bar)."""
+    _, c = _panel_ctrl(N, soft_state)
+    assert K.launch_plan(c.qp.n, c.qp.m, tile, False).warps_per_quad == 2
+    q, l, u = c.qp.qp_vectors(_states(seed=N + tile, batch=2 * tile + 1))
+    args, kw = K.prepare_tiles(c.op, q, l, u, None, None, iters=1, chunks=1, probe_iters=0,
+                               max_rho_moves=0, schedule="uniform", tile=tile, cg_iters=40,
+                               alpha=1.6, eps_abs=None, polish=False)
+    got = K._launch(*args, **kw)
+    want = K.admm_solve_tiles_reference(*args, **kw)
+    for a, b, name in zip(got, want, ("x", "z", "y", "iterations")):
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale, msg=name)
+
+
+def test_panel_cold_with_rho_moves_matches_twin(soft):
+    """The soft MPC at N = 30 (n + m = 300) on the MHE loop's presolve
+    settings without the polish (4× budget in 8 chunks, ρ moves, no probe),
+    tile 8, a ragged batch of 32 tiles: executed iterations agree on 90% of
+    the scenarios, converged masks on 95% (test_kernel_matches_twin's bars),
+    and x within 2e-2 where the iterations agree on a tile that exited
+    before its budget. A tile that runs the whole budget has not converged,
+    and its ρ moves decide on residuals near float32's noise floor: on the
+    card one tile of this batch takes a move the twin does not and ends 1.6
+    away in x, while its twin and the twin's float64 run agree."""
+    _, c = _panel_ctrl(30, True)
+    q, l, u = c.qp.qp_vectors(_states(seed=9, batch=253))
+    kw = dict(iters=800, chunks=8, probe_iters=0, max_rho_moves=8, tile=8, polish=False,
+              return_iters=True)
+    got, ni = K.admm_solve_cuda(c.op, q, l, u, **kw)
+    ref, ni_ref = K.admm_solve_twin(c.op, q, l, u, **kw)
+    same = ni == ni_ref
+    assert same.float().mean() >= 0.9
+    exited = same & (ni < kw["iters"])
+    assert exited.float().mean() >= 0.5
+    torch.testing.assert_close(got.x[exited], ref.x[exited], rtol=0, atol=2e-2)
+    assert (got.converged == ref.converged).float().mean() >= 0.95
+
+
+def test_panel_depth_leaves_results_unchanged(soft, monkeypatch):
+    """The panel ring's depth changes where the CTA waits, not what it
+    computes: the soft MPC at N = 30 (n + m = 300) on its presolve settings
+    gives the same outputs bit for bit with panels of 16, 4 and 1 rows (a
+    stage overwritten while a warp still reads it would show here)."""
+    _, c = _panel_ctrl(30, True)
+    q, l, u = c.qp.qp_vectors(_states(seed=9, batch=253))
+    args, kw = K.prepare_tiles(c.op, q, l, u, None, None, iters=800, chunks=8, probe_iters=0,
+                               max_rho_moves=8, schedule="uniform", tile=8, cg_iters=40,
+                               alpha=1.6, eps_abs=None, polish=True)
+    outs = {}
+    for rows in (16, 4, 1):
+        monkeypatch.setattr(K, "PANEL_ROWS", rows)
+        assert K.launch_plan(c.qp.n, c.qp.m, 8, True).panel_rows == rows
+        outs[rows] = K._launch(*args, **kw)
+    for rows in (4, 1):
+        assert all(torch.equal(a, b) for a, b in zip(outs[rows], outs[16]))
+
+
+@pytest.mark.parametrize("n, m", [(21, 130), (10, 1100)])
+def test_panel_odd_sizes_match_twin(soft, n, m):
+    """Random operators whose rows are not a multiple of 16 bytes (n + m =
+    151, the ring's 4-byte copies) and whose tile needs more than 256
+    threads (1,110 at tile 8: five warps a quad, the build with 1,024-thread
+    launch bounds), two iterations and the polish: x, z and y within 1e-5 of
+    each output's ∞-norm."""
+    from model_predictive_control_tpu_torch.solvers.qp import qp_setup
+
+    g = torch.Generator().manual_seed(n + m)
+    F = torch.randn(n, n, generator=g, dtype=torch.float64)
+    P = (F @ F.T / n + torch.eye(n, dtype=torch.float64)).cuda()
+    A = (torch.randn(m, n, generator=g, dtype=torch.float64) / n**0.5).cuda()
+    op = qp_setup(P, A, rho=0.1)
+    q = torch.randn(19, n, generator=g).cuda()
+    l, u = torch.full((19, m), -0.5, device="cuda"), torch.full((19, m), 0.5, device="cuda")
+    args, kw = K.prepare_tiles(op, q, l, u, None, None, iters=2, chunks=1, probe_iters=0,
+                               max_rho_moves=0, schedule="uniform", tile=8, cg_iters=5,
+                               alpha=1.6, eps_abs=None, polish=True)
+    got = K._launch(*args, **kw)
+    want = K.admm_solve_tiles_reference(*args, **kw)
+    for a, b, name in zip(got, want, ("x", "z", "y", "iterations")):
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale, msg=name)
+
+
 def test_mhe_windows_kernel_matches_twin(soft, monkeypatch):
     """The MHE loop's own windows (n + m = 44, a staged build): its first
     two batches at 256 scenarios, cold and warm from the first's solution,
@@ -683,7 +782,7 @@ def test_mhe_windows_kernel_matches_twin(soft, monkeypatch):
     PB.mhe_loop_sweep(256, 2)
     assert len(seen) == 2
     for mhe, q, l, u, (wx, wy) in seen:
-        assert not K.launch_plan(q.shape[1], l.shape[1], K.DEFAULT_TILE, True).wide
+        assert not K.launch_plan(q.shape[1], l.shape[1], K.DEFAULT_TILE, True).panel
         for polish in (True, False):
             kw = dict(iters=mhe.iters, polish=polish, return_iters=True)
             got, ni = K.admm_solve_cuda(mhe.op, q, l, u, wx, wy, **kw)
@@ -701,7 +800,7 @@ def test_new_sweeps_kernel_matches_twin(soft, path, monkeypatch):
     """Each sweep of the robust, stochastic and output-feedback tiers, 64
     scenarios × 3 steps on the same scenarios through the kernel, the twin
     and the twin's algorithm in float64 (the witness): one launch per solve
-    (the MHE loop: two a step, the MHE windows and the soft MPC in the wide
+    (the MHE loop: two a step, the MHE windows and the soft MPC in the panel
     mode). Held as chip_smoke.py holds them: every final state within 5e-2
     of the twin's or of the witness's (two float32 programs stop at
     different points of a loose solve's band; the witness tells which one
