@@ -93,6 +93,13 @@ kernel, and times it:
   events, beside K4's stagewise loop's success on the same starts) and the
   soft-state MPC at N=30 and 100 (n + m = 300 and 1,000; a cold and a warm
   launch on 1,024 of the MHE loop's starts, held to the twin);
+- the float64 oracle tier (``oracle/``, built with g++ beside the kernels):
+  the headline's first warm launch on 256 of its scenarios drawn by seed,
+  and the condensed hard box at N=100 (32 starts) through K1's panel mode
+  (its loop's first warm launch) and K4 (its loop's first solve), held to
+  the native ADMM + polish oracle's KKT certificate and solution at bars
+  fixed from each kernel's stopping rule (``PERF.md``), and the card's
+  float64 DARE to LAPACK;
 - the long-horizon closed loop (session-2 linear MPC on the stagewise
   interior-point solver, N=100, 20 iterations, 4,096 scenarios × 50 steps)
   on the fused stagewise-IP kernel (held to its twin bit for bit at one
@@ -158,7 +165,9 @@ held bit for bit against its twin and the bare function against the hand
 (counted), timed alone with its bound and nvcc's seconds, then the command
 line in process (``cli.main``: session2, ``sweep --backend factory``,
 quadsweep, tune, estimate) with its gates; the full run ends with the same
-phases. ``python3 chip_smoke.py --scaleout-phases`` runs the scale-out
+phases. ``python3 chip_smoke.py --oracle-phases`` runs the oracle phase
+alone (the two oracle libraries and the kernel builds it launches, then the
+phase). ``python3 chip_smoke.py --scaleout-phases`` runs the scale-out
 phases alone (the kernel builds they launch, then those phases).
 ``python3 chip_smoke.py --tracker-launches DIR`` times the
 racing tiers' warm tracker launch alone for the port found under ``DIR``.
@@ -638,6 +647,22 @@ def main() -> int:
         print(json.dumps({"kernels": family_phases(torch, port, K, card, torch.device("cuda"))}))
         phase(None)
         return 0
+    if sys.argv[1:2] == ["--oracle-phases"]:
+        # the card's solutions against the float64 oracle tier alone: the
+        # oracle libraries and the kernel builds the phase launches
+        from model_predictive_control_tpu_torch.ops.cuda import riccati_ip_kernel as KR
+
+        card = smi()
+        print(card, flush=True)
+        g = KR.DEFAULT_GROUP
+        cols = K.columns(PANEL_LH_N, 3 * PANEL_LH_N, 32)  # the hard box: n = N, m = 3 N
+        build_all([*oracle_libraries(),
+                   (K.library_name(ADMM_COLS), lambda: K._build_library(ADMM_COLS)),
+                   (K.library_name(cols, 32), lambda: K._build_library(cols, 32)),
+                   (KR.library_name(2, 1, g), lambda: KR._build_library(2, 1, g))])
+        oracle_phases(torch, port, K, KR, card, torch.device("cuda"))
+        phase(None)
+        return 0
     if sys.argv[1:2] == ["--k1-panel-phases"]:
         # K1's panel mode past 256 columns alone: its libraries, and K4's
         # default one for the stagewise loop beside the condensed one
@@ -729,6 +754,7 @@ def main() -> int:
     # stagewise-IP kernel one per (nx, nu) and group: the path's and the
     # nx=3 / nu=2 case's
     build_all([
+        *oracle_libraries(),
         (K.library_name(ADMM_COLS), lambda: K._build_library(ADMM_COLS)),
         (K.library_name(MHE_COLS), lambda: K._build_library(MHE_COLS)),
         *panel_libraries(K),
@@ -744,6 +770,7 @@ def main() -> int:
     admm = admm_phases(torch, port, K, card, device)
     family = family_phases(torch, port, K, card, device)
     panel = k1_panel_phases(torch, port, K, KR, card, device)
+    oracle_phases(torch, port, K, KR, card, device)
     ilqr = ilqr_phases(torch, port, KI, card, device)
     modes = mode_phases(torch, port, KI, card, device)
     racing = [racing_phases(torch, port, KF, tier, card, device) for tier in RACE_TIERS]
@@ -790,7 +817,7 @@ def build_all(libraries) -> None:
     for t in threads:
         t.join()
     for name, _ in libraries:
-        print(f"built {name}.cu in {seconds[name]:.1f} s", flush=True)
+        print(f"built {name} in {seconds[name]:.1f} s", flush=True)
         report = ptxas_report(name)
         if name not in errors and report.exists():
             for line in report.read_text().splitlines():
@@ -3929,6 +3956,276 @@ def scaleout_phases(torch, port, K, KI, card, device) -> None:
 
     phase(f"dryrun_multichip at the card's count ({torch.cuda.device_count()}, NCCL)")
     dryrun_multichip(torch.cuda.device_count(), device=device)
+
+
+# ---------------------------------------------------------------------------
+# the float64 oracle tier: the card's solutions held to an independent truth
+# ---------------------------------------------------------------------------
+
+ORACLE_SAMPLE = 256  # headline scenarios held to the native oracle, drawn by seed
+ORACLE_SEED = 0
+ORACLE_LH_STARTS = 32  # starts of the condensed hard box at N=100
+ORACLE_ITERS = 20000  # the native ADMM's budget (it stops at its tolerance); its polish finishes
+ORACLE_THREADS = 8  # native solves split over host threads (ctypes frees the GIL)
+TOL_ORACLE_KKT_REL = 1e-6  # the oracle's own KKT residual over 1 + |q|, where it is the truth
+F32_UNIT = 2.0 ** -24  # float32's unit roundoff
+K1_EPS = 1e-4  # the ADMM kernel's eps_abs (prepare_tiles: None means 1e-4)
+K4_TOL = 1e-4  # the stagewise kernel's feasibility and mu tolerance, times its scale
+TOL_DARE_REL = 1e-9  # float64 DARE on the card against LAPACK (tests/test_torch_lqr.py)
+
+
+def oracle_libraries() -> list:
+    """``(name, build)`` of the two native oracle libraries (g++)."""
+    from model_predictive_control_tpu_torch.oracle import _native_build as NB
+
+    return [(f"lib{s}", lambda s=s, srcs=srcs: NB.build_native_lib(f"lib{s}.so", srcs))
+            for s, srcs in (("qp_oracle", ("qp_oracle.cpp",)),
+                            ("nlp_oracle", ("nlp_oracle.cpp", "qp_oracle.cpp")))]
+
+
+def cpu_model() -> str:
+    """The host CPU's model name from ``/proc/cpuinfo``, or its vendor,
+    family, model and clock where the name is not given, for labelling CPU
+    times."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    name = fields.get("model name", "unknown")
+    if name != "unknown":
+        return name
+    return (f"{fields.get('vendor_id', '?')} family {fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')} at {fields.get('cpu MHz', '?')} MHz (no model name)")
+
+
+def gamma(k: int) -> float:
+    """The float32 rounding bound of a k-term dot product, k·u / (1 − k·u)."""
+    return k * F32_UNIT / (1.0 - k * F32_UNIT)
+
+
+def native_family(P, A, Q, L, U):
+    """The native oracle on a family, its rows split over host threads:
+    ``(X, Y, converged, kkt residual over 1 + |q|, CPU seconds per QP)``.
+    ρ is the family's trace(P) / trace(AᵀA) and the tolerance relative to
+    the largest |q|: the oracle's settings, not a bar."""
+    import concurrent.futures
+    import numpy as np
+    from model_predictive_control_tpu_torch.oracle import (
+        kkt_residual_native, solve_qp_family_native)
+
+    rho = float(np.trace(P) / np.trace(A.T @ A))
+    eps = 1e-9 * (1.0 + float(np.abs(Q).max()))
+
+    def solve(rows):
+        t0 = time.thread_time()
+        out = solve_qp_family_native(P, A, Q[rows], L[rows], U[rows], rho=rho,
+                                     iters=ORACLE_ITERS, eps_abs=eps)
+        return rows, out, time.thread_time() - t0
+
+    chunks = np.array_split(np.arange(Q.shape[0]), min(ORACLE_THREADS, Q.shape[0]))
+    X, Y = np.empty_like(Q), np.empty((Q.shape[0], A.shape[0]))
+    conv = np.empty(Q.shape[0], dtype=bool)
+    cpu = 0.0
+    with concurrent.futures.ThreadPoolExecutor(len(chunks)) as pool:
+        for rows, (x, y, c), sec in pool.map(solve, chunks):
+            X[rows], Y[rows], conv[rows] = x, y, c
+            cpu += sec
+    kkt = np.array([kkt_residual_native(P, Q[i], A, L[i], U[i], X[i], Y[i])
+                    for i in range(Q.shape[0])]) / (1.0 + np.abs(Q).max(axis=1))
+    return X, Y, conv, kkt, cpu / Q.shape[0]
+
+
+def k1_bars(P, A, q, l, u, x, y):
+    """Each scenario's bar on the native KKT residual of the kernel's
+    unscaled ``(x, y)``: the kernel's stopping rule, ``K1_EPS·(1 + |q|∞)`` on
+    its unscaled primal and dual residuals (the scaled residuals times E⁻¹
+    and (c·D)⁻¹ against ``eps·(1 + max|q_s·(c·D)⁻¹|)``), plus the float32
+    rounding of evaluating them (γ over the n + m + 3 terms of a row, the
+    unscaling included) on the magnitudes |P||x| + |q| + |Aᵀ||y|,
+    |A||x| and the finite bounds."""
+    import numpy as np
+
+    stat = (np.abs(x) @ np.abs(P).T + np.abs(q) + np.abs(y) @ np.abs(A)).max(axis=1)
+    prim = (np.abs(x) @ np.abs(A).T).max(axis=1) + finite_magnitude(l, u)
+    return K1_EPS * (1.0 + np.abs(q).max(axis=1)) + gamma(P.shape[0] + A.shape[0] + 3) * (stat + prim)
+
+
+def finite_magnitude(l, u):
+    """Each row's largest finite bound magnitude."""
+    import numpy as np
+
+    fin = lambda v: np.where(np.isfinite(v), np.abs(v), 0.0)
+    return np.maximum(fin(l), fin(u)).max(axis=1)
+
+
+def f64(torch, t):
+    return t.detach().to("cpu", torch.float64).numpy()
+
+
+def hold_k1(torch, name, op, q, l, u, sol, rows, card):
+    """The kernel's unscaled solutions on ``rows`` held to the native oracle:
+    for each scenario the kernel reports converged, the oracle's KKT
+    residual of its ``(x, y)`` within :func:`k1_bars`. Prints the objective
+    gap and the distance to the oracle's solution, the oracle's converged
+    share and its CPU seconds per QP. Returns the oracle's solutions."""
+    import numpy as np
+    from model_predictive_control_tpu_torch.oracle import kkt_residual_native
+
+    P, A = f64(torch, op.P), f64(torch, op.A_c)
+    q, l, u, x, y = (f64(torch, v[rows]) for v in (q, l, u, sol.x, sol.y))
+    conv = sol.converged[rows].cpu().numpy()
+    X, _, oconv, okkt, cpu_s = native_family(P, A, q, l, u)
+    kkt = np.array([kkt_residual_native(P, q[i], A, l[i], u[i], x[i], y[i])
+                    for i in range(len(rows))])
+    bars = k1_bars(P, A, q, l, u, x, y)
+    obj = lambda z: 0.5 * np.einsum("bi,ij,bj->b", z, P, z) + (q * z).sum(axis=1)
+    gap = (obj(x) - obj(X)) / np.maximum(1.0, np.abs(obj(X)))
+    print(f"{name}: {len(rows)} scenarios, the kernel converged on {conv.mean():.5f}; native "
+          f"oracle: converged {oconv.mean():.5f}, its own KKT residual over 1 + |q| max "
+          f"{okkt.max():.3e} (tol {TOL_ORACLE_KKT_REL:.0e}), CPU {cpu_s * 1e3:.3f} ms per QP "
+          f"(a CPU time, one core: {cpu_model()}); the kernel's KKT residual over its bar max "
+          f"{(kkt[conv] / bars[conv]).max() if conv.any() else float('nan'):.4f} (gate <= 1; "
+          f"residual max {kkt[conv].max() if conv.any() else float('nan'):.4e}, bar min "
+          f"{bars.min():.4e}); objective gap to the oracle over max(1, |f|) max {gap.max():.3e}, "
+          f"min {gap.min():.3e}; max|x - x_oracle| {np.abs(x - X).max():.4e} [{card}]", flush=True)
+    if not conv.any():
+        raise SystemExit(f"{name}: no scenario converged, nothing to certify")
+    if not (okkt <= TOL_ORACLE_KKT_REL).all():
+        raise SystemExit(f"{name}: the oracle did not certify its own solutions")
+    if not (kkt[conv] <= bars[conv]).all():
+        raise SystemExit(f"{name}: a converged solution fails the oracle's KKT certificate")
+    return X
+
+
+def first_warm_solve(LM, run) -> tuple:
+    """``(op, q, l, u, sol)`` of the second solve through the tiled backend
+    while ``run()`` runs: a closed loop's first warm launch (its presolve
+    is the first)."""
+    seen = []
+    tiled = LM._TILED["cuda"]
+
+    def spy(op, q, l, u, *args, **kw):
+        sol = tiled(op, q, l, u, *args, **kw)
+        seen.append((op, q, l, u, sol))
+        return sol
+
+    LM._TILED["cuda"] = spy
+    try:
+        run()
+    finally:
+        LM._TILED["cuda"] = tiled
+    return seen[1]
+
+
+def oracle_phases(torch, port, K, KR, card, device, batch=BATCH) -> None:
+    """The card's answers against the float64 oracle tier (``oracle/``):
+    the headline's first warm launch on ``ORACLE_SAMPLE`` scenarios drawn
+    across its sorted batch; the condensed hard box at N=100 (n + m = 400)
+    on ``ORACLE_LH_STARTS`` starts, through K1's panel mode (the loop's first
+    warm launch) and K4 (the stagewise loop's first solve), both held to the
+    oracle's solution of the condensed QP; the DARE by SDA on the card
+    against LAPACK. Every bar is fixed before the run (PERF.md)."""
+    import numpy as np
+    from model_predictive_control_tpu_torch.experiments.session1 import session1_weights
+    from model_predictive_control_tpu_torch.oracle import dare_np
+    from model_predictive_control_tpu_torch.solvers import linear_mpc as LM
+    from model_predictive_control_tpu_torch.solvers.riccati_ip import bound_scale, cost_normalizer
+
+    phase(f"oracle: the card's solutions against the native float64 oracle "
+          f"({ORACLE_SAMPLE} headline scenarios, {ORACLE_LH_STARTS} condensed N={PANEL_LH_N} "
+          f"starts through K1's panel mode and K4, the DARE)")
+    problem, ctrl, _, episode = headline(torch, port, K, device)
+    x0 = initial_states(torch, device, batch)
+    op, q, l, u, sol = first_warm_solve(LM, lambda: episode(x0, steps=1))
+    rows = np.sort(np.random.default_rng(ORACLE_SEED).choice(batch, min(ORACLE_SAMPLE, batch),
+                                                             replace=False))
+    hold_k1(torch, f"headline first warm launch (tile {K.DEFAULT_TILE}, n={ctrl.qp.n}, "
+            f"m={ctrl.qp.m})", op, q, l, u, sol, rows, card)
+
+    lh = port.session2_problem(N=PANEL_LH_N)
+    cctrl = port.make_linear_mpc(lh, solver="admm", device=device)
+    system = lh.system(torch.float32, device)
+    xs = initial_states(torch, device, ORACLE_LH_STARTS)
+
+    def condensed():
+        carry = cctrl.presolve_batch_carry(xs, tile=K.DEFAULT_TILE)
+        port.simulate_batch(xs, system, 1, cctrl.batched_policy(tile=K.DEFAULT_TILE), carry,
+                            batched_dynamics=True)
+
+    K.LAUNCHES_BY_LIBRARY.clear()
+    op, q, l, u, sol = first_warm_solve(LM, condensed)
+    lib = K.library_name(K.columns(cctrl.qp.n, cctrl.qp.m, 32), 32)
+    if K.LAUNCHES_BY_LIBRARY.get(lib, 0) != 2:
+        raise SystemExit(f"the condensed N={PANEL_LH_N} solves did not go through {lib}: "
+                         f"{dict(K.LAUNCHES_BY_LIBRARY)}")
+    rows = np.arange(ORACLE_LH_STARTS)
+    X = hold_k1(torch, f"condensed N={PANEL_LH_N} first warm launch ({lib}, n={cctrl.qp.n}, "
+                f"m={cctrl.qp.m})", op, q, l, u, sol, rows, card)
+
+    # K4 on the same QPs: the stagewise loop's first solve from the same starts
+    sctrl = port.make_stagewise_mpc(port.session2_problem(), N=PANEL_LH_N, iters=LH_ITERS,
+                                    device=device)
+    names = ("A", "B", "Q", "R", "Pf", "x_lb", "x_ub", "u_lb", "u_ub")
+    data = [getattr(sctrl, k).cpu().numpy() for k in names]
+    KR.LAUNCHES = 0
+    k4 = KR.stagewise_ip_solve_cuda(*data, xs, sctrl.initial_batch_carry(ORACLE_LH_STARTS,
+                                                                           device=device),
+                                    N=PANEL_LH_N, iters=LH_ITERS)
+    if KR.LAUNCHES != 1:
+        raise SystemExit("K4's solve did not launch its kernel")
+    A_np, B_np, Q_np, R_np, Pf_np, xlb, xub, ulb, uub = (np.asarray(v, np.float64) for v in data)
+    w_x, w_u = bound_scale(xlb, xub, xp=np), bound_scale(ulb, uub, xp=np)
+    c_cost = cost_normalizer(Q_np * np.outer(w_x, w_x), R_np * np.outer(w_u, w_u),
+                             Pf_np * np.outer(w_x, w_x), xp=np)
+    n_fin = PANEL_LH_N * int(sum(np.isfinite(v).sum() for v in (xlb, xub, ulb, uub)))
+    P, A = f64(torch, op.P), f64(torch, op.A_c)
+    qv, lv, uv = (f64(torch, v) for v in (q, l, u))
+    us = f64(torch, k4.us)  # (B, N, nu): the condensed decision, stage-major
+    k4_scale = 1.0 + np.maximum(np.abs(us / w_u).max(axis=(1, 2)),
+                                np.abs(f64(torch, k4.xs) / w_x).max(axis=(1, 2)))
+    us = us.reshape(ORACLE_LH_STARTS, -1)
+    ok = k4.success.cpu().numpy()
+    Au = us @ A.T
+    viol = np.maximum(lv - Au, Au - uv).max(axis=1).clip(min=0.0)
+    # feasibility: the scaled violation below K4_TOL·scale, times the
+    # variable scalings, plus float32's rollout (γ over 2N + 2 terms of
+    # |A_c||u| and the bounds, which hold the shifted x0)
+    vbar = (K4_TOL * k4_scale * max(w_x.max(), w_u.max())
+            + gamma(2 * PANEL_LH_N + 2) * ((np.abs(us) @ np.abs(A).T).max(axis=1)
+                                           + finite_magnitude(lv, uv)))
+    # optimality: the interior point's duality gap, n_fin·μ with μ below
+    # K4_TOL·scale in its scaled cost, over its cost scaling c, doubled (the
+    # condensed objective is twice the stagewise one)
+    obj = lambda z: 0.5 * np.einsum("bi,ij,bj->b", z, P, z) + (qv * z).sum(axis=1)
+    gap = obj(us) - obj(X)
+    gbar = 2.0 * n_fin * K4_TOL * k4_scale / c_cost
+    print(f"K4 stagewise solve (N={PANEL_LH_N}, {LH_ITERS} iterations, {ORACLE_LH_STARTS} starts): "
+          f"success {ok.mean():.5f}; bound violation over its bar max "
+          f"{(viol[ok] / vbar[ok]).max() if ok.any() else float('nan'):.4f} (gate <= 1; max "
+          f"{viol.max():.4e}); objective gap to the oracle over its bar max "
+          f"{(gap[ok] / gbar[ok]).max() if ok.any() else float('nan'):.4e} (gate <= 1; gap max "
+          f"{gap.max():.4e}, relative {(gap / np.abs(obj(X))).max():.3e}); max|u - u_oracle| "
+          f"{np.abs(us - X).max():.4e}; K4 against K1's panel mode max|u_K4 - u_K1| "
+          f"{np.abs(us - f64(torch, sol.x)).max():.4e} [{card}]", flush=True)
+    if not ok.any():
+        raise SystemExit("K4 solved none of the starts")
+    if not ((viol[ok] <= vbar[ok]).all() and (gap[ok] <= gbar[ok]).all()):
+        raise SystemExit("a successful K4 solution fails the oracle's certificate")
+
+    sys64 = port.double_integrator_discrete(0.5, dtype=torch.float64, device=device)
+    Qw, Rw = session1_weights(torch.float64, device)
+    P_card = f64(torch, port.dare_sda(sys64.A, sys64.B, Qw, Rw))
+    P_ref = dare_np(sys64.A, sys64.B, Qw, Rw)
+    err = np.abs(P_card - P_ref).max() / np.abs(P_ref).max()
+    sys32 = port.double_integrator_discrete(0.5, device=device)
+    err32 = (np.abs(f64(torch, port.dare_sda(sys32.A, sys32.B, *session1_weights(device=device)))
+                    - P_ref).max() / np.abs(P_ref).max())
+    print(f"DARE (session 1, Ts = 0.5): SDA on the card in float64 against LAPACK, max relative "
+          f"difference {err:.3e} (tol {TOL_DARE_REL:.0e}); in float32 {err32:.3e} "
+          f"(informational) [{card}]", flush=True)
+    if not err <= TOL_DARE_REL:
+        raise SystemExit("the card's DARE disagrees with LAPACK")
 
 
 if __name__ == "__main__":

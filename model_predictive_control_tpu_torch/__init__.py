@@ -48,6 +48,13 @@ with its plain-PyTorch twin:
   and the O(log N) parallel-in-horizon rollouts, Riccati recursion and LQ
   solve (``lqt_solve_parallel``, ``stagewise_ip_solve(parallel=True)``).
 
+The top level binds every name the JAX package's binds to the port's
+counterpart (``fused_tracker_solve`` is ``fused_tracker_solve_cuda``: the
+kernel on CUDA tensors, its twin on CPU ones); ``oracle`` holds the float64
+oracles (numpy, scipy and native C++) the card's answers are held to.
+``tests/test_torch_public_api.py`` checks the surface against the JAX
+package's.
+
 Entry points that take ``device`` run on the card unless the caller passes
 ``device="cpu"``. Imports ``torch`` only.
 """
@@ -63,13 +70,23 @@ from .estimation import (
     ExtendedKalmanFilter,
     KalmanFilter,
     MHE,
+    ekf_output_feedback_policy,
+    ekf_trajectory,
+    initial_ekf_carry,
+    initial_output_feedback_carry,
     kalman_filter_trajectory,
     kalman_gain,
     make_mhe,
     mhe_trajectory,
     output_feedback_policy,
 )
-from .models.bicycle import make_kinematic_ode_rows
+from .models.bicycle import (
+    DynamicBicycle,
+    KinematicBicycle,
+    dynamic_bicycle_ode,
+    kinematic_bicycle_ode,
+    make_kinematic_ode_rows,
+)
 from .models.benchmarks import (
     make_cartpole_ode_rows,
     make_omnibase_ode_rows,
@@ -77,9 +94,29 @@ from .models.benchmarks import (
     make_planar_quadrotor_ode_rows,
     make_thruster_ode_rows,
 )
-from .models.linear import LinearSystem
+from .models.linear import (
+    LinearSystem,
+    double_integrator_continuous,
+    double_integrator_discrete,
+    session2_dynamics,
+)
 from .models.parameters import VehicleParameters
+from .ops.condensed import (
+    CondensedQP,
+    SoftCondensedQP,
+    build_condensed_qp,
+    prediction_matrices,
+    soften_condensed_qp,
+)
+from .ops.cuda.ilqr_factory import (
+    BatchedTrackerSolution,
+    make_fused_tracker,
+    rowform_to_vector,
+    step_jacobian_pattern,
+)
+from .ops.cuda.ilqr_factory import fused_tracker_solve_cuda as fused_tracker_solve
 from .ops.cuda.parking_factory import al_ilqr_parking_solve_factory, make_clearance_rows
+from .ops.integrators import euler, get_integrator, heun, rk4, rk4_fine
 from .ops.parallel_horizon import (
     affine_rollout_parallel,
     lqt_solve_parallel,
@@ -106,12 +143,16 @@ from .parallel.batch import (
 )
 from .solvers.linear_mpc import (
     BoxProblem,
+    LinearMPC,
+    Problem,
+    as_box_problem,
     make_box_mpc,
     make_linear_mpc,
     session2_problem,
     session3_problem,
 )
 from .solvers.lqr import (
+    LQRSolution,
     cost_to_go,
     lqr_terminal_set,
     prediction_policy,
@@ -131,15 +172,25 @@ from .solvers.implicit import (
 )
 from .solvers.ilqr import ALILQRSolution, ILQRProblem, ILQRSolution, al_ilqr_solve, ilqr_solve
 from .solvers.nmpc_tracking import TrackingNMPC
-from .solvers.offset_free import make_offset_free_mpc
+from .solvers.offset_free import OffsetFreeMPC, make_offset_free_mpc
 from .solvers.offset_free_nmpc import DisturbanceCompensatedTracking, OffsetFreeNMPC
 from .solvers.parking import ILQRMPC, NonlinearMPC, make_parking_ilqr, make_parking_ocp
-from .solvers.qp import admm_solve, pdip_solve, qp_setup
-from .solvers.rate_mpc import make_rate_limited_mpc
-from .solvers.riccati_ip import make_stagewise_mpc, stagewise_ip_solve
+from .solvers.qp import QPOperator, QPSolution, admm_solve, pdip_solve, qp_setup
+from .solvers.rate_mpc import (
+    RateCondensedQP,
+    RateLimitedMPC,
+    build_rate_condensed_qp,
+    make_rate_limited_mpc,
+)
+from .solvers.riccati_ip import (
+    StagewiseIPResult,
+    StagewiseMPC,
+    make_stagewise_mpc,
+    stagewise_ip_solve,
+)
 from .solvers.sqp import ShootingOCP, SQPSolution, sqp_solve
-from .solvers.stochastic import make_stochastic_mpc
-from .solvers.tube import make_tube_mpc
+from .solvers.stochastic import StochasticMPC, gaussian_stage_margins, make_stochastic_mpc
+from .solvers.tube import TubeMPC, make_tube_mpc, mrpi_box_margins
 from .tuning import (
     TuneResult,
     make_closed_loop_cost,
@@ -153,22 +204,39 @@ from .tuning import (
 __all__ = [
     "ALILQRSolution",
     "BatchSimResult",
+    "BatchedTrackerSolution",
     "BoxProblem",
+    "CondensedQP",
     "DisturbanceCompensatedTracking",
+    "DynamicBicycle",
     "ExtendedKalmanFilter",
     "ILQRMPC",
     "ILQRProblem",
     "ILQRSolution",
     "KalmanFilter",
+    "KinematicBicycle",
+    "LQRSolution",
+    "LinearMPC",
     "LinearSystem",
     "MHE",
     "NonlinearMHE",
     "NonlinearMPC",
+    "OffsetFreeMPC",
     "OffsetFreeNMPC",
+    "Problem",
+    "QPOperator",
+    "QPSolution",
+    "RateCondensedQP",
+    "RateLimitedMPC",
     "SQPSolution",
     "ShootingOCP",
     "SimResult",
+    "SoftCondensedQP",
+    "StagewiseIPResult",
+    "StagewiseMPC",
+    "StochasticMPC",
     "TrackingNMPC",
+    "TubeMPC",
     "TuneResult",
     "VehicleParameters",
     "admm_solve",
@@ -176,17 +244,33 @@ __all__ = [
     "affine_rollout_parallel",
     "al_ilqr_parking_solve_factory",
     "al_ilqr_solve",
+    "as_box_problem",
     "batched_parking_policy",
     "batched_plant",
     "boundary_compaction_key",
+    "build_condensed_qp",
+    "build_rate_condensed_qp",
     "cost_to_go",
     "dare_residual",
     "dare_sda",
+    "double_integrator_continuous",
+    "double_integrator_discrete",
+    "dynamic_bicycle_ode",
+    "ekf_output_feedback_policy",
+    "ekf_trajectory",
+    "euler",
+    "fused_tracker_solve",
+    "gaussian_stage_margins",
+    "get_integrator",
+    "heun",
     "ilqr_solve",
     "implicit_qp_solver",
+    "initial_ekf_carry",
     "initial_mhe_feedback_carry",
+    "initial_output_feedback_carry",
     "kalman_filter_trajectory",
     "kalman_gain",
+    "kinematic_bicycle_ode",
     "lqr_gain",
     "lqr_terminal_set",
     "lqt_solve_parallel",
@@ -195,6 +279,7 @@ __all__ = [
     "make_clearance_rows",
     "make_closed_loop_cost",
     "make_fused_parking_forward",
+    "make_fused_tracker",
     "make_implicit_al_ilqr_param_solver",
     "make_implicit_al_ilqr_solver",
     "make_implicit_qp_solver",
@@ -219,6 +304,7 @@ __all__ = [
     "mhe_loop_sweep",
     "mhe_output_feedback_policy",
     "mhe_trajectory",
+    "mrpi_box_margins",
     "offset_free_sweep",
     "open_loop_policy",
     "output_feedback_policy",
@@ -226,6 +312,7 @@ __all__ = [
     "pdip_solve",
     "pdip_solve_implicit",
     "policy_from_law",
+    "prediction_matrices",
     "prediction_policy",
     "qp_setup",
     "quadrotor_sweep",
@@ -234,17 +321,23 @@ __all__ = [
     "receding_horizon_policy",
     "riccati_recursion",
     "riccati_recursion_parallel",
+    "rk4",
+    "rk4_fine",
     "rollout",
     "rollout_parallel",
+    "rowform_to_vector",
+    "session2_dynamics",
     "session2_problem",
     "session3_problem",
     "simulate",
     "simulate_batch",
+    "soften_condensed_qp",
     "solve_finite_horizon",
     "solve_infinite_horizon",
     "sqp_solve",
     "stagewise_ip_solve",
     "stagewise_ip_solve_implicit",
+    "step_jacobian_pattern",
     "stochastic_sweep",
     "theta_to_weights",
     "thruster_sweep",
@@ -253,3 +346,5 @@ __all__ = [
     "tune_parking_weights",
     "wind_sweep",
 ]
+
+__version__ = "0.1.0"

@@ -136,3 +136,26 @@ def dynamic_bicycle_ode(
     vy_dot = (F_r + F_f * torch.cos(delta)) / m - vx * omega
     omega_dot = (F_f * lf * torch.cos(delta) - F_r * lr) / iz
     return torch.stack([px_dot, py_dot, omega, vx_dot, vy_dot, omega_dot], dim=-1)
+
+
+class DynamicBicycle:
+    """Callable Pacejka single-track ODE ``f(x, u) -> ẋ`` bound to a
+    parameter set (the nominal one when ``None``)."""
+
+    def __init__(self, params: VehicleParameters | None = None):
+        self.params = params if params is not None else VehicleParameters()
+
+    def __call__(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        return dynamic_bicycle_ode(self.params, x, u)
+
+
+class KinematicBicycle:
+    """Callable kinematic ODE ``f(x, u) -> ẋ`` bound to a parameter set (the
+    nominal one when ``None``): the construction ``KinematicBicycle(params)``
+    of ``session_4/session4_sol.py:191``."""
+
+    def __init__(self, params: VehicleParameters | None = None):
+        self.params = params if params is not None else VehicleParameters()
+
+    def __call__(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        return kinematic_bicycle_ode(self.params, x, u)

@@ -17,11 +17,13 @@ from ..utils.device import resolve_device
 @dataclasses.dataclass(frozen=True)
 class LinearSystem:
     """``x⁺ = A x + B u`` on a batch of row vectors, with an optional output
-    map ``y = C x`` (the estimators need it)."""
+    map ``y = C x + D u`` (the reference's ``set_output_eq``,
+    ``session_1/LinearSystem.py:12-14``; the estimators read ``C``)."""
 
     A: torch.Tensor  # (nx, nx)
     B: torch.Tensor  # (nx, nu)
     C: torch.Tensor | None = None  # (ny, nx)
+    D: torch.Tensor | None = None  # (ny, nu)
 
     @property
     def nx(self) -> int:
@@ -34,9 +36,21 @@ class LinearSystem:
     def __call__(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return x @ self.A.T + u @ self.B.T
 
-    def output(self, x: torch.Tensor) -> torch.Tensor:
-        """``y = C x`` on a batch of row vectors."""
-        return x @ self.C.T
+    def with_output(self, C, D=None) -> "LinearSystem":
+        """``set_output_eq`` as a new frozen system (``C``, ``D`` on ``A``'s
+        device and dtype)."""
+        t = lambda M: torch.as_tensor(M, dtype=self.A.dtype, device=self.A.device)
+        return dataclasses.replace(self, C=t(C), D=None if D is None else t(D))
+
+    def output(self, x: torch.Tensor, u: torch.Tensor | None = None) -> torch.Tensor:
+        """``y = C x (+ D u)`` on a batch of row vectors; ``x`` itself when
+        no ``C`` was set."""
+        if self.C is None:
+            return x
+        y = x @ self.C.T
+        if self.D is not None and u is not None:
+            y = y + u @ self.D.T
+        return y
 
 
 def session2_dynamics(

@@ -27,6 +27,8 @@ from .ilqr_kernel import inv_f32
 NXD = 6  # (p_x, p_y, psi, v_x, v_y, omega)
 NU = 2  # (drive a, steer delta)
 
+BatchedDynILQRSolution = BatchedTrackerSolution
+
 
 def model_tuple(params) -> tuple:
     """Static Pacejka/motor parameter tuple, in the JAX package's field

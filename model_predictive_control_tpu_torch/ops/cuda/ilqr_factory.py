@@ -402,6 +402,56 @@ def step_jacobian(ode_rows, x, u, pr=None, *, ts: float, substeps: int, integrat
     return torch.stack([o.d[:nx] for o in out]), torch.stack([o.d[nx:] for o in out])
 
 
+@functools.lru_cache(maxsize=64)
+def step_jacobian_pattern(ode_rows, nx: int, nu: int, n_params: int = 0):
+    """Structural sparsity of the discrete step's Jacobian, from the
+    dependency graph of the row function (the JAX package's
+    ``step_jacobian_pattern``, which walks a jaxpr).
+
+    Traces ``ode_rows`` once on symbols (:func:`.tracker_codegen.trace`):
+    output row r depends on input z_d iff a chain of operations connects
+    them (a ``where`` counts its condition and both branches). The one-step
+    map (Euler or RK4, any substep count) then has the A pattern of the
+    boolean closure of (I ∪ S_x) and the B pattern closure @ S_u:
+    conservative, so a False entry is a structural zero of ∂x⁺/∂z. Returns
+    ``(A_pat, B_pat)`` as tuples of tuples of bool; where the row function
+    cannot be traced, fully dense (all True)."""
+    import numpy as np
+
+    from . import tracker_codegen
+
+    dense = (
+        tuple((True,) * nx for _ in range(nx)),
+        tuple((True,) * nu for _ in range(nx)),
+    )
+    try:
+        tr = tracker_codegen.trace(ode_rows, nx, nu, n_params, n_out=nx)
+    except Exception:  # analysis is best-effort, as the JAX package's
+        return dense
+    deps: list[frozenset] = []  # input indices z_d each node depends on
+    for node in tr.nodes:
+        if node.op == "x":
+            deps.append(frozenset([node.args[0]]))
+        elif node.op == "u":
+            deps.append(frozenset([nx + node.args[0]]))
+        elif node.op == "p":
+            deps.append(frozenset())
+        else:  # an operation: its operands' (constants carry none)
+            deps.append(frozenset().union(*(deps[a] for a in node.args if isinstance(a, int))))
+    S = np.zeros((nx, nx + nu), dtype=bool)
+    for r, o in enumerate(tr.outputs):
+        for d in (deps[o] if isinstance(o, int) else ()):
+            S[r, d] = True
+    # closure of the one-substep state map I ∪ S_x
+    R = np.eye(nx, dtype=bool) | S[:, :nx]
+    for _ in range(nx):
+        R = R | (R @ R)
+    return (
+        tuple(tuple(bool(b) for b in row) for row in R),
+        tuple(tuple(bool(b) for b in row) for row in R @ S[:, nx:]),
+    )
+
+
 def rowform_to_vector(ode_rows, nx: int, nu: int):
     """Adapt a row-form ODE to the ``(x, u) -> ẋ`` convention of the
     integrators (state and input in the last dimension, any batch shape in

@@ -97,11 +97,13 @@ class BatchedALILQRSolution:
     inner_iters_executed: torch.Tensor  # (B,) the tile's inner iterations
 
 
-def parking_geometry(params, x_obs, n_circles: int = 3):
+def parking_geometry(params, x_obs, n_circles: int = 3, dtype=None):
     """The kernel's geometry and limit tuples from a
     :class:`~..models.parameters.VehicleParameters` and the obstacle pose:
     ``geom = (KB, LR, offsets, r², obstacle circle centres)`` and
-    ``limits = (lb_x, ub_x, lb_u, ub_u)``, the JAX package's values."""
+    ``limits = (lb_x, ub_x, lb_u, ub_u)``, the JAX package's values. The
+    tuples hold Python floats, so ``dtype`` (the JAX signature's) is not
+    read."""
     offsets, r = cover_circle_offsets(params.length, params.width, n_circles, device="cpu")
     ox = tuple(float(v) for v in offsets[:, 0].tolist())
     kb = float(params.axis_rear) / float(params.axis_front + params.axis_rear)

@@ -3,7 +3,8 @@ sampling time become a step ``F(x, u) -> x⁺`` (port of ``ops/integrators.py``)
 
 All steps are fixed-step and act on whole batches. :func:`rk4_fine` with 16
 substeps is the plant of the parking sweep, the stand-in for the reference's
-``odeint``.
+``odeint``. :data:`INTEGRATORS` names the single-stage schemes for
+:func:`get_integrator`.
 """
 
 from __future__ import annotations
@@ -48,6 +49,20 @@ def rk4(f: Dynamics, ts: float) -> Dynamics:
     return step
 
 
+def euler_fine(f: Dynamics, ts: float, substeps: int = 1) -> Dynamics:
+    """Forward Euler over ``substeps`` uniform sub-intervals of one sample;
+    ``substeps=1`` is :func:`euler` (the reference's parking prediction
+    model, ``session_4/main.py:76``)."""
+    inner = euler(f, ts / substeps)
+
+    def step(x, u):
+        for _ in range(substeps):
+            x = inner(x, u)
+        return x
+
+    return step
+
+
 def rk4_fine(f: Dynamics, ts: float, substeps: int = 16) -> Dynamics:
     """RK4 over ``substeps`` uniform sub-intervals of one sample."""
     inner = rk4(f, ts / substeps)
@@ -58,3 +73,20 @@ def rk4_fine(f: Dynamics, ts: float, substeps: int = 16) -> Dynamics:
         return x
 
     return step
+
+
+INTEGRATORS = {
+    "euler": euler,
+    "heun": heun,
+    "rk4": rk4,
+    "rk4_fine": rk4_fine,
+}
+
+
+def get_integrator(name: str) -> Callable[..., Dynamics]:
+    try:
+        return INTEGRATORS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown integrator {name!r}; available: {sorted(INTEGRATORS)}"
+        ) from None

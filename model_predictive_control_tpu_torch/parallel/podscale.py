@@ -56,6 +56,7 @@ def weak_scaling(
     horizon: int = 20,
     iters: int = 80,
     tile: int | None = None,
+    devices: list | None = None,
     ladder: list[int] | None = None,
     dtype=torch.float32,
     device=None,
@@ -64,13 +65,21 @@ def weak_scaling(
     mesh over the first ``d`` ranks for each ``d`` of ``ladder`` (powers of
     two up to the world size when ``None``). Every rank of the world calls
     it and gets the same report. Without a process group it runs on one rank
-    (a world-1 group for the call)."""
+    (a world-1 group for the call). ``devices`` lists one device per rank of
+    the world, in rank order (this rank runs on its entry); without it every
+    rank runs on ``device`` (the card when ``None``)."""
     from ..ops.cuda.admm_kernel import DEFAULT_TILE
     from ..solvers.linear_mpc import make_linear_mpc, session2_problem
 
-    device = resolve_device(device)
     owned = not dist.is_initialized()
     world = 1 if owned else dist.get_world_size()
+    if devices is not None:
+        if device is not None:
+            raise ValueError("pass devices or device, not both")
+        if len(devices) != world:
+            raise ValueError(f"devices lists {len(devices)} devices for {world} ranks")
+        device = devices[0 if owned else dist.get_rank()]
+    device = resolve_device(device)
     if ladder is None:
         ladder = [1 << i for i in range(world.bit_length()) if 1 << i <= world]
     tile = min(tile or DEFAULT_TILE, batch_per_device)

@@ -87,12 +87,23 @@ def qp_setup(
     sigma: float = 1e-6,
     n_rho_levels: int = 7,
     rho_ladder_step: float = 10.0,
+    equilibrate: bool = True,
+    setup_admm: bool = True,
 ) -> QPOperator:
     """Scalings, the geometric ρ ladder and one reduced-KKT inverse per level,
-    computed in ``P``'s dtype on ``P``'s device."""
+    computed in ``P``'s dtype on ``P``'s device. ``equilibrate=False`` keeps
+    unit scalings (D, E, c = 1); ``setup_admm=False`` builds an interior-point
+    operator without the ladder's inverses: ``Minv_stack`` is ``(0, n, n)``,
+    so an ADMM solve on it fails loudly, and ``Pinv_s`` and ``S`` are zero."""
     set_solver_precision()
     dtype, device = P.dtype, P.device
-    D, E, c = ruiz_equilibrate(P, A_c)
+    n, m = P.shape[0], A_c.shape[0]
+    if equilibrate:
+        D, E, c = ruiz_equilibrate(P, A_c)
+    else:
+        D = torch.ones(n, dtype=dtype, device=device)
+        E = torch.ones(m, dtype=dtype, device=device)
+        c = torch.tensor(1.0, dtype=dtype, device=device)
     P_s = c * (D[:, None] * P * D[None, :])
     A_s = E[:, None] * A_c * D[None, :]
 
@@ -100,12 +111,18 @@ def qp_setup(
     exps = torch.arange(-half, n_rho_levels - half, dtype=dtype, device=device)
     rho_levels = rho * rho_ladder_step**exps
     sigma_ = torch.tensor(sigma, dtype=dtype, device=device)
-    I = torch.eye(P.shape[0], dtype=dtype, device=device)
-    AtA = A_s.T @ A_s
-    Minv_stack = torch.linalg.inv(
-        P_s + sigma_ * I + rho_levels[:, None, None] * AtA
-    )
-    Pinv_s = torch.linalg.inv(P_s + 1e-9 * I)
+    if setup_admm:
+        I = torch.eye(n, dtype=dtype, device=device)
+        AtA = A_s.T @ A_s
+        Minv_stack = torch.linalg.inv(
+            P_s + sigma_ * I + rho_levels[:, None, None] * AtA
+        )
+        Pinv_s = torch.linalg.inv(P_s + 1e-9 * I)
+        S = A_s @ Pinv_s @ A_s.T
+    else:
+        Minv_stack = P.new_zeros((0, n, n))
+        Pinv_s = torch.zeros_like(P)
+        S = P.new_zeros((m, m))
     return QPOperator(
         P=P,
         A_c=A_c,
@@ -119,7 +136,7 @@ def qp_setup(
         sigma=sigma_,
         Minv_stack=Minv_stack,
         Pinv_s=Pinv_s,
-        S=A_s @ Pinv_s @ A_s.T,
+        S=S,
     )
 
 

@@ -89,6 +89,14 @@ def case(request):
     return ctrl_j, ctrl_t, q, l, u
 
 
+@pytest.fixture(scope="module")
+def warm_start(case):
+    """The JAX cold solution of the case (160 iterations in interpret mode),
+    the warm start of the warm cases: one reference run shared by them."""
+    ctrl_j, _, q, l, u = case
+    return _warm(ctrl_j, q, l, u)
+
+
 def _both(ctrl_j, ctrl_t, q, l, u, warm=(None, None), **kw):
     j = lambda a: None if a is None else jnp.asarray(a)
     t = lambda a: None if a is None else torch.as_tensor(np.array(a))
@@ -107,13 +115,13 @@ def _warm(ctrl_j, q, l, u):
 
 
 @pytest.mark.parametrize("warm", [False, True])
-def test_one_iteration_matches_jax(case, warm):
+def test_one_iteration_matches_jax(case, warm_start, warm):
     """One iteration, cold or warm from the JAX cold solution, no polish:
     x, z and y within 5e-4 of each output's ∞-norm. Prints each side's
     largest distance to the twin's algorithm run in float64 on the same
     operands."""
     ctrl_j, ctrl_t, q, l, u = case
-    start = _warm(ctrl_j, q, l, u) if warm else (None, None)
+    start = warm_start if warm else (None, None)
     kw = dict(iters=1, chunks=1, probe_iters=0, polish=False)
     ref, ni_ref, got, ni = _both(ctrl_j, ctrl_t, q, l, u, warm=start, **kw)
     t = lambda a: None if a is None else torch.as_tensor(np.array(a))
@@ -145,12 +153,12 @@ def test_cold_with_polish_matches_jax(case):
     assert (got.converged.numpy() == np.asarray(ref.converged)).sum() >= 15
 
 
-def test_warm_fixed_rho_matches_jax(case):
+def test_warm_fixed_rho_matches_jax(case, warm_start):
     """The warm policy's flags (fixed ρ, no polish, an 8-iteration probe)
     from the JAX cold solution: the port exits no later and converges
     wherever JAX does."""
     ctrl_j, ctrl_t, q, l, u = case
-    ref, ni_ref, got, ni = _both(ctrl_j, ctrl_t, q, l, u, warm=_warm(ctrl_j, q, l, u), iters=48,
+    ref, ni_ref, got, ni = _both(ctrl_j, ctrl_t, q, l, u, warm=warm_start, iters=48,
                                  polish=False, max_rho_moves=0, probe_iters=8)
     assert np.all(ni <= ni_ref)
     assert np.all(got.converged.numpy()[np.asarray(ref.converged)])

@@ -117,7 +117,15 @@ def test_port_imports_no_jax():
         "import sys, model_predictive_control_tpu_torch, "
         "model_predictive_control_tpu_torch.convert, "
         "model_predictive_control_tpu_torch.ops.cuda.ilqr_kernel, "
-        "model_predictive_control_tpu_torch.parallel.batch; "
+        "model_predictive_control_tpu_torch.parallel.batch, "
+        "model_predictive_control_tpu_torch.oracle, "
+        "model_predictive_control_tpu_torch.oracle._native_build, "
+        "model_predictive_control_tpu_torch.oracle.lqr_oracle, "
+        "model_predictive_control_tpu_torch.oracle.mpc_oracle, "
+        "model_predictive_control_tpu_torch.oracle.native_nlp, "
+        "model_predictive_control_tpu_torch.oracle.native_qp, "
+        "model_predictive_control_tpu_torch.oracle.parking_oracle, "
+        "model_predictive_control_tpu_torch.oracle.qp_oracle; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('model_predictive_control_tpu.') "
         "or m == 'model_predictive_control_tpu']; print(bad); sys.exit(1 if bad else 0)"

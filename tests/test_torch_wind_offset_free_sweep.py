@@ -62,10 +62,18 @@ def _wind_draws(key, batch, ref0, jdt, wind=0.004, spread=0.5):
     return x0s.at[:, 3].set(jnp.clip(x0s[:, 3], 0.0, 0.5)), w_full
 
 
-def _scalar_loop(ctrl, plant, x0, steps):
-    res = mpc.simulate(x0, plant, steps=steps, policy=ctrl.policy(),
-                       policy_carry=ctrl.initial_carry(x0))
-    return np.asarray(res.inputs), np.asarray(res.states)
+def _scalar_loops(ctrl, plant_of, x0s, *rows):
+    """The JAX scalar loop of every scenario, ``STEPS`` steps, compiled once
+    for all of them: scenario i's plant is ``plant_of(*(r[i] for r in
+    rows))``. Returns ``[(inputs, states), ...]`` as numpy arrays."""
+
+    def loop(x0, *row):
+        res = mpc.simulate(x0, plant_of(*row), steps=STEPS, policy=ctrl.policy(),
+                           policy_carry=ctrl.initial_carry(x0))
+        return res.inputs, res.states
+
+    run = jax.jit(loop)
+    return [tuple(map(np.asarray, run(x0s[i], *(r[i] for r in rows)))) for i in range(B)]
 
 
 @pytest.mark.parametrize("pair", list(PAIRS))
@@ -82,13 +90,13 @@ def test_wind_sweep_matches_scalar_policy(pair):
     step_fn = euler(lambda x, u: jode(p, x, u), ts)
     base = rk4(lambda x, u: jode(p, x, u), ts)
     Q = jnp.asarray(Q_KINEMATIC, jdt)
-    for i in range(B):
-        ctrl = DisturbanceCompensatedTracking(
-            step_fn, nx=4, nu=2, N=N, Q=Q, R=jnp.asarray(R_KINEMATIC, jdt), QN=QN_SCALE * Q,
-            u_lb=jnp.asarray([p.min_drive, -p.max_steer], jdt),
-            u_ub=jnp.asarray([p.max_drive, p.max_steer], jdt), ref_traj=ref, ts=ts, dtype=jdt,
-            outer_iters=3, inner_iters=8)
-        u, x = _scalar_loop(ctrl, lambda x, u, w=w_full[i]: base(x, u) + w, x0s[i], STEPS)
+    ctrl = DisturbanceCompensatedTracking(
+        step_fn, nx=4, nu=2, N=N, Q=Q, R=jnp.asarray(R_KINEMATIC, jdt), QN=QN_SCALE * Q,
+        u_lb=jnp.asarray([p.min_drive, -p.max_steer], jdt),
+        u_ub=jnp.asarray([p.max_drive, p.max_steer], jdt), ref_traj=ref, ts=ts, dtype=jdt,
+        outer_iters=3, inner_iters=8)
+    loops = _scalar_loops(ctrl, lambda w: lambda x, u: base(x, u) + w, x0s, w_full)
+    for i, (u, x) in enumerate(loops):
         np.testing.assert_allclose(res.inputs[:, i].numpy(), u, atol=tol)
         np.testing.assert_allclose(res.states[:, i].numpy(), x, atol=tol)
 
@@ -112,11 +120,12 @@ def test_offset_free_sweep_matches_scalar_policy(pair):
                           R=jnp.asarray([1.0, 0.01], jdt), QN=QN_SCALE_SOL * Q,
                           u_lb=[p.min_drive, -p.max_steer], u_ub=[p.max_drive, p.max_steer],
                           r=[0.0, 0.0], dtype=jdt, outer_iters=5, inner_iters=10)
-    for i in range(B):
-        pt = dataclasses.replace(p, friction=p.friction * fscale[i])
-        drift = jnp.zeros(4, jdt).at[3].set(-slope[i])
-        plant = rk4_fine(lambda x, u, pt=pt, drift=drift: jode(pt, x, u) + drift, ts, substeps=16)
-        u, x = _scalar_loop(ctrl, plant, x0s[i], STEPS)
+    def plant_of(fs, sl):
+        pt = dataclasses.replace(p, friction=p.friction * fs)
+        drift = jnp.zeros(4, jdt).at[3].set(-sl)
+        return rk4_fine(lambda x, u: jode(pt, x, u) + drift, ts, substeps=16)
+
+    for i, (u, x) in enumerate(_scalar_loops(ctrl, plant_of, x0s, fscale, slope)):
         np.testing.assert_allclose(res.inputs[:, i].numpy(), u, atol=tol)
         np.testing.assert_allclose(res.states[:, i].numpy(), x, atol=tol)
 
