@@ -8,6 +8,8 @@ from typing import Any, Callable
 
 import torch
 
+from ..obs.profiling import span
+
 # batched policy: (x_batch (B, nx), t, carry) -> (u_batch (B, nu), carry, aux)
 BatchedPolicy = Callable[[torch.Tensor, int, Any], tuple]
 
@@ -39,6 +41,10 @@ def simulate_batch(
 
     ``disturbances``: optional ``(steps, B, nx)`` additive process
     disturbances, added after the plant step: ``x_{t+1} = f(x_t, u_t) + w_t``.
+
+    Spans (:mod:`..obs.profiling`): ``loop.step`` around each step (policy,
+    plant and disturbance), ``loop.plant`` around the plant's step and the
+    disturbance, ``loop.logs`` around the stacking of the episode's logs.
     """
     if steps < 1:
         raise ValueError("steps must be positive")
@@ -48,16 +54,19 @@ def simulate_batch(
     x, carry = x0, policy_carry
     states, inputs, logs = [x0], [], []
     for t in range(steps):
-        u, carry, aux = policy(x, t, carry)
-        x = dyn(x, u)
-        if disturbances is not None:
-            x = x + disturbances[t]
+        with span("loop.step"):
+            u, carry, aux = policy(x, t, carry)
+            with span("loop.plant"):
+                x = dyn(x, u)
+                if disturbances is not None:
+                    x = x + disturbances[t]
         states.append(x)
         inputs.append(u)
         logs.append(aux)
-    return BatchSimResult(
-        states=torch.stack(states),
-        inputs=torch.stack(inputs),
-        logs={k: torch.stack([a[k] for a in logs]) for k in logs[0]},
-        final_carry=carry,
-    )
+    with span("loop.logs"):
+        return BatchSimResult(
+            states=torch.stack(states),
+            inputs=torch.stack(inputs),
+            logs={k: torch.stack([a[k] for a in logs]) for k in logs[0]},
+            final_carry=carry,
+        )

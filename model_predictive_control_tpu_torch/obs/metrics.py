@@ -97,7 +97,9 @@ def _to_scalar(v):
 
 def summarize_run(result, per_solve_iters: int | None = None) -> dict:
     """Scalar summary of a ``SimResult`` / ``BatchSimResult``: the solver's
-    health (success rate, residual percentiles) and stability."""
+    health (success rate, residual percentiles, the mean of the ADMM
+    iterations the kernel executed where the logs hold them) and
+    stability."""
     logs = result.logs if isinstance(result.logs, dict) else {}
     host = lambda a: torch.as_tensor(a).detach().cpu().numpy()
     out: dict[str, Any] = {"steps": int(result.inputs.shape[0])}
@@ -113,6 +115,8 @@ def summarize_run(result, per_solve_iters: int | None = None) -> dict:
             out[f"{key}_p50"] = float(np.percentile(v, 50))
             out[f"{key}_p99"] = float(np.percentile(v, 99))
             out[f"{key}_max"] = float(v.max())
+    if "admm_iters" in logs:
+        out["admm_iters_mean"] = float(host(logs["admm_iters"]).astype(np.float64).mean())
     if per_solve_iters is not None:
         out["solver_iters"] = per_solve_iters
     return out

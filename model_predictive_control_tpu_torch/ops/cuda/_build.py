@@ -18,6 +18,8 @@ import threading
 import time
 from typing import Callable
 
+from ...obs.profiling import span
+
 PKG = pathlib.Path(__file__).resolve().parents[2]
 BUILD_DIR = PKG / "build"
 NVCC_FLAGS = [
@@ -72,13 +74,16 @@ def load_library(
     """The library ``name`` built from ``sources`` with :data:`NVCC_FLAGS`
     and ``extra_flags``, loaded once per process; ``configure`` sets its
     functions' ctypes signatures on first load. ``depends`` lists files the
-    sources include: they key the build too."""
+    sources include: they key the build too. The first load (nvcc's build,
+    where the cache has no library, and the load) is the span ``build``."""
     with _locks_lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_compile(name, sources, [*NVCC_FLAGS, *extra_flags], depends)))
-            configure(lib)
+            with span("build"):
+                lib = ctypes.CDLL(str(_compile(name, sources, [*NVCC_FLAGS, *extra_flags],
+                                               depends)))
+                configure(lib)
             _loaded[name] = lib
         return lib

@@ -45,6 +45,7 @@ import inspect
 
 import torch
 
+from ...obs.profiling import span
 from ...solvers.qp import QPOperator, QPSolution, _converged, _unscaled_residuals
 from ...utils.precision import set_solver_precision
 from ._build import PKG, load_library
@@ -518,21 +519,25 @@ def prepare_tiles(
 
 
 def _solve_tiled(solver, op, q, l, u, warm_x, warm_y, *, return_iters, **kw):
-    """Prepare, run ``solver`` on the padded tiles, unscale and finish."""
+    """Prepare, run ``solver`` on the padded tiles, unscale and finish: the
+    spans ``admm.prepare``, ``admm.launch`` and ``admm.finish``."""
     set_solver_precision()
     B = q.shape[0]
-    args, kwargs = prepare_tiles(op, q, l, u, warm_x, warm_y, **kw)
-    x_s, z_s, y_s, ni = solver(*args, **kwargs)
-    dtype = op.P.dtype
-    x = (op.D * x_s[:B]).to(dtype)
-    y = (y_s[:B] * op.E / op.c).to(dtype)
-    z = (z_s[:B] / op.E).to(dtype)
-    rp, rd = _unscaled_residuals(op, x, y, z, q)
-    sol = QPSolution(
-        x=x, z=z, y=y, prim_res=rp, dual_res=rd,
-        converged=_converged(rp, rd, q, kwargs["eps_abs"]),
-    )
-    return (sol, ni[:B]) if return_iters else sol
+    with span("admm.prepare"):
+        args, kwargs = prepare_tiles(op, q, l, u, warm_x, warm_y, **kw)
+    with span("admm.launch"):
+        x_s, z_s, y_s, ni = solver(*args, **kwargs)
+    with span("admm.finish"):
+        dtype = op.P.dtype
+        x = (op.D * x_s[:B]).to(dtype)
+        y = (y_s[:B] * op.E / op.c).to(dtype)
+        z = (z_s[:B] / op.E).to(dtype)
+        rp, rd = _unscaled_residuals(op, x, y, z, q)
+        sol = QPSolution(
+            x=x, z=z, y=y, prim_res=rp, dual_res=rd,
+            converged=_converged(rp, rd, q, kwargs["eps_abs"]), iters=ni[:B],
+        )
+    return (sol, sol.iters) if return_iters else sol
 
 
 def admm_solve_cuda(
@@ -558,8 +563,9 @@ def admm_solve_cuda(
     JAX package's ``admm_solve_pallas``.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain twin
-    :func:`admm_solve_tiles_reference`. ``return_iters=True`` also returns the
-    executed ADMM iterations per scenario (the tile's count).
+    :func:`admm_solve_tiles_reference`. The solution's ``iters`` holds the
+    executed ADMM iterations per scenario (the tile's count);
+    ``return_iters=True`` also returns them, as the JAX package does.
     """
     solver = _launch if q.is_cuda else admm_solve_tiles_reference
     return _solve_tiled(

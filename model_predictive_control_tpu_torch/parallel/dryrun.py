@@ -246,6 +246,7 @@ def record_checks(out_dir: str, inputs_path: str, device="cpu") -> None:
     u_b, _, aux_b = ctrl6.batched_policy(tile=8, mesh=mesh)(x0, 0, carry)
     out["pol_u"], out["pol_ok"] = u_a.cpu(), aux_a["solver_success"].cpu()
     out["pol_mesh_u"], out["pol_mesh_ok"] = u_b.cpu(), aux_b["solver_success"].cpu()
+    out["pol_iters"], out["pol_mesh_iters"] = aux_a["admm_iters"].cpu(), aux_b["admm_iters"].cpu()
 
     # a sharded parking sweep against the unsharded one
     small = dict(N=8, outer_iters=2, inner_iters=3, plant_substeps=4, device=device)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..models.linear import LinearSystem, session2_dynamics
+from ..obs.profiling import span
 from ..ops.condensed import (
     CondensedQP,
     SoftCondensedQP,
@@ -148,7 +149,8 @@ def _roll(v, d: int, repeat: bool, axis: int):
 
 def _squeeze(sol: QPSolution) -> QPSolution:
     """A batch-of-one solution as one scenario's."""
-    return QPSolution(**{f.name: getattr(sol, f.name)[0] for f in dataclasses.fields(sol)})
+    return QPSolution(**{f.name: None if (v := getattr(sol, f.name)) is None else v[0]
+                         for f in dataclasses.fields(sol)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,7 +281,13 @@ class LinearMPC:
         ``backend="cuda"`` solves through the fused kernel (its plain twin for
         CPU tensors); ``"twin"`` runs the twin on any device, the kernel's
         reference on the card; ``"xla"`` is the per-scenario batched
-        :func:`..solvers.qp.admm_solve` with per-scenario ρ adaptation.
+        :func:`..solvers.qp.admm_solve` with per-scenario ρ adaptation. On the
+        tiled backends aux adds ``admm_iters (B,)``, the ADMM iterations the
+        solve executed for each scenario (its tile's).
+
+        Spans (:mod:`..obs.profiling`): ``policy.qp`` around the QP's vectors,
+        ``policy.shift`` around the shifted warm start and the aux; the tiled
+        solve's own (``admm.*``) between them.
 
         ``mesh`` (a device mesh, :mod:`..parallel.mesh`): the policy takes the
         global batch on every rank, each rank solves its data slice on its own
@@ -296,7 +304,8 @@ class LinearMPC:
 
         def policy_fn(x_batch, t, carry):
             warm_x, warm_y = carry
-            q, l, u = self.qp.qp_vectors(x_batch)
+            with span("policy.qp"):
+                q, l, u = self.qp.qp_vectors(x_batch)
             if backend == "xla":
                 sol = admm_solve(self.op, q, l, u, iters=self.iters, warm=(warm_x, warm_y))
             else:
@@ -306,14 +315,17 @@ class LinearMPC:
                     schedule=schedule, tile=tile, alpha=alpha, polish=polish,
                     **kw,
                 )
-            x_warm, y_warm = self._shift_warm(sol.x, sol.y, axis=1)
-            aux = {
-                "solver_success": sol.converged,
-                "prim_res": sol.prim_res,
-                "dual_res": sol.dual_res,
-            }
-            if self.soft:
-                aux["max_slack"] = sol.x[:, N * nu :].amax(dim=1)
+            with span("policy.shift"):
+                x_warm, y_warm = self._shift_warm(sol.x, sol.y, axis=1)
+                aux = {
+                    "solver_success": sol.converged,
+                    "prim_res": sol.prim_res,
+                    "dual_res": sol.dual_res,
+                }
+                if sol.iters is not None:
+                    aux["admm_iters"] = sol.iters
+                if self.soft:
+                    aux["max_slack"] = sol.x[:, N * nu :].amax(dim=1)
             return sol.x[:, :nu], (x_warm, y_warm), aux
 
         if mesh is not None:
@@ -335,19 +347,20 @@ class LinearMPC:
     ):
         """Warm-start carry from one deeper cold solve at the initial states:
         ``iters_mult`` times the budget in ``2 * iters_mult`` chunks, ρ
-        adaptation and polish on, no probe chunk."""
-        q, l, u = self.qp.qp_vectors(x_batch)
-        if backend == "xla":
-            sol = admm_solve(self.op, q, l, u, iters=self.iters * iters_mult)
-        else:
-            warm_x, warm_y = self.initial_batch_carry(
-                x_batch.shape[0], dtype=q.dtype, device=q.device
-            )
-            sol = _TILED[backend](
-                self.op, q, l, u, warm_x, warm_y, iters=self.iters * iters_mult,
-                chunks=2 * iters_mult, probe_iters=0, tile=tile,
-            )
-        return (sol.x, sol.y)
+        adaptation and polish on, no probe chunk: the span ``presolve``."""
+        with span("presolve"):
+            q, l, u = self.qp.qp_vectors(x_batch)
+            if backend == "xla":
+                sol = admm_solve(self.op, q, l, u, iters=self.iters * iters_mult)
+            else:
+                warm_x, warm_y = self.initial_batch_carry(
+                    x_batch.shape[0], dtype=q.dtype, device=q.device
+                )
+                sol = _TILED[backend](
+                    self.op, q, l, u, warm_x, warm_y, iters=self.iters * iters_mult,
+                    chunks=2 * iters_mult, probe_iters=0, tile=tile,
+                )
+            return (sol.x, sol.y)
 
 
 def make_box_mpc(

@@ -57,6 +57,7 @@ class QPSolution:
     prim_res: torch.Tensor  # (B,) ‖A_c x − z‖∞ (unscaled)
     dual_res: torch.Tensor  # (B,) ‖Px + q + A_cᵀy‖∞ (unscaled)
     converged: torch.Tensor  # (B,) bool
+    iters: torch.Tensor | None = None  # (B,) ADMM iterations executed (tiled kernel solves)
 
 
 def ruiz_equilibrate(

@@ -117,6 +117,7 @@ def test_sharded_batched_policy_matches_unsharded_and_jax(ranks, inputs):
     for r in ranks:
         assert torch.equal(r["pol_mesh_u"], r["pol_u"])
         assert torch.equal(r["pol_mesh_ok"], r["pol_ok"])
+        assert torch.equal(r["pol_mesh_iters"], r["pol_iters"])  # gathered like the logs
     # JAX's mesh path (the Pallas kernel in interpret mode shard-mapped over
     # two data devices) on the same starts at the same tile (a data slice is
     # one tile), at its own test's bar
